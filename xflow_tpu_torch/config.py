@@ -1,0 +1,810 @@
+"""Run configuration — the port's copy of the reference package's Config.
+
+Field names, defaults, validation messages, ``to_json()`` and
+``digest()`` are byte-identical to the reference (artifact manifests
+carry the digest, and PredictEngine refuses a mismatch), so a config
+written by either package loads in the other.  Two validations that the
+reference delegates to its model registry and its chaos module live
+here instead: ``MODEL_FAMILIES`` and ``_check_chaos_spec``.
+
+The reference keeps every hyperparameter as a compile-time global
+(ftrl.h:15-20 ``alpha/beta/lambda1/lambda2/w_dim/v_dim``, sgd.h:16
+``learning_rate``, lr_worker.h:68 ``block_size``) plus positional argv
+(main.cc:27-45) and DMLC_* env vars (scripts/local.sh:8-19).  Here the
+whole surface is one dataclass, constructible from CLI flags or JSON.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import re
+from typing import Any
+
+
+# The reference's registered model families, in registration order
+# (its models/__init__.py) — the order shows in the validation message.
+MODEL_FAMILIES = (
+    "lr", "fm", "mvm", "ffm", "wide_deep", "two_tower", "dcn",
+)
+
+_CHAOS_SITE_RE = re.compile(r"^[a-z0-9_.]+$")
+
+
+def _check_chaos_spec(spec: str) -> None:
+    """Raise ValueError on a malformed chaos spec, with the reference's
+    messages (its chaos registry's ``parse_spec``).  The port arms no
+    failpoints yet; the check keeps a config that the reference
+    refuses from loading here."""
+    parts = [p.strip() for p in spec.split(";") if p.strip()]
+    if not parts:
+        raise ValueError(
+            "empty chaos spec (grammar: [seed=<int>;]<site>:<arg>,...)"
+        )
+    if parts[0].startswith("seed="):
+        int(parts[0][len("seed="):])
+        parts = parts[1:]
+    if not parts:
+        raise ValueError("chaos spec has a seed but no site rules")
+    sites: set[str] = set()
+    for part in parts:
+        site, sep, argstr = part.partition(":")
+        site = site.strip()
+        if not sep or not _CHAOS_SITE_RE.match(site):
+            raise ValueError(
+                f"bad chaos site rule {part!r} (want "
+                "<site>:<arg>(,<arg>)* with site matching [a-z0-9_.]+)"
+            )
+        if site in sites:
+            raise ValueError(f"duplicate chaos site {site!r}")
+        sites.add(site)
+        schedules: set[str] = set()
+        for arg in argstr.split(","):
+            key, sep, val = arg.strip().partition("=")
+            if not sep:
+                raise ValueError(f"bad chaos arg {arg!r} (want key=value)")
+            if key == "p":
+                p = float(val)
+                if not 0.0 < p <= 1.0:
+                    raise ValueError(f"chaos p={p} not in (0, 1]")
+                schedules.add(key)
+            elif key in ("nth", "every", "times"):
+                if int(val) < 1:
+                    raise ValueError(f"chaos {key} must be >= 1")
+                if key != "times":
+                    schedules.add(key)
+            else:
+                raise ValueError(
+                    f"unknown chaos arg {key!r} (want p/nth/every/times)"
+                )
+        if len(schedules) > 1:
+            raise ValueError(
+                f"chaos site {site!r}: p/nth/every are mutually exclusive"
+            )
+
+
+@dataclasses.dataclass
+class Config:
+    # -- model selection (reference: main.cc:27-45, argv[3] '0'/'1'/'2';
+    # everything past lr/fm/mvm is a capability extension).  Valid
+    # names come from the model registry (models/__init__.py) — a new
+    # family registers there once and is config-valid everywhere.
+    model: str = "lr"  # models.model_names()
+
+    # -- data (reference: argv[1]/argv[2] shard prefixes, lr_worker.cc:210) --
+    train_path: str = ""
+    test_path: str = ""
+    epochs: int = 60  # reference default: lr_worker.h:63
+    # Text block size in MiB fed to the streaming loader per pass
+    # (reference: lr_worker.h:68 block_size=2 → 2 MiB at lr_worker.cc:184;
+    # predict uses 4 MiB, lr_worker.cc:80).
+    block_mib: int = 2
+    # Hash mode discards the value field — features are implicitly binary
+    # (reference loader load_minibatch_hash_data_fread,
+    # load_data_from_disk.cc:151 hashes the fid token and never stores val).
+    # With hash_mode=False fids are parsed as integers and vals are kept
+    # (reference loaders load_all_data/load_minibatch_data,
+    # load_data_from_disk.cc:11-57).
+    hash_mode: bool = True
+
+    # -- feature space --
+    # log2 of the hashed weight-table row count.  The reference's table is
+    # an unbounded unordered_map on each server (ftrl.h:84,151); on TPU the
+    # table is a dense HBM-resident array, so the hash space is explicit.
+    # North-star target is 2^28 rows pod-sharded (BASELINE.md).
+    table_size_log2: int = 22
+    # Latent factor count for FM/MVM (reference: ftrl.h:16 v_dim=10).
+    v_dim: int = 10
+    # FFM per-field latent dim (its v table is max_fields * ffm_v_dim wide).
+    ffm_v_dim: int = 4
+    # Wide&deep / two_tower / dcn embedding dim and MLP hidden width.
+    emb_dim: int = 8
+    hidden_dim: int = 64
+    # two_tower (models/two_tower.py): fields < tower_split_field are
+    # user-side, the rest item-side; tower_dim is each tower's output
+    # (= the serve-time item-index row width, serve/artifact.py).
+    tower_split_field: int = 16
+    tower_dim: int = 16
+    # dcn (models/dcn.py): explicit cross-network depth.
+    cross_layers: int = 2
+    # Static padded features-per-sample inside the jit step.  Samples with
+    # more features than this are truncated (reference has no limit —
+    # features-per-sample is whatever the text line holds).
+    max_nnz: int = 64
+    # Static padded field (fgid/slot) count for MVM's per-field sums
+    # (reference sizes slot arrays from the per-sample max fgid,
+    # mvm_worker.cc:225-243).
+    max_fields: int = 32
+
+    # -- batching --
+    # Examples per device step.  The reference's "minibatch" is whatever a
+    # 2 MiB text block parses to; on TPU the batch must be static.
+    batch_size: int = 1024
+
+    # -- optimizer (reference: ftrl.h:15-20, sgd.h:16) --
+    optimizer: str = "ftrl"  # {"ftrl", "sgd"}
+    alpha: float = 5e-2
+    beta: float = 1.0
+    lambda1: float = 5e-5
+    lambda2: float = 10.0
+    sgd_lr: float = 0.001
+    # Lazy server-side init of latent factors is N(0,1)*1e-2 on first touch
+    # (ftrl.h:114-120); we pre-initialize the whole v table with the same
+    # distribution, which is numerically equivalent (untouched rows never
+    # participate; see optim/ftrl.py docstring).
+    v_init_scale: float = 1e-2
+    seed: int = 0
+
+    # -- parallelism --
+    # Devices in the 1-D mesh ('data' axis).  0 = use all available.
+    num_devices: int = 0
+
+    # -- observability (SURVEY §5: reference has stdout only) --
+    # JSONL file receiving structured records (schema: obs/schema.py,
+    # docs/OBSERVABILITY.md): run_start header, per-epoch phase-timed
+    # train_epoch rows, eval, per-shard loader throughput, device
+    # memory.  Setting this also enables the pipeline-health metrics
+    # registry (per-phase seconds, stall accounting, step-time
+    # percentiles).  Summarized by the reference package's obs tooling.
+    metrics_out: str = ""
+    # Capture a device profiler trace (viewable in TensorBoard/Perfetto) of
+    # profile_steps training steps starting at step profile_start_step.
+    profile_dir: str = ""
+    profile_steps: int = 5
+    profile_start_step: int = 10
+    # Host-side span tracer (obs/trace.py): Chrome trace-event JSON
+    # written here on close ("" = off).  Complements profile_dir — the
+    # XLA profile shows device internals for a few steps; these spans
+    # show the host loop (parse/pack/h2d/dispatch/stall) for the whole
+    # run.  Multi-host appends "-r<rank>".  Open in ui.perfetto.dev.
+    obs_trace_out: str = ""
+    # Span ring-buffer capacity: only the newest N spans are kept, so
+    # long runs cannot grow host memory.
+    obs_trace_capacity: int = 65536
+    # Emit a per-epoch device_mem JSONL row (per-device
+    # memory stats) when metrics_out is set.
+    obs_device_memory: bool = True
+    # Flight recorder (obs/flight.py): crash/hang forensics dump path
+    # ("" = off).  The recorder itself is an always-on bounded ring of
+    # recent state (phase transitions, batch shapes, checkpoint steps,
+    # heartbeats); on unhandled exception, preemption, or watchdog trip
+    # the whole record — plus per-thread stacks, the live metrics
+    # snapshot, and the span-trace tail — is written here atomically.
+    # Multi-host appends "-r<rank>".  Read it with the reference
+    # package's obs doctor.
+    obs_flight_out: str = ""
+    # Flight-recorder event-ring capacity (newest N notes kept).
+    obs_flight_events: int = 256
+    # Stall watchdog (obs/watchdog.py): a monitor thread fed by the
+    # hot paths' heartbeats that classifies silence into input
+    # starvation / device hang / serve queue stall, emits `health`
+    # JSONL rows + instant trace events, and escalates to a flight
+    # dump when the silence persists (2x threshold).
+    obs_watchdog: bool = False
+    # Per-cause silence thresholds, seconds.  input: the main loop has
+    # been waiting on the input iterator; device: it has been inside
+    # dispatch/h2d/device_block/checkpoint; serve: the MicroBatcher
+    # has pending requests but finished no batch.
+    obs_watchdog_input_s: float = 30.0
+    obs_watchdog_device_s: float = 120.0
+    obs_watchdog_serve_s: float = 10.0
+    # Request-scoped tracing (obs/reqtrace.py, docs/OBSERVABILITY.md
+    # "Tracing a request"): head-sampling keep fraction in [0, 1] for
+    # healthy requests.  Errors, sheds, and the window's slowest-k
+    # exemplars are ALWAYS kept regardless of this rate; 0.01 keeps
+    # 1% of the rest.  The serve CLI's --reqtrace-sample attaches the
+    # sink; this is the default rate it samples at.
+    obs_reqtrace_sample: float = 0.01
+    # Monitor poll interval (0 = auto: a quarter of the tightest
+    # threshold, so a stall is classified within its threshold).
+    obs_watchdog_poll_s: float = 0.0
+    # Lock-order sanitizer (analysis/sanitizer.py): instrument the
+    # obs-stack locks (MetricsLogger/FlightRecorder/Watchdog/registry)
+    # so actual acquisition orders are recorded and cross-checkable
+    # against the static XF007 graph.  Debug/stress tooling — off in
+    # production (zero overhead when off: plain threading.Lock stays).
+    # The XFLOW_LOCK_SANITIZER env var arms the same machinery.
+    obs_lock_sanitizer: bool = False
+    # Standalone Prometheus-style exposition (obs/export.py): serve
+    # `GET /metrics` on 127.0.0.1:<port> from the live metrics
+    # registry for training/stream runs, which have no HTTP surface of
+    # their own (the serving tier exposes /metrics on its own port
+    # instead).  0 = off.  The exporter thread is owned and reaped by
+    # Trainer.close().  Multi-host runs add the rank to the port so N
+    # trainers on one box never collide.
+    obs_export_port: int = 0
+    # Host resource sampler (obs/export.py): emit a `resource` JSONL
+    # row (RSS, CPU seconds, threads, open fds, GC collections) every
+    # N seconds while training, plus one at start and one at close.
+    # 0 = off.  Requires metrics_out (the rows need somewhere to go).
+    obs_resource_every_s: float = 0.0
+
+    # -- eval / artifacts --
+    # Prediction dump target.  With pred_style="single" (default) rank 0
+    # writes one file of "(label, pctr)" lines at pred_out —
+    # information-equivalent to the reference.  With
+    # pred_style="per_block", pred_out is a DIRECTORY and every host
+    # writes pred_<rank>_<block>.txt per eval batch, the reference's
+    # exact artifact granularity (lr_worker.cc:74-78).
+    pred_out: str = ""
+    pred_style: str = "single"  # {"single", "per_block"}
+    # Evaluate on test_path every N epochs during training (0 = only the
+    # final eval after all epochs, the reference's behavior —
+    # lr_worker.cc:212-215).  Convergence curves (BASELINE.md) use this.
+    eval_every_epochs: int = 0
+    # Checkpoint directory ("" = checkpointing off). Capability gap filled:
+    # the reference has no model save/load at all (SURVEY §5).
+    checkpoint_dir: str = ""
+    checkpoint_every_steps: int = 0  # 0 = only at epoch ends
+    # Keep only the newest K ckpt-* dirs (0 = keep all).  At north-star
+    # scale a single FM checkpoint is ~13 GB (2^28 rows x (1+10) cols x
+    # 3 arrays x 4 B), so unbounded accumulation fills the disk fast.
+    # Default 2: the committed generation plus its predecessor, so a
+    # kill mid-commit (the generation a crash-atomic save was
+    # replacing) always leaves a complete fallback for
+    # `--resume auto` (utils/checkpoint.py::latest_complete).
+    checkpoint_keep: int = 2
+
+    # -- robustness (xflow_tpu/chaos/; docs/ROBUSTNESS.md) --
+    # Seeded failpoint schedule, e.g.
+    # "seed=7;loader.read_block:nth=2;serve.replica_score:p=1,times=4"
+    # ("" = disarmed, zero overhead).  The XFLOW_CHAOS env var arms the
+    # same machinery.  Every fire logs a `chaos` JSONL row; the tier-1
+    # chaos gate (scripts/check_chaos.py) reconciles rows against the
+    # schedule and demands model-output parity with the fault-free run.
+    chaos_spec: str = ""
+    # Bounded retry for transient shard-read/parse and cold-store
+    # fetch/write failures (exponential backoff from
+    # io_retry_backoff_s, capped at 1s).  A block that still fails is
+    # QUARANTINED: skipped with a `health` row, not fatal.
+    io_retries: int = 2
+    io_retry_backoff_s: float = 0.05
+    # Quarantine budget: abort the shard stream (health row
+    # `quarantine_budget_exceeded`) once quarantined blocks/records
+    # exceed max(1, ceil(frac * blocks_seen)) — one bad block is
+    # survivable, a corrupt stream is not trainable.
+    max_quarantined_frac: float = 0.05
+
+    # -- serve tier timeout discipline (serve/server.py; analysis rule
+    # XF017: no blocking wait in the serve path may be unbounded) --
+    # How long a request handler waits on its scoring futures before
+    # answering 504 (admitted-but-slow is a gateway timeout, not a
+    # server bug — serve/server.py::_do_post).
+    serve_score_timeout_s: float = 60.0
+    # Per-connection socket timeout on handler reads/writes: a client
+    # that stops mid-request (half-open TCP, stalled upload) releases
+    # its handler thread after this long instead of pinning it forever.
+    serve_socket_timeout_s: float = 30.0
+    # Client-side HTTP timeout for the loadgen's remote mode
+    # (serve/loadgen.py::HttpTarget → http.client.HTTPConnection
+    # timeout=): bounds connect + each socket op against a wedged tier.
+    serve_client_timeout_s: float = 30.0
+    # -- QoS-classed admission (serve/fleet.py QOS_CLASSES) --
+    # Each request carries a class (bidding/normal/best_effort — the
+    # XFB1 frame byte, the X-XFlow-QoS header, or the fleet default).
+    # All classes share one queue; lower classes see SCALED admission
+    # budgets, so under pressure best_effort sheds first and bidding
+    # last.  These fractions scale the fleet's deadline/depth budgets
+    # per class (bidding always gets the full budget).
+    serve_qos_normal_frac: float = 0.75
+    serve_qos_best_effort_frac: float = 0.45
+    # Hot-key score cache capacity in entries (serve/scache.py);
+    # 0 disables the cache.  Keyed by (servable_digest, row bytes),
+    # evicted atomically on rollout commit/delta — see SERVING.md.
+    serve_cache_capacity: int = 0
+    # Client-side pipelining depth per connection for the binary
+    # transport (serve/loadgen.py::BinaryTarget): max in-flight XFB1
+    # frames before the sender blocks.
+    serve_pipeline_depth: int = 32
+
+    # -- host data path --
+    # Use the native C++ parser (xflow_tpu/native) when a toolchain is
+    # available; falls back to the pure-Python parser silently.
+    native_parser: bool = True
+    # Parse/pack batches on a background thread, this many batches ahead
+    # (0 = synchronous).  Replaces the reference's worker-side ThreadPool
+    # (thread_pool.h) as the host-side parallelism mechanism: here the
+    # device does the math, so host threads overlap parsing with device
+    # compute instead of splitting the minibatch.
+    prefetch_batches: int = 2
+    # Concurrent block parse+pack threads (order-preserving); effective
+    # with the native parser, which releases the GIL.  -1 = auto
+    # (cores-1, capped at 6; sequential on single-core hosts);
+    # 0/1 = sequential.
+    parse_workers: int = -1
+
+    # -- update path --
+    # "dense": scatter-add gradients into a dense [T, D] buffer and apply
+    #   the optimizer recurrence to the whole table each step.  No sort;
+    #   pure elementwise math on HBM-resident arrays — the TPU-fast path.
+    #   Correct because FTRL/SGD updates with g=0 are no-ops/idempotent
+    #   (tests/test_ftrl.py::test_ftrl_zero_grad_is_idempotent).
+    # "sparse": sort + segment-sum consolidation per unique key, then
+    #   gather/update/scatter only touched rows.  O(batch nnz) work,
+    #   preferable when the table vastly exceeds per-step HBM traffic
+    #   budget or on CPU.
+    # "sequential": the dense machinery, but the optimizer applies per
+    #   microbatch SLICE inside the scan (tables ride the scan carry),
+    #   so the effective update granularity is batch_size/microbatch
+    #   while the host dispatches batch_size examples per call.  This
+    #   composes the TPU dispatch rate with small-batch FTRL
+    #   convergence (the reference's effective per-thread block is a
+    #   few hundred rows, lr_worker.cc:116-118,190-196): gradients are
+    #   divided by the SLICE's real count and each slice sees the
+    #   tables as left by the previous slice — step-for-step the same
+    #   training as batch_size/microbatch-sized dense steps.
+    # dense ≡ sparse identically; sequential ≡ a sequence of dense
+    # steps (tests/test_update_modes.py, tests/test_sequential.py).
+    update_mode: str = "dense"
+
+    # Per-slice update strategy under update_mode="sequential":
+    # "dense" — full-table elementwise optimizer pass per slice
+    #   (~7 [T,D]-arrays of HBM traffic; fine at T<=2^24).
+    # "sparse" — consolidate the slice's keys and gather/update/scatter
+    #   only touched rows; O(slice nnz) per slice, the ONLY viable form
+    #   at north-star table sizes (a 2^28 FTRL triple is ~3 GiB —
+    #   a full pass per 512-example slice would stream ~7 GiB).
+    #   With the hot table on this runs the hybrid inner: cold keys
+    #   touched-rows, hot section a dense [H, D] update with overflow
+    #   spill folded in exactly once (step.py::_sparse_update).
+    #   Equivalence: tests/test_sequential.py.
+    # "hot" — hot-FINE / cold-COARSE: per slice the optimizer updates
+    #   ONLY the dense hot head (on-chip, MXU one-hot traffic — no
+    #   per-slice DMA at all); cold-section gradients accumulate
+    #   per-occurrence and the cold tail takes ONE batched scatter +
+    #   table pass per dispatch window.  Cold rows are read once at
+    #   window start (one efficient batched gather) and are stale for
+    #   at most one dispatch window — the async-parameter-server
+    #   semantics of the reference itself, whose workers compute on
+    #   weights pulled a minibatch ago (lr_worker.cc:95-143, ps-lite
+    #   async Push/Pull), applied here only to the zipf TAIL while the
+    #   head (most of the occurrence mass) updates at full B_eff
+    #   granularity.  Requires hot_size_log2 > 0.  The per-slice cost
+    #   is table-size-independent AND free of scatter/gather DMA
+    #   latency — the form that turns sequential mode's convergence
+    #   into device-rate wall-clock (docs/PERF.md "Sequential mode").
+    sequential_inner: str = "dense"  # {"dense", "sparse", "hot"}
+
+    # Window-end update form for sequential_inner='hot' (the cold-tail
+    # pass that closes each dispatch window):
+    # "dense" — accumulate cold grads into a [T, D] buffer and run ONE
+    #   full-table optimizer pass (g=0 rows idempotent).  Simple, and
+    #   fine at T<=2^24 — but the buffer + pass are a full-table
+    #   transient per table per dispatch, multi-GB at T=2^28 for D>1
+    #   (the ADVICE step.py:945 hazard; analysis rule XF010/XF014).
+    # "sparse" — consolidate the window's cold keys (one argsort +
+    #   segment-sum, ops/sparse.py) and gather/update/scatter ONLY
+    #   touched rows: O(window nnz) work and transients, table-size-
+    #   independent — the north-star form.  Same training: one summed-
+    #   gradient update per touched row either way
+    #   (tests/test_sequential.py).
+    # "auto" (default): "sparse" from table_size_log2 >= 24 up (where
+    #   the [T, D] transient would exceed ~any per-table budget),
+    #   "dense" below.
+    hot_windowend: str = "auto"  # {"auto", "dense", "sparse"}
+
+    # Gradient-accumulation slices per train step (1 = off).  The batch
+    # is split into `microbatch` equal slices scanned sequentially;
+    # per-slice gradients accumulate into the dense per-table buffers
+    # and ONE optimizer update runs at the end — numerically the same
+    # step as microbatch=1 (scatter-add order aside), but every
+    # [batch, nnz, D]-shaped intermediate shrinks by the slice count.
+    # This is the memory lever for wide-row models (FFM's pair tensors,
+    # docs/PERF.md layout section): big B on a small chip.  Under
+    # update_mode="sequential" the same slicing instead sets the
+    # effective optimizer batch (batch_size/microbatch).  Requires
+    # update_mode="dense"/"sequential" and microbatch | batch_size.
+    # Slices are interleaved (example i → slice i % microbatch) so each
+    # slice stays evenly spread over the batch-sharded mesh axis — a
+    # contiguous split would cut across device shards and force a
+    # reshard per slice.
+    microbatch: int = 1
+
+    # Consolidate duplicate cold-section keys (one shared argsort +
+    # per-table segment-sums) before the dense-mode scatter-add.  Zipf
+    # batches duplicate heavily even after hot steering (measured 53%
+    # duplicate cold occurrences at the FM flagship geometry, 90%
+    # hot-off — docs/PERF.md "Cold consolidation"), and multi-lane
+    # (D>1) scatter-add costs ~85-107 ns/slice, so collapsing
+    # duplicates removes most of those slices.  Worth it for D>1
+    # models (fm/mvm/wide_deep/ffm) at large batch; LR's scalar
+    # scatters are too cheap for the sort to pay.  dense/sequential
+    # modes only (sparse mode already consolidates).
+    cold_consolidate: bool = False
+
+    # -- hot table (frequency-partitioned head; docs/PERF.md "The win") --
+    # log2 of the hot-table row count H (0 = off).  CTR key distributions
+    # are zipfian; the top-H keys by frequency are permuted into table
+    # rows [0, H) (io/freq.py) and their gather/scatter runs as two-level
+    # one-hot MXU matmuls (ops/hot.py) instead of per-slice DMA —
+    # measured ~2x (f32) to ~4x (bf16) on the hot fraction on v5e.
+    # Requires update_mode="dense" or "sequential".
+    hot_size_log2: int = 0
+    # Static hot-key slots per sample (extra capacity on top of max_nnz;
+    # per-row hot overflow spills to the cold/DMA path, which is always
+    # correct).
+    hot_nnz: int = 24
+    # Bytes of training data sampled (from the front of the shard list,
+    # deterministically — identical on every host) to estimate key
+    # frequencies for the remap.
+    freq_sample_mib: int = 64
+    # Matmul input dtype for the hot path: "float32" = exact gather,
+    # order-only scatter difference; "bfloat16" = ~2x faster, rounds
+    # table/grad values to bf16 inside the hot path only.
+    hot_dtype: str = "float32"
+
+    # -- precision --
+    # Parameter/optimizer state dtype. float32 default; bf16 is not used
+    # for FTRL state (z accumulates small increments).
+    param_dtype: str = "float32"
+
+    # -- host->device wire format --
+    # "full": ship keys/slots/vals/mask/labels/weights as-is.
+    # "compact": ship sentinel-coded int32 keys (-1 = padding) + uint8
+    #   labels/weights (~4x fewer bytes; slot-reading models — mvm,
+    #   ffm, wide_deep — add a uint8 slots plane, ~3x) and reconstruct
+    #   vals/mask (and slots where none shipped) inside the jitted
+    #   step.  Valid only in hash mode (vals are identically 1,
+    #   load_data_from_disk.cc:151); slot-reading models additionally
+    #   need max_fields <= 255.  On links where host->device bandwidth
+    #   bounds e2e throughput (measured ~150-250 MB/s here,
+    #   docs/PERF.md) this is the main e2e lever.
+    # "auto" (default): compact whenever valid, else full.
+    wire_mode: str = "auto"  # {"auto", "full", "compact"}
+
+    # Host-side batch compaction + dictionary wire (io/compact.py):
+    # deduplicate each batch's cold keys on the host, ship a per-batch
+    # dictionary of the most-duplicated keys (u16 occurrence indices,
+    # consumed directly by the device's consolidation — no device
+    # argsort) plus the near-unique tail as raw u24/u32, tiered hot
+    # ids, flattened padding-free planes, and bitmap labels/weights —
+    # measured ~70 wire bytes/example vs 130 for the plain compact
+    # wire at the bench flagship (docs/PERF.md "Wire format and
+    # compaction").  "auto" (default): on whenever eligible — hash
+    # mode, single process + single-device mesh (the dictionary/stream
+    # planes have no batch-axis sharding), max_nnz/hot_nnz <= 255, hot
+    # table absent or hot_size_log2 <= 16, and the wire_mode compact
+    # eligibility.  "on" raises when ineligible; "off" keeps the plain
+    # compact/full wire.
+    wire_dedup: str = "auto"  # {"auto", "off", "on"}
+
+    # Hot-path gather/scatter implementation (ops/hot.py): "mxu" = the
+    # two-level one-hot matmul path (the TPU win — ~2-4x over per-slice
+    # DMA on v5e); "seg" = plain gather + segment-sum (the CPU-fast
+    # form: one-hot matmuls are an MXU trick, measured 3.3x slower
+    # than the gather on the CPU backend).  "auto" picks "mxu" on TPU
+    # meshes and "seg" elsewhere.  Numerics: gather is exact either
+    # way; scatter differs only in summation order.
+    hot_impl: str = "auto"  # {"auto", "mxu", "seg"}
+
+    # -- hierarchical parameter store (store/; docs/STORE.md) --
+    # "dense": the whole [T, D] table lives in device HBM (every mode
+    #   above) — the small-table form.
+    # "tiered": HBM holds only a bounded HOT tier of
+    #   2^hot_capacity_log2 rows (mesh-row-sharded, store/hot.py); the
+    #   2^table_size_log2-row cold tail lives in HOST memory
+    #   (store/cold.py, touched rows only — untouched rows materialize
+    #   lazily from the per-row init, TableSpec.init_kind) and an async
+    #   worker (store/promote.py) promotes/demotes rows by touch
+    #   frequency.  Per-batch misses ride the wire as a packed row
+    #   block and write back after the step, so every jitted transient
+    #   scales with hot capacity, never T (analysis rules XF010/XF014)
+    #   — the form that makes FM/MVM/FFM trainable at the north-star
+    #   2^28 geometry, mirroring hierarchical parameter servers for
+    #   massive ads models (arXiv:2003.05622).  Requires
+    #   update_mode='dense' or 'sparse' (the optimizer applies once
+    #   per dispatch either way), microbatch=1, hot_size_log2=0 (the
+    #   tier subsumes the MXU frequency head), and a single process.
+    store_mode: str = "dense"  # {"dense", "tiered"}
+    # log2 rows of the HBM-resident hot tier under store_mode='tiered'.
+    # Budget math at 2^28 lives in docs/STORE.md; must not exceed
+    # table_size_log2 (a tier bigger than the table is a config bug).
+    hot_capacity_log2: int = 18
+    # Apply pending promotion/demotion plans every N train steps (the
+    # async worker only PROPOSES; application is a between-steps device
+    # fill/read so in-flight batches never see a moving key->slot map).
+    store_promote_every: int = 1
+
+    # Device staging ring depth: how many batches ahead the host->device
+    # transfer (put_batch — compaction + h2d) runs on worker threads,
+    # overlapping link round-trips and compaction with device compute
+    # (trainer._transfer_ahead; single-host only — multi-host transfers
+    # are collective).  >= 2 keeps the link busy while a transfer is in
+    # flight (double buffering); deeper rings absorb link-latency jitter
+    # and give the N-stream input fan-out (input_streams, io/fanout.py)
+    # room to stay ahead of the device.  Worker count scales with the
+    # depth (capped by the host's cores); batch order is preserved at
+    # any depth (docs/PERF.md "Input fan-out").
+    transfer_ahead_depth: int = 2
+
+    # Parallel sharded input fan-out (io/fanout.py; docs/PERF.md "Input
+    # fan-out"): number of concurrent shard-reader streams feeding the
+    # training loop.  Stream s owns the epoch's shards with index
+    # i % input_streams == s and runs its own read -> parse -> compact
+    # worker, so per-shard host work no longer serializes behind one
+    # stream; the merged batch order is the SERIAL shard order (stream
+    # interleave keyed by shard index), so training is bitwise-identical
+    # to input_streams=1.  1 = the serial path.  Most effective with
+    # multi-shard epochs; a single-shard epoch degrades to one stream.
+    # store_mode='tiered' requires 1 (see __post_init__).
+    input_streams: int = 1
+
+    def __post_init__(self) -> None:
+        # the reference validates against its model registry; the port
+        # keeps the same seven names (and the same message) whether or
+        # not it has ported the family yet — models/__init__.py refuses
+        # the unported ones at build time
+        if self.model not in MODEL_FAMILIES:
+            raise ValueError(
+                f"unknown model {self.model!r} (registered families: "
+                f"{', '.join(MODEL_FAMILIES)})"
+            )
+        if self.model == "two_tower" and not (
+            0 < self.tower_split_field < self.max_fields
+        ):
+            raise ValueError(
+                f"tower_split_field {self.tower_split_field} must be in "
+                f"(0, max_fields={self.max_fields}): both towers need "
+                "at least one field"
+            )
+        if self.tower_dim < 1:
+            raise ValueError("tower_dim must be >= 1")
+        if self.cross_layers < 1:
+            raise ValueError("cross_layers must be >= 1")
+        if self.optimizer not in ("ftrl", "sgd"):
+            raise ValueError(f"unknown optimizer {self.optimizer!r}")
+        if self.update_mode not in ("dense", "sparse", "sequential"):
+            raise ValueError(f"unknown update_mode {self.update_mode!r}")
+        if not 10 <= self.table_size_log2 <= 30:
+            raise ValueError("table_size_log2 must be in [10, 30]")
+        if self.microbatch < 1:
+            raise ValueError("microbatch must be >= 1")
+        if self.microbatch > 1:
+            if self.update_mode not in ("dense", "sequential"):
+                raise ValueError(
+                    "microbatch requires update_mode='dense' or 'sequential'"
+                )
+            if self.batch_size % self.microbatch:
+                raise ValueError(
+                    f"microbatch {self.microbatch} must divide "
+                    f"batch_size {self.batch_size}"
+                )
+        if self.sequential_inner not in ("dense", "sparse", "hot"):
+            raise ValueError(
+                f"unknown sequential_inner {self.sequential_inner!r}"
+            )
+        if self.sequential_inner == "hot" and not self.hot_size_log2:
+            raise ValueError(
+                "sequential_inner='hot' needs a hot table "
+                "(hot_size_log2 > 0) — the per-slice update IS the "
+                "hot head"
+            )
+        if self.hot_windowend not in ("auto", "dense", "sparse"):
+            raise ValueError(
+                f"unknown hot_windowend {self.hot_windowend!r}"
+            )
+        if self.cold_consolidate and self.update_mode not in (
+            "dense",
+            "sequential",
+        ):
+            raise ValueError(
+                "cold_consolidate requires update_mode='dense' or "
+                "'sequential' (sparse mode already consolidates)"
+            )
+        if self.hot_size_log2:
+            if self.update_mode not in ("dense", "sequential"):
+                raise ValueError(
+                    "hot table requires update_mode='dense' or 'sequential'"
+                )
+            if not 0 < self.hot_size_log2 < self.table_size_log2:
+                raise ValueError(
+                    "hot_size_log2 must be in (0, table_size_log2)"
+                )
+            if self.hot_nnz <= 0:
+                raise ValueError("hot_nnz must be > 0 when hot table is on")
+        if self.hot_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown hot_dtype {self.hot_dtype!r}")
+        if self.pred_style not in ("single", "per_block"):
+            raise ValueError(f"unknown pred_style {self.pred_style!r}")
+        if self.wire_mode not in ("auto", "full", "compact"):
+            raise ValueError(f"unknown wire_mode {self.wire_mode!r}")
+        if self.wire_dedup not in ("auto", "off", "on"):
+            raise ValueError(f"unknown wire_dedup {self.wire_dedup!r}")
+        if self.hot_impl not in ("auto", "mxu", "seg"):
+            raise ValueError(f"unknown hot_impl {self.hot_impl!r}")
+        if self.store_mode not in ("dense", "tiered"):
+            raise ValueError(f"unknown store_mode {self.store_mode!r}")
+        if self.store_mode == "tiered":
+            if self.hot_capacity_log2 > self.table_size_log2:
+                raise ValueError(
+                    f"hot_capacity_log2 {self.hot_capacity_log2} exceeds "
+                    f"table_size_log2 {self.table_size_log2}: the hot "
+                    "tier cannot hold more rows than the logical table "
+                    "— lower --hot-capacity-log2 (or use "
+                    "store_mode='dense', which fits the whole table in "
+                    "HBM at this size)"
+                )
+            if self.hot_capacity_log2 < 1:
+                raise ValueError(
+                    "hot_capacity_log2 must be >= 1 under "
+                    "store_mode='tiered'"
+                )
+            if self.update_mode == "sequential":
+                raise ValueError(
+                    "store_mode='tiered' does not compose with "
+                    "update_mode='sequential': the sequential scan "
+                    "carries full tables through the microbatch slices, "
+                    "which is exactly the [T, D] residency the tiered "
+                    "store removes — use update_mode='dense' (optimizer "
+                    "over the hot+miss tier) or 'sparse' (touched rows "
+                    "only), with microbatch for memory if needed"
+                )
+            if self.microbatch > 1:
+                raise ValueError(
+                    "store_mode='tiered' requires microbatch=1: the "
+                    "tiered step already bounds every transient by hot "
+                    "capacity, so gradient-accumulation slicing has "
+                    "nothing left to shrink"
+                )
+            if self.hot_size_log2:
+                raise ValueError(
+                    "store_mode='tiered' subsumes the MXU frequency-hot "
+                    "head (the hot tier IS the frequency head, kept "
+                    "fresh by the promotion worker) — set "
+                    "hot_size_log2=0"
+                )
+        if self.store_promote_every < 1:
+            raise ValueError("store_promote_every must be >= 1")
+        if self.chaos_spec:
+            _check_chaos_spec(self.chaos_spec)  # fail at config time
+        if self.io_retries < 0:
+            raise ValueError("io_retries must be >= 0")
+        if self.io_retry_backoff_s < 0:
+            raise ValueError("io_retry_backoff_s must be >= 0")
+        if not 0.0 <= self.max_quarantined_frac <= 1.0:
+            raise ValueError("max_quarantined_frac must be in [0, 1]")
+        for knob in (
+            "serve_score_timeout_s",
+            "serve_socket_timeout_s",
+            "serve_client_timeout_s",
+        ):
+            if getattr(self, knob) <= 0:
+                raise ValueError(
+                    f"{knob} must be > 0 (an unbounded serve-path wait "
+                    "is exactly what analysis rule XF017 forbids)"
+                )
+        if not (
+            0.0
+            < self.serve_qos_best_effort_frac
+            <= self.serve_qos_normal_frac
+            <= 1.0
+        ):
+            raise ValueError(
+                "QoS budget fractions must satisfy 0 < "
+                "serve_qos_best_effort_frac <= serve_qos_normal_frac "
+                "<= 1 (best_effort sheds first, bidding last)"
+            )
+        if self.serve_cache_capacity < 0:
+            raise ValueError(
+                "serve_cache_capacity must be >= 0 (0 disables the "
+                "score cache)"
+            )
+        if self.serve_pipeline_depth < 1:
+            raise ValueError("serve_pipeline_depth must be >= 1")
+        if self.checkpoint_keep < 0:
+            raise ValueError("checkpoint_keep must be >= 0")
+        if self.transfer_ahead_depth < 1:
+            raise ValueError(
+                "transfer_ahead_depth must be >= 1 (1 = a single staged "
+                "batch; >= 2 overlaps transfer with device compute)"
+            )
+        if self.input_streams < 1:
+            raise ValueError(
+                "input_streams must be >= 1 (1 = the serial reader; "
+                "N > 1 fans the shard list out over N concurrent "
+                "streams — io/fanout.py)"
+            )
+        if self.input_streams > 1 and self.store_mode == "tiered":
+            raise ValueError(
+                "input_streams > 1 does not compose with "
+                "store_mode='tiered' yet: the cold store's strict "
+                "plan->dispatch->writeback ordering (read-your-writes, "
+                "docs/STORE.md) already pins the transfer-ahead ring "
+                "off, and concurrent shard streams would feed it no "
+                "faster — set input_streams=1; the async-PS per-key-"
+                "range version gate of ROADMAP item 2 is the relaxation "
+                "that lifts this pin"
+            )
+        if self.obs_trace_capacity < 1:
+            raise ValueError("obs_trace_capacity must be >= 1")
+        if not 0.0 <= self.obs_reqtrace_sample <= 1.0:
+            raise ValueError("obs_reqtrace_sample must be in [0, 1]")
+        if self.obs_flight_events < 1:
+            raise ValueError("obs_flight_events must be >= 1")
+        if self.obs_watchdog:
+            if min(
+                self.obs_watchdog_input_s,
+                self.obs_watchdog_device_s,
+                self.obs_watchdog_serve_s,
+            ) <= 0:
+                raise ValueError("watchdog thresholds must be > 0")
+            if self.obs_watchdog_poll_s < 0:
+                raise ValueError("obs_watchdog_poll_s must be >= 0")
+        if not 0 <= self.obs_export_port <= 65535:
+            raise ValueError(
+                "obs_export_port must be in [0, 65535] (0 = exporter "
+                "off)"
+            )
+        if self.obs_resource_every_s < 0:
+            raise ValueError(
+                "obs_resource_every_s must be >= 0 (0 = sampler off)"
+            )
+        if self.obs_resource_every_s > 0 and not self.metrics_out:
+            raise ValueError(
+                "obs_resource_every_s requires metrics_out — the "
+                "resource rows need a metrics stream to land in"
+            )
+
+    @property
+    def table_size(self) -> int:
+        return 1 << self.table_size_log2
+
+    @property
+    def hot_size(self) -> int:
+        return (1 << self.hot_size_log2) if self.hot_size_log2 else 0
+
+    @property
+    def hot_capacity(self) -> int:
+        """Hot-tier rows under store_mode='tiered' (shapeflow symbol
+        Hc — analysis/shapeflow.py CONFIG_SYMS)."""
+        return 1 << self.hot_capacity_log2
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    def digest(self) -> str:
+        """12-hex-char sha256 of the config JSON — the run/artifact
+        identity stamped into metrics ``run_start`` headers
+        (trainer._run_header) and serving-artifact manifests
+        (serve/artifact.py); PredictEngine refuses artifacts whose
+        digest doesn't match an expected config."""
+        import hashlib
+
+        return hashlib.sha256(self.to_json().encode()).hexdigest()[:12]
+
+    @classmethod
+    def from_json(cls, text: str) -> "Config":
+        raw: dict[str, Any] = json.loads(text)
+        # legacy alias (docs/MIGRATION.md): checkpoint/artifact manifests
+        # written before the input fan-out spelled the staging-ring depth
+        # `transfer_ahead`
+        if "transfer_ahead" in raw and "transfer_ahead_depth" not in raw:
+            raw["transfer_ahead_depth"] = raw.pop("transfer_ahead")
+        fields = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(raw) - fields
+        if unknown:
+            raise ValueError(f"unknown config keys: {sorted(unknown)}")
+        return cls(**raw)
+
+    def replace(self, **kw: Any) -> "Config":
+        return dataclasses.replace(self, **kw)

@@ -8,7 +8,8 @@ toolkit's ``nvcc``; exits non-zero, printing no result, without them.
 Phases, in order; any failure raises and the exit code is 1:
 
 1. identify the card (``nvidia-smi`` name and power limit) and build
-   every kernel of the package from ``xflow_tpu_torch/csrc``;
+   every kernel of the package from ``xflow_tpu_torch/csrc``, one
+   ``nvcc`` per source, all started together;
 2. hold K1 (ops/score.py, csrc/score.cu) against its plain PyTorch
    version on the card at the full-width tables (T=2^24, D=10), every
    serving bucket B in {1, 8, 64, 512} x K=40, LR and FM, compact wire
@@ -37,14 +38,62 @@ Phases, in order; any failure raises and the exit code is 1:
    to reach the launch: it adds the Python path to the launch.  An
    empty kernel timed the same way gives the floor under both.
 
+6. hold K2 (ops/train.py, csrc/train.cu) against its plain version on
+   the card at T=2^24, K=40, B in {1,024, 65,536}, LR and FM (D=10),
+   compact wire (u8 labels/weights, x = 1) and full wire (values, f32
+   labels/weights), keys uniform over T and keys with heavy repetition
+   (log-uniform ranks, so the hottest rows take thousands of atomics
+   per batch), with padding, all-padding rows, zero-weight rows and
+   logits past +-30.  Tolerances (k2_tolerances): per row, twice the
+   float32 rounding bound of each side — gamma_n = n * 2^-23 times the
+   sum of the absolute values of the row's n summed terms (summation
+   order: atomics land in any order), plus each occurrence's residual
+   error carried from the logit's own summation bound through the
+   sigmoid's slope (and the 1e-6 step of the -30 clamp when the logit
+   lies within that bound of it); the same for the log-loss sum; the
+   weight sum (count) is exact;
+7. hold K3 (ops/optim.py, csrc/optim.cu) against its plain version on
+   the card at T=2^24, D in {1, 10}, FTRL and SGD, with rows never
+   touched (g = 0, n = 0) and |z'| near lambda1.  Tolerances
+   (k3_tolerances): elementwise float32 rounding bounds — n' 2 ulp
+   (FMA contraction of n + g*g), z' 4 ulp of |z| + |g| + |sigma w|
+   terms, w' that z' bound over the FTRL denominator plus 4 ulp (the
+   soft threshold is continuous in z', so a last-ulp difference at
+   |z'| = lambda1 moves w' by at most that much); SGD 2 ulp of
+   |w| + |lr g|.  Untouched rows must keep w exactly, and g == 0
+   afterwards everywhere;
+8. the training main path on the repo's own CTR traffic
+   (scripts/gen_synth.py, copied as xflow_tpu_torch/io/synth.py: 39
+   fields, ids zipf(1.2) over 100,000 per field, a planted logistic
+   signal; 2 train shards of 65,536 lines and a 16,384-line test
+   shard); ``Trainer`` on the card at ``fm_nohot`` and ``lr_nohot``
+   (scripts/bench_models.py geometry, T=2^24, batch 65,536) for 2
+   epochs, ``evaluate`` (writing pred lines), ``export_artifact``,
+   ``PredictEngine.load`` on the card scoring the test lines as
+   ``evaluate`` did (atol 1e-6 plus the 5e-7 rounding of the ``%.6f``
+   pred lines); then the same run on ``device="cpu"`` from the same
+   initial state (TRAIN_BOUNDS), and the eval AUC must lie between the
+   planted signal's bars (AUC_Z).  Launch counts are zeroed just
+   before and read just after: K2 = steps, K3 = steps x tables.  After
+   the run, K2 is held against its plain version on the path's own
+   batches and timed on them (and on the same batches with every
+   repeated key made distinct), and K3 on the trained tables;
+9. K2 and K3 timings at synthetic shapes (keys uniform and Zipf-like;
+   device time behind ``_sleep``, host path, plain, bounds, library
+   call where one exists) and the ``train`` line, whose device busy
+   share comes from phase 8's kernel times on the path's own inputs.
+
 Output: the card line, per-phase lines, a ``{"kernels": [...]}`` JSON
-line, and last ``{"ok": true, "device": {...}}``.  K1's launch count in
-the kernels line is the main path's (phases 3 and 4): every count is
-set to 0 just before the engine loads and read after the bench.
+line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
+``launches`` is its main paths': K1's serving path (phases 3 and 4)
+plus the training path's eval and engine batches (phase 8), K2's and
+K3's training path; every count is set to 0 just before each path and
+read just after it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import shutil
@@ -115,12 +164,14 @@ def time_host_path_ms(fn, args_list) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def time_device_ms(fn, args_list) -> float:
+def time_device_ms(fn, args_list, prelude=None) -> float:
     """Median device milliseconds of ``fn(*args)`` over ``args_list``.
     Each chunk of calls is enqueued behind a ``torch.cuda._sleep`` that
     holds the stream until the host has enqueued the whole chunk, so
     the events around a call see only its device work.  A chunk whose
-    enqueue outlasted the sleep is run again behind a longer one."""
+    enqueue outlasted the sleep is run again behind a longer one.
+    ``prelude()``, when given, is enqueued ahead of each call, outside
+    its events (an L2 flush, say)."""
     import torch
 
     for args in args_list[:5]:
@@ -139,6 +190,8 @@ def time_device_ms(fn, args_list) -> float:
             t0 = time.perf_counter()
             pairs = []
             for args in chunk:
+                if prelude is not None:
+                    prelude()
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -445,6 +498,758 @@ def phase_timings(dev, t_log2: int) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Training kernels and the training main path (phases 6-9)
+
+EPS32 = 2.0 ** -23  # float32 machine epsilon
+TRAIN_BATCHES = (1024, 65536)
+TRAIN_LINES = 65536  # per train shard; 2 shards = 2 steps per epoch
+TEST_LINES = 16384
+TRAIN_EPOCHS = 2
+# The training traffic is the repo's own generator (scripts/gen_synth.py,
+# copied as xflow_tpu_torch/io/synth.py): 39 Criteo-style fields, ids
+# zipf(1.2) over 100,000 per field, a planted logistic signal.  Seed 7 is
+# its default, whose Bayes floor scripts/convergence_baseline.py records.
+SYNTH_SEED = 7
+# The planted signal's bar: the eval AUC must clear chance by AUC_Z
+# standard deviations of the rank-sum AUC of a scorer with no signal
+# (Mann-Whitney: sqrt((P+N+1)/(12 P N)) on the test shard's labels), and
+# stay below the planted model's own AUC on the same lines (the Bayes
+# scorer), which no trained model can pass.
+AUC_Z = 3.0
+# Port on the card against the port on the CPU over the same steps from
+# the same initial state.  Each step's gradients differ by float32
+# summation order (atomics), which FTRL carries into n, z and w and the
+# next step's forward; over TRAIN_EPOCHS x 2 steps that stays within
+# 1e-4 relative plus 1e-5 of the array's largest magnitude.  The
+# log-loss is a mean over 65,536 examples: 1e-5 relative.  AUC: one
+# swapped near-tie moves it by 1/(P*N) (about 1.6e-8 here); 1e-3 allows
+# tens of thousands of swaps among pctrs that differ in the last ulp.
+TRAIN_BOUNDS = {"table_rtol": 1e-4, "table_atol_frac": 1e-5,
+                "logloss_rtol": 1e-5, "auc_atol": 1e-3}
+PRED_ATOL = 1e-6 + 5e-7  # serving bar plus the %.6f rounding of pred lines
+K2_REPLACES = (
+    "xflow_tpu/parallel/step.py:815 (B1 training gather) + "
+    "xflow_tpu/models/fm.py:67 (B8 bwd grad_logit) + "
+    "xflow_tpu/parallel/step.py:49 (B2 residual, grads_from_rows) + "
+    "xflow_tpu/parallel/step.py:923 (B2 _cold_keys_eff/_scatter_grads drop-mode "
+    "scatter-add) + xflow_tpu/parallel/step.py:769 (B4 compact _expand_wire, "
+    "u8 labels/weights) + xflow_tpu/utils/metrics.py:49 (logloss_sum); no "
+    "pl.pallas_call in the reference"
+)
+K3_REPLACES = (
+    "xflow_tpu/optim/ftrl.py:50 (B3 FTRL.update_rows) + "
+    "xflow_tpu/optim/sgd.py:24 (B3 SGD.update_rows) + "
+    "xflow_tpu/parallel/step.py:1123 (B3 dense full-table pass) + "
+    "xflow_tpu/parallel/step.py:1075 (the per-step zeroed gradient buffer); "
+    "no pl.pallas_call in the reference"
+)
+
+
+def build_all() -> dict:
+    """Build every kernel source at once, one nvcc each; returns the
+    seconds per source and the wall time.  A failed build raises."""
+    import threading
+
+    from xflow_tpu_torch.ops.build import CSRC_DIR, build
+
+    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    seconds: dict = {}
+    errors: dict = {}
+
+    def one(name):
+        try:
+            seconds[name] = build(name)
+        except Exception as e:  # re-raised below, after every build ends
+            errors[name] = e
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError(f"kernel builds failed: {errors}")
+    return {"build_s": seconds, "build_wall_s": time.perf_counter() - t0}
+
+
+def zipf_keys(shape, t: int, g, dev):
+    """Keys with heavy repetition: log-uniform ranks over [128, t), so
+    rank r is drawn with probability about 1/r (Zipf, exponent 1) and
+    the hottest rows recur thousands of times in a 65,536-row batch;
+    ranks are spread over the table by a multiplicative hash."""
+    import torch
+
+    u = torch.rand(shape, generator=g, device=dev, dtype=torch.float64)
+    rank = torch.exp(u * math.log(t - 128)).long() - 1
+    return (128 + (rank * 2654435761) % (t - 128)).to(torch.int32)
+
+
+def k2_inputs(b: int, w, g, dev, full: bool, zipf: bool):
+    """K2 inputs on the card: make_keys' planes (padding, holes, all-
+    padding rows, rows steered past the clamps), optionally Zipf keys,
+    random labels, and weights with some zero rows (fractional on the
+    full wire)."""
+    import torch
+
+    keys, x = make_keys(b, w.shape[0], g, dev, full)
+    if zipf:
+        z = zipf_keys(keys.shape, w.shape[0], g, dev)
+        steered = keys < 128
+        keys = torch.where((keys >= 0) & ~steered, z, keys).contiguous()
+    labels = (torch.rand(b, generator=g, device=dev) > 0.5).to(torch.float32)
+    weights = (torch.rand(b, generator=g, device=dev) > 0.05).to(torch.float32)
+    if full:
+        weights = weights * torch.where(
+            torch.rand(b, generator=g, device=dev) > 0.5, 1.0, 0.5
+        )
+    else:
+        labels, weights = labels.to(torch.uint8), weights.to(torch.uint8)
+    num_real = max(float(weights.float().sum()), 1.0)
+    return keys, x, labels, weights, num_real
+
+
+def k2_tolerances(keys, x, labels, weights, num_real, w, v):
+    """Per-row tolerances for K2's g_w and g_v against its plain version,
+    and one for the log-loss sum (module docstring, phase 6).  Computed
+    in float64 from the inputs."""
+    import torch
+
+    k = keys.shape[1]
+    live = keys >= 0
+    kl = keys.clamp(min=0).long()
+    xk = (live.double() if x is None else x.double()) * live
+    wx = w[kl, 0].double() * xk
+    logit = wx.sum(1)
+    mag = wx.abs().sum(1)
+    dim = 0
+    if v is not None:
+        dim = v.shape[1]
+        vx = v[kl].double() * xk[..., None]  # [B, K, D]
+        s = vx.sum(1)
+        s_abs = vx.abs().sum(1)
+        s2 = (vx * vx).sum(1)
+        logit = logit + (s * s - s2).sum(1)
+        mag = mag + (2 * s.abs() * s_abs + s2).sum(1)
+    gamma = EPS32 * (k + dim + 4)
+    dlogit = 2 * gamma * mag
+    p = 1.0 / (1.0 + torch.exp(-logit))
+    p = torch.where(logit < -30, torch.full_like(p, 1e-6), p)
+    p = torch.where(logit > 30, torch.ones_like(p), p)
+    dp = p * (1 - p) * dlogit + 4 * EPS32 * p
+    dp = dp + torch.where((logit + 30).abs() <= dlogit, 1e-6, 0.0)
+    y, wt = labels.double(), weights.double()
+    r = (p - y) * wt / num_real
+    dr = dp * wt / num_real + 4 * EPS32 * r.abs()
+    flat = kl[live]
+    t = w.shape[0]
+    n_row = torch.bincount(flat, minlength=t).double()
+
+    def scatter(vals, width):
+        out = torch.zeros((t, width), dtype=torch.float64, device=keys.device)
+        return out.index_add_(0, flat, vals.reshape(-1, width)[live.reshape(-1)])
+
+    occ_abs = (xk * r[:, None]).abs()[..., None]
+    occ_err = (xk.abs() * dr[:, None])[..., None]
+    tol_w = 2 * (scatter(occ_err, 1) + EPS32 * (n_row[:, None] + 2) * scatter(occ_abs, 1))
+    tol_v = None
+    if v is not None:
+        term = (s[:, None, :] - vx) * xk[..., None] * r[:, None, None]
+        err = xk.abs()[..., None] * (
+            (s[:, None, :] - vx).abs() * dr[:, None, None]
+            + r.abs()[:, None, None] * (2 * gamma * s_abs[:, None, :] + EPS32 * vx.abs())
+        )
+        tol_v = 2 * (scatter(err, dim) + EPS32 * (n_row[:, None] + 4) * scatter(term.abs(), dim))
+    pc = p.clamp(1e-6, 1 - 1e-6)
+    ll = -(y * torch.log(pc) + (1 - y) * torch.log(1 - pc)) * wt
+    dll = dp / torch.minimum(pc, 1 - pc) * wt
+    tol_ll = 2 * (float(dll.sum()) + EPS32 * (keys.shape[0] + 4) * float(ll.abs().sum()))
+    return tol_w, tol_v, tol_ll
+
+
+def check_k2(case: str, keys, x, labels, weights, num_real, w, v, worst: dict) -> None:
+    """K2 against train_plain on one batch, within k2_tolerances; the
+    count exact.  Raises on a disagreement, else updates ``worst``."""
+    import torch
+
+    from xflow_tpu_torch.ops.train import train_plain, train_step
+
+    outs = []
+    for fn in (train_step, train_plain):
+        g_w = torch.zeros_like(w)
+        g_v = torch.zeros_like(v) if v is not None else None
+        acc = torch.zeros(2, device=w.device)
+        fn(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc)
+        outs.append((g_w, g_v, acc))
+    torch.cuda.synchronize()
+    tol_w, tol_v, tol_ll = k2_tolerances(keys, x, labels, weights, num_real, w, v)
+    (gw, gv, acc), (pw, pv, pacc) = outs
+    pairs = [(gw, pw, tol_w)] + ([(gv, pv, tol_v)] if v is not None else [])
+    for got, want, tol in pairs:
+        diff = (got.double() - want.double()).abs()
+        excess = float((diff - tol).max())
+        if excess > 0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K2 disagrees with train_plain: {case} "
+                                 f"gradient excess {excess}")
+        worst["max_abs_err_g"] = max(worst["max_abs_err_g"], float(diff.max()))
+        ratio = diff / torch.where(tol > 0, tol, 1.0)
+        worst["max_err_over_tol"] = max(worst["max_err_over_tol"], float(ratio.max()))
+    ll_err = abs(float(acc[0]) - float(pacc[0]))
+    if ll_err > tol_ll:
+        raise AssertionError(f"K2 log-loss sum {float(acc[0])} vs plain "
+                             f"{float(pacc[0])} ({case}, tolerance {tol_ll})")
+    if float(acc[1]) != float(pacc[1]):
+        raise AssertionError(f"K2 count {float(acc[1])} != plain "
+                             f"{float(pacc[1])} ({case})")
+    worst["max_abs_err_logloss_sum"] = max(worst["max_abs_err_logloss_sum"], ll_err)
+
+
+def phase_k2_vs_plain(dev, t_log2: int) -> dict:
+    """Phase 6: K2 against train_plain in every batch, mode, wire and key
+    distribution."""
+    import torch
+
+    from xflow_tpu_torch.ops.score import score_plain
+
+    w, v, g = make_tables(dev, t_log2)
+    worst = {"max_abs_err_g": 0.0, "max_err_over_tol": 0.0,
+             "max_abs_err_logloss_sum": 0.0}
+    clamped_hi = clamped_lo = padded_rows = max_repeat = 0
+    for b in TRAIN_BATCHES:
+        for mode in ("lr", "fm"):
+            vv = v if mode == "fm" else None
+            for full in (False, True):
+                for zipf in (False, True):
+                    keys, x, labels, weights, num_real = k2_inputs(
+                        b, w, g, dev, full, zipf
+                    )
+                    case = (f"B={b} {mode} {'full' if full else 'compact'} "
+                            f"{'zipf' if zipf else 'uniform'}")
+                    check_k2(case, keys, x, labels, weights, num_real, w, vv, worst)
+                    _, logit = score_plain(keys, x, w, vv, return_logit=True)
+                    clamped_hi += int((logit > 30).sum())
+                    clamped_lo += int((logit < -30).sum())
+                    padded_rows += int((keys < 0).all(dim=1).sum())
+                    live = keys[keys >= 0].long()
+                    max_repeat = max(max_repeat, int(torch.bincount(live).max()))
+    if not (clamped_hi and clamped_lo and padded_rows and max_repeat >= 1000):
+        raise AssertionError(
+            f"phase 6 did not cover the clamps, padding and repeats: "
+            f"{clamped_hi} > 30, {clamped_lo} < -30, {padded_rows} all-padding, "
+            f"hottest key {max_repeat} times"
+        )
+    del w, v
+    return dict(worst, rows_above_30=clamped_hi, rows_below_minus_30=clamped_lo,
+                all_padding_rows=padded_rows, hottest_key_occurrences=max_repeat)
+
+
+def k3_tolerances(table: dict, new_n, opt) -> dict:
+    """Elementwise tolerances for K3 against its plain version (module
+    docstring, phase 7), from the inputs and the plain n'."""
+    import torch
+
+    from xflow_tpu_torch.optim import FTRL
+
+    w, gr = table["param"], table["g"]
+    if not isinstance(opt, FTRL):
+        return {"param": 2 * EPS32 * (w.abs() + (opt.lr * gr).abs())}
+    n, z = table["n"], table["z"]
+    sq = torch.sqrt(new_n) + torch.sqrt(n)
+    tol_n = 2 * EPS32 * (n + gr * gr)
+    tol_z = 4 * EPS32 * (z.abs() + gr.abs() + sq / opt.alpha * w.abs())
+    denom = (opt.beta + torch.sqrt(new_n)) / opt.alpha + opt.lambda2
+    return {"n": tol_n, "z": tol_z, "param": (tol_z + 2 * EPS32 * opt.lambda1) / denom}
+
+
+def phase_k3_vs_plain(dev, t_log2: int) -> dict:
+    """Phase 7: K3 against optim_plain at D in {1, 10}, FTRL and SGD."""
+    import torch
+
+    from xflow_tpu_torch.ops.optim import optim_plain, optim_update
+    from xflow_tpu_torch.optim import FTRL, SGD
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    t = 1 << t_log2
+    worst = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
+    near_l1 = untouched = 0
+    for d in (1, D):
+        for opt in (FTRL(), SGD()):
+            quarter = t // 4
+            gr = torch.zeros((t, d), device=dev)
+            gr[:quarter] = torch.randn((quarter, d), generator=g, device=dev) * 0.01
+            table = {"param": torch.randn((t, d), generator=g, device=dev) * 0.01, "g": gr}
+            if isinstance(opt, FTRL):
+                n = torch.rand((t, d), generator=g, device=dev) * 1e-3
+                n[t // 2:] = 0.0  # rows [t/2, t): never touched (g = 0, n = 0)
+                z = torch.randn((t, d), generator=g, device=dev) * 1e-3
+                # rows [t/8, t/4): w = 0 and z = +-lambda1 - g, so |z'|
+                # lands within rounding of lambda1
+                near = slice(t // 8, quarter)
+                sgn = torch.where(torch.rand((quarter - t // 8, d), generator=g,
+                                             device=dev) > 0.5, 1.0, -1.0)
+                z[near] = sgn * opt.lambda1 - gr[near]
+                table["param"][near] = 0.0
+                table.update(n=n, z=z)
+            plain = {k: a.clone() for k, a in table.items()}
+            before = {k: a.clone() for k, a in table.items()}
+            optim_update(table, opt)
+            optim_plain(plain, opt)
+            torch.cuda.synchronize()
+            tols = k3_tolerances(before, plain.get("n"), opt)
+            case = f"D={d} {opt.name}"
+            for name, tol in tols.items():
+                diff = (table[name] - plain[name]).abs()
+                excess = float((diff - tol).max())
+                if excess > 0:
+                    raise AssertionError(f"K3 disagrees with optim_plain: {case} {name} "
+                                         f"excess {excess}")
+                worst["max_abs_err"] = max(worst["max_abs_err"], float(diff.max()))
+                ratio = diff / torch.where(tol > 0, tol, 1.0)
+                worst["max_err_over_tol"] = max(worst["max_err_over_tol"], float(ratio.max()))
+            if not bool((table["g"] == 0).all()):
+                raise AssertionError(f"K3 left a non-zero gradient ({case})")
+            if isinstance(opt, FTRL):
+                idle = before["n"][t // 2:] == 0
+                if not bool((table["param"][t // 2:] == before["param"][t // 2:]).all()):
+                    raise AssertionError(f"K3 moved w on never-touched rows ({case})")
+                untouched += int(idle.sum())
+                zn = plain["z"].abs()
+                near_l1 += int(((zn - opt.lambda1).abs() <= tols["z"]).sum())
+            del table, plain, before
+    if not near_l1:
+        raise AssertionError("phase 7 did not cover |z'| near lambda1")
+    return dict(worst, never_touched_elements=untouched, near_lambda1_elements=near_l1)
+
+
+def write_train_shards(root: str) -> dict:
+    """The repo's CTR traffic (xflow_tpu_torch/io/synth.py, a copy of
+    scripts/gen_synth.py): 2 train shards of TRAIN_LINES lines and a
+    TEST_LINES test shard, one planted model (SYNTH_SEED); returns the
+    train and test prefixes."""
+    import os
+
+    from xflow_tpu_torch.io.synth import generate_dataset
+
+    prefix = os.path.join(root, "synth")
+    generate_dataset(prefix, 2 * TRAIN_LINES, TEST_LINES, train_shards=2,
+                     seed=SYNTH_SEED)
+    return {"train": prefix + ".train", "test": prefix + ".test"}
+
+
+def auc_bars(test_shard: str) -> dict:
+    """The planted signal's AUC bars on the test shard (AUC_Z): the floor
+    chance + AUC_Z null standard deviations, the ceiling the Bayes
+    scorer's AUC (the planted model's own pctr on these lines)."""
+    from xflow_tpu_torch.io.synth import planted_pctr, read_shard
+    from xflow_tpu_torch.utils.metrics import auc_rank_sum
+
+    labels, ids = read_shard(test_shard)
+    pos = int(labels.sum())
+    neg = len(labels) - pos
+    null_sd = math.sqrt((pos + neg + 1) / (12.0 * pos * neg))
+    return {"floor": 0.5 + AUC_Z * null_sd, "null_sd": null_sd,
+            "bayes_auc": auc_rank_sum(labels, planted_pctr(ids, SYNTH_SEED)),
+            "positives": pos, "negatives": neg}
+
+
+def train_config(model: str, t_log2: int, data: dict, metrics_out: str):
+    """fm_nohot, or lr_nohot (the same geometry without v), training
+    on ``data``'s shards."""
+    return dataclasses.replace(
+        fm_nohot_config(t_log2), model=model, epochs=TRAIN_EPOCHS,
+        train_path=data["train"], test_path=data["test"],
+        metrics_out=metrics_out,
+    )
+
+
+def compare_states(gpu_state, cpu_state) -> dict:
+    """Tables of the card's run against the CPU run's, TRAIN_BOUNDS."""
+    import torch
+
+    from xflow_tpu_torch.optim import FTRL
+
+    worst = {"max_err_over_bound": 0.0, "near_lambda1": 0}
+    l1 = FTRL().lambda1
+    for name, table in cpu_state["tables"].items():
+        for key, want in table.items():
+            if key == "g":
+                continue
+            got = gpu_state["tables"][name][key].cpu()
+            bound = (TRAIN_BOUNDS["table_rtol"] * want.abs()
+                     + TRAIN_BOUNDS["table_atol_frac"] * float(want.abs().max()))
+            diff = (got - want).abs()
+            ratio = float((diff / torch.where(bound > 0, bound, 1.0)).max())
+            if bool((diff > bound).any()):
+                raise AssertionError(f"table {name}.{key}: card vs CPU beyond bound "
+                                     f"(max |diff| {float(diff.max())}, ratio {ratio})")
+            worst["max_err_over_bound"] = max(worst["max_err_over_bound"], ratio)
+            if key == "z":
+                zb = TRAIN_BOUNDS["table_rtol"] * want.abs()
+                worst["near_lambda1"] += int(((want.abs() - l1).abs() <= zb).sum())
+    return worst
+
+
+def read_pred_lines(path: str) -> np.ndarray:
+    with open(path) as f:
+        return np.array([float(line.split("\t")[1]) for line in f], dtype=np.float64)
+
+
+def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
+    """Phase 8: Trainer on the card at lr_nohot and fm_nohot, evaluate,
+    export, the engine on the artifact, and the same run on the CPU."""
+    import os
+
+    import torch
+
+    from xflow_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from xflow_tpu_torch.ops.optim import optim_update
+    from xflow_tpu_torch.ops.score import score
+    from xflow_tpu_torch.ops.train import train_step
+    from xflow_tpu_torch.serve.artifact import export_artifact
+    from xflow_tpu_torch.serve.engine import PredictEngine
+    from xflow_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    data = write_train_shards(workdir)
+    bars = auc_bars(f"{data['test']}-00000")
+    log(f"phase 8: wrote 2 x {TRAIN_LINES} train + {TEST_LINES} test lines in "
+        f"{time.perf_counter() - t0:.3f} s; AUC bars {json.dumps(bars)}")
+    with open(f"{data['test']}-00000") as f:
+        test_lines = f.read().splitlines()
+    rows = []
+    launches = {"score": 0, "train_step": 0, "optim_update": 0}
+    k2_worst = {"max_abs_err_g": 0.0, "max_err_over_tol": 0.0,
+                "max_abs_err_logloss_sum": 0.0}
+    for model in ("fm", "lr"):
+        cfg = train_config(model, t_log2, data, os.path.join(workdir, f"{model}.jsonl"))
+        score.launches = train_step.launches = optim_update.launches = 0
+        # the training main path starts here
+        trainer = Trainer(cfg, device=dev, log=log)
+        init = state_to_numpy(trainer.state, aux=True)
+        shipped = keep_shipped_batches(trainer)
+        t0 = time.perf_counter()
+        history = trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        pred_path = os.path.join(workdir, f"{model}.pred")
+        result = trainer.evaluate(pred_out=pred_path)
+        art = export_artifact(trainer, os.path.join(workdir, f"{model}_artifact"))
+        engine = PredictEngine.load(art, device=dev)
+        pctr = engine.score_text(test_lines)
+        torch.cuda.synchronize()
+        got = {"score": score.launches, "train_step": train_step.launches,
+               "optim_update": optim_update.launches}
+        # ... and ends here
+        trainer.close()
+        steps = sum(h["steps"] for h in history)
+        tables = len(trainer.state["tables"])
+        want_score = 1 + len(engine.buckets) + math.ceil(TEST_LINES / engine.buckets[-1])
+        if got["train_step"] != steps or got["optim_update"] != steps * tables:
+            raise AssertionError(f"{model}: {steps} steps x {tables} tables but launches {got}")
+        if got["score"] != want_score:
+            raise AssertionError(f"{model}: K1 launched {got['score']} times, "
+                                 f"expected {want_score} (1 eval batch + engine)")
+        for k in launches:
+            launches[k] += got[k]
+        pred = read_pred_lines(pred_path)
+        pred_err = float(np.abs(pred - pctr).max())
+        if pctr.shape != (TEST_LINES,) or pred_err > PRED_ATOL:
+            raise AssertionError(f"{model}: engine scores differ from evaluate's "
+                                 f"pred lines by {pred_err}")
+        if not bars["floor"] < result["auc"] < bars["bayes_auc"]:
+            raise AssertionError(f"{model}: eval AUC {result['auc']} outside the "
+                                 f"planted signal's bars {bars}")
+        with open(cfg.metrics_out) as f:
+            kinds = {json.loads(line)["kind"] for line in f}
+        if not {"run_start", "shard", "train_epoch", "wire", "eval"} <= kinds:
+            raise AssertionError(f"{model}: metrics rows missing, got {sorted(kinds)}")
+
+        # the same steps on the CPU, from the same initial state
+        cpu = Trainer(dataclasses.replace(cfg, metrics_out=""), device="cpu",
+                      log=lambda _: None)
+        cpu.state = state_from_numpy(cfg, init, "cpu")
+        cpu_history = cpu.train()
+        cpu_result = cpu.evaluate()
+        cpu.close()
+        for a, b in zip(trainer.step_logloss, cpu.step_logloss):
+            if abs(a - b) > TRAIN_BOUNDS["logloss_rtol"] * max(abs(b), 1.0):
+                raise AssertionError(f"{model}: step log-loss {a} on the card vs {b} on "
+                                     "the CPU")
+        if len(trainer.step_logloss) != len(cpu.step_logloss):
+            raise AssertionError(f"{model}: step counts differ")
+        if abs(result["auc"] - cpu_result["auc"]) > TRAIN_BOUNDS["auc_atol"] or abs(
+                result["logloss"] - cpu_result["logloss"]) > TRAIN_BOUNDS["logloss_rtol"] * abs(
+                cpu_result["logloss"]):
+            raise AssertionError(f"{model}: eval on the card {result} vs CPU {cpu_result}")
+        state_cmp = compare_states(trainer.state, cpu.state)
+        kernels = main_path_kernels(model, trainer, shipped[:len(shipped) // TRAIN_EPOCHS],
+                                    k2_worst)
+        rows.append({
+            "model": model, "steps": steps, "tables": tables, "launches": got,
+            "train_seconds": train_s,
+            "examples_per_sec": [h["examples_per_sec"] for h in history],
+            "step_time_p50": [h["step_time_p50"] for h in history],
+            "step_time_p99": [h["step_time_p99"] for h in history],
+            "phases": [h["phases"] for h in history],
+            "overlapped": [h["overlapped"] for h in history],
+            "parse_mb_per_sec": [h.get("parse_mb_per_sec") for h in history],
+            "train_logloss": [h["train_logloss"] for h in history],
+            "cpu_train_logloss": [h["train_logloss"] for h in cpu_history],
+            "eval": {k: result[k] for k in ("auc", "logloss", "examples")},
+            "cpu_eval": {k: cpu_result[k] for k in ("auc", "logloss")},
+            "auc_bars": bars,
+            "bayes_gap_closed": (result["auc"] - 0.5) / (bars["bayes_auc"] - 0.5),
+            **kernels,
+            "engine_vs_eval_max_abs": pred_err,
+            **state_cmp,
+        })
+        del trainer, cpu, engine, init, shipped
+        torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches, "k2_check": k2_worst}
+
+
+def keep_shipped_batches(trainer) -> list:
+    """Keep a reference to every batch the trainer ships to the card
+    (its ``put_batch`` results, in step order); adds no work."""
+    shipped = []
+    put = trainer.step.put_batch
+
+    def put_and_keep(batch, predict=False):
+        arrays = put(batch, predict)
+        if not predict:
+            shipped.append(arrays)
+        return arrays
+
+    trainer.step.put_batch = put_and_keep
+    return shipped
+
+
+def main_path_kernels(model: str, trainer, batches: list, worst: dict) -> dict:
+    """K2 and K3 on the training main path's own inputs, after its run:
+    on each batch of one epoch (the epochs repeat them), K2 against
+    train_plain (check_k2), the batch's key statistics, and K2's device
+    time (behind an L2 flush, as in the run, where K3's full-table pass
+    precedes each K2), host path, plain time and bounds; the same batch
+    with every repeated key replaced by a distinct one (distinct while
+    B*K <= T), which isolates what the repeats cost; and K3 on the trained tables (g is 0 after
+    a step, so a K3 pass leaves them as they are)."""
+    import torch
+
+    from xflow_tpu_torch.ops.optim import optim_plain, optim_update
+    from xflow_tpu_torch.ops.train import train_plain, train_step
+
+    tables = trainer.state["tables"]
+    w = tables["w"]["param"]
+    v = tables["v"]["param"] if "v" in tables else None
+    dim = v.shape[1] if v is not None else 0
+    dev = w.device
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)  # 128 MiB > L2
+    k2_rows, batch_stats = [], []
+    for i, arrays in enumerate(batches):
+        keys, x = arrays["ckeys"], arrays.get("x")
+        lw = ("labels_u8", "weights_u8") if "labels_u8" in arrays else ("labels", "weights")
+        labels, weights = arrays[lw[0]], arrays[lw[1]]
+        num_real = arrays["num_real"]
+        check_k2(f"{model} main-path batch {i}", keys, x, labels, weights, num_real,
+                 w, v, worst)
+        live = keys >= 0
+        batch_stats.append({"live_slots": int(live.sum()),
+                            "distinct_keys": int(torch.unique(keys[live]).numel()),
+                            **repeat_stats(keys)})
+        slot = torch.arange(keys.numel(), device=dev, dtype=torch.int64).view_as(keys)
+        distinct = torch.where(live, (slot * 2654435761) % w.shape[0],
+                               torch.full_like(slot, -1)).to(torch.int32)
+        for keys_name, kk in (("main_path", keys), ("main_path_no_repeats", distinct)):
+            g_w = torch.zeros_like(w)
+            g_v = torch.zeros_like(v) if v is not None else None
+            acc = torch.zeros(2, device=dev)
+            args = [(kk, x, labels, weights, num_real, w, v, g_w, g_v, acc)] * TIMED_RUNS
+            k2_rows.append({
+                "mode": model, "B": keys.shape[0], "K": keys.shape[1], "D": dim,
+                "keys": keys_name, "batch": i,
+                "ms": time_device_ms(train_step, args, prelude=flush.zero_),
+                "host_path_ms": time_host_path_ms(train_step, args),
+                "plain_ms": time_device_ms(train_plain, args, prelude=flush.zero_),
+                **k2_bounds(kk, x, labels, dim),
+                "library_ms": None,
+                "library_why_null": "no single PyTorch call computes the "
+                "gather, logit, residual, scatter-add and log-loss",
+            })
+            log(json.dumps(dict(k2_rows[-1], phase=8)))
+            del g_w, g_v
+    k3_rows = []
+    opt = trainer.step.optimizer
+    for name, table in tables.items():
+        args = [(table, opt)] * TIMED_RUNS
+        d = table["param"].shape[1]
+        k3_rows.append({
+            "optimizer": opt.name, "table": name, "T": table["param"].shape[0], "D": d,
+            "ms": time_device_ms(optim_update, args),
+            "host_path_ms": time_host_path_ms(optim_update, args),
+            "plain_ms": time_device_ms(optim_plain, args),
+            **k3_bounds(table["param"].numel(), opt.name == "ftrl"),
+            "library_ms": None,
+            "library_why_null": "no single PyTorch call applies the FTRL recurrence",
+        })
+        log(json.dumps(dict(k3_rows[-1], phase=8, model=model)))
+    del flush
+    return {"batch_stats": batch_stats, "k2_main_path": k2_rows, "k3_main_path": k3_rows}
+
+
+def row_distinct(keys, t: int, g):
+    """``keys`` with every repeat of a live key within its own row
+    replaced by a fresh uniform key: the repeats across rows stay, those
+    inside one example (one warp of K2) go; padding stays."""
+    import torch
+
+    order = keys.sort(dim=1)
+    dup = torch.zeros_like(keys, dtype=torch.bool)
+    dup[:, 1:] = (order.values[:, 1:] == order.values[:, :-1]) & (order.values[:, 1:] >= 0)
+    fresh = torch.randint(0, t, keys.shape, generator=g, device=keys.device,
+                          dtype=keys.dtype)
+    out = keys.clone()
+    out.scatter_(1, order.indices, torch.where(dup, fresh, order.values))
+    return out
+
+
+def repeat_stats(keys) -> dict:
+    """How a key plane repeats: its hottest live key's count, and the
+    live slots that repeat a key already in their own row."""
+    import torch
+
+    live = keys >= 0
+    counts = torch.unique(keys[live], return_counts=True)[1]
+    srt = keys.sort(dim=1).values
+    within = (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)
+    return {"hottest_key_occurrences": int(counts.max()),
+            "repeats_within_rows": int(within.sum())}
+
+
+def k2_bounds(keys, x, labels, dim: int) -> dict:
+    """K2's least time on this card for THIS batch (csrc/train.cu
+    header): keys, x, labels and weights once each; per distinct live
+    row, w and v read and g_w and g_v read and written once each
+    (``bound_ms``), or whole 32-byte sectors for each of those three
+    row accesses (``bound_sector_ms``)."""
+    import torch
+
+    b, k = keys.shape
+    live = int((keys >= 0).sum())
+    rows = int(torch.unique(keys[keys >= 0]).numel())
+    stream = b * k * (4 + (4 if x is not None else 0)) + 2 * b * labels.element_size()
+    used = stream + rows * 3 * (4 + 4 * dim)
+    sectors = stream + rows * 3 * (SECTOR + math.ceil(4 * dim / SECTOR) * SECTOR)
+    # per live slot: forward 2 + 4D, backward 2 + 5D (the atomic adds
+    # counted as adds); per example: 3D for the pair term, ~30 for the
+    # sigmoid, residual and log-loss
+    ops = live * (4 + 9 * dim) + b * (3 * dim + 30)
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    used_ms = used / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(used_ms, ops_ms),
+        "bound_by": "bytes" if used_ms >= ops_ms else "operations",
+        "bound_sector_ms": max(sectors / HBM_BYTES_PER_S * 1e3, ops_ms),
+        "bound_bytes": used, "bound_sector_bytes": sectors, "bound_ops": ops,
+        "distinct_rows": rows, "live_slots": live,
+    }
+
+
+def k3_bounds(count: int, ftrl: bool) -> dict:
+    """K3's least time: every element's arrays read once and written
+    once (FTRL w, n, z, g in and w, n, z, g out; SGD w, g in and out),
+    and about 20 (FTRL) or 2 (SGD) float32 operations per element."""
+    used = count * 4 * (8 if ftrl else 4)
+    ops = count * (20 if ftrl else 2)
+    used_ms = used / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(used_ms, ops_ms),
+            "bound_by": "bytes" if used_ms >= ops_ms else "operations",
+            "bound_bytes": used, "bound_ops": ops}
+
+
+def phase_train_timings(dev, t_log2: int) -> dict:
+    """Phase 9: K2 and K3 device times beside their plain versions,
+    their bounds and, where one exists, one PyTorch call computing the
+    same function."""
+    import torch
+
+    from xflow_tpu_torch.ops.optim import optim_plain, optim_update
+    from xflow_tpu_torch.ops.train import train_plain, train_step
+    from xflow_tpu_torch.optim import FTRL, SGD
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    t = 1 << t_log2
+    w = torch.randn((t, 1), generator=g, device=dev) * 0.3
+    v = torch.randn((t, D), generator=g, device=dev) * 0.05
+    k2_rows = []
+    for mode in ("lr", "fm"):
+        vv = v if mode == "fm" else None
+        g_w = torch.zeros_like(w)
+        g_v = torch.zeros_like(v) if vv is not None else None
+        acc = torch.zeros(2, device=dev)
+        for b in TRAIN_BATCHES:
+            for keys_name in ("uniform", "zipf", "zipf_row_distinct"):
+                zipf = keys_name != "uniform"
+                if zipf and b != TRAIN_BATCHES[-1]:
+                    continue
+                pool = []
+                for _ in range(8):  # 8 batches: the key planes exceed L2
+                    keys = (zipf_keys((b, K), t, g, dev) if zipf else
+                            torch.randint(0, t, (b, K), generator=g, device=dev,
+                                          dtype=torch.int32))
+                    if keys_name == "zipf_row_distinct":
+                        keys = row_distinct(keys, t, g)
+                    labels = (torch.rand(b, generator=g, device=dev) > 0.5).to(torch.uint8)
+                    pool.append((keys, None, labels, torch.ones_like(labels), float(b),
+                                 w, vv, g_w, g_v, acc))
+                args = [pool[i % len(pool)] for i in range(TIMED_RUNS)]
+                k2_rows.append({
+                    "mode": mode, "B": b, "K": K, "D": D if vv is not None else 0,
+                    "keys": keys_name,
+                    **repeat_stats(pool[0][0]),
+                    "ms": time_device_ms(train_step, args),
+                    "host_path_ms": time_host_path_ms(train_step, args),
+                    "plain_ms": time_device_ms(train_plain, args),
+                    **k2_bounds(pool[0][0], None, pool[0][2], D if vv is not None else 0),
+                    "library_ms": None,
+                    "library_why_null": "no single PyTorch call computes the "
+                    "gather, logit, residual, scatter-add and log-loss",
+                })
+                log(json.dumps(dict(k2_rows[-1], phase=9)))
+        del g_w, g_v, acc
+    del w, v
+    torch.cuda.empty_cache()
+    k3_rows = []
+    for d in (1, D):
+        for opt in (FTRL(), SGD()):
+            table = {"param": torch.randn((t, d), generator=g, device=dev) * 0.01,
+                     "g": torch.zeros((t, d), device=dev)}
+            table.update(opt.init_aux(table["param"]))
+            args = [(table, opt)] * TIMED_RUNS
+            row = {
+                "optimizer": opt.name, "T": t, "D": d,
+                "ms": time_device_ms(optim_update, args),
+                "host_path_ms": time_host_path_ms(optim_update, args),
+                "plain_ms": time_device_ms(optim_plain, args),
+                **k3_bounds(t * d, isinstance(opt, FTRL)),
+                "library_ms": None,
+                "library_why_null": "no single PyTorch call applies the FTRL "
+                "recurrence",
+            }
+            if isinstance(opt, SGD):
+                def library(table_, opt_):
+                    return table_["param"].add_(table_["g"], alpha=-opt_.lr)
+
+                row["library_ms"] = time_device_ms(library, args)
+                row["library_host_path_ms"] = time_host_path_ms(library, args)
+                row["library_why_null"] = None
+            k3_rows.append(row)
+            log(json.dumps(dict(row, phase=9)))
+            del table
+    return {"k2": k2_rows, "k3": k3_rows}
+
+
 def main() -> int:
     try:
         import torch
@@ -462,19 +1267,19 @@ def main() -> int:
               "from the root of a checkout", file=sys.stderr)
         return 1
     from xflow_tpu_torch.device import resolve_device
-    from xflow_tpu_torch.ops.build import build, build_log
+    from xflow_tpu_torch.ops.build import build_log
 
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
-    log(card_line())
+    card = card_line()
+    log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(dev)}")
-    t0 = time.perf_counter()
-    seconds = build("score")
-    log(json.dumps({"phase": 1, "build_s": {"score": seconds},
-                    "build_wall_s": time.perf_counter() - t0}))
-    for line in build_log("score").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas score: {line.strip()}")
+    log(json.dumps(dict(build_all(), phase=1)))
+    for name in ("score", "train", "optim"):
+        for line in build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
 
     check = phase_kernel_vs_plain(dev, T_LOG2)
     log(json.dumps(dict(check, phase=2)))
@@ -488,13 +1293,71 @@ def main() -> int:
     for row in timings:
         log(json.dumps(dict(row, phase=5)))
     log(json.dumps({"phase": 5, "empty_kernel_ms": empty_kernel_ms()}))
+
+    k2_check = phase_k2_vs_plain(dev, T_LOG2)
+    log(json.dumps(dict(k2_check, phase=6)))
+    torch.cuda.empty_cache()
+    k3_check = phase_k3_vs_plain(dev, T_LOG2)
+    log(json.dumps(dict(k3_check, phase=7)))
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="xflow-chip-smoke-train-")
+    try:
+        train_path = phase_train_main_path(dev, T_LOG2, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for row in train_path["rows"]:
+        log(json.dumps(dict(row, phase=8)))
+    log(json.dumps(dict(train_path["k2_check"], phase=8,
+                        check="K2 against train_plain on the main path's batches")))
+    torch.cuda.empty_cache()
+    train_timings = phase_train_timings(dev, T_LOG2)
+
+    # the training line: examples/s per epoch, step times, phase seconds,
+    # the batches' key statistics, and the device's busy share from K2's
+    # and K3's device times on this path's own batches and tables (phase
+    # 8) times the steps that ran them -- not a profiler trace
+    train_rows = []
+    for row in train_path["rows"]:
+        k2_ms = [r["ms"] for r in row["k2_main_path"] if r["keys"] == "main_path"]
+        k3_ms = [r["ms"] for r in row["k3_main_path"]]
+        busy = (TRAIN_EPOCHS * sum(k2_ms) + row["steps"] * sum(k3_ms)) / 1e3
+        train_rows.append({
+            "model": row["model"], "card": card,
+            "examples_per_sec": row["examples_per_sec"],
+            "step_time_p50": row["step_time_p50"],
+            "step_time_p99": row["step_time_p99"],
+            "phases": [{k: p.get(k, 0.0) for k in
+                        ("input_stall", "h2d", "dispatch", "device_block")}
+                       for p in row["phases"]],
+            "overlapped": row["overlapped"],
+            "train_seconds": row["train_seconds"],
+            "batches": row["batch_stats"],
+            "k2_ms_per_batch": k2_ms, "k3_ms_per_table": k3_ms,
+            "device_busy_s_from_kernel_times": busy,
+            "device_idle_share_from_kernel_times": 1.0 - busy / row["train_seconds"],
+            "eval_auc": row["eval"]["auc"], "eval_logloss": row["eval"]["logloss"],
+            "auc_floor": row["auc_bars"]["floor"], "bayes_auc": row["auc_bars"]["bayes_auc"],
+            "bayes_gap_closed": row["bayes_gap_closed"],
+        })
+    log(json.dumps({"train": train_rows}))
+
     head = next(r for r in timings if r["mode"] == "fm" and r["B"] == BUCKETS[-1])
+    fm_row = next(r for r in train_path["rows"] if r["model"] == "fm")
+    k2_head = next(r for r in fm_row["k2_main_path"] if r["keys"] == "main_path")
+    k3_head = next(r for r in fm_row["k3_main_path"] if r["table"] == "v")
+    k2_main = [r for row in train_path["rows"] for r in row["k2_main_path"]]
+    k3_main = [dict(r, model=row["model"]) for row in train_path["rows"]
+               for r in row["k3_main_path"]]
+    k2_err = {k: max(k2_check[k], train_path["k2_check"][k])
+              for k in ("max_abs_err_g", "max_err_over_tol")}
     kernels = [{
         "name": "score",
         "route": "cuda",
         "source": "xflow_tpu_torch/csrc/score.cu",
         "replaces": REPLACES,
-        "launches": main_path["launches"],
+        "launches": main_path["launches"] + train_path["launches"]["score"],
+        "launches_by_path": {"serve": main_path["launches"],
+                             "train": train_path["launches"]["score"]},
         "max_abs_err": check["max_abs_err"],
         "ms": head["ms"],
         "host_path_ms": head["host_path_ms"],
@@ -503,10 +1366,50 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "bound_sector_ms": head["bound_sector_ms"],
         "library_ms": head["library_ms"],
+        "library_why_null": "no single PyTorch call scores FM (LR's "
+        "embedding_bag yardstick is in per_bucket)",
         "shape": {"mode": "fm", "B": head["B"], "K": K, "D": D},
         "per_bucket": timings,
+    }, {
+        "name": "train_step",
+        "route": "cuda",
+        "source": "xflow_tpu_torch/csrc/train.cu",
+        "replaces": K2_REPLACES,
+        "launches": train_path["launches"]["train_step"],
+        "max_abs_err": k2_err["max_abs_err_g"],
+        "max_err_over_tol": k2_err["max_err_over_tol"],
+        "ms": k2_head["ms"],
+        "host_path_ms": k2_head["host_path_ms"],
+        "plain_ms": k2_head["plain_ms"],
+        "bound_ms": k2_head["bound_ms"],
+        "bound_by": k2_head["bound_by"],
+        "bound_sector_ms": k2_head["bound_sector_ms"],
+        "library_ms": None,
+        "library_why_null": k2_head["library_why_null"],
+        "shape": {"mode": "fm", "B": k2_head["B"], "K": K, "D": D,
+                  "keys": "the training main path's first batch", "wire": "compact"},
+        "per_shape": k2_main + train_timings["k2"],
+    }, {
+        "name": "optim_update",
+        "route": "cuda",
+        "source": "xflow_tpu_torch/csrc/optim.cu",
+        "replaces": K3_REPLACES,
+        "launches": train_path["launches"]["optim_update"],
+        "max_abs_err": k3_check["max_abs_err"],
+        "max_err_over_tol": k3_check["max_err_over_tol"],
+        "ms": k3_head["ms"],
+        "host_path_ms": k3_head["host_path_ms"],
+        "plain_ms": k3_head["plain_ms"],
+        "bound_ms": k3_head["bound_ms"],
+        "bound_by": k3_head["bound_by"],
+        "library_ms": None,
+        "library_why_null": k3_head["library_why_null"],
+        "shape": {"optimizer": "ftrl", "T": 1 << T_LOG2, "D": D,
+                  "tables": "the training main path's trained v"},
+        "per_shape": k3_main + train_timings["k3"],
     }]
     log(json.dumps({"kernels": kernels}))
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -79,7 +79,10 @@ def test_import_leaves_out_jax_and_reference_package():
         "import xflow_tpu_torch\n"
         "import xflow_tpu_torch.convert, xflow_tpu_torch.serve.engine\n"
         "import xflow_tpu_torch.serve.batcher, xflow_tpu_torch.serve.__main__\n"
-        "import xflow_tpu_torch.ops.build, xflow_tpu_torch.io.loader\n"
+        "import xflow_tpu_torch.ops.build, xflow_tpu_torch.io.loader, xflow_tpu_torch.io.synth\n"
+        "import xflow_tpu_torch.trainer, xflow_tpu_torch.train\n"
+        "import xflow_tpu_torch.optim, xflow_tpu_torch.ops.train\n"
+        "import xflow_tpu_torch.ops.optim, xflow_tpu_torch.utils.logging\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'xflow_tpu')]\n"
         "assert not bad, bad\n"

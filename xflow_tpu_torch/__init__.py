@@ -6,10 +6,14 @@ here has its counterpart at the same path there.  It imports ``torch``
 and nothing of the reference package: host code it needs is copied, and
 the tests hold each copy against its original.
 
-This slice serves LR and FM from exported artifacts
-(serve/engine.py::PredictEngine).  Its device work is one hand-written
-CUDA kernel, ops/score.py + csrc/score.cu.  Entry points run on the card
-unless the caller passes ``device="cpu"`` (device.py).
+It trains LR and FM with FTRL or SGD in dense mode from libffm text
+(trainer.py::Trainer, ``python -m xflow_tpu_torch.train``) and serves
+them from exported artifacts (serve/engine.py::PredictEngine).  Its
+device work is three hand-written CUDA kernels: K1 scoring
+(ops/score.py), K2 the fused train step (ops/train.py) and K3 the
+optimizer pass (ops/optim.py), each over a source in csrc/.  Entry
+points run on the card unless the caller passes ``device="cpu"``
+(device.py).
 """
 
 from xflow_tpu_torch.config import Config

@@ -1,10 +1,12 @@
-"""libffm text parsing — the pure-Python parser.
+"""libffm text parsing with block streaming — the pure-Python parser.
 
-A copy of the reference's io/libffm.py ``parse_block``; the native
-parser and the block streaming reader come with ROADMAP A2.  Behaviour
-follows the reference's production loader
-(load_data_from_disk.cc:103-210):
+A copy of the reference's io/libffm.py (``BlockReader``,
+``parse_block``, ``parse_file``, ``open_block_stream``); the native
+parser comes with ROADMAP A2.  Behaviour follows the reference's
+production loader (load_data_from_disk.cc:103-210):
 
+* blocks of ~block_bytes carry the partial last line over to the next
+  read (:108-124);
 * a line is ``label<SEP>fgid:fid:val ...`` — whitespace-separated
   feature tokens after the label;
 * the label is binarized ``y > 1e-7 → 1`` (:131-134);
@@ -19,12 +21,42 @@ Malformed tokens are skipped rather than undefined behaviour.
 
 from __future__ import annotations
 
+import io as _stdio
+from typing import BinaryIO, Iterator
+
 import numpy as np
 
 from xflow_tpu_torch.io.batch import ParsedBlock
 from xflow_tpu_torch.io.hashing import murmur64_batch
 
 LABEL_THRESHOLD = 1e-7  # reference: load_data_from_disk.cc:131-134
+
+
+class BlockReader:
+    """Streams a binary file in ~block_bytes chunks of whole lines,
+    carrying the partial last line between reads (reference
+    load_data_from_disk.cc:108-124)."""
+
+    def __init__(self, f: BinaryIO, block_bytes: int):
+        self._f = f
+        self._block_bytes = max(int(block_bytes), 1)
+        self._carry = b""
+
+    def __iter__(self) -> Iterator[bytes]:
+        while True:
+            chunk = self._f.read(self._block_bytes)
+            if not chunk:
+                if self._carry:
+                    carry, self._carry = self._carry, b""
+                    yield carry
+                return
+            buf = self._carry + chunk
+            cut = buf.rfind(b"\n")
+            if cut == -1:
+                self._carry = buf
+                continue
+            self._carry = buf[cut + 1 :]
+            yield buf[: cut + 1]
 
 
 def parse_block(
@@ -111,3 +143,20 @@ def parse_block(
         slots=np.asarray(slots, dtype=np.int32),
         vals=np.asarray(vals, dtype=np.float32),
     )
+
+
+def parse_file(
+    path: str, table_size: int, hash_mode: bool = True, hash_seed: int = 0
+) -> ParsedBlock:
+    """Parse an entire file at once (reference ``load_all_*`` loaders,
+    load_data_from_disk.cc:11-33,59-79)."""
+    with open(path, "rb") as f:
+        return parse_block(f.read(), table_size, hash_mode, hash_seed)
+
+
+def open_block_stream(path: str, block_mib: int) -> BlockReader:
+    """A BlockReader over ``path`` in ``block_mib`` MiB blocks: a
+    bare-stream helper for tools and tests (ShardLoader opens its
+    own)."""
+    f: BinaryIO = open(path, "rb", buffering=_stdio.DEFAULT_BUFFER_SIZE)
+    return BlockReader(f, block_mib << 20)

@@ -1,11 +1,12 @@
-"""2-way Factorization Machine, forward (reference:
-src/model/fm/fm_worker.{h,cc}).
+"""2-way Factorization Machine (reference: src/model/fm/fm_worker.{h,cc}).
 
     logit = sum_i w_i x_i + sum_d [ (sum_i v_id x_i)^2 - sum_i v_id^2 x_i^2 ]
 
 The standard FM ½ factor on the interaction term is **absent** in the
 reference forward (fm_worker.cc:82,86) and is absent here too.  The
-reference's backward is the ½-scaled form; it comes with training.
+backward (fm_worker.cc:140-142) is the gradient of the *½-scaled*
+forward: grad_w_i = x_i, grad_v_id = (sum_j v_jd x_j - v_id x_i) * x_i.
+That mismatch is reference semantics, reproduced exactly.
 """
 
 from __future__ import annotations
@@ -42,3 +43,13 @@ class FMModel:
         sum_vx, sum_vx2 = fm_pair_pieces(rows["v"], x)
         # No ½ factor: fm_worker.cc:82,86.
         return linear + torch.sum(sum_vx * sum_vx - sum_vx2, dim=-1)
+
+    def grad_logit(
+        self, rows: dict[str, torch.Tensor], batch: BatchArrays
+    ) -> dict[str, torch.Tensor]:
+        x = masked_x(batch)  # [B, K]
+        sum_vx, _ = fm_pair_pieces(rows["v"], x)
+        vx = rows["v"] * x[..., None]
+        # (sum_vx - v_id x_i) * x_i — fm_worker.cc:140-142 (½-scaled form).
+        grad_v = (sum_vx[:, None, :] - vx) * x[..., None]
+        return {"w": x[..., None], "v": grad_v}

@@ -1,8 +1,9 @@
-"""Sparse logistic regression, forward (reference:
-src/model/lr/lr_worker.{h,cc}).
+"""Sparse logistic regression (reference: src/model/lr/lr_worker.{h,cc}).
 
 wx[b] = sum of the gathered w entries times the feature values
-(lr_worker.cc:121-143; the value is 1.0 in hash mode).
+(lr_worker.cc:121-143; the value is 1.0 in hash mode).  Gradient:
+d wx / d w_i = x_i; the train step scales it by
+(sigma(wx) - y) * weight / num_real (lr_worker.cc:100-119).
 """
 
 from __future__ import annotations
@@ -25,3 +26,9 @@ class LRModel:
 
     def logit(self, rows: dict[str, torch.Tensor], batch: BatchArrays) -> torch.Tensor:
         return linear_term(rows["w"], masked_x(batch))
+
+    def grad_logit(
+        self, rows: dict[str, torch.Tensor], batch: BatchArrays
+    ) -> dict[str, torch.Tensor]:
+        x = masked_x(batch)
+        return {"w": x[..., None]}

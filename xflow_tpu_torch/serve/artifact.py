@@ -11,9 +11,9 @@ An artifact is a directory:
   config JSON plus its digest (config.Config.digest), array metadata,
   and the train-step counter.
 
-Either package loads what the other writes.  Exporting from a trainer
-comes with training (ROADMAP A3); :func:`write_artifact` writes the
-same files from numpy tables.
+Either package loads what the other writes.  :func:`export_artifact`
+freezes a trainer's model; :func:`write_artifact` writes the same files
+from numpy tables.
 """
 
 from __future__ import annotations
@@ -104,6 +104,18 @@ def write_artifact(
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     return directory
+
+
+def export_artifact(trainer, directory: str) -> str:
+    """Freeze ``trainer``'s model into a serving artifact at
+    ``directory`` (replaced atomically if it exists); returns the path.
+    One host: the tables are fetched from the device once each."""
+    from xflow_tpu_torch.convert import state_to_numpy
+
+    return write_artifact(
+        directory, trainer.cfg, state_to_numpy(trainer.state),
+        step=trainer.state["step"],
+    )
 
 
 def load_manifest(directory: str) -> dict:

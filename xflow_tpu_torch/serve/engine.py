@@ -34,9 +34,12 @@ import torch
 from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.device import resolve_device
 from xflow_tpu_torch.io.batch import Batch, pad_batch_rows
-from xflow_tpu_torch.models import PORTED, make_model
-from xflow_tpu_torch.ops.score import MAX_DIM
-from xflow_tpu_torch.parallel.step import PredictStep, validate_compact_batch
+from xflow_tpu_torch.models import make_model
+from xflow_tpu_torch.parallel.step import (
+    PredictStep,
+    check_servable,
+    validate_compact_batch,
+)
 
 DEFAULT_BUCKETS = (1, 8, 64, 512)
 
@@ -50,27 +53,6 @@ def _slice_rows(batch: Batch, start: int, stop: int) -> Batch:
         labels=batch.labels[start:stop],
         weights=batch.weights[start:stop],
     )
-
-
-def check_servable(cfg: Config) -> None:
-    """Refuse a configuration this port cannot serve yet, naming the
-    ROADMAP item that brings it."""
-    if cfg.hot_size_log2 > 0:
-        raise NotImplementedError(
-            f"hot_size_log2={cfg.hot_size_log2}: the hot table (its remap "
-            "and hot gather) is not ported yet (ROADMAP A8 / B7)"
-        )
-    if cfg.store_mode == "tiered":
-        raise NotImplementedError(
-            "store_mode='tiered' is not ported yet (ROADMAP A11)"
-        )
-    if cfg.model not in PORTED:
-        make_model(cfg)  # raises NotImplementedError naming the item
-    if cfg.model == "fm" and cfg.v_dim > MAX_DIM:
-        raise NotImplementedError(
-            f"v_dim={cfg.v_dim} exceeds the scoring kernel's register "
-            f"capacity {MAX_DIM} (csrc/score.cu kMaxDim)"
-        )
 
 
 class PredictEngine:

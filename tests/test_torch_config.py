@@ -110,3 +110,38 @@ def test_sources_name_no_jax_or_reference_module():
                     hits.append(f"{path}:{n}: {line.strip()}")
     assert len(paths) > 20
     assert not hits, "\n".join(hits)
+
+
+@pytest.mark.parametrize("kw", [
+    {"update_mode": "sparse"},
+    {"microbatch": 4, "batch_size": 64},
+    {"cold_consolidate": True},
+    {"cold_consolidate": True, "microbatch": 4, "batch_size": 64},
+    {"update_mode": "sequential", "microbatch": 4, "batch_size": 64},
+    {"update_mode": "sequential", "microbatch": 128, "batch_size": 65536,
+     "sequential_inner": "sparse"},
+    {"update_mode": "sequential", "sequential_inner": "sparse"},
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+@pytest.mark.parametrize("model", ["lr", "fm"])
+def test_check_trainable_accepts_update_modes(model, kw):
+    from xflow_tpu_torch.parallel.step import check_trainable, uses_grad_buffer
+
+    cfg = Config(model=model, **kw)
+    check_trainable(cfg)
+    sparse = kw.get("update_mode") == "sparse" or kw.get("sequential_inner") == "sparse"
+    assert uses_grad_buffer(cfg) == (not sparse)
+
+
+@pytest.mark.parametrize("kw, item", [
+    ({"hot_size_log2": 8, "hot_nnz": 8}, "A8b"),
+    ({"hot_size_log2": 8, "update_mode": "sequential", "microbatch": 4,
+      "batch_size": 64, "sequential_inner": "hot"}, "A8b"),
+    ({"hot_size_log2": 8, "cold_consolidate": True}, "A8b"),
+    ({"wire_dedup": "on"}, "A5"),
+    ({"wire_dedup": "on", "update_mode": "sparse"}, "A5"),
+])
+def test_check_trainable_refuses_hot_table_and_dict_wire(kw, item):
+    from xflow_tpu_torch.parallel.step import check_trainable
+
+    with pytest.raises(NotImplementedError, match=item):
+        check_trainable(Config(model="fm", **kw))

@@ -106,7 +106,7 @@ def _run_plain(keys, x, w, v, labels, weights, num_real):
     t = lambda a: None if a is None else torch.tensor(a)  # noqa: E731
     g_w = torch.zeros(w.shape)
     g_v = torch.zeros(v.shape) if v is not None else None
-    acc = torch.zeros(2)
+    acc = torch.zeros(2, dtype=torch.float64)
     train_step(t(keys), t(x), t(labels), t(weights), num_real, t(w), t(v), g_w, g_v, acc)
     return g_w, g_v, acc
 
@@ -162,7 +162,7 @@ def test_train_wrapper_rejects_bad_inputs():
     t = torch.tensor
     args = dict(keys=t(keys), x=None, labels=t(labels), weights=t(labels),
                 num_real=1.0, w=t(w), v=None, g_w=torch.zeros(w.shape), g_v=None,
-                acc=torch.zeros(2))
+                acc=torch.zeros(2, dtype=torch.float64))
     train_step(**args)
     for bad, match in (
         (dict(keys=t(keys.astype(np.int64))), "keys must be int32"),
@@ -183,7 +183,8 @@ def test_plain_is_the_cpu_path_and_counts_no_launch():
     before = train_step.launches
     got = _run_plain(keys, x, w, v, labels, weights, 16.0)
     assert train_step.launches == before
-    want_w, want_v, want_acc = torch.zeros(w.shape), torch.zeros(v.shape), torch.zeros(2)
+    want_w, want_v = torch.zeros(w.shape), torch.zeros(v.shape)
+    want_acc = torch.zeros(2, dtype=torch.float64)
     t = torch.tensor
     train_plain(t(keys), t(x), t(labels), t(weights), 16.0, t(w), t(v), want_w, want_v, want_acc)
     assert torch.equal(got[0], want_w) and torch.equal(got[1], want_v)
@@ -227,10 +228,13 @@ def test_put_batch_wires_and_num_real(toy_dataset):
 
 
 @pytest.mark.parametrize("kw, item", [
-    ({"update_mode": "sparse"}, "A8"),
-    ({"update_mode": "sequential", "microbatch": 2}, "A8"),
-    ({"microbatch": 2}, "A8"),
-    ({"cold_consolidate": True}, "A8"),
+    # the update modes train now (tests/test_torch_update_modes.py); the
+    # hot table is refused in each of them (ROADMAP A8b)
+    ({"update_mode": "sequential", "microbatch": 2, "hot_size_log2": 8,
+      "sequential_inner": "hot"}, "A8"),
+    ({"update_mode": "sequential", "microbatch": 2, "hot_size_log2": 8}, "A8"),
+    ({"microbatch": 2, "hot_size_log2": 8}, "A8"),
+    ({"cold_consolidate": True, "hot_size_log2": 8}, "A8"),
     ({"hot_size_log2": 8}, "A8"),
     ({"wire_dedup": "on"}, "A5"),
     ({"store_mode": "tiered", "hot_capacity_log2": 10}, "A11"),

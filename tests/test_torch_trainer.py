@@ -38,6 +38,17 @@ SCENARIOS = {
     "lr-ftrl": dict(model="lr", optimizer="ftrl"),
     "lr-sgd": dict(model="lr", optimizer="sgd", sgd_lr=0.05),
     "fm-ftrl": dict(model="fm", optimizer="ftrl"),
+    # the touched-rows update modes: per-key FTRL steps over the same
+    # batches, and 4 sequential slices per batch (4x the updates, each
+    # at its slice's num_real) — the same 1e-4 holds
+    "lr-ftrl-sparse": dict(model="lr", optimizer="ftrl", update_mode="sparse"),
+    "fm-ftrl-sparse": dict(model="fm", optimizer="ftrl", update_mode="sparse"),
+    "lr-sgd-seq-sparse": dict(model="lr", optimizer="sgd", sgd_lr=0.05,
+                              update_mode="sequential", microbatch=4,
+                              sequential_inner="sparse"),
+    "fm-ftrl-seq-sparse": dict(model="fm", optimizer="ftrl",
+                               update_mode="sequential", microbatch=4,
+                               sequential_inner="sparse"),
 }
 
 
@@ -84,6 +95,9 @@ def test_trainer_tracks_reference(toy_dataset, reference_runs, tmp_path, scenari
         result = trainer.evaluate()
     assert len(history) == len(ref_history) == cfg.epochs
     for ours, ref in zip(history, ref_history):
+        # every field of the reference's row but the staging ring's
+        # occupancy (A10), in every update mode
+        assert set(ref) - {"transfer_ahead_depth_mean"} <= set(ours)
         assert ours["steps"] == ref["steps"] and ours["examples"] == ref["examples"]
         assert abs(ours["train_logloss"] - ref["train_logloss"]) < TRACK, (ours, ref)
     assert history[-1]["train_logloss"] < history[0]["train_logloss"]
@@ -175,8 +189,10 @@ def test_cli_trains_on_cpu_and_refuses_without_card(toy_dataset, tmp_path, capsy
     assert "A6" in capsys.readouterr().err
     assert cli_main(argv + ["--device", "cpu", "--checkpoint-dir", str(tmp_path)]) == 2
     assert "A6" in capsys.readouterr().err
-    assert cli_main(argv + ["--device", "cpu", "--update-mode", "sparse"]) == 2
-    assert "A8" in capsys.readouterr().err
+    assert cli_main(argv + ["--device", "cpu", "--hot-size-log2", "8"]) == 2
+    assert "A8b" in capsys.readouterr().err
+    assert cli_main(argv + ["--device", "cpu", "--update-mode", "sparse"]) == 0
+    assert "\tauc = " in capsys.readouterr().err
     if not torch.cuda.is_available():
         assert cli_main(argv) == 1
         assert "torch.cuda.is_available() is false" in capsys.readouterr().err

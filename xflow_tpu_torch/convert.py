@@ -7,7 +7,9 @@ port's state holds the same arrays as tensors on its device; these two
 functions carry them across as numpy, so a JAX ``TrainStep`` state
 becomes the port's state and back.  The port's gradient buffer ``g``
 has no counterpart in the reference and never crosses: a train state
-coming in gets it zeroed, and a state going out leaves it behind.
+coming in gets it zeroed where its update mode uses one (every mode but
+the sparse update, ``parallel/step.py::uses_grad_buffer``), and a state
+going out leaves it behind.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.models import make_model
+from xflow_tpu_torch.parallel.step import uses_grad_buffer
 
 
 def state_from_numpy(
@@ -30,8 +33,9 @@ def state_from_numpy(
     """The port's state from numpy tables, one per table of ``cfg``'s
     model: each value is a float32 [T, dim] param array, or a dict of
     them (``{"param", "n", "z"}`` from a reference train state).  A
-    table given as a dict is a train state's: it also gets the port's
-    zeroed gradient buffer ``g``, which ``TrainStep.train`` needs.
+    table given as a dict is a train state's: where ``cfg``'s update
+    mode keeps one, it also gets the port's zeroed gradient buffer
+    ``g``, which ``TrainStep.train`` needs.
     Refuses a missing, extra or misshapen table.  The tensors are copies
     (``device="cpu"`` included), so the caller's arrays are never
     aliased."""
@@ -58,7 +62,7 @@ def state_from_numpy(
                     f"got {arr.dtype} {arr.shape}"
                 )
             out[spec.name][key] = torch.tensor(arr, device=device)
-        if isinstance(tables[spec.name], dict):
+        if isinstance(tables[spec.name], dict) and uses_grad_buffer(cfg):
             out[spec.name]["g"] = torch.zeros(shape, device=device)
     return {"tables": out, "dense": {}, "step": int(step)}
 

@@ -34,37 +34,19 @@
 // is 16-byte aligned and T*D is a multiple of 4; anything else is
 // refused (cudaErrorInvalidValue), never run on a slower path.  The
 // grid is a few blocks per SM, enough to keep loads in flight.
-// Numerics: built without --use_fast_math, so sqrtf and the
-// divisions are IEEE-rounded; nvcc's default FMA contraction turns
-// n + g*g into fma(g, g, n), as jitted XLA does (ROADMAP parity bar).
+// Numerics: the recurrence is ftrl_one in ftrl.cuh, shared with K5
+// (sparse.cu), so the dense and the touched-rows updates cannot drift.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "ftrl.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
-
-struct FtrlParams {
-  float alpha, beta, l1, l2;
-};
-
-__device__ __forceinline__ void ftrl_one(float& w, float& n, float& z,
-                                         float g, const FtrlParams p) {
-  const float n_new = n + g * g;
-  const float sigma = (sqrtf(n_new) - sqrtf(n)) / p.alpha;
-  const float z_new = z + g - sigma * w;
-  const float sgn = z_new > 0.0f ? 1.0f : (z_new < 0.0f ? -1.0f : 0.0f);
-  const float shrink =
-      (sgn * p.l1 - z_new) / ((p.beta + sqrtf(n_new)) / p.alpha + p.l2);
-  float w_new = fabsf(z_new) <= p.l1 ? 0.0f : shrink;
-  if (n_new == 0.0f) w_new = w;
-  w = w_new;
-  n = n_new;
-  z = z_new;
-}
 
 __global__ void __launch_bounds__(kThreads)
 ftrl_vec_kernel(float4* __restrict__ w, float4* __restrict__ n,

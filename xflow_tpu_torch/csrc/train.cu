@@ -25,7 +25,22 @@
 // weights [B], u8 (compact wire) or f32 (full wire); num_real =
 // max(sum(weights), 1), computed on the host; w f32 [T, 1], v f32 [T, D]
 // or null (LR).  Outputs, accumulated: g_w [T, 1], g_v [T, D] (+= the
-// scattered gradients), acc f32 [2] (+= log-loss sum, weight sum).
+// scattered gradients), acc f64 [2] (+= log-loss sum, weight sum).
+// acc is double because a launch lands one partial per block (about a
+// thousand) in it, and every launch of a step (up to `microbatch` of
+// them) adds into the same acc: a float32 running sum drifts by parts
+// in 1e5, and at initialisation, where every example has the same
+// loss, the rounding of the equal addends adds up.
+//
+// Index mode (slots not null; the sparse update modes, B5's
+// consolidate_apply): slots i32 [B, K] is K4's
+// slot plane (csrc/sparse.cu), and occurrence (b, k)'s gradient is added
+// into row slots[b, k] of g_w [M, 1] and g_v [M, D] — the per-unique-key
+// sums K5 then applies — instead of row key.  The forward, residual and
+// log-loss are unchanged.  The atomics stay per occurrence (a hot row
+// still serialises); the slot plane adds 4 B per slot read, and the
+// gradient rows land in a compact [U, D] block instead of U rows
+// scattered over [T, D].
 //
 // Bound.  Per live slot the kernel reads its key (and x), its w entry
 // and its D-float v row, and read-modify-writes g_w[key] and the D
@@ -91,8 +106,9 @@ __global__ void __launch_bounds__(kThreads)
 train_kernel(const int* __restrict__ keys, const float* __restrict__ x,
              const LW* __restrict__ labels, const LW* __restrict__ weights,
              float num_real, const float* __restrict__ w,
-             const float* __restrict__ v, float* __restrict__ gw,
-             float* __restrict__ gv, float* __restrict__ acc, int B, int K,
+             const float* __restrict__ v, const int* __restrict__ slots,
+             float* __restrict__ gw,
+             float* __restrict__ gv, double* __restrict__ acc, int B, int K,
              int D) {
   __shared__ float part_ll[kWarpsPerBlock];
   __shared__ float part_w[kWarpsPerBlock];
@@ -108,6 +124,7 @@ train_kernel(const int* __restrict__ keys, const float* __restrict__ x,
        b < B; b += warps_total) {
     const long long row = b * K;
     const int* krow = keys + row;
+    const int* srow = slots != nullptr ? slots + row : nullptr;
     const float* xrow = x != nullptr ? x + row : nullptr;
 
     float lin = 0.0f;
@@ -157,15 +174,17 @@ train_kernel(const int* __restrict__ keys, const float* __restrict__ x,
       const int key = krow[k];
       if (key < 0) continue;
       const float xv = xrow != nullptr ? xrow[k] : 1.0f;
-      atomicAdd(gw + key, xv * r);
+      const long long dst = srow != nullptr ? srow[k] : key;
+      if (dst < 0) continue;  // a key K4 took for padding (>= T)
+      atomicAdd(gw + dst, xv * r);
       if (CAP > 0) {
-        const long long base = static_cast<long long>(key) * D;
-        const float* vrow = v + base;
+        const float* vrow = v + static_cast<long long>(key) * D;
+        float* grow = gv + dst * D;
 #pragma unroll
         for (int d = 0; d < CAP; ++d) {
           if (d < D) {
             const float vx = vrow[d] * xv;
-            atomicAdd(gv + base + d, (s[d] - vx) * xv * r);
+            atomicAdd(grow + d, (s[d] - vx) * xv * r);
           }
         }
       }
@@ -191,8 +210,8 @@ train_kernel(const int* __restrict__ keys, const float* __restrict__ x,
       ll += part_ll[i];
       wsum += part_w[i];
     }
-    atomicAdd(acc, ll);
-    atomicAdd(acc + 1, wsum);
+    atomicAdd(acc, static_cast<double>(ll));
+    atomicAdd(acc + 1, static_cast<double>(wsum));
   }
 }
 
@@ -209,30 +228,31 @@ int grid_for(int B) {
 template <int CAP, typename LW>
 void launch(const int* keys, const float* x, const void* labels,
             const void* weights, float num_real, const float* w,
-            const float* v, float* gw, float* gv, float* acc, int B, int K,
-            int D, cudaStream_t stream) {
+            const float* v, const int* slots, float* gw, float* gv,
+            double* acc, int B, int K, int D, cudaStream_t stream) {
   train_kernel<CAP, LW><<<grid_for(B), kThreads, 0, stream>>>(
       keys, x, static_cast<const LW*>(labels),
-      static_cast<const LW*>(weights), num_real, w, v, gw, gv, acc, B, K, D);
+      static_cast<const LW*>(weights), num_real, w, v, slots, gw, gv, acc, B,
+      K, D);
 }
 
 template <typename LW>
 int dispatch(const int* keys, const float* x, const void* labels,
              const void* weights, float num_real, const float* w,
-             const float* v, float* gw, float* gv, float* acc, int B, int K,
-             int D, cudaStream_t s) {
+             const float* v, const int* slots, float* gw, float* gv,
+             double* acc, int B, int K, int D, cudaStream_t s) {
   if (v == nullptr || D == 0) {
-    launch<0, LW>(keys, x, labels, weights, num_real, w, nullptr, gw, nullptr,
-                  acc, B, K, 0, s);
+    launch<0, LW>(keys, x, labels, weights, num_real, w, nullptr, slots, gw,
+                  nullptr, acc, B, K, 0, s);
   } else if (D <= 8) {
-    launch<8, LW>(keys, x, labels, weights, num_real, w, v, gw, gv, acc, B, K,
-                  D, s);
+    launch<8, LW>(keys, x, labels, weights, num_real, w, v, slots, gw, gv,
+                  acc, B, K, D, s);
   } else if (D <= 16) {
-    launch<16, LW>(keys, x, labels, weights, num_real, w, v, gw, gv, acc, B,
-                   K, D, s);
+    launch<16, LW>(keys, x, labels, weights, num_real, w, v, slots, gw, gv,
+                   acc, B, K, D, s);
   } else if (D <= kMaxDim) {
-    launch<kMaxDim, LW>(keys, x, labels, weights, num_real, w, v, gw, gv, acc,
-                        B, K, D, s);
+    launch<kMaxDim, LW>(keys, x, labels, weights, num_real, w, v, slots, gw,
+                        gv, acc, B, K, D, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -244,19 +264,21 @@ int dispatch(const int* keys, const float* x, const void* labels,
 extern "C" int xf_train_max_dim() { return kMaxDim; }
 
 // Launches K2 on `stream`; labels/weights are u8 when lw_u8 != 0, else
-// f32.  Returns cudaGetLastError() after the launch (0 = launched), or
+// f32; `slots` null is the dense mode, else the index mode (header).
+// Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a D it has no variant for.
 extern "C" int xf_train_step(const int* keys, const float* x,
                              const void* labels, const void* weights,
                              int lw_u8, float num_real, const float* w,
-                             const float* v, float* gw, float* gv, float* acc,
-                             int B, int K, int D, void* stream) {
+                             const float* v, const int* slots, float* gw,
+                             float* gv, double* acc, int B, int K, int D,
+                             void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lw_u8 != 0) {
     return dispatch<std::uint8_t>(keys, x, labels, weights, num_real, w, v,
-                                  gw, gv, acc, B, K, D, s);
+                                  slots, gw, gv, acc, B, K, D, s);
   }
-  return dispatch<float>(keys, x, labels, weights, num_real, w, v, gw, gv,
-                         acc, B, K, D, s);
+  return dispatch<float>(keys, x, labels, weights, num_real, w, v, slots, gw,
+                         gv, acc, B, K, D, s);
 }

@@ -53,9 +53,11 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: keyed by the hash of the
-    source and the flags."""
+    source, the shared headers (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha256()
     h.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -4,10 +4,17 @@
 runs one dense-mode forward/backward for LR (``v`` None) or FM over
 sentinel-coded keys [B, K] and ACCUMULATES into its outputs: the
 residual-scaled per-occurrence gradients are scatter-added into ``g_w``
-[T, 1] and ``g_v`` [T, D], and ``acc`` [2] gains the batch's log-loss
-sum and weight sum.  ``x`` None means x = 1 on live slots (the compact
+[T, 1] and ``g_v`` [T, D], and ``acc`` float64 [2] (csrc/train.cu says
+why) gains the batch's log-loss sum and weight sum.  ``x`` None means x = 1 on live slots (the compact
 wire); ``labels``/``weights`` are uint8 (compact wire) or float32 (full
 wire); ``num_real`` is the host float max(sum(weights), 1).
+
+Index mode (``slots`` given, the sparse update modes): ``slots`` int32 [B, K] is K4's slot plane
+(ops/sparse.py ``consolidate_keys``), -1 on padding, and occurrence
+(b, k)'s gradient lands in row ``slots[b, k]`` of ``g_w`` [M, 1] and
+``g_v`` [M, D] (M >= B*K, the per-unique-key sums) instead of row
+``keys[b, k]`` of a [T, D] buffer.  The forward, residual and log-loss
+are the same.
 
 On CUDA tensors it launches the hand-written kernel in csrc/train.cu
 (which names the JAX regions it replaces and states its bound); on CPU
@@ -46,7 +53,7 @@ def _lib() -> ctypes.CDLL:
         lib = load_library("train")
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.xf_train_step.argtypes = [
-            vp, vp, vp, vp, ci, cf, vp, vp, vp, vp, vp, ci, ci, ci, vp,
+            vp, vp, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp,
         ]
         lib.xf_train_step.restype = ci
         lib.xf_train_max_dim.argtypes = []
@@ -60,7 +67,7 @@ def _lib() -> ctypes.CDLL:
     return _bound
 
 
-def _check(keys, x, labels, weights, w, v, g_w, g_v, acc) -> None:
+def _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots) -> None:
     if keys.dtype != torch.int32 or keys.dim() != 2:
         raise ValueError(f"keys must be int32 [B, K], got {keys.dtype} {tuple(keys.shape)}")
     b = keys.shape[0]
@@ -76,12 +83,25 @@ def _check(keys, x, labels, weights, w, v, g_w, g_v, acc) -> None:
             f"{labels.dtype} {tuple(labels.shape)} / {weights.dtype} "
             f"{tuple(weights.shape)}"
         )
-    if g_w.shape != w.shape or g_w.dtype != torch.float32:
-        raise ValueError(f"g_w must be float32 {tuple(w.shape)}")
-    if acc.shape != (2,) or acc.dtype != torch.float32:
-        raise ValueError("acc must be float32 [2]")
+    # the gradient buffers' rows: T (dense mode) or the slots' M >= B*K
+    rows = w.shape[0] if slots is None else max(keys.numel(), 1)
+    if (g_w.dtype != torch.float32 or g_w.dim() != 2 or g_w.shape[1] != 1
+            or (g_w.shape[0] != rows if slots is None else g_w.shape[0] < rows)):
+        raise ValueError(
+            f"g_w must be float32 [{rows}, 1] (dense) or [>= B*K, 1] (index "
+            f"mode), got {g_w.dtype} {tuple(g_w.shape)}"
+        )
+    if acc.shape != (2,) or acc.dtype != torch.float64:
+        raise ValueError("acc must be float64 [2]")
     tensors = [("keys", keys), ("labels", labels), ("weights", weights),
                ("w", w), ("g_w", g_w), ("acc", acc)]
+    if slots is not None:
+        if slots.dtype != torch.int32 or slots.shape != keys.shape:
+            raise ValueError(
+                f"slots must be int32 {tuple(keys.shape)}, got {slots.dtype} "
+                f"{tuple(slots.shape)}"
+            )
+        tensors.append(("slots", slots))
     if x is not None:
         if x.dtype != torch.float32 or x.shape != keys.shape:
             raise ValueError(
@@ -97,8 +117,11 @@ def _check(keys, x, labels, weights, w, v, g_w, g_v, acc) -> None:
             )
         if not 1 <= v.shape[1] <= MAX_DIM:
             raise ValueError(f"v width {v.shape[1]} outside [1, {MAX_DIM}]")
-        if g_v.shape != v.shape or g_v.dtype != torch.float32:
-            raise ValueError(f"g_v must be float32 {tuple(v.shape)}")
+        if g_v.dtype != torch.float32 or g_v.shape != (g_w.shape[0], v.shape[1]):
+            raise ValueError(
+                f"g_v must be float32 {(g_w.shape[0], v.shape[1])}, got "
+                f"{g_v.dtype} {tuple(g_v.shape)}"
+            )
         tensors += [("v", v), ("g_v", g_v)]
     for name, t in tensors:
         if t.device != keys.device:
@@ -107,12 +130,14 @@ def _check(keys, x, labels, weights, w, v, g_w, g_v, acc) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc) -> None:
+def train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
+                slots=None) -> None:
     """K2's plain PyTorch version, step for step the reference's dense
     ``_train_impl`` up to the optimizer: decode the wire (padding key -1
     → mask 0, key 0), gather rows (padding reads row 0 and is masked
     out), the model's logit and explicit gradient, the residual, the
-    scatter-add of live occurrences, and the log-loss sum."""
+    scatter-add of live occurrences (at ``slots`` in index mode), and
+    the log-loss sum."""
     mask = (keys >= 0).to(torch.float32)
     batch = {
         "keys": torch.clamp(keys, min=0).long(),
@@ -132,7 +157,8 @@ def train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc) -> None
     # exactly +-0 and adding them at the clamped row 0 leaves every
     # value as dropping would — without the host sync that selecting
     # the live occurrences would cost.
-    flat_keys = batch["keys"].reshape(-1)
+    dst = batch["keys"] if slots is None else torch.clamp(slots, min=0).long()
+    flat_keys = dst.reshape(-1)
     gbufs = {"w": g_w, "v": g_v}
     for name, g in model.grad_logit(rows, batch).items():
         occ = g * residual[:, None, None]
@@ -141,13 +167,16 @@ def train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc) -> None
     acc[1] += torch.sum(batch["weights"])
 
 
-def train_step(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc) -> None:
-    """Accumulate one batch's gradients into ``g_w``/``g_v`` and its
-    log-loss and weight sums into ``acc``.  CPU tensors take the plain
-    version; CUDA tensors launch K2."""
-    _check(keys, x, labels, weights, w, v, g_w, g_v, acc)
+def train_step(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
+               slots=None) -> None:
+    """Accumulate one batch's gradients into ``g_w``/``g_v`` (at the
+    keys' rows, or at ``slots``' rows in index mode) and its log-loss
+    and weight sums into ``acc``.  CPU tensors take the plain version;
+    CUDA tensors launch K2."""
+    _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots)
     if keys.device.type == "cpu":
-        train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc)
+        train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
+                    slots)
         return
     if keys.device.type != "cuda":
         raise ValueError(f"train_step: unsupported device {keys.device}")
@@ -163,6 +192,7 @@ def train_step(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc) -> None:
             float(num_real),
             w.data_ptr(),
             v.data_ptr() if v is not None else None,
+            slots.data_ptr() if slots is not None else None,
             g_w.data_ptr(),
             g_v.data_ptr() if g_v is not None else None,
             acc.data_ptr(),

@@ -62,15 +62,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--block-mib", type=int, dest="block_mib")
     p.add_argument(
         "--microbatch", type=int, dest="microbatch",
-        help="gradient-accumulation slices per step (1 = off): same "
-        "optimizer step at 1/N the batch-shaped memory",
+        help="slices per step (1 = off): in sequential mode each slice "
+        "is an optimizer step; in dense mode the reference's gradient "
+        "accumulation, which here trains as the whole batch (the same "
+        "step: the fused kernel builds no batch-shaped intermediates)",
     )
     p.add_argument(
         "--update-mode", dest="update_mode",
         choices=["dense", "sparse", "sequential"],
-        help="dense: scatter-add + full-table optimizer pass (TPU-fast); "
-        "sparse: sort/consolidate + touched-rows-only update (small "
-        "batches, CPU); sequential: optimizer applies per --microbatch "
+        help="dense: gradient scatter-add + full-table optimizer pass; "
+        "sparse: per-key consolidation + touched-rows-only update (no "
+        "[T, D] gradient buffer); sequential: optimizer applies per --microbatch "
         "slice inside the dispatched step, so the effective optimizer "
         "batch is batch-size/microbatch (small-batch convergence at "
         "device dispatch rates)",
@@ -116,9 +118,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--cold-consolidate", action="store_true", default=None,
         dest="cold_consolidate",
-        help="merge duplicate cold keys (shared argsort + segment-sum) "
-        "before the dense-mode scatter-add — pays off for D>1 models "
-        "on zipf batches (docs/PERF.md)",
+        help="the reference's merge of duplicate keys before the "
+        "dense-mode scatter-add; accepted, and trains as dense mode "
+        "(the same update: the fused kernel's scatter needs no merge)",
     )
     p.add_argument(
         "--store-mode", choices=["dense", "tiered"], dest="store_mode",

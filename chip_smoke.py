@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the exit code is 1:
 
 1. identify the card (``nvidia-smi`` name and power limit) and build
    every kernel of the package from ``xflow_tpu_torch/csrc``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, and the native parser
+   (``xflow_tpu_torch/native``, ``g++``), all started together;
 2. hold K1 (ops/score.py, csrc/score.cu) against its plain PyTorch
    version on the card at the full-width tables (T=2^24, D=10), every
    serving bucket B in {1, 8, 64, 512} x K=40, LR and FM, compact wire
@@ -67,14 +68,17 @@ Phases, in order; any failure raises and the exit code is 1:
    fields, ids zipf(1.2) over 100,000 per field, a planted logistic
    signal; 2 train shards of 65,536 lines and a 16,384-line test
    shard); ``Trainer`` on the card at ``fm_nohot`` and ``lr_nohot``
-   (scripts/bench_models.py geometry, T=2^24, batch 65,536) for 2
-   epochs, ``evaluate`` (writing pred lines), ``export_artifact``,
+   (scripts/bench_models.py geometry, T=2^24, batch 65,536), with the
+   default input path (``native_parser=True``: the run header must say
+   ``parser: native``; ``wire_dedup="auto"``: the dictionary wire,
+   decoded on the card by K6), for 2 epochs, ``evaluate`` (writing pred lines), ``export_artifact``,
    ``PredictEngine.load`` on the card scoring the test lines as
    ``evaluate`` did (atol 1e-6 plus the 5e-7 rounding of the ``%.6f``
    pred lines); then the same run on ``device="cpu"`` from the same
    initial state (TRAIN_BOUNDS), and the eval AUC must lie between the
    planted signal's bars (AUC_Z).  Launch counts are zeroed just
-   before and read just after: K2 = steps, K3 = steps x tables.  After
+   before and read just after: K2 = steps, K3 = steps x tables, K6 =
+   steps + eval batches.  After
    the run, K2 is held against its plain version on the path's own
    batches and timed on them (and on the same batches with every
    repeated key made distinct), and K3 on the trained tables;
@@ -125,13 +129,30 @@ Phases, in order; any failure raises and the exit code is 1:
 14. K4, K2's index mode and K5 timed on the sparse path's first batch,
    its first 512 rows and the sequential path's first slice (device ms
    behind ``_sleep``, plain ms, bounds, and ``torch.unique(...,
-   return_inverse=True)`` as K4's library call).
+   return_inverse=True)`` as K4's library call);
+15. hold K6 (ops/wire.py ``dict_decode``, csrc/wire.cu) against its
+   plain version on the card, exactly (integer decode), and against the
+   compact wire's planes of the same batch: the training main path's
+   two FM batches (B = 65,536, K = 40), 65,536 rows of padding, an empty
+   dictionary (65,536 rows of distinct keys), no tail (1,021 rows), u32
+   keys (T = 2^25); K6 timed on the main path's batches beside the
+   plain version, the byte bound and the host's compaction;
+16. the other input paths on the card from phase 8's initial state,
+   each shipping exactly phase 8's planes and held to its tables (and
+   step log-losses and eval) within TRAIN_BOUNDS: native text over the
+   compact wire (FM and LR), Python text over the compact wire (FM),
+   and packed-v2 shards converted by ``python -m
+   xflow_tpu_torch.io.packed`` (FM).  Phase 12 runs its sequential path
+   over the compact wire too (the planes exactly, the log-losses and
+   eval within TRAIN_BOUNDS, the tables reported).  Each path's
+   examples/s, ``input_stall``, ``put_batch`` ms per dispatch, wire
+   bytes per example and idle share go into the ``train`` line.
 
 Output: the card line, per-phase lines, a ``{"kernels": [...]}`` JSON
 line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
 ``launches`` is its main paths': K1's serving path (phases 3 and 4)
-plus the training paths' eval and engine batches (phases 8, 11, 12),
-K2-K5's training paths (phases 8 and 11-13, by path in
+plus the training paths' eval and engine batches (phases 8, 11, 12,
+16), K2-K6's training paths (phases 8, 11-13 and 16, by path in
 ``launches_by_path``); every count is set to 0 just before each path
 and read just after it.
 """
@@ -596,18 +617,20 @@ K3_REPLACES = (
 
 
 KERNEL_WRAPPERS = ("score", "train_step", "optim_update", "consolidate_keys",
-                   "touched_update")
+                   "touched_update", "dict_decode")
 
 
 def wrappers() -> dict:
-    """The kernels' wrappers by name, K1-K5."""
+    """The kernels' wrappers by name, K1-K6."""
     from xflow_tpu_torch.ops.optim import optim_update
     from xflow_tpu_torch.ops.score import score
     from xflow_tpu_torch.ops.sparse import consolidate_keys, touched_update
     from xflow_tpu_torch.ops.train import train_step
+    from xflow_tpu_torch.ops.wire import dict_decode
 
     return {"score": score, "train_step": train_step, "optim_update": optim_update,
-            "consolidate_keys": consolidate_keys, "touched_update": touched_update}
+            "consolidate_keys": consolidate_keys, "touched_update": touched_update,
+            "dict_decode": dict_decode}
 
 
 def zero_launches() -> None:
@@ -619,20 +642,30 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
+NATIVE = "native parser (g++)"
+
+
 def build_all() -> dict:
-    """Build every kernel source at once, one nvcc each; returns the
-    seconds per source and the wall time.  A failed build raises."""
+    """Build every kernel source and the native parser at once, one nvcc
+    (or g++) each; returns the seconds per source and the wall time.  A
+    failed build raises."""
     import threading
 
+    from xflow_tpu_torch.native.build import build_if_needed
     from xflow_tpu_torch.ops.build import CSRC_DIR, build
 
-    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu")) + [NATIVE]
     seconds: dict = {}
     errors: dict = {}
 
     def one(name):
         try:
-            seconds[name] = build(name)
+            if name == NATIVE:
+                t0 = time.perf_counter()
+                build_if_needed()
+                seconds[name] = time.perf_counter() - t0
+            else:
+                seconds[name] = build(name)
         except Exception as e:  # re-raised below, after every build ends
             errors[name] = e
 
@@ -1002,6 +1035,37 @@ def read_pred_lines(path: str) -> np.ndarray:
         return np.array([float(line.split("\t")[1]) for line in f], dtype=np.float64)
 
 
+def run_header(metrics_out: str) -> dict:
+    """The ``run_start`` row of a Trainer's metrics file."""
+    with open(metrics_out) as f:
+        return next(r for r in map(json.loads, f) if r["kind"] == "run_start")
+
+
+def wire_rows(metrics_out: str) -> list:
+    """The ``wire`` rows (one per epoch) of a Trainer's metrics file."""
+    keys = ("epoch", "format", "wire_bytes_per_example", "compaction_ratio")
+    with open(metrics_out) as f:
+        return [{k: r[k] for k in keys} for r in map(json.loads, f) if r["kind"] == "wire"]
+
+
+def host_planes(shipped: list) -> list:
+    """The compact-wire planes of shipped batches (K6's outputs on the
+    dictionary wire), copied to the host for exact comparisons."""
+    return [{k: a[k].cpu() for k in ("ckeys", "labels_u8", "weights_u8")}
+            for a in shipped]
+
+
+def planes_equal(what: str, got: list, want: list) -> None:
+    import torch
+
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} batches shipped, expected {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        for name in w:
+            if not torch.equal(g[name], w[name]):
+                raise AssertionError(f"{what}: batch {i} plane {name} differs")
+
+
 def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
     """Phase 8: Trainer on the card at lr_nohot and fm_nohot, evaluate,
     export, the engine on the artifact, and the same run on the CPU."""
@@ -1025,7 +1089,7 @@ def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
     launches = dict.fromkeys(KERNEL_WRAPPERS, 0)
     k2_worst = {"max_abs_err_g": 0.0, "max_err_over_tol": 0.0,
                 "max_abs_err_logloss_sum": 0.0}
-    inits, finals = {}, {}
+    inits, finals, planes = {}, {}, {}
     for model in ("fm", "lr"):
         cfg = train_config(model, t_log2, data, os.path.join(workdir, f"{model}.jsonl"))
         zero_launches()
@@ -1051,8 +1115,14 @@ def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
         tables = len(trainer.state["tables"])
         want_score = 1 + len(engine.buckets) + math.ceil(TEST_LINES / engine.buckets[-1])
         if (got["train_step"] != steps or got["optim_update"] != steps * tables
-                or got["consolidate_keys"] or got["touched_update"]):
+                or got["consolidate_keys"] or got["touched_update"]
+                or got["dict_decode"] != steps + math.ceil(TEST_LINES / cfg.batch_size)):
             raise AssertionError(f"{model}: {steps} steps x {tables} tables but launches {got}")
+        # the default input path: the native parser and the dictionary wire
+        header = run_header(cfg.metrics_out)
+        if header["parser"] != "native" or trainer.step.wire_format != "dict":
+            raise AssertionError(f"{model}: parser {header['parser']!r}, wire "
+                                 f"{trainer.step.wire_format!r}; want native and dict")
         if got["score"] != want_score:
             raise AssertionError(f"{model}: K1 launched {got['score']} times, "
                                  f"expected {want_score} (1 eval batch + engine)")
@@ -1091,6 +1161,7 @@ def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
         state_cmp = compare_states(trainer.state, cpu.state)
         kernels = main_path_kernels(model, trainer, shipped[:len(shipped) // TRAIN_EPOCHS],
                                     k2_worst)
+        planes[model] = host_planes(shipped[:len(shipped) // TRAIN_EPOCHS])
         rows.append({
             "model": model, "steps": steps, "tables": tables, "launches": got,
             "train_seconds": train_s,
@@ -1102,18 +1173,21 @@ def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
             "parse_mb_per_sec": [h.get("parse_mb_per_sec") for h in history],
             "train_logloss": [h["train_logloss"] for h in history],
             "cpu_train_logloss": [h["train_logloss"] for h in cpu_history],
+            "step_logloss": list(trainer.step_logloss),
             "eval": {k: result[k] for k in ("auc", "logloss", "examples")},
             "cpu_eval": {k: cpu_result[k] for k in ("auc", "logloss")},
             "auc_bars": bars,
             "bayes_gap_closed": (result["auc"] - 0.5) / (bars["bayes_auc"] - 0.5),
             **kernels,
             "engine_vs_eval_max_abs": pred_err,
+            "parser": header["parser"], "wire": wire_rows(cfg.metrics_out),
             **state_cmp,
         })
         del trainer, cpu, engine, init, shipped
         torch.cuda.empty_cache()
     return {"rows": rows, "launches": launches, "k2_check": k2_worst,
-            "data": data, "bars": bars, "inits": inits, "finals": finals}
+            "data": data, "bars": bars, "inits": inits, "finals": finals,
+            "planes": planes}
 
 
 def keep_shipped_batches(trainer) -> list:
@@ -1389,15 +1463,20 @@ def expected_launches(mode: dict, steps: int, tables: int, eval_batches: int) ->
     update (per slice in sequential mode, per batch otherwise: dense
     microbatch and cold_consolidate run the plain dense step); K4 with
     each K2 of the touched-rows form, K5 per table after it; K3 per
-    table per update of the dense form; K1 per eval batch."""
+    table per update of the dense form; K1 per eval batch; K6 per
+    dispatch and eval batch on the dictionary wire."""
     update = mode.get("update_mode", "dense")
     s = mode.get("microbatch", 1) if update == "sequential" else 1
     sparse = update == "sparse" or (update == "sequential"
                                     and mode.get("sequential_inner") == "sparse")
     plans = steps * s if sparse else 0
     passes = 0 if sparse else steps * s
+    # the dictionary wire (the default) decodes every shipped batch: K6
+    # per training dispatch and per eval batch
+    decodes = 0 if mode.get("wire_dedup") == "off" else steps + eval_batches
     return {"score": eval_batches, "train_step": steps * s, "optim_update": passes * tables,
-            "consolidate_keys": plans, "touched_update": plans * tables}
+            "consolidate_keys": plans, "touched_update": plans * tables,
+            "dict_decode": decodes}
 
 
 GUARD_SLEEP_CYCLES = 5 * SLEEP_CYCLES  # ~100 ms, 5x a sequential dispatch's host path
@@ -1490,6 +1569,10 @@ def run_mode(dev, model: str, t_log2: int, data: dict, init: dict, mode: dict,
                              math.ceil(TEST_LINES / cfg.batch_size) if evaluate else 0)
     if got != want:
         raise AssertionError(f"{model} {label}: launches {got}, expected {want}")
+    header = run_header(cfg.metrics_out)
+    if header["parser"] != "native" or trainer.step.wire_format != "dict":
+        raise AssertionError(f"{model} {label}: parser {header['parser']!r}, wire "
+                             f"{trainer.step.wire_format!r}; want native and dict")
     if any("g" in t for t in trainer.state["tables"].values()) == trainer.step.sparse:
         raise AssertionError(f"{model} {label}: a [T, D] gradient buffer in a sparse "
                              "state, or none in a dense one")
@@ -1920,6 +2003,8 @@ def phase_update_modes(dev, t_log2: int, workdir: str, dense: dict) -> dict:
     plain dense step) and the sequential dense inner (phase 13), and the
     kernels' times on the
     sparse and sequential paths' own inputs (phase 14)."""
+    import os
+
     import torch
 
     from xflow_tpu_torch.convert import state_from_numpy
@@ -1932,7 +2017,7 @@ def phase_update_modes(dev, t_log2: int, workdir: str, dense: dict) -> dict:
              "k2_index": {"max_abs_err_g": 0.0, "max_err_over_tol": 0.0},
              "k5": {"max_abs_err": 0.0, "max_err_over_tol": 0.0,
                     "never_touched_rows": 0, "near_lambda1": 0}}
-    out = {"rows": [], "checks": [], "timings": [], "worst": worst,
+    out = {"rows": [], "checks": [], "timings": [], "worst": worst, "compact_rows": [],
            "launches": dict.fromkeys(KERNEL_WRAPPERS, 0), "launches_by_path": {}}
 
     def book(run):
@@ -1989,8 +2074,30 @@ def phase_update_modes(dev, t_log2: int, workdir: str, dense: dict) -> dict:
         run["row"]["bayes_gap_closed"] = (run["row"]["eval"]["auc"] - 0.5) / (
             bars["bayes_auc"] - 0.5)
         out["timings"] += timings
+        # the same path over the compact wire on the card: the same
+        # planes, and (reported: FTRL's n' == 0 split, phase 12) tables
+        seq_planes = host_planes(run["shipped"][:len(run["shipped"]) // TRAIN_EPOCHS])
+        seq_ll, seq_eval = list(run["trainer"].step_logloss), run["row"]["eval"]
+        seq_final = run["trainer"].state
         book(run)
         del run, arrays
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(mode_config(model, t_log2, data, os.path.join(
+            workdir, f"{model}-seq-compact.jsonl"), **seq), wire_dedup="off")
+        compact = card_run(dev, cfg, init)
+        row = path_row("sequential, native text + compact", model, compact)
+        row["vs_dict_wire_card"] = hold_to(f"{model} sequential compact", compact,
+                                           seq_planes, seq_ll, seq_eval,
+                                           {"tables": {n: {k: a.cpu() for k, a in t.items()}
+                                                       for n, t in seq_final["tables"].items()}},
+                                           gate=False)
+        row["phase"] = 12
+        out["compact_rows"].append(row)
+        for k, n in compact["launches"].items():
+            out["launches"][k] += n
+        out["launches_by_path"][f"{model} sequential compact wire"] = compact["launches"]
+        log(json.dumps(row))
+        del compact, seq_final
         torch.cuda.empty_cache()
 
         for label, mode in (
@@ -2004,6 +2111,253 @@ def phase_update_modes(dev, t_log2: int, workdir: str, dense: dict) -> dict:
             book(run)
             del run
             torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The default input path: K6 and the input paths (phases 15-16)
+
+K6_REPLACES = (
+    "xflow_tpu/parallel/step.py:621 (B4 dict: TrainStep._expand_dict_wire, its "
+    "cold half, 621-743: row starts by cumsum of the u8 counts, each entry's "
+    "tier flag and rank, dictionary indices resolved through the dictionary "
+    "keys, u24/u32 tail keys, label and weight bitmaps); no pl.pallas_call in "
+    "the reference"
+)
+K6_LIBRARY_WHY_NULL = ("no single PyTorch call decodes the dictionary wire (a "
+                       "cumsum, bit ranks and two gathers)")
+
+
+def k6_cases(data: dict, t_log2: int) -> list:
+    """(case, Batch, CompactBatch) for phase 15: the training main
+    path's two FM batches (a train shard holds one batch), as the loader
+    and the dictionary wire build them; 65,536 rows of padding; 65,536
+    rows of distinct keys (over the dictionary's 65,536 entries, each
+    seen once: an empty dictionary); the first 1,021 rows of batch 0
+    (all their keys fit the dictionary: no tail; B not a multiple of
+    8); batch 0 parsed at T = 2^25 (u32 keys)."""
+    from xflow_tpu_torch.io.batch import Batch
+    from xflow_tpu_torch.io.compact import compact_batch
+    from xflow_tpu_torch.io.loader import ShardLoader, make_parse_fn
+
+    def first_batch(i, t):
+        loader = ShardLoader(f"{data['train']}-{i:05d}", 65536, K, t,
+                             parse_fn=make_parse_fn(t))
+        return next(iter(loader.iter_batches()))[0]
+
+    t = 1 << t_log2
+    b0, b1 = first_batch(0, t), first_batch(1, t)
+    b, z = b0.batch_size, np.zeros_like(b0.keys)
+    ones = np.ones_like(b0.mask)
+    distinct = ((np.arange(b * K, dtype=np.int64) * 2654435761) % t).reshape(b, K)
+    head = slice(0, 1021)
+    cases = [
+        ("main path batch 0", b0, t), ("main path batch 1", b1, t),
+        ("all padding", Batch(z, z, z.astype(np.float32), z.astype(np.float32),
+                              np.zeros(b, np.float32), np.zeros(b, np.float32)), t),
+        ("empty dictionary", Batch(distinct.astype(np.int32), z, ones, ones.copy(),
+                                   b0.labels, b0.weights), t),
+        ("no tail, B = 1,021", Batch(b0.keys[head], b0.slots[head], b0.vals[head],
+                                     b0.mask[head], b0.labels[head], b0.weights[head]), t),
+        ("u32 keys, T = 2^25", first_batch(0, 1 << 25), 1 << 25),
+    ]
+    out = []
+    for name, batch, tt in cases:
+        cb = compact_batch(batch, tt, 0)
+        want = {"empty dictionary": cb.n_dict == 0, "no tail, B = 1,021":
+                cb.n_dict_occ == cb.n_cold, "u32 keys, T = 2^25": cb.key_bytes == 4,
+                "all padding": cb.n_cold == 0}.get(name, cb.key_bytes == 3)
+        if not want:
+            raise AssertionError(f"K6 case {name!r} is not what it names")
+        out.append((name, batch, cb))
+    return out
+
+
+def phase_k6(dev, data: dict, t_log2: int) -> dict:
+    """Phase 15: K6 against its plain version on the card, exactly, on
+    ``k6_cases``, and against the compact wire's planes of the same
+    batch; K6 timed on each case (device ms behind ``_sleep``, plain
+    ms, the byte bound) beside the host's compaction and the two wires'
+    bytes: the cases apart (padding only: no flag words to scan; no
+    dictionary; no tail) show where its time goes."""
+    import torch
+
+    from xflow_tpu_torch.io.compact import compact_batch
+    from xflow_tpu_torch.ops.wire import PLANES, dict_decode, dict_decode_plain, to_device
+    from xflow_tpu_torch.parallel.step import compact_wire_np
+
+    checks, timings = [], []
+    for name, batch, cb in k6_cases(data, t_log2):
+        wire = cb.wire(ship_slots=False)
+        planes = to_device(wire, dev)
+        got = dict_decode(planes, K)
+        want = dict_decode_plain(planes, K)
+        compact = compact_wire_np(batch)
+        torch.cuda.synchronize()
+        for g, w, c, label in zip(got, want, (compact["ckeys"], compact["labels_u8"],
+                                              compact["weights_u8"]),
+                                  ("ckeys", "labels_u8", "weights_u8")):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"K6 {name}: {label} differs from the plain version")
+            if not torch.equal(g.cpu(), torch.from_numpy(np.ascontiguousarray(c))):
+                raise AssertionError(f"K6 {name}: {label} differs from the compact wire")
+        checks.append({"case": name, "B": batch.batch_size, "n_cold": cb.n_cold,
+                       "n_dict": cb.n_dict, "n_tail": cb.n_cold - cb.n_dict_occ,
+                       "key_bytes": cb.key_bytes, "exact": True})
+        args = [(planes, K)] * TIMED_RUNS
+        in_bytes = sum(int(wire[p].nbytes) for p in PLANES)
+        out_bytes = batch.batch_size * (4 * K + 2)
+        bound = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        t0 = time.perf_counter()
+        for _ in range(3):  # as put_batch compacts after the first batch
+            compact_batch(batch, cb.table_size, 0, check=False)
+        host_ms = (time.perf_counter() - t0) / 3 * 1e3
+        timings.append({
+            "case": name, "B": batch.batch_size, "K": K,
+            "ms": time_device_ms(dict_decode, args),
+            "host_path_ms": time_host_path_ms(dict_decode, args),
+            # about 80 launches a call: a smaller chunk stays under the
+            # card's ~1,000 pending launches
+            "plain_ms": time_device_ms(dict_decode_plain, args, chunk_size=5),
+            "bound_ms": bound, "bound_by": "bytes", "bytes": in_bytes + out_bytes,
+            "library_ms": None, "library_why_null": K6_LIBRARY_WHY_NULL,
+            "host_compaction_ms": host_ms,
+            "dict_wire_bytes": cb.wire_nbytes(ship_slots=False),
+            "compact_wire_bytes": sum(int(a.nbytes) for a in compact.values()),
+        })
+        log(json.dumps(dict(timings[-1], phase=15)))
+    return {"checks": checks, "timings": timings}
+
+
+def card_run(dev, cfg, init: dict) -> dict:
+    """``cfg`` trained (``cfg.epochs``) and evaluated on the card through
+    ``Trainer`` from ``init``: launch counts zeroed just before and read
+    just after, held to ``expected_launches``; the first epoch's shipped
+    planes kept on the host."""
+    import torch
+
+    from xflow_tpu_torch.convert import state_from_numpy
+    from xflow_tpu_torch.trainer import Trainer
+
+    zero_launches()
+    # the path starts here
+    trainer = Trainer(cfg, device=dev, log=log)
+    trainer.state = state_from_numpy(cfg, init, dev)
+    shipped = keep_shipped_batches(trainer)
+    t0 = time.perf_counter()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    result = trainer.evaluate()
+    torch.cuda.synchronize()
+    got = read_launches()
+    # ... and ends here
+    trainer.close()
+    steps = sum(h["steps"] for h in history)
+    want = expected_launches(dataclasses.asdict(cfg), steps, len(trainer.state["tables"]),
+                             math.ceil(TEST_LINES / cfg.batch_size))
+    if got != want:
+        raise AssertionError(f"{cfg.model} {cfg.train_path}: launches {got}, expected {want}")
+    return {"trainer": trainer, "history": history, "result": result, "launches": got,
+            "train_seconds": train_s, "header": run_header(cfg.metrics_out),
+            "wire": wire_rows(cfg.metrics_out),
+            "planes": host_planes(shipped[:len(shipped) // cfg.epochs])}
+
+
+def hold_to(what: str, run: dict, planes: list, step_logloss: list, evaluated: dict,
+            final, gate: bool = True) -> dict:
+    """A card run against another card run of the same batches: the
+    shipped planes exactly, each step's log-loss, the eval and (gated or
+    reported) the tables within TRAIN_BOUNDS."""
+    planes_equal(what, run["planes"], planes)
+    got = run["trainer"].step_logloss
+    if len(got) != len(step_logloss) or any(
+            abs(a - b) > TRAIN_BOUNDS["logloss_rtol"] * max(abs(b), 1.0)
+            for a, b in zip(got, step_logloss)):
+        raise AssertionError(f"{what}: step log-loss {got} vs {step_logloss}")
+    res = run["result"]
+    if abs(res["auc"] - evaluated["auc"]) > TRAIN_BOUNDS["auc_atol"] or abs(
+            res["logloss"] - evaluated["logloss"]) > TRAIN_BOUNDS["logloss_rtol"] * abs(
+            evaluated["logloss"]):
+        raise AssertionError(f"{what}: eval {res} vs {evaluated}")
+    return compare_states(run["trainer"].state, final, gate=gate)
+
+
+def path_row(label: str, model: str, run: dict) -> dict:
+    """One input path's timing row for the ``train`` line."""
+    h = run["history"]
+    return {
+        "path": label, "model": model, "parser": run["header"]["parser"],
+        "wire": run["trainer"].step.wire_format, "steps": sum(x["steps"] for x in h),
+        "train_seconds": run["train_seconds"],
+        "examples_per_sec": [x["examples_per_sec"] for x in h],
+        "input_stall_s": [x["phases"].get("input_stall", 0.0) for x in h],
+        "put_batch_ms_per_dispatch": [x["phases"].get("h2d", 0.0) / max(x["steps"], 1) * 1e3
+                                      for x in h],
+        "wire_bytes_per_example": [w["wire_bytes_per_example"] for w in run["wire"]],
+        "compaction_ratio": [w["compaction_ratio"] for w in run["wire"]],
+        "parse_mb_per_sec": [x.get("parse_mb_per_sec") for x in h],
+        "eval_auc": run["result"]["auc"], "launches": run["launches"],
+    }
+
+
+def phase_input_paths(dev, t_log2: int, workdir: str, dense: dict) -> dict:
+    """Phase 16: phase 8's runs (the native parser and the dictionary
+    wire) against the other input paths on the card, from the same
+    initial state: native text over the compact wire (FM and LR),
+    Python text over the compact wire (FM), and packed-v2 shards from
+    ``python -m xflow_tpu_torch.io.packed`` over the dictionary wire
+    (FM).  Each ships exactly phase 8's planes and lands within
+    TRAIN_BOUNDS of its tables, step log-losses and eval."""
+    import os
+
+    import torch
+
+    from xflow_tpu_torch.convert import state_from_numpy
+
+    data = dense["data"]
+    packed = os.path.join(workdir, "packed", "synth.train")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "xflow_tpu_torch.io.packed", "--train", data["train"],
+         "--out", packed, "--batch-size", "65536", "--max-nnz", str(K),
+         "--table-size-log2", str(t_log2)],
+        capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"packed CLI failed: {proc.stdout}{proc.stderr}")
+    convert_s = time.perf_counter() - t0
+    log(json.dumps({"phase": 16, "packed_cli": proc.stdout.strip().splitlines(),
+                    "seconds": convert_s}))
+    main = {r["model"]: r for r in dense["rows"]}
+    out = {"rows": [], "launches": dict.fromkeys(KERNEL_WRAPPERS, 0), "launches_by_path": {},
+           "packed_convert_seconds": convert_s}
+    for model, label, over, parser in (
+        ("fm", "native text + compact", {"wire_dedup": "off"}, "native"),
+        ("lr", "native text + compact", {"wire_dedup": "off"}, "native"),
+        ("fm", "python text + compact", {"wire_dedup": "off", "native_parser": False},
+         "python"),
+        ("fm", "packed-v2 + dict", {"train_path": packed}, "native"),
+    ):
+        metrics = os.path.join(workdir, f"{model}-{label.replace(' ', '_')}.jsonl")
+        cfg = dataclasses.replace(train_config(model, t_log2, data, metrics), **over)
+        run = card_run(dev, cfg, dense["inits"][model])
+        want_wire = "compact" if over.get("wire_dedup") == "off" else "dict"
+        if run["header"]["parser"] != parser or run["trainer"].step.wire_format != want_wire:
+            raise AssertionError(f"{model} {label}: parser {run['header']['parser']}, wire "
+                                 f"{run['trainer'].step.wire_format}")
+        ref = main[model]
+        row = path_row(label, model, run)
+        row["vs_phase8"] = hold_to(f"{model} {label}", run, dense["planes"][model],
+                                   ref["step_logloss"], ref["eval"],
+                                   state_from_numpy(cfg, dense["finals"][model], "cpu"))
+        out["rows"].append(row)
+        for k, n in run["launches"].items():
+            out["launches"][k] += n
+        out["launches_by_path"][f"{model} {label}"] = run["launches"]
+        log(json.dumps(dict(row, phase=16)))
+        del run
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2376,7 +2730,7 @@ def main() -> int:
             shutil.rmtree(workdir, ignore_errors=True)
         log(f"chip_smoke: diagnostic done in {time.perf_counter() - t_start:.1f} s")
         return 0
-    for name in ("score", "train", "optim", "sparse"):
+    for name in ("score", "train", "optim", "sparse", "wire"):
         for line in build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
@@ -2409,9 +2763,14 @@ def main() -> int:
                             check="K2 against train_plain on the main path's batches")))
         torch.cuda.empty_cache()
         modes = phase_update_modes(dev, T_LOG2, workdir, train_path)
+        torch.cuda.empty_cache()
+        k6 = phase_k6(dev, train_path["data"], T_LOG2)
+        log(json.dumps({"phase": 15, "checks": k6["checks"]}))
+        torch.cuda.empty_cache()
+        paths = phase_input_paths(dev, T_LOG2, workdir, train_path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    del train_path["inits"], train_path["finals"]
+    del train_path["inits"], train_path["finals"], train_path["planes"]
     log(json.dumps({"phase": 10, "checks": modes["checks"], **modes["worst"]}))
     torch.cuda.empty_cache()
     train_timings = phase_train_timings(dev, T_LOG2)
@@ -2421,11 +2780,19 @@ def main() -> int:
     # and K3's device times on this path's own batches and tables (phase
     # 8) times the steps that ran them -- not a profiler trace
     train_rows = []
+    k6_ms = statistics.mean(r["ms"] for r in k6["timings"]
+                            if r["case"].startswith("main path"))
+    step_ms = {}  # a dense step's device ms on phase 8's batches, without K6
     for row in train_path["rows"]:
         k2_ms = [r["ms"] for r in row["k2_main_path"] if r["keys"] == "main_path"]
         k3_ms = [r["ms"] for r in row["k3_main_path"]]
-        busy = (TRAIN_EPOCHS * sum(k2_ms) + row["steps"] * sum(k3_ms)) / 1e3
+        step_ms[row["model"]] = statistics.mean(k2_ms) + sum(k3_ms)
+        busy = (TRAIN_EPOCHS * sum(k2_ms) + row["steps"] * (sum(k3_ms) + k6_ms)) / 1e3
         train_rows.append({
+            "path": "native text + dict", "parser": row["parser"], "wire": row["wire"],
+            "put_batch_ms_per_dispatch": [p.get("h2d", 0.0) / (row["steps"] / TRAIN_EPOCHS)
+                                          * 1e3 for p in row["phases"]],
+            "parse_mb_per_sec": row["parse_mb_per_sec"],
             "model": row["model"], "card": card,
             "examples_per_sec": row["examples_per_sec"],
             "step_time_p50": row["step_time_p50"],
@@ -2460,6 +2827,18 @@ def main() -> int:
             "bayes_gap_closed": (row["eval"]["auc"] - 0.5)
             / (train_path["bars"]["bayes_auc"] - 0.5),
         })
+    # the other input paths (phase 16): the device work of phase 8's
+    # steps (the same batches), plus K6 on the dictionary wire
+    for row in paths["rows"]:
+        busy = row["steps"] * (step_ms[row["model"]]
+                               + (k6_ms if row["wire"] == "dict" else 0.0)) / 1e3
+        train_rows.append(dict(
+            {k: v for k, v in row.items() if k not in ("vs_phase8", "launches")},
+            card=card, device_busy_s_from_kernel_times=busy,
+            device_idle_share_from_kernel_times=1.0 - busy / row["train_seconds"]))
+    for row in modes["compact_rows"]:
+        train_rows.append({k: v for k, v in row.items()
+                           if k not in ("vs_dict_wire_card", "launches")})
     log(json.dumps({"train": train_rows}))
 
     head = next(r for r in timings if r["mode"] == "fm" and r["B"] == BUCKETS[-1])
@@ -2475,8 +2854,9 @@ def main() -> int:
     # launches on every training path: phase 8's dense path and phases
     # 11-13's update modes, each counted from 0 just before its run
     train_launches = {k: train_path["launches"][k] + modes["launches"][k]
-                      for k in KERNEL_WRAPPERS}
-    by_path = dict(modes["launches_by_path"], dense=train_path["launches"])
+                      + paths["launches"][k] for k in KERNEL_WRAPPERS}
+    by_path = dict(modes["launches_by_path"], **paths["launches_by_path"],
+                   dense=train_path["launches"])
     k4_head = next(r for r in modes["timings"] if r["kernel"] == "consolidate_keys"
                    and r["model"] == "fm" and r["path"] == "sparse main path")
     k5_head = next(r for r in modes["timings"] if r["kernel"] == "touched_update"
@@ -2500,7 +2880,9 @@ def main() -> int:
         "bound_sector_ms": head["bound_sector_ms"],
         "library_ms": head["library_ms"],
         "library_why_null": "no single PyTorch call scores FM (LR's "
-        "embedding_bag yardstick is in per_bucket)",
+        "embedding_bag yardstick is library_ms_lr)",
+        "library_ms_lr": next(r["library_ms"] for r in timings
+                              if r["mode"] == "lr" and r["B"] == BUCKETS[-1]),
         "shape": {"mode": "fm", "B": head["B"], "K": K, "D": D},
         "per_bucket": timings,
     }, {
@@ -2587,6 +2969,27 @@ def main() -> int:
         "shape": {"optimizer": "ftrl", "table": "v", "U": k5_head["U"], "D": D,
                   "keys": "the sparse main path's first batch"},
         "per_shape": [r for r in modes["timings"] if r["kernel"] == "touched_update"],
+    }, {
+        "name": "dict_decode",
+        "route": "cuda",
+        "source": "xflow_tpu_torch/csrc/wire.cu",
+        "replaces": K6_REPLACES,
+        "launches": train_launches["dict_decode"],
+        "launches_by_path": {k: n["dict_decode"] for k, n in by_path.items()},
+        "max_abs_err": 0.0,
+        "max_abs_err_of": "every decoded key, label and weight against the plain "
+        "version and the compact wire, exactly, over phase 15's cases",
+        "cases": [c["case"] for c in k6["checks"]],
+        "ms": k6["timings"][0]["ms"],
+        "host_path_ms": k6["timings"][0]["host_path_ms"],
+        "plain_ms": k6["timings"][0]["plain_ms"],
+        "bound_ms": k6["timings"][0]["bound_ms"],
+        "bound_by": k6["timings"][0]["bound_by"],
+        "library_ms": None,
+        "library_why_null": K6_LIBRARY_WHY_NULL,
+        "shape": {"mode": "fm", "B": k6["timings"][0]["B"], "K": K,
+                  "keys": "the training main path's first batch, dictionary wire"},
+        "per_shape": k6["timings"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

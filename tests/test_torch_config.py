@@ -83,6 +83,10 @@ def test_import_leaves_out_jax_and_reference_package():
         "import xflow_tpu_torch.trainer, xflow_tpu_torch.train\n"
         "import xflow_tpu_torch.optim, xflow_tpu_torch.ops.train\n"
         "import xflow_tpu_torch.ops.optim, xflow_tpu_torch.utils.logging\n"
+        "import xflow_tpu_torch.native, xflow_tpu_torch.native.build\n"
+        "import xflow_tpu_torch.io.compact, xflow_tpu_torch.io.container\n"
+        "import xflow_tpu_torch.io.packed, xflow_tpu_torch.ops.wire\n"
+        "import xflow_tpu_torch.chaos\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'xflow_tpu')]\n"
         "assert not bad, bad\n"
@@ -137,8 +141,10 @@ def test_check_trainable_accepts_update_modes(model, kw):
     ({"hot_size_log2": 8, "update_mode": "sequential", "microbatch": 4,
       "batch_size": 64, "sequential_inner": "hot"}, "A8b"),
     ({"hot_size_log2": 8, "cold_consolidate": True}, "A8b"),
-    ({"wire_dedup": "on"}, "A5"),
-    ({"wire_dedup": "on", "update_mode": "sparse"}, "A5"),
+    # the dictionary wire trains now, but not with the hot table (A8b)
+    # or on two devices (A13)
+    ({"wire_dedup": "on", "hot_size_log2": 8, "hot_nnz": 8}, "A8b"),
+    ({"wire_dedup": "on", "update_mode": "sparse", "num_devices": 2}, "A13"),
 ])
 def test_check_trainable_refuses_hot_table_and_dict_wire(kw, item):
     from xflow_tpu_torch.parallel.step import check_trainable

@@ -11,14 +11,17 @@ of 1e-5 of the largest magnitude compared — the kernels sum in another
 order than the plain versions (K2's atomics in any order); K3 rtol
 1e-5 / atol 1e-6 (tests/test_ftrl.py's bar; nvcc contracts n + g*g to
 an FMA), and the same for K2's index mode and K5; K4's keys, count and
-slots exactly.  The full-width checks, with bounds derived per element,
-are chip_smoke.py's phases 2, 6, 7 and 10."""
+slots exactly; K6's decoded planes exactly.  The full-width checks,
+with bounds derived per element, are chip_smoke.py's phases 2, 6, 7,
+10 and 15."""
 
 import numpy as np
 import pytest
 import torch
 
 from xflow_tpu_torch.config import Config
+from xflow_tpu_torch.io.batch import Batch
+from xflow_tpu_torch.io.compact import DICT_CAP, compact_batch
 from xflow_tpu_torch.models import make_model
 from xflow_tpu_torch.ops.optim import optim_plain, optim_update
 from xflow_tpu_torch.ops.score import score, score_plain
@@ -29,6 +32,7 @@ from xflow_tpu_torch.ops.sparse import (
     touched_update,
 )
 from xflow_tpu_torch.ops.train import train_plain, train_step
+from xflow_tpu_torch.ops.wire import dict_decode, to_device
 from xflow_tpu_torch.optim import FTRL, SGD, make_optimizer
 from xflow_tpu_torch.parallel.step import TrainStep, init_state
 
@@ -231,8 +235,6 @@ def _card_vs_cpu(dev, model, **mode):
                              for n, t in cpu_state["tables"].items()},
                   "dense": {}, "step": 0}
     steps = {d: TrainStep(mdl, opt, cfg, d) for d in (dev, torch.device("cpu"))}
-    from xflow_tpu_torch.io.batch import Batch
-
     for seed in range(3):
         keys, _, _, _, labels = _inputs(seed=seed, t=cfg.table_size)
         mask = (keys >= 0).astype(np.float32)
@@ -248,4 +250,82 @@ def _card_vs_cpu(dev, model, **mode):
             got = card_state["tables"][n][k].cpu()
             np.testing.assert_allclose(
                 got.numpy(), want.numpy(), rtol=1e-4,
+                atol=1e-5 * float(want.abs().max()) if want.numel() else 0.0)
+
+
+def _left_compacted(seed, b, k, t_log2, unique=False, padding=False):
+    """A Batch of left-compacted rows (loader batches are), keys with a
+    duplicated head or all distinct, the last 3 examples padding."""
+    rng = np.random.default_rng(seed)
+    cnt = np.zeros(b, int) if padding else rng.integers(0, k + 1, b)
+    mask = (np.arange(k)[None, :] < cnt[:, None]).astype(np.float32)
+    if unique:
+        keys = rng.permutation(1 << t_log2)[: b * k].reshape(b, k)
+    else:
+        keys = rng.integers(0, 1 << t_log2, (b, k))
+        keys = np.where(rng.random((b, k)) < 0.5, rng.integers(0, 50, (b, k)), keys)
+    keys = np.where(mask > 0, keys, 0).astype(np.int32)
+    weights = (np.arange(b) < b - 3).astype(np.float32)
+    labels = (rng.random(b) < 0.4).astype(np.float32) * weights
+    return Batch(keys=keys, slots=np.zeros_like(keys), vals=mask.copy(), mask=mask,
+                 labels=labels, weights=weights)
+
+
+K6_CASES = {
+    "u24": dict(b=1001, k=40, t_log2=14),
+    "u32": dict(b=1001, k=40, t_log2=25),
+    "empty-dictionary": dict(b=200, k=8, t_log2=14, unique=True),
+    "no-tail": dict(b=64, k=8, t_log2=14),
+    "all-padding": dict(b=13, k=8, t_log2=14, padding=True),
+}
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_k6_matches_plain(dev, case):
+    kw = K6_CASES[case]
+    batch = _left_compacted(1, **kw)
+    cb = compact_batch(batch, 1 << kw["t_log2"], 0,
+                       dict_cap=16 if case == "empty-dictionary" else DICT_CAP)
+    if case == "empty-dictionary":
+        assert cb.n_dict == 0 and cb.n_cold > 0
+    wire = cb.wire(ship_slots=False)
+    want = dict_decode(to_device(wire, torch.device("cpu")), kw["k"])
+    before = dict_decode.launches
+    got = dict_decode(to_device(wire, dev), kw["k"])
+    torch.cuda.synchronize()
+    assert dict_decode.launches - before == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert torch.equal(want[0], torch.tensor(np.where(batch.mask > 0, batch.keys, -1)))
+
+
+@pytest.mark.parametrize("mode", [{}, {"update_mode": "sparse"}], ids=["dense", "sparse"])
+@pytest.mark.parametrize("model", ["lr", "fm"])
+def test_dict_wire_training_on_card_matches_compact_wire(dev, model, mode):
+    """Three steps on the card over the dictionary wire and over the
+    compact wire from the same state: K6's planes equal the compact
+    wire's exactly, and the tables agree within _card_vs_cpu's bound
+    (K2's atomics add in another order on each run)."""
+    states, steps = {}, {}
+    for dedup in ("auto", "off"):
+        cfg = Config(model=model, table_size_log2=12, max_nnz=40, batch_size=256,
+                     v_dim=10, wire_dedup=dedup, **mode)
+        mdl, opt = make_model(cfg), make_optimizer(cfg)
+        steps[dedup] = TrainStep(mdl, opt, cfg, dev)
+        states[dedup] = init_state(mdl, opt, cfg, dev)
+    assert steps["auto"].wire_format == "dict" and steps["off"].wire_format == "compact"
+    before = dict_decode.launches
+    for seed in range(3):
+        batch = _left_compacted(seed, 256, 40, 12)
+        arrays = {d: steps[d].put_batch(batch) for d in steps}
+        for name in ("ckeys", "labels_u8", "weights_u8"):
+            assert torch.equal(arrays["auto"][name], arrays["off"][name]), name
+        for d in steps:
+            steps[d].train(states[d], arrays[d])
+    assert dict_decode.launches - before == 3
+    for n, t in states["off"]["tables"].items():
+        for k, want in t.items():
+            got = states["auto"]["tables"][n][k]
+            np.testing.assert_allclose(
+                got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
                 atol=1e-5 * float(want.abs().max()) if want.numel() else 0.0)

@@ -192,13 +192,18 @@ def test_shard_loader_quarantines_unparseable_blocks(tmp_path):
 
 
 def test_shard_loader_refuses_binary_and_packed_shards(tmp_path):
+    """The binary block cache is refused, naming its ROADMAP item;
+    packed shards load (tests/test_torch_packed.py), so a packed magic
+    over a header that does not parse is refused as a malformed shard."""
     from xflow_tpu_torch.io.loader import BINARY_MAGIC, PACKED_MAGIC, ShardLoader
 
-    for magic in (BINARY_MAGIC, PACKED_MAGIC):
-        path = str(tmp_path / "cache")
-        open(path, "wb").write(magic + b"\0" * 64)
-        with pytest.raises(NotImplementedError, match="A5"):
-            list(ShardLoader(path, 8, 4, 1 << 10).iter_batches())
+    path = str(tmp_path / "cache")
+    open(path, "wb").write(BINARY_MAGIC + b"\0" * 64)
+    with pytest.raises(NotImplementedError, match="A5b"):
+        list(ShardLoader(path, 8, 4, 1 << 10).iter_batches())
+    open(path, "wb").write(PACKED_MAGIC + b"\0" * 64)
+    with pytest.raises(ValueError):
+        list(ShardLoader(path, 8, 4, 1 << 10).iter_batches())
 
 
 def test_prefetch_propagates_errors_and_closes():

@@ -19,6 +19,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from xflow_tpu.config import Config as RefConfig
 from xflow_tpu.obs.schema import validate_rows
@@ -62,12 +63,13 @@ def _kw(ds, **kw):
 
 
 @pytest.fixture(scope="module")
-def reference_runs(toy_dataset):
+def reference_runs(toy_dataset, tmp_path_factory):
     """Each scenario trained and evaluated by the JAX trainer, with the
-    initial state it started from."""
+    initial state it started from and its ``wire`` metrics rows."""
     out = {}
     for name, kw in SCENARIOS.items():
-        trainer = RefTrainer(RefConfig(**_kw(toy_dataset, **kw)))
+        metrics_out = str(tmp_path_factory.mktemp("ref") / "run.jsonl")
+        trainer = RefTrainer(RefConfig(**_kw(toy_dataset, metrics_out=metrics_out, **kw)))
         init = {
             n: {k: np.asarray(jax.device_get(a)).copy() for k, a in t.items()}
             for n, t in trainer.state["tables"].items()
@@ -75,7 +77,9 @@ def reference_runs(toy_dataset):
         history = trainer.train()
         result = trainer.evaluate()
         trainer.close()
-        out[name] = (init, history, result)
+        with open(metrics_out) as f:
+            wire = [r for r in map(json.loads, f) if r["kind"] == "wire"]
+        out[name] = (init, history, result, wire)
     return out
 
 
@@ -87,7 +91,7 @@ def _port_trainer(cfg, init):
 
 @pytest.mark.parametrize("scenario", list(SCENARIOS))
 def test_trainer_tracks_reference(toy_dataset, reference_runs, tmp_path, scenario):
-    init, ref_history, ref_result = reference_runs[scenario]
+    init, ref_history, ref_result, ref_wire = reference_runs[scenario]
     metrics_out = str(tmp_path / "run.jsonl")
     cfg = Config(**_kw(toy_dataset, metrics_out=metrics_out, **SCENARIOS[scenario]))
     with _port_trainer(cfg, init) as trainer:
@@ -112,12 +116,20 @@ def test_trainer_tracks_reference(toy_dataset, reference_runs, tmp_path, scenari
     kinds = [r["kind"] for r in rows]
     assert kinds[0] == "run_start" and kinds.count("train_epoch") == cfg.epochs
     assert {"shard", "wire", "device_mem", "eval"} <= set(kinds)
-    wire = next(r for r in rows if r["kind"] == "wire")
-    assert wire["format"] == "compact"
+    # the default input path: the native parser and the dictionary
+    # wire, whose rows (format, bytes per example, compaction ratio)
+    # equal the reference's epoch by epoch
+    assert rows[0]["parser"] == "native"
+    wire = [r for r in rows if r["kind"] == "wire"]
+    assert len(wire) == len(ref_wire) == cfg.epochs
+    for ours, ref in zip(wire, ref_wire):
+        assert ours["format"] == ref["format"] == "dict"
+        for key in ("epoch", "wire_bytes_per_example", "compaction_ratio"):
+            assert ours[key] == ref[key], (key, ours, ref)
 
 
 def test_port_artifact_loads_in_both_engines(toy_dataset, reference_runs, tmp_path):
-    init, _, _ = reference_runs["fm-ftrl"]
+    init, _, _, _ = reference_runs["fm-ftrl"]
     cfg = Config(**_kw(toy_dataset, epochs=2, **SCENARIOS["fm-ftrl"]))
     with _port_trainer(cfg, init) as trainer:
         trainer.train()
@@ -222,3 +234,29 @@ def test_metric_copies_match_reference():
         want = ref_metrics.logloss(jnp.asarray(labels), jnp.asarray(pctr),
                                    None if w is None else jnp.asarray(w))
         np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+def test_packed_v2_shards_train_as_their_text(toy_dataset, tmp_path):
+    """Text shards converted by the port's CLI train to the same tables,
+    bit for bit: the loader yields the v2 records as CompactBatch, whose
+    planes are those the dictionary wire builds from the text."""
+    from xflow_tpu_torch.io import packed
+
+    out = str(tmp_path / "pk")
+    assert packed.main(["--train", toy_dataset.train_prefix, "--out", out,
+                        "--batch-size", "64", "--max-nnz", "24",
+                        "--table-size-log2", "14", "--block-mib", "0.01"]) == 0
+    tables = {}
+    for name, train_path in (("text", toy_dataset.train_prefix), ("packed", out)):
+        cfg = Config(**_kw(toy_dataset, train_path=train_path, epochs=2, model="fm"))
+        with Trainer(cfg, device="cpu", log=lambda _: None) as trainer:
+            assert trainer.step.wire_format == "dict"
+            history = trainer.train()
+            result = trainer.evaluate()
+        tables[name] = (trainer.state["tables"], [h["train_logloss"] for h in history],
+                        result["auc"])
+    assert tables["text"][1] == tables["packed"][1]
+    assert tables["text"][2] == tables["packed"][2]
+    for n, t in tables["text"][0].items():
+        for k, a in t.items():
+            assert torch.equal(a, tables["packed"][0][n][k]), f"{n}.{k}"

@@ -318,7 +318,7 @@ class Config:
     serve_pipeline_depth: int = 32
 
     # -- host data path --
-    # Use the native C++ parser (xflow_tpu/native) when a toolchain is
+    # Use the native C++ parser (xflow_tpu_torch/native) when a toolchain is
     # available; falls back to the pure-Python parser silently.
     native_parser: bool = True
     # Parse/pack batches on a background thread, this many batches ahead

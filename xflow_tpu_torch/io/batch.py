@@ -1,11 +1,14 @@
-"""Padded static-shape minibatch representation (cold section only).
+"""Padded static-shape minibatch representation.
 
-A copy of the reference's io/batch.py, less the hot-table section
-(``split_hot``, ``remap_batch`` and the ``hot_*`` planes come with the
-hot table, ROADMAP A8).  A batch is a padded COO block: ``[B, K]``
-arrays of table keys, field ids (slots), values and a validity mask,
-plus per-example labels and weights.  Pad feature entries carry
-``mask=0`` and key 0; pad examples carry ``weight=0``.
+A copy of the reference's io/batch.py, less the hot-table steering
+(``split_hot`` and ``remap_batch`` come with the hot table, ROADMAP
+A8b).  A batch is a padded COO block: ``[B, K]`` arrays of table keys,
+field ids (slots), values and a validity mask, plus per-example labels
+and weights.  Pad feature entries carry ``mask=0`` and key 0; pad
+examples carry ``weight=0``.  The optional hot section (``hot_*``,
+``[B, Kh]``) is zero-width unless a caller fills it: the port's
+loaders never do, but CompactBatch (io/compact.py) and the packed
+cache (io/packed.py) carry it as the reference's do.
 """
 
 from __future__ import annotations
@@ -46,6 +49,19 @@ class Batch:
     mask: np.ndarray  # float32 [B, K] — 1 for real feature entries
     labels: np.ndarray  # float32 [B] — binary labels
     weights: np.ndarray  # float32 [B] — 1 for real examples, 0 for padding
+    # optional hot section (keys < hot_size): [B, Kh], Kh = 0 when disabled
+    hot_keys: np.ndarray | None = None
+    hot_slots: np.ndarray | None = None
+    hot_vals: np.ndarray | None = None
+    hot_mask: np.ndarray | None = None
+
+    def __post_init__(self) -> None:
+        if self.hot_keys is None:
+            b = self.keys.shape[0]
+            self.hot_keys = np.zeros((b, 0), np.int32)
+            self.hot_slots = np.zeros((b, 0), np.int32)
+            self.hot_vals = np.zeros((b, 0), np.float32)
+            self.hot_mask = np.zeros((b, 0), np.float32)
 
     @property
     def batch_size(self) -> int:
@@ -54,6 +70,10 @@ class Batch:
     @property
     def max_nnz(self) -> int:
         return int(self.keys.shape[1])
+
+    @property
+    def hot_nnz(self) -> int:
+        return int(self.hot_keys.shape[1])
 
     def num_real(self) -> int:
         return int(self.weights.sum())

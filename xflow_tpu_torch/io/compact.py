@@ -1,0 +1,630 @@
+"""Host-side batch compaction: the CompactBatch form and the dictionary
+wire format (``Config.wire_dedup``) — a copy of the reference's
+io/compact.py over the port's Batch and native library.
+
+``compact_batch`` (CompactBatch.from_batch) deduplicates a padded
+Batch's cold keys — ``dedup_select``: the native ``xf_dict_encode``
+when the library builds, else ``dedup_select_numpy`` — and re-encodes
+every plane by where its information lives:
+
+* **cold keys, two tiers.**  A per-batch DICTIONARY of the (at most)
+  2^16 most-duplicated keys ships once as u24/u32 values and their
+  occurrences as u16 indices into it; the near-unique tail ships as
+  raw u24/u32 keys.  A per-entry flag bitmap (1 = dictionary) says
+  which stream each entry reads.
+* **hot keys, two tiers** (u8 below 256, else u12 or u16), carried for
+  the hot table (ROADMAP A8b); zero-width while it is not ported.
+* **padding never ships.**  Real entries stream flat in row-major
+  order with per-row u8 counts; the [B, K] planes are rebuilt on the
+  card (ops/wire.py, K6).
+* **labels/weights ship as bitmaps**, LSB first.
+
+Plane capacities are rounded up by ``plane_cap`` so same-geometry
+batches share one set of shapes; per-batch content still sets the
+bytes that cross the link.  The same planes are the packed-cache v2
+record format (io/packed.py).  ``xf_dict_encode`` and the numpy path
+select the same dictionary SET but may order it differently, so wire
+planes are byte-equal only like against like (native against native,
+numpy against numpy); decoded keys are equal in every case.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from xflow_tpu_torch.io.batch import Batch
+
+# Dictionary capacity: u16 occurrence indices.
+DICT_CAP = 65536
+# Tail/dict key width: 3 bytes holds any key < 2^24 (the flagship
+# table); larger tables use 4.
+_TAIL_CODE = np.uint32(0xFFFFFFFF)  # dedup_select: "not in dictionary"
+
+GRANULE_DIV = 32
+GRANULE_MIN = 256
+
+
+def plane_cap(
+    n: int, slots: int, div: int = GRANULE_DIV, mn: int = GRANULE_MIN
+) -> int:
+    """Static-shape capacity for a flat plane holding ``n`` real
+    entries out of at most ``slots``: round up to a coarse granule so
+    same-geometry batches share one set of plane shapes, never
+    exceeding ``slots``."""
+    if n <= 0:
+        return 0
+    g = max(mn, slots // div)
+    return min(-(-n // g) * g, slots)
+
+
+def dedup_select(
+    keys: np.ndarray, dict_cap: int = DICT_CAP
+) -> tuple[np.ndarray, np.ndarray]:
+    """The compaction kernel: deduplicate a flat key array into
+    (unique_keys[i64], per-element u32 codes).  A code is the element's
+    index into the unique list, or 0xFFFFFFFF when its key fell outside
+    the dictionary — the dictionary holds the most-duplicated keys,
+    capped at ``dict_cap`` entries by an occurrence-count threshold
+    (the smallest t with |{count >= t}| <= dict_cap, so the selected
+    SET is deterministic; only the within-dictionary order differs
+    between the native kernel and ``dedup_select_numpy``)."""
+    keys = np.ascontiguousarray(keys, dtype=np.int64)
+    if len(keys) == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.uint32)
+    from xflow_tpu_torch import native
+
+    if native.available():
+        return native.native_dict_encode(keys, dict_cap)
+    return dedup_select_numpy(keys, dict_cap)
+
+
+def dedup_select_numpy(
+    keys: np.ndarray, dict_cap: int = DICT_CAP
+) -> tuple[np.ndarray, np.ndarray]:
+    """``dedup_select`` in numpy: the path of a host that cannot build
+    the native library (the dictionary in sorted key order)."""
+    keys = np.ascontiguousarray(keys, dtype=np.int64)
+    if len(keys) == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.uint32)
+    uniq, inv, cnt = np.unique(
+        keys, return_inverse=True, return_counts=True
+    )
+    if len(uniq) <= dict_cap:
+        return uniq, inv.astype(np.uint32)
+    # histogram of counts (clamped) -> smallest threshold that fits
+    hist = np.bincount(np.minimum(cnt, dict_cap + 1))
+    ge = np.cumsum(hist[::-1])[::-1]  # ge[t] = #keys with count >= t
+    t = 1
+    while t < len(ge) and ge[t] > dict_cap:
+        t += 1
+    sel = cnt >= t
+    if int(sel.sum()) > dict_cap:
+        # only when > dict_cap keys EACH repeat > dict_cap times:
+        # truncate deterministically, as the native kernel's guard does
+        keep = np.flatnonzero(sel)[:dict_cap]
+        sel = np.zeros(len(uniq), bool)
+        sel[keep] = True
+    slot = np.full(len(uniq), _TAIL_CODE, np.uint32)
+    slot[sel] = np.arange(int(sel.sum()), dtype=np.uint32)
+    return uniq[sel], slot[inv]
+
+
+def _pack_keys(keys: np.ndarray, key_bytes: int, cap: int) -> np.ndarray:
+    """Little-endian u24 ([cap, 3] u8) or u32 ([cap]) key plane."""
+    n = len(keys)
+    if key_bytes == 4:
+        out = np.zeros(cap, np.uint32)
+        out[:n] = keys.astype(np.uint32)
+        return out
+    k = keys.astype(np.uint32)
+    out = np.zeros((cap, 3), np.uint8)
+    out[:n, 0] = k & 0xFF
+    out[:n, 1] = (k >> 8) & 0xFF
+    out[:n, 2] = (k >> 16) & 0xFF
+    return out
+
+
+def _unpack_keys(plane: np.ndarray, n: int) -> np.ndarray:
+    if plane.dtype == np.uint32:
+        return plane[:n].astype(np.int64)
+    p = plane[:n].astype(np.int64)
+    return p[:, 0] | (p[:, 1] << 8) | (p[:, 2] << 16)
+
+
+def _pack_nibbles(vals: np.ndarray, cap_pairs: int) -> np.ndarray:
+    """Pack 4-bit values (even index -> low nibble) into u8."""
+    n = len(vals)
+    full = np.zeros(cap_pairs * 2, np.uint8)
+    full[:n] = vals.astype(np.uint8)
+    return full[0::2] | (full[1::2] << 4)
+
+
+def _pack_bits(bits: np.ndarray) -> np.ndarray:
+    return np.packbits(bits.astype(bool), bitorder="little")
+
+
+def _unpack_bits(plane: np.ndarray, n: int) -> np.ndarray:
+    return np.unpackbits(plane, count=n, bitorder="little")
+
+
+_SLOT_DTYPES = (np.uint8, np.uint16, np.int32)
+
+
+def _slots_code(slots: np.ndarray) -> int:
+    """0/1/2 -> u8/u16/i32: the narrowest dtype holding every value."""
+    if len(slots) == 0 or 0 <= slots.min() and slots.max() <= 0xFF:
+        return 0
+    if 0 <= slots.min() and slots.max() <= 0xFFFF:
+        return 1
+    return 2
+
+
+def _flat_plane(vals: np.ndarray, cap: int, dtype) -> np.ndarray:
+    out = np.zeros(cap, dtype)
+    out[: len(vals)] = vals
+    return out
+
+
+@dataclasses.dataclass
+class CompactBatch:
+    """A Batch with padding stripped, keys deduplicated, and every
+    plane at its wire width.  ``wire()`` is (modulo the slots clamp) a
+    plane collection — no per-batch work — which is why packed-cache v2
+    records store exactly this form.
+
+    Geometry (batch_size/max_nnz/hot_nnz/num_real) mirrors Batch so
+    trainer bookkeeping handles either form."""
+
+    # geometry / totals
+    batch_size: int
+    cold_nnz: int   # Kc — Batch.max_nnz
+    hot_nnz_cap: int  # Kh
+    table_size: int
+    hot_size: int
+    n_real: int
+    n_cold: int
+    n_dict: int      # real dictionary entries (<= DICT_CAP)
+    n_dict_occ: int  # cold occurrences coded as dictionary indices
+    n_hot: int
+    n_h8: int        # hot occurrences with id < 256
+    key_bytes: int   # 3 (u24) or 4 (u32)
+    hx16: bool       # hot large tier is u16 (hot_size > 2^12)
+    slots_code: int  # 0/1/2 -> u8/u16/i32 slot planes (exact, unclamped)
+    # planes (all numpy, capacities from plane_cap)
+    cu: np.ndarray   # [capD, 3] u8 | [capD] u32 — dictionary keys
+    ci: np.ndarray   # [capI] u16 — dict-tier occurrence indices
+    ct: np.ndarray   # [capT, 3] u8 | [capT] u32 — tail-tier keys
+    cf: np.ndarray   # [ceil(capC/8)] u8 — per-cold-entry tier bitmap (1=dict)
+    cc: np.ndarray   # [B] u8 — per-row cold counts
+    h8: np.ndarray   # [cap8] u8 — hot ids < 256
+    hx: np.ndarray   # [capX] u8 low bytes | [capX] u16
+    hxh: np.ndarray  # [ceil(capX/2)] u8 high nibbles ([] when hx16)
+    hf: np.ndarray   # [ceil(capH/8)] u8 — per-hot-entry tier bitmap (1=u8)
+    hc: np.ndarray   # [B] u8 — per-row hot counts
+    lb: np.ndarray   # [ceil(B/8)] u8 — labels bitmap
+    wb: np.ndarray   # [ceil(B/8)] u8 — weights bitmap
+    cs: np.ndarray   # [capC] slots (cold, flat row-major; exact dtype)
+    hs: np.ndarray   # [capH] slots (hot, flat row-major)
+
+    # -- Batch-compatible surface ------------------------------------------
+
+    @property
+    def max_nnz(self) -> int:
+        return self.cold_nnz
+
+    @property
+    def hot_nnz(self) -> int:
+        return self.hot_nnz_cap
+
+    def num_real(self) -> int:
+        return self.n_real
+
+    @property
+    def cold_touched(self) -> int:
+        """Big-table rows the cold section touches after host dedup:
+        dictionary entries plus raw tail occurrences — the ONE
+        definition behind compaction_ratio (= n_cold / cold_touched)
+        in the bench, the ``wire`` metrics row, and PERF.md."""
+        return self.n_dict + (self.n_cold - self.n_dict_occ)
+
+    @property
+    def labels(self) -> np.ndarray:
+        return _unpack_bits(self.lb, self.batch_size).astype(np.float32)
+
+    @property
+    def weights(self) -> np.ndarray:
+        return _unpack_bits(self.wb, self.batch_size).astype(np.float32)
+
+    # -- construction ------------------------------------------------------
+
+    @classmethod
+    def from_batch(
+        cls,
+        batch: Batch,
+        table_size: int,
+        hot_size: int,
+        dict_cap: int = DICT_CAP,
+        check: bool = True,
+        strict_layout: bool = False,
+    ) -> "CompactBatch":
+        """Compact one padded Batch.  Only valid for hash-mode batches
+        (binary vals, 0/1 labels/weights) with per-row counts <= 255 —
+        everything the loaders produce; callers with heterogeneous
+        traffic keep ``check=True`` (the serving engine opts out of
+        this wire entirely).  ``strict_layout`` additionally enforces
+        the packed-v2 byte-exact contract (see _validate)."""
+        if check:
+            _validate(batch, table_size, hot_size, strict_layout)
+        b, kc = batch.keys.shape
+        kh = batch.hot_keys.shape[1]
+        cm = batch.mask > 0
+        hm = batch.hot_mask > 0
+        cc = cm.sum(axis=1).astype(np.uint8)
+        hc = hm.sum(axis=1).astype(np.uint8)
+        ckeys = batch.keys[cm].astype(np.int64)
+        cslots = batch.slots[cm]
+        hkeys = batch.hot_keys[hm]
+        hslots = batch.hot_slots[hm]
+        n_cold, n_hot = len(ckeys), len(hkeys)
+        key_bytes = 3 if table_size <= 1 << 24 else 4
+        hx16 = hot_size > 1 << 12
+
+        dict_keys, codes = dedup_select(ckeys, dict_cap)
+        nd = len(dict_keys)
+        in_dict = codes != _TAIL_CODE
+        n_dict_occ = int(in_dict.sum())
+        slots_cap = b * kc
+        cap_d = plane_cap(nd, min(dict_cap, slots_cap))
+        cap_i = plane_cap(n_dict_occ, slots_cap)
+        cap_t = plane_cap(n_cold - n_dict_occ, slots_cap)
+        cap_c = plane_cap(n_cold, slots_cap)
+
+        small = hkeys < 256
+        n_h8 = int(small.sum())
+        n_hx = n_hot - n_h8
+        hslots_cap = b * kh
+        cap_8 = plane_cap(n_h8, hslots_cap)
+        cap_x = plane_cap(n_hx, hslots_cap)
+        cap_h = plane_cap(n_hot, hslots_cap)
+
+        hx_vals = hkeys[~small]
+        if hx16:
+            hx = _flat_plane(hx_vals, cap_x, np.uint16)
+            hxh = np.zeros(0, np.uint8)
+        else:
+            hx = _flat_plane(hx_vals & 0xFF, cap_x, np.uint8)
+            hxh = _pack_nibbles(hx_vals >> 8, (cap_x + 1) // 2)
+
+        scode = max(_slots_code(cslots), _slots_code(hslots))
+        sdtype = _SLOT_DTYPES[scode]
+        cflags = np.zeros(cap_c, bool)
+        cflags[:n_cold] = in_dict
+        hflags = np.zeros(cap_h, bool)
+        hflags[:n_hot] = small
+        return cls(
+            batch_size=b, cold_nnz=kc, hot_nnz_cap=kh,
+            table_size=table_size, hot_size=hot_size,
+            n_real=batch.num_real(), n_cold=n_cold, n_dict=nd,
+            n_dict_occ=n_dict_occ, n_hot=n_hot, n_h8=n_h8,
+            key_bytes=key_bytes, hx16=hx16, slots_code=scode,
+            cu=_pack_keys(dict_keys, key_bytes, cap_d),
+            ci=_flat_plane(codes[in_dict], cap_i, np.uint16),
+            ct=_pack_keys(ckeys[~in_dict], key_bytes, cap_t),
+            cf=_pack_bits(cflags),
+            cc=cc,
+            h8=_flat_plane(hkeys[small], cap_8, np.uint8),
+            hx=hx, hxh=hxh,
+            hf=_pack_bits(hflags),
+            hc=hc,
+            lb=_pack_bits(batch.labels),
+            wb=_pack_bits(batch.weights),
+            cs=_flat_plane(cslots, cap_c, sdtype),
+            hs=_flat_plane(hslots, cap_h, sdtype),
+        )
+
+    # -- expansion (exact inverse for loader-produced batches) -------------
+
+    def expand(self) -> Batch:
+        """Reconstruct the padded Batch.  Byte-exact for any
+        loader-produced batch (left-compacted rows): real-entry order
+        is preserved through the flat streams, padding is zeros."""
+        b, kc, kh = self.batch_size, self.cold_nnz, self.hot_nnz_cap
+        cflags = _unpack_bits(self.cf, self.n_cold).astype(bool)
+        keys_flat = np.zeros(self.n_cold, np.int64)
+        dict_keys = _unpack_keys(self.cu, self.n_dict)
+        if self.n_dict_occ:
+            keys_flat[cflags] = dict_keys[
+                self.ci[: self.n_dict_occ].astype(np.int64)
+            ]
+        if self.n_cold - self.n_dict_occ:
+            keys_flat[~cflags] = _unpack_keys(
+                self.ct, self.n_cold - self.n_dict_occ
+            )
+        hot_flat = self._hot_ids()
+
+        def unflatten(flat, counts, width, dtype):
+            out = np.zeros((b, width), dtype)
+            valid = np.arange(width)[None, :] < counts[:, None]
+            out[valid] = flat
+            return out
+
+        cc = self.cc.astype(np.int64)
+        hc = self.hc.astype(np.int64)
+        cm = (np.arange(kc)[None, :] < cc[:, None]).astype(np.float32)
+        hm = (np.arange(kh)[None, :] < hc[:, None]).astype(np.float32)
+        return Batch(
+            keys=unflatten(keys_flat, cc, kc, np.int32),
+            slots=unflatten(self.cs[: self.n_cold], cc, kc, np.int32),
+            vals=cm.copy(),
+            mask=cm,
+            labels=self.labels,
+            weights=self.weights,
+            hot_keys=unflatten(hot_flat, hc, kh, np.int32),
+            hot_slots=unflatten(self.hs[: self.n_hot], hc, kh, np.int32),
+            hot_vals=hm.copy(),
+            hot_mask=hm,
+        )
+
+    def _hot_ids(self) -> np.ndarray:
+        """Flat hot-section row ids (original occurrence order)
+        reconstructed from the tiered u8/u12/u16 planes — shared by
+        expand() and touched_rows()."""
+        hflags = _unpack_bits(self.hf, self.n_hot).astype(bool)
+        hot_flat = np.zeros(self.n_hot, np.int64)
+        hot_flat[hflags] = self.h8[: self.n_h8].astype(np.int64)
+        n_hx = self.n_hot - self.n_h8
+        if n_hx:
+            if self.hx16:
+                hot_flat[~hflags] = self.hx[:n_hx].astype(np.int64)
+            else:
+                hi = np.repeat(self.hxh, 2)[:n_hx].astype(np.int64)
+                hi = np.where(
+                    np.arange(n_hx) % 2 == 0, hi & 0xF, hi >> 4
+                )
+                hot_flat[~hflags] = self.hx[:n_hx].astype(np.int64) | (
+                    hi << 8
+                )
+        return hot_flat
+
+    def touched_rows(self) -> np.ndarray:
+        """Big-table row ids this batch touches — cold dictionary keys,
+        cold tail occurrences (may repeat), and hot-section ids (row
+        ids in [0, hot_size) by construction).  The delta-export
+        ledger's per-batch input (stream/delta.py): available straight
+        off the compact planes, no expand() cost."""
+        parts = [
+            _unpack_keys(self.cu, self.n_dict),
+            _unpack_keys(self.ct, self.n_cold - self.n_dict_occ),
+        ]
+        if self.n_hot:
+            parts.append(self._hot_ids())
+        return np.concatenate(parts)
+
+    # -- wire --------------------------------------------------------------
+
+    def wire(self, ship_slots: bool) -> dict[str, np.ndarray]:
+        """The numpy planes that cross the link, keyed by the cw_*
+        names ops/wire.py (K6) decodes.  Slots ship
+        (clamped to the u8 ignored-range convention of
+        compact_wire_np) only when the model reads them."""
+        out = {
+            "cw_cu": self.cu,
+            "cw_cun": np.asarray([self.n_dict], np.int32),
+            "cw_ci": self.ci,
+            "cw_ct": self.ct,
+            "cw_cf": self.cf,
+            "cw_cc": self.cc,
+            "cw_lb": self.lb,
+            "cw_wb": self.wb,
+        }
+        if self.hot_nnz_cap:
+            out.update({
+                "cw_h8": self.h8, "cw_hx": self.hx, "cw_hxh": self.hxh,
+                "cw_hf": self.hf, "cw_hc": self.hc,
+            })
+        if ship_slots:
+            out["cw_cs"] = _clamp_slots_u8(self.cs)
+            if self.hot_nnz_cap:
+                out["cw_hs"] = _clamp_slots_u8(self.hs)
+        return out
+
+    def wire_nbytes(self, ship_slots: bool) -> int:
+        return sum(v.nbytes for v in self.wire(ship_slots).values())
+
+
+def _clamp_slots_u8(slots: np.ndarray) -> np.ndarray:
+    """Slots to the u8 wire plane under the shared lossless-clamp rule
+    (compact_wire_np): anything outside [0, 255] maps to 255, which
+    every slot consumer already ignores for max_fields <= 255."""
+    if slots.dtype == np.uint8:
+        return slots
+    s = slots.astype(np.int64)
+    return np.where((s < 0) | (s > 255), 255, s).astype(np.uint8)
+
+
+def _validate(
+    batch: Batch,
+    table_size: int,
+    hot_size: int,
+    strict_layout: bool = False,
+) -> None:
+    """Compaction invariants — the dict wire's eligibility contract:
+    binary features, 0/1 labels/weights, in-range keys, rows no wider
+    than the u8 count planes.  ``strict_layout`` additionally requires
+    left-compacted rows (no interior mask holes): that is the packed-v2
+    BYTE-EXACT round-trip contract (io/packed.py), loader batches
+    satisfy it by construction, and without it compaction is still
+    semantically lossless — entries re-compact leftward with their
+    (key, slot, val) triplets intact, and every model reduces over the
+    feature axis permutation-invariantly."""
+    if not (
+        np.array_equal(batch.vals * batch.mask, batch.mask)
+        and np.array_equal(
+            batch.hot_vals * batch.hot_mask, batch.hot_mask
+        )
+    ):
+        raise ValueError(
+            "compact_batch requires binary features (val 1 wherever "
+            "mask 1); use wire_dedup='off' for value-carrying batches"
+        )
+    for arr in (batch.labels, batch.weights):
+        if not np.isin(arr, (0.0, 1.0)).all():
+            raise ValueError(
+                "compact_batch requires 0/1 labels and weights; use "
+                "wire_dedup='off'"
+            )
+    if batch.max_nnz > 255 or batch.hot_nnz > 255:
+        raise ValueError(
+            "compact_batch per-row counts are u8: max_nnz and hot_nnz "
+            "must be <= 255"
+        )
+    cm = batch.mask > 0
+    if strict_layout:
+        cc = cm.sum(axis=1)
+        hm_ = batch.hot_mask > 0
+        hc = hm_.sum(axis=1)
+        if not (
+            np.array_equal(
+                cm, np.arange(batch.max_nnz)[None, :] < cc[:, None]
+            )
+            and np.array_equal(
+                hm_, np.arange(batch.hot_nnz)[None, :] < hc[:, None]
+            )
+        ):
+            raise ValueError(
+                "packed-v2 records require left-compacted rows "
+                "(loader batches are; the byte-exact round-trip "
+                "contract — user batches with mask holes still ride "
+                "the dict wire, just not the cache)"
+            )
+    if len(batch.keys[cm]) and not (
+        0 <= batch.keys[cm].min()
+        and int(batch.keys[cm].max()) < table_size
+    ):
+        raise ValueError("compact_batch: cold key outside [0, table_size)")
+    hm = batch.hot_mask > 0
+    if len(batch.hot_keys[hm]) and not (
+        0 <= batch.hot_keys[hm].min()
+        and int(batch.hot_keys[hm].max()) < max(hot_size, 1)
+    ):
+        raise ValueError("compact_batch: hot key outside [0, hot_size)")
+
+
+def plane_specs(
+    *,
+    batch_size: int,
+    cold_nnz: int,
+    hot_nnz_cap: int,
+    key_bytes: int,
+    hx16: bool,
+    slots_code: int,
+    n_cold: int,
+    n_dict: int,
+    n_dict_occ: int,
+    n_hot: int,
+    n_h8: int,
+    dict_cap: int = DICT_CAP,
+    granule_div: int = GRANULE_DIV,
+    granule_min: int = GRANULE_MIN,
+) -> list[tuple[str, tuple, np.dtype]]:
+    """(field, shape, dtype) for every CompactBatch plane, in the
+    packed-cache v2 record order (io/packed.py).  Deterministic from
+    the record's counts and the shard header's wire parameters, so the
+    writer's serialization and the reader's zero-copy views cannot
+    drift."""
+    b = batch_size
+
+    def cap(n, slots):
+        return plane_cap(n, slots, granule_div, granule_min)
+
+    c_slots = b * cold_nnz
+    cap_d = cap(n_dict, min(dict_cap, c_slots))
+    cap_i = cap(n_dict_occ, c_slots)
+    cap_t = cap(n_cold - n_dict_occ, c_slots)
+    cap_c = cap(n_cold, c_slots)
+    kshape = (lambda n: ((n, 3), np.dtype(np.uint8))) if key_bytes == 3 \
+        else (lambda n: ((n,), np.dtype(np.uint32)))
+    sdtype = np.dtype(_SLOT_DTYPES[slots_code])
+    u8 = np.dtype(np.uint8)
+    specs = [
+        ("cu",) + kshape(cap_d),
+        ("ci", (cap_i,), np.dtype(np.uint16)),
+        ("ct",) + kshape(cap_t),
+        ("cf", ((cap_c + 7) // 8,), u8),
+        ("cc", (b,), u8),
+    ]
+    if hot_nnz_cap:
+        h_slots = b * hot_nnz_cap
+        cap_8 = cap(n_h8, h_slots)
+        cap_x = cap(n_hot - n_h8, h_slots)
+        cap_h = cap(n_hot, h_slots)
+        specs += [
+            ("h8", (cap_8,), u8),
+            ("hx", (cap_x,), np.dtype(np.uint16) if hx16 else u8),
+            ("hxh", (0 if hx16 else (cap_x + 1) // 2,), u8),
+            ("hf", ((cap_h + 7) // 8,), u8),
+            ("hc", (b,), u8),
+        ]
+    specs += [
+        ("lb", ((b + 7) // 8,), u8),
+        ("wb", ((b + 7) // 8,), u8),
+        ("cs", (cap_c,), sdtype),
+    ]
+    if hot_nnz_cap:
+        cap_h = cap(n_hot, b * hot_nnz_cap)
+        specs += [("hs", (cap_h,), sdtype)]
+    return specs
+
+
+def from_planes(
+    meta: dict, counts: dict, planes: dict[str, np.ndarray]
+) -> CompactBatch:
+    """Assemble a CompactBatch from reader-provided plane views (the
+    packed-cache v2 record path).  ``meta`` holds the shard-level wire
+    parameters, ``counts`` the per-record totals."""
+    b = meta["batch_size"]
+    kh = meta["hot_nnz"]
+    zeros_u8 = np.zeros(0, np.uint8)
+    return CompactBatch(
+        batch_size=b,
+        cold_nnz=meta["cold_nnz"],
+        hot_nnz_cap=kh,
+        table_size=meta["table_size"],
+        hot_size=meta["hot_size"],
+        n_real=counts["n_real"],
+        n_cold=counts["n_cold"],
+        n_dict=counts["n_dict"],
+        n_dict_occ=counts["n_dict_occ"],
+        n_hot=counts["n_hot"],
+        n_h8=counts["n_h8"],
+        key_bytes=meta["key_bytes"],
+        hx16=meta["hx16"],
+        slots_code=counts["slots_code"],
+        cu=planes["cu"], ci=planes["ci"], ct=planes["ct"],
+        cf=planes["cf"], cc=planes["cc"],
+        h8=planes.get("h8", zeros_u8),
+        hx=planes.get("hx", zeros_u8),
+        hxh=planes.get("hxh", zeros_u8),
+        hf=planes.get("hf", zeros_u8),
+        hc=planes.get("hc", np.zeros(b, np.uint8)),
+        lb=planes["lb"], wb=planes["wb"],
+        cs=planes["cs"],
+        hs=planes.get("hs", np.zeros(0, _SLOT_DTYPES[counts["slots_code"]])),
+    )
+
+
+def compact_batch(
+    batch: Batch,
+    table_size: int,
+    hot_size: int,
+    dict_cap: int = DICT_CAP,
+    check: bool = True,
+    strict_layout: bool = False,
+) -> CompactBatch:
+    """Functional alias for CompactBatch.from_batch (the name the
+    native kernel, docs, and bench refer to)."""
+    return CompactBatch.from_batch(
+        batch, table_size, hot_size, dict_cap, check, strict_layout
+    )

@@ -1,5 +1,5 @@
-"""Shard-aware streaming minibatch loader (the reference's io/loader.py,
-text path).
+"""Shard-aware streaming minibatch loader (the reference's io/loader.py
+over libffm text and packed shards).
 
 Each data-parallel worker reads its own file shard named
 ``<prefix>-%05d`` by rank (lr_worker.cc:210); training streams the
@@ -14,10 +14,15 @@ shard in fixed-size byte blocks per epoch.  As in the reference:
   quarantined (skipped, counted, reported as a ``health`` row) until
   the quarantine budget trips.
 
-The parser is the pure-Python ``parse_block``; the native parser
-comes with ROADMAP A2.  Binary block-cache and packed-batch shards
-(sniffed by their magic) are refused, naming ROADMAP A5.  The chaos
-failpoints come with ROADMAP A14.
+The parse function comes from ``make_parse_fn``: the native C++
+parser (xflow_tpu_torch/native) when it builds, else the pure-Python
+``parse_block`` (byte-equal results); batches are packed by the
+native ``xf_pack_batch`` when the library is there.  Packed shards
+(io/packed.py, sniffed by their magic) skip parsing and assembly: their
+records are finished batches, and with ``emit_compact`` a v2 shard
+yields its CompactBatch records as they are, for a dictionary-wire
+train step.  Binary block-cache shards are refused, naming ROADMAP
+A5b.  The chaos failpoints come with ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -31,15 +36,17 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+from xflow_tpu_torch import native
+from xflow_tpu_torch.io import packed
 from xflow_tpu_torch.io.batch import Batch, ParsedBlock, pack_batch
 from xflow_tpu_torch.io.libffm import BlockReader, parse_block
 from xflow_tpu_torch.obs import Obs, emit_health
 
 ParseFn = Callable[[bytes], ParsedBlock]
 
-# the reference's io/binary.py and io/packed.py magics
+# the reference's io/binary.py magic
 BINARY_MAGIC = b"XFBC0001"
-PACKED_MAGIC = b"XFPB0001"
+PACKED_MAGIC = packed.MAGIC
 BACKOFF_CAP_S = 2.0  # the reference's chaos/heal.py cap
 
 
@@ -80,11 +87,22 @@ def make_parse_fn(
     table_size: int,
     hash_mode: bool = True,
     hash_seed: int = 0,
+    prefer_native: bool = True,
 ) -> ParseFn:
-    """``bytes -> ParsedBlock`` closure over the parse settings, on the
-    pure-Python parser (the reference pins its native parser equal to
-    it)."""
+    """``bytes -> ParsedBlock`` closure over the parse settings: the
+    native parser when ``prefer_native`` and it builds here, else the
+    Python one (byte-equal, tests/test_torch_native.py).  As in the
+    reference the fallback is silent; ``parser_name`` says which runs."""
+    if prefer_native and native.available():
+        return lambda data: native.native_parse_block(
+            data, table_size, hash_mode, hash_seed
+        )
     return lambda data: parse_block(data, table_size, hash_mode, hash_seed)
+
+
+def parser_name(prefer_native: bool = True) -> str:
+    """"native" or "python": the parser ``make_parse_fn`` gives."""
+    return "native" if prefer_native and native.available() else "python"
 
 
 class ShardLoader:
@@ -101,6 +119,7 @@ class ShardLoader:
         hash_seed: int = 0,
         parse_fn: ParseFn | None = None,
         obs: Obs | None = None,  # parse/pack phase seconds + counters
+        emit_compact: bool = False,  # v2 packed shards: yield CompactBatch
         io_retries: int = 2,  # read/parse retries per block
         io_retry_backoff_s: float = 0.05,
         max_quarantined_frac: float = 0.05,  # quarantine budget
@@ -115,6 +134,11 @@ class ShardLoader:
         if parse_fn is None:
             parse_fn = make_parse_fn(table_size, hash_mode, hash_seed)
         self.parse_fn = parse_fn
+        # With emit_compact, v2 packed shards yield their records AS
+        # CompactBatch: a dictionary-wire train step ships them with no
+        # per-batch host work; other formats still yield padded Batches.
+        self.emit_compact = emit_compact
+        self._native_pack = native.available()
         # parse/pack run on worker threads under prefetch/parse_workers,
         # so their phase seconds OVERLAP the consumer's wall-clock
         self.obs = obs if obs is not None else Obs()
@@ -191,6 +215,10 @@ class ShardLoader:
 
     def _pack(self, block: ParsedBlock, start: int, end: int) -> Batch:
         with self.obs.phase("pack"):
+            if self._native_pack:
+                return native.native_pack_batch(
+                    block, start, end, self.batch_size, self.max_nnz
+                )
             return pack_batch(block, start, end, self.batch_size, self.max_nnz)
 
     def iter_batches(
@@ -201,15 +229,21 @@ class ShardLoader:
         ``resume_offset`` is the byte offset of the earliest block with
         samples not yet yielded; up to one block plus one carry may
         replay from it.  With parse_workers > 1, whole blocks parse
-        concurrently on a thread pool, order-preserving."""
+        concurrently on a thread pool, order-preserving (the native
+        parser releases the GIL).  A packed shard yields its records:
+        no parse, no assembly, and ``resume_offset`` is the next
+        record's offset."""
         with open(self.path, "rb") as f:
             magic = f.read(len(BINARY_MAGIC))
-            if magic in (BINARY_MAGIC, PACKED_MAGIC):
-                kind = "binary block-cache" if magic == BINARY_MAGIC else "packed-batch"
+            if magic == BINARY_MAGIC:
                 raise NotImplementedError(
-                    f"{self.path}: {kind} shards are not ported yet "
-                    "(ROADMAP A5); train from libffm text"
+                    f"{self.path}: binary block-cache shards are not ported "
+                    "yet (ROADMAP A5b); train from libffm text or a packed "
+                    "shard"
                 )
+            if magic == PACKED_MAGIC:
+                yield from self._iter_packed(f, start_offset)
+                return
             f.seek(start_offset)
 
             def parsed_blocks() -> Iterator[tuple[ParsedBlock, int, int]]:
@@ -249,6 +283,23 @@ class ShardLoader:
                             yield block, off, noff
 
             yield from self._batches_from_blocks(parsed_blocks(), start_offset)
+
+    def _iter_packed(self, f, start_offset: int) -> Iterator[tuple[Batch, int]]:
+        """Batch stream over a packed shard (io/packed.py), whose baked-in
+        geometry must match this loader's exactly."""
+        f.seek(0)
+        meta, _ = packed.read_header(f)
+        packed.check_compat(
+            meta, batch_size=self.batch_size, cold_nnz=self.max_nnz,
+            hot_nnz=0, hot_size=0, table_size=self.table_size,
+            hash_mode=self.hash_mode, hash_seed=self.hash_seed, remap=None,
+        )
+        if self.emit_compact and meta.get("version", 1) == 2:
+            records = packed.iter_compact_batches(f, start_offset)
+        else:
+            records = packed.iter_batches(f, start_offset)
+        for batch, offset, next_offset in records:
+            yield batch, next_offset
 
     def _batches_from_blocks(
         self,

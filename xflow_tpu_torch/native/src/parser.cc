@@ -1,0 +1,425 @@
+// Native libffm block parser + MurmurHash64A feature hasher.
+//
+// TPU-native counterpart of the reference's C++ IO layer
+// (src/io/load_data_from_disk.cc:103-210, the fread block loader, and
+// the std::hash<string> feature hashing at :151 / io.h:53): host-side
+// text parsing is the throughput bottleneck when feeding an
+// accelerator from libffm text shards (SURVEY §7 hard part c), so the
+// tokenize+hash hot loop lives in C++ behind a C ABI consumed via
+// ctypes (no pybind11 dependency).
+//
+// Semantics mirror xflow_tpu/io/libffm.py::parse_block exactly —
+// parity is enforced by tests/test_native.py over toy, fuzzed, and
+// malformed inputs:
+//   * lines split on '\n'; tokens on spaces/tabs/CR
+//   * label = first token parsed as float (full consume), else line
+//     skipped; binarized y > 1e-7 -> 1
+//   * feature token must be fgid:fid:val with integer fgid; in hash
+//     mode fid is hashed as a string (MurmurHash64A, seed given) and
+//     val is DISCARDED (features binary, vals=1); in numeric mode fid
+//     must parse as integer and val as float, both kept
+//   * malformed tokens are skipped, not fatal
+//   * keys reduced modulo table_size; table_size == 0 keeps FULL keys
+//     (the 64-bit hash as two's-complement int64 / the raw fid) for the
+//     binary block cache (io/binary.py) and collision accounting
+
+#include <cerrno>
+#include <cmath>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+
+namespace {
+
+constexpr uint64_t kMulm = 0xc6a4a7935bd1e995ULL;
+constexpr int kShift = 47;
+
+uint64_t murmur64a(const char* data, int64_t len, uint64_t seed) {
+  uint64_t h = seed ^ (static_cast<uint64_t>(len) * kMulm);
+  const int64_t nblocks = len / 8;
+  for (int64_t i = 0; i < nblocks; ++i) {
+    uint64_t k;
+    std::memcpy(&k, data + i * 8, 8);
+    k *= kMulm;
+    k ^= k >> kShift;
+    k *= kMulm;
+    h ^= k;
+    h *= kMulm;
+  }
+  const unsigned char* tail =
+      reinterpret_cast<const unsigned char*>(data + nblocks * 8);
+  uint64_t k = 0;
+  switch (len & 7) {
+    case 7: k |= static_cast<uint64_t>(tail[6]) << 48; [[fallthrough]];
+    case 6: k |= static_cast<uint64_t>(tail[5]) << 40; [[fallthrough]];
+    case 5: k |= static_cast<uint64_t>(tail[4]) << 32; [[fallthrough]];
+    case 4: k |= static_cast<uint64_t>(tail[3]) << 24; [[fallthrough]];
+    case 3: k |= static_cast<uint64_t>(tail[2]) << 16; [[fallthrough]];
+    case 2: k |= static_cast<uint64_t>(tail[1]) << 8; [[fallthrough]];
+    case 1:
+      k |= static_cast<uint64_t>(tail[0]);
+      h ^= k;
+      h *= kMulm;
+  }
+  h ^= h >> kShift;
+  h *= kMulm;
+  h ^= h >> kShift;
+  return h;
+}
+
+inline bool is_space(char c) {
+  // Python bytes.split() splits on these.
+  return c == ' ' || c == '\t' || c == '\r' || c == '\x0b' || c == '\f';
+}
+
+// Parse [p, end) fully as a float; false if empty or trailing junk.
+// Mirrors Python float(tok): leading/trailing whitespace already
+// stripped by tokenization.
+bool parse_float_full(const char* p, const char* end, float* out) {
+  if (p == end) return false;
+  // strtof accepts hex floats ("0x5") and "nan(...)"; Python float() does
+  // not — reject them for parity.
+  const char* q = p;
+  if (*q == '+' || *q == '-') ++q;
+  if (end - q >= 2 && q[0] == '0' && (q[1] == 'x' || q[1] == 'X')) return false;
+  if (std::memchr(p, '(', static_cast<size_t>(end - p)) != nullptr) return false;
+  // strtod needs NUL-terminated input; stack buffer for the common case,
+  // heap for pathological token lengths (Python float() has no limit).
+  char buf[64];
+  size_t n = static_cast<size_t>(end - p);
+  char* heap = nullptr;
+  char* s = buf;
+  if (n >= sizeof(buf)) {
+    heap = static_cast<char*>(std::malloc(n + 1));
+    if (heap == nullptr) return false;
+    s = heap;
+  }
+  std::memcpy(s, p, n);
+  s[n] = '\0';
+  char* parse_end = nullptr;
+  errno = 0;
+  // Parse as double then narrow, matching the Python parser's
+  // float(tok) -> float32 double rounding exactly (np.float32(float(tok))).
+  double v = std::strtod(s, &parse_end);
+  bool ok = (parse_end == s + n);
+  if (heap != nullptr) std::free(heap);
+  if (!ok) return false;
+  *out = static_cast<float>(v);
+  return true;
+}
+
+// Parse [p, end) fully as a base-10 integer (Python int(tok) semantics
+// minus underscores: optional sign, digits only).  Values outside int64
+// are rejected (the Python parser skips them too — see libffm.py's
+// range guards), never silently wrapped.
+bool parse_int_full(const char* p, const char* end, int64_t* out) {
+  if (p == end) return false;
+  bool neg = false;
+  if (*p == '+' || *p == '-') {
+    neg = (*p == '-');
+    ++p;
+    if (p == end) return false;
+  }
+  uint64_t v = 0;
+  constexpr uint64_t kMax = 0x7fffffffffffffffULL;  // int64 max
+  for (; p != end; ++p) {
+    if (*p < '0' || *p > '9') return false;
+    uint64_t d = static_cast<uint64_t>(*p - '0');
+    if (v > (kMax - d) / 10) return false;  // would overflow int64
+    v = v * 10 + d;
+  }
+  *out = neg ? -static_cast<int64_t>(v) : static_cast<int64_t>(v);
+  return true;
+}
+
+// fgid must fit int32 (slot arrays are int32 in both parsers).
+bool parse_fgid(const char* p, const char* end, int32_t* out) {
+  int64_t v;
+  if (!parse_int_full(p, end, &v)) return false;
+  if (v < INT32_MIN || v > INT32_MAX) return false;
+  *out = static_cast<int32_t>(v);
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+uint64_t xf_murmur64(const char* data, int64_t len, uint64_t seed) {
+  return murmur64a(data, len, seed);
+}
+
+// Parses one text block.  Outputs are caller-allocated with capacities
+// max_rows / max_nnz; returns the number of parsed samples, or -1 if a
+// capacity would overflow (caller should re-bound and retry).
+// row_ptr has max_rows+1 slots; *out_nnz receives the total nnz.
+int64_t xf_parse_block(const char* data, int64_t len, int64_t table_size,
+                       int hash_mode, uint64_t seed, float* labels,
+                       int64_t max_rows, int64_t* row_ptr, int64_t* keys,
+                       int32_t* slots, float* vals, int64_t max_nnz,
+                       int64_t* out_nnz) {
+  int64_t n_rows = 0;
+  int64_t nnz = 0;
+  row_ptr[0] = 0;
+  const char* p = data;
+  const char* data_end = data + len;
+  while (p < data_end) {
+    const char* line_end = static_cast<const char*>(
+        std::memchr(p, '\n', static_cast<size_t>(data_end - p)));
+    if (line_end == nullptr) line_end = data_end;
+    const char* q = p;
+    p = line_end + 1;  // advance for next iteration
+
+    // tokenize: first token = label
+    while (q < line_end && is_space(*q)) ++q;
+    if (q == line_end) continue;  // blank line
+    const char* tok_end = q;
+    while (tok_end < line_end && !is_space(*tok_end)) ++tok_end;
+    float y;
+    if (!parse_float_full(q, tok_end, &y)) continue;  // bad label: skip line
+    if (n_rows == max_rows) return -1;
+    labels[n_rows] = (y > 1e-7f) ? 1.0f : 0.0f;
+
+    // feature tokens
+    q = tok_end;
+    while (q < line_end) {
+      while (q < line_end && is_space(*q)) ++q;
+      if (q == line_end) break;
+      const char* t_end = q;
+      while (t_end < line_end && !is_space(*t_end)) ++t_end;
+      // split fgid:fid:val — exactly 3 pieces
+      const char* c1 = static_cast<const char*>(
+          std::memchr(q, ':', static_cast<size_t>(t_end - q)));
+      if (c1 != nullptr) {
+        const char* c2 = static_cast<const char*>(
+            std::memchr(c1 + 1, ':', static_cast<size_t>(t_end - c1 - 1)));
+        if (c2 != nullptr &&
+            std::memchr(c2 + 1, ':', static_cast<size_t>(t_end - c2 - 1)) ==
+                nullptr) {
+          int32_t fgid;
+          if (parse_fgid(q, c1, &fgid)) {
+            if (hash_mode) {
+              if (nnz == max_nnz) return -1;
+              uint64_t h = murmur64a(c1 + 1, c2 - c1 - 1, seed);
+              keys[nnz] = static_cast<int64_t>(
+                  table_size > 0 ? h % static_cast<uint64_t>(table_size)
+                                 : h);
+              slots[nnz] = fgid;
+              vals[nnz] = 1.0f;  // value field discarded: binary features
+              ++nnz;
+            } else {
+              int64_t fid;
+              float val;
+              if (parse_int_full(c1 + 1, c2, &fid) &&
+                  parse_float_full(c2 + 1, t_end, &val) &&
+                  // reject values not finite in float32 (inf/nan
+                  // literals and 1e39/1e999-style overflows) — matches
+                  // libffm.py's finite-in-float32 rule exactly
+                  std::isfinite(val)) {
+                if (nnz == max_nnz) return -1;
+                int64_t k = fid;
+                if (table_size > 0) {
+                  k = fid % table_size;
+                  if (k < 0) k += table_size;
+                }
+                keys[nnz] = k;
+                slots[nnz] = fgid;
+                vals[nnz] = val;
+                ++nnz;
+              }
+            }
+          }
+        }
+      }
+      q = t_end;
+    }
+    ++n_rows;
+    row_ptr[n_rows] = nnz;
+  }
+  *out_nnz = nnz;
+  return n_rows;
+}
+
+// Packs samples [start, end) of a parsed CSR block into padded
+// row-major batch arrays, folding in the optional frequency remap
+// (io/freq.py) and hot/cold steering (io/batch.py::split_hot) in one
+// pass.  Native counterpart of io/batch.py::pack_batch — the numpy
+// version's cumsum/nonzero/fancy-index pipeline is the host bottleneck
+// at large batch sizes; parity enforced by tests/test_native.py.
+//
+// Layout contract (matches pack_batch exactly):
+//   * per sample, at most (cold_nnz + hot_nnz) leading CSR entries are
+//     considered (the rest truncate, as the Python ktot cap);
+//   * among those, hot entries (remapped key < hot_size) fill the hot
+//     section in order up to hot_nnz; overflow spills to cold;
+//   * cold entries fill up to cold_nnz, then truncate;
+//   * pad feature slots are key/slot/val/mask = 0; pad samples (index
+//     >= end-start) are fully zero with weight 0.
+// Outputs may be uninitialized (np.empty): every slot is written.
+// hot_* pointers may be null when hot_nnz == 0.  remap may be null.
+//
+// Returns -2 if any (remapped) key falls outside int32 — the batch
+// arrays are int32, and Config's table_size_log2 <= 30 guard only
+// covers the CLI path; this entry point is callable directly, so the
+// narrowing cast must be checked here, not assumed.
+int64_t xf_pack_batch(const int64_t* row_ptr, const float* labels_in,
+                      const int64_t* keys_in, const int32_t* slots_in,
+                      const float* vals_in, int64_t start, int64_t end,
+                      int64_t batch_size, const int32_t* remap,
+                      int64_t hot_size, int64_t hot_nnz, int64_t cold_nnz,
+                      int32_t* keys, int32_t* slots, float* vals, float* mask,
+                      int32_t* hot_keys, int32_t* hot_slots, float* hot_vals,
+                      float* hot_mask, float* labels, float* weights) {
+  const int64_t n = end - start;
+  const int64_t ktot = cold_nnz + hot_nnz;
+  for (int64_t i = 0; i < batch_size; ++i) {
+    int32_t* krow = keys + i * cold_nnz;
+    int32_t* srow = slots + i * cold_nnz;
+    float* vrow = vals + i * cold_nnz;
+    float* mrow = mask + i * cold_nnz;
+    int64_t cold = 0;
+    int64_t hot = 0;
+    if (i < n) {
+      labels[i] = labels_in[start + i];
+      weights[i] = 1.0f;
+      const int64_t lo = row_ptr[start + i];
+      int64_t hi = row_ptr[start + i + 1];
+      if (hi - lo > ktot) hi = lo + ktot;  // Python ktot truncation
+      for (int64_t e = lo; e < hi; ++e) {
+        int64_t k = keys_in[e];
+        if (remap != nullptr) k = remap[k];
+        if (k < 0 || k > INT32_MAX) return -2;  // would wrap in int32 cast
+        if (k < hot_size && hot < hot_nnz) {
+          hot_keys[i * hot_nnz + hot] = static_cast<int32_t>(k);
+          hot_slots[i * hot_nnz + hot] = slots_in[e];
+          hot_vals[i * hot_nnz + hot] = vals_in[e];
+          hot_mask[i * hot_nnz + hot] = 1.0f;
+          ++hot;
+        } else if (cold < cold_nnz) {
+          krow[cold] = static_cast<int32_t>(k);
+          srow[cold] = slots_in[e];
+          vrow[cold] = vals_in[e];
+          mrow[cold] = 1.0f;
+          ++cold;
+        }  // else: cold capacity truncation (split_hot semantics)
+      }
+    } else {
+      labels[i] = 0.0f;
+      weights[i] = 0.0f;
+    }
+    // zero-fill pad slots (outputs may be np.empty)
+    const size_t cpad = static_cast<size_t>(cold_nnz - cold);
+    std::memset(krow + cold, 0, cpad * sizeof(int32_t));
+    std::memset(srow + cold, 0, cpad * sizeof(int32_t));
+    std::memset(vrow + cold, 0, cpad * sizeof(float));
+    std::memset(mrow + cold, 0, cpad * sizeof(float));
+    if (hot_nnz > 0) {
+      const size_t hpad = static_cast<size_t>(hot_nnz - hot);
+      std::memset(hot_keys + i * hot_nnz + hot, 0, hpad * sizeof(int32_t));
+      std::memset(hot_slots + i * hot_nnz + hot, 0, hpad * sizeof(int32_t));
+      std::memset(hot_vals + i * hot_nnz + hot, 0, hpad * sizeof(float));
+      std::memset(hot_mask + i * hot_nnz + hot, 0, hpad * sizeof(float));
+    }
+  }
+  return n;
+}
+
+// Host-side batch compaction kernel (io/compact.py::dedup_select):
+// deduplicate n int64 keys into a frequency-capped dictionary.
+// Emits the dictionary keys (first-touch order over a deterministic
+// hash walk) to uniq_out and, per element, a u32 code — the element's
+// index into the dictionary, or 0xFFFFFFFF when its key's occurrence
+// count fell below the cap threshold (the smallest t with
+// |{count >= t}| <= dict_cap, so the selected SET matches the numpy
+// fallback exactly; only the within-dictionary order differs, which
+// expansion/training are invariant to).  Returns the dictionary size,
+// or -1 on allocation failure.
+//
+// Cost: two linear passes over an open-addressing table sized 2x the
+// element count — ~15 ns/element on one host core, i.e. "free relative
+// to the link" (the whole point of compacting host-side).
+int64_t xf_dict_encode(const int64_t* keys, int64_t n, int64_t dict_cap,
+                       int64_t* uniq_out, uint32_t* code_out) {
+  if (n <= 0) return 0;
+  uint64_t cap = 1;
+  while (cap < static_cast<uint64_t>(n) * 2) cap <<= 1;
+  const uint64_t mask = cap - 1;
+  int64_t* slot_key = static_cast<int64_t*>(std::malloc(cap * sizeof(int64_t)));
+  uint32_t* slot_cnt =
+      static_cast<uint32_t*>(std::malloc(cap * sizeof(uint32_t)));
+  uint32_t* slot_id =
+      static_cast<uint32_t*>(std::malloc(cap * sizeof(uint32_t)));
+  if (slot_key == nullptr || slot_cnt == nullptr || slot_id == nullptr) {
+    std::free(slot_key);
+    std::free(slot_cnt);
+    std::free(slot_id);
+    return -1;
+  }
+  std::memset(slot_cnt, 0, cap * sizeof(uint32_t));
+  // pass 1: count occurrences per unique key
+  int64_t n_unique = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t k = keys[i];
+    uint64_t h = static_cast<uint64_t>(k) * kMulm;
+    h ^= h >> kShift;
+    uint64_t s = h & mask;
+    while (slot_cnt[s] != 0 && slot_key[s] != k) s = (s + 1) & mask;
+    if (slot_cnt[s] == 0) {
+      slot_key[s] = k;
+      ++n_unique;
+    }
+    ++slot_cnt[s];
+  }
+  // threshold: smallest t with |{count >= t}| <= dict_cap (counts
+  // clamped into the histogram's last bucket; a key with count >
+  // dict_cap is certainly selected)
+  uint32_t t = 1;
+  if (n_unique > dict_cap) {
+    const uint32_t hist_n = static_cast<uint32_t>(dict_cap) + 2;
+    uint64_t* ge = static_cast<uint64_t*>(std::calloc(hist_n, sizeof(uint64_t)));
+    if (ge == nullptr) {
+      std::free(slot_key);
+      std::free(slot_cnt);
+      std::free(slot_id);
+      return -1;
+    }
+    for (uint64_t s = 0; s < cap; ++s) {
+      if (slot_cnt[s] != 0) {
+        uint32_t c = slot_cnt[s];
+        if (c > hist_n - 1) c = hist_n - 1;
+        ++ge[c];
+      }
+    }
+    for (uint32_t c = hist_n - 1; c > 0; --c) ge[c - 1] += ge[c];
+    while (t < hist_n - 1 && ge[t] > static_cast<uint64_t>(dict_cap)) ++t;
+    std::free(ge);
+  }
+  // pass 2: assign dictionary ids in slot-scan order (deterministic)
+  uint32_t nd = 0;
+  for (uint64_t s = 0; s < cap; ++s) {
+    if (slot_cnt[s] == 0) continue;
+    // nd guard: unreachable below ~(dict_cap+1)^2 elements, but the
+    // caller's uniq_out is sized dict_cap — never overrun it
+    if (slot_cnt[s] >= t && nd < static_cast<uint32_t>(dict_cap)) {
+      uniq_out[nd] = slot_key[s];
+      slot_id[s] = nd++;
+    } else {
+      slot_id[s] = 0xFFFFFFFFu;
+    }
+  }
+  // pass 3: code every element
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t k = keys[i];
+    uint64_t h = static_cast<uint64_t>(k) * kMulm;
+    h ^= h >> kShift;
+    uint64_t s = h & mask;
+    while (slot_key[s] != k || slot_cnt[s] == 0) s = (s + 1) & mask;
+    code_out[i] = slot_id[s];
+  }
+  std::free(slot_key);
+  std::free(slot_cnt);
+  std::free(slot_id);
+  return static_cast<int64_t>(nd);
+}
+
+}  // extern "C"

@@ -6,9 +6,10 @@ contract (integer outputs equal, sums to float rounding).  The training
 path calls ``consolidate_plan`` (through K4's plain version),
 ``gather_rows`` and ``scatter_rows`` (through K5's); ``consolidate``,
 ``consolidate_apply`` and ``consolidate_indexed`` have no caller in the
-port yet and are kept for parity with the reference, held by
-tests/test_torch_sparse.py, until the dictionary wire (ROADMAP A5)
-gives them one:
+port and are kept for parity with the reference, held by
+tests/test_torch_sparse.py: the dictionary wire's plan feeds only dense
+``cold_consolidate``, which the port runs as the plain dense step, so
+the port's decode (ops/wire.py) ships none (ROADMAP B5):
 
 * ``consolidate_plan`` / ``consolidate_apply`` / ``consolidate``: a
   stable argsort of the M sentinel-coded keys (padding carries the
@@ -16,8 +17,7 @@ gives them one:
   holds the unique keys in sorted order and the sentinel ``T`` in the
   unused slots; the per-table segment-sum of [M, D] gradients.
 * ``consolidate_indexed``: the segment-sum over a host-computed index
-  (the dictionary wire's, ROADMAP A5; plain only until that wire is
-  ported).
+  (the dictionary wire's plan).
 * ``gather_rows`` (the index clipped) and ``scatter_rows`` (sentinel
   rows dropped).  ``scatter_rows`` writes IN PLACE, where the reference
   returns a new array; it needs the live keys unique, as every

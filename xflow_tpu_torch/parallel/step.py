@@ -46,10 +46,16 @@ Wires.  The compact wire (hash mode) ships sentinel-coded int32 keys,
 ``-1`` where the slot is padding, and — for training — uint8 labels and
 weights.  The full wire (numeric mode or ``wire_mode="full"``) ships the
 same keys plus the masked values ``x = vals * mask`` and float32 labels
-and weights.  The reference's dictionary wire (``wire_dedup="auto"``)
-decodes, under the default ``cold_consolidate=False``, to the same key
-planes as the compact wire, so ``"auto"`` trains over the compact wire
-here; ``"on"`` is refused until it is ported (ROADMAP A5).
+and weights.  The dictionary wire (``wire_dedup="auto"`` or ``"on"``,
+hash mode on one device: :func:`dict_wire_ok`) compacts each batch on
+the host (io/compact.py::CompactBatch) and ships its tiered planes;
+K6 (ops/wire.py) decodes them on the card, inside ``put_batch``, into
+the compact wire's planes, so every update mode and ``predict`` run on
+the compact wire's planes unchanged.  ``evaluate``'s batches take the
+same wire as training's, as in the reference.  The reference's
+dictionary decode also ships a consolidation plan for dense
+``cold_consolidate``; the port runs that mode as the plain dense step
+(K2 builds no [B, K, D] intermediates), so the plan is not decoded.
 """
 
 from __future__ import annotations
@@ -61,12 +67,14 @@ import torch
 
 from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.io.batch import Batch, narrow_keys_i32
+from xflow_tpu_torch.io.compact import CompactBatch
 from xflow_tpu_torch.models import PORTED, make_model
 from xflow_tpu_torch.obs import Obs
 from xflow_tpu_torch.ops.optim import optim_update
 from xflow_tpu_torch.ops.score import MAX_DIM, score
 from xflow_tpu_torch.ops.sparse import consolidate_keys, touched_update
 from xflow_tpu_torch.ops.train import train_step
+from xflow_tpu_torch.ops.wire import dict_decode, to_device
 
 # {"tables": {name: {"param": [T, D], <aux>, "g"}}, "dense": {}, "step": int}
 State = dict[str, Any]
@@ -215,17 +223,33 @@ def check_servable(cfg: Config) -> None:
         )
 
 
+def dict_wire_ok(cfg: Config, uses_slots: bool) -> bool:
+    """The reference's dictionary-wire eligibility (step.py:353-366):
+    the compact-wire invariants, one device, u8 per-row counts and hot
+    ids that fit the tiered encoding.  The port trains on one device:
+    ``num_devices`` 0 (all of them) is its one card, and more than one
+    is refused (ROADMAP A13)."""
+    kh = cfg.hot_nnz if cfg.hot_size else 0
+    compact_ok = cfg.hash_mode and not (uses_slots and cfg.max_fields > 255)
+    return (
+        compact_ok
+        and cfg.num_devices <= 1
+        and cfg.max_nnz <= 255
+        and kh <= 255
+        and (not cfg.hot_size_log2 or cfg.hot_size_log2 <= 16)
+    )
+
+
 def check_trainable(cfg: Config) -> None:
     """Refuse a configuration this slice cannot train, naming the
-    ROADMAP item that brings it.  A trained model is evaluated through
-    K1, so it must be servable first."""
+    ROADMAP item that brings it, and ``wire_dedup="on"`` where the
+    reference refuses it.  A trained model is evaluated through K1, so
+    it must be servable first."""
     check_servable(cfg)
     refusals = (
         (cfg.update_mode == "sequential" and cfg.sequential_inner == "hot",
          "sequential_inner='hot' needs the hot table, which is not ported "
          "yet (ROADMAP A8b)"),
-        (cfg.wire_dedup == "on",
-         "wire_dedup='on': the dictionary wire is not ported yet (ROADMAP A5)"),
         (cfg.num_devices > 1,
          f"num_devices={cfg.num_devices}: multi-GPU training is not ported "
          "yet (ROADMAP A13)"),
@@ -236,6 +260,13 @@ def check_trainable(cfg: Config) -> None:
     for refused, why in refusals:
         if refused:
             raise NotImplementedError(why)
+    if cfg.wire_dedup == "on" and not dict_wire_ok(cfg, make_model(cfg).uses_slots):
+        raise ValueError(
+            "wire_dedup='on' requires the compact-wire invariants "
+            "(hash_mode; max_fields <= 255 for slot models), a "
+            "single-process single-device mesh, max_nnz/hot_nnz "
+            "<= 255, and hot_size_log2 <= 16"
+        )
 
 
 class TrainStep:
@@ -253,6 +284,11 @@ class TrainStep:
         self.obs = obs if obs is not None else Obs()
         self.predict_step = PredictStep(model, cfg, device)
         self.compact_wire = self.predict_step.compact_wire
+        self.dict_wire = (
+            cfg.wire_mode != "full"
+            and cfg.wire_dedup != "off"
+            and dict_wire_ok(cfg, model.uses_slots)
+        )
         self._compact_validated = False
         # sequential slices (Config guarantees that the microbatch
         # divides the batch); the dense forms take the batch whole
@@ -262,23 +298,56 @@ class TrainStep:
 
     @property
     def wire_format(self) -> str:
-        return "compact" if self.compact_wire else "full"
+        return "dict" if self.dict_wire else "compact" if self.compact_wire else "full"
 
-    def host_wire_np(self, batch: Batch) -> dict[str, np.ndarray]:
-        """The numpy planes the train step ships for ``batch``.  The
-        first compact-wire batch is validated (the reference's latch:
+    def _dict_geometry_ok(self, batch) -> bool:
+        """A batch rides the dictionary wire only at the loader's
+        geometry; other widths keep the compact wire."""
+        return batch.max_nnz == self.cfg.max_nnz and batch.hot_nnz == 0
+
+    def precompact(self, batch):
+        """Host dictionary compaction ahead of ``put_batch`` (off the
+        consumer thread, for an input fan-out): the CompactBatch
+        ``put_batch`` would build, or the batch unchanged where the
+        dictionary wire does not apply.  The planes are exactly the
+        inline path's."""
+        if (isinstance(batch, CompactBatch) or not self.dict_wire
+                or not self._dict_geometry_ok(batch)):
+            return batch
+        cb = CompactBatch.from_batch(batch, self.cfg.table_size, 0,
+                                     check=not self._compact_validated)
+        self._compact_validated = True
+        return cb
+
+    def host_wire_np(self, batch, predict: bool = False):
+        """The numpy planes that cross the link for ``batch`` (a Batch,
+        or a CompactBatch from a packed-v2 shard) under this step's
+        wire, and the CompactBatch when the dictionary wire ran (else
+        None).  ``predict`` ships PredictStep's planes on the other
+        wires.  The first batch is validated (the reference's latch:
         loader batches satisfy the invariants by construction)."""
+        check = not self._compact_validated
+        self._compact_validated = True
+        if isinstance(batch, CompactBatch):
+            if self.dict_wire and self._dict_geometry_ok(batch):
+                return batch.wire(ship_slots=False), batch
+            batch = batch.expand()
+        if self.dict_wire and self._dict_geometry_ok(batch):
+            # LR and FM read no slots, so none ship
+            cb = CompactBatch.from_batch(batch, self.cfg.table_size, 0, check=check)
+            return cb.wire(ship_slots=False), cb
+        if predict:
+            return self.predict_step.host_wire_np(batch), None
         if self.compact_wire:
-            if not self._compact_validated:
+            if check:
                 validate_compact_batch(batch)
-                self._compact_validated = True
-            return compact_wire_np(batch)
+            return compact_wire_np(batch), None
         return {
             "ckeys": sentinel_keys(batch.keys, batch.mask),
             "x": (batch.vals * batch.mask).astype(np.float32),
             "labels": batch.labels.astype(np.float32),
             "weights": batch.weights.astype(np.float32),
-        }
+        }, None
 
     def slice_order(self, b: int) -> np.ndarray:
         """Row order that makes the reference's interleaved slices
@@ -289,29 +358,64 @@ class TrainStep:
             raise ValueError(f"microbatch {s} must divide the batch's {b} rows")
         return np.arange(b).reshape(b // s, s).T.reshape(-1)
 
-    def put_batch(self, batch: Batch, predict: bool = False) -> dict[str, Any]:
-        """Host->device transfer, booked as the 'h2d' phase; ``predict``
-        ships PredictStep's planes.  A training batch also carries
+    def _sliced(self, batch) -> Batch:
+        """``batch`` with its rows in ``slice_order``, for the dictionary
+        wire to compact: each sequential slice of the decoded planes is
+        then a contiguous view."""
+        if isinstance(batch, CompactBatch):
+            batch = batch.expand()
+        order = self.slice_order(batch.batch_size)
+        return Batch(keys=batch.keys[order], slots=batch.slots[order],
+                     vals=batch.vals[order], mask=batch.mask[order],
+                     labels=batch.labels[order], weights=batch.weights[order])
+
+    def _book_wire(self, wire: dict[str, np.ndarray], examples: int,
+                   cb: CompactBatch | None) -> None:
+        """The counters behind the trainer's ``wire`` row (the
+        reference's ``_book_wire``): bytes across the link, examples,
+        batches, and on the dictionary wire the cold occurrences and the
+        table rows they touch after host dedup."""
+        self.obs.counter("wire.bytes", sum(int(a.nbytes) for a in wire.values()))
+        self.obs.counter("wire.examples", examples)
+        self.obs.counter("wire.batches")
+        if cb is not None:
+            self.obs.counter("wire.cold_occ", cb.n_cold)
+            self.obs.counter("wire.cold_touched", cb.cold_touched)
+
+    def put_batch(self, batch, predict: bool = False) -> dict[str, Any]:
+        """Host->device transfer of ``batch`` (a Batch or a CompactBatch),
+        booked as the 'h2d' phase and in the wire counters, for training
+        or (``predict``) for K1.  On the dictionary wire K6 decodes the
+        shipped planes here, so the result holds the compact wire's
+        planes whatever the wire.  A training batch also carries
         ``num_real`` = max(sum(weights), 1) as a host float, so the
         device never syncs for it.  With sequential slices its rows are
-        reordered on the host so each slice is a contiguous view, and
-        ``slice_num_real`` holds each slice's max(sum(weights), 1)."""
+        reordered (the Batch before the dictionary wire compacts it, the
+        planes of the other wires), and ``slice_num_real`` holds each
+        slice's max(sum(weights), 1)."""
         with self.obs.phase("h2d"):
-            if predict:
-                return self.predict_step.put_batch(batch)
-            wire = self.host_wire_np(batch)
+            sliced = self.slices > 1 and not predict
+            dict_batch = self.dict_wire and self._dict_geometry_ok(batch)
+            if sliced and dict_batch:
+                batch = self._sliced(batch)
+            wire, cb = self.host_wire_np(batch, predict)
+            self._book_wire(wire, batch.num_real(), cb)
             weights = batch.weights
-            if self.slices > 1:
+            if sliced and not dict_batch:
                 order = self.slice_order(len(weights))
                 wire = {k: a[order] for k, a in wire.items()}
                 weights = weights[order]
-            self.obs.counter("wire.bytes", sum(int(a.nbytes) for a in wire.values()))
-            self.obs.counter("wire.examples", batch.num_real())
-            self.obs.counter("wire.batches")
-            arrays: dict[str, Any] = {
-                k: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                for k, a in wire.items()
-            }
+            if cb is not None:
+                planes = dict_decode(to_device(wire, self.device), self.cfg.max_nnz)
+                arrays: dict[str, Any] = dict(zip(("ckeys", "labels_u8", "weights_u8"),
+                                                  planes))
+            else:
+                arrays = {
+                    k: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                    for k, a in wire.items()
+                }
+            if predict:
+                return {k: arrays[k] for k in ("ckeys", "x") if k in arrays}
             arrays["num_real"] = max(float(np.sum(weights)), 1.0)
             if self.slices > 1:
                 per = weights.reshape(self.slices, -1).sum(axis=1, dtype=np.float64)

@@ -3,9 +3,13 @@ one input stream): the worker loop of the reference (LRWorker::train /
 batch_training / predict, lr_worker.cc:73-217) as a host loop feeding
 the train step on the card.
 
-Each epoch streams every ``prefix-%05d`` train shard through the
-loader (parse and pack on a prefetch thread), ships each batch inline
-(booked as ``h2d``), and queues K2 + K3 (``dispatch``).  Nothing in the
+Each epoch streams every ``prefix-%05d`` train shard (libffm text, or
+packed shards from ``python -m xflow_tpu_torch.io.packed``) through the
+loader (the native parser when ``native_parser`` and it builds, and
+the packer, on a prefetch thread), ships each batch inline over the
+step's wire (the dictionary wire by default, decoded on the card by
+K6; booked as ``h2d``), and queues the update's kernels
+(``dispatch``).  Nothing in the
 loop waits for the card: the per-step metrics stay on the device and
 are fetched once per epoch (``device_block``), as the reference does
 (trainer.py:930-932).  ``evaluate`` streams the test shard(s) through
@@ -33,7 +37,7 @@ import torch
 from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.device import resolve_device
 from xflow_tpu_torch.io.batch import Batch
-from xflow_tpu_torch.io.loader import ShardLoader
+from xflow_tpu_torch.io.loader import ShardLoader, make_parse_fn, parser_name
 from xflow_tpu_torch.models import make_model
 from xflow_tpu_torch.obs import Obs
 from xflow_tpu_torch.optim import make_optimizer
@@ -131,10 +135,9 @@ class Trainer:
             "device": (
                 torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
             ),
-            # the port parses in Python until the native parser (A2)
-            # lands; native_parser=True is accepted and noted here
-            "parser": "python",
-            "native_parser_requested": bool(self.cfg.native_parser),
+            # the parser that runs: Config.native_parser asks for the
+            # native one, and a host that cannot build it parses in Python
+            "parser": parser_name(self.cfg.native_parser),
         }
 
     def close(self) -> None:
@@ -165,7 +168,12 @@ class Trainer:
             block_mib=cfg.block_mib,
             hash_mode=cfg.hash_mode,
             hash_seed=cfg.seed,
+            parse_fn=make_parse_fn(cfg.table_size, cfg.hash_mode, cfg.seed,
+                                   prefer_native=cfg.native_parser),
             obs=self.obs,
+            # v2 packed shards skip expansion AND re-compaction when the
+            # step ships the dictionary wire
+            emit_compact=self.step.dict_wire,
             io_retries=cfg.io_retries,
             io_retry_backoff_s=cfg.io_retry_backoff_s,
             max_quarantined_frac=cfg.max_quarantined_frac,
@@ -283,6 +291,10 @@ class Trainer:
             "step_time_p99": round(step_hist.get("p99", 0.0), 6),
         }
         if "wire.bytes" in snap.counters:
+            # compaction_ratio: cold occurrences per table row the
+            # dictionary wire left to touch (1.0 on the other wires)
+            touched = snap.counters.get("wire.cold_touched", 0)
+            occ = snap.counters.get("wire.cold_occ", 0)
             stats["_wire"] = {
                 "epoch": self.epoch,
                 "format": self.step.wire_format,
@@ -291,7 +303,7 @@ class Trainer:
                     / max(snap.counters.get("wire.examples", 0), 1),
                     2,
                 ),
-                "compaction_ratio": 1.0,  # no host dedup on this wire
+                "compaction_ratio": round(occ / touched if touched else 1.0, 3),
             }
         if "loader.parse_bytes" in snap.counters:
             stats["parse_mb_per_sec"] = round(

@@ -146,15 +146,50 @@ Phases, in order; any failure raises and the exit code is 1:
    over the compact wire too (the planes exactly, the log-losses and
    eval within TRAIN_BOUNDS, the tables reported).  Each path's
    examples/s, ``input_stall``, ``put_batch`` ms per dispatch, wire
-   bytes per example and idle share go into the ``train`` line.
+   bytes per example and idle share go into the ``train`` line;
+17. the hot table (B7 in K1 and K2, K5's fold, K3 over the head rows,
+   K6's hot tiers) at the flagship geometries of
+   scripts/bench_models.py:66-76 (``fm``: 12 cold + 32 hot slots, H =
+   2^14, D = 10; ``lr``: 16 + 32, H = 2^12; T = 2^24): K1 with the hot
+   plane against its plain version (phase 2's tolerances) with u16 keys
+   at H = 2^12 and 2^14, int32 at H = 2^16 and the bf16 flag, every
+   serving bucket, LR and FM; on the hot paths' own batches (phase 19,
+   after each run) K2's three hot forms (dense: hot gradients in g's
+   first H rows; hybrid: index mode with a head buffer; window: cold
+   keys < H read from a head snapshot) in table-row space within phase
+   6's per-row bound over the hot and cold planes together, K5 with
+   the fold (the head buffers exact, folded rows untouched, the rest
+   within phase 7's bounds) and K6's hot tiers exactly (the path's
+   batch with its u16 or u12 large tier, the same rows re-steered into
+   4 hot slots so nearly every row overflows, an empty hot plane);
+18. serving a full-width ``fm`` hot artifact with its remap (phases 3
+   and 4 again: ``PredictEngine.load``, ``score_text`` against the
+   plain version and float64, ``MicroBatcher`` with 1,024 requests from
+   16 clients, ``compile_count``);
+19. training the flagship ``fm`` and ``lr`` on the default input path
+   (native parser, dictionary wire with hot tiers) from phase 8's
+   initial state: dense, sequential + sparse inner (the hybrid) at
+   microbatch 128 and sequential + hot inner at microbatch 128
+   (``hot_windowend`` auto, sparse at T = 2^24), 2 epochs each, and one
+   dispatch of ``hot_windowend="dense"``; each with exact launches, the
+   card against the CPU within TRAIN_BOUNDS (the sequential forms
+   through ``lockstep_tables``, the hot inner window by window), eval
+   AUC inside the planted bars, and the hot mass (the trainer's remap
+   line) and the share of features steering truncates;
+20. the hot modes' kernel times on the paths' own batches or first
+   slices (K2 per form, K3 over the head rows, K5 with the fold, K6
+   with the hot tiers; K1 at the serving bucket in phase 17), each with
+   its bound and plain time; their ``kernels`` entries and ``train``
+   rows.
 
 Output: the card line, per-phase lines, a ``{"kernels": [...]}`` JSON
 line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
 ``launches`` is its main paths': K1's serving path (phases 3 and 4)
 plus the training paths' eval and engine batches (phases 8, 11, 12,
 16), K2-K6's training paths (phases 8, 11-13 and 16, by path in
-``launches_by_path``); every count is set to 0 just before each path
-and read just after it.
+``launches_by_path``); the hot modes' entries count the hot paths
+(phases 18-19); every count is set to 0 just before each path and
+read just after it.
 """
 
 from __future__ import annotations
@@ -282,20 +317,36 @@ def time_device_ms(fn, args_list, prelude=None, chunk_size=TIMED_CHUNK) -> float
     return statistics.median(times)
 
 
-def bounds(keys, x, dim: int) -> dict:
+def hot_stream(keys, hot, hot_size: int):
+    """A batch's live keys over both planes (the hot plane's, when there
+    is one, ahead of the cold plane's) and the hot plane's bytes at its
+    wire width (2 B a slot for u16, 4 B for int32)."""
+    import torch
+
+    from xflow_tpu_torch.ops.score import hot_plane_keys
+
+    live = keys[keys >= 0].long()
+    if hot is None:
+        return live, 0
+    hk = hot_plane_keys(hot, hot_size)
+    return torch.cat([hk[hk >= 0].long(), live]), hot.numel() * hot.element_size()
+
+
+def bounds(keys, x, dim: int, hot=None, hot_size: int = 0) -> dict:
     """K1's least time on this card for THIS batch: the larger of its
     bytes over the HBM rate and its float32 operations over the peak
-    rate.  Keys, x and pctr count once each, and each distinct live
-    table row once.  ``bound_ms`` counts the row bytes the kernel uses
-    (4 B of w, 4D B of v); ``bound_sector_ms`` counts the 32-byte DRAM
-    sectors a random row read moves at least (csrc/score.cu header)."""
+    rate.  Keys (the hot plane at its wire width), x and pctr count once
+    each, and each distinct live table row once.  ``bound_ms`` counts
+    the row bytes the kernel uses (4 B of w, 4D B of v);
+    ``bound_sector_ms`` counts the 32-byte DRAM sectors a random row
+    read moves at least (csrc/score.cu header)."""
     import torch
 
     b, k = keys.shape
-    live_keys = keys[keys >= 0]
+    live_keys, hot_bytes = hot_stream(keys, hot, hot_size)
     live = int(live_keys.numel())
     rows = int(torch.unique(live_keys).numel())
-    stream = b * k * (4 + (4 if x is not None else 0)) + 4 * b
+    stream = b * k * (4 + (4 if x is not None else 0)) + 4 * b + hot_bytes
     used = stream + rows * (4 + 4 * dim)
     sectors = stream + rows * (SECTOR + math.ceil(4 * dim / SECTOR) * SECTOR)
     # per live slot: x*w and its sum, and (FM) v*x, its sum, its square
@@ -422,35 +473,50 @@ def libffm_lines(n: int, rng) -> list[str]:
 
 
 def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
-                    requests: int = 1024, concurrency: int = 16) -> dict:
+                    requests: int = 1024, concurrency: int = 16, hot: bool = False) -> dict:
     """Phases 3 and 4: artifact → PredictEngine → score_text, then the
-    MicroBatcher bench.  Returns the K1 launches counted across both."""
+    MicroBatcher bench.  Returns the K1 launches counted across both.
+    With ``hot`` (phase 18) the artifact is the flagship ``fm`` (hot
+    table H = 2^14, 32 hot slots, 12 cold) with a frequency remap built
+    from the scored lines' keys, and the engine remaps and steers each
+    request before K1 reads its hot and cold planes."""
     import torch
 
-    from xflow_tpu_torch.io.batch import pack_batch
+    from xflow_tpu_torch.io import freq
+    from xflow_tpu_torch.io.batch import pack_batch, remap_batch
     from xflow_tpu_torch.io.libffm import parse_block
     from xflow_tpu_torch.ops.score import score, score_plain
-    from xflow_tpu_torch.parallel.step import compact_wire_np
+    from xflow_tpu_torch.parallel.step import compact_wire_np, to_device_planes
     from xflow_tpu_torch.serve.__main__ import run_bench
     from xflow_tpu_torch.serve.artifact import write_artifact
     from xflow_tpu_torch.serve.engine import PredictEngine
 
     cfg = fm_nohot_config(t_log2)
+    if hot:
+        cfg = dataclasses.replace(cfg, **HOT_GEOMETRY["fm"])
+    phase = (18, 18) if hot else (3, 4)
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     w = rng.standard_normal((cfg.table_size, 1), dtype=np.float32)
     w *= 0.3
     v = rng.standard_normal((cfg.table_size, D), dtype=np.float32)
     v *= 0.05
-    art = write_artifact(f"{workdir}/fm_nohot", cfg, {"w": w, "v": v}, step=1)
-    log(f"phase 3: wrote the fm_nohot artifact (T=2^{t_log2}, D={D}) in "
+    lines = libffm_lines(n_lines, rng)
+    block = parse_block("\n".join(lines).encode() + b"\n", cfg.table_size,
+                        cfg.hash_mode, cfg.seed)
+    remap = None
+    if hot:
+        counts = np.bincount(block.keys, minlength=cfg.table_size)
+        remap = freq.build_remap(counts, cfg.hot_size)
+    name = "fm_hot" if hot else "fm_nohot"
+    art = write_artifact(f"{workdir}/{name}", cfg, {"w": w, "v": v}, step=1, remap=remap)
+    log(f"phase {phase[0]}: wrote the {name} artifact (T=2^{t_log2}, D={D}) in "
         f"{time.perf_counter() - t0:.3f} s")
 
     score.launches = 0  # the main path starts here
     t0 = time.perf_counter()
     engine = PredictEngine.load(art, device=dev)
     load_s = time.perf_counter() - t0
-    lines = libffm_lines(n_lines, rng)
     t0 = time.perf_counter()
     pctr = engine.score_text(lines)
     score_s = time.perf_counter() - t0
@@ -465,12 +531,12 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
         raise AssertionError("pctr outside (0, 1]")
 
     # the same parsed planes through the plain version, on the card
-    block = parse_block("\n".join(lines).encode() + b"\n", cfg.table_size,
-                        cfg.hash_mode, cfg.seed)
-    batch = pack_batch(block, 0, n_lines, n_lines, cfg.max_nnz)
-    ckeys = torch.from_numpy(compact_wire_np(batch)["ckeys"]).to(dev)
+    batch = remap_batch(pack_batch(block, 0, n_lines, n_lines, cfg.max_nnz), remap,
+                        cfg.hot_size, cfg.hot_nnz)
+    planes = to_device_planes(compact_wire_np(batch, hot_u16=True), dev)
     tables = engine.state["tables"]
-    want = score_plain(ckeys, None, tables["w"]["param"], tables["v"]["param"])
+    want = score_plain(planes["ckeys"], None, tables["w"]["param"], tables["v"]["param"],
+                       hot=planes.get("hot"), hot_size=cfg.hot_size)
     err = float(np.abs(pctr - want.cpu().numpy()).max())
     if err > PCTR_ATOL:
         raise AssertionError(f"engine vs plain on the card: max err {err}")
@@ -478,7 +544,9 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
     ref_err = 0.0
     for i in range(64):
         live = batch.mask[i] > 0
-        keys_i = batch.keys[i][live]
+        # the model's rows: the hot section's and the cold one's keys
+        keys_i = np.concatenate([batch.hot_keys[i][batch.hot_mask[i] > 0],
+                                 batch.keys[i][live]])
         lin = float(w[keys_i, 0].astype(np.float64).sum())
         vr = v[keys_i].astype(np.float64)
         logit = lin + float((vr.sum(0) ** 2 - (vr * vr).sum(0)).sum())
@@ -487,7 +555,7 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
     if ref_err > 1e-5:
         raise AssertionError(f"engine vs float64 reference: max err {ref_err}")
     log(json.dumps({
-        "phase": 3, "load_s": load_s, "score_text_s": score_s,
+        "phase": phase[0], "load_s": load_s, "score_text_s": score_s,
         "lines": n_lines, "device_calls": calls, "k1_launches": score.launches,
         "max_abs_err_vs_plain": err, "max_abs_err_vs_float64": ref_err,
         "pctr_mean": float(pctr.mean()),
@@ -503,10 +571,16 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
         raise AssertionError(
             f"{summary['batches']} batches but {score.launches - before} launches"
         )
-    log(json.dumps(dict(summary, phase=4)))
+    log(json.dumps(dict(summary, phase=phase[1])))
     launches = score.launches  # the main path ends here
+    out = {"launches": launches, "bench": summary, "compile_count": engine.compile_count,
+           "max_abs_err_vs_plain": err, "max_abs_err_vs_float64": ref_err}
+    if hot:
+        out["hot_occurrences_scored"] = int(batch.hot_mask.sum())
+        if not out["hot_occurrences_scored"]:
+            raise AssertionError("the hot artifact scored no hot occurrence")
     del engine, tables
-    return {"launches": launches}
+    return out
 
 
 def empty_kernel_ms() -> float:
@@ -1307,18 +1381,20 @@ def repeat_stats(keys) -> dict:
             "repeats_within_rows": int(within.sum())}
 
 
-def k2_bounds(keys, x, labels, dim: int) -> dict:
+def k2_bounds(keys, x, labels, dim: int, hot=None, hot_size: int = 0) -> dict:
     """K2's least time on this card for THIS batch (csrc/train.cu
-    header): keys, x, labels and weights once each; per distinct live
-    row, w and v read and g_w and g_v read and written once each
-    (``bound_ms``), or whole 32-byte sectors for each of those three
-    row accesses (``bound_sector_ms``)."""
+    header): keys (the hot plane at its wire width), x, labels and
+    weights once each; per distinct live row, w and v read and g_w and
+    g_v read and written once each (``bound_ms``), or whole 32-byte
+    sectors for each of those three row accesses (``bound_sector_ms``)."""
     import torch
 
     b, k = keys.shape
-    live = int((keys >= 0).sum())
-    rows = int(torch.unique(keys[keys >= 0]).numel())
-    stream = b * k * (4 + (4 if x is not None else 0)) + 2 * b * labels.element_size()
+    live_keys, hot_bytes = hot_stream(keys, hot, hot_size)
+    live = int(live_keys.numel())
+    rows = int(torch.unique(live_keys).numel())
+    stream = (b * k * (4 + (4 if x is not None else 0)) + 2 * b * labels.element_size()
+              + hot_bytes)
     used = stream + rows * 3 * (4 + 4 * dim)
     sectors = stream + rows * 3 * (SECTOR + math.ceil(4 * dim / SECTOR) * SECTOR)
     # per live slot: forward 2 + 4D, backward 2 + 5D (the atomic adds
@@ -1457,72 +1533,116 @@ def mode_config(model: str, t_log2: int, data: dict, metrics_out: str, **mode):
     return dataclasses.replace(train_config(model, t_log2, data, metrics_out), **mode)
 
 
-def expected_launches(mode: dict, steps: int, tables: int, eval_batches: int) -> dict:
+def expected_launches(mode: dict, steps: int, tables: int, eval_batches: int,
+                      windowend: str = "sparse") -> dict:
     """Each kernel's launches over ``steps`` dispatches of ``mode``
     (xflow_tpu_torch/parallel/step.py's module docstring): K2 once per
     update (per slice in sequential mode, per batch otherwise: dense
     microbatch and cold_consolidate run the plain dense step); K4 with
     each K2 of the touched-rows form, K5 per table after it; K3 per
-    table per update of the dense form; K1 per eval batch; K6 per
-    dispatch and eval batch on the dictionary wire."""
+    table per update of the dense form, and with a hot table per table
+    per hybrid update (the head rows); K1 per eval batch; K6 per
+    dispatch and eval batch on the dictionary wire.  The hot inner's
+    window (``windowend`` resolved): K2 and K3 over the head per slice,
+    then K4 once and K5 per table (sparse end) or K3 per table (dense
+    end) per dispatch."""
     update = mode.get("update_mode", "dense")
     s = mode.get("microbatch", 1) if update == "sequential" else 1
-    sparse = update == "sparse" or (update == "sequential"
-                                    and mode.get("sequential_inner") == "sparse")
-    plans = steps * s if sparse else 0
-    passes = 0 if sparse else steps * s
+    inner = mode.get("sequential_inner", "dense") if update == "sequential" else None
+    hot = mode.get("hot_size_log2", 0) > 0
+    sparse = update == "sparse" or inner == "sparse"
     # the dictionary wire (the default) decodes every shipped batch: K6
     # per training dispatch and per eval batch
     decodes = 0 if mode.get("wire_dedup") == "off" else steps + eval_batches
-    return {"score": eval_batches, "train_step": steps * s, "optim_update": passes * tables,
-            "consolidate_keys": plans, "touched_update": plans * tables,
-            "dict_decode": decodes}
+    out = {"score": eval_batches, "train_step": steps * s, "dict_decode": decodes}
+    if inner == "hot" and s > 1:
+        sparse_end = windowend == "sparse"
+        return dict(out, optim_update=steps * tables * (s + (0 if sparse_end else 1)),
+                    consolidate_keys=steps if sparse_end else 0,
+                    touched_update=steps * tables if sparse_end else 0)
+    plans = steps * s if sparse else 0
+    # the dense form steps every table per update; the hybrid steps the
+    # head rows per update; the plain touched-rows form none
+    passes = (plans if hot else 0) if sparse else steps * s
+    return dict(out, optim_update=passes * tables, consolidate_keys=plans,
+                touched_update=plans * tables)
 
 
 GUARD_SLEEP_CYCLES = 5 * SLEEP_CYCLES  # ~100 ms, 5x a sequential dispatch's host path
+GUARD_SEGMENT_SLICES = 32  # at most 8 queued launches a slice: ~260 a segment
 
 
 def guard_first_dispatch(trainer) -> dict:
     """Check that the trainer's first dispatch never waits for the card.
-    It is queued behind a ``torch.cuda._sleep`` and runs under
-    ``torch.cuda.set_sync_debug_mode("error")``.  When it returns, the
-    sleep must still hold the stream: any host synchronisation inside
-    it (which the debug mode, a prototype, may not see) would have
-    waited for the sleep to end.  Records the dispatch's host time and
-    the sleep's device time."""
+    It runs under ``torch.cuda.set_sync_debug_mode("error")``, in
+    segments of ``GUARD_SEGMENT_SLICES`` sequential slices (one segment
+    for an unsliced step), each queued behind a ``torch.cuda._sleep``.
+    When a segment returns, its sleep must still hold the stream: any
+    host synchronisation inside it (which the debug mode, a prototype,
+    may not see) would have waited for the sleep to end.  Between
+    segments the guard itself waits for the card, outside the check, so
+    no segment queues more launches than the card holds pending (a
+    hybrid fm dispatch queues about 1,030: 128 slices of K4's memset
+    and two kernels, K2, and K5 and K3 per table).  Records the
+    segments' host time and the sleeps' device times."""
     import torch
 
-    inner = trainer.step.dispatch_train
-    seen = {"guarded_dispatches": 0}
+    step = trainer.step
+    inner = {name: getattr(step, name) for name in ("dispatch_train", "_update", "window_slice")}
+    seen = {"guarded_dispatches": 0, "guard_segments": 0, "dispatch_host_ms": 0.0,
+            "sleep_ahead_ms": []}
+    hold = {}
 
-    def guarded(state, arrays):
-        if seen["guarded_dispatches"]:
-            return inner(state, arrays)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    def arm():
+        hold["start"] = torch.cuda.Event(enable_timing=True)
+        hold["end"] = torch.cuda.Event(enable_timing=True)
+        hold["start"].record()
         torch.cuda._sleep(GUARD_SLEEP_CYCLES)
-        end.record()
+        hold["end"].record()
         torch.cuda.set_sync_debug_mode("error")
-        t0 = time.perf_counter()
-        try:
-            out = inner(state, arrays)
-        finally:
-            host_ms = (time.perf_counter() - t0) * 1e3
-            torch.cuda.set_sync_debug_mode(0)
-        sleeping = not end.query()
+        hold["t0"] = time.perf_counter()
+
+    def release():
+        host_ms = (time.perf_counter() - hold["t0"]) * 1e3
+        torch.cuda.set_sync_debug_mode(0)
+        sleeping = not hold["end"].query()
         torch.cuda.synchronize()
-        sleep_ms = start.elapsed_time(end)
+        sleep_ms = hold["start"].elapsed_time(hold["end"])
+        seen["guard_segments"] += 1
+        seen["dispatch_host_ms"] += host_ms
+        seen["sleep_ahead_ms"].append(sleep_ms)
         if not sleeping:
             raise AssertionError(
-                f"the first dispatch waited for the card: it returned after the "
-                f"{sleep_ms:.3f} ms sleep ahead of it had ended ({host_ms:.3f} ms on "
-                "the host)")
-        seen.update(guarded_dispatches=1, dispatch_host_ms=host_ms,
-                    sleep_ahead_ms=sleep_ms, returned_while_sleep_held_stream=True)
+                f"the first dispatch waited for the card: segment {seen['guard_segments']} "
+                f"returned after the {sleep_ms:.3f} ms sleep ahead of it had ended "
+                f"({host_ms:.3f} ms on the host)")
+
+    def per_slice(name):
+        def run(*args, **kwargs):
+            out = inner[name](*args, **kwargs)
+            hold["slices"] += 1
+            if hold["slices"] % GUARD_SEGMENT_SLICES == 0:
+                release()
+                arm()
+            return out
+        return run
+
+    def guarded(state, arrays):
+        hold["slices"] = 0
+        for name in ("_update", "window_slice"):
+            setattr(step, name, per_slice(name))
+        arm()
+        try:
+            out = inner["dispatch_train"](state, arrays)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            for name in inner:
+                setattr(step, name, inner[name])
+        release()
+        seen.update(guarded_dispatches=1, returned_while_sleep_held_stream=True)
         return out
 
-    trainer.step.dispatch_train = guarded
+    step.dispatch_train = guarded
     return seen
 
 
@@ -1544,6 +1664,7 @@ def run_mode(dev, model: str, t_log2: int, data: dict, init: dict, mode: dict,
     import torch
 
     from xflow_tpu_torch.convert import state_from_numpy
+    from xflow_tpu_torch.parallel.step import hot_windowend, uses_grad_buffer
     from xflow_tpu_torch.trainer import Trainer
 
     cfg = mode_config(model, t_log2, data, os.path.join(workdir, f"{model}-{label}.jsonl"),
@@ -1566,14 +1687,15 @@ def run_mode(dev, model: str, t_log2: int, data: dict, init: dict, mode: dict,
     steps = sum(h["steps"] for h in history)
     tables = len(trainer.state["tables"])
     want = expected_launches(mode, steps, tables,
-                             math.ceil(TEST_LINES / cfg.batch_size) if evaluate else 0)
+                             math.ceil(TEST_LINES / cfg.batch_size) if evaluate else 0,
+                             hot_windowend(cfg))
     if got != want:
         raise AssertionError(f"{model} {label}: launches {got}, expected {want}")
     header = run_header(cfg.metrics_out)
     if header["parser"] != "native" or trainer.step.wire_format != "dict":
         raise AssertionError(f"{model} {label}: parser {header['parser']!r}, wire "
                              f"{trainer.step.wire_format!r}; want native and dict")
-    if any("g" in t for t in trainer.state["tables"].values()) == trainer.step.sparse:
+    if any("g" in t for t in trainer.state["tables"].values()) != uses_grad_buffer(cfg):
         raise AssertionError(f"{model} {label}: a [T, D] gradient buffer in a sparse "
                              "state, or none in a dense one")
     if guard is not None and guard["guarded_dispatches"] != 1:
@@ -1860,18 +1982,27 @@ def k4_bounds(m: int, n: int) -> dict:
             "bound_bytes": used, "bound_sector_bytes": sectors, "bound_ops": ops}
 
 
-def k5_bounds(ukeys, n: int, d: int, form: str) -> dict:
+def k5_bounds(ukeys, n: int, d: int, form: str, hot_size: int = 0) -> dict:
     """K5's least time for these rows: FTRL reads w, n, z and the gsum
     row and writes w, n, z (28 D B per row), SGD reads and writes one
-    array and reads gsum (12 D B), plus the 4-byte key; at
-    32-byte sectors each row access moves every sector its 4D bytes at
-    offset 4 D r touch.  About 20 (FTRL) or 2 operations per element."""
+    array and reads gsum (12 D B), plus the 4-byte key; with the fold
+    (``hot_size``), a row < H only reads its gsum row and reads and
+    writes its head row (12 D B).  At 32-byte sectors each row access
+    moves every sector its 4D bytes at offset 4 D r touch.  About 20
+    (FTRL) or 2 operations per stepped element, 1 per folded one."""
     arrays = 3 if form == "ftrl" else 1
-    used = 4 * n + 4 * d * n * (2 * arrays + 1)
-    offs = ukeys[:n].long() * (4 * d)
-    span = int((((offs + 4 * d - 1) // SECTOR) - offs // SECTOR + 1).sum()) * SECTOR
-    sectors = 4 * n + 4 * d * n + 2 * arrays * span
-    ops = n * d * (20 if form == "ftrl" else 2)
+    keys = ukeys[:n].long()
+    folded = int((keys < hot_size).sum())
+    stepped = n - folded
+    used = 4 * n + 4 * d * (stepped * (2 * arrays + 1) + folded * 3)
+
+    def span(rows):
+        offs = rows * (4 * d)
+        return int((((offs + 4 * d - 1) // SECTOR) - offs // SECTOR + 1).sum()) * SECTOR
+
+    sectors = (4 * n + 4 * d * n + 2 * arrays * span(keys[keys >= hot_size])
+               + 2 * span(keys[keys < hot_size]))
+    ops = stepped * d * (20 if form == "ftrl" else 2) + folded * d
     used_ms = used / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOPS_PER_S * 1e3
     return {"bound_ms": max(used_ms, ops_ms),
@@ -1989,7 +2120,8 @@ def single_shard(data: dict, workdir: str) -> dict:
     root = os.path.join(workdir, "one")
     os.makedirs(root, exist_ok=True)
     prefix = os.path.join(root, os.path.basename(data["train"]))
-    os.symlink(f"{data['train']}-00000", f"{prefix}-00000")
+    if not os.path.exists(f"{prefix}-00000"):  # phases 13 and 19 share it
+        os.symlink(f"{data['train']}-00000", f"{prefix}-00000")
     return {"train": prefix, "test": data["test"]}
 
 
@@ -2254,8 +2386,10 @@ def card_run(dev, cfg, init: dict) -> dict:
     # ... and ends here
     trainer.close()
     steps = sum(h["steps"] for h in history)
+    from xflow_tpu_torch.parallel.step import hot_windowend
+
     want = expected_launches(dataclasses.asdict(cfg), steps, len(trainer.state["tables"]),
-                             math.ceil(TEST_LINES / cfg.batch_size))
+                             math.ceil(TEST_LINES / cfg.batch_size), hot_windowend(cfg))
     if got != want:
         raise AssertionError(f"{cfg.model} {cfg.train_path}: launches {got}, expected {want}")
     return {"trainer": trainer, "history": history, "result": result, "launches": got,
@@ -2358,6 +2492,748 @@ def phase_input_paths(dev, t_log2: int, workdir: str, dense: dict) -> dict:
         log(json.dumps(dict(row, phase=16)))
         del run
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The hot table at the flagship geometries (phases 17-20)
+
+# scripts/bench_models.py:66-76: the repo's flagship lr and fm
+HOT_GEOMETRY = {
+    "fm": {"max_nnz": 12, "hot_size_log2": 14, "hot_nnz": 32, "v_dim": D},
+    "lr": {"max_nnz": 16, "hot_size_log2": 12, "hot_nnz": 32},
+}
+HOT_MODES = (
+    ("hot_dense", {}),
+    ("hot_hybrid_mb128", {"update_mode": "sequential", "microbatch": SEQ_MICROBATCH,
+                          "sequential_inner": "sparse"}),
+    ("hot_inner_mb128", {"update_mode": "sequential", "microbatch": SEQ_MICROBATCH,
+                         "sequential_inner": "hot"}),
+)
+HOT_WINDOW_DENSE = {"update_mode": "sequential", "microbatch": SEQ_MICROBATCH,
+                    "sequential_inner": "hot", "hot_windowend": "dense"}
+B7_REPLACES = (
+    "xflow_tpu/ops/hot.py:71 (B7 hot_gather) + xflow_tpu/ops/hot.py:122 (B7 "
+    "hot_scatter) + xflow_tpu/parallel/step.py:793-846 (the hot plane's decode and "
+    "_gather_model_rows) + step.py:1008-1016 / 1194-1238 / 1327-1497 (its dense, "
+    "hybrid and hot-inner scatters); no pl.pallas_call in the reference"
+)
+K5_FOLD_REPLACES = ("xflow_tpu/parallel/step.py:1194-1238 (_sparse_update's hybrid "
+                    "fold of cold sums < H into the [H, D] head gradient); no "
+                    "pl.pallas_call in the reference")
+K3_HEAD_REPLACES = ("xflow_tpu/parallel/step.py:1230-1237 / 1446 (update_rows over "
+                    "the head rows [0, H)); no pl.pallas_call in the reference")
+K6_HOT_REPLACES = ("xflow_tpu/parallel/step.py:744-766 (B4 dict, hot tiers: u8 / u12 "
+                   "/ u16 hot ids by tier bitmap rank); no pl.pallas_call in the "
+                   "reference")
+BF16_ULP = 2.0 ** -8  # a bfloat16 rounding's relative step
+
+
+def hot_config(model: str, t_log2: int, data: dict, metrics_out: str, **mode):
+    """The flagship ``fm`` or ``lr`` (HOT_GEOMETRY) training on
+    ``data``'s shards."""
+    return dataclasses.replace(train_config(model, t_log2, data, metrics_out),
+                               **HOT_GEOMETRY[model], **mode)
+
+
+def hot_keys(b: int, kh: int, h: int, g, dev, u16: bool):
+    """A hot plane [b, kh]: ids < h drawn log-uniformly (the head's
+    repeats), a random count per row, every 7th row empty; u16 (int16
+    bits, 0xFFFF padding) or int32 (-1)."""
+    import torch
+
+    u = torch.rand((b, kh), generator=g, device=dev, dtype=torch.float64)
+    ids = (torch.exp(u * math.log(h)) - 1).long().clamp(0, h - 1)
+    count = torch.randint(0, kh + 1, (b, 1), generator=g, device=dev)
+    count[torch.arange(b, device=dev) % 7 == 3] = 0
+    live = torch.arange(kh, device=dev)[None, :] < count
+    if u16:
+        return torch.where(live, ids, 0xFFFF).to(torch.int32).to(torch.int16).contiguous()
+    return torch.where(live, ids, -1).to(torch.int32).contiguous()
+
+
+def phase_hot_k1(dev, t_log2: int) -> dict:
+    """Phase 17a: K1 with the hot plane against score_plain: u16 at
+    H = 2^12 (lr) and 2^14 (fm), int32 at H = 2^16, the bf16 flag (fm,
+    H = 2^14), every serving bucket, LR and FM, with phase 2's
+    tolerances.  Rows [0, 128) of make_tables carry w = +-20, so hot ids
+    there push logits past the clamps."""
+    import torch
+
+    from xflow_tpu_torch.ops.score import score, score_plain
+
+    w, v, g = make_tables(dev, t_log2)
+    worst = {"max_abs_err": 0.0, "cases": 0}
+    for case, h_log2, u16, bf16 in (("u16 H=2^12", 12, True, False),
+                                    ("u16 H=2^14", 14, True, False),
+                                    ("u16 H=2^14 bf16", 14, True, True),
+                                    ("int32 H=2^16", 16, False, False)):
+        for b in BUCKETS:
+            for mode in ("lr", "fm"):
+                kc = HOT_GEOMETRY[mode]["max_nnz"]
+                keys = make_keys(b, w.shape[0], g, dev, False)[0][:, :kc].contiguous()
+                hot = hot_keys(b, 32, 1 << h_log2, g, dev, u16)
+                vv = v if mode == "fm" else None
+                kw = dict(hot=hot, hot_size=1 << h_log2, hot_bf16=bf16)
+                got_p, got_l = score(keys, None, w, vv, return_logit=True, **kw)
+                want_p, want_l = score_plain(keys, None, w, vv, True, **kw)
+                torch.cuda.synchronize()
+                ltol = LOGIT_ATOL + LOGIT_RTOL * want_l.abs()
+                ptol = PCTR_ATOL + want_p * (1 - want_p) * ltol
+                if (float(((got_l - want_l).abs() - ltol).max()) > 0
+                        or float(((got_p - want_p).abs() - ptol).max()) > 0
+                        or not bool(torch.isfinite(got_p).all())):
+                    raise AssertionError(f"K1 hot plane disagrees with score_plain: "
+                                         f"{case} B={b} {mode}")
+                worst["max_abs_err"] = max(worst["max_abs_err"],
+                                           float((got_p - want_p).abs().max()))
+                worst["cases"] += 1
+    # K1 with the hot plane timed at the largest serving bucket, fm
+    # (H = 2^14, u16, 32 hot + 12 cold slots), over a pool of batches
+    b, h = BUCKETS[-1], 1 << HOT_GEOMETRY["fm"]["hot_size_log2"]
+    pool = []
+    for _ in range(KEY_POOL):
+        keys = torch.randint(h, w.shape[0], (b, HOT_GEOMETRY["fm"]["max_nnz"]),
+                             generator=g, device=dev, dtype=torch.int32)
+        pool.append((keys, hot_keys(b, 32, h, g, dev, True)))
+    args = [(k, hp) for k, hp in (pool[i % KEY_POOL] for i in range(TIMED_RUNS))]
+
+    def kernel(keys, hot):
+        return score(keys, None, w, v, hot=hot, hot_size=h)
+
+    def plain(keys, hot):
+        return score_plain(keys, None, w, v, hot=hot, hot_size=h)
+
+    worst["timing"] = {"kernel": "score (hot plane)", "mode": "fm", "B": b, "Kc": 12,
+                       "Kh": 32, "H": h, "plane": "u16",
+                       "ms": time_device_ms(kernel, args),
+                       "host_path_ms": time_host_path_ms(kernel, args),
+                       "plain_ms": time_device_ms(plain, args),
+                       **bounds(pool[0][0], None, D, hot=pool[0][1], hot_size=h),
+                       "library_ms": None,
+                       "library_why_null": "no single PyTorch call scores FM"}
+    del w, v, pool
+    return worst
+
+
+def hot_timing_row(kernel: str, fn, plain, args, bound: dict, prelude=None, **extra) -> dict:
+    """Device ms of ``fn`` and ``plain`` on ``args`` (behind _sleep, 60
+    calls), with the bound and no library call."""
+    row = {"kernel": kernel, **extra,
+           "ms": time_device_ms(fn, args, prelude=prelude),
+           "plain_ms": time_device_ms(plain, args, prelude=prelude, chunk_size=5),
+           **bound, "library_ms": None}
+    log(json.dumps(dict(row, phase=20)))
+    return row
+
+
+def k2_hot_call(form: str, arrays: dict, tables: dict, h: int, snap=None,
+                bf16: bool = False):
+    """One K2 call over a hot batch or slice in ``form`` ("dense": every
+    gradient in the table's g, the hot ones in its first H rows;
+    "hybrid": the plain plan, the cold sums in gsum, the hot ones in a
+    head buffer; "window": the window-start mode over g, cold keys < H
+    read from ``snap``), with the bf16 flag when ``bf16``: (args,
+    kwargs, rows), where ``rows()`` folds the call's sums back into
+    table-row space [T, width] (gsum at the plan's unique keys, the head
+    at rows [0, H)) and returns them with the log-loss accumulator."""
+    import torch
+
+    from xflow_tpu_torch.ops.sparse import consolidate_keys_plain
+
+    keys = arrays["ckeys"]
+    dev = keys.device
+    w, v = tables["w"]["param"], tables["v"]["param"] if "v" in tables else None
+    t, m = w.shape[0], keys.numel()
+    g = {"w": torch.zeros_like(w)}
+    if v is not None:
+        g["v"] = torch.zeros_like(v)
+    acc = torch.zeros(2, dtype=torch.float64, device=dev)
+    heads = {n: torch.zeros((h, a.shape[1]), device=dev) for n, a in g.items()}
+    kw = {"hot": arrays["hot"], "hot_size": h, "hot_bf16": bf16}
+    dst = g
+    if form == "hybrid":
+        ukeys = torch.empty(m, dtype=torch.int32, device=dev)
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        kw["slots"] = torch.empty_like(keys)
+        consolidate_keys_plain(keys, t, ukeys, count, kw["slots"])
+        dst = {n: torch.zeros((m, a.shape[1]), device=dev) for n, a in g.items()}
+    elif form == "dense":
+        heads = {n: a[:h] for n, a in g.items()}
+    else:
+        kw.update(snap_w=snap["w"], snap_v=snap.get("v"))
+    kw.update(hg_w=heads["w"], hg_v=heads.get("v"))
+    args = (keys, None, arrays["labels_u8"], arrays["weights_u8"], arrays["num_real"], w, v,
+            dst["w"], dst.get("v"), acc)
+
+    def rows():
+        if form == "hybrid":
+            n = int(count)
+            for name in g:
+                g[name].index_add_(0, ukeys[:n].long(), dst[name][:n])
+        if form != "dense":
+            for name in g:
+                g[name][:h] += heads[name]
+        return g, acc
+
+    return args, kw, rows
+
+
+def check_k2_hot(case: str, form: str, arrays: dict, tables: dict, h: int,
+                 worst: dict, bf16: bool = False) -> None:
+    """K2's hot forms against train_plain on one hot batch or slice,
+    compared in table-row space within phase 6's per-row bound over the
+    hot and cold planes together (k2_tolerances on the combined key
+    plane; in window form over tables whose rows [0, H) are the
+    snapshot's for the cold plane, by giving those keys rows T + key);
+    the log-loss sum within its bound, the count exact.  With ``bf16``
+    (the flag of ``hot_impl="mxu"`` + bfloat16) see ``check_bf16``."""
+    import torch
+
+    from xflow_tpu_torch.ops.score import hot_plane_keys
+    from xflow_tpu_torch.ops.train import train_plain, train_step
+
+    w = tables["w"]["param"]
+    v = tables["v"]["param"] if "v" in tables else None
+    t = w.shape[0]
+    snap = None
+    if form == "window":  # a snapshot other than the live head, so reads tell
+        snap = {n: (tables[n]["param"][:h] * 0.5).contiguous() for n in tables}
+    outs = []
+    for fn in (train_step, train_plain):
+        args, kw, rows = k2_hot_call(form, arrays, tables, h, snap, bf16)
+        fn(*args, **kw)
+        outs.append(rows())
+    torch.cuda.synchronize()
+    hk = hot_plane_keys(arrays["hot"], h)
+    ck = arrays["ckeys"].long()
+    tw, tv = w, v
+    if snap is not None:
+        ck = torch.where((ck >= 0) & (ck < h), ck + t, ck)
+        tw = torch.cat([w, snap["w"]])
+        tv = torch.cat([v, snap["v"]]) if v is not None else None
+    keys = torch.cat([hk, ck], dim=1).to(torch.int32)
+    tol_w, tol_v, tol_ll = k2_tolerances(keys, None, arrays["labels_u8"],
+                                         arrays["weights_u8"], arrays["num_real"], tw, tv)
+    if snap is not None:
+        tol_w = tol_w[:t].index_add(0, torch.arange(h, device=w.device), tol_w[t:])
+        tol_v = (tol_v[:t].index_add(0, torch.arange(h, device=w.device), tol_v[t:])
+                 if tol_v is not None else None)
+    (gk, acc), (gp, pacc) = outs
+    if bf16:
+        check_bf16(case, form, arrays, tables, h, gk, gp, acc, pacc,
+                   {"w": tol_w, "v": tol_v}, worst)
+    else:
+        for name, tol in (("w", tol_w), ("v", tol_v)):
+            if tol is None:
+                continue
+            diff = (gk[name].double() - gp[name].double()).abs()
+            excess = float((diff - tol).max())
+            if excess > 0 or not bool(torch.isfinite(gk[name]).all()):
+                raise AssertionError(f"K2 {form} form disagrees with train_plain: {case} "
+                                     f"{name} excess {excess}")
+            worst["max_abs_err_g"] = max(worst["max_abs_err_g"], float(diff.max()))
+            ratio = diff / torch.where(tol > 0, tol, 1.0)
+            worst["max_err_over_tol"] = max(worst["max_err_over_tol"], float(ratio.max()))
+    if abs(float(acc[0]) - float(pacc[0])) > tol_ll or float(acc[1]) != float(pacc[1]):
+        raise AssertionError(f"K2 {form} form log-loss/count {acc.tolist()} vs plain "
+                             f"{pacc.tolist()} ({case})")
+    worst["cases"] += 1
+
+
+BF16_ULP = 2.0 ** -7  # a bfloat16 step, relative to the value it rounds: 8 significant bits
+BF16_POWER = 10  # the flag must show at least 10x as often as rounding flips
+
+
+def check_bf16(case: str, form: str, arrays: dict, tables: dict, h: int, gk: dict,
+               gp: dict, acc, pacc, tols: dict, worst: dict) -> None:
+    """K2 with the bf16 flag against train_plain with it.  Each hot
+    gradient rounds to bfloat16 on both sides, from float32 values that
+    differ in their last bits, so an occurrence within that distance of
+    a rounding tie can land one bfloat16 step apart (a flip).  So every
+    element must lie within phase 6's bound (``tols``, scaled 1.01 for
+    the rounded values) plus one step per hot occurrence (BF16_ULP
+    times the sum of |occurrence| at that element); the elements beyond
+    phase 6's bound alone (the flips) must be at most 1/BF16_POWER of
+    those the gradient rounding moves beyond it (the flag's power:
+    rounded against unrounded hot sums of the plain occurrences); and
+    the log-loss sum's gap to an unflagged plain run (the rounded head
+    in the forward) must be BF16_POWER x the kernel's gap to the
+    flagged one."""
+    import torch
+
+    from xflow_tpu_torch.ops.hot import hot_scatter
+    from xflow_tpu_torch.ops.train import occurrence_grads, train_plain
+
+    v = tables["v"]["param"] if "v" in tables else None
+    occ, hk, _, _ = occurrence_grads(arrays["ckeys"], None, arrays["labels_u8"],
+                                     arrays["weights_u8"], arrays["num_real"],
+                                     tables["w"]["param"], v, hot=arrays["hot"], hot_size=h,
+                                     hot_bf16=True)
+    eff = torch.where(hk >= 0, hk, torch.full_like(hk, h)).reshape(-1)
+    kh = hk.shape[1]
+    stats = {"case": case, "form": form, "beyond_f32_bound": 0, "flag_power": 0,
+             "max_err_over_envelope": 0.0}
+    for name, tol in tols.items():
+        if tol is None:
+            continue
+        o = occ[name][:, :kh].reshape(-1, occ[name].shape[-1])
+        s_abs = hot_scatter(eff, o.abs(), h).double()
+        moved = (hot_scatter(eff, o, h, dtype=torch.bfloat16, impl="mxu")
+                 - hot_scatter(eff, o, h)).double().abs()
+        diff = (gk[name].double() - gp[name].double()).abs()
+        envelope = 1.01 * tol.clone()
+        envelope[:h] += BF16_ULP * s_abs
+        if float((diff - envelope).max()) > 0 or not bool(torch.isfinite(gk[name]).all()):
+            raise AssertionError(f"K2 bf16 {case} {name}: beyond one bfloat16 step per hot "
+                                 "occurrence")
+        stats["beyond_f32_bound"] += int((diff > 1.01 * tol).sum())
+        stats["flag_power"] += int((moved > 1.01 * tol[:h]).sum())
+        ratio = diff / torch.where(envelope > 0, envelope, 1.0)
+        stats["max_err_over_envelope"] = max(stats["max_err_over_envelope"],
+                                             float(ratio.max()))
+    args, kw, rows = k2_hot_call(form, arrays, tables, h, None, False)
+    train_plain(*args, **kw)
+    uacc = rows()[1]
+    stats["logloss_gap_kernel"] = abs(float(acc[0]) - float(pacc[0]))
+    stats["logloss_gap_unflagged"] = abs(float(uacc[0]) - float(pacc[0]))
+    if stats["flag_power"] < BF16_POWER * stats["beyond_f32_bound"] or (
+            stats["logloss_gap_unflagged"] <= BF16_POWER * stats["logloss_gap_kernel"]):
+        raise AssertionError(f"K2 bf16 {case}: the flag does not show above the rounding "
+                             f"flips {stats}")
+    worst.setdefault("bf16", []).append(stats)
+
+
+def time_k2_hot(model: str, label: str, form: str, view: dict, tables: dict, h: int,
+                flush) -> dict:
+    """K2 in one hot form timed alone on one batch (or slice) of its
+    path, beside its plain version: the plan (hybrid) made once before,
+    the buffers allocated once (``k2_hot_call``), each call behind an
+    L2 flush.  The bound counts phase 6's bytes over the hot and cold
+    planes together (every distinct row read and its gradient row read
+    and written once, the hot plane at its wire width), plus the
+    hybrid's slot plane."""
+    from xflow_tpu_torch.ops.train import train_plain, train_step
+
+    snap = ({n: (tables[n]["param"][:h] * 0.5).contiguous() for n in tables}
+            if form == "window" else None)
+    args, kw, _ = k2_hot_call(form, view, tables, h, snap)
+
+    def kernel():
+        train_step(*args, **kw)
+
+    def plain():
+        train_plain(*args, **kw)
+
+    dim = tables["v"]["param"].shape[1] if "v" in tables else 0
+    b2 = k2_bounds(view["ckeys"], None, view["labels_u8"], dim, hot=view["hot"], hot_size=h)
+    used = b2["bound_bytes"] + (4 * view["ckeys"].numel() if form == "hybrid" else 0)
+    bound = {"bound_ms": max(used / HBM_BYTES_PER_S * 1e3,
+                             b2["bound_ops"] / FP32_FLOPS_PER_S * 1e3),
+             "bound_by": b2["bound_by"], "bound_bytes": used,
+             "distinct_rows": b2["distinct_rows"], "live_slots": b2["live_slots"]}
+    return hot_timing_row(
+        f"train_step (hot: {form})", kernel, plain, [()] * TIMED_RUNS, bound,
+        prelude=flush.zero_, model=model, path=label, B=view["ckeys"].shape[0],
+        Kc=view["ckeys"].shape[1], Kh=view["hot"].shape[1], H=h, D=dim,
+        library_why_null="no single PyTorch call computes the gather, logit, residual, "
+        "scatter-add and log-loss")
+
+
+def check_k5_fold(case: str, tables: dict, opt, arrays: dict, h: int, worst: dict):
+    """K5 with the fold against its plain version on copies of
+    ``tables``, on K4's plan and K2's sums (index mode with a head
+    buffer) over one hybrid slice: the head buffers equal exactly (each
+    gets the same float32 adds), the folded rows keep every array, the
+    stepped rows within phase 7's bounds, rows outside the plan
+    bit-identical, gsum cleared, the slot map restored."""
+    import torch
+
+    from xflow_tpu_torch.ops.sparse import consolidate_keys, touched_plain, touched_update
+    from xflow_tpu_torch.ops.train import train_step
+
+    keys = arrays["ckeys"]
+    dev = keys.device
+    t = tables["w"]["param"].shape[0]
+    m = keys.numel()
+    slot_map = torch.full((t,), -1, dtype=torch.int32, device=dev)
+    ukeys = torch.empty(m, dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    slots = torch.empty_like(keys)
+    consolidate_keys(keys, t, ukeys, count, slots, slot_map)
+    v = tables["v"]["param"] if "v" in tables else None
+    gsum = {n: torch.zeros((m, tables[n]["param"].shape[1]), device=dev) for n in tables}
+    heads = {n: torch.zeros((h, tables[n]["param"].shape[1]), device=dev) for n in tables}
+    acc = torch.zeros(2, dtype=torch.float64, device=dev)
+    train_step(keys, None, arrays["labels_u8"], arrays["weights_u8"], arrays["num_real"],
+               tables["w"]["param"], v, gsum["w"], gsum.get("v"), acc, slots=slots,
+               hot=arrays["hot"], hot_size=h, hg_w=heads["w"], hg_v=heads.get("v"))
+    torch.cuda.synchronize()
+    n = int(count)
+    rows = ukeys[:n].long()
+    folded = rows < h
+    names = list(tables)
+    for i, name in enumerate(names):
+        copy = {k: tables[name][k].clone() for k in ("param", "n", "z")}
+        plain = {k: a.clone() for k, a in copy.items()}
+        before = {k: a.clone() for k, a in copy.items()}
+        g_in, g_plain = gsum[name][:n].clone(), gsum[name].clone()
+        head, head_plain = heads[name].clone(), heads[name].clone()
+        touched_update(copy, opt, ukeys, count, gsum[name],
+                       slot_map if i == len(names) - 1 else None, head=head, hot_size=h)
+        touched_plain(plain, opt, ukeys, count, g_plain, head=head_plain, hot_size=h)
+        torch.cuda.synchronize()
+        if not torch.equal(head, head_plain):
+            raise AssertionError(f"K5 fold {case} {name}: head buffers differ")
+        mask = torch.zeros(t, dtype=torch.bool, device=dev)
+        mask[rows[~folded]] = True
+        for k in copy:
+            if not torch.equal(copy[k][~mask], before[k][~mask]):
+                raise AssertionError(f"K5 fold {case} {name}: a folded or unplanned row "
+                                     f"changed ({k})")
+        stepped = rows[~folded]
+        rb = {k: a[stepped] for k, a in before.items()}
+        rb["g"] = g_in[~folded]
+        tols = k3_tolerances(rb, plain["n"][stepped], opt)
+        for k, tol in tols.items():
+            diff = (copy[k][stepped] - plain[k][stepped]).abs()
+            if float((diff - tol).max()) > 0:
+                raise AssertionError(f"K5 fold {case} {name} {k}: beyond phase 7's bound")
+            worst["max_abs_err"] = max(worst["max_abs_err"], float(diff.max()))
+            ratio = diff / torch.where(tol > 0, tol, 1.0)
+            worst["max_err_over_tol"] = max(worst["max_err_over_tol"], float(ratio.max()))
+        if bool(gsum[name][:n].any()):
+            raise AssertionError(f"K5 fold {case} {name}: gsum not cleared")
+        worst["folded_rows"] += int(folded.sum())
+        worst["stepped_rows"] += int((~folded).sum())
+    if bool((slot_map != -1).any()):
+        raise AssertionError(f"K5 fold {case}: the slot map was not restored")
+    return {"ukeys": ukeys, "count": count, "n": n, "gsum": gsum, "heads": heads}
+
+
+def hot_k6_batches(cfg, trainer) -> list:
+    """(case, Batch, hot_nnz) for the hot tiers: the path's first batch as
+    its loader builds it (remapped and steered), the same rows re-steered
+    with 4 hot slots (nearly every row overflows into the cold plane),
+    and the batch with its hot plane emptied."""
+    from xflow_tpu_torch.io.batch import Batch, remap_batch
+
+    loader = trainer._loader(f"{cfg.train_path}-00000")
+    batch = next(iter(loader.iter_batches()))[0]
+    merged = Batch(batch.keys, batch.slots, batch.vals, batch.mask, batch.labels,
+                   batch.weights, batch.hot_keys, batch.hot_slots, batch.hot_vals,
+                   batch.hot_mask)
+    ident = np.arange(cfg.table_size, dtype=np.int32)
+    narrow = remap_batch(merged, ident, cfg.hot_size, 4)
+    z = np.zeros_like(batch.hot_keys)
+    empty = Batch(batch.keys, batch.slots, batch.vals, batch.mask, batch.labels,
+                  batch.weights, z, z, z.astype(np.float32), z.astype(np.float32))
+    return [(f"{cfg.model} main path batch 0", batch, cfg.hot_nnz),
+            (f"{cfg.model} overflow (hot_nnz 4)", narrow, 4),
+            (f"{cfg.model} empty hot plane", empty, cfg.hot_nnz)]
+
+
+def check_k6_hot(cfg, trainer, dev) -> tuple[list, list]:
+    """K6's hot tiers against the plain version, exactly, and against
+    the batch's own hot and cold planes, on ``hot_k6_batches``; then K6
+    timed on the main path's batch (device ms behind _sleep, plain ms,
+    the byte bound over every plane read and written)."""
+    import torch
+
+    from xflow_tpu_torch.io.compact import compact_batch
+    from xflow_tpu_torch.ops.wire import HOT_PLANES, PLANES, dict_decode, dict_decode_plain
+    from xflow_tpu_torch.ops.wire import to_device
+
+    checks, timings = [], []
+    for name, batch, kh in hot_k6_batches(cfg, trainer):
+        cb = compact_batch(batch, cfg.table_size, cfg.hot_size)
+        wire = cb.wire(ship_slots=False)
+        planes = to_device(wire, dev)
+        kc = batch.max_nnz
+        got = dict_decode(planes, kc, kh)
+        want = dict_decode_plain(planes, kc, kh)
+        torch.cuda.synchronize()
+        truth = (np.where(batch.mask > 0, batch.keys, -1), batch.labels, batch.weights,
+                 np.where(batch.hot_mask > 0, batch.hot_keys, -1))
+        err_plain = err_batch = 0.0
+        for gg, ww, tt, label in zip(got, want, truth, ("ckeys", "labels", "weights", "hot")):
+            got_np = gg.cpu().numpy().astype(np.float64)
+            err_plain = max(err_plain, float(np.abs(got_np - ww.cpu().numpy()).max(initial=0)))
+            err_batch = max(err_batch, float(np.abs(got_np - tt).max(initial=0)))
+            if gg.dtype != ww.dtype or not torch.equal(gg, ww):
+                raise AssertionError(f"K6 hot tiers {name}: {label} differs from the plain "
+                                     "version")
+            if not np.array_equal(gg.cpu().numpy(), tt.astype(gg.cpu().numpy().dtype)):
+                raise AssertionError(f"K6 hot tiers {name}: {label} differs from the batch")
+        checks.append({"case": name, "B": batch.batch_size, "hot_nnz": kh, "n_hot": cb.n_hot,
+                       "n_h8": cb.n_h8, "large_tier": "u16" if cb.hx16 else "u12",
+                       "max_abs_err_plain": err_plain, "max_abs_err_batch": err_batch,
+                       "exact": True})
+        if name.endswith("main path batch 0"):
+            in_bytes = sum(int(wire[p].nbytes) for p in PLANES + HOT_PLANES)
+            out_bytes = batch.batch_size * (4 * (kc + kh) + 2)
+            bound = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+            timings.append(hot_timing_row(
+                "dict_decode (hot tiers)", dict_decode, dict_decode_plain,
+                [(planes, kc, kh)] * TIMED_RUNS,
+                {"bound_ms": bound, "bound_by": "bytes", "bytes": in_bytes + out_bytes},
+                model=cfg.model, B=batch.batch_size, K=kc, Kh=kh,
+                library_why_null=K6_LIBRARY_WHY_NULL))
+    return checks, timings
+
+
+def truncated_share(cfg, trainer, shipped: list) -> dict:
+    """How much of the text the steering keeps: the features of the
+    train shards (parsed), against the live hot and cold slots the path
+    shipped over one epoch; the rest is truncation (reference
+    semantics: io/batch.py::split_hot), reported and not gated."""
+    from xflow_tpu_torch.ops.score import hot_plane_keys
+    from xflow_tpu_torch.trainer import find_shards
+
+    total = 0
+    parse = trainer._parse_fn()
+    for path in find_shards(cfg.train_path):
+        with open(path, "rb") as f:
+            total += len(parse(f.read()).keys)
+    epoch = shipped[:len(shipped) // cfg.epochs]
+    cold = sum(int((a["ckeys"] >= 0).sum()) for a in epoch)
+    hot = sum(int((hot_plane_keys(a["hot"], cfg.hot_size) >= 0).sum()) for a in epoch)
+    return {"text_features": total, "hot_slots": hot, "cold_slots": cold,
+            "hot_share_of_kept": hot / max(hot + cold, 1),
+            "truncated_share": 1.0 - (hot + cold) / max(total, 1)}
+
+
+def hot_train_rows(hot: dict, modes: dict, train_path: dict, card: str) -> list:
+    """The ``train`` line's rows for the hot paths (phase 19): device
+    busy from the launches times each kernel form's device ms on the
+    path's own batch or slice 0 (phase 20); K4 from phase 14's times on
+    the no-hot geometry (not measured on the hot batches); phase 8's K3
+    passes over the whole table."""
+    train_rows = []
+    hot_ms = {(r["kernel"], r.get("model")): r["ms"] for r in hot["timings"]}
+    k3_ms_step = {row["model"]: sum(r["ms"] for r in row["k3_main_path"])
+                  for row in train_path["rows"]}
+    k4_ms = {r["path"]: r["ms"] for r in modes["timings"]
+             if r["kernel"] == "consolidate_keys" and r["model"] == "fm"}
+    for row in hot["rows"]:
+        if "eval" not in row:
+            continue
+        model, n = row["model"], row["launches"]
+        form = {"hot_dense": "dense", "hot_hybrid_mb128": "hybrid",
+                "hot_inner_mb128": "window"}[row["mode"]]
+        busy_ms = (n["train_step"] * hot_ms[(f"train_step (hot: {form})", model)]
+                   + n["dict_decode"] * hot_ms[("dict_decode (hot tiers)", model)])
+        k3_head = hot_ms[("optim_update (head rows)", model)]
+        if form == "dense":
+            busy_ms += row["steps"] * k3_ms_step[model]  # phase 8's K3 passes over T
+        elif form == "hybrid":
+            busy_ms += (n["optim_update"] * k3_head
+                        + n["touched_update"] * hot_ms[("touched_update (fold)", model)]
+                        + n["consolidate_keys"] * k4_ms["sequential main path, slice 0"])
+        else:
+            busy_ms += (n["optim_update"] * k3_head
+                        + n["consolidate_keys"] * k4_ms["sparse main path"])
+        busy = busy_ms / 1e3
+        train_rows.append({
+            "model": model, "mode": row["mode"], "card": card, "hot_mass": row["hot_mass"],
+            "windowend": row.get("windowend"), "truncation": hot["truncation"][model],
+            "examples_per_sec": row["examples_per_sec"],
+            "step_time_p50": row["step_time_p50"], "phases": row["phases"],
+            "put_batch_ms_per_dispatch": [p["h2d"] / (row["steps"] / TRAIN_EPOCHS) * 1e3
+                                          for p in row["phases"]],
+            "train_seconds": row["train_seconds"],
+            "device_busy_s_from_kernel_times": busy,
+            "device_idle_share_from_kernel_times": 1.0 - busy / row["train_seconds"],
+            "eval_auc": row["eval"]["auc"], "eval_logloss": row["eval"]["logloss"],
+            "auc_floor": train_path["bars"]["floor"],
+            "bayes_auc": train_path["bars"]["bayes_auc"],
+        })
+    return train_rows
+
+
+def hot_kernel_entries(hot: dict, k3_err: float) -> list:
+    """The ``kernels`` line's entries for the hot modes: K1 with the hot
+    plane, K2's three hot forms, K3 over the head rows, K5's fold and
+    K6's hot tiers; launches counted on the hot paths (phases 18-19,
+    each from 0 just before its path), times on the fm path's own
+    batches (phase 20; K1 at the serving bucket, phase 17)."""
+    by_path = hot["launches_by_path"]
+    steps = {r["model"] + " " + r["mode"]: (r["steps"], r["tables"]) for r in hot["rows"]}
+
+    def launches(kernel, modes):
+        return sum(n[kernel] for path, n in by_path.items()
+                   if path.split(" ", 1)[1] in modes)
+
+    def timing(kernel):
+        return next(r for r in hot["timings"] if r["kernel"] == kernel and r["model"] == "fm")
+
+    window = ("hot_inner_mb128", "hot_inner_windowend_dense")
+    head_passes = launches("optim_update", ("hot_hybrid_mb128", "hot_inner_mb128")) + sum(
+        n["optim_update"] - steps[p][0] * steps[p][1] for p, n in by_path.items()
+        if p.endswith("hot_inner_windowend_dense"))
+    k2 = hot["checks"]["k2_hot"]
+    k1t = hot["checks"]["k1"]["timing"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_why_null")
+    entries = [{
+        "name": "score (hot plane)", "route": "cuda", "source": "xflow_tpu_torch/csrc/score.cu",
+        "replaces": B7_REPLACES + "; " + REPLACES,
+        "launches": hot["serve"]["launches"] + launches("score", tuple(
+            p.split(" ", 1)[1] for p in by_path)),
+        "max_abs_err": hot["checks"]["k1"]["max_abs_err"],
+        "host_path_ms": k1t["host_path_ms"], "bound_sector_ms": k1t["bound_sector_ms"],
+        **{k: k1t[k] for k in keys},
+        "shape": {k: k1t[k] for k in ("mode", "B", "Kc", "Kh", "H", "plane")},
+    }]
+    for form, modes in (("dense", ("hot_dense",)), ("hybrid", ("hot_hybrid_mb128",)),
+                        ("window", window)):
+        t = timing(f"train_step (hot: {form})")
+        entries.append({
+            "name": f"train_step (hot: {form})", "route": "cuda",
+            "source": "xflow_tpu_torch/csrc/train.cu", "replaces": B7_REPLACES,
+            "launches": launches("train_step", modes), "max_abs_err": k2["max_abs_err_g"],
+            "max_err_over_tol": k2["max_err_over_tol"], **{k: t[k] for k in keys},
+            "shape": {k: t[k] for k in ("model", "path", "B", "Kc", "Kh", "H", "D")}})
+    for name, kernel, source, replaces, n, err in (
+        ("optim_update (head rows)", "optim_update (head rows)", "csrc/optim.cu",
+         K3_HEAD_REPLACES, head_passes, k3_err),
+        ("touched_update (fold)", "touched_update (fold)", "csrc/sparse.cu",
+         K5_FOLD_REPLACES, launches("touched_update", ("hot_hybrid_mb128",)),
+         hot["checks"]["k5_fold"]["max_abs_err"]),
+        ("dict_decode (hot tiers)", "dict_decode (hot tiers)", "csrc/wire.cu",
+         K6_HOT_REPLACES, launches("dict_decode", tuple(p.split(" ", 1)[1] for p in by_path)),
+         max(max(c["max_abs_err_plain"], c["max_abs_err_batch"])
+             for c in hot["checks"]["k6_hot"])),
+    ):
+        t = timing(kernel)
+        entries.append({
+            "name": name, "route": "cuda", "source": "xflow_tpu_torch/" + source,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": err,
+            **{k: t[k] for k in keys},
+            "shape": {k: t[k] for k in ("model", "path", "H", "D", "U", "B", "K", "Kh")
+                      if k in t}})
+    entries[-3]["max_abs_err_of"] = ("K3 over the head rows is K3 itself on views of "
+                                     "rows [0, H): phase 7's check")
+    entries[-1]["max_abs_err_of"] = (
+        "every decoded cold key, label, weight and hot key against the plain version "
+        "and against the batch's own planes (-1 on padding), over "
+        + ", ".join(c["case"] for c in hot["checks"]["k6_hot"]))
+    return entries
+
+
+def phase_hot(dev, t_log2: int, workdir: str, dense: dict) -> dict:
+    """Phases 17-20 at the flagship ``fm`` and ``lr`` (HOT_GEOMETRY,
+    T = 2^24, batch 65,536, phase 8's shards and initial state): 17 the
+    kernels' hot modes against their plain versions; 18 serving a hot
+    artifact; 19 training on the default input path in dense, hybrid
+    (sequential + sparse inner, microbatch 128) and hot-inner
+    (microbatch 128, ``hot_windowend`` auto = sparse here) mode, 2
+    epochs each, and one dispatch with ``hot_windowend="dense"``, the
+    card against the CPU within TRAIN_BOUNDS (the sequential forms
+    through ``lockstep_tables``), exact launches, the eval AUC inside
+    the planted signal's bars; 20 the hot modes' kernel times on the
+    paths' own batches."""
+    import os
+
+    import torch
+
+    from xflow_tpu_torch.parallel.step import hot_windowend
+
+    data, bars = dense["data"], dense["bars"]
+    one = single_shard(data, workdir)
+    out = {"rows": [], "checks": {}, "timings": [], "launches_by_path": {},
+           "hot_mass": {}, "truncation": {}}
+    k2w = {"max_abs_err_g": 0.0, "max_err_over_tol": 0.0, "cases": 0}
+    k5w = {"max_abs_err": 0.0, "max_err_over_tol": 0.0, "folded_rows": 0, "stepped_rows": 0}
+    out["checks"]["k1"] = phase_hot_k1(dev, t_log2)
+    log(json.dumps({"phase": 17, "k1_hot": out["checks"]["k1"]}))
+    torch.cuda.empty_cache()
+    out["serve"] = phase_main_path(dev, t_log2, workdir, hot=True)
+    torch.cuda.empty_cache()
+    k6_checks, flush = [], torch.empty(1 << 27, dtype=torch.uint8, device=dev)
+
+    def book(label, model, run, **extra):
+        row = dict(run["row"], phase=19, **extra)
+        out["rows"].append(row)
+        out["launches_by_path"][f"{model} {label}"] = row["launches"]
+        log(json.dumps(row))
+
+    for model in ("fm", "lr"):
+        init = dense["inits"][model]
+        geom = HOT_GEOMETRY[model]
+        h = 1 << geom["hot_size_log2"]
+        for label, mode in HOT_MODES:
+            seq = mode.get("update_mode") == "sequential"
+            run = run_mode(dev, model, t_log2, data, init, dict(geom, **mode), label, workdir,
+                           keep=True, bars=bars, lockstep=seq, sync_check=seq)
+            trainer, arrays = run["trainer"], run["shipped"][0]
+            cfg = trainer.cfg
+            if label == "hot_dense":
+                out["hot_mass"][model] = trainer.hot_mass
+                out["truncation"][model] = truncated_share(cfg, trainer, run["shipped"])
+                checks, timings = check_k6_hot(cfg, trainer, dev)
+                k6_checks += checks
+                out["timings"] += timings
+            tables = trainer.state["tables"]
+            if seq:
+                rows = arrays["ckeys"].shape[0] // SEQ_MICROBATCH
+                view = {k: a[:rows] for k, a in arrays.items() if isinstance(a, torch.Tensor)}
+                view["num_real"] = arrays["slice_num_real"][0]
+            else:
+                view = arrays
+            form = {"hot_dense": "dense", "hot_hybrid_mb128": "hybrid",
+                    "hot_inner_mb128": "window"}[label]
+            check_k2_hot(f"{model} {label}", form, view, tables, h, k2w)
+            if form == "dense":
+                check_k2_hot(f"{model} {label} bf16", form, view, tables, h, k2w, bf16=True)
+            torch.cuda.empty_cache()
+            # K2's form timed alone on the path's own batch (or slice 0)
+            out["timings"].append(time_k2_hot(model, label, form, view, tables, h, flush))
+            if form == "hybrid":
+                fold = check_k5_fold(f"{model} {label} slice 0", tables, trainer.step.optimizer,
+                                     view, h, k5w)
+                from xflow_tpu_torch.ops.sparse import touched_plain, touched_update
+
+                name = "v" if "v" in tables else "w"
+                copy = {k: tables[name][k].clone() for k in ("param", "n", "z")}
+                head = fold["heads"][name]
+                args = [(copy, trainer.step.optimizer, fold["ukeys"], fold["count"],
+                         fold["gsum"][name], None, head, h)] * TIMED_RUNS
+                def fold_plain(table, opt, ukeys, count, gsum, _slot_map, head, hot_size):
+                    touched_plain(table, opt, ukeys, count, gsum, head, hot_size)
+
+                out["timings"].append(hot_timing_row(
+                    "touched_update (fold)", touched_update, fold_plain, args,
+                    k5_bounds(fold["ukeys"], fold["n"], copy["param"].shape[1], "ftrl", h),
+                    prelude=flush.zero_, model=model, path=label, table=name, U=fold["n"],
+                    H=h, library_why_null="no single PyTorch call applies FTRL to gathered "
+                    "rows"))
+                # K3 over the head rows, the hybrid's and the hot inner's step
+                from xflow_tpu_torch.ops.optim import optim_plain, optim_update
+
+                hd = {k: tables[name][k][:h] for k in ("param", "n", "z")}
+                hd["g"] = torch.zeros_like(hd["param"])
+                out["timings"].append(hot_timing_row(
+                    "optim_update (head rows)", optim_update, optim_plain,
+                    [(hd, trainer.step.optimizer)] * TIMED_RUNS,
+                    k3_bounds(hd["param"].numel(), True), model=model, path=label,
+                    table=name, H=h, D=hd["param"].shape[1],
+                    library_why_null="no single PyTorch call applies the FTRL recurrence"))
+                del fold, copy, hd
+            book(label, model, run, windowend=hot_windowend(cfg) if form == "window" else None,
+                 hot_mass=trainer.hot_mass)
+            del run, trainer, arrays, view, tables
+            torch.cuda.empty_cache()
+        run = run_mode(dev, model, t_log2, one, init, dict(geom, epochs=1, **HOT_WINDOW_DENSE),
+                       "hot_inner_windowend_dense", workdir, evaluate=False, keep=True,
+                       lockstep=True)
+        book("hot_inner_windowend_dense", model, run, windowend="dense")
+        del run
+        torch.cuda.empty_cache()
+    out["checks"]["k2_hot"] = k2w
+    out["checks"]["k5_fold"] = k5w
+    out["checks"]["k6_hot"] = k6_checks
+    del flush
     return out
 
 
@@ -2528,16 +3404,31 @@ def seq_witness(dev, t_log2: int, workdir: str, runs: int) -> dict:
     return out
 
 
-def split_tolerance(name: str, view: dict, num_real: float, uk, before: dict):
-    """Phase 6's per-row bound on K2's summed gradients (k2_tolerances),
-    for the slice ``view`` over the tables as they were before it,
-    gathered at the slice's sorted unique keys ``uk``: the [U, width]
-    tolerances of table ``name``."""
+def view_keys(view: dict, hot_size: int):
+    """A view's key plane as phase 6's bound reads it: the hot plane
+    (when there is one, -1 on padding) ahead of the cold one, int64."""
     import torch
 
-    keys = view["ckeys"]
-    local = torch.where(keys >= 0, torch.searchsorted(uk, keys.long().clamp(min=0)),
-                        torch.full_like(keys.long(), -1)).to(torch.int32)
+    from xflow_tpu_torch.ops.score import hot_plane_keys
+
+    keys = view["ckeys"].long()
+    if "hot" in view:
+        keys = torch.cat([hot_plane_keys(view["hot"], hot_size), keys], dim=1)
+    return keys
+
+
+def split_tolerance(name: str, view: dict, num_real: float, uk, before: dict,
+                    hot_size: int = 0):
+    """Phase 6's per-row bound on K2's summed gradients (k2_tolerances),
+    for the slice ``view`` (hot plane and cold plane) over the tables as
+    they were before it, gathered at the sorted unique keys ``uk``,
+    which hold every live key of the view: the [U, width] tolerances of
+    table ``name``."""
+    import torch
+
+    keys = view_keys(view, hot_size)
+    local = torch.where(keys >= 0, torch.searchsorted(uk, keys.clamp(min=0)),
+                        torch.full_like(keys, -1)).to(torch.int32)
     v = before["v"]["param"] if "v" in before else None
     tol_w, tol_v, _ = k2_tolerances(local, None, view["labels_u8"], view["weights_u8"],
                                     num_real, before["w"]["param"], v)
@@ -2548,9 +3439,11 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
                     records: int = 6) -> dict:
     """Replay the sequential batches ``shipped`` from ``init`` on the
     card (``card_step``, the main path's TrainStep) and on the CPU in
-    lockstep, slice by slice, each side through ``TrainStep._update``
-    (the per-slice update the main path runs), and compare the rows each
-    slice touched.
+    lockstep, slice by slice, each side through the per-slice update the
+    main path runs (``TrainStep._update``; with the hot inner,
+    ``window_open``, ``window_slice`` per slice and ``window_close``),
+    and compare the rows each slice touched (hot and cold keys) and
+    each window's close touched.
 
     FTRL keeps w's init where n' == 0 (the reference's lazy init), so an
     element's update is discontinuous where its first gradient is 0:
@@ -2560,7 +3453,9 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
     that difference then reaches every row the element shares an example
     with.  Such a split is verified as rounding: n was 0 before on both
     sides, and the nonzero side's gradient (sqrt(n')) lies within phase
-    6's bound on K2's sum (``split_tolerance``).  With ``synchronize``
+    6's bound on K2's sum (``split_tolerance``; at a window's close, the
+    sum of that bound over the window's slices, each over the rows at
+    the window's start).  With ``synchronize``
     the CPU then takes the card's state at that element, and the final
     tables are held to TRAIN_BOUNDS (``compare_states``); a split that
     fails the verification raises.  Without it the run goes on unsynced
@@ -2573,72 +3468,117 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
     from xflow_tpu_torch.parallel.step import TrainStep
 
     dev = card_step.device
+    h = cfg.hot_size
     steps = {"card": card_step,
              "cpu": TrainStep(card_step.model, card_step.optimizer, cfg, torch.device("cpu"))}
     states = {"card": state_from_numpy(cfg, init, dev),
               "cpu": state_from_numpy(cfg, init, "cpu")}
-    out = {"slices": 0, "splits": 0, "split_records": [], "jump_slices": 0,
+    out = {"slices": 0, "windows": 0, "splits": 0, "split_records": [], "jump_slices": 0,
            "jump_records": []}
+
+    def rows_of(side, uk):
+        idx = uk.to(steps[side].device)
+        return {n: {k: t[k][idx].cpu() for k in ("param", "n", "z")}
+                for n, t in states[side]["tables"].items()}
+
+    def step_both(uk, update, tolerance):
+        """``update(side)`` on both sides, then the n' == 0 splits and z
+        jumps among the rows ``uk``; ``tolerance(name)`` gives the bound
+        on their summed gradients ([U, width]) when a split needs it."""
+        snap = {}
+        for side in steps:
+            before = rows_of(side, uk)
+            update(side)
+            snap[side] = (before, rows_of(side, uk))
+        (cb, ca), (pb, pa) = snap["card"], snap["cpu"]
+        for name in ca:
+            split = (ca[name]["n"] == 0) != (pa[name]["n"] == 0)
+            tol = None
+            for i, col in split.nonzero().tolist():
+                if tol is None:
+                    tol = tolerance(name, pb)
+                g = {"card": math.sqrt(float(ca[name]["n"][i, col])),
+                     "cpu": math.sqrt(float(pa[name]["n"][i, col]))}
+                ok = (float(cb[name]["n"][i, col]) == 0.0 == float(pb[name]["n"][i, col])
+                      and max(g.values()) <= float(tol[i, col]))
+                rec = {"slice": out["slices"], "array": name, "row": int(uk[i]),
+                       "col": col, "abs_g": g, "k2_bound": float(tol[i, col]),
+                       "rounding_split": ok,
+                       "w_init_kept_by": "card" if g["card"] == 0.0 else "cpu",
+                       "w_after": {"card": float(ca[name]["param"][i, col]),
+                                   "cpu": float(pa[name]["param"][i, col])}}
+                out["splits"] += 1
+                if len(out["split_records"]) < records:
+                    out["split_records"].append(rec)
+                if not synchronize:
+                    continue
+                if not ok:
+                    raise AssertionError(f"an n' == 0 split that is not rounding: "
+                                         f"{json.dumps(rec)}")
+                for k in ("param", "n", "z"):
+                    states["cpu"]["tables"][name][k][uk[i], col] = ca[name][k][i, col]
+            zd = (ca[name]["z"] - pa[name]["z"]).abs()
+            zb = pa[name]["z"].abs() * TRAIN_BOUNDS["table_rtol"] + 5e-8
+            jumped = (zd - (cb[name]["z"] - pb[name]["z"]).abs() > 0.5 * zb).nonzero()
+            if jumped.numel():
+                out["jump_slices"] += 1
+                for i, col in jumped.tolist()[:max(0, records - len(out["jump_records"]))]:
+                    out["jump_records"].append(
+                        {"slice": out["slices"], "array": name, "row": int(uk[i]),
+                         "col": col, "z": {"card": float(ca[name]["z"][i, col]),
+                                           "cpu": float(pa[name]["z"][i, col])}})
+
+    def live_unique(view):
+        keys = view_keys(view, h)
+        return torch.unique(keys[keys >= 0])  # sorted
+
     for arrays in shipped:
         planes = {"card": arrays, "cpu": {k: a.cpu() if isinstance(a, torch.Tensor) else a
                                           for k, a in arrays.items()}}
         rows = arrays["ckeys"].shape[0] // cfg.microbatch
+        views = [{side: {k: a[j * rows:(j + 1) * rows] for k, a in planes[side].items()
+                         if isinstance(a, torch.Tensor)} for side in steps}
+                 for j in range(len(arrays["slice_num_real"]))]
+        window = {}
+        if card_step.window:
+            uk_batch = live_unique(planes["cpu"])
+            start = rows_of("cpu", uk_batch)
+            window = {side: steps[side].window_open(states[side]["tables"], planes[side])
+                      for side in steps}
         for j, num_real in enumerate(arrays["slice_num_real"]):
-            views = {side: {k: a[j * rows:(j + 1) * rows] for k, a in planes[side].items()
-                            if isinstance(a, torch.Tensor)} for side in steps}
-            keys = views["cpu"]["ckeys"]
-            uk = torch.unique(keys[keys >= 0])  # sorted
-            snap = {}
-            for side, step in steps.items():
-                tables = states[side]["tables"]
-                idx = uk.to(step.device)
+            view = views[j]
+            uk = live_unique(view["cpu"])
+            acc = {side: torch.zeros(2, dtype=torch.float64, device=steps[side].device)
+                   for side in steps}
 
-                def rows_of(tables=tables, idx=idx):
-                    return {n: {k: t[k][idx].cpu() for k in ("param", "n", "z")}
-                            for n, t in tables.items()}
+            def update(side, j=j, view=view, num_real=num_real):
+                if window:
+                    steps[side].window_slice(states[side]["tables"], window[side], j,
+                                             view[side], num_real, acc[side])
+                else:
+                    steps[side]._update(states[side]["tables"], view[side], num_real,
+                                        acc[side])
 
-                before = rows_of()
-                step._update(tables, views[side], num_real,
-                             torch.zeros(2, dtype=torch.float64, device=step.device))
-                snap[side] = (before, rows_of())
-            (cb, ca), (pb, pa) = snap["card"], snap["cpu"]
-            for name in ca:
-                split = (ca[name]["n"] == 0) != (pa[name]["n"] == 0)
-                tol = None
-                for i, col in split.nonzero().tolist():
-                    if tol is None:
-                        tol = split_tolerance(name, views["cpu"], num_real, uk, pb)
-                    g = {"card": math.sqrt(float(ca[name]["n"][i, col])),
-                         "cpu": math.sqrt(float(pa[name]["n"][i, col]))}
-                    ok = (float(cb[name]["n"][i, col]) == 0.0 == float(pb[name]["n"][i, col])
-                          and max(g.values()) <= float(tol[i, col]))
-                    rec = {"slice": out["slices"], "array": name, "row": int(uk[i]),
-                           "col": col, "abs_g": g, "k2_bound": float(tol[i, col]),
-                           "rounding_split": ok,
-                           "w_init_kept_by": "card" if g["card"] == 0.0 else "cpu",
-                           "w_after": {"card": float(ca[name]["param"][i, col]),
-                                       "cpu": float(pa[name]["param"][i, col])}}
-                    out["splits"] += 1
-                    if len(out["split_records"]) < records:
-                        out["split_records"].append(rec)
-                    if not synchronize:
-                        continue
-                    if not ok:
-                        raise AssertionError(f"an n' == 0 split that is not rounding: "
-                                             f"{json.dumps(rec)}")
-                    for k in ("param", "n", "z"):
-                        states["cpu"]["tables"][name][k][uk[i], col] = ca[name][k][i, col]
-                zd = (ca[name]["z"] - pa[name]["z"]).abs()
-                zb = pa[name]["z"].abs() * TRAIN_BOUNDS["table_rtol"] + 5e-8
-                jumped = (zd - (cb[name]["z"] - pb[name]["z"]).abs() > 0.5 * zb).nonzero()
-                if jumped.numel():
-                    out["jump_slices"] += 1
-                    for i, col in jumped.tolist()[:max(0, records - len(out["jump_records"]))]:
-                        out["jump_records"].append(
-                            {"slice": out["slices"], "array": name, "row": int(uk[i]),
-                             "col": col, "z": {"card": float(ca[name]["z"][i, col]),
-                                               "cpu": float(pa[name]["z"][i, col])}})
+            step_both(uk, update, lambda name, before, view=view, num_real=num_real, uk=uk:
+                      split_tolerance(name, view["cpu"], num_real, uk, before, h))
             out["slices"] += 1
+        if window:
+            keys = planes["cpu"]["ckeys"]
+            uk = torch.unique(keys[keys >= 0].long())
+
+            def close(side):
+                steps[side].window_close(states[side]["tables"], window[side])
+
+            def window_tolerance(name, _before, uk=uk, views=views, arrays=arrays,
+                                 uk_batch=uk_batch, start=start):
+                total = None
+                for j, num_real in enumerate(arrays["slice_num_real"]):
+                    tol = split_tolerance(name, views[j]["cpu"], num_real, uk_batch, start, h)
+                    total = tol if total is None else total + tol
+                return total[torch.searchsorted(uk_batch, uk)]
+
+            step_both(uk, close, window_tolerance)
+            out["windows"] += 1
     out["tables"] = compare_states(states["card"], states["cpu"], gate=synchronize)
     return out
 
@@ -2768,8 +3708,11 @@ def main() -> int:
         log(json.dumps({"phase": 15, "checks": k6["checks"]}))
         torch.cuda.empty_cache()
         paths = phase_input_paths(dev, T_LOG2, workdir, train_path)
+        torch.cuda.empty_cache()
+        hot = phase_hot(dev, T_LOG2, workdir, train_path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    log(json.dumps({"phase": 17, "checks": hot["checks"]}))
     del train_path["inits"], train_path["finals"], train_path["planes"]
     log(json.dumps({"phase": 10, "checks": modes["checks"], **modes["worst"]}))
     torch.cuda.empty_cache()
@@ -2839,6 +3782,7 @@ def main() -> int:
     for row in modes["compact_rows"]:
         train_rows.append({k: v for k, v in row.items()
                            if k not in ("vs_dict_wire_card", "launches")})
+    train_rows += hot_train_rows(hot, modes, train_path, card)
     log(json.dumps({"train": train_rows}))
 
     head = next(r for r in timings if r["mode"] == "fm" and r["B"] == BUCKETS[-1])
@@ -2991,6 +3935,15 @@ def main() -> int:
                   "keys": "the training main path's first batch, dictionary wire"},
         "per_shape": k6["timings"],
     }]
+    kernels += hot_kernel_entries(hot, k3_check["max_abs_err"])
+    # the hot paths' K4 plans and full-table K3 passes, beside the
+    # entries' own paths above
+    hot_rows = {f"{r['model']} {r['mode']}": r for r in hot["rows"]}
+    kernels[3]["launches_hot_paths"] = sum(n["consolidate_keys"]
+                                           for n in hot["launches_by_path"].values())
+    kernels[2]["launches_hot_paths_full_table"] = sum(
+        r["steps"] * r["tables"] for p, r in hot_rows.items()
+        if r["mode"] in ("hot_dense", "hot_inner_windowend_dense"))
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

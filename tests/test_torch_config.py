@@ -137,13 +137,17 @@ def test_check_trainable_accepts_update_modes(model, kw):
 
 
 @pytest.mark.parametrize("kw, item", [
-    ({"hot_size_log2": 8, "hot_nnz": 8}, "A8b"),
+    # the hot table trains now (tests/test_torch_hot_train.py), in every
+    # mode; what stays refused with it names its own item
+    ({"hot_size_log2": 8, "hot_nnz": 8, "num_devices": 2}, "A13"),
     ({"hot_size_log2": 8, "update_mode": "sequential", "microbatch": 4,
-      "batch_size": 64, "sequential_inner": "hot"}, "A8b"),
-    ({"hot_size_log2": 8, "cold_consolidate": True}, "A8b"),
-    # the dictionary wire trains now, but not with the hot table (A8b)
-    # or on two devices (A13)
-    ({"wire_dedup": "on", "hot_size_log2": 8, "hot_nnz": 8}, "A8b"),
+      "batch_size": 64, "sequential_inner": "hot", "input_streams": 2}, "A10"),
+    ({"hot_size_log2": 8, "hot_nnz": 8, "update_mode": "sequential",
+      "microbatch": 4, "batch_size": 64, "sequential_inner": "sparse",
+      "num_devices": 2}, "A13"),
+    # the dictionary wire trains, with or without the hot table, but not
+    # on two devices (A13)
+    ({"wire_dedup": "on", "hot_size_log2": 8, "hot_nnz": 8, "num_devices": 2}, "A13"),
     ({"wire_dedup": "on", "update_mode": "sparse", "num_devices": 2}, "A13"),
 ])
 def test_check_trainable_refuses_hot_table_and_dict_wire(kw, item):

@@ -31,7 +31,8 @@ from xflow_tpu_torch.ops.sparse import (
     touched_plain,
     touched_update,
 )
-from xflow_tpu_torch.ops.train import train_plain, train_step
+from xflow_tpu_torch.ops.hot import hot_scatter
+from xflow_tpu_torch.ops.train import occurrence_grads, train_plain, train_step
 from xflow_tpu_torch.ops.wire import dict_decode, to_device
 from xflow_tpu_torch.optim import FTRL, SGD, make_optimizer
 from xflow_tpu_torch.parallel.step import TrainStep, init_state
@@ -328,4 +329,316 @@ def test_dict_wire_training_on_card_matches_compact_wire(dev, model, mode):
             got = states["auto"]["tables"][n][k]
             np.testing.assert_allclose(
                 got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                atol=1e-5 * float(want.abs().max()) if want.numel() else 0.0)
+
+
+# -- the hot table (B7 in K1 and K2, K5's fold, K6's hot tiers) ------------
+
+
+def _hot_plane(seed, b, kh, h, u16):
+    """A hot plane [B, Kh]: ids < H with repeats, padding (0xFFFF on u16,
+    -1 on int32) past a per-row count, an all-padding row."""
+    rng = np.random.default_rng(seed)
+    ids = np.minimum(rng.zipf(1.2, (b, kh)) - 1, h - 1)
+    cnt = rng.integers(0, kh + 1, b)
+    cnt[3] = 0
+    live = np.arange(kh)[None, :] < cnt[:, None]
+    if u16:
+        return np.where(live, ids, 0xFFFF).astype(np.uint16).view(np.int16)
+    return np.where(live, ids, -1).astype(np.int32)
+
+
+HOT_K1_CASES = {
+    # (H, u16, bf16, full)
+    "u16-2^12": (1 << 12, True, False, False),
+    "u16-2^14-bf16": (1 << 14, True, True, False),
+    "int32-2^16": (1 << 16, False, False, False),
+    "int32-full": (1 << 12, False, False, True),
+}
+
+
+@pytest.mark.parametrize("case", list(HOT_K1_CASES))
+@pytest.mark.parametrize("with_v", [False, True], ids=["lr", "fm"])
+def test_k1_hot_plane_matches_plain(dev, with_v, case):
+    h, u16, bf16, full = HOT_K1_CASES[case]
+    keys, x, w, v, _ = _inputs(t=1 << 17, full=full)
+    hot = _hot_plane(1, keys.shape[0], 32, h, u16)
+    hot_x = None
+    if full:
+        hot_x = np.where(hot >= 0, np.random.default_rng(2).uniform(0.25, 2.0, hot.shape),
+                         0.0).astype(np.float32)
+    t = lambda a: None if a is None else torch.tensor(a, device=dev)  # noqa: E731
+    vv = t(v) if with_v else None
+    kw = dict(hot=t(hot), hot_x=t(hot_x), hot_size=h, hot_bf16=bf16)
+    before = score.launches
+    got = score(t(keys), t(x), t(w), vv, return_logit=True, **kw)
+    want = score_plain(t(keys), t(x), t(w), vv, True, **kw)
+    for g, p in zip(got, want):
+        _close(g, p)
+    assert score.launches - before == 1
+
+
+@pytest.mark.parametrize("form", ["dense", "index", "window-dense", "window-index", "bf16"])
+@pytest.mark.parametrize("with_v", [False, True], ids=["lr", "fm"])
+def test_k2_hot_forms_match_plain(dev, with_v, form):
+    """K2 with the hot plane: dense (the hot gradients in g's first H
+    rows), index mode with a head buffer (the hybrid), the window-start
+    mode over g or gsum (the hot inner), and the bf16 rounding."""
+    t_size, h, d = 1 << 14, 1 << 10, 10
+    keys, _, w, v, labels = _inputs(t=t_size, d=d)
+    # cold keys < H: the spill the window-start mode reads from the snapshot
+    keys[10:40, 4:8] = np.arange(30 * 4).reshape(30, 4) % h
+    hot = _hot_plane(3, keys.shape[0], 16, h, True)
+    b = keys.shape[0]
+    weights = np.ones(b, np.float32)
+    snap_rng = np.random.default_rng(4)
+    outs = []
+    for kernel in (True, False):
+        dv = dev if kernel else torch.device("cpu")
+        t = lambda a: torch.tensor(a, device=dv)  # noqa: E731
+        tk = t(keys)
+        ww, vv = t(w), (t(v) if with_v else None)
+        index = form in ("index", "window-index")
+        rows = max(keys.size, 1) if index else t_size
+        g_w = torch.zeros((rows, 1), device=dv)
+        g_v = torch.zeros((rows, d), device=dv) if with_v else None
+        slots = None
+        if index:
+            ukeys = torch.empty(keys.size, dtype=torch.int32, device=dv)
+            count = torch.zeros(1, dtype=torch.int32, device=dv)
+            slots = torch.empty_like(tk)
+            consolidate_keys_plain(tk, t_size, ukeys, count, slots)
+        if form in ("dense", "bf16"):
+            hg_w, hg_v = g_w[:h], (g_v[:h] if with_v else None)
+        else:
+            hg_w = torch.zeros((h, 1), device=dv)
+            hg_v = torch.zeros((h, d), device=dv) if with_v else None
+        snap = {}
+        if form.startswith("window"):
+            snap_rng = np.random.default_rng(4)
+            snap["snap_w"] = t((snap_rng.standard_normal((h, 1)) * 0.5).astype(np.float32))
+            if with_v:
+                snap["snap_v"] = t((snap_rng.standard_normal((h, d)) * 0.3).astype(np.float32))
+        acc = torch.zeros(2, dtype=torch.float64, device=dv)
+        fn = train_step if kernel else train_plain
+        fn(tk, None, t(labels), t(weights), float(b), ww, vv, g_w, g_v, acc, slots=slots,
+           hot=t(hot), hot_size=h, hot_bf16=form == "bf16", hg_w=hg_w, hg_v=hg_v, **snap)
+        outs.append((g_w, g_v, hg_w, hg_v, acc))
+    if form == "bf16":
+        plain = (torch.tensor(keys), None, torch.tensor(labels), torch.tensor(weights),
+                 float(b), torch.tensor(w), torch.tensor(v) if with_v else None)
+        _check_bf16_k2(outs, plain, torch.tensor(hot), h)
+        return
+    for got, want in zip(*outs):
+        if got is not None:
+            _close(got, want)
+
+
+BF16_STEP = 2.0 ** -7  # one bfloat16 step, relative to the value rounded
+
+
+def _check_bf16_k2(outs, plain, hot, h):
+    """K2 with the bf16 flag against its plain version with it.  Both
+    round each hot gradient to bfloat16 from float32 values that differ
+    in their last bits, so one near a rounding tie can land a bfloat16
+    step apart (a flip).  Every element is held to the float32
+    tolerance of the other forms plus one step per hot occurrence; the
+    elements beyond the float32 tolerance alone (the flips) must be at
+    most a tenth of those the flag's rounding moves beyond it; the
+    log-loss sum (the rounded head in the forward) must sit ten times
+    closer to the flagged plain run than the unflagged one does."""
+    (kw_, kv, _, _, kacc), (pw, pv, _, _, pacc) = outs
+    occ, hk, _, _ = occurrence_grads(*plain, hot=hot, hot_size=h, hot_bf16=True)
+    eff = torch.where(hk >= 0, hk, torch.full_like(hk, h)).reshape(-1)
+    beyond = power = 0
+    for name, got, want in (("w", kw_, pw), ("v", kv, pv)):
+        if got is None:
+            continue
+        got, want = got.cpu().double(), want.double()
+        o = occ[name][:, :hk.shape[1]].reshape(-1, occ[name].shape[-1])
+        tol = 1.01 * RTOL * (want.abs() + float(want.abs().max()))
+        moved = (hot_scatter(eff, o, h, dtype=torch.bfloat16, impl="mxu")
+                 - hot_scatter(eff, o, h)).double().abs()
+        envelope = tol.clone()
+        envelope[:h] += BF16_STEP * hot_scatter(eff, o.abs(), h).double()
+        diff = (got - want).abs()
+        assert bool((diff <= envelope).all()), f"{name}: beyond one step per occurrence"
+        beyond += int((diff > tol).sum())
+        power += int((moved > tol[:h]).sum())
+    assert power >= 10 * max(beyond, 1), (power, beyond)
+    u_acc = torch.zeros(2, dtype=torch.float64)
+    gw = torch.zeros_like(plain[5])
+    gv = torch.zeros_like(plain[6]) if plain[6] is not None else None
+    train_plain(*plain, gw, gv, u_acc, hot=hot, hot_size=h, hg_w=gw[:h],
+                hg_v=gv[:h] if gv is not None else None)
+    _close(kacc, pacc)
+    assert abs(float(u_acc[0] - pacc[0])) > 10 * abs(float(kacc[0].cpu() - pacc[0]))
+
+
+EPS32 = 2.0 ** -23
+
+
+def _k3_tolerances(before: dict, g, new_n, opt) -> dict:
+    """Per-element bounds on K3's and K5's FTRL/SGD step against the
+    plain version, from the inputs and the plain n' (chip_smoke.py's
+    phase 7 bound, ``k3_tolerances``): each array's float32 rounding,
+    z's carrying sigma * w's, and w's that of z over the denominator
+    (the soft threshold is continuous in z)."""
+    w = before["param"].double()
+    g = g.double()
+    if not isinstance(opt, FTRL):
+        return {"param": 2 * EPS32 * (w.abs() + (opt.lr * g).abs())}
+    n, z, new_n = before["n"].double(), before["z"].double(), new_n.double()
+    sq = torch.sqrt(new_n) + torch.sqrt(n)
+    tol_z = 4 * EPS32 * (z.abs() + g.abs() + sq / opt.alpha * w.abs())
+    denom = (opt.beta + torch.sqrt(new_n)) / opt.alpha + opt.lambda2
+    return {"n": 2 * EPS32 * (n + g * g), "z": tol_z,
+            "param": (tol_z + 2 * EPS32 * opt.lambda1) / denom}
+
+
+@pytest.mark.parametrize("opt", [FTRL(), SGD(lr=0.05)], ids=["ftrl", "sgd"])
+def test_k5_fold_matches_plain(dev, opt):
+    """K5 with the fold: unique keys < H add their sums into the head
+    buffer and take no step; the others step as before, within phase
+    7's per-element bound of the plain step (unit-normal state and
+    sums)."""
+    t_size, h, d = 1 << 12, 1 << 8, 10
+    rng = np.random.default_rng(7)
+    # unique keys (K5's precondition), some 40 of the first 700 below H
+    ukeys_np = rng.permutation(t_size)[:900].astype(np.int32)
+    n = 700
+    assert (ukeys_np[:n] < h).sum() >= 20
+    states = []
+    for dv in (dev, torch.device("cpu")):
+        r = np.random.default_rng(8)
+
+        def arr(shape, r=r, dv=dv):
+            return torch.tensor(r.standard_normal(shape).astype(np.float32), device=dv)
+
+        table = {"param": arr((t_size, d))}
+        if isinstance(opt, FTRL):
+            table["n"] = arr((t_size, d)).abs()
+            table["z"] = arr((t_size, d))
+        gsum = arr((1024, d))
+        head = arr((h, d))
+        before = ({k: a.cpu().clone() for k, a in table.items()}, gsum.cpu().clone())
+        ukeys = torch.zeros(1024, dtype=torch.int32, device=dv)
+        ukeys[:900] = torch.tensor(ukeys_np, device=dv)
+        count = torch.tensor([n], dtype=torch.int32, device=dv)
+        smap = None
+        if dv.type == "cuda":
+            smap = torch.full((t_size,), 5, dtype=torch.int32, device=dv)
+        launched = touched_update.launches
+        touched_update(table, opt, ukeys, count, gsum, smap, head=head, hot_size=h)
+        if dv.type == "cuda":
+            torch.cuda.synchronize()
+            assert touched_update.launches - launched == 1
+            assert bool((smap[ukeys[:n].long()] == -1).all())
+        states.append((table, gsum, head))
+    (ct, cg, ch), (pt, pg, ph) = states
+    _close(ch, ph)
+    assert not cg[:n].any() and not pg[:n].any()
+    keys = torch.tensor(ukeys_np[:n]).long()
+    stepped = keys >= h
+    rows = keys[stepped]
+    table0, gsum0 = before
+    tols = _k3_tolerances({k: a[rows] for k, a in table0.items()}, gsum0[:n][stepped],
+                          pt["n"][rows] if "n" in pt else None, opt)
+    for k, tol in tols.items():
+        got, want = ct[k].cpu()[rows].double(), pt[k][rows].double()
+        over = (got - want).abs() - tol
+        i = int(torch.argmax(over.flatten()))
+        state = {a: float(t_[rows].flatten()[i]) for a, t_ in table0.items()}
+        assert float(over.max()) <= 0, (
+            f"{k}: card {float(got.flatten()[i])} vs plain {float(want.flatten()[i])}, bound "
+            f"{float(tol.flatten()[i])}; before {state}, g {float(gsum0[:n][stepped].flatten()[i])}")
+        # rows outside the plan and folded rows keep every array
+        untouched = torch.ones(t_size, dtype=torch.bool)
+        untouched[rows] = False
+        assert torch.equal(ct[k].cpu()[untouched], table0[k][untouched])
+        assert torch.equal(pt[k][untouched], table0[k][untouched])
+
+
+HOT_K6_CASES = {
+    # (table_size_log2, hot_size_log2, hot_nnz, hot share)
+    "u8+u12": (14, 12, 32, 0.7),
+    "u8+u16": (16, 14, 32, 0.7),
+    "empty-hot-plane": (14, 12, 32, 0.0),
+    "all-overflow": (14, 12, 2, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(HOT_K6_CASES))
+def test_k6_hot_tiers_match_plain(dev, case):
+    t_log2, h_log2, kh, share = HOT_K6_CASES[case]
+    t_size, h = 1 << t_log2, 1 << h_log2
+    rng = np.random.default_rng(9)
+    b, ktot = 1001, 40 + kh
+    keys = rng.integers(h, t_size, (b, ktot))
+    hot_ids = np.where(rng.random((b, ktot)) < 0.5, rng.integers(0, 256, (b, ktot)),
+                       rng.integers(256, h, (b, ktot)))
+    keys = np.where(rng.random((b, ktot)) < share, hot_ids, keys).astype(np.int32)
+    cnt = rng.integers(0, ktot + 1, b)
+    mask = (np.arange(ktot)[None, :] < cnt[:, None]).astype(np.float32)
+    keys = np.where(mask > 0, keys, 0).astype(np.int32)
+    weights = (np.arange(b) < b - 3).astype(np.float32)
+    labels = (rng.random(b) < 0.4).astype(np.float32) * weights
+    from xflow_tpu_torch.io.batch import make_batch
+
+    batch = make_batch(keys, np.zeros_like(keys), mask.copy(), mask, labels, weights, h, kh)
+    wire = compact_batch(batch, t_size, h).wire(ship_slots=False)
+    want = dict_decode(to_device(wire, torch.device("cpu")), ktot - kh, kh)
+    before = dict_decode.launches
+    got = dict_decode(to_device(wire, dev), ktot - kh, kh)
+    torch.cuda.synchronize()
+    assert dict_decode.launches - before == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert torch.equal(want[3], torch.tensor(np.where(batch.hot_mask > 0, batch.hot_keys, -1)))
+
+
+@pytest.mark.parametrize("mode", [
+    {},
+    {"update_mode": "sequential", "microbatch": 4, "sequential_inner": "sparse"},
+    {"update_mode": "sequential", "microbatch": 4, "sequential_inner": "hot",
+     "hot_windowend": "dense"},
+    {"update_mode": "sequential", "microbatch": 4, "sequential_inner": "hot",
+     "hot_windowend": "sparse"},
+], ids=["dense", "hybrid", "hot-dense-end", "hot-sparse-end"])
+@pytest.mark.parametrize("wire", ["off", "auto"], ids=["compact", "dict"])
+@pytest.mark.parametrize("model", ["lr", "fm"])
+def test_hot_modes_on_card_match_cpu(dev, model, wire, mode):
+    """Three steps of a hot-table TrainStep on the card and on the CPU
+    from the same state, within _card_vs_cpu's bound."""
+    from xflow_tpu_torch.io.batch import make_batch
+
+    cfg = Config(model=model, table_size_log2=12, max_nnz=24, hot_size_log2=8,
+                 hot_nnz=16, batch_size=256, v_dim=10, wire_dedup=wire, **mode)
+    mdl, opt = make_model(cfg), make_optimizer(cfg)
+    cpu_state = init_state(mdl, opt, cfg, torch.device("cpu"))
+    card_state = {"tables": {n: {k: a.to(dev, copy=True) for k, a in t.items()}
+                             for n, t in cpu_state["tables"].items()},
+                  "dense": {}, "step": 0}
+    steps = {d: TrainStep(mdl, opt, cfg, d) for d in (dev, torch.device("cpu"))}
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        keys = np.where(rng.random((256, 40)) < 0.6,
+                        np.minimum(rng.zipf(1.2, (256, 40)) - 1, 1000),
+                        rng.integers(0, 1 << 12, (256, 40))).astype(np.int32)
+        cnt = rng.integers(0, 41, 256)
+        mask = (np.arange(40)[None, :] < cnt[:, None]).astype(np.float32)
+        keys = np.where(mask > 0, keys, 0).astype(np.int32)
+        batch = make_batch(keys, np.zeros_like(keys), mask.copy(), mask,
+                           (rng.random(256) < 0.4).astype(np.float32),
+                           np.ones(256, np.float32), cfg.hot_size, cfg.hot_nnz)
+        m_card = steps[dev].train(card_state, steps[dev].put_batch(batch))
+        m_cpu = steps[torch.device("cpu")].train(
+            cpu_state, steps[torch.device("cpu")].put_batch(batch))
+        np.testing.assert_allclose(float(m_card["logloss"]), float(m_cpu["logloss"]),
+                                   rtol=1e-5)
+    for n, t in cpu_state["tables"].items():
+        for k, want in t.items():
+            got = card_state["tables"][n][k].cpu()
+            np.testing.assert_allclose(
+                got.numpy(), want.numpy(), rtol=1e-4,
                 atol=1e-5 * float(want.abs().max()) if want.numel() else 0.0)

@@ -187,8 +187,12 @@ def test_load_refusals(tmp_path):
     json.dump(manifest, open(path, "w"))
     with pytest.raises(ValueError, match="corrupt or tampered"):
         PredictEngine.load(art, device="cpu")
+    # a hot model serves now, with its remap; without it, the
+    # reference's refusal
+    _rewrite_config(art, cfg.replace(hot_size_log2=6, hot_nnz=8))
+    with pytest.raises(ValueError, match="no remap was provided"):
+        PredictEngine.load(art, device="cpu")
     for changes, item in (
-        ({"hot_size_log2": 6, "hot_nnz": 8}, "A8"),
         ({"store_mode": "tiered", "hot_capacity_log2": 6}, "A11"),
         ({"model": "mvm"}, "A9"),
         ({"model": "two_tower", "max_fields": 8, "tower_split_field": 4}, "A9"),

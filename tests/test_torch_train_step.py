@@ -230,17 +230,20 @@ def test_put_batch_wires_and_num_real(toy_dataset):
 
 
 @pytest.mark.parametrize("kw, item", [
-    # the update modes train now (tests/test_torch_update_modes.py); the
-    # hot table is refused in each of them (ROADMAP A8b)
+    # the update modes train now (tests/test_torch_update_modes.py), with
+    # the hot table too (tests/test_torch_hot_train.py); what stays
+    # refused beside it names its own item
     ({"update_mode": "sequential", "microbatch": 2, "hot_size_log2": 8,
-      "sequential_inner": "hot"}, "A8"),
-    ({"update_mode": "sequential", "microbatch": 2, "hot_size_log2": 8}, "A8"),
-    ({"microbatch": 2, "hot_size_log2": 8}, "A8"),
-    ({"cold_consolidate": True, "hot_size_log2": 8}, "A8"),
-    ({"hot_size_log2": 8}, "A8"),
-    # the dictionary wire trains (tests/test_torch_dict_wire.py) but
-    # not with the hot table or on two devices
-    ({"wire_dedup": "on", "hot_size_log2": 8}, "A8b"),
+      "sequential_inner": "hot", "num_devices": 2}, "A13"),
+    ({"update_mode": "sequential", "microbatch": 2, "hot_size_log2": 8,
+      "input_streams": 2}, "A10"),
+    ({"microbatch": 2, "hot_size_log2": 8, "num_devices": 2}, "A13"),
+    ({"cold_consolidate": True, "hot_size_log2": 8, "input_streams": 2}, "A10"),
+    ({"update_mode": "sequential", "microbatch": 2, "hot_size_log2": 8,
+      "sequential_inner": "sparse", "num_devices": 2}, "A13"),
+    # the dictionary wire trains (tests/test_torch_dict_wire.py), with
+    # the hot table too, but not on two devices
+    ({"wire_dedup": "on", "hot_size_log2": 8, "num_devices": 2}, "A13"),
     ({"wire_dedup": "on", "num_devices": 2}, "A13"),
     ({"store_mode": "tiered", "hot_capacity_log2": 10}, "A11"),
     ({"num_devices": 2}, "A13"),

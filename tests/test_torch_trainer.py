@@ -201,8 +201,11 @@ def test_cli_trains_on_cpu_and_refuses_without_card(toy_dataset, tmp_path, capsy
     assert "A6" in capsys.readouterr().err
     assert cli_main(argv + ["--device", "cpu", "--checkpoint-dir", str(tmp_path)]) == 2
     assert "A6" in capsys.readouterr().err
-    assert cli_main(argv + ["--device", "cpu", "--hot-size-log2", "8"]) == 2
-    assert "A8b" in capsys.readouterr().err
+    # the hot table trains now: the remap line, then the eval line
+    assert cli_main(argv + ["--device", "cpu", "--hot-size-log2", "8",
+                            "--hot-nnz", "8"]) == 0
+    err = capsys.readouterr().err
+    assert "hot remap: 256 rows capture " in err and "\tauc = " in err
     assert cli_main(argv + ["--device", "cpu", "--update-mode", "sparse"]) == 0
     assert "\tauc = " in capsys.readouterr().err
     if not torch.cuda.is_available():

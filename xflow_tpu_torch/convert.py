@@ -8,8 +8,11 @@ functions carry them across as numpy, so a JAX ``TrainStep`` state
 becomes the port's state and back.  The port's gradient buffer ``g``
 has no counterpart in the reference and never crosses: a train state
 coming in gets it zeroed where its update mode uses one (every mode but
-the sparse update, ``parallel/step.py::uses_grad_buffer``), and a state
-going out leaves it behind.
+the sparse forms, ``parallel/step.py::uses_grad_buffer``), and a state
+going out leaves it behind.  A hot-table model's state has the same
+layout (its head is rows [0, H) of each table); its frequency remap
+travels beside the state (``Trainer.remap``, an artifact's
+``remap.npy``).
 """
 
 from __future__ import annotations

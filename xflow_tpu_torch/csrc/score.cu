@@ -13,11 +13,27 @@
 //   B8 forward  models/blocks.py:171-183 fm_pair_pieces +
 //               models/fm.py:60-65 — logit = linear + sum_d(s_d^2 - s2_d),
 //               s = sum_k v*x, s2 = sum_k (v*x)^2, no 1/2 (reference quirk)
+//   B7 gather   ops/hot.py:71 hot_gather over the head rows [0, H), with
+//               step.py:793-812 (the hot plane's decode: u16 with 0xFFFF,
+//               or int32 with -1) and :849-867 _model_view (hot first)
 //
 // Inputs: keys i32 [B, K] sentinel-coded (-1 = padding); x f32 [B, K]
 // or null (null: x = 1 wherever key >= 0, the compact wire's binary
 // features); w f32 [T, 1]; v f32 [T, D] or null (LR).  Outputs: pctr
 // f32 [B]; logit f32 [B] when the pointer is not null.
+//
+// The hot plane (B7; KH = 0 without a hot table): hot [B, KH], u16
+// (hot_u16, 0xFFFF padding) or i32 (-1 padding), and hot_x f32 [B, KH]
+// or null, as x.  On this card the head is rows [0, H) of the same
+// table, so a hot entry is an ordinary row read: the reference's
+// one-hot matmuls (a TPU device for its per-slice gather cost) have no
+// counterpart here, only their contract: a hot key outside [0, H) reads
+// a zero row, which contributes nothing (taken here as padding), and
+// with hot_bf16 the hot rows' w and v are rounded to bfloat16 (nearest
+// even, XLA's astype) before use — hot_impl "mxu" with hot_dtype
+// "bfloat16".  Lanes stride over the KH + K entries of the row, hot
+// first, so the hot plane adds its keys' bytes and its rows' sectors
+// to the bound below and nothing else.
 //
 // Bound.  The work is a gather.  It uses
 //   B*K*(4 key + 4 x, if given) + rows * (4 B of w + 4D B of v) + 4B
@@ -43,7 +59,10 @@
 // Sums run in another order than the plain version (and contract to
 // FMA), so results agree to float rounding, not bitwise.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -59,12 +78,40 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Entry j of row b: hot entries j < KH, then the cold ones.  Sets the
+// key (-1: padding, or a hot key outside [0, H)), x and whether the
+// row's values round to bf16.
+__device__ __forceinline__ int entry_key(const int* krow, const float* xrow,
+                                         const void* hot, const float* hot_x,
+                                         int hot_u16, int H, int hot_bf16,
+                                         long long b, int KH, int j, float& xv,
+                                         bool& to_bf16) {
+  if (j < KH) {
+    const long long at = b * KH + j;
+    int key = hot_u16 ? static_cast<int>(static_cast<const uint16_t*>(hot)[at])
+                      : static_cast<const int*>(hot)[at];
+    if (key >= H) key = -1;
+    xv = hot_x != nullptr ? hot_x[at] : 1.0f;
+    to_bf16 = hot_bf16 != 0;
+    return key;
+  }
+  xv = xrow != nullptr ? xrow[j - KH] : 1.0f;
+  to_bf16 = false;
+  return krow[j - KH];
+}
+
 template <int CAP>
 __global__ void __launch_bounds__(kThreads)
 score_kernel(const int* __restrict__ keys, const float* __restrict__ x,
+             const void* __restrict__ hot, const float* __restrict__ hot_x,
+             int hot_u16, int H, int hot_bf16,
              const float* __restrict__ w, const float* __restrict__ v,
              float* __restrict__ pctr, float* __restrict__ logit_out,
-             int B, int K, int D) {
+             int B, int K, int KH, int D) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (b >= B) return;  // b is warp-uniform: whole warps leave together
@@ -80,17 +127,21 @@ score_kernel(const int* __restrict__ keys, const float* __restrict__ x,
     s[d] = 0.0f;
     s2[d] = 0.0f;
   }
-  for (int k = lane; k < K; k += 32) {
-    const int key = krow[k];
+  for (int j = lane; j < KH + K; j += 32) {
+    float xv;
+    bool to_bf16;
+    const int key = entry_key(krow, xrow, hot, hot_x, hot_u16, H, hot_bf16, b,
+                              KH, j, xv, to_bf16);
     if (key < 0) continue;  // padding: never read, never counted
-    const float xv = xrow != nullptr ? xrow[k] : 1.0f;
-    lin += w[key] * xv;
+    const float wv = w[key];
+    lin += (to_bf16 ? bf16_round(wv) : wv) * xv;
     if (CAP > 0) {
       const float* vrow = v + static_cast<long long>(key) * D;
 #pragma unroll
       for (int d = 0; d < CAP; ++d) {
         if (d < D) {
-          const float vx = vrow[d] * xv;
+          const float vd = to_bf16 ? bf16_round(vrow[d]) : vrow[d];
+          const float vx = vd * xv;
           s[d] += vx;
           s2[d] += vx * vx;
         }
@@ -117,34 +168,45 @@ score_kernel(const int* __restrict__ keys, const float* __restrict__ x,
   }
 }
 
+struct HotPlane {
+  const void* keys;
+  const float* x;
+  int u16, H, bf16, KH;
+};
+
 template <int CAP>
-void launch(const int* keys, const float* x, const float* w, const float* v,
-            float* pctr, float* logit, int B, int K, int D,
-            cudaStream_t stream) {
+void launch(const int* keys, const float* x, const HotPlane& h,
+            const float* w, const float* v, float* pctr, float* logit, int B,
+            int K, int D, cudaStream_t stream) {
   const int grid = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  score_kernel<CAP><<<grid, kThreads, 0, stream>>>(keys, x, w, v, pctr, logit,
-                                                   B, K, D);
+  score_kernel<CAP><<<grid, kThreads, 0, stream>>>(
+      keys, x, h.keys, h.x, h.u16, h.H, h.bf16, w, v, pctr, logit, B, K, h.KH,
+      D);
 }
 
 }  // namespace
 
 extern "C" int xf_score_max_dim() { return kMaxDim; }
 
-// Launches K1 on `stream`; returns cudaGetLastError() after the launch
-// (0 = launched), or cudaErrorInvalidValue for a D it has no variant for.
-extern "C" int xf_score(const int* keys, const float* x, const float* w,
-                        const float* v, float* pctr, float* logit, int B,
-                        int K, int D, void* stream) {
+// Launches K1 on `stream`; KH = 0 means no hot plane (hot, hot_x
+// unread).  Returns cudaGetLastError() after the launch (0 = launched),
+// or cudaErrorInvalidValue for a D it has no variant for.
+extern "C" int xf_score(const int* keys, const float* x, const void* hot,
+                        const float* hot_x, int hot_u16, int H, int hot_bf16,
+                        const float* w, const float* v, float* pctr,
+                        float* logit, int B, int K, int KH, int D,
+                        void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const HotPlane h{hot, hot_x, hot_u16, H, hot_bf16, KH > 0 ? KH : 0};
   if (v == nullptr || D == 0) {
-    launch<0>(keys, x, w, nullptr, pctr, logit, B, K, 0, s);
+    launch<0>(keys, x, h, w, nullptr, pctr, logit, B, K, 0, s);
   } else if (D <= 8) {
-    launch<8>(keys, x, w, v, pctr, logit, B, K, D, s);
+    launch<8>(keys, x, h, w, v, pctr, logit, B, K, D, s);
   } else if (D <= 16) {
-    launch<16>(keys, x, w, v, pctr, logit, B, K, D, s);
+    launch<16>(keys, x, h, w, v, pctr, logit, B, K, D, s);
   } else if (D <= kMaxDim) {
-    launch<kMaxDim>(keys, x, w, v, pctr, logit, B, K, D, s);
+    launch<kMaxDim>(keys, x, h, w, v, pctr, logit, B, K, D, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -47,6 +47,14 @@
 // zeroed buffer, as K3 clears g), and, when given the map, sets
 // map[r] = -1.
 //
+// The fold (head not null, the hot table's hybrid update —
+// parallel/step.py:1194-1238 _sparse_update): a unique key r < H adds
+// its gsum row into row r of the [H, d] head buffer, where K2 summed
+// the hot plane's gradients, and takes no step here; K3 then runs once
+// over rows [0, H) with that buffer as g, so every head row sees one
+// summed gradient, as in the reference.  Rows are unique, so the adds
+// need no atomics either.
+//
 // Bound.  K4 reads the keys once and writes the slots and the ukeys:
 // 8M + 4U bytes (about 21.0 MB, 0.0063 ms at 3.35 TB/s, at M = 65,536 x
 // 40 and U = 323,000); the map's entries are scratch, whose sectors
@@ -138,7 +146,8 @@ __global__ void __launch_bounds__(kThreads)
 touched_kernel(float* __restrict__ w, float* __restrict__ n,
                float* __restrict__ z, float* __restrict__ gsum,
                const int* __restrict__ ukeys, const int* __restrict__ count,
-               int d, FtrlParams p, float lr, int* __restrict__ map) {
+               int d, FtrlParams p, float lr, int* __restrict__ map,
+               float* __restrict__ head, int hot_size) {
   const long long total = static_cast<long long>(*count) * d;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long e = static_cast<long long>(blockIdx.x) * kThreads +
@@ -150,6 +159,11 @@ touched_kernel(float* __restrict__ w, float* __restrict__ n,
     const long long at = static_cast<long long>(r) * d + lane;
     const float g = gsum[e];
     gsum[e] = 0.0f;
+    if (map != nullptr && lane == 0) map[r] = kFree;
+    if (r < hot_size) {  // the fold: head rows step in K3
+      head[static_cast<long long>(r) * d + lane] += g;
+      continue;
+    }
     if constexpr (F == Form::kFtrl) {
       float wv = w[at], nv = n[at], zv = z[at];
       ftrl_one(wv, nv, zv, g, p);
@@ -159,18 +173,19 @@ touched_kernel(float* __restrict__ w, float* __restrict__ n,
     } else {
       w[at] = w[at] - lr * g;
     }
-    if (map != nullptr && lane == 0) map[r] = kFree;
   }
 }
 
 template <Form F>
 int launch_touched(float* w, float* n, float* z, float* gsum,
                    const int* ukeys, const int* count, long long cap, int d,
-                   FtrlParams p, float lr, int* map, void* stream) {
+                   FtrlParams p, float lr, int* map, float* head,
+                   int hot_size, void* stream) {
   if (cap <= 0 || d <= 0) return 0;
+  if (head == nullptr) hot_size = 0;
   touched_kernel<F><<<grid_for(cap * d), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      w, n, z, gsum, ukeys, count, d, p, lr, map);
+      w, n, z, gsum, ukeys, count, d, p, lr, map, head, hot_size);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -196,21 +211,25 @@ extern "C" int xf_consolidate(const int* keys, long long m, int t, int* map,
 
 // K5, FTRL form: rows ukeys[0, *count) of the [T, d] tables w, n, z
 // with the gradients gsum [cap, d]; `map` (nullable) is reset at those
-// keys.  `cap` (the ukeys/gsum capacity) only sizes the grid.
+// keys; with `head` (nullable) [hot_size, d], keys < hot_size fold into
+// it instead (the fold, header).  `cap` (the ukeys/gsum capacity) only
+// sizes the grid.
 extern "C" int xf_touched_ftrl(float* w, float* n, float* z, float* gsum,
                                const int* ukeys, const int* count,
                                long long cap, int d, float alpha, float beta,
-                               float l1, float l2, int* map, void* stream) {
+                               float l1, float l2, int* map, float* head,
+                               int hot_size, void* stream) {
   return launch_touched<Form::kFtrl>(w, n, z, gsum, ukeys, count, cap, d,
                                      FtrlParams{alpha, beta, l1, l2}, 0.0f,
-                                     map, stream);
+                                     map, head, hot_size, stream);
 }
 
 // K5, SGD form: w[r] -= lr * gsum[i]; otherwise as xf_touched_ftrl.
 extern "C" int xf_touched_sgd(float* w, float* gsum, const int* ukeys,
                               const int* count, long long cap, int d,
-                              float lr, int* map, void* stream) {
+                              float lr, int* map, float* head, int hot_size,
+                              void* stream) {
   return launch_touched<Form::kSgd>(w, nullptr, nullptr, gsum, ukeys, count,
                                     cap, d, FtrlParams{1.0f, 0.0f, 0.0f, 0.0f},
-                                    lr, map, stream);
+                                    lr, map, head, hot_size, stream);
 }

@@ -19,6 +19,10 @@
 //               _cold_keys_eff / _scatter_grads / _cold_accumulate: the
 //               drop-mode scatter-add into the [T, D] gradient buffers
 //   loss        utils/metrics.py:41-56 logloss_sum (clip to [1e-6, 1-1e-6])
+//   B7          ops/hot.py:71 hot_gather and :122 hot_scatter, as
+//               step.py:815-846 _gather_model_rows and :1008-1016
+//               _scatter_grads (dense), :1194-1238 _sparse_update (the
+//               hybrid) and :1327-1497 _train_sequential_hot use them
 //
 // Inputs: keys i32 [B, K] sentinel-coded (-1 = padding); x f32 [B, K]
 // or null (null: x = 1 on live slots — the compact wire); labels and
@@ -41,6 +45,32 @@
 // still serialises); the slot plane adds 4 B per slot read, and the
 // gradient rows land in a compact [U, D] block instead of U rows
 // scattered over [T, D].
+//
+// The hot plane (B7; KH = 0 without a hot table).  hot [B, KH] holds a
+// row's hot keys, u16 (hot_u16, 0xFFFF padding) or i32 (-1 padding),
+// with hot_x f32 [B, KH] or null, as x; lanes walk the KH + K entries,
+// hot first (the reference's _model_view order).  On this card the
+// head is rows [0, H) of the same table, so the reference's one-hot
+// matmuls become ordinary row reads and atomic adds; the contract
+// stays: a hot key outside [0, H) is a zero row whose gradient is
+// dropped (taken here as padding); with hot_bf16 the hot rows' w and v
+// are rounded to bfloat16 (nearest even) before use and each hot
+// occurrence's gradient before its float32 add — hot_impl "mxu" with
+// hot_dtype "bfloat16".  A hot occurrence's gradient goes to row key of
+// hgw [H, 1] / hgv [H, D], whatever the cold destination: the table's
+// own g (its first H rows) in dense mode, a per-table head buffer in
+// the hybrid and the hot inner, which K3 then applies to rows [0, H).
+//
+// Window-start mode (the hot inner, snap_w not null): a cold key < H
+// reads its row from the head snapshot snap_w [H, 1] / snap_v [H, D]
+// taken at the window's start, as the reference gathers every cold row
+// once per dispatch window (step.py:1384-1386); cold keys >= H are not
+// written during a window, so the live table already holds their
+// window-start values.  The cold gradients accumulate over the
+// window's slices in g (dense window end) or, in index mode, in one
+// gsum over the whole batch's plan (sparse window end), and K3 or K5
+// closes the window: the same sums as the reference's stacked
+// [B, Kc, D] gradients, in another order.
 //
 // Bound.  Per live slot the kernel reads its key (and x), its w entry
 // and its D-float v row, and read-modify-writes g_w[key] and the D
@@ -75,6 +105,7 @@
 // changes from run to run, so results agree to float rounding, not
 // bitwise.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -101,6 +132,52 @@ __device__ __forceinline__ float as_float(LW v) {
   return static_cast<float>(v);
 }
 
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The hot plane and its destinations (header); KH = 0 without one.
+struct HotArgs {
+  const void* keys;
+  const float* x;
+  int u16, H, bf16, KH;
+  float* gw;
+  float* gv;
+  const float* snap_w;
+  const float* snap_v;
+};
+
+// Entry j of row b: a hot entry j < KH, then the cold ones.  Returns
+// its key (-1: padding, or a hot key outside [0, H)) and sets x, the
+// row it reads w and v from, and whether it is hot.
+__device__ __forceinline__ int entry(const int* krow, const float* xrow,
+                                     const HotArgs& h, long long b, int j,
+                                     const float* w, const float* v, int D,
+                                     float& xv, const float*& wp,
+                                     const float*& vrow, bool& is_hot) {
+  int key;
+  is_hot = j < h.KH;
+  if (is_hot) {
+    const long long at = b * h.KH + j;
+    key = h.u16 ? static_cast<int>(static_cast<const uint16_t*>(h.keys)[at])
+                : static_cast<const int*>(h.keys)[at];
+    if (key >= h.H) key = -1;
+    xv = h.x != nullptr ? h.x[at] : 1.0f;
+  } else {
+    key = krow[j - h.KH];
+    xv = xrow != nullptr ? xrow[j - h.KH] : 1.0f;
+  }
+  if (key >= 0 && !is_hot && h.snap_w != nullptr && key < h.H) {
+    wp = h.snap_w + key;
+    vrow = h.snap_v != nullptr ? h.snap_v + static_cast<long long>(key) * D
+                               : nullptr;
+  } else if (key >= 0) {
+    wp = w + key;
+    vrow = v != nullptr ? v + static_cast<long long>(key) * D : nullptr;
+  }
+  return key;
+}
+
 template <int CAP, typename LW>
 __global__ void __launch_bounds__(kThreads)
 train_kernel(const int* __restrict__ keys, const float* __restrict__ x,
@@ -109,7 +186,7 @@ train_kernel(const int* __restrict__ keys, const float* __restrict__ x,
              const float* __restrict__ v, const int* __restrict__ slots,
              float* __restrict__ gw,
              float* __restrict__ gv, double* __restrict__ acc, int B, int K,
-             int D) {
+             int D, const HotArgs h) {
   __shared__ float part_ll[kWarpsPerBlock];
   __shared__ float part_w[kWarpsPerBlock];
   const int lane = threadIdx.x & 31;
@@ -135,17 +212,20 @@ train_kernel(const int* __restrict__ keys, const float* __restrict__ x,
       s[d] = 0.0f;
       s2[d] = 0.0f;
     }
-    for (int k = lane; k < K; k += 32) {
-      const int key = krow[k];
+    for (int j = lane; j < h.KH + K; j += 32) {
+      float xv;
+      const float* wp = nullptr;
+      const float* vrow = nullptr;
+      bool is_hot;
+      const int key = entry(krow, xrow, h, b, j, w, v, D, xv, wp, vrow, is_hot);
       if (key < 0) continue;  // padding: never read, never written
-      const float xv = xrow != nullptr ? xrow[k] : 1.0f;
-      lin += w[key] * xv;
+      const bool to_bf16 = is_hot && h.bf16;
+      lin += (to_bf16 ? bf16_round(*wp) : *wp) * xv;
       if (CAP > 0) {
-        const float* vrow = v + static_cast<long long>(key) * D;
 #pragma unroll
         for (int d = 0; d < CAP; ++d) {
           if (d < D) {
-            const float vx = vrow[d] * xv;
+            const float vx = (to_bf16 ? bf16_round(vrow[d]) : vrow[d]) * xv;
             s[d] += vx;
             s2[d] += vx * vx;
           }
@@ -170,21 +250,33 @@ train_kernel(const int* __restrict__ keys, const float* __restrict__ x,
     const float wt = as_float(weights[b]);
     const float r = (p - y) * wt / num_real;
 
-    for (int k = lane; k < K; k += 32) {
-      const int key = krow[k];
+    for (int j = lane; j < h.KH + K; j += 32) {
+      float xv;
+      const float* wp = nullptr;
+      const float* vrow = nullptr;
+      bool is_hot;
+      const int key = entry(krow, xrow, h, b, j, w, v, D, xv, wp, vrow, is_hot);
       if (key < 0) continue;
-      const float xv = xrow != nullptr ? xrow[k] : 1.0f;
-      const long long dst = srow != nullptr ? srow[k] : key;
-      if (dst < 0) continue;  // a key K4 took for padding (>= T)
-      atomicAdd(gw + dst, xv * r);
+      const bool to_bf16 = is_hot && h.bf16;
+      long long dst = key;
+      float* gwd = h.gw;
+      float* gvd = h.gv;
+      if (!is_hot) {
+        dst = srow != nullptr ? srow[j - h.KH] : key;
+        if (dst < 0) continue;  // a key K4 took for padding (>= T)
+        gwd = gw;
+        gvd = gv;
+      }
+      const float gwv = xv * r;
+      atomicAdd(gwd + dst, to_bf16 ? bf16_round(gwv) : gwv);
       if (CAP > 0) {
-        const float* vrow = v + static_cast<long long>(key) * D;
-        float* grow = gv + dst * D;
+        float* grow = gvd + dst * D;
 #pragma unroll
         for (int d = 0; d < CAP; ++d) {
           if (d < D) {
-            const float vx = vrow[d] * xv;
-            atomicAdd(grow + d, (s[d] - vx) * xv * r);
+            const float vx = (to_bf16 ? bf16_round(vrow[d]) : vrow[d]) * xv;
+            const float gvv = (s[d] - vx) * xv * r;
+            atomicAdd(grow + d, to_bf16 ? bf16_round(gvv) : gvv);
           }
         }
       }
@@ -229,30 +321,32 @@ template <int CAP, typename LW>
 void launch(const int* keys, const float* x, const void* labels,
             const void* weights, float num_real, const float* w,
             const float* v, const int* slots, float* gw, float* gv,
-            double* acc, int B, int K, int D, cudaStream_t stream) {
+            double* acc, int B, int K, int D, const HotArgs& h,
+            cudaStream_t stream) {
   train_kernel<CAP, LW><<<grid_for(B), kThreads, 0, stream>>>(
       keys, x, static_cast<const LW*>(labels),
       static_cast<const LW*>(weights), num_real, w, v, slots, gw, gv, acc, B,
-      K, D);
+      K, D, h);
 }
 
 template <typename LW>
 int dispatch(const int* keys, const float* x, const void* labels,
              const void* weights, float num_real, const float* w,
              const float* v, const int* slots, float* gw, float* gv,
-             double* acc, int B, int K, int D, cudaStream_t s) {
+             double* acc, int B, int K, int D, const HotArgs& h,
+             cudaStream_t s) {
   if (v == nullptr || D == 0) {
     launch<0, LW>(keys, x, labels, weights, num_real, w, nullptr, slots, gw,
-                  nullptr, acc, B, K, 0, s);
+                  nullptr, acc, B, K, 0, h, s);
   } else if (D <= 8) {
     launch<8, LW>(keys, x, labels, weights, num_real, w, v, slots, gw, gv,
-                  acc, B, K, D, s);
+                  acc, B, K, D, h, s);
   } else if (D <= 16) {
     launch<16, LW>(keys, x, labels, weights, num_real, w, v, slots, gw, gv,
-                   acc, B, K, D, s);
+                   acc, B, K, D, h, s);
   } else if (D <= kMaxDim) {
     launch<kMaxDim, LW>(keys, x, labels, weights, num_real, w, v, slots, gw,
-                        gv, acc, B, K, D, s);
+                        gv, acc, B, K, D, h, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -265,20 +359,27 @@ extern "C" int xf_train_max_dim() { return kMaxDim; }
 
 // Launches K2 on `stream`; labels/weights are u8 when lw_u8 != 0, else
 // f32; `slots` null is the dense mode, else the index mode (header).
-// Returns cudaGetLastError() after the launch (0 = launched), or
+// KH = 0 means no hot plane (the hot_* pointers unread); snap_w null is
+// the live-table mode, else the window-start mode (header).  Returns
+// cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a D it has no variant for.
 extern "C" int xf_train_step(const int* keys, const float* x,
                              const void* labels, const void* weights,
                              int lw_u8, float num_real, const float* w,
                              const float* v, const int* slots, float* gw,
                              float* gv, double* acc, int B, int K, int D,
-                             void* stream) {
+                             const void* hot, const float* hot_x, int hot_u16,
+                             int H, int hot_bf16, int KH, float* hgw,
+                             float* hgv, const float* snap_w,
+                             const float* snap_v, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const HotArgs h{hot,  hot_x, hot_u16, H,      hot_bf16, KH > 0 ? KH : 0,
+                  hgw,  hgv,   snap_w,  snap_v};
   if (lw_u8 != 0) {
     return dispatch<std::uint8_t>(keys, x, labels, weights, num_real, w, v,
-                                  slots, gw, gv, acc, B, K, D, s);
+                                  slots, gw, gv, acc, B, K, D, h, s);
   }
   return dispatch<float>(keys, x, labels, weights, num_real, w, v, slots, gw,
-                         gv, acc, B, K, D, s);
+                         gv, acc, B, K, D, h, s);
 }

@@ -1,14 +1,13 @@
 """Padded static-shape minibatch representation.
 
-A copy of the reference's io/batch.py, less the hot-table steering
-(``split_hot`` and ``remap_batch`` come with the hot table, ROADMAP
-A8b).  A batch is a padded COO block: ``[B, K]`` arrays of table keys,
-field ids (slots), values and a validity mask, plus per-example labels
-and weights.  Pad feature entries carry ``mask=0`` and key 0; pad
-examples carry ``weight=0``.  The optional hot section (``hot_*``,
-``[B, Kh]``) is zero-width unless a caller fills it: the port's
-loaders never do, but CompactBatch (io/compact.py) and the packed
-cache (io/packed.py) carry it as the reference's do.
+A copy of the reference's io/batch.py.  A batch is a padded COO
+block: ``[B, K]`` arrays of table keys, field ids (slots), values and a
+validity mask, plus per-example labels and weights.  Pad feature
+entries carry ``mask=0`` and key 0; pad examples carry ``weight=0``.
+The optional hot section (``hot_*``, ``[B, Kh]``, keys < hot_size) is
+zero-width unless the model has a hot table: ``split_hot`` steers a
+row's first ``hot_nnz`` hot entries there, and ``remap_batch`` brings
+an external raw-key batch into a hot model's key space.
 """
 
 from __future__ import annotations
@@ -94,6 +93,56 @@ class ParsedBlock:
         return int(self.labels.shape[0])
 
 
+def split_hot(
+    keys: np.ndarray,
+    slots: np.ndarray,
+    vals: np.ndarray,
+    mask: np.ndarray,
+    hot_size: int,
+    hot_nnz: int,
+) -> dict[str, np.ndarray]:
+    """Steer padded [B, Ktot] feature entries into a hot section
+    ([B, hot_nnz], keys < hot_size) and a cold section ([B, Ktot -
+    hot_nnz], everything else).
+
+    Per row, the first ``hot_nnz`` hot entries (in original order) go to
+    the hot section; hot overflow spills into the cold section — which
+    is always correct, since the cold path addresses the full table
+    including rows [0, hot_size).  Cold entries beyond the cold
+    capacity are truncated, the same semantics as the overall max_nnz
+    cap.  All O(B*Ktot) vectorized numpy; no per-row loops.
+    """
+    b, ktot = keys.shape
+    kh = hot_nnz
+    kc = ktot - kh
+    valid = mask > 0
+    is_hot = valid & (keys < hot_size)
+    hot_rank = np.cumsum(is_hot, axis=1) - 1
+    to_hot = is_hot & (hot_rank < kh)
+    eff_cold = valid & ~to_hot
+    cold_rank = np.cumsum(eff_cold, axis=1) - 1
+    to_cold = eff_cold & (cold_rank < kc)
+
+    def compact(arr, sel, rank, width, dtype):
+        """Left-compact arr[sel] into [b, width] rows; arr=None writes the
+        constant 1.0 (the mask) without materializing a ones array."""
+        out = np.zeros((b, width), dtype=dtype)
+        r, c = np.nonzero(sel)
+        out[r, rank[sel]] = 1.0 if arr is None else arr[r, c]
+        return out
+
+    return {
+        "hot_keys": compact(keys, to_hot, hot_rank, kh, np.int32),
+        "hot_slots": compact(slots, to_hot, hot_rank, kh, np.int32),
+        "hot_vals": compact(vals, to_hot, hot_rank, kh, np.float32),
+        "hot_mask": compact(None, to_hot, hot_rank, kh, np.float32),
+        "keys": compact(keys, to_cold, cold_rank, kc, np.int32),
+        "slots": compact(slots, to_cold, cold_rank, kc, np.int32),
+        "vals": compact(vals, to_cold, cold_rank, kc, np.float32),
+        "mask": compact(None, to_cold, cold_rank, kc, np.float32),
+    }
+
+
 def make_batch(
     keys: np.ndarray,
     slots: np.ndarray,
@@ -101,20 +150,64 @@ def make_batch(
     mask: np.ndarray,
     labels: np.ndarray,
     weights: np.ndarray,
+    hot_size: int = 0,
+    hot_nnz: int = 0,
 ) -> Batch:
-    """Build a Batch from padded [B, K] feature arrays — the single
-    construction point shared by pack_batch and the synthetic-batch
-    builders."""
+    """Build a Batch from padded [B, Ktot] feature arrays, steering
+    entries into hot/cold sections when ``hot_size > 0`` (the single
+    construction point shared by pack_batch, prepare_batch, and the
+    synthetic-batch makers)."""
+    if not hot_size:
+        return Batch(
+            keys=keys, slots=slots, vals=vals, mask=mask,
+            labels=labels, weights=weights,
+        )
     return Batch(
-        keys=keys, slots=slots, vals=vals, mask=mask,
-        labels=labels, weights=weights,
+        labels=labels,
+        weights=weights,
+        **split_hot(keys, slots, vals, mask, hot_size, hot_nnz),
+    )
+
+
+def remap_batch(
+    batch: Batch,
+    remap: np.ndarray | None,
+    hot_size: int,
+    hot_nnz: int,
+) -> Batch:
+    """Bring an externally built Batch (raw hash-space keys) into a
+    hot-table model's key space: apply the frequency remap (io/freq.py)
+    and re-steer the hot/cold sections.  Loader-produced batches are
+    already remapped at pack time; this is for user-supplied batches
+    (Trainer.prepare_batch, serve.PredictEngine) — the one copy of the
+    remap-and-steer rule.  No-op when ``remap`` is None (a model
+    trained without a hot table)."""
+    if remap is None:
+        return batch
+    # merge any existing hot section back, remap, then re-steer (a
+    # remapped key may cross the hot/cold boundary in either direction);
+    # pad by hot_nnz columns so the post-split cold capacity equals the
+    # full incoming width — even if every incoming entry lands cold,
+    # nothing is truncated on re-steer
+    b = batch.batch_size
+    pad_i = np.zeros((b, hot_nnz), np.int32)
+    pad_f = np.zeros((b, hot_nnz), np.float32)
+    keys = np.concatenate([batch.hot_keys, batch.keys, pad_i], axis=1)
+    slots = np.concatenate([batch.hot_slots, batch.slots, pad_i], axis=1)
+    vals = np.concatenate([batch.hot_vals, batch.vals, pad_f], axis=1)
+    mask = np.concatenate([batch.hot_mask, batch.mask, pad_f], axis=1)
+    keys = narrow_keys_i32(np.where(mask > 0, remap[keys], 0))
+    return make_batch(
+        keys, slots, vals, mask, batch.labels, batch.weights,
+        hot_size, hot_nnz,
     )
 
 
 def pad_batch_rows(batch: Batch, to: int) -> Batch:
     """Extend a Batch to ``to`` rows with zero-weight padding examples
-    (mask/weights 0 — no-ops through predict).  Used by the serving
-    engine to snap request batches onto its fixed bucket shapes."""
+    (mask/weights 0 — no-ops through predict and training alike).
+    Used by the serving engine to snap request batches onto its fixed
+    bucket shapes."""
     extra = to - batch.batch_size
     if extra < 0:
         raise ValueError(
@@ -136,6 +229,10 @@ def pad_batch_rows(batch: Batch, to: int) -> Batch:
         mask=pad(batch.mask),
         labels=pad(batch.labels),
         weights=pad(batch.weights),
+        hot_keys=pad(batch.hot_keys),
+        hot_slots=pad(batch.hot_slots),
+        hot_vals=pad(batch.hot_vals),
+        hot_mask=pad(batch.hot_mask),
     )
 
 
@@ -145,11 +242,15 @@ def pack_batch(
     end: int,
     batch_size: int,
     max_nnz: int,
+    hot_size: int = 0,
+    hot_nnz: int = 0,
 ) -> Batch:
     """Pack samples [start, end) of a CSR block into one padded Batch.
 
     Rows with more than ``max_nnz`` features are truncated (the
     reference has no per-sample feature cap; SURVEY §7 hard part (b)).
+    With ``hot_size > 0``, each row gets ``hot_nnz`` extra slots of
+    hot-key capacity and its entries are steered by ``split_hot``.
     """
     n = end - start
     if not 0 < n <= batch_size:
@@ -167,6 +268,7 @@ def pack_batch(
                 "for the int32 batch arrays (full 64-bit keys must be "
                 "reduced before packing)"
             )
+    ktot = max_nnz + (hot_nnz if hot_size else 0)
     labels = np.zeros(batch_size, dtype=np.float32)
     weights = np.zeros(batch_size, dtype=np.float32)
     labels[:n] = block.labels[start:end]
@@ -174,15 +276,15 @@ def pack_batch(
 
     starts = block.row_ptr[start:end]
     ends = block.row_ptr[start + 1 : end + 1]
-    counts = np.minimum(ends - starts, max_nnz)
+    counts = np.minimum(ends - starts, ktot)
     # vectorized ragged→padded gather: position j of row i reads CSR slot
     # starts[i]+j while j < counts[i]
-    j = np.arange(max_nnz, dtype=np.int64)[None, :]
+    j = np.arange(ktot, dtype=np.int64)[None, :]
     valid = j < counts[:, None]  # [n, K]
     src = np.where(valid, starts[:, None] + j, 0)
 
     def pad_gather(flat: np.ndarray, dtype) -> np.ndarray:
-        out = np.zeros((batch_size, max_nnz), dtype=dtype)
+        out = np.zeros((batch_size, ktot), dtype=dtype)
         if len(flat):
             out[:n] = np.where(valid, flat[src], 0)
         return out
@@ -193,7 +295,9 @@ def pack_batch(
     mask = np.concatenate(
         [
             valid.astype(np.float32),
-            np.zeros((batch_size - n, max_nnz), np.float32),
+            np.zeros((batch_size - n, ktot), np.float32),
         ]
     )
-    return make_batch(keys, slots, vals, mask, labels, weights)
+    return make_batch(
+        keys, slots, vals, mask, labels, weights, hot_size, hot_nnz
+    )

@@ -12,8 +12,9 @@ every plane by where its information lives:
   occurrences as u16 indices into it; the near-unique tail ships as
   raw u24/u32 keys.  A per-entry flag bitmap (1 = dictionary) says
   which stream each entry reads.
-* **hot keys, two tiers** (u8 below 256, else u12 or u16), carried for
-  the hot table (ROADMAP A8b); zero-width while it is not ported.
+* **hot keys, two tiers** (u8 below 256, else u12 when hot_size <=
+  2^12 or u16), the hot table's plane; zero-width without one.  K6
+  decodes them on the card with the cold tiers.
 * **padding never ships.**  Real entries stream flat in row-major
   order with per-row u8 counts; the [B, K] planes are rebuilt on the
   card (ops/wire.py, K6).

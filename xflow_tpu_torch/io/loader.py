@@ -17,12 +17,19 @@ shard in fixed-size byte blocks per epoch.  As in the reference:
 The parse function comes from ``make_parse_fn``: the native C++
 parser (xflow_tpu_torch/native) when it builds, else the pure-Python
 ``parse_block`` (byte-equal results); batches are packed by the
-native ``xf_pack_batch`` when the library is there.  Packed shards
-(io/packed.py, sniffed by their magic) skip parsing and assembly: their
-records are finished batches, and with ``emit_compact`` a v2 shard
-yields its CompactBatch records as they are, for a dictionary-wire
-train step.  Binary block-cache shards are refused, naming ROADMAP
-A5b.  The chaos failpoints come with ROADMAP A14.
+native ``xf_pack_batch`` when the library is there.  With a hot table
+(``remap``, ``hot_size``, ``hot_nnz``) every key goes through the
+frequency remap (io/freq.py) and each row's first ``hot_nnz`` hot keys
+are steered into the hot section (io/batch.py::split_hot): the native
+pack folds both into its one pass; the Python path remaps at parse
+time and steers in ``pack_batch``.  Packed shards (io/packed.py,
+sniffed by their magic) skip parsing and assembly: their records are
+finished batches, and with ``emit_compact`` a v2 shard yields its
+CompactBatch records as they are, for a dictionary-wire train step.
+A hot model does not train from packed shards yet: the reference
+takes their remap from ``checkpoint_dir/remap.npy`` (ROADMAP A6).
+Binary block-cache shards are refused, naming ROADMAP A5b.  The chaos
+failpoints come with ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -118,6 +125,9 @@ class ShardLoader:
         hash_mode: bool = True,
         hash_seed: int = 0,
         parse_fn: ParseFn | None = None,
+        remap: np.ndarray | None = None,  # int32 [T] permutation (io/freq.py)
+        hot_size: int = 0,
+        hot_nnz: int = 0,
         obs: Obs | None = None,  # parse/pack phase seconds + counters
         emit_compact: bool = False,  # v2 packed shards: yield CompactBatch
         io_retries: int = 2,  # read/parse retries per block
@@ -134,6 +144,9 @@ class ShardLoader:
         if parse_fn is None:
             parse_fn = make_parse_fn(table_size, hash_mode, hash_seed)
         self.parse_fn = parse_fn
+        self.remap = remap
+        self.hot_size = hot_size
+        self.hot_nnz = hot_nnz
         # With emit_compact, v2 packed shards yield their records AS
         # CompactBatch: a dictionary-wire train step ships them with no
         # per-batch host work; other formats still yield padded Batches.
@@ -206,9 +219,16 @@ class ShardLoader:
                 f"last error: {type(err).__name__}: {err}"
             ) from err
 
+    def _apply_remap(self, block: ParsedBlock) -> ParsedBlock:
+        """The frequency remap at parse time, for the Python pack (the
+        native pack folds it into its pass and takes raw keys)."""
+        if self.remap is not None and not self._native_pack and len(block.keys):
+            block.keys = self.remap[block.keys]
+        return block
+
     def _parse(self, raw: bytes) -> ParsedBlock:
         with self.obs.phase("parse"):
-            block = self.parse_fn(raw)
+            block = self._apply_remap(self.parse_fn(raw))
         self.obs.counter("loader.parse_bytes", len(raw))
         self.obs.counter("loader.blocks")
         return block
@@ -217,9 +237,11 @@ class ShardLoader:
         with self.obs.phase("pack"):
             if self._native_pack:
                 return native.native_pack_batch(
-                    block, start, end, self.batch_size, self.max_nnz
+                    block, start, end, self.batch_size, self.max_nnz,
+                    self.hot_size, self.hot_nnz, self.remap,
                 )
-            return pack_batch(block, start, end, self.batch_size, self.max_nnz)
+            return pack_batch(block, start, end, self.batch_size, self.max_nnz,
+                              self.hot_size, self.hot_nnz)
 
     def iter_batches(
         self, start_offset: int = 0, parse_workers: int = 0
@@ -287,6 +309,12 @@ class ShardLoader:
     def _iter_packed(self, f, start_offset: int) -> Iterator[tuple[Batch, int]]:
         """Batch stream over a packed shard (io/packed.py), whose baked-in
         geometry must match this loader's exactly."""
+        if self.hot_size:
+            raise NotImplementedError(
+                f"{self.path}: training a hot-table model from packed "
+                "shards is not ported yet: the reference takes their remap "
+                "from checkpoint_dir/remap.npy (ROADMAP A6)"
+            )
         f.seek(0)
         meta, _ = packed.read_header(f)
         packed.check_compat(

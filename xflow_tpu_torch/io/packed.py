@@ -7,7 +7,9 @@ batch assembly.  A cache bakes in batch_size, max_nnz, table_size and
 the hash settings, and the loader refuses a cache built for another
 geometry.  The hot geometry and its remap (``hot_size``, ``hot_nnz``,
 ``remap_sha256``) stay in the header for compatibility and are 0 /
-null in every shard the port writes: the hot table is ROADMAP A8b.
+null in every shard the port writes: a hot model's packed shards need
+the remap that the reference keeps in ``checkpoint_dir/remap.npy``,
+and checkpoints are ROADMAP A6.
 
 Format (little-endian):
 
@@ -643,8 +645,9 @@ def main(argv=None) -> int:
     )
     a = p.parse_args(argv)
     if a.hot_size_log2 or a.hot_nnz or a.remap:
-        p.error("--hot-size-log2 / --hot-nnz / --remap: the hot table is "
-                "not ported yet (ROADMAP A8b)")
+        p.error("--hot-size-log2 / --hot-nnz / --remap: packing for a hot "
+                "model needs the remap kept in checkpoint_dir/remap.npy, "
+                "and checkpoints are not ported yet (ROADMAP A6)")
     table_size = 1 << a.table_size_log2
     parse_fn = make_parse_fn(table_size, not a.no_hash, a.seed)
     for i, src in enumerate(find_shards(a.train)):

@@ -146,42 +146,57 @@ def native_parse_block(data: bytes, table_size: int, hash_mode: bool = True,
 
 
 def native_pack_batch(block: ParsedBlock, start: int, end: int, batch_size: int,
-                      max_nnz: int) -> Batch:
-    """io/batch.py::pack_batch in C++ (byte-equal results), without the
-    hot table's remap and steering (ROADMAP A8b)."""
+                      max_nnz: int, hot_size: int = 0, hot_nnz: int = 0,
+                      remap: np.ndarray | None = None) -> Batch:
+    """io/batch.py::pack_batch in C++ (byte-equal results), with the
+    frequency remap and the hot steering folded into the one pass.
+    ``block`` must hold RAW (un-remapped) keys when ``remap`` is
+    given."""
     lib = _lib_or_raise()
     n = end - start
     if not 0 < n <= batch_size:
         raise ValueError(f"pack_batch: {n} samples do not fit batch_size {batch_size}")
+    kh = hot_nnz if hot_size else 0
     row_ptr = np.ascontiguousarray(block.row_ptr, dtype=np.int64)
     labels_in = np.ascontiguousarray(block.labels, dtype=np.float32)
     keys_in = np.ascontiguousarray(block.keys, dtype=np.int64)
     slots_in = np.ascontiguousarray(block.slots, dtype=np.int32)
     vals_in = np.ascontiguousarray(block.vals, dtype=np.float32)
+    if remap is not None:
+        remap = np.ascontiguousarray(remap, dtype=np.int32)
     keys = np.empty((batch_size, max_nnz), np.int32)
     slots = np.empty((batch_size, max_nnz), np.int32)
     vals = np.empty((batch_size, max_nnz), np.float32)
     mask = np.empty((batch_size, max_nnz), np.float32)
+    hot_keys = np.empty((batch_size, kh), np.int32)
+    hot_slots = np.empty((batch_size, kh), np.int32)
+    hot_vals = np.empty((batch_size, kh), np.float32)
+    hot_mask = np.empty((batch_size, kh), np.float32)
     labels = np.empty(batch_size, np.float32)
     weights = np.empty(batch_size, np.float32)
     null_i32 = ctypes.POINTER(ctypes.c_int32)()
-    null_f32 = ctypes.POINTER(ctypes.c_float)()
     rc = lib.xf_pack_batch(
         _ptr(row_ptr, ctypes.c_int64), _ptr(labels_in, ctypes.c_float),
         _ptr(keys_in, ctypes.c_int64), _ptr(slots_in, ctypes.c_int32),
         _ptr(vals_in, ctypes.c_float), start, end, batch_size,
-        null_i32, 0, 0, max_nnz,
+        _ptr(remap, ctypes.c_int32) if remap is not None else null_i32,
+        hot_size if kh else 0, kh, max_nnz,
         _ptr(keys, ctypes.c_int32), _ptr(slots, ctypes.c_int32),
         _ptr(vals, ctypes.c_float), _ptr(mask, ctypes.c_float),
-        null_i32, null_i32, null_f32, null_f32,
+        _ptr(hot_keys, ctypes.c_int32), _ptr(hot_slots, ctypes.c_int32),
+        _ptr(hot_vals, ctypes.c_float), _ptr(hot_mask, ctypes.c_float),
         _ptr(labels, ctypes.c_float), _ptr(weights, ctypes.c_float),
     )
     if rc == -2:
         raise ValueError(
-            "pack_batch: a key exceeds int32 — table_size too large for "
-            "the int32 batch arrays"
+            "pack_batch: a (remapped) key exceeds int32 — table_size or "
+            "remap values too large for the int32 batch arrays"
         )
     if rc < 0:
         raise RuntimeError(f"native pack_batch failed (rc={rc})")
+    if not kh:
+        return Batch(keys=keys, slots=slots, vals=vals, mask=mask,
+                     labels=labels, weights=weights)
     return Batch(keys=keys, slots=slots, vals=vals, mask=mask,
-                 labels=labels, weights=weights)
+                 labels=labels, weights=weights, hot_keys=hot_keys,
+                 hot_slots=hot_slots, hot_vals=hot_vals, hot_mask=hot_mask)

@@ -138,8 +138,9 @@ def _lib() -> ctypes.CDLL:
         lib = load_library("sparse")
         vp, ll, ci, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         lib.xf_consolidate.argtypes = [vp, ll, ci, vp, vp, vp, vp, vp]
-        lib.xf_touched_ftrl.argtypes = [vp, vp, vp, vp, vp, vp, ll, ci, f, f, f, f, vp, vp]
-        lib.xf_touched_sgd.argtypes = [vp, vp, vp, vp, ll, ci, f, vp, vp]
+        lib.xf_touched_ftrl.argtypes = [vp, vp, vp, vp, vp, vp, ll, ci, f, f, f, f, vp,
+                                        vp, ci, vp]
+        lib.xf_touched_sgd.argtypes = [vp, vp, vp, vp, ll, ci, f, vp, vp, ci, vp]
         for fn in (lib.xf_consolidate, lib.xf_touched_ftrl, lib.xf_touched_sgd):
             fn.restype = ci
         _bound = lib
@@ -230,7 +231,8 @@ def _names(opt) -> tuple[str, ...]:
     raise ValueError(f"touched_update: unsupported optimizer {opt!r}")
 
 
-def _check_touched(table, opt, ukeys, count, gsum, slot_map) -> list[torch.Tensor]:
+def _check_touched(table, opt, ukeys, count, gsum, slot_map, head=None,
+                   hot_size=0) -> list[torch.Tensor]:
     names = _names(opt)
     missing = [name for name in names if name not in table]
     if missing:
@@ -256,35 +258,53 @@ def _check_touched(table, opt, ukeys, count, gsum, slot_map) -> list[torch.Tenso
         _need("slot_map", slot_map, torch.int32, ref.device)
         if slot_map.shape != (ref.shape[0],):
             raise ValueError(f"slot_map must be [{ref.shape[0]}]")
+    if head is not None:
+        _need("head", head, torch.float32, ref.device)
+        if not 0 < hot_size <= ref.shape[0] or head.shape != (hot_size, ref.shape[1]):
+            raise ValueError(
+                f"head must be [hot_size, {ref.shape[1]}] with 0 < hot_size <= "
+                f"{ref.shape[0]}, got {tuple(head.shape)} and {hot_size}"
+            )
     return tensors
 
 
-def touched_plain(table, opt, ukeys, count, gsum) -> None:
+def touched_plain(table, opt, ukeys, count, gsum, head=None, hot_size=0) -> None:
     """K5's plain version (the reference's ``_apply_touched_rows``):
     the slots past ``count`` made the sentinel, gather_rows →
     ``update_rows`` → scatter_rows, in place; then
-    ``gsum[:count] = 0``."""
+    ``gsum[:count] = 0``.  With ``head``, the reference's hybrid fold
+    (step.py:1194-1238): the sums of keys < H are added into ``head``
+    and those keys made the sentinel."""
     names = _names(opt)
     t = table[names[0]].shape[0]
     cap = gsum.shape[0]
     valid = torch.arange(cap, device=gsum.device) < count
     keys = torch.where(valid, ukeys[:cap], torch.full_like(ukeys[:cap], t))
+    if head is not None:
+        in_hot = keys < hot_size
+        fold = torch.zeros((hot_size + 1, gsum.shape[1]), device=gsum.device)
+        fold.index_add_(0, torch.where(in_hot, keys, torch.full_like(keys, hot_size)).long(),
+                        gsum)
+        head += fold[:hot_size]
+        keys = torch.where(in_hot, torch.full_like(keys, t), keys)
     new = opt.update_rows({k: gather_rows(table[k], keys) for k in names}, gsum)
     for name in names:
         scatter_rows(table[name], keys, new[name])
     gsum.masked_fill_(valid[:, None], 0.0)
 
 
-def touched_update(table, opt, ukeys, count, gsum, slot_map=None) -> None:
+def touched_update(table, opt, ukeys, count, gsum, slot_map=None, head=None,
+                   hot_size=0) -> None:
     """Apply ``opt`` (FTRL or SGD) in place to the rows ``ukeys[:count]``
     of ``table`` (``{"param", <aux>...}``) with ``gsum`` [M, D]; clears
     ``gsum[:count]`` and, given ``slot_map``, resets it at those keys.
-    CPU tensors take the plain version (no slot map there); CUDA
-    tensors launch K5."""
-    tensors = _check_touched(table, opt, ukeys, count, gsum, slot_map)
+    With ``head`` [hot_size, D], keys < hot_size fold into it instead
+    of stepping (module docstring).  CPU tensors take the plain version
+    (no slot map there); CUDA tensors launch K5."""
+    tensors = _check_touched(table, opt, ukeys, count, gsum, slot_map, head, hot_size)
     dev = tensors[0].device
     if dev.type == "cpu":
-        touched_plain(table, opt, ukeys, count, gsum)
+        touched_plain(table, opt, ukeys, count, gsum, head, hot_size)
         return
     if dev.type != "cuda":
         raise ValueError(f"touched_update: unsupported device {dev}")
@@ -292,17 +312,18 @@ def touched_update(table, opt, ukeys, count, gsum, slot_map=None) -> None:
     cap, d = gsum.shape
     tail = (ukeys.data_ptr(), count.data_ptr(), cap, d)
     smap = slot_map.data_ptr() if slot_map is not None else None
+    fold = (head.data_ptr(), hot_size) if head is not None else (None, 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [t.data_ptr() for t in tensors]
         if isinstance(opt, FTRL):
             rc = lib.xf_touched_ftrl(
                 *ptrs, gsum.data_ptr(), *tail, opt.alpha, opt.beta,
-                opt.lambda1, opt.lambda2, smap, stream,
+                opt.lambda1, opt.lambda2, smap, *fold, stream,
             )
         else:
             rc = lib.xf_touched_sgd(ptrs[0], gsum.data_ptr(), *tail, opt.lr,
-                                    smap, stream)
+                                    smap, *fold, stream)
     if rc != 0:
         raise RuntimeError(f"touched-rows kernel launch failed: CUDA error {rc}")
     touched_update.launches += 1

@@ -3,11 +3,13 @@
 ``dict_decode`` turns the planes of io/compact.py::CompactBatch.wire,
 on the device, into the compact wire's planes that K1 and K2 read:
 ``ckeys`` int32 [B, K] with -1 on padding, ``labels_u8`` and
-``weights_u8`` [B].  It replaces the cold half of the reference's
-``TrainStep._expand_dict_wire`` (parallel/step.py:621-743, ROADMAP B4
-dict).  ``to_device`` ships the numpy planes: the u16 and u32 planes go
-as int16 and int32 views of the same bits, since the kernel reads them
-by their bytes.
+``weights_u8`` [B], and with a hot table (``hot_nnz`` > 0, the
+``cw_h*`` planes) the hot plane ``hot`` int32 [B, Kh] with -1 on
+padding.  It replaces the reference's ``TrainStep._expand_dict_wire``
+(parallel/step.py:621-766, ROADMAP B4 dict and its hot tiers).
+``to_device`` ships the numpy planes: the u16 and u32 planes go as
+int16 and int32 views of the same bits, since the kernel reads them by
+their bytes.
 
 CPU tensors take ``dict_decode_plain`` (a torch transcription of the
 reference's decode, free of host syncs); CUDA tensors launch K6 or
@@ -27,6 +29,9 @@ _bound: ctypes.CDLL | None = None
 # the cold planes K6 reads; cw_cun (the real dictionary size) rides the
 # wire too, and the decode does not need it
 PLANES = ("cw_cc", "cw_cf", "cw_ci", "cw_cu", "cw_ct", "cw_lb", "cw_wb")
+# the hot tiers: per-row counts, the tier bitmap (1 = u8), the u8 ids,
+# the large tier (u16, or u12's u8 lows) and u12's nibble highs
+HOT_PLANES = ("cw_hc", "cw_hf", "cw_h8", "cw_hx", "cw_hxh")
 
 
 def to_device(wire: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
@@ -60,10 +65,39 @@ def _keys(plane: torch.Tensor) -> torch.Tensor:
     return p[:, 0] | (p[:, 1] << 8) | (p[:, 2] << 16)
 
 
-def dict_decode_plain(wire: dict[str, torch.Tensor], max_nnz: int):
-    """K6's plain version: the reference's ``_expand_dict_wire`` cold
-    half (step.py:636-735) on tensors, with its clipping.  Returns
-    (ckeys int32 [B, K], labels_u8 [B], weights_u8 [B])."""
+def _hot_plain(wire: dict[str, torch.Tensor], kh: int) -> torch.Tensor:
+    """The hot half of the reference's decode (step.py:744-766): int32
+    [B, kh] hot ids, -1 past each row's count."""
+    hc = wire["cw_hc"].long()
+    dev = hc.device
+    b = hc.shape[0]
+    colj = torch.arange(kh, device=dev)[None, :]
+    valid = colj < hc[:, None]
+    ids = torch.zeros((b, kh), dtype=torch.long, device=dev)
+    cap = wire["cw_hf"].shape[0] * 8
+    if cap:
+        hxh = wire["cw_hxh"].long()
+        hx = wire["cw_hx"].long() & 0xFFFF
+        if hxh.shape[0]:  # u12 tier: u8 lows + nibble highs
+            hi = torch.stack([hxh & 0xF, hxh >> 4], dim=1).reshape(-1)[: hx.shape[0]]
+            hx = hx | (hi << 8)
+        e = ((torch.cumsum(hc, 0) - hc)[:, None] + colj).clamp(0, cap - 1)
+        f = _bits(wire["cw_hf"], cap)
+        a_pos = torch.cumsum(f, 0) - 1
+        b_pos = torch.cumsum(1 - f, 0) - 1
+        h8 = wire["cw_h8"].long()
+        zeros = torch.zeros((b, kh), dtype=torch.long, device=dev)
+        av = h8[a_pos[e].clamp(0, h8.shape[0] - 1)] if h8.shape[0] else zeros
+        bv = hx[b_pos[e].clamp(0, hx.shape[0] - 1)] if hx.shape[0] else zeros
+        ids = torch.where(f[e] == 1, av, bv)
+    return torch.where(valid, ids, torch.full_like(ids, -1)).to(torch.int32)
+
+
+def dict_decode_plain(wire: dict[str, torch.Tensor], max_nnz: int, hot_nnz: int = 0):
+    """K6's plain version: the reference's ``_expand_dict_wire``
+    (step.py:636-766) on tensors, with its clipping.  Returns (ckeys
+    int32 [B, K], labels_u8 [B], weights_u8 [B]), and the hot plane
+    int32 [B, hot_nnz] after them when ``hot_nnz`` > 0."""
     cc = wire["cw_cc"].long()
     dev = cc.device
     b, k = cc.shape[0], max_nnz
@@ -92,6 +126,8 @@ def dict_decode_plain(wire: dict[str, torch.Tensor], max_nnz: int):
     ckeys = torch.where(valid, keys, torch.full_like(keys, -1)).to(torch.int32)
     labels = _bits(wire["cw_lb"], b).to(torch.uint8)
     weights = _bits(wire["cw_wb"], b).to(torch.uint8)
+    if hot_nnz:
+        return ckeys, labels, weights, _hot_plain(wire, hot_nnz)
     return ckeys, labels, weights
 
 
@@ -109,6 +145,9 @@ def _lib() -> ctypes.CDLL:
             vp, vp,  # lb, wb
             vp, vp,  # row_start, word_prefix
             vp, vp, vp,  # ckeys, labels, weights
+            ci, vp, vp, ll,  # kh, hc, hf, hf_bytes
+            vp, ci, vp, ci, ci, vp, ci,  # h8, cap8, hx, capx, hx_u16, hxh, caph
+            vp, vp, vp,  # hot_row_start, hot_prefix, hot
             vp,  # stream
         ]
         lib.xf_dict_decode.restype = ci
@@ -116,20 +155,34 @@ def _lib() -> ctypes.CDLL:
     return _bound
 
 
-def _check(wire: dict[str, torch.Tensor], max_nnz: int) -> int:
+def _check(wire: dict[str, torch.Tensor], max_nnz: int, hot_nnz: int) -> int:
     """Validate the planes; returns the key width in bytes (3 or 4)."""
-    missing = [p for p in PLANES if p not in wire]
+    planes = PLANES + (HOT_PLANES if hot_nnz else ())
+    missing = [p for p in planes if p not in wire]
     if missing:
         raise ValueError(f"dict_decode: the wire has no {missing}")
     dev = wire["cw_cc"].device
     b = wire["cw_cc"].shape[0]
-    for name in PLANES:
+    for name in planes:
         t = wire[name]
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, expected {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("cw_cc", "cw_cf", "cw_lb", "cw_wb"):
+    u8 = ("cw_cc", "cw_cf", "cw_lb", "cw_wb")
+    if hot_nnz:
+        u8 += ("cw_hc", "cw_hf", "cw_h8", "cw_hxh")
+        if wire["cw_hc"].shape[0] != b:
+            raise ValueError(f"cw_hc must hold {b} counts")
+        if wire["cw_hx"].dtype not in (torch.uint8, torch.int16) or wire["cw_hx"].dim() != 1:
+            raise ValueError("cw_hx must be u8 (u12 lows) or the int16 view of u16 ids")
+        if wire["cw_hx"].dtype == torch.int16 and wire["cw_hxh"].shape[0]:
+            raise ValueError("u16 hot ids carry no nibble plane")
+        if not 0 < hot_nnz <= 255:
+            raise ValueError(f"hot_nnz {hot_nnz} must lie in [1, 255] (u8 counts)")
+        if b * hot_nnz >= 2**31:
+            raise ValueError(f"{b} x {hot_nnz} hot entries overflow int32 indices")
+    for name in u8:
         t = wire[name]
         if t.dtype != torch.uint8 or t.dim() != 1:
             raise ValueError(f"{name} must be uint8 [n], got {t.dtype} {tuple(t.shape)}")
@@ -156,15 +209,17 @@ def _check(wire: dict[str, torch.Tensor], max_nnz: int) -> int:
     return widths.pop()
 
 
-def dict_decode(wire: dict[str, torch.Tensor], max_nnz: int):
+def dict_decode(wire: dict[str, torch.Tensor], max_nnz: int, hot_nnz: int = 0):
     """(ckeys int32 [B, K], labels_u8 [B], weights_u8 [B]) from the
-    dictionary-wire planes ``wire`` (``to_device``'s tensors).  CPU
-    tensors take the plain version; CUDA tensors launch K6."""
-    key_bytes = _check(wire, max_nnz)
+    dictionary-wire planes ``wire`` (``to_device``'s tensors), and
+    after them the hot plane int32 [B, hot_nnz] (-1 on padding) when
+    ``hot_nnz`` > 0.  CPU tensors take the plain version; CUDA tensors
+    launch K6."""
+    key_bytes = _check(wire, max_nnz, hot_nnz)
     cc = wire["cw_cc"]
     dev = cc.device
     if dev.type == "cpu":
-        return dict_decode_plain(wire, max_nnz)
+        return dict_decode_plain(wire, max_nnz, hot_nnz)
     if dev.type != "cuda":
         raise ValueError(f"dict_decode: unsupported device {dev}")
     b = cc.shape[0]
@@ -174,6 +229,21 @@ def dict_decode(wire: dict[str, torch.Tensor], max_nnz: int):
     weights = torch.empty(b, dtype=torch.uint8, device=dev)
     row_start = torch.empty(b, dtype=torch.int32, device=dev)
     word_prefix = torch.empty((cf.shape[0] + 3) // 4, dtype=torch.int32, device=dev)
+    kh = hot_nnz
+    if kh:
+        hf, hx = wire["cw_hf"], wire["cw_hx"]
+        hot = torch.empty((b, kh), dtype=torch.int32, device=dev)
+        hot_row_start = torch.empty(b, dtype=torch.int32, device=dev)
+        hot_prefix = torch.empty((hf.shape[0] + 3) // 4, dtype=torch.int32, device=dev)
+        hot_args = (
+            kh, wire["cw_hc"].data_ptr(), hf.data_ptr(), hf.shape[0],
+            wire["cw_h8"].data_ptr(), wire["cw_h8"].shape[0],
+            hx.data_ptr(), hx.shape[0], 1 if hx.dtype == torch.int16 else 0,
+            wire["cw_hxh"].data_ptr(), wire["cw_hxh"].shape[0],
+            hot_row_start.data_ptr(), hot_prefix.data_ptr(), hot.data_ptr(),
+        )
+    else:
+        hot_args = (0, None, None, 0, None, 0, None, 0, 0, None, 0, None, None, None)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.xf_dict_decode(
@@ -184,11 +254,14 @@ def dict_decode(wire: dict[str, torch.Tensor], max_nnz: int):
             wire["cw_lb"].data_ptr(), wire["cw_wb"].data_ptr(),
             row_start.data_ptr(), word_prefix.data_ptr(),
             ckeys.data_ptr(), labels.data_ptr(), weights.data_ptr(),
+            *hot_args,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"dictionary-wire decode launch failed: CUDA error {rc}")
     dict_decode.launches += 1
+    if kh:
+        return ckeys, labels, weights, hot
     return ckeys, labels, weights
 
 

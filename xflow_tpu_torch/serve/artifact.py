@@ -5,8 +5,9 @@ An artifact is a directory:
 
 * ``<table>.param.r<start>-<stop>.npy`` — frozen weight-table rows in
   the checkpoint row-range shard format (utils/checkpoint.py);
-* ``remap.npy`` — the hot-table frequency remap, present iff the model
-  was trained with a hot table (the port does not serve those yet);
+* ``remap.npy`` — the hot-table frequency remap (io/freq.py), present
+  iff the model was trained with a hot table: request keys go through
+  it before scoring;
 * ``manifest.json`` — format version, model name, the FULL training
   config JSON plus its digest (config.Config.digest), array metadata,
   and the train-step counter.
@@ -43,14 +44,21 @@ def servable_digest(config_digest: str, step: int) -> str:
 
 
 def write_artifact(
-    directory: str, cfg: Config, tables: dict[str, np.ndarray], step: int
+    directory: str, cfg: Config, tables: dict[str, np.ndarray], step: int,
+    remap: np.ndarray | None = None,
 ) -> str:
     """Write ``tables`` ({name: [T, dim] float32}, one per table of
-    ``cfg``'s model) as an artifact at ``directory``, replaced
-    atomically if it exists; returns the path.  One row-range shard per
-    table, the reference's manifest."""
+    ``cfg``'s model) and a hot model's ``remap`` as an artifact at
+    ``directory``, replaced atomically if it exists; returns the path.
+    One row-range shard per table, the reference's manifest."""
     from xflow_tpu_torch.models import make_model
 
+    if bool(cfg.hot_size_log2) != (remap is not None):
+        raise ValueError(
+            "a hot-table model's artifact carries its remap, and only "
+            f"then (hot_size_log2={cfg.hot_size_log2}, remap "
+            f"{'given' if remap is not None else 'missing'})"
+        )
     specs = make_model(cfg).tables()
     if set(tables) != {spec.name for spec in specs}:
         raise ValueError(
@@ -76,6 +84,8 @@ def write_artifact(
             key = f"{spec.name}.param"
             arrays_meta[key] = {"shape": list(arr.shape), "dtype": str(arr.dtype)}
             np.save(range_file(tmp, key, 0, arr.shape[0]), arr)
+        if remap is not None:
+            np.save(os.path.join(tmp, REMAP_FILE), np.asarray(remap, np.int32))
         manifest = {
             "format": FORMAT,
             "model": cfg.model,
@@ -84,7 +94,7 @@ def write_artifact(
             "config_digest": cfg.digest(),
             "arrays": arrays_meta,
             "dense": [],
-            "remap": False,
+            "remap": remap is not None,
             "created_unix": round(time.time(), 3),
         }
         with open(os.path.join(tmp, MANIFEST), "w") as f:
@@ -114,8 +124,16 @@ def export_artifact(trainer, directory: str) -> str:
 
     return write_artifact(
         directory, trainer.cfg, state_to_numpy(trainer.state),
-        step=trainer.state["step"],
+        step=trainer.state["step"], remap=trainer.remap,
     )
+
+
+def load_remap(directory: str, manifest: dict) -> np.ndarray | None:
+    """The artifact's hot remap, or None when the manifest says it has
+    none (PredictEngine refuses a hot model without one)."""
+    if not manifest.get("remap"):
+        return None
+    return np.load(os.path.join(directory, REMAP_FILE))
 
 
 def load_manifest(directory: str) -> dict:

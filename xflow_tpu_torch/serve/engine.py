@@ -18,9 +18,14 @@ reference (its serve/engine.py):
 
 One predict call is one K1 launch (ops/score.py).  The engine runs on
 the card unless the caller passes ``device="cpu"``
-(device.py::resolve_device).  The hot table, the tiered store and the
-five other families are refused at load with the ROADMAP item that
-ports them; the failpoints and flight recorder come with ROADMAP A14.
+(device.py::resolve_device).  A hot-table model needs its frequency
+remap (the artifact's ``remap.npy``): request rows arrive in the raw
+hash key space and are remapped and steered into the hot and cold
+planes before scoring (io/batch.py::remap_batch), and a hot model
+without its remap is refused, as the reference refuses it.  The tiered
+store and the five other families are refused at load with the
+ROADMAP item that ports them; the failpoints and flight recorder come
+with ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 
 from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.device import resolve_device
-from xflow_tpu_torch.io.batch import Batch, pad_batch_rows
+from xflow_tpu_torch.io.batch import Batch, pad_batch_rows, remap_batch
 from xflow_tpu_torch.models import make_model
 from xflow_tpu_torch.parallel.step import (
     PredictStep,
@@ -52,6 +57,10 @@ def _slice_rows(batch: Batch, start: int, stop: int) -> Batch:
         mask=batch.mask[start:stop],
         labels=batch.labels[start:stop],
         weights=batch.weights[start:stop],
+        hot_keys=batch.hot_keys[start:stop],
+        hot_slots=batch.hot_slots[start:stop],
+        hot_vals=batch.hot_vals[start:stop],
+        hot_mask=batch.hot_mask[start:stop],
     )
 
 
@@ -60,7 +69,8 @@ class PredictEngine:
 
     Construct directly from a state (convert.py::state_from_numpy) or
     via ``load`` from an exported artifact.  ``state`` may carry
-    optimizer slots; they are stripped to param-only tables."""
+    optimizer slots; they are stripped to param-only tables.  A
+    hot-table model needs its ``remap`` (io/freq.py)."""
 
     def __init__(
         self,
@@ -70,9 +80,16 @@ class PredictEngine:
         buckets: Sequence[int] | None = None,
         digest: str | None = None,
         warm: bool = False,
+        remap: np.ndarray | None = None,
     ):
         check_servable(cfg)
+        if cfg.hot_size_log2 and remap is None:
+            raise ValueError(
+                "model was trained with a hot table but no remap was "
+                "provided — raw request keys cannot be translated"
+            )
         self.cfg = cfg
+        self.remap = remap
         self.digest = digest if digest is not None else cfg.digest()
         self.device = resolve_device(device)
         self.model = make_model(cfg)
@@ -109,7 +126,7 @@ class PredictEngine:
         caller's expectation: its digest must equal the artifact's or
         the load is refused (never score through the wrong model)."""
         from xflow_tpu_torch.convert import state_from_numpy
-        from xflow_tpu_torch.serve.artifact import load_manifest
+        from xflow_tpu_torch.serve.artifact import load_manifest, load_remap
         from xflow_tpu_torch.utils.checkpoint import RangeReader
 
         dev = resolve_device(device)
@@ -136,7 +153,8 @@ class PredictEngine:
             tables[spec.name] = reader.read()
         state = state_from_numpy(cfg, tables, dev, step=manifest["step"])
         return cls(
-            cfg, state, device=dev, buckets=buckets, digest=digest, warm=warm
+            cfg, state, device=dev, buckets=buckets, digest=digest, warm=warm,
+            remap=load_remap(directory, manifest),
         )
 
     def clone(self) -> "PredictEngine":
@@ -149,6 +167,7 @@ class PredictEngine:
             device=self.device,
             buckets=self.buckets,
             digest=self.digest,
+            remap=self.remap,
         )
         replica._shapes = self._shapes
         return replica
@@ -269,25 +288,37 @@ class PredictEngine:
     # -- predict -----------------------------------------------------------
 
     def _prepare(self, batch: Batch) -> Batch:
-        """Widen a narrower batch to the training geometry's
-        ``max_nnz`` with zero-mask columns (no new shapes).  Wider
-        batches keep their width (truncating would silently drop
+        """Canonicalize an external raw-key-space batch: widen it so its
+        total feature width (hot + cold) matches the training geometry's
+        ``max_nnz`` with zero-mask columns (no new shapes), then apply
+        the hot remap and steering (a no-op without a hot table).
+        Wider batches keep their width (truncating would silently drop
         features) and run one extra shape per distinct width — the
         featurize tier only produces canonical widths."""
-        if batch.max_nnz >= self.cfg.max_nnz:
-            return batch
-        pad = self.cfg.max_nnz - batch.max_nnz
-        b = batch.batch_size
-        z_i = np.zeros((b, pad), np.int32)
-        z_f = np.zeros((b, pad), np.float32)
-        return Batch(
-            keys=np.concatenate([batch.keys, z_i], axis=1),
-            slots=np.concatenate([batch.slots, z_i], axis=1),
-            vals=np.concatenate([batch.vals, z_f], axis=1),
-            mask=np.concatenate([batch.mask, z_f], axis=1),
-            labels=batch.labels,
-            weights=batch.weights,
-        )
+        cfg = self.cfg
+        if batch.hot_nnz and not cfg.hot_size:
+            raise ValueError(
+                "batch carries hot planes but the model has no hot table"
+            )
+        total = batch.hot_nnz + batch.max_nnz
+        if total < cfg.max_nnz:
+            pad = cfg.max_nnz - total
+            b = batch.batch_size
+            z_i = np.zeros((b, pad), np.int32)
+            z_f = np.zeros((b, pad), np.float32)
+            batch = Batch(
+                keys=np.concatenate([batch.keys, z_i], axis=1),
+                slots=np.concatenate([batch.slots, z_i], axis=1),
+                vals=np.concatenate([batch.vals, z_f], axis=1),
+                mask=np.concatenate([batch.mask, z_f], axis=1),
+                labels=batch.labels,
+                weights=batch.weights,
+                hot_keys=batch.hot_keys,
+                hot_slots=batch.hot_slots,
+                hot_vals=batch.hot_vals,
+                hot_mask=batch.hot_mask,
+            )
+        return remap_batch(batch, self.remap, cfg.hot_size, cfg.hot_nnz)
 
     def predict(self, batch: Batch) -> np.ndarray:
         """pctr for one externally built Batch.  Any batch size: rows

@@ -16,6 +16,16 @@ are fetched once per epoch (``device_block``), as the reference does
 K1 and reports log-loss and midrank AUC, optionally writing the
 reference's ``label\\tpctr`` prediction lines.
 
+With a hot table (``hot_size_log2 > 0``) the trainer first measures
+key frequencies over the first ``freq_sample_mib`` of the training
+shards and builds the frequency remap (io/freq.py), as the reference's
+``_init_remap`` does (trainer.py:430-478), logging how much of the
+sampled occurrence mass the H head rows capture; the loaders then
+remap and steer every batch, ``prepare_batch`` does the same for an
+external batch, and an exported artifact carries the remap.  The
+reference reads and writes ``checkpoint_dir/remap.npy``; the port keeps
+the remap in memory, since checkpoints are ROADMAP A6.
+
 Not ported yet, and refused by name: checkpoints, resume and the
 preemption handler (ROADMAP A6); the profiler, span trace, flight
 recorder, watchdog, exporters and chaos failpoints (A14).  The staging
@@ -36,8 +46,14 @@ import torch
 
 from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.device import resolve_device
-from xflow_tpu_torch.io.batch import Batch
-from xflow_tpu_torch.io.loader import ShardLoader, make_parse_fn, parser_name
+from xflow_tpu_torch.io import freq
+from xflow_tpu_torch.io.batch import Batch, remap_batch
+from xflow_tpu_torch.io.loader import (
+    PACKED_MAGIC,
+    ShardLoader,
+    make_parse_fn,
+    parser_name,
+)
 from xflow_tpu_torch.models import make_model
 from xflow_tpu_torch.obs import Obs
 from xflow_tpu_torch.optim import make_optimizer
@@ -60,8 +76,9 @@ def check_trainer_config(cfg: Config) -> None:
     """Refuse the Trainer features this slice does not port, naming the
     ROADMAP item that brings each."""
     refusals = (
-        (cfg.checkpoint_dir, "checkpoint_dir: checkpoints, resume and the "
-         "preemption handler are not ported yet (ROADMAP A6)"),
+        (cfg.checkpoint_dir, "checkpoint_dir: checkpoints, resume, the "
+         "preemption handler and a hot model's remap.npy are not ported "
+         "yet (ROADMAP A6)"),
         (cfg.profile_dir, "profile_dir: the profiler hook is not ported "
          "yet (ROADMAP A14)"),
         (cfg.obs_trace_out, "obs_trace_out: the span trace is not ported "
@@ -106,6 +123,12 @@ class Trainer:
         self._log = log if log is not None else lambda s: print(s, file=sys.stderr)
         self.host = 0
         self.num_hosts = 1
+        # the hot table's frequency remap (io/freq.py), measured from a
+        # deterministic sample of the training data
+        self.remap: np.ndarray | None = None
+        self.hot_mass: float | None = None
+        if cfg.hot_size_log2:
+            self._init_remap()
         # every step's train log-loss so far, fetched at each epoch end
         self.step_logloss: list[float] = []
         # live loader prefetch iterators, closed by close() so abandoned
@@ -158,6 +181,47 @@ class Trainer:
 
     # -- input -------------------------------------------------------------
 
+    def _parse_fn(self):
+        cfg = self.cfg
+        return make_parse_fn(cfg.table_size, cfg.hash_mode, cfg.seed,
+                             prefer_native=cfg.native_parser)
+
+    def _init_remap(self) -> None:
+        """Count key frequencies over the first ``freq_sample_mib`` of
+        the GLOBAL shard list and build the remap (the reference's
+        ``_init_remap`` without its checkpoint_dir, ROADMAP A6)."""
+        cfg = self.cfg
+        if not cfg.train_path:
+            raise ValueError(
+                "hot table enabled but no train_path to sample key "
+                "frequencies from and no saved remap in checkpoint_dir"
+            )
+        shards = find_shards(cfg.train_path)
+        with open(shards[0], "rb") as f:
+            if f.read(len(PACKED_MAGIC)) == PACKED_MAGIC:
+                raise NotImplementedError(
+                    f"{shards[0]}: training a hot-table model from packed "
+                    "shards is not ported yet: their remap is the one kept "
+                    "in checkpoint_dir/remap.npy (ROADMAP A6)"
+                )
+        counts = freq.count_keys(
+            shards, self._parse_fn(), cfg.table_size,
+            cfg.freq_sample_mib << 20, cfg.block_mib << 20,
+        )
+        self.remap = freq.build_remap(counts, cfg.hot_size)
+        self.hot_mass = freq.hot_mass(counts, self.remap, cfg.hot_size)
+        self._log(
+            f"hot remap: {cfg.hot_size} rows capture {self.hot_mass:.1%} of "
+            f"sampled feature occurrences"
+        )
+
+    def prepare_batch(self, batch: Batch) -> Batch:
+        """Bring an externally built Batch (raw hash-space keys) into
+        this model's key space: the hot remap and the hot/cold steering
+        (io/batch.py::remap_batch, shared with the serving engine).
+        Loader-produced batches are already prepared."""
+        return remap_batch(batch, self.remap, self.cfg.hot_size, self.cfg.hot_nnz)
+
     def _loader(self, path: str) -> ShardLoader:
         cfg = self.cfg
         return ShardLoader(
@@ -168,8 +232,10 @@ class Trainer:
             block_mib=cfg.block_mib,
             hash_mode=cfg.hash_mode,
             hash_seed=cfg.seed,
-            parse_fn=make_parse_fn(cfg.table_size, cfg.hash_mode, cfg.seed,
-                                   prefer_native=cfg.native_parser),
+            parse_fn=self._parse_fn(),
+            remap=self.remap,
+            hot_size=cfg.hot_size,
+            hot_nnz=cfg.hot_nnz,
             obs=self.obs,
             # v2 packed shards skip expansion AND re-compaction when the
             # step ships the dictionary wire

@@ -180,7 +180,44 @@ Phases, in order; any failure raises and the exit code is 1:
    slices (K2 per form, K3 over the head rows, K5 with the fold, K6
    with the hot tiers; K1 at the serving bucket in phase 17), each with
    its bound and plain time; their ``kernels`` entries and ``train``
-   rows.
+   rows;
+21. FM past one 32-factor tile (C1): K1 and K2 at D = 33, 64 and 156
+   against their plain versions (T = 2^20; K1 every bucket, both wires,
+   phase 2's tolerances plus phase 6's logit bound; K2 on a 65,536-row
+   compact batch and a 1,024-row full-wire Zipf batch, phase 6's
+   bounds), K1 and K2 timed at D = 64 with their byte bounds, a v_dim =
+   64 FM artifact (T = 2^22) served as in phases 3-4, and one dispatch
+   of v_dim = 64 training on the card against the CPU;
+22. K6's field streams (B4s) exactly against the plain version and the
+   batch's own planes on the flagship ``mvm`` path's batch 0, the
+   4-slot hot overflow, an empty hot plane and ids outside [0,
+   max_fields) (past it and negative), and timed;
+23. K1's MVM form (B9) against its plain version on the flagship
+   ``mvm`` planes (12 + 32 slots, u16 at H = 2^14, u8 fields), with the
+   bf16 flag, and ``mvm_nohot``'s 40 slots, every bucket, within a
+   derived bound (mvm_tolerances), and timed at B = 512;
+24. K2's MVM form against its plain version on the paths' own batches:
+   on the dense path's 65,536-row batch dense (hot gradients in g's
+   first H rows), the hybrid (index mode + head buffer), the hot
+   inner's window-start form and index mode over the cold plane; the
+   hybrid and window forms again on their paths' slice 0; the bf16
+   flag, and a batch where the guard fires (own-field factors exactly
+   0), within mvm_tolerances' per-row bound; each form timed with its
+   bound;
+25. serving a full-width hot ``mvm`` artifact (phases 3-4 again, the
+   float64 reference MVM's product over fields);
+26. training the flagship ``mvm`` (scripts/bench_models.py:79-82: 12
+   cold + 32 hot slots, H = 2^14, T = 2^24, batch 65,536, D = 10,
+   max_fields = 39) on the default input path in dense, hybrid and hot
+   inner mode (microbatch 128, ``hot_windowend`` auto = sparse), 2
+   epochs each from one seeded state: exact launches, the card against
+   the CPU within TRAIN_BOUNDS (the sequential forms through
+   ``lockstep_tables``, which also tells MVM's guard splits from
+   faults), the sync guard on the sequential paths' first dispatch, the
+   eval AUC inside the planted bars;
+27. ``mvm_nohot`` (40 cold slots) dense on the default input path
+   (native text, the dictionary wire with the field streams), the card
+   against the CPU.
 
 Output: the card line, per-phase lines, a ``{"kernels": [...]}`` JSON
 line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
@@ -188,8 +225,9 @@ line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
 plus the training paths' eval and engine batches (phases 8, 11, 12,
 16), K2-K6's training paths (phases 8, 11-13 and 16, by path in
 ``launches_by_path``); the hot modes' entries count the hot paths
-(phases 18-19); every count is set to 0 just before each path and
-read just after it.
+(phases 18-19), the D-tiled FM forms their phase-21 paths, and the
+MVM forms the MVM paths (phases 25-27); every count is set to 0 just
+before each path and read just after it.
 """
 
 from __future__ import annotations
@@ -473,13 +511,17 @@ def libffm_lines(n: int, rng) -> list[str]:
 
 
 def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
-                    requests: int = 1024, concurrency: int = 16, hot: bool = False) -> dict:
+                    requests: int = 1024, concurrency: int = 16, hot: bool = False,
+                    model: str = "fm", v_dim: int = D, phase: tuple = (3, 4)) -> dict:
     """Phases 3 and 4: artifact → PredictEngine → score_text, then the
     MicroBatcher bench.  Returns the K1 launches counted across both.
     With ``hot`` (phase 18) the artifact is the flagship ``fm`` (hot
     table H = 2^14, 32 hot slots, 12 cold) with a frequency remap built
     from the scored lines' keys, and the engine remaps and steers each
-    request before K1 reads its hot and cold planes."""
+    request before K1 reads its hot and cold planes.  ``model="mvm"``
+    (phase 25) serves the flagship ``mvm`` the same way (its field
+    planes beside the keys), and ``v_dim`` (phase 21: 64) an FM wider
+    than one of the kernels' 32-factor tiles."""
     import torch
 
     from xflow_tpu_torch.io import freq
@@ -491,15 +533,15 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
     from xflow_tpu_torch.serve.artifact import write_artifact
     from xflow_tpu_torch.serve.engine import PredictEngine
 
-    cfg = fm_nohot_config(t_log2)
+    cfg = dataclasses.replace(fm_nohot_config(t_log2), model=model, v_dim=v_dim)
     if hot:
-        cfg = dataclasses.replace(cfg, **HOT_GEOMETRY["fm"])
-    phase = (18, 18) if hot else (3, 4)
+        cfg = dataclasses.replace(cfg, **HOT_GEOMETRY[model])
+    mvm = model == "mvm"
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     w = rng.standard_normal((cfg.table_size, 1), dtype=np.float32)
     w *= 0.3
-    v = rng.standard_normal((cfg.table_size, D), dtype=np.float32)
+    v = rng.standard_normal((cfg.table_size, v_dim), dtype=np.float32)
     v *= 0.05
     lines = libffm_lines(n_lines, rng)
     block = parse_block("\n".join(lines).encode() + b"\n", cfg.table_size,
@@ -508,9 +550,10 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
     if hot:
         counts = np.bincount(block.keys, minlength=cfg.table_size)
         remap = freq.build_remap(counts, cfg.hot_size)
-    name = "fm_hot" if hot else "fm_nohot"
-    art = write_artifact(f"{workdir}/{name}", cfg, {"w": w, "v": v}, step=1, remap=remap)
-    log(f"phase {phase[0]}: wrote the {name} artifact (T=2^{t_log2}, D={D}) in "
+    name = f"{model}_{'hot' if hot else 'nohot'}_d{v_dim}"
+    tables = {"v": v} if mvm else {"w": w, "v": v}
+    art = write_artifact(f"{workdir}/{name}", cfg, tables, step=1, remap=remap)
+    log(f"phase {phase[0]}: wrote the {name} artifact (T=2^{t_log2}, D={v_dim}) in "
         f"{time.perf_counter() - t0:.3f} s")
 
     score.launches = 0  # the main path starts here
@@ -533,10 +576,12 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
     # the same parsed planes through the plain version, on the card
     batch = remap_batch(pack_batch(block, 0, n_lines, n_lines, cfg.max_nnz), remap,
                         cfg.hot_size, cfg.hot_nnz)
-    planes = to_device_planes(compact_wire_np(batch, hot_u16=True), dev)
+    planes = to_device_planes(compact_wire_np(batch, hot_u16=True, ship_slots=mvm), dev)
     tables = engine.state["tables"]
-    want = score_plain(planes["ckeys"], None, tables["w"]["param"], tables["v"]["param"],
-                       hot=planes.get("hot"), hot_size=cfg.hot_size)
+    want = score_plain(planes["ckeys"], None, tables["w"]["param"] if not mvm else None,
+                       tables["v"]["param"], hot=planes.get("hot"), hot_size=cfg.hot_size,
+                       fields=planes.get("fields"), hot_fields=planes.get("hot_fields"),
+                       max_fields=cfg.max_fields)
     err = float(np.abs(pctr - want.cpu().numpy()).max())
     if err > PCTR_ATOL:
         raise AssertionError(f"engine vs plain on the card: max err {err}")
@@ -544,12 +589,19 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
     ref_err = 0.0
     for i in range(64):
         live = batch.mask[i] > 0
+        hlive = batch.hot_mask[i] > 0
         # the model's rows: the hot section's and the cold one's keys
-        keys_i = np.concatenate([batch.hot_keys[i][batch.hot_mask[i] > 0],
-                                 batch.keys[i][live]])
-        lin = float(w[keys_i, 0].astype(np.float64).sum())
+        keys_i = np.concatenate([batch.hot_keys[i][hlive], batch.keys[i][live]])
         vr = v[keys_i].astype(np.float64)
-        logit = lin + float((vr.sum(0) ** 2 - (vr * vr).sum(0)).sum())
+        if mvm:  # the centred product over the fields of 1 + their sums
+            fields_i = np.concatenate([batch.hot_slots[i][hlive], batch.slots[i][live]])
+            prod = np.ones(v_dim)
+            for f in np.unique(fields_i[(fields_i >= 0) & (fields_i < cfg.max_fields)]):
+                prod *= 1.0 + vr[fields_i == f].sum(0)
+            logit = float((prod - 1.0).sum())
+        else:
+            lin = float(w[keys_i, 0].astype(np.float64).sum())
+            logit = lin + float((vr.sum(0) ** 2 - (vr * vr).sum(0)).sum())
         p = 1e-6 if logit < -30 else 1.0 if logit > 30 else 1 / (1 + math.exp(-logit))
         ref_err = max(ref_err, abs(p - float(pctr[i])))
     if ref_err > 1e-5:
@@ -2502,6 +2554,8 @@ def phase_input_paths(dev, t_log2: int, workdir: str, dense: dict) -> dict:
 HOT_GEOMETRY = {
     "fm": {"max_nnz": 12, "hot_size_log2": 14, "hot_nnz": 32, "v_dim": D},
     "lr": {"max_nnz": 16, "hot_size_log2": 12, "hot_nnz": 32},
+    # scripts/bench_models.py:79-82 (mvm), max_fields 39 as fm_nohot_config
+    "mvm": {"max_nnz": 12, "hot_size_log2": 14, "hot_nnz": 32, "v_dim": D},
 }
 HOT_MODES = (
     ("hot_dense", {}),
@@ -2616,15 +2670,25 @@ def phase_hot_k1(dev, t_log2: int) -> dict:
     return worst
 
 
-def hot_timing_row(kernel: str, fn, plain, args, bound: dict, prelude=None, **extra) -> dict:
+def hot_timing_row(kernel: str, fn, plain, args, bound: dict, prelude=None, phase=20,
+                   **extra) -> dict:
     """Device ms of ``fn`` and ``plain`` on ``args`` (behind _sleep, 60
     calls), with the bound and no library call."""
     row = {"kernel": kernel, **extra,
            "ms": time_device_ms(fn, args, prelude=prelude),
            "plain_ms": time_device_ms(plain, args, prelude=prelude, chunk_size=5),
            **bound, "library_ms": None}
-    log(json.dumps(dict(row, phase=20)))
+    log(json.dumps(dict(row, phase=phase)))
     return row
+
+
+def field_kw(arrays: dict) -> dict:
+    """K1's and K2's MVM-form keywords for a view that carries field
+    planes (and its ``max_fields``), else none."""
+    if "fields" not in arrays:
+        return {}
+    return {"fields": arrays["fields"], "hot_fields": arrays.get("hot_fields"),
+            "max_fields": arrays["max_fields"]}
 
 
 def k2_hot_call(form: str, arrays: dict, tables: dict, h: int, snap=None,
@@ -2643,14 +2707,13 @@ def k2_hot_call(form: str, arrays: dict, tables: dict, h: int, snap=None,
 
     keys = arrays["ckeys"]
     dev = keys.device
-    w, v = tables["w"]["param"], tables["v"]["param"] if "v" in tables else None
-    t, m = w.shape[0], keys.numel()
-    g = {"w": torch.zeros_like(w)}
-    if v is not None:
-        g["v"] = torch.zeros_like(v)
+    w, v = (tables[n]["param"] if n in tables else None for n in ("w", "v"))
+    t, m = (w if w is not None else v).shape[0], keys.numel()
+    g = {n: torch.zeros_like(tables[n]["param"]) for n in ("w", "v") if n in tables}
     acc = torch.zeros(2, dtype=torch.float64, device=dev)
+    hot = arrays.get("hot")
     heads = {n: torch.zeros((h, a.shape[1]), device=dev) for n, a in g.items()}
-    kw = {"hot": arrays["hot"], "hot_size": h, "hot_bf16": bf16}
+    kw = {"hot": hot, "hot_size": h, "hot_bf16": bf16, **field_kw(arrays)}
     dst = g
     if form == "hybrid":
         ukeys = torch.empty(m, dtype=torch.int32, device=dev)
@@ -2661,10 +2724,12 @@ def k2_hot_call(form: str, arrays: dict, tables: dict, h: int, snap=None,
     elif form == "dense":
         heads = {n: a[:h] for n, a in g.items()}
     else:
-        kw.update(snap_w=snap["w"], snap_v=snap.get("v"))
-    kw.update(hg_w=heads["w"], hg_v=heads.get("v"))
+        kw.update(snap_w=snap.get("w"), snap_v=snap.get("v"))
+    if hot is None:  # the cold plane alone: no head destination
+        heads = {}
+    kw.update(hg_w=heads.get("w"), hg_v=heads.get("v"))
     args = (keys, None, arrays["labels_u8"], arrays["weights_u8"], arrays["num_real"], w, v,
-            dst["w"], dst.get("v"), acc)
+            dst.get("w"), dst.get("v"), acc)
 
     def rows():
         if form == "hybrid":
@@ -2672,7 +2737,7 @@ def k2_hot_call(form: str, arrays: dict, tables: dict, h: int, snap=None,
             for name in g:
                 g[name].index_add_(0, ukeys[:n].long(), dst[name][:n])
         if form != "dense":
-            for name in g:
+            for name in heads:
                 g[name][:h] += heads[name]
         return g, acc
 
@@ -2765,11 +2830,11 @@ def check_bf16(case: str, form: str, arrays: dict, tables: dict, h: int, gk: dic
     from xflow_tpu_torch.ops.hot import hot_scatter
     from xflow_tpu_torch.ops.train import occurrence_grads, train_plain
 
-    v = tables["v"]["param"] if "v" in tables else None
+    w, v = (tables[n]["param"] if n in tables else None for n in ("w", "v"))
     occ, hk, _, _ = occurrence_grads(arrays["ckeys"], None, arrays["labels_u8"],
                                      arrays["weights_u8"], arrays["num_real"],
-                                     tables["w"]["param"], v, hot=arrays["hot"], hot_size=h,
-                                     hot_bf16=True)
+                                     w, v, hot=arrays["hot"], hot_size=h,
+                                     hot_bf16=True, **field_kw(arrays))
     eff = torch.where(hk >= 0, hk, torch.full_like(hk, h)).reshape(-1)
     kh = hk.shape[1]
     stats = {"case": case, "form": form, "beyond_f32_bound": 0, "flag_power": 0,
@@ -3148,7 +3213,7 @@ def phase_hot(dev, t_log2: int, workdir: str, dense: dict) -> dict:
     out["checks"]["k1"] = phase_hot_k1(dev, t_log2)
     log(json.dumps({"phase": 17, "k1_hot": out["checks"]["k1"]}))
     torch.cuda.empty_cache()
-    out["serve"] = phase_main_path(dev, t_log2, workdir, hot=True)
+    out["serve"] = phase_main_path(dev, t_log2, workdir, hot=True, phase=(18, 18))
     torch.cuda.empty_cache()
     k6_checks, flush = [], torch.empty(1 << 27, dtype=torch.uint8, device=dev)
 
@@ -3235,6 +3300,801 @@ def phase_hot(dev, t_log2: int, workdir: str, dense: dict) -> dict:
     out["checks"]["k6_hot"] = k6_checks
     del flush
     return out
+
+
+# ---------------------------------------------------------------------------
+# C1 (FM past 32 factors) and MVM with its field planes (phases 21-27)
+
+WIDE_DIMS = (33, 64, 156)
+WIDE_T_LOG2 = 20  # v at D = 156 and T = 2^24 would take 10.5 GB a table
+FM64_T_LOG2 = 22  # the served and trained v_dim = 64 FM
+MVM_FIELDS = 39  # max_fields of the flagship geometries
+MVM_NOHOT = {"max_nnz": K, "v_dim": D}  # scripts/bench_models.py mvm_nohot
+C1_REPLACES = (
+    "xflow_tpu/models/blocks.py:171 (B8 fm_pair_pieces) + xflow_tpu/models/fm.py:60-75 "
+    "at any v_dim (the reference bounds v_dim nowhere, config.py:47); no "
+    "pl.pallas_call in the reference"
+)
+B9_REPLACES = (
+    "xflow_tpu/models/blocks.py:186 (B9 mvm_slot_terms) + xflow_tpu/models/mvm.py:82-112 "
+    "(B9 MVMModel.logit / grad_logit, the 1e-12 guard) + "
+    "xflow_tpu/parallel/step.py:782-810 (B4s the compact wire's u8 and the full wire's "
+    "int32 field planes); no pl.pallas_call in the reference"
+)
+K6_FIELDS_REPLACES = (
+    "xflow_tpu/parallel/step.py:691-701 (B4s flat_slots) over cw_cs (:727-731) and cw_hs "
+    "(:758-762); no pl.pallas_call in the reference"
+)
+MVM_LIBRARY_WHY_NULL = ("no single PyTorch call computes MVM's fused per-field sums, "
+                        "product and guarded gradient (with the gather, scatter and "
+                        "log-loss in K2)")
+
+
+def fm_logit_bound(keys, x, w, v):
+    """Phase 6's bound on the logit's float32 rounding, both sides
+    (k2_tolerances' ``dlogit``): 2 gamma times the summed magnitudes."""
+    import torch
+
+    live = keys >= 0
+    kl = keys.clamp(min=0).long()
+    xk = (live.double() if x is None else x.double()) * live
+    mag = (w[kl, 0].double() * xk).abs().sum(1)
+    vx = v[kl].double() * xk[..., None]
+    s = vx.sum(1)
+    mag = mag + (2 * s.abs() * vx.abs().sum(1) + (vx * vx).sum(1)).sum(1)
+    return 2 * EPS32 * (keys.shape[1] + v.shape[1] + 4) * mag
+
+
+def mvm_tolerances(keys, fields, x, labels, weights, num_real, v, s: int,
+                   logit_only: bool = False) -> dict:
+    """Bounds on K1's and K2's MVM form against their plain versions for
+    one batch, in float64 from the inputs (``keys`` and ``fields`` hold
+    the hot plane ahead of the cold one; -1 keys and fields outside
+    [0, s) are dropped).  Per side: a field's 1 + sum within EPS32 (n +
+    1) of its n slots' summed magnitudes plus |1 + sum|; the product
+    within the sum of each factor's error times the other factors'
+    product, plus EPS32 (fields + 1) of itself; the logit within the
+    sum of those plus EPS32 (D + 1) of sum |prod - 1|; a slot's
+    prod / own within the product's error over |own| plus |prod| times
+    own's error over own^2 plus EPS32 of itself, and, where own's error
+    reaches the guard's 1e-12 (``straddle``: one side may zero it), its
+    whole magnitude; then the residual and the scatter as phase 6's
+    k2_tolerances, each side's bound taken twice.  Returns {"logit" [B]
+    (both sides), "straddle" [B, N]} and, unless ``logit_only``, "v"
+    [rows of v, D] per-element tolerances and "logloss"."""
+    import torch
+
+    b, n = keys.shape
+    d = v.shape[1]
+    dev = keys.device
+    live = (keys >= 0) & (fields >= 0) & (fields < s)
+    kl = keys.clamp(min=0).long()
+    xk = (torch.ones((b, n), dtype=torch.float64, device=dev) if x is None
+          else x.double()) * live
+    vx = v[kl].double() * xk[..., None]
+    f = torch.where(live, fields.long(), torch.full_like(kl, s))
+    idx = (torch.arange(b, device=dev)[:, None] * (s + 1) + f).reshape(-1)
+
+    def per_field(vals):
+        out = torch.zeros((b * (s + 1), vals.shape[-1]), dtype=torch.float64, device=dev)
+        out.index_add_(0, idx, vals.reshape(-1, vals.shape[-1]))
+        return out.view(b, s + 1, -1)[:, :s]
+
+    own = 1.0 + per_field(vx)
+    cnt = per_field(live.double()[..., None])
+    err_own = EPS32 * ((cnt + 1) * per_field(vx.abs()) + own.abs())
+    ones = torch.ones((b, 1, d), dtype=torch.float64, device=dev)
+    pre = torch.cumprod(torch.cat([ones, own[:, :-1]], 1), 1)
+    suf = torch.cumprod(torch.cat([ones, own.flip(1)[:, :-1]], 1), 1).flip(1)
+    excl = pre * suf  # prod / own, exactly, [B, S, D]
+    prod = pre[:, -1] * own[:, -1]
+    present = (cnt[..., 0] > 0).sum(1, keepdim=True).double()
+    err_prod = (err_own * excl.abs()).sum(1) + EPS32 * (present + 1) * prod.abs()
+    logit = (prod - 1.0).sum(1)
+    dlogit = 2 * (err_prod.sum(1) + EPS32 * (d + 1) * (prod - 1.0).abs().sum(1))
+    gidx = f.clamp(max=s - 1)[..., None].expand(-1, -1, d)
+    o, eo = own.gather(1, gidx), err_own.gather(1, gidx)
+    straddle = (o.abs() - eo <= 1e-12) & live[..., None]
+    out = {"logit": dlogit, "straddle": straddle.any(-1)}
+    if logit_only:
+        return out
+    g = excl.gather(1, gidx)
+    safe = torch.where(o == 0, torch.ones_like(o), o)
+    err_g = (err_prod[:, None, :] / safe.abs() + prod.abs()[:, None, :] * eo / safe.square()
+             + EPS32 * g.abs())
+    err_g = torch.where(straddle, g.abs() * (1 + 1e-3), err_g)
+    p = 1.0 / (1.0 + torch.exp(-logit))
+    p = torch.where(logit < -30, torch.full_like(p, 1e-6), p)
+    p = torch.where(logit > 30, torch.ones_like(p), p)
+    dp = p * (1 - p) * dlogit + 4 * EPS32 * p
+    dp = dp + torch.where((logit + 30).abs() <= dlogit, 1e-6, 0.0)
+    y, wt = labels.double(), weights.double()
+    r = (p - y) * wt / num_real
+    dr = dp * wt / num_real + 4 * EPS32 * r.abs()
+    occ = g * xk[..., None] * r[:, None, None]
+    err = (xk.abs()[..., None] * (err_g * r.abs()[:, None, None] + g.abs() * dr[:, None, None])
+           + 2 * EPS32 * occ.abs())
+    flat = kl[live]
+    t = v.shape[0]
+    n_row = torch.bincount(flat, minlength=t).double()[:, None]
+
+    def scatter(vals):
+        acc = torch.zeros((t, d), dtype=torch.float64, device=dev)
+        return acc.index_add_(0, flat, vals[live])
+
+    out["v"] = 2 * (scatter(err) + EPS32 * (n_row + 4) * scatter(occ.abs()))
+    pc = p.clamp(1e-6, 1 - 1e-6)
+    ll = -(y * torch.log(pc) + (1 - y) * torch.log(1 - pc)) * wt
+    dll = dp / torch.minimum(pc, 1 - pc) * wt
+    out["logloss"] = 2 * (float(dll.sum()) + EPS32 * (b + 4) * float(ll.abs().sum()))
+    return out
+
+
+def view_fields(view: dict):
+    """A view's field plane as the bounds read it: the hot fields (when
+    there is a hot plane) ahead of the cold ones, int64."""
+    import torch
+
+    fields = view["fields"].long()
+    if "hot_fields" in view:
+        fields = torch.cat([view["hot_fields"].long(), fields], dim=1)
+    return fields
+
+
+def mvm_bounds(view: dict, dim: int, hot_size: int, train: bool, index: bool = False) -> dict:
+    """K1's (``train`` False: v rows read, pctr written) or K2's (v rows
+    read, gradient rows read and written; K4's slot plane in
+    ``index`` mode) least time on this card for THIS batch: each byte
+    once, or about 2D (K1) or 5D (K2) float32 operations a live slot
+    and 2D a present field, whichever is longer."""
+    import torch
+
+    keys, hot = view["ckeys"], view.get("hot")
+    live_keys, hot_bytes = hot_stream(keys, hot, hot_size)
+    b, k = keys.shape
+    kh = hot.shape[1] if hot is not None else 0
+    # keys, the hot plane at its wire width, the field planes, and
+    # labels and weights (K2) or pctr (K1)
+    stream = (4 * b * k + hot_bytes + b * (k + kh) * view["fields"].element_size()
+              + (2 * b * view["labels_u8"].element_size() if train else 4 * b))
+    rows = int(torch.unique(live_keys).numel())
+    live = int(live_keys.numel())
+    used = stream + rows * (3 if train else 1) * 4 * dim + (4 * b * k if index else 0)
+    ops = live * dim * (7 if train else 4) + (b * 30 if train else 0)
+    used_ms = used / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(used_ms, ops_ms),
+            "bound_by": "bytes" if used_ms >= ops_ms else "operations",
+            "bound_bytes": used, "bound_ops": ops, "distinct_rows": rows,
+            "live_slots": live}
+
+
+def fresh_init(dev, cfg) -> dict:
+    """A Trainer's seeded initial state for ``cfg`` on the card, as
+    numpy (the paths of a cell start from it on the card and the CPU)."""
+    from xflow_tpu_torch.convert import state_to_numpy
+    from xflow_tpu_torch.trainer import Trainer
+
+    trainer = Trainer(dataclasses.replace(cfg, metrics_out=""), device=dev,
+                      log=lambda _: None)
+    init = state_to_numpy(trainer.state, aux=True)
+    trainer.close()
+    del trainer
+    return init
+
+
+def phase_wide_fm(dev, workdir: str, dense: dict) -> dict:
+    """Phase 21 (C1): K1 and K2's FM form at D = 33, 64 and 156 (two to
+    five tiles of 32) against their plain versions at T = 2^20: K1 in
+    every serving bucket (phase 2's tolerances plus phase 6's logit
+    bound: 156 factors of s^2 - s2 cancel), K2 on a 65,536-row compact
+    batch and a 1,024-row full-wire Zipf batch (phase 6's bounds); K1
+    and K2 at D = 64 timed with their byte bounds; a reference-shaped
+    v_dim = 64 FM artifact (T = 2^22) served as phases 3-4 serve; and
+    one dispatch of v_dim = 64 FM trained on the card and the CPU from
+    the same state (TRAIN_BOUNDS)."""
+    import torch
+
+    from xflow_tpu_torch.ops.score import score, score_plain
+    from xflow_tpu_torch.ops.train import train_plain, train_step
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    t = 1 << WIDE_T_LOG2
+    w = torch.randn((t, 1), generator=g, device=dev) * 3.0
+    w[:64] = 20.0
+    w[64:128] = -20.0
+    v_all = torch.randn((t, max(WIDE_DIMS)), generator=g, device=dev)
+    k1 = {"max_abs_err": 0.0, "cases": 0}
+    k2 = {"max_abs_err_g": 0.0, "max_err_over_tol": 0.0, "max_abs_err_logloss_sum": 0.0}
+    timings = []
+    for d in WIDE_DIMS:
+        v = (v_all[:, :d] * (0.3 * math.sqrt(D / d))).contiguous()
+        for b in BUCKETS:
+            for full in (False, True):
+                keys, x = make_keys(b, t, g, dev, full)
+                got_p, got_l = score(keys, x, w, v, return_logit=True)
+                want_p, want_l = score_plain(keys, x, w, v, return_logit=True)
+                torch.cuda.synchronize()
+                ltol = LOGIT_ATOL + LOGIT_RTOL * want_l.abs() + fm_logit_bound(keys, x, w, v)
+                ptol = PCTR_ATOL + want_p * (1 - want_p) * ltol
+                if (float(((got_l - want_l).abs() - ltol).max()) > 0
+                        or float(((got_p - want_p).abs() - ptol).max()) > 0
+                        or not bool(torch.isfinite(got_p).all())):
+                    raise AssertionError(f"K1 FM at D={d} disagrees with score_plain: B={b}")
+                k1["max_abs_err"] = max(k1["max_abs_err"], float((got_p - want_p).abs().max()))
+                k1["cases"] += 1
+        for b, full, zipf in ((TRAIN_BATCHES[-1], False, False), (TRAIN_BATCHES[0], True, True)):
+            case = f"D={d} B={b} {'full zipf' if full else 'compact uniform'}"
+            check_k2(case, *k2_inputs(b, w, g, dev, full, zipf), w, v, k2)
+        torch.cuda.empty_cache()
+        if d != 64:
+            continue
+        pool = [(torch.randint(0, t, (BUCKETS[-1], K), generator=g, device=dev,
+                               dtype=torch.int32),) for _ in range(KEY_POOL)]
+        args = [(pool[i % KEY_POOL][0], None, w, v) for i in range(TIMED_RUNS)]
+        timings.append({"kernel": "score (fm, D tiled)", "B": BUCKETS[-1], "K": K, "D": d,
+                        "ms": time_device_ms(score, args),
+                        "host_path_ms": time_host_path_ms(score, args),
+                        "plain_ms": time_device_ms(score_plain, args),
+                        **bounds(pool[0][0], None, d), "library_ms": None,
+                        "library_why_null": "no single PyTorch call scores FM"})
+        keys, x, labels, weights, num_real = k2_inputs(TRAIN_BATCHES[-1], w, g, dev, False,
+                                                       False)
+        gw, gv = torch.zeros_like(w), torch.zeros_like(v)
+        acc = torch.zeros(2, dtype=torch.float64, device=dev)
+        flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
+        kargs = [(keys, None, labels, weights, num_real, w, v, gw, gv, acc)] * TIMED_RUNS
+        timings.append({"kernel": "train_step (fm, D tiled)", "B": TRAIN_BATCHES[-1], "K": K,
+                        "D": d, "ms": time_device_ms(train_step, kargs, prelude=flush.zero_),
+                        "plain_ms": time_device_ms(train_plain, kargs, prelude=flush.zero_,
+                                                   chunk_size=5),
+                        **k2_bounds(keys, None, labels, d), "library_ms": None,
+                        "library_why_null": "no single PyTorch call computes the gather, "
+                        "logit, residual, scatter-add and log-loss"})
+        del flush, gw, gv
+    for row in timings:
+        log(json.dumps(dict(row, phase=21)))
+    del w, v_all, v
+    torch.cuda.empty_cache()
+    serve = phase_main_path(dev, FM64_T_LOG2, workdir, model="fm", v_dim=64, phase=(21, 21))
+    torch.cuda.empty_cache()
+    one = single_shard(dense["data"], workdir)
+    mode = {"v_dim": 64, "epochs": 1}
+    init = fresh_init(dev, mode_config("fm", FM64_T_LOG2, one, "", **mode))
+    run = run_mode(dev, "fm", FM64_T_LOG2, one, init, mode, "fm_v64_dense", workdir,
+                   evaluate=False)
+    row = dict(run["row"], phase=21)
+    log(json.dumps(row))
+    del run, init
+    torch.cuda.empty_cache()
+    return {"k1": k1, "k2": k2, "timings": timings, "serve": serve, "train": row}
+
+
+def mvm_planes(b: int, kc: int, kh: int, h: int, t: int, g, dev) -> dict:
+    """K1's MVM inputs at a serving shape: make_keys' cold plane cut to
+    ``kc`` slots, a u16 hot plane of ``kh`` slots (hot_keys), and u8
+    field planes over MVM_FIELDS with about 5 % at the u8 clamp's 255."""
+    import torch
+
+    def fields(shape):
+        f = torch.randint(0, MVM_FIELDS, shape, generator=g, device=dev)
+        f[torch.rand(shape, generator=g, device=dev) < 0.05] = 255
+        return f.to(torch.uint8).contiguous()
+
+    keys = make_keys(b, t, g, dev, False)[0][:, :kc].contiguous()
+    out = {"ckeys": keys, "fields": fields((b, kc)), "max_fields": MVM_FIELDS}
+    if kh:
+        out.update(hot=hot_keys(b, kh, h, g, dev, True), hot_fields=fields((b, kh)))
+    return out
+
+
+def phase_mvm_k1(dev, t_log2: int) -> dict:
+    """Phase 23: K1's MVM form against score_plain at T = 2^24, D = 10:
+    the flagship ``mvm`` planes (12 cold + 32 hot slots, u16 ids at
+    H = 2^14), with the bf16 flag, and ``mvm_nohot``'s 40 cold slots,
+    every serving bucket; the logit within mvm_tolerances' bound and
+    pctr within PCTR_ATOL plus that bound through the sigmoid's slope.
+    Rows [0, 64) of v hold 1 and rows [64, 128) -3, so steered rows
+    reach the clamps.  Then K1 timed at B = 512 on the flagship planes."""
+    import torch
+
+    from xflow_tpu_torch.ops.hot import to_bf16_f32
+    from xflow_tpu_torch.ops.score import hot_plane_keys, score, score_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    t, h = 1 << t_log2, 1 << HOT_GEOMETRY["mvm"]["hot_size_log2"]
+    v = torch.randn((t, D), generator=g, device=dev) * 0.1
+    v[:64] = 1.0
+    v[64:128] = -3.0
+    worst = {"max_abs_err": 0.0, "cases": 0, "clamped": 0}
+    for case, kc, kh, bf16 in (("mvm u16 H=2^14", 12, 32, False),
+                               ("mvm u16 H=2^14 bf16", 12, 32, True),
+                               ("mvm_nohot K=40", K, 0, False)):
+        for b in BUCKETS:
+            pl = mvm_planes(b, kc, kh, h, t, g, dev)
+            kw = dict(hot=pl.get("hot"), hot_size=h if kh else 0, hot_bf16=bf16,
+                      **field_kw(pl))
+            got_p, got_l = score(pl["ckeys"], None, None, v, True, **kw)
+            want_p, want_l = score_plain(pl["ckeys"], None, None, v, True, **kw)
+            torch.cuda.synchronize()
+            keys = pl["ckeys"].long()
+            if kh:
+                keys = torch.cat([hot_plane_keys(pl["hot"], h), keys], dim=1)
+            vb = v
+            if bf16:  # the bound over the rounded head both sides read
+                vb = v.clone()
+                vb[:h] = to_bf16_f32(v[:h])
+            ltol = 1.01 * mvm_tolerances(keys, view_fields(pl), None, None, None, 1.0, vb,
+                                         MVM_FIELDS, logit_only=True)["logit"] + 1e-7
+            ptol = PCTR_ATOL + want_p * (1 - want_p) * ltol
+            if (float(((got_l - want_l).abs() - ltol).max()) > 0
+                    or float(((got_p - want_p).abs() - ptol).max()) > 0
+                    or not bool(torch.isfinite(got_p).all())):
+                raise AssertionError(f"K1 MVM form disagrees with score_plain: {case} B={b}")
+            worst["max_abs_err"] = max(worst["max_abs_err"], float((got_p - want_p).abs().max()))
+            worst["clamped"] += int((want_l.abs() > 30).sum())
+            worst["cases"] += 1
+    if not worst["clamped"]:
+        raise AssertionError("phase 23 did not reach the sigmoid's clamps")
+    b = BUCKETS[-1]
+    pool = [mvm_planes(b, 12, 32, h, t, g, dev) for _ in range(KEY_POOL)]
+    args = [(pool[i % KEY_POOL],) for i in range(TIMED_RUNS)]
+
+    def kernel(pl):
+        return score(pl["ckeys"], None, None, v, hot=pl["hot"], hot_size=h, **field_kw(pl))
+
+    def plain(pl):
+        return score_plain(pl["ckeys"], None, None, v, hot=pl["hot"], hot_size=h,
+                           **field_kw(pl))
+
+    worst["timing"] = {"kernel": "score (mvm)", "model": "mvm", "B": b, "Kc": 12, "Kh": 32,
+                       "H": h, "D": D, "plane": "u16, u8 fields",
+                       "ms": time_device_ms(kernel, args),
+                       "host_path_ms": time_host_path_ms(kernel, args),
+                       "plain_ms": time_device_ms(plain, args),
+                       **mvm_bounds(pool[0], D, h, train=False), "library_ms": None,
+                       "library_why_null": MVM_LIBRARY_WHY_NULL}
+    log(json.dumps({"phase": 23, "k1_mvm": worst}))
+    del v, pool
+    return worst
+
+
+def clamp_fields(slots, mask) -> np.ndarray:
+    """A field plane as the u8 wire carries it (outside [0, 255] → 255)
+    and K6 decodes it (0 on padding)."""
+    u8 = np.where((slots < 0) | (slots > 255), 255, slots)
+    return np.where(mask > 0, u8, 0).astype(np.uint8)
+
+
+def check_k6_fields(cfg, trainer, dev) -> tuple[list, list]:
+    """Phase 22: K6 with the field streams against its plain version,
+    exactly, and against the batch's own planes (keys, labels, weights,
+    hot ids, and the field ids under the u8 clamp, 0 on padding), on
+    ``hot_k6_batches`` (the path's batch 0, the 4-slot overflow, an
+    empty hot plane) and batch 0 with 5 % of its field ids past
+    max_fields (up to 300) and 5 % negative; then K6 timed on batch 0
+    (device ms behind _sleep, plain ms, the byte bound over every
+    plane read and written)."""
+    import torch
+
+    from xflow_tpu_torch.io.batch import Batch
+    from xflow_tpu_torch.io.compact import compact_batch
+    from xflow_tpu_torch.ops.wire import dict_decode, dict_decode_plain, to_device
+
+    cases = hot_k6_batches(cfg, trainer)
+    name, base, kh = cases[0]
+    rng = np.random.default_rng(SEED)
+
+    def scramble(slots):
+        r = rng.random(slots.shape)
+        out = np.where(r < 0.05, rng.integers(cfg.max_fields, 301, slots.shape), slots)
+        return np.where((r >= 0.05) & (r < 0.1), -rng.integers(1, 50, slots.shape),
+                        out).astype(np.int32)
+
+    cases.append((f"{cfg.model} ids outside [0, max_fields)",
+                  Batch(base.keys, scramble(base.slots), base.vals, base.mask, base.labels,
+                        base.weights, base.hot_keys, scramble(base.hot_slots),
+                        base.hot_vals, base.hot_mask), kh))
+    checks, timings = [], []
+    for name, batch, kh in cases:
+        cb = compact_batch(batch, cfg.table_size, cfg.hot_size)
+        wire = cb.wire(ship_slots=True)
+        planes = to_device(wire, dev)
+        kc = batch.max_nnz
+        got = dict_decode(planes, kc, kh)
+        want = dict_decode_plain(planes, kc, kh)
+        torch.cuda.synchronize()
+        truth = (np.where(batch.mask > 0, batch.keys, -1), batch.labels, batch.weights,
+                 np.where(batch.hot_mask > 0, batch.hot_keys, -1),
+                 clamp_fields(batch.slots, batch.mask),
+                 clamp_fields(batch.hot_slots, batch.hot_mask))
+        labels = ("ckeys", "labels", "weights", "hot", "fields", "hot_fields")
+        err = {"plain": 0.0, "batch": 0.0}
+        if len(got) != 6 or len(want) != 6:
+            raise AssertionError(f"K6 field streams {name}: {len(got)} planes, want 6")
+        for gg, ww, tt, label in zip(got, want, truth, labels):
+            got_np = gg.cpu().numpy().astype(np.float64)
+            err["plain"] = max(err["plain"],
+                               float(np.abs(got_np - ww.cpu().numpy()).max(initial=0)))
+            err["batch"] = max(err["batch"], float(np.abs(got_np - tt).max(initial=0)))
+            if gg.dtype != ww.dtype or not torch.equal(gg, ww):
+                raise AssertionError(f"K6 field streams {name}: {label} differs from the "
+                                     "plain version")
+            if not np.array_equal(gg.cpu().numpy(), tt.astype(gg.cpu().numpy().dtype)):
+                raise AssertionError(f"K6 field streams {name}: {label} differs from the batch")
+        checks.append({"case": name, "B": batch.batch_size, "K": kc, "hot_nnz": kh,
+                       "n_cold": cb.n_cold, "n_hot": cb.n_hot,
+                       "fields_at_255": int((truth[4] == 255).sum() + (truth[5] == 255).sum()),
+                       "max_abs_err_plain": err["plain"], "max_abs_err_batch": err["batch"],
+                       "exact": True})
+        if name.endswith("main path batch 0"):
+            in_bytes = sum(int(a.nbytes) for k, a in wire.items() if k != "cw_cun")
+            out_bytes = batch.batch_size * (5 * (kc + kh) + 2)
+            timings.append(hot_timing_row(
+                "dict_decode (field streams)", dict_decode, dict_decode_plain,
+                [(planes, kc, kh)] * TIMED_RUNS,
+                {"bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+                 "bound_by": "bytes", "bytes": in_bytes + out_bytes}, phase=22,
+                model=cfg.model, B=batch.batch_size, K=kc, Kh=kh,
+                library_why_null=K6_LIBRARY_WHY_NULL))
+    log(json.dumps({"phase": 22, "k6_fields": checks}))
+    return checks, timings
+
+
+def guard_tables(view: dict, tables: dict, h: int) -> tuple[dict, list]:
+    """Copies of ``tables`` in which the guard fires on ``view``: for
+    each row whose field 0 holds exactly one live slot, and that on the
+    cold plane, that slot's v[key, 0] = -1 (x = 1 on the compact wire),
+    so its own-field factor is 1 + (-1) = 0 exactly.  Returns the
+    tables and the (row, slot) pairs."""
+    import torch
+
+    keys, fields = view["ckeys"], view["fields"].long()
+    live = keys >= 0
+    in0 = (fields == 0) & live
+    one = in0.sum(1) == 1
+    from xflow_tpu_torch.ops.score import hot_plane_keys
+
+    if "hot" in view:
+        hot_live = hot_plane_keys(view["hot"], h) >= 0
+        one &= ((view["hot_fields"].long() == 0) & hot_live).sum(1) == 0
+    rows = one.nonzero()[:, 0]
+    slots = in0[rows].int().argmax(1)
+    # a key that another field's slot also holds would move that field too
+    others = keys[live & (fields != 0)]
+    if "hot" in view:
+        others = torch.cat([others, hot_plane_keys(view["hot"], h)[
+            hot_live & (view["hot_fields"].long() != 0)]])
+    clean = ~torch.isin(keys[rows, slots], others)
+    rows, slots = rows[clean], slots[clean]
+    v = tables["v"]["param"].clone()
+    v[keys[rows, slots].long(), 0] = -1.0
+    return {"v": {"param": v}}, list(zip(rows.tolist(), slots.tolist()))
+
+
+def check_mvm_k2(case: str, form: str, view: dict, tables: dict, h: int, worst: dict,
+                 bf16: bool = False) -> None:
+    """K2's MVM form against train_plain on one batch or slice
+    (``k2_hot_call``'s forms: "dense", "hybrid" — index mode, with a
+    head buffer when the view has a hot plane — and "window"), compared
+    in table-row space within mvm_tolerances' per-row bound over the hot
+    and cold planes together (in window form over [v; snapshot], the
+    cold plane's keys < H as rows T + key); the log-loss sum within its
+    bound, the count exact; with ``bf16``, check_bf16's three rules at
+    this bound."""
+    import torch
+
+    from xflow_tpu_torch.ops.score import hot_plane_keys
+    from xflow_tpu_torch.ops.train import train_plain, train_step
+
+    v = tables["v"]["param"]
+    t = v.shape[0]
+    snap = {"v": (v[:h] * 0.5).contiguous()} if form == "window" else None
+    outs = []
+    for fn in (train_step, train_plain):
+        args, kw, rows = k2_hot_call(form, view, tables, h, snap, bf16)
+        fn(*args, **kw)
+        outs.append(rows())
+    torch.cuda.synchronize()
+    ck = view["ckeys"].long()
+    tv = v
+    if snap is not None:
+        ck = torch.where((ck >= 0) & (ck < h), ck + t, ck)
+        tv = torch.cat([v, snap["v"]])
+    keys = ck
+    if "hot" in view:
+        keys = torch.cat([hot_plane_keys(view["hot"], h), ck], dim=1)
+    tols = mvm_tolerances(keys, view_fields(view), None, view["labels_u8"],
+                          view["weights_u8"], view["num_real"], tv, view["max_fields"])
+    tol = tols["v"]
+    if snap is not None:
+        tol = tol[:t].index_add(0, torch.arange(h, device=v.device), tol[t:])
+    (gk, acc), (gp, pacc) = outs
+    if bf16:
+        check_bf16(case, form, view, tables, h, gk, gp, acc, pacc, {"v": tol}, worst)
+    else:
+        diff = (gk["v"].double() - gp["v"].double()).abs()
+        excess = float((diff - tol).max())
+        if excess > 0 or not bool(torch.isfinite(gk["v"]).all()):
+            raise AssertionError(f"K2 MVM {form} form disagrees with train_plain: {case} "
+                                 f"excess {excess}")
+        worst["max_abs_err_g"] = max(worst["max_abs_err_g"], float(diff.max()))
+        ratio = diff / torch.where(tol > 0, tol, 1.0)
+        worst["max_err_over_tol"] = max(worst["max_err_over_tol"], float(ratio.max()))
+    if abs(float(acc[0]) - float(pacc[0])) > tols["logloss"] or float(acc[1]) != float(pacc[1]):
+        raise AssertionError(f"K2 MVM {form} form log-loss/count {acc.tolist()} vs plain "
+                             f"{pacc.tolist()} ({case})")
+    worst["straddling_slots"] += int(tols["straddle"].sum())
+    worst["cases"] += 1
+
+
+def check_mvm_guard(view: dict, tables: dict, h: int, worst: dict) -> None:
+    """K2's dense MVM form where the guard fires (guard_tables): within
+    check_mvm_k2's bound, and the plain version's gradient of every
+    guarded slot exactly 0 in factor 0."""
+    from xflow_tpu_torch.ops.train import occurrence_grads
+
+    gt, guarded = guard_tables(view, tables, h)
+    if len(guarded) < 100:
+        raise AssertionError(f"the guard batch holds {len(guarded)} guarded slots")
+    check_mvm_k2("mvm guard batch", "dense", view, gt, h, worst)
+    occ, _, _, _ = occurrence_grads(view["ckeys"], None, view["labels_u8"],
+                                    view["weights_u8"], view["num_real"], None,
+                                    gt["v"]["param"], hot=view.get("hot"), hot_size=h,
+                                    **field_kw(view))
+    kh = view["hot"].shape[1] if "hot" in view else 0
+    vals = occ["v"][[r for r, _ in guarded], [kh + s for _, s in guarded], 0]
+    if bool(vals.any()):
+        raise AssertionError("the plain version's guard did not zero the guarded slots")
+    worst["guarded_slots"] = len(guarded)
+
+
+def time_mvm_k2(label: str, form: str, view: dict, tables: dict, h: int, flush,
+                phase: int = 24, name: str | None = None) -> dict:
+    """K2's MVM form timed alone on one batch (or slice) of its path,
+    beside its plain version (k2_hot_call's buffers, the plan made once
+    before; each call behind an L2 flush), with mvm_bounds."""
+    from xflow_tpu_torch.ops.train import train_plain, train_step
+
+    snap = ({"v": (tables["v"]["param"][:h] * 0.5).contiguous()} if form == "window"
+            else None)
+    args, kw, _ = k2_hot_call(form, view, tables, h, snap)
+
+    def kernel():
+        train_step(*args, **kw)
+
+    def plain():
+        train_plain(*args, **kw)
+
+    dim = tables["v"]["param"].shape[1]
+    row = {"kernel": name or f"train_step (mvm: {form})", "model": "mvm", "path": label,
+           "B": view["ckeys"].shape[0], "Kc": view["ckeys"].shape[1],
+           "Kh": view["hot"].shape[1] if "hot" in view else 0, "H": h, "D": dim,
+           "ms": time_device_ms(kernel, [()] * TIMED_RUNS, prelude=flush.zero_),
+           "plain_ms": time_device_ms(plain, [()] * TIMED_RUNS, prelude=flush.zero_,
+                                      chunk_size=5),
+           **mvm_bounds(view, dim, h, train=True, index=form == "hybrid"),
+           "library_ms": None, "library_why_null": MVM_LIBRARY_WHY_NULL}
+    log(json.dumps(dict(row, phase=phase)))
+    return row
+
+
+def phase_mvm(dev, t_log2: int, workdir: str, dense: dict) -> dict:
+    """Phases 22-27 at the flagship ``mvm`` (HOT_GEOMETRY: 12 cold + 32
+    hot slots, H = 2^14, D = 10, max_fields = 39, T = 2^24, batch
+    65,536; phase 8's shards) and ``mvm_nohot`` (40 cold slots): 23 K1's
+    MVM form against its plain version; 25 serving a hot ``mvm``
+    artifact; 26 training on the default input path (native text,
+    dictionary wire with the field streams) in dense, hybrid (sequential
+    + sparse inner, microbatch 128) and hot-inner (microbatch 128,
+    ``hot_windowend`` auto = sparse) mode, 2 epochs each from one seeded
+    initial state, the card against the CPU within TRAIN_BOUNDS (the
+    sequential forms through ``lockstep_tables``), exact launches, the
+    eval AUC inside the planted bars, the sync guard on the sequential
+    paths' first dispatch; on the paths' own batches 22 K6's field
+    streams (exactly) and 24 K2's MVM forms (dense, hybrid, window and
+    index mode on the 65,536-row batch, hybrid and window on slice 0,
+    bf16, the guard) against their plain versions, and timed;
+    27 ``mvm_nohot`` dense on the default path."""
+    import torch
+
+    from xflow_tpu_torch.parallel.step import hot_windowend
+
+    data, bars = dense["data"], dense["bars"]
+    out = {"rows": [], "checks": {}, "timings": [], "launches_by_path": {}}
+    k2w = {"max_abs_err_g": 0.0, "max_err_over_tol": 0.0, "cases": 0, "straddling_slots": 0}
+    out["checks"]["k1"] = phase_mvm_k1(dev, t_log2)
+    torch.cuda.empty_cache()
+    out["serve"] = phase_main_path(dev, t_log2, workdir, hot=True, model="mvm",
+                                   phase=(25, 25))
+    torch.cuda.empty_cache()
+    geom = HOT_GEOMETRY["mvm"]
+    h = 1 << geom["hot_size_log2"]
+    init = fresh_init(dev, mode_config("mvm", t_log2, data, "", **geom))
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
+
+    def book(label, run, **extra):
+        row = dict(run["row"], phase=26 if label != "nohot_dense" else 27, **extra)
+        out["rows"].append(row)
+        out["launches_by_path"][f"mvm {label}"] = row["launches"]
+        log(json.dumps(row))
+
+    for label, mode in HOT_MODES:
+        seq = mode.get("update_mode") == "sequential"
+        run = run_mode(dev, "mvm", t_log2, data, init, dict(geom, **mode), label, workdir,
+                       keep=True, bars=bars, lockstep=seq, sync_check=seq)
+        trainer, arrays = run["trainer"], run["shipped"][0]
+        cfg = trainer.cfg
+        tables = trainer.state["tables"]
+        if seq:
+            rows = arrays["ckeys"].shape[0] // SEQ_MICROBATCH
+            view = {k: a[:rows] for k, a in arrays.items() if isinstance(a, torch.Tensor)}
+            view["num_real"] = arrays["slice_num_real"][0]
+        else:
+            view = dict(arrays)
+        view["max_fields"] = cfg.max_fields
+        form = {"hot_dense": "dense", "hot_hybrid_mb128": "hybrid",
+                "hot_inner_mb128": "window"}[label]
+        if form == "dense":
+            out["hot_mass"] = trainer.hot_mass
+            out["truncation"] = truncated_share(cfg, trainer, run["shipped"])
+            checks, timings = check_k6_fields(cfg, trainer, dev)
+            out["checks"]["k6_fields"] = checks
+            out["timings"] += timings
+            cold = {k: a for k, a in view.items() if k not in ("hot", "hot_fields")}
+            for form, v_ in (("dense", view), ("hybrid", view), ("window", view),
+                             ("hybrid", cold)):
+                what = "index (cold plane)" if v_ is cold else form
+                check_mvm_k2(f"mvm batch 0 {what}", form, v_, tables, h, k2w)
+            check_mvm_k2("mvm batch 0 dense bf16", "dense", view, tables, h, k2w, bf16=True)
+            check_mvm_guard(view, tables, h, k2w)
+            out["timings"].append(time_mvm_k2(label, "dense", view, tables, h, flush))
+            out["timings"].append(time_mvm_k2(label, "hybrid", cold, tables, h, flush,
+                                              name="train_step (mvm: index)"))
+            for form in ("hybrid", "window"):  # the 65,536-row batch in those forms
+                out["timings"].append(time_mvm_k2(
+                    label, form, view, tables, h, flush,
+                    name=f"train_step (mvm: {form}, 65,536 rows)"))
+        else:
+            check_mvm_k2(f"mvm {label} slice 0", form, view, tables, h, k2w)
+            out["timings"].append(time_mvm_k2(label, form, view, tables, h, flush))
+        torch.cuda.empty_cache()
+        book(label, run, windowend=hot_windowend(cfg) if form == "window" else None,
+             hot_mass=trainer.hot_mass)
+        del run, trainer, arrays, view, tables
+        torch.cuda.empty_cache()
+    run = run_mode(dev, "mvm", t_log2, data, init, dict(MVM_NOHOT), "nohot_dense", workdir,
+                   keep=True, bars=bars)
+    view = dict(run["shipped"][0], max_fields=run["trainer"].cfg.max_fields)
+    check_mvm_k2("mvm_nohot batch 0 dense", "dense", view, run["trainer"].state["tables"], h,
+                 k2w)
+    out["timings"].append(time_mvm_k2("nohot_dense", "dense", view,
+                                      run["trainer"].state["tables"], h, flush, phase=27))
+    book("nohot_dense", run)
+    out["checks"]["k2"] = k2w
+    log(json.dumps({"phase": 24, "k2_mvm": k2w}))
+    del run, view, flush, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def mvm_train_rows(mvm: dict, hot: dict, modes: dict, train_path: dict, card: str) -> list:
+    """The ``train`` line's rows for the MVM paths (phases 26-27):
+    device busy from the launches times each kernel form's device ms
+    on the path's own batch or slice 0 (phase 24), K6 with the field
+    streams (phase 22), K3 over the whole table (phase 8's fm v table:
+    the same [2^24, 10] FTRL pass), K3 over the head rows and K5's fold
+    (phase 20's fm rows: the same widths), K4 (phase 14)."""
+    ms = {r["kernel"]: r["ms"] for r in mvm["timings"] if r.get("path") != "nohot_dense"}
+    hot_ms = {(r["kernel"], r.get("model")): r["ms"] for r in hot["timings"]}
+    fm = next(r for r in train_path["rows"] if r["model"] == "fm")
+    k3_v = next(r["ms"] for r in fm["k3_main_path"] if r["table"] == "v")
+    k4_ms = {r["path"]: r["ms"] for r in modes["timings"]
+             if r["kernel"] == "consolidate_keys" and r["model"] == "fm"}
+    nohot_k2 = next(r["ms"] for r in mvm["timings"] if r.get("path") == "nohot_dense")
+    rows = []
+    for row in mvm["rows"]:
+        n = row["launches"]
+        form = {"hot_dense": "dense", "hot_hybrid_mb128": "hybrid",
+                "hot_inner_mb128": "window", "nohot_dense": "dense"}[row["mode"]]
+        k2 = nohot_k2 if row["mode"] == "nohot_dense" else ms[f"train_step (mvm: {form})"]
+        busy_ms = n["train_step"] * k2 + n["dict_decode"] * ms["dict_decode (field streams)"]
+        k3_head = hot_ms[("optim_update (head rows)", "fm")]
+        if form == "dense":
+            busy_ms += row["steps"] * k3_v
+        elif form == "hybrid":
+            busy_ms += (n["optim_update"] * k3_head
+                        + n["touched_update"] * hot_ms[("touched_update (fold)", "fm")]
+                        + n["consolidate_keys"] * k4_ms["sequential main path, slice 0"])
+        else:
+            busy_ms += n["optim_update"] * k3_head + n["consolidate_keys"] * k4_ms[
+                "sparse main path"]
+        busy = busy_ms / 1e3
+        rows.append({
+            "model": "mvm", "mode": row["mode"], "card": card,
+            "hot_mass": row.get("hot_mass"), "windowend": row.get("windowend"),
+            "truncation": mvm["truncation"] if row["mode"] != "nohot_dense" else None,
+            "examples_per_sec": row["examples_per_sec"],
+            "step_time_p50": row["step_time_p50"], "phases": row["phases"],
+            "put_batch_ms_per_dispatch": [p["h2d"] / (row["steps"] / TRAIN_EPOCHS) * 1e3
+                                          for p in row["phases"]],
+            "train_seconds": row["train_seconds"],
+            "device_busy_s_from_kernel_times": busy,
+            "device_idle_share_from_kernel_times": 1.0 - busy / row["train_seconds"],
+            "eval_auc": row["eval"]["auc"], "eval_logloss": row["eval"]["logloss"],
+            "auc_floor": train_path["bars"]["floor"],
+            "bayes_auc": train_path["bars"]["bayes_auc"],
+        })
+    return rows
+
+
+def mvm_kernel_entries(wide: dict, mvm: dict) -> list:
+    """The ``kernels`` line's entries for C1's D-tiled FM forms (phase
+    21) and MVM's forms (phases 22-27): launches counted on their paths
+    (each from 0 just before it), times on the paths' own batches."""
+    by_path = mvm["launches_by_path"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_why_null")
+
+    def timing(rows, kernel):
+        return next(r for r in rows if r["kernel"] == kernel)
+
+    def launches(kernel, modes):
+        return sum(n[kernel] for path, n in by_path.items() if path.split(" ", 1)[1] in modes)
+
+    wk1, wk2 = (timing(wide["timings"], f"{k} (fm, D tiled)") for k in ("score", "train_step"))
+    k1 = mvm["checks"]["k1"]["timing"]
+    k2 = mvm["checks"]["k2"]
+    every = tuple(p.split(" ", 1)[1] for p in by_path)
+    entries = [{
+        "name": "score (fm, D tiled)", "route": "cuda", "source": "xflow_tpu_torch/csrc/score.cu",
+        "replaces": C1_REPLACES + "; " + REPLACES, "launches": wide["serve"]["launches"],
+        "launches_of": "the served v_dim=64 fm artifact (phase 21)",
+        "max_abs_err": wide["k1"]["max_abs_err"], "host_path_ms": wk1["host_path_ms"],
+        **{k: wk1[k] for k in keys}, "shape": {"B": wk1["B"], "K": K, "D": wk1["D"]}}, {
+        "name": "train_step (fm, D tiled)", "route": "cuda",
+        "source": "xflow_tpu_torch/csrc/train.cu", "replaces": C1_REPLACES + "; " + K2_REPLACES,
+        "launches": wide["train"]["launches"]["train_step"],
+        "launches_of": "one dispatch of v_dim=64 fm training (phase 21)",
+        "max_abs_err": wide["k2"]["max_abs_err_g"],
+        "max_err_over_tol": wide["k2"]["max_err_over_tol"],
+        **{k: wk2[k] for k in keys}, "shape": {"B": wk2["B"], "K": K, "D": wk2["D"]}}, {
+        "name": "score (mvm)", "route": "cuda", "source": "xflow_tpu_torch/csrc/score.cu",
+        "replaces": B9_REPLACES, "launches": mvm["serve"]["launches"] + launches("score", every),
+        "max_abs_err": mvm["checks"]["k1"]["max_abs_err"], "host_path_ms": k1["host_path_ms"],
+        **{k: k1[k] for k in keys},
+        "shape": {k: k1[k] for k in ("model", "B", "Kc", "Kh", "H", "D", "plane")}}]
+    for form, modes in (("dense", ("hot_dense", "nohot_dense")), ("hybrid", ("hot_hybrid_mb128",)),
+                        ("window", ("hot_inner_mb128",))):
+        t = timing(mvm["timings"], f"train_step (mvm: {form})")
+        entry = {"name": f"train_step (mvm: {form})", "route": "cuda",
+                 "source": "xflow_tpu_torch/csrc/train.cu", "replaces": B9_REPLACES,
+                 "launches": launches("train_step", modes), "max_abs_err": k2["max_abs_err_g"],
+                 "max_err_over_tol": k2["max_err_over_tol"], **{k: t[k] for k in keys},
+                 "shape": {k: t[k] for k in ("path", "B", "Kc", "Kh", "H", "D")}}
+        if form == "hybrid":
+            entry["index_mode_cold_plane"] = {
+                k: timing(mvm["timings"], "train_step (mvm: index)")[k] for k in keys}
+        if form != "dense":
+            entry["batch_65536_rows"] = {
+                k: timing(mvm["timings"], f"train_step (mvm: {form}, 65,536 rows)")[k]
+                for k in keys}
+        if form == "dense":
+            entry["guarded_slots_checked"] = k2.get("guarded_slots")
+            entry["per_path"] = [r for r in mvm["timings"]
+                                 if r["kernel"] == "train_step (mvm: dense)"]
+        entries.append(entry)
+    k6 = timing(mvm["timings"], "dict_decode (field streams)")
+    entries.append({
+        "name": "dict_decode (field streams)", "route": "cuda",
+        "source": "xflow_tpu_torch/csrc/wire.cu", "replaces": K6_FIELDS_REPLACES,
+        "launches": launches("dict_decode", every),
+        "max_abs_err": max(max(c["max_abs_err_plain"], c["max_abs_err_batch"])
+                           for c in mvm["checks"]["k6_fields"]),
+        "max_abs_err_of": "every decoded plane (keys, labels, weights, hot ids, field ids) "
+        "against the plain version and the batch's own planes, over "
+        + ", ".join(c["case"] for c in mvm["checks"]["k6_fields"]),
+        **{k: k6[k] for k in keys}, "shape": {k: k6[k] for k in ("model", "B", "K", "Kh")}})
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -3417,22 +4277,48 @@ def view_keys(view: dict, hot_size: int):
     return keys
 
 
-def split_tolerance(name: str, view: dict, num_real: float, uk, before: dict,
-                    hot_size: int = 0):
-    """Phase 6's per-row bound on K2's summed gradients (k2_tolerances),
-    for the slice ``view`` (hot plane and cold plane) over the tables as
-    they were before it, gathered at the sorted unique keys ``uk``,
-    which hold every live key of the view: the [U, width] tolerances of
-    table ``name``."""
+def local_keys(view: dict, uk, hot_size: int):
+    """A view's key plane (view_keys) as indices into the sorted unique
+    keys ``uk``, -1 on padding."""
     import torch
 
     keys = view_keys(view, hot_size)
-    local = torch.where(keys >= 0, torch.searchsorted(uk, keys.clamp(min=0)),
-                        torch.full_like(keys, -1)).to(torch.int32)
+    return torch.where(keys >= 0, torch.searchsorted(uk, keys.clamp(min=0)),
+                       torch.full_like(keys, -1)).to(torch.int32)
+
+
+def split_tolerance(name: str, view: dict, num_real: float, uk, before: dict,
+                    hot_size: int = 0, max_fields: int = 0):
+    """Phase 6's per-row bound on K2's summed gradients (k2_tolerances;
+    for MVM, mvm_tolerances), for the slice ``view`` (hot plane and cold
+    plane) over the tables as they were before it, gathered at the
+    sorted unique keys ``uk``, which hold every live key of the view:
+    the [U, width] tolerances of table ``name``."""
+    local = local_keys(view, uk, hot_size)
+    if "fields" in view:
+        return mvm_tolerances(local, view_fields(view), None, view["labels_u8"],
+                              view["weights_u8"], num_real, before["v"]["param"],
+                              max_fields)["v"]
     v = before["v"]["param"] if "v" in before else None
     tol_w, tol_v, _ = k2_tolerances(local, None, view["labels_u8"], view["weights_u8"],
                                     num_real, before["w"]["param"], v)
     return tol_w if name == "w" else tol_v
+
+
+def guard_rows(view: dict, num_real: float, uk, before: dict, hot_size: int,
+               max_fields: int):
+    """MVM: which of the rows ``uk`` hold a slot of ``view`` whose
+    own-field factor lies within its rounding of the guard's 1e-12
+    (mvm_tolerances' straddle), over the tables as they were before the
+    slice: [U] bool."""
+    import torch
+
+    local = local_keys(view, uk, hot_size)
+    straddle = mvm_tolerances(local, view_fields(view), None, None, None, num_real,
+                              before["v"]["param"], max_fields, logit_only=True)["straddle"]
+    rows = torch.zeros(uk.numel(), dtype=torch.bool)
+    rows[local[straddle].long()] = True
+    return rows
 
 
 def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool = True,
@@ -3455,7 +4341,13 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
     sides, and the nonzero side's gradient (sqrt(n')) lies within phase
     6's bound on K2's sum (``split_tolerance``; at a window's close, the
     sum of that bound over the window's slices, each over the rows at
-    the window's start).  With ``synchronize``
+    the window's start).  MVM's gradient has a second discontinuity, its
+    guard: a slot whose own-field factor lies within rounding of 1e-12
+    takes a zero gradient on one side and prod / own on the other.  An
+    element whose z jumps apart in a slice is such a guard split when
+    its row holds a slot that straddles the guard (``guard_rows``); it
+    is recorded and, with ``synchronize``, synchronised like an n' == 0
+    split.  With ``synchronize``
     the CPU then takes the card's state at that element, and the final
     tables are held to TRAIN_BOUNDS (``compare_states``); a split that
     fails the verification raises.  Without it the run goes on unsynced
@@ -3469,22 +4361,25 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
 
     dev = card_step.device
     h = cfg.hot_size
+    s_fields = cfg.max_fields if card_step.predict_step.ship_slots else 0
     steps = {"card": card_step,
              "cpu": TrainStep(card_step.model, card_step.optimizer, cfg, torch.device("cpu"))}
     states = {"card": state_from_numpy(cfg, init, dev),
               "cpu": state_from_numpy(cfg, init, "cpu")}
     out = {"slices": 0, "windows": 0, "splits": 0, "split_records": [], "jump_slices": 0,
-           "jump_records": []}
+           "jump_records": [], "guard_splits": 0, "guard_records": []}
 
     def rows_of(side, uk):
         idx = uk.to(steps[side].device)
         return {n: {k: t[k][idx].cpu() for k in ("param", "n", "z")}
                 for n, t in states[side]["tables"].items()}
 
-    def step_both(uk, update, tolerance):
+    def step_both(uk, update, tolerance, straddle=None):
         """``update(side)`` on both sides, then the n' == 0 splits and z
         jumps among the rows ``uk``; ``tolerance(name)`` gives the bound
-        on their summed gradients ([U, width]) when a split needs it."""
+        on their summed gradients ([U, width]) when a split needs it, and
+        ``straddle(before)`` (MVM) the rows whose slots straddle the
+        guard, when a z jump needs it."""
         snap = {}
         for side in steps:
             before = rows_of(side, uk)
@@ -3520,6 +4415,20 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
             zd = (ca[name]["z"] - pa[name]["z"]).abs()
             zb = pa[name]["z"].abs() * TRAIN_BOUNDS["table_rtol"] + 5e-8
             jumped = (zd - (cb[name]["z"] - pb[name]["z"]).abs() > 0.5 * zb).nonzero()
+            if jumped.numel() and straddle is not None:
+                guarded = straddle(pb)
+                for i, col in jumped.tolist():
+                    if not bool(guarded[i]):
+                        continue
+                    out["guard_splits"] += 1
+                    if len(out["guard_records"]) < records:
+                        out["guard_records"].append(
+                            {"slice": out["slices"], "array": name, "row": int(uk[i]),
+                             "col": col, "z": {"card": float(ca[name]["z"][i, col]),
+                                               "cpu": float(pa[name]["z"][i, col])}})
+                    if synchronize:
+                        for k in ("param", "n", "z"):
+                            states["cpu"]["tables"][name][k][uk[i], col] = ca[name][k][i, col]
             if jumped.numel():
                 out["jump_slices"] += 1
                 for i, col in jumped.tolist()[:max(0, records - len(out["jump_records"]))]:
@@ -3560,7 +4469,10 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
                                         acc[side])
 
             step_both(uk, update, lambda name, before, view=view, num_real=num_real, uk=uk:
-                      split_tolerance(name, view["cpu"], num_real, uk, before, h))
+                      split_tolerance(name, view["cpu"], num_real, uk, before, h, s_fields),
+                      straddle=None if not s_fields else
+                      lambda before, view=view, num_real=num_real, uk=uk:
+                      guard_rows(view["cpu"], num_real, uk, before, h, s_fields))
             out["slices"] += 1
         if window:
             keys = planes["cpu"]["ckeys"]
@@ -3573,11 +4485,20 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
                                  uk_batch=uk_batch, start=start):
                 total = None
                 for j, num_real in enumerate(arrays["slice_num_real"]):
-                    tol = split_tolerance(name, views[j]["cpu"], num_real, uk_batch, start, h)
+                    tol = split_tolerance(name, views[j]["cpu"], num_real, uk_batch, start, h,
+                                          s_fields)
                     total = tol if total is None else total + tol
                 return total[torch.searchsorted(uk_batch, uk)]
 
-            step_both(uk, close, window_tolerance)
+            def window_straddle(_before, uk=uk, views=views, arrays=arrays,
+                                uk_batch=uk_batch, start=start):
+                rows = torch.zeros(uk_batch.numel(), dtype=torch.bool)
+                for j, num_real in enumerate(arrays["slice_num_real"]):
+                    rows |= guard_rows(views[j]["cpu"], num_real, uk_batch, start, h, s_fields)
+                return rows[torch.searchsorted(uk_batch, uk)]
+
+            step_both(uk, close, window_tolerance,
+                      straddle=window_straddle if s_fields else None)
             out["windows"] += 1
     out["tables"] = compare_states(states["card"], states["cpu"], gate=synchronize)
     return out
@@ -3710,6 +4631,12 @@ def main() -> int:
         paths = phase_input_paths(dev, T_LOG2, workdir, train_path)
         torch.cuda.empty_cache()
         hot = phase_hot(dev, T_LOG2, workdir, train_path)
+        torch.cuda.empty_cache()
+        wide = phase_wide_fm(dev, workdir, train_path)
+        log(json.dumps({"phase": 21, "k1_fm_d_tiled": wide["k1"],
+                        "k2_fm_d_tiled": wide["k2"]}))
+        torch.cuda.empty_cache()
+        mvm = phase_mvm(dev, T_LOG2, workdir, train_path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase": 17, "checks": hot["checks"]}))
@@ -3783,6 +4710,7 @@ def main() -> int:
         train_rows.append({k: v for k, v in row.items()
                            if k not in ("vs_dict_wire_card", "launches")})
     train_rows += hot_train_rows(hot, modes, train_path, card)
+    train_rows += mvm_train_rows(mvm, hot, modes, train_path, card)
     log(json.dumps({"train": train_rows}))
 
     head = next(r for r in timings if r["mode"] == "fm" and r["B"] == BUCKETS[-1])
@@ -3936,6 +4864,7 @@ def main() -> int:
         "per_shape": k6["timings"],
     }]
     kernels += hot_kernel_entries(hot, k3_check["max_abs_err"])
+    kernels += mvm_kernel_entries(wide, mvm)
     # the hot paths' K4 plans and full-table K3 passes, beside the
     # entries' own paths above
     hot_rows = {f"{r['model']} {r['mode']}": r for r in hot["rows"]}

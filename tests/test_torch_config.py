@@ -86,7 +86,7 @@ def test_import_leaves_out_jax_and_reference_package():
         "import xflow_tpu_torch.native, xflow_tpu_torch.native.build\n"
         "import xflow_tpu_torch.io.compact, xflow_tpu_torch.io.container\n"
         "import xflow_tpu_torch.io.packed, xflow_tpu_torch.ops.wire\n"
-        "import xflow_tpu_torch.chaos\n"
+        "import xflow_tpu_torch.chaos, xflow_tpu_torch.models.mvm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'xflow_tpu')]\n"
         "assert not bad, bad\n"

@@ -6,9 +6,10 @@ reference package, so it runs where the port runs:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: tests/conftest.py sets up JAX, which the port's
-machines need not have.)  Tolerances: K1 and K2 rtol 1e-5 with an atol
-of 1e-5 of the largest magnitude compared — the kernels sum in another
-order than the plain versions (K2's atomics in any order); K3 rtol
+machines need not have.)  Tolerances: K1 and K2 (the FM forms at any
+D, and the MVM forms) rtol 1e-5 with an atol of 1e-5 of the largest
+magnitude compared — the kernels sum and multiply in another order
+than the plain versions (K2's atomics in any order); K3 rtol
 1e-5 / atol 1e-6 (tests/test_ftrl.py's bar; nvcc contracts n + g*g to
 an FMA), and the same for K2's index mode and K5; K4's keys, count and
 slots exactly; K6's decoded planes exactly.  The full-width checks,
@@ -437,7 +438,7 @@ def test_k2_hot_forms_match_plain(dev, with_v, form):
 BF16_STEP = 2.0 ** -7  # one bfloat16 step, relative to the value rounded
 
 
-def _check_bf16_k2(outs, plain, hot, h):
+def _check_bf16_k2(outs, plain, hot, h, **fields):
     """K2 with the bf16 flag against its plain version with it.  Both
     round each hot gradient to bfloat16 from float32 values that differ
     in their last bits, so one near a rounding tie can land a bfloat16
@@ -448,7 +449,7 @@ def _check_bf16_k2(outs, plain, hot, h):
     log-loss sum (the rounded head in the forward) must sit ten times
     closer to the flagged plain run than the unflagged one does."""
     (kw_, kv, _, _, kacc), (pw, pv, _, _, pacc) = outs
-    occ, hk, _, _ = occurrence_grads(*plain, hot=hot, hot_size=h, hot_bf16=True)
+    occ, hk, _, _ = occurrence_grads(*plain, hot=hot, hot_size=h, hot_bf16=True, **fields)
     eff = torch.where(hk >= 0, hk, torch.full_like(hk, h)).reshape(-1)
     beyond = power = 0
     for name, got, want in (("w", kw_, pw), ("v", kv, pv)):
@@ -467,10 +468,11 @@ def _check_bf16_k2(outs, plain, hot, h):
         power += int((moved > tol[:h]).sum())
     assert power >= 10 * max(beyond, 1), (power, beyond)
     u_acc = torch.zeros(2, dtype=torch.float64)
-    gw = torch.zeros_like(plain[5])
+    gw = torch.zeros_like(plain[5]) if plain[5] is not None else None
     gv = torch.zeros_like(plain[6]) if plain[6] is not None else None
-    train_plain(*plain, gw, gv, u_acc, hot=hot, hot_size=h, hg_w=gw[:h],
-                hg_v=gv[:h] if gv is not None else None)
+    train_plain(*plain, gw, gv, u_acc, hot=hot, hot_size=h,
+                hg_w=gw[:h] if gw is not None else None,
+                hg_v=gv[:h] if gv is not None else None, **fields)
     _close(kacc, pacc)
     assert abs(float(u_acc[0] - pacc[0])) > 10 * abs(float(kacc[0].cpu() - pacc[0]))
 
@@ -636,6 +638,280 @@ def test_hot_modes_on_card_match_cpu(dev, model, wire, mode):
             cpu_state, steps[torch.device("cpu")].put_batch(batch))
         np.testing.assert_allclose(float(m_card["logloss"]), float(m_cpu["logloss"]),
                                    rtol=1e-5)
+    for n, t in cpu_state["tables"].items():
+        for k, want in t.items():
+            got = card_state["tables"][n][k].cpu()
+            np.testing.assert_allclose(
+                got.numpy(), want.numpy(), rtol=1e-4,
+                atol=1e-5 * float(want.abs().max()) if want.numel() else 0.0)
+
+
+# -- D-tiled FM (C1) and MVM (B9, with B4s's field planes) ------------------
+
+
+@pytest.mark.parametrize("d", [33, 64, 156])
+def test_fm_wide_v_matches_plain(dev, d):
+    """K1 and K2's FM form past 32 factors (tiles of 32), dense and with
+    a hot plane into a head buffer."""
+    keys, _, w, v, labels = _inputs(d=d)
+    h = 1 << 10
+    hot = _hot_plane(5, keys.shape[0], 8, h, True)
+    weights = np.ones(len(labels), np.float32)
+    for with_hot in (False, True):
+        outs = []
+        for kernel in (True, False):
+            dv = dev if kernel else torch.device("cpu")
+            t = lambda a: torch.tensor(a, device=dv)  # noqa: E731
+            kw = {}
+            if with_hot:
+                kw = dict(hot=t(hot), hot_size=h, hg_w=torch.zeros((h, 1), device=dv),
+                          hg_v=torch.zeros((h, d), device=dv))
+            sc = (score if kernel else score_plain)(
+                t(keys), None, t(w), t(v), True,
+                **{k: kw[k] for k in ("hot", "hot_size") if k in kw})
+            g_w, g_v = torch.zeros(w.shape, device=dv), torch.zeros(v.shape, device=dv)
+            acc = torch.zeros(2, dtype=torch.float64, device=dv)
+            (train_step if kernel else train_plain)(
+                t(keys), None, t(labels), t(weights), 256.0, t(w), t(v), g_w, g_v, acc, **kw)
+            outs.append(list(sc) + [g_w, g_v, acc] + [kw.get("hg_w"), kw.get("hg_v")])
+        torch.cuda.synchronize()
+        for got, want in zip(*outs):
+            if want is not None:
+                _close(got, want)
+
+
+def _mvm_inputs(seed, b=256, k=12, kh=32, h=1 << 10, s=39, d=10, t=1 << 14,
+                u16=True, full=False, vscale=0.1):
+    """MVM planes: keys with padding (and an all-padding row), field ids
+    in [0, s) with some at the u8 clamp's 255 (and, on the full wire,
+    negative ones), a hot plane with its fields, and seed-made v."""
+    rng = np.random.default_rng(seed)
+    keys, x, _, v, labels = _inputs(seed=seed, t=t, d=d, b=b, k=k, full=full)
+    v = (rng.standard_normal((t, d)) * vscale).astype(np.float32)
+    dtype = np.int32 if full else np.uint8
+    out_of_range = -3 if full else 255
+    fields = rng.integers(0, s, (b, k))
+    fields[rng.random((b, k)) < 0.05] = out_of_range
+    hot = hot_fields = hot_x = None
+    if kh:
+        hot = _hot_plane(seed + 1, b, kh, h, u16)
+        hot_fields = rng.integers(0, s, (b, kh))
+        hot_fields[rng.random((b, kh)) < 0.05] = out_of_range
+        hot_fields = hot_fields.astype(dtype)
+        if full:
+            hot_x = np.where(hot >= 0, rng.uniform(0.25, 2.0, hot.shape), 0).astype(np.float32)
+    return dict(keys=keys, x=x, v=v, labels=labels, fields=fields.astype(dtype),
+                hot=hot, hot_fields=hot_fields, hot_x=hot_x, h=h, s=s)
+
+
+MVM_K1_CASES = {
+    # _mvm_inputs keywords: the flagship planes (12 + 32 slots, u16 hot
+    # ids, H = 2^14), mvm_nohot's 40 cold slots, the full wire's int32
+    # fields, 33 factors (two tiles), the bf16 flag
+    "mvm": dict(h=1 << 14), "mvm_nohot": dict(k=40, kh=0), "full": dict(full=True, u16=False),
+    "d33": dict(d=33), "bf16": dict(h=1 << 14),
+}
+
+
+@pytest.mark.parametrize("case", list(MVM_K1_CASES))
+def test_k1_mvm_matches_plain(dev, case):
+    m = _mvm_inputs(2, **MVM_K1_CASES[case])
+    t = lambda a: None if a is None else torch.tensor(a, device=dev)  # noqa: E731
+    kw = dict(hot=t(m["hot"]), hot_x=t(m["hot_x"]), hot_size=m["h"] if m["hot"] is not None
+              else 0, hot_bf16=case == "bf16", fields=t(m["fields"]),
+              hot_fields=t(m["hot_fields"]), max_fields=m["s"])
+    before = score.launches
+    got = score(t(m["keys"]), t(m["x"]), None, t(m["v"]), return_logit=True, **kw)
+    want = score_plain(t(m["keys"]), t(m["x"]), None, t(m["v"]), True, **kw)
+    torch.cuda.synchronize()
+    assert score.launches - before == 1
+    for g, p in zip(got, want):
+        _close(g, p)
+
+
+def _guard_fires(m):
+    """Make field 0's sum exactly -1 in factor 0 for the rows that hold
+    field 0 once: own = 1 + (-1) = 0 there, so the guard zeroes the
+    slot's gradient and prod = 0.  Returns the rows."""
+    keys, fields, v = m["keys"], m["fields"], m["v"]
+    one = ((fields == 0) & (keys >= 0)).sum(axis=1) == 1
+    if m["hot_fields"] is not None:
+        one &= (m["hot_fields"] == 0).sum(axis=1) == 0
+    rows = np.nonzero(one)[0]
+    slots = [int(np.nonzero((fields[r] == 0) & (keys[r] >= 0))[0][0]) for r in rows]
+    for r, j in zip(rows, slots):
+        v[keys[r, j], 0] = -1.0  # x = 1 on the compact wire
+    return rows, slots
+
+
+@pytest.mark.parametrize("form", ["dense", "index", "window-dense", "window-index",
+                                  "nohot", "full", "d33", "guard", "bf16"])
+def test_k2_mvm_forms_match_plain(dev, form):
+    """K2's MVM form into each destination: dense (hot gradients in g's
+    first H rows), index mode with a head buffer (the hybrid), the
+    window-start mode over g or gsum (the hot inner); without a hot
+    plane (mvm_nohot), on the full wire, at 33 factors, where the guard
+    fires, and under the bf16 flag."""
+    kw = {"nohot": dict(k=40, kh=0), "full": dict(full=True, u16=False),
+          "d33": dict(d=33)}.get(form, {})
+    m = _mvm_inputs(3, t=1 << 14, **kw)
+    # cold keys < H: the spill the window-start mode reads from the snapshot
+    m["keys"][10:40, 2:6] = np.arange(30 * 4).reshape(30, 4) % m["h"]
+    if form == "guard":
+        guarded = _guard_fires(m)
+        assert len(guarded[0]) > 5
+    t_size, h, d = m["v"].shape[0], m["h"], m["v"].shape[1]
+    b = m["keys"].shape[0]
+    weights = np.ones(b, np.float32)
+    outs = []
+    for kernel in (True, False):
+        dv = dev if kernel else torch.device("cpu")
+        t = lambda a: None if a is None else torch.tensor(a, device=dv)  # noqa: E731
+        tk = t(m["keys"])
+        index = form in ("index", "window-index")
+        rows = max(m["keys"].size, 1) if index else t_size
+        g_v = torch.zeros((rows, d), device=dv)
+        slots = None
+        if index:
+            ukeys = torch.empty(m["keys"].size, dtype=torch.int32, device=dv)
+            count = torch.zeros(1, dtype=torch.int32, device=dv)
+            slots = torch.empty_like(tk)
+            consolidate_keys_plain(tk, t_size, ukeys, count, slots)
+        hot = t(m["hot"])
+        hg_v = None
+        if hot is not None:
+            hg_v = torch.zeros((h, d), device=dv) if index or form.startswith("window") \
+                else g_v[:h]
+        snap = {}
+        if form.startswith("window"):
+            r = np.random.default_rng(4)
+            snap["snap_v"] = t((r.standard_normal((h, d)) * 0.1).astype(np.float32))
+        acc = torch.zeros(2, dtype=torch.float64, device=dv)
+        fn = train_step if kernel else train_plain
+        fn(tk, t(m["x"]), t(m["labels"]), t(weights), float(b), None, t(m["v"]), None, g_v,
+           acc, slots=slots, hot=hot, hot_x=t(m["hot_x"]), hot_size=h if hot is not None
+           else (h if snap else 0), hot_bf16=form == "bf16", hg_v=hg_v,
+           fields=t(m["fields"]), hot_fields=t(m["hot_fields"]), max_fields=m["s"], **snap)
+        outs.append((None, g_v, None, hg_v, acc))
+    torch.cuda.synchronize()
+    if form == "bf16":
+        fields = dict(fields=torch.tensor(m["fields"]),
+                      hot_fields=torch.tensor(m["hot_fields"]), max_fields=m["s"])
+        plain = (torch.tensor(m["keys"]), None, torch.tensor(m["labels"]),
+                 torch.tensor(weights), float(b), None, torch.tensor(m["v"]))
+        _check_bf16_k2(outs, plain, torch.tensor(m["hot"]), h, **fields)
+        return
+    for got, want in zip(*outs):
+        if got is not None:
+            _close(got, want)
+    if form == "guard":  # the plain version's guard fired at those slots
+        occ, _, _, _ = occurrence_grads(
+            torch.tensor(m["keys"]), None, torch.tensor(m["labels"]), torch.tensor(weights),
+            float(b), None, torch.tensor(m["v"]), hot=torch.tensor(m["hot"]), hot_size=h,
+            fields=torch.tensor(m["fields"]), hot_fields=torch.tensor(m["hot_fields"]),
+            max_fields=m["s"])
+        kh = m["hot"].shape[1]
+        assert all(float(occ["v"][r, kh + j, 0]) == 0.0 for r, j in zip(*guarded))
+
+
+def _field_batch(seed, b, k, kh, t_log2, h_log2, share, slot_lo=0, slot_hi=39):
+    """A left-compacted Batch with field ids (some outside [0, 255])
+    and, with ``kh``, its hot plane steered by ``make_batch``."""
+    from xflow_tpu_torch.io.batch import make_batch
+
+    rng = np.random.default_rng(seed)
+    t_size, h = 1 << t_log2, 1 << h_log2 if h_log2 else 0
+    ktot = k + kh
+    keys = rng.integers(h, t_size, (b, ktot))
+    if kh:
+        keys = np.where(rng.random((b, ktot)) < share, rng.integers(0, h, (b, ktot)), keys)
+    cnt = rng.integers(0, ktot + 1, b)
+    mask = (np.arange(ktot)[None, :] < cnt[:, None]).astype(np.float32)
+    keys = np.where(mask > 0, keys, 0).astype(np.int32)
+    slots = rng.integers(slot_lo, slot_hi, (b, ktot)).astype(np.int32)
+    weights = (np.arange(b) < b - 3).astype(np.float32)
+    labels = (rng.random(b) < 0.4).astype(np.float32) * weights
+    return make_batch(keys, slots, mask.copy(), mask, labels, weights, h, kh)
+
+
+K6_FIELD_CASES = {
+    # (B, K, Kh, table_size_log2, hot_size_log2, hot share, slot range)
+    "cold": (1001, 40, 0, 14, 0, 0.0, (0, 39)),
+    "hot-tiers": (1001, 12, 32, 16, 14, 0.8, (0, 39)),
+    "empty-hot-plane": (512, 12, 32, 16, 14, 0.0, (0, 39)),
+    "overflow": (512, 12, 2, 14, 12, 1.0, (0, 39)),
+    "out-of-range": (512, 12, 32, 16, 14, 0.8, (-40, 300)),
+}
+
+
+@pytest.mark.parametrize("case", list(K6_FIELD_CASES))
+def test_k6_field_streams_match_plain(dev, case):
+    """K6's field streams exactly equal the plain version's, and the
+    batch's field ids under the u8 clamp (0 on padding)."""
+    b, k, kh, t_log2, h_log2, share, (lo, hi) = K6_FIELD_CASES[case]
+    batch = _field_batch(11, b, k, kh, t_log2, h_log2, share, lo, hi)
+    wire = compact_batch(batch, 1 << t_log2, (1 << h_log2) if h_log2 else 0).wire(
+        ship_slots=True)
+    want = dict_decode(to_device(wire, torch.device("cpu")), k, kh)
+    before = dict_decode.launches
+    got = dict_decode(to_device(wire, dev), k, kh)
+    torch.cuda.synchronize()
+    assert dict_decode.launches - before == 1
+    assert len(got) == len(want) == 4 + (2 if kh else 0)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+    def clamp(slots, mask):
+        u8 = np.where((slots < 0) | (slots > 255), 255, slots)
+        return torch.tensor(np.where(mask > 0, u8, 0).astype(np.uint8))
+
+    assert torch.equal(want[-1 - bool(kh)], clamp(batch.slots, batch.mask))
+    if kh:
+        assert torch.equal(want[-1], clamp(batch.hot_slots, batch.hot_mask))
+
+
+@pytest.mark.parametrize("mode", [
+    {},
+    {"microbatch": 4, "cold_consolidate": True},
+    {"update_mode": "sparse", "hot_size_log2": 0},
+    {"update_mode": "sequential", "microbatch": 4},
+    {"update_mode": "sequential", "microbatch": 4, "sequential_inner": "sparse"},
+    {"update_mode": "sequential", "microbatch": 4, "sequential_inner": "hot",
+     "hot_windowend": "dense"},
+    {"update_mode": "sequential", "microbatch": 4, "sequential_inner": "hot",
+     "hot_windowend": "sparse"},
+], ids=["dense", "mb4-consolidate", "sparse-nohot", "seq-dense", "hybrid", "hot-dense-end",
+        "hot-sparse-end"])
+@pytest.mark.parametrize("wire", ["off", "auto", "full"], ids=["compact", "dict", "full"])
+def test_mvm_modes_on_card_match_cpu(dev, wire, mode):
+    """Three steps of an MVM TrainStep on the card and on the CPU from
+    the same state, within _card_vs_cpu's bound."""
+    kw = dict(model="mvm", table_size_log2=12, max_nnz=24, hot_size_log2=8, hot_nnz=16,
+              batch_size=256, v_dim=10, max_fields=39, wire_dedup="off" if wire == "full"
+              else wire, wire_mode="full" if wire == "full" else "auto",
+              hash_mode=wire != "full")
+    cfg = Config(**{**kw, **mode})
+    mdl, opt = make_model(cfg), make_optimizer(cfg)
+    cpu_state = init_state(mdl, opt, cfg, torch.device("cpu"))
+    card_state = {"tables": {n: {k: a.to(dev, copy=True) for k, a in t.items()}
+                             for n, t in cpu_state["tables"].items()},
+                  "dense": {}, "step": 0}
+    steps = {d: TrainStep(mdl, opt, cfg, d) for d in (dev, torch.device("cpu"))}
+    assert steps[dev].wire_format == {"off": "compact", "auto": "dict"}.get(wire, wire)
+    before = train_step.launches
+    for seed in range(3):
+        batch = _field_batch(seed, 256, cfg.max_nnz, cfg.hot_nnz if cfg.hot_size else 0,
+                             12, cfg.hot_size_log2, 0.6)
+        if wire == "full":
+            rng = np.random.default_rng(seed)
+            batch.vals[:] = rng.uniform(0.5, 1.5, batch.vals.shape) * batch.mask
+            batch.hot_vals[:] = rng.uniform(0.5, 1.5, batch.hot_vals.shape) * batch.hot_mask
+        m_card = steps[dev].train(card_state, steps[dev].put_batch(batch))
+        m_cpu = steps[torch.device("cpu")].train(
+            cpu_state, steps[torch.device("cpu")].put_batch(batch))
+        np.testing.assert_allclose(float(m_card["logloss"]), float(m_cpu["logloss"]),
+                                   rtol=1e-5)
+    assert train_step.launches > before
     for n, t in cpu_state["tables"].items():
         for k, want in t.items():
             got = card_state["tables"][n][k].cpu()

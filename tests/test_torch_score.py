@@ -24,7 +24,7 @@ from xflow_tpu.utils.metrics import sigmoid_ref as ref_sigmoid
 from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.io.batch import Batch
 from xflow_tpu_torch.models import make_model
-from xflow_tpu_torch.ops.score import MAX_DIM, score, score_plain
+from xflow_tpu_torch.ops.score import score, score_plain
 from xflow_tpu_torch.parallel.step import PredictStep
 from xflow_tpu_torch.utils.metrics import sigmoid_ref
 
@@ -195,7 +195,9 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="x must be"):
         score(keys, torch.ones((2, 4)), w, None)
     with pytest.raises(ValueError, match="outside"):
-        score(keys, None, w, torch.zeros((64, MAX_DIM + 1)))
+        score(keys, None, w, torch.zeros((64, 0)))
+    # any v width runs (the kernels tile D by 32): 33 factors score
+    assert score(keys, None, w, torch.zeros((64, 33))).shape == (2,)
     with pytest.raises(ValueError, match="contiguous"):
         score(torch.zeros((3, 2), dtype=torch.int32).t(), None, w, None)
 

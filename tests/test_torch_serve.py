@@ -194,7 +194,8 @@ def test_load_refusals(tmp_path):
         PredictEngine.load(art, device="cpu")
     for changes, item in (
         ({"store_mode": "tiered", "hot_capacity_log2": 6}, "A11"),
-        ({"model": "mvm"}, "A9"),
+        # MVM serves now (tests/test_torch_mvm.py); FFM stays refused
+        ({"model": "ffm"}, "A9"),
         ({"model": "two_tower", "max_fields": 8, "tower_split_field": 4}, "A9"),
     ):
         _rewrite_config(art, cfg.replace(**changes))

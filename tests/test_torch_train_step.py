@@ -248,7 +248,8 @@ def test_put_batch_wires_and_num_real(toy_dataset):
     ({"store_mode": "tiered", "hot_capacity_log2": 10}, "A11"),
     ({"num_devices": 2}, "A13"),
     ({"input_streams": 2}, "A10"),
-    ({"model": "mvm"}, "A9"),
+    # MVM trains now (tests/test_torch_mvm.py), on one device
+    ({"model": "mvm", "num_devices": 2}, "A13"),
     ({"model": "ffm"}, "A9"),
     ({"model": "wide_deep"}, "A9"),
     ({"model": "two_tower"}, "A9"),
@@ -257,7 +258,7 @@ def test_put_batch_wires_and_num_real(toy_dataset):
 def test_train_step_refuses_unported(kw, item):
     cfg = Config(**{**_kw("lr", "ftrl", True), **kw})
     with pytest.raises(NotImplementedError, match=item):
-        TrainStep(make_model(cfg) if cfg.model in ("lr", "fm") else None,
+        TrainStep(make_model(cfg) if cfg.model in ("lr", "fm", "mvm") else None,
                   make_optimizer(cfg), cfg, torch.device("cpu"))
 
 

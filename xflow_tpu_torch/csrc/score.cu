@@ -50,37 +50,43 @@
 // Design (first, simple and right): one warp per example.  Lanes
 // stride over the K slots, so the keys of one example are read
 // coalesced; each live slot reads its w entry and its D-float v row
-// and accumulates linear, s[d] and s2[d] in registers (D unrolled up to
-// the compile-time CAP, guarded by the runtime D).  Warp butterfly
-// shuffles reduce the lanes; lane 0 forms the logit and the clamped
-// sigmoid.  Nothing goes back to device memory between the gather and
-// the score.  A padding slot is skipped before any table read: the
-// JAX path reads row 0 and masks it out, this kernel never reads it.
-// Sums run in another order than the plain version (and contract to
-// FMA), so results agree to float rounding, not bitwise.
+// and accumulates linear, s[d] and s2[d] in registers, CAP factors at
+// a time (CAP = 8, 16 or 32, unrolled and guarded by the runtime D):
+// a v wider than 32 runs in tiles of 32 factors, each re-reading the
+// slots' keys (from L1/L2), so any D the reference accepts runs with
+// the same registers.  Warp butterfly shuffles reduce the lanes; lane
+// 0 forms the logit and the clamped sigmoid.  Nothing goes back to
+// device memory between the gather and the score.  A padding slot is
+// skipped before any table read: the JAX path reads row 0 and masks it
+// out, this kernel never reads it.  Sums run in another order than the
+// plain version (and contract to FMA), so results agree to float
+// rounding, not bitwise.
+//
+// The MVM form (B9, fields not null; mvm.cuh has its regions, bound
+// and design): no w; the field planes fields [B, K] and hot_fields
+// [B, KH], u8 (compact and dictionary wires, the clamp's 255 past any
+// S <= 255) or int32 (f_i32, the full wire), and S = max_fields; the
+// logit is sum_d (prod_d - 1).  Bound: the keys (and x), the fields
+// (1 or 4 B a slot), each distinct row's 4D B of v and 4B out; the
+// arithmetic (about 2D flops a slot and D per present field) is far
+// below the card's rate, so bytes bound it, and at serving sizes the
+// launch does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "mvm.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
 constexpr int kThreads = 32 * kWarpsPerBlock;
-constexpr int kMaxDim = 32;
+constexpr int kMvmWarps = 8;  // at most, as the stage fits (mvm.cuh)
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+using mvm::bf16_round;
+using mvm::warp_sum;
 
 // Entry j of row b: hot entries j < KH, then the cold ones.  Sets the
 // key (-1: padding, or a hot key outside [0, H)), x and whether the
@@ -104,6 +110,15 @@ __device__ __forceinline__ int entry_key(const int* krow, const float* xrow,
   return krow[j - KH];
 }
 
+__device__ __forceinline__ void write_score(float logit, float* pctr,
+                                            float* logit_out, int b) {
+  float p = 1.0f / (1.0f + expf(-logit));
+  if (logit < -30.0f) p = 1e-6f;
+  if (logit > 30.0f) p = 1.0f;
+  pctr[b] = p;
+  if (logit_out != nullptr) logit_out[b] = logit;
+}
+
 template <int CAP>
 __global__ void __launch_bounds__(kThreads)
 score_kernel(const int* __restrict__ keys, const float* __restrict__ x,
@@ -120,52 +135,106 @@ score_kernel(const int* __restrict__ keys, const float* __restrict__ x,
   const float* xrow = x != nullptr ? x + row : nullptr;
 
   float lin = 0.0f;
+  float inter = 0.0f;
   float s[CAP > 0 ? CAP : 1];
   float s2[CAP > 0 ? CAP : 1];
+  const int tiles = CAP > 0 ? (D + CAP - 1) / CAP : 1;
+  for (int t = 0; t < tiles; ++t) {
+    const int d0 = t * CAP;
 #pragma unroll
-  for (int d = 0; d < CAP; ++d) {
-    s[d] = 0.0f;
-    s2[d] = 0.0f;
-  }
-  for (int j = lane; j < KH + K; j += 32) {
-    float xv;
-    bool to_bf16;
-    const int key = entry_key(krow, xrow, hot, hot_x, hot_u16, H, hot_bf16, b,
-                              KH, j, xv, to_bf16);
-    if (key < 0) continue;  // padding: never read, never counted
-    const float wv = w[key];
-    lin += (to_bf16 ? bf16_round(wv) : wv) * xv;
-    if (CAP > 0) {
-      const float* vrow = v + static_cast<long long>(key) * D;
+    for (int d = 0; d < CAP; ++d) {
+      s[d] = 0.0f;
+      s2[d] = 0.0f;
+    }
+    for (int j = lane; j < KH + K; j += 32) {
+      float xv;
+      bool to_bf16;
+      const int key = entry_key(krow, xrow, hot, hot_x, hot_u16, H, hot_bf16,
+                                b, KH, j, xv, to_bf16);
+      if (key < 0) continue;  // padding: never read, never counted
+      if (t == 0) {
+        const float wv = w[key];
+        lin += (to_bf16 ? bf16_round(wv) : wv) * xv;
+      }
+      if (CAP > 0) {
+        const float* vrow = v + static_cast<long long>(key) * D + d0;
 #pragma unroll
-      for (int d = 0; d < CAP; ++d) {
-        if (d < D) {
-          const float vd = to_bf16 ? bf16_round(vrow[d]) : vrow[d];
-          const float vx = vd * xv;
-          s[d] += vx;
-          s2[d] += vx * vx;
+        for (int d = 0; d < CAP; ++d) {
+          if (d0 + d < D) {
+            const float vd = to_bf16 ? bf16_round(vrow[d]) : vrow[d];
+            const float vx = vd * xv;
+            s[d] += vx;
+            s2[d] += vx * vx;
+          }
         }
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < CAP; ++d) {
+      if (d0 + d < D) {
+        const float sd = warp_sum(s[d]);
+        const float s2d = warp_sum(s2[d]);
+        inter += sd * sd - s2d;
       }
     }
   }
   lin = warp_sum(lin);
-  float inter = 0.0f;
-#pragma unroll
-  for (int d = 0; d < CAP; ++d) {
-    if (d < D) {
-      const float sd = warp_sum(s[d]);
-      const float s2d = warp_sum(s2[d]);
-      inter += sd * sd - s2d;
+  if (lane == 0) write_score(lin + inter, pctr, logit_out, b);
+}
+
+// The MVM form: slot j's v row (the head rows for hot slots, rounded
+// to bf16 under the flag).
+struct ScoreRows {
+  const float* v;
+  const int* key;
+  int D, KH, bf16;
+  __device__ __forceinline__ const float* operator()(int j,
+                                                     bool& to_bf16) const {
+    to_bf16 = j < KH && bf16 != 0;
+    return v + static_cast<long long>(key[j]) * D;
+  }
+};
+
+__global__ void __launch_bounds__(32 * kMvmWarps)
+score_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
+                 const void* __restrict__ hot, const float* __restrict__ hot_x,
+                 int hot_u16, int H, int hot_bf16,
+                 const void* __restrict__ fields,
+                 const void* __restrict__ hot_fields, int f_i32, int S,
+                 const float* __restrict__ v, float* __restrict__ pctr,
+                 float* __restrict__ logit_out, int B, int K, int KH, int D) {
+  extern __shared__ char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;  // warp-uniform; the kernel has no block barrier
+  const int n = KH + K;
+  const mvm::Stage s = mvm::stage_at(smem, warp, n);
+  const long long row = static_cast<long long>(b) * K;
+  for (int j = lane; j < n; j += 32) {
+    float xv;
+    bool to_bf16;
+    int key = entry_key(keys + row, x != nullptr ? x + row : nullptr, hot,
+                        hot_x, hot_u16, H, hot_bf16, b, KH, j, xv, to_bf16);
+    int f = mvm::field_of(fields, hot_fields, f_i32, b, K, KH, j);
+    if (key < 0 || f < 0 || f >= S) {
+      key = -1;
+      f = -1;
     }
+    s.key[j] = key;
+    s.x[j] = xv;
+    s.fld[j] = f;
   }
-  if (lane == 0) {
-    const float logit = lin + inter;
-    float p = 1.0f / (1.0f + expf(-logit));
-    if (logit < -30.0f) p = 1e-6f;
-    if (logit > 30.0f) p = 1.0f;
-    pctr[b] = p;
-    if (logit_out != nullptr) logit_out[b] = logit;
+  mvm::find_reps(s, n, lane);
+  const ScoreRows rows{v, s.key, D, KH, hot_bf16};
+  float logit = 0.0f;
+  for (int d0 = 0; d0 < D; d0 += mvm::kTile) {
+    const int dt = min(mvm::kTile, D - d0);
+    mvm::tile_sums(s, n, d0, dt, lane, rows);
+    const float p = mvm::tile_prod(s, n, dt, lane);
+    logit += warp_sum(lane < dt ? p - 1.0f : 0.0f);
   }
+  if (lane == 0) write_score(logit, pctr, logit_out, b);
 }
 
 struct HotPlane {
@@ -186,29 +255,41 @@ void launch(const int* keys, const float* x, const HotPlane& h,
 
 }  // namespace
 
-extern "C" int xf_score_max_dim() { return kMaxDim; }
+extern "C" int xf_mvm_bytes_per_slot() { return mvm::kBytesPerSlot; }
 
-// Launches K1 on `stream`; KH = 0 means no hot plane (hot, hot_x
-// unread).  Returns cudaGetLastError() after the launch (0 = launched),
-// or cudaErrorInvalidValue for a D it has no variant for.
+// Launches K1 on `stream`; KH = 0 means no hot plane (hot, hot_x,
+// hot_fields unread).  fields not null selects the MVM form (w unread;
+// f_i32: int32 field planes, else u8; S = max_fields).  Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue when an MVM row's stage does not fit the
+// card's shared memory.
 extern "C" int xf_score(const int* keys, const float* x, const void* hot,
                         const float* hot_x, int hot_u16, int H, int hot_bf16,
-                        const float* w, const float* v, float* pctr,
+                        const void* fields, const void* hot_fields, int f_i32,
+                        int S, const float* w, const float* v, float* pctr,
                         float* logit, int B, int K, int KH, int D,
                         void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const HotPlane h{hot, hot_x, hot_u16, H, hot_bf16, KH > 0 ? KH : 0};
-  if (v == nullptr || D == 0) {
+  if (fields != nullptr) {
+    int warps = 1;
+    size_t smem = 0;
+    const int rc = mvm::launch_shape(score_mvm_kernel, K + h.KH, kMvmWarps,
+                                     &warps, &smem);
+    if (rc != 0) return rc;
+    const int grid = (B + warps - 1) / warps;
+    score_mvm_kernel<<<grid, 32 * warps, smem, s>>>(
+        keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32,
+        S, v, pctr, logit, B, K, h.KH, D);
+  } else if (v == nullptr || D == 0) {
     launch<0>(keys, x, h, w, nullptr, pctr, logit, B, K, 0, s);
   } else if (D <= 8) {
     launch<8>(keys, x, h, w, v, pctr, logit, B, K, D, s);
   } else if (D <= 16) {
     launch<16>(keys, x, h, w, v, pctr, logit, B, K, D, s);
-  } else if (D <= kMaxDim) {
-    launch<kMaxDim>(keys, x, h, w, v, pctr, logit, B, K, D, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch<32>(keys, x, h, w, v, pctr, logit, B, K, D, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

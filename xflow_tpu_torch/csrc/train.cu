@@ -94,46 +94,55 @@
 // K slots, so an example's keys are read coalesced; a padding slot is
 // skipped before any table access (the JAX path reads row 0 and masks
 // it; this kernel never touches it).  Each live slot accumulates
-// linear, s[d], s2[d] in registers (D unrolled to the compile-time CAP,
-// guarded by the runtime D); xor butterflies leave the sums on every
-// lane, so every lane forms the same residual and scatters its own
-// slots with atomicAdd (the v row is read again, from L1/L2).  Lane 0
-// adds the example's clipped log-loss times its weight into a register;
-// each block reduces its warps' partials in shared memory and lands
-// them with one atomic pair into acc.  Offsets are 64-bit.  Sums run in
-// another order than the plain version, and atomics in an order that
-// changes from run to run, so results agree to float rounding, not
-// bitwise.
+// linear, s[d], s2[d] in registers, CAP factors at a time (CAP = 8, 16
+// or 32, unrolled and guarded by the runtime D; a v wider than 32 runs
+// in tiles of 32, so any D the reference accepts runs with the same
+// registers); xor butterflies leave the sums on every lane, so every
+// lane forms the same residual and scatters its own slots with
+// atomicAdd (the v row is read again, from L1/L2; with more than one
+// tile the backward recomputes each tile's s but the last one's).
+// Lane 0 adds the example's clipped log-loss times its weight into a
+// register; each block reduces its warps' partials in shared memory
+// and lands them with one atomic pair into acc.  Offsets are 64-bit.
+// Sums run in another order than the plain version, and atomics in an
+// order that changes from run to run, so results agree to float
+// rounding, not bitwise.
+//
+// The MVM form (B9, fields not null; mvm.cuh has its regions and
+// design): no w (gw, hgw and snap_w unread), the field planes fields
+// [B, K] / hot_fields [B, KH] (u8, or int32 with f_i32) and S =
+// max_fields; the residual as above, each present slot's gradient
+// prod_d / own_d * x * r (zero under the guard) scattered to the same
+// destinations as FM's: g or its first H rows (dense), K4's slots
+// (index mode), the head buffer (hybrid, hot inner), with cold keys < H
+// read from the window-start snapshot and the bf16 flag as above.
+// Bound: the keys (and x), the fields, labels and weights once, and
+// per distinct row 4D B of v read and 4D B of g read and written: bytes
+// bound it (about 3D flops a slot and 2D per present field).  The
+// atomics land one per factor per slot, lanes over the factors, so a
+// slot's D adds hit one contiguous row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "mvm.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = 32 * kWarpsPerBlock;
 constexpr int kBlocksPerSm = 8;
-constexpr int kMaxDim = 32;
 constexpr float kLoglossEps = 1e-6f;
 constexpr float kLoglossHi = 0.999999f;  // f32(1 - 1e-6), as the reference
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
+using mvm::bf16_round;
+using mvm::warp_sum;
 
 template <typename LW>
 __device__ __forceinline__ float as_float(LW v) {
   return static_cast<float>(v);
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // The hot plane and its destinations (header); KH = 0 without one.
@@ -148,34 +157,83 @@ struct HotArgs {
 };
 
 // Entry j of row b: a hot entry j < KH, then the cold ones.  Returns
-// its key (-1: padding, or a hot key outside [0, H)) and sets x, the
-// row it reads w and v from, and whether it is hot.
-__device__ __forceinline__ int entry(const int* krow, const float* xrow,
-                                     const HotArgs& h, long long b, int j,
-                                     const float* w, const float* v, int D,
-                                     float& xv, const float*& wp,
-                                     const float*& vrow, bool& is_hot) {
-  int key;
+// its key (-1: padding, or a hot key outside [0, H)) and sets x and
+// whether it is hot.
+__device__ __forceinline__ int entry_key(const int* krow, const float* xrow,
+                                         const HotArgs& h, long long b, int j,
+                                         float& xv, bool& is_hot) {
   is_hot = j < h.KH;
   if (is_hot) {
     const long long at = b * h.KH + j;
-    key = h.u16 ? static_cast<int>(static_cast<const uint16_t*>(h.keys)[at])
-                : static_cast<const int*>(h.keys)[at];
-    if (key >= h.H) key = -1;
+    int key = h.u16 ? static_cast<int>(static_cast<const uint16_t*>(h.keys)[at])
+                    : static_cast<const int*>(h.keys)[at];
     xv = h.x != nullptr ? h.x[at] : 1.0f;
-  } else {
-    key = krow[j - h.KH];
-    xv = xrow != nullptr ? xrow[j - h.KH] : 1.0f;
+    return key >= h.H ? -1 : key;
   }
-  if (key >= 0 && !is_hot && h.snap_w != nullptr && key < h.H) {
-    wp = h.snap_w + key;
-    vrow = h.snap_v != nullptr ? h.snap_v + static_cast<long long>(key) * D
-                               : nullptr;
-  } else if (key >= 0) {
-    wp = w + key;
-    vrow = v != nullptr ? v + static_cast<long long>(key) * D : nullptr;
+  xv = xrow != nullptr ? xrow[j - h.KH] : 1.0f;
+  return krow[j - h.KH];
+}
+
+// Whether a live key reads the window-start snapshot: a cold key < H
+// in window-start mode.
+__device__ __forceinline__ bool from_snap(const HotArgs& h, int key,
+                                          bool is_hot) {
+  return !is_hot && (h.snap_w != nullptr || h.snap_v != nullptr) &&
+         key < h.H;
+}
+
+// Where entry j's gradient lands: the head destination for a hot
+// entry (row key), else the cold destination at row key (dense) or at
+// K4's slot (index mode; -1: a key K4 took for padding, dropped).
+__device__ __forceinline__ long long grad_row(const int* srow, int j, int KH,
+                                              int key, bool is_hot) {
+  if (is_hot || srow == nullptr) return key;
+  return srow[j - KH];
+}
+
+// The block's log-loss and weight partials into acc (one atomic pair).
+__device__ __forceinline__ void land_loss(float ll_acc, float w_acc,
+                                          double* acc) {
+  __shared__ float part_ll[kWarpsPerBlock];
+  __shared__ float part_w[kWarpsPerBlock];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  if (lane == 0) {
+    part_ll[warp] = ll_acc;
+    part_w[warp] = w_acc;
   }
-  return key;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float ll = 0.0f, wsum = 0.0f;
+    for (int i = 0; i < warps; ++i) {
+      ll += part_ll[i];
+      wsum += part_w[i];
+    }
+    atomicAdd(acc, static_cast<double>(ll));
+    atomicAdd(acc + 1, static_cast<double>(wsum));
+  }
+}
+
+// The residual of example b, and its clipped log-loss times its weight
+// into lane 0's partials.
+template <typename LW>
+__device__ __forceinline__ float residual(float logit, const LW* labels,
+                                          const LW* weights, long long b,
+                                          float num_real, int lane,
+                                          float& ll_acc, float& w_acc) {
+  float p = 1.0f / (1.0f + expf(-logit));
+  if (logit < -30.0f) p = 1e-6f;
+  if (logit > 30.0f) p = 1.0f;
+  const float y = as_float(labels[b]);
+  const float wt = as_float(weights[b]);
+  if (lane == 0) {
+    const float pc = fminf(fmaxf(p, kLoglossEps), kLoglossHi);
+    const float ll = -(y * logf(pc) + (1.0f - y) * logf(1.0f - pc));
+    ll_acc += ll * wt;
+    w_acc += wt;
+  }
+  return (p - y) * wt / num_real;
 }
 
 template <int CAP, typename LW>
@@ -187,12 +245,11 @@ train_kernel(const int* __restrict__ keys, const float* __restrict__ x,
              float* __restrict__ gw,
              float* __restrict__ gv, double* __restrict__ acc, int B, int K,
              int D, const HotArgs h) {
-  __shared__ float part_ll[kWarpsPerBlock];
-  __shared__ float part_w[kWarpsPerBlock];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long warps_total =
       static_cast<long long>(gridDim.x) * kWarpsPerBlock;
+  const int tiles = CAP > 0 ? (D + CAP - 1) / CAP : 1;
   float ll_acc = 0.0f;
   float w_acc = 0.0f;
 
@@ -205,114 +262,211 @@ train_kernel(const int* __restrict__ keys, const float* __restrict__ x,
     const float* xrow = x != nullptr ? x + row : nullptr;
 
     float lin = 0.0f;
+    float inter = 0.0f;
     float s[CAP > 0 ? CAP : 1];
     float s2[CAP > 0 ? CAP : 1];
+    // the forward, tile by tile; s keeps the last tile's sums
+    for (int t = 0; t < tiles; ++t) {
+      const int d0 = t * CAP;
 #pragma unroll
-    for (int d = 0; d < CAP; ++d) {
-      s[d] = 0.0f;
-      s2[d] = 0.0f;
-    }
-    for (int j = lane; j < h.KH + K; j += 32) {
-      float xv;
-      const float* wp = nullptr;
-      const float* vrow = nullptr;
-      bool is_hot;
-      const int key = entry(krow, xrow, h, b, j, w, v, D, xv, wp, vrow, is_hot);
-      if (key < 0) continue;  // padding: never read, never written
-      const bool to_bf16 = is_hot && h.bf16;
-      lin += (to_bf16 ? bf16_round(*wp) : *wp) * xv;
-      if (CAP > 0) {
+      for (int d = 0; d < CAP; ++d) {
+        s[d] = 0.0f;
+        s2[d] = 0.0f;
+      }
+      for (int j = lane; j < h.KH + K; j += 32) {
+        float xv;
+        bool is_hot;
+        const int key = entry_key(krow, xrow, h, b, j, xv, is_hot);
+        if (key < 0) continue;  // padding: never read, never written
+        const bool snap = from_snap(h, key, is_hot);
+        const bool to_bf16 = is_hot && h.bf16;
+        if (t == 0) {
+          const float wv = snap ? h.snap_w[key] : w[key];
+          lin += (to_bf16 ? bf16_round(wv) : wv) * xv;
+        }
+        if (CAP > 0) {
+          const float* vrow =
+              (snap ? h.snap_v : v) + static_cast<long long>(key) * D + d0;
 #pragma unroll
-        for (int d = 0; d < CAP; ++d) {
-          if (d < D) {
-            const float vx = (to_bf16 ? bf16_round(vrow[d]) : vrow[d]) * xv;
-            s[d] += vx;
-            s2[d] += vx * vx;
+          for (int d = 0; d < CAP; ++d) {
+            if (d0 + d < D) {
+              const float vx = (to_bf16 ? bf16_round(vrow[d]) : vrow[d]) * xv;
+              s[d] += vx;
+              s2[d] += vx * vx;
+            }
           }
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < CAP; ++d) {
+        if (d0 + d < D) {
+          s[d] = warp_sum(s[d]);  // every lane keeps s_d for the backward
+          const float s2d = warp_sum(s2[d]);
+          inter += s[d] * s[d] - s2d;
         }
       }
     }
     lin = warp_sum(lin);
-    float inter = 0.0f;
-#pragma unroll
-    for (int d = 0; d < CAP; ++d) {
-      if (d < D) {
-        s[d] = warp_sum(s[d]);  // every lane keeps s_d for the backward
-        const float s2d = warp_sum(s2[d]);
-        inter += s[d] * s[d] - s2d;
-      }
-    }
-    const float logit = lin + inter;
-    float p = 1.0f / (1.0f + expf(-logit));
-    if (logit < -30.0f) p = 1e-6f;
-    if (logit > 30.0f) p = 1.0f;
-    const float y = as_float(labels[b]);
-    const float wt = as_float(weights[b]);
-    const float r = (p - y) * wt / num_real;
+    const float r = residual(lin + inter, labels, weights, b, num_real, lane,
+                             ll_acc, w_acc);
 
-    for (int j = lane; j < h.KH + K; j += 32) {
-      float xv;
-      const float* wp = nullptr;
-      const float* vrow = nullptr;
-      bool is_hot;
-      const int key = entry(krow, xrow, h, b, j, w, v, D, xv, wp, vrow, is_hot);
-      if (key < 0) continue;
-      const bool to_bf16 = is_hot && h.bf16;
-      long long dst = key;
-      float* gwd = h.gw;
-      float* gvd = h.gv;
-      if (!is_hot) {
-        dst = srow != nullptr ? srow[j - h.KH] : key;
-        if (dst < 0) continue;  // a key K4 took for padding (>= T)
-        gwd = gw;
-        gvd = gv;
-      }
-      const float gwv = xv * r;
-      atomicAdd(gwd + dst, to_bf16 ? bf16_round(gwv) : gwv);
-      if (CAP > 0) {
-        float* grow = gvd + dst * D;
+    // the backward, the last tile first (its sums are in s)
+    for (int t = tiles - 1; t >= 0; --t) {
+      const int d0 = t * CAP;
+      if (t != tiles - 1) {
+#pragma unroll
+        for (int d = 0; d < CAP; ++d) s[d] = 0.0f;
+        for (int j = lane; j < h.KH + K; j += 32) {
+          float xv;
+          bool is_hot;
+          const int key = entry_key(krow, xrow, h, b, j, xv, is_hot);
+          if (key < 0) continue;
+          const bool to_bf16 = is_hot && h.bf16;
+          const float* vrow = (from_snap(h, key, is_hot) ? h.snap_v : v) +
+                              static_cast<long long>(key) * D + d0;
+#pragma unroll
+          for (int d = 0; d < CAP; ++d) {
+            if (d0 + d < D) {
+              s[d] += (to_bf16 ? bf16_round(vrow[d]) : vrow[d]) * xv;
+            }
+          }
+        }
 #pragma unroll
         for (int d = 0; d < CAP; ++d) {
-          if (d < D) {
-            const float vx = (to_bf16 ? bf16_round(vrow[d]) : vrow[d]) * xv;
-            const float gvv = (s[d] - vx) * xv * r;
-            atomicAdd(grow + d, to_bf16 ? bf16_round(gvv) : gvv);
+          if (d0 + d < D) s[d] = warp_sum(s[d]);
+        }
+      }
+      for (int j = lane; j < h.KH + K; j += 32) {
+        float xv;
+        bool is_hot;
+        const int key = entry_key(krow, xrow, h, b, j, xv, is_hot);
+        if (key < 0) continue;
+        const long long dst = grad_row(srow, j, h.KH, key, is_hot);
+        if (dst < 0) continue;  // a key K4 took for padding (>= T)
+        const bool to_bf16 = is_hot && h.bf16;
+        if (t == 0) {
+          const float gwv = xv * r;
+          atomicAdd((is_hot ? h.gw : gw) + dst, to_bf16 ? bf16_round(gwv) : gwv);
+        }
+        if (CAP > 0) {
+          const float* vrow = (from_snap(h, key, is_hot) ? h.snap_v : v) +
+                              static_cast<long long>(key) * D + d0;
+          float* grow = (is_hot ? h.gv : gv) + dst * D + d0;
+#pragma unroll
+          for (int d = 0; d < CAP; ++d) {
+            if (d0 + d < D) {
+              const float vx = (to_bf16 ? bf16_round(vrow[d]) : vrow[d]) * xv;
+              const float gvv = (s[d] - vx) * xv * r;
+              atomicAdd(grow + d, to_bf16 ? bf16_round(gvv) : gvv);
+            }
           }
         }
       }
     }
-
-    if (lane == 0) {
-      const float pc = fminf(fmaxf(p, kLoglossEps), kLoglossHi);
-      const float ll = -(y * logf(pc) + (1.0f - y) * logf(1.0f - pc));
-      ll_acc += ll * wt;
-      w_acc += wt;
-    }
   }
-
-  if (lane == 0) {
-    part_ll[warp] = ll_acc;
-    part_w[warp] = w_acc;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float ll = 0.0f, wsum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kWarpsPerBlock; ++i) {
-      ll += part_ll[i];
-      wsum += part_w[i];
-    }
-    atomicAdd(acc, static_cast<double>(ll));
-    atomicAdd(acc + 1, static_cast<double>(wsum));
-  }
+  land_loss(ll_acc, w_acc, acc);
 }
 
-int grid_for(int B) {
+// The MVM form: slot j's v row (the head snapshot for a cold key < H in
+// window-start mode) and whether it rounds to bf16 (a hot slot under
+// the flag).
+struct TrainRows {
+  const float* v;
+  const float* snap_v;
+  const int* key;
+  int D, KH, H, bf16;
+  __device__ __forceinline__ const float* operator()(int j,
+                                                     bool& to_bf16) const {
+    const int k = key[j];
+    const bool hot = j < KH;
+    to_bf16 = hot && bf16 != 0;
+    const float* base = !hot && snap_v != nullptr && k < H ? snap_v : v;
+    return base + static_cast<long long>(k) * D;
+  }
+};
+
+template <typename LW>
+__global__ void __launch_bounds__(kThreads)
+train_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
+                 const LW* __restrict__ labels, const LW* __restrict__ weights,
+                 float num_real, const float* __restrict__ v,
+                 const int* __restrict__ slots, float* __restrict__ gv,
+                 double* __restrict__ acc, int B, int K, int D,
+                 const void* __restrict__ fields,
+                 const void* __restrict__ hot_fields, int f_i32, int S,
+                 const HotArgs h) {
+  extern __shared__ char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const long long warps_total = static_cast<long long>(gridDim.x) * warps;
+  const int n = h.KH + K;
+  const mvm::Stage s = mvm::stage_at(smem, warp, n);
+  const TrainRows rows{v, h.snap_v, s.key, D, h.KH, h.H, h.bf16};
+  const int tiles = (D + mvm::kTile - 1) / mvm::kTile;
+  float ll_acc = 0.0f;
+  float w_acc = 0.0f;
+
+  for (long long b = static_cast<long long>(blockIdx.x) * warps + warp; b < B;
+       b += warps_total) {
+    const long long row = b * K;
+    const int* srow = slots != nullptr ? slots + row : nullptr;
+    __syncwarp();  // the previous example's stage is read out
+    for (int j = lane; j < n; j += 32) {
+      float xv;
+      bool is_hot;
+      int key = entry_key(keys + row, x != nullptr ? x + row : nullptr, h, b,
+                          j, xv, is_hot);
+      int f = mvm::field_of(fields, hot_fields, f_i32, b, K, h.KH, j);
+      if (key < 0 || f < 0 || f >= S) {
+        key = -1;
+        f = -1;
+      }
+      s.key[j] = key;
+      s.x[j] = xv;
+      s.fld[j] = f;
+      s.dst[j] = key < 0 ? -1 : static_cast<int>(grad_row(srow, j, h.KH, key,
+                                                          is_hot));
+    }
+    mvm::find_reps(s, n, lane);
+    float logit = 0.0f;
+    float prod = 1.0f;  // the last tile's, lane d
+    for (int t = 0; t < tiles; ++t) {
+      const int d0 = t * mvm::kTile;
+      const int dt = min(mvm::kTile, D - d0);
+      mvm::tile_sums(s, n, d0, dt, lane, rows);
+      prod = mvm::tile_prod(s, n, dt, lane);
+      logit += warp_sum(lane < dt ? prod - 1.0f : 0.0f);
+    }
+    const float r = residual(logit, labels, weights, b, num_real, lane,
+                             ll_acc, w_acc);
+    for (int t = tiles - 1; t >= 0; --t) {
+      const int d0 = t * mvm::kTile;
+      const int dt = min(mvm::kTile, D - d0);
+      if (t != tiles - 1) {
+        mvm::tile_sums(s, n, d0, dt, lane, rows);
+        prod = mvm::tile_prod(s, n, dt, lane);
+      }
+      if (lane >= dt) continue;
+      for (int j = 0; j < n; ++j) {
+        const int dst = s.dst[j];
+        if (s.fld[j] < 0 || dst < 0) continue;
+        const bool hot = j < h.KH;
+        const float g = mvm::slot_grad(s, j, prod, lane) * r;
+        float* grow = (hot ? h.gv : gv) + static_cast<long long>(dst) * D + d0;
+        atomicAdd(grow + lane, hot && h.bf16 ? bf16_round(g) : g);
+      }
+    }
+  }
+  land_loss(ll_acc, w_acc, acc);
+}
+
+int grid_for(int B, int warps_per_block) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  const int want = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int want = (B + warps_per_block - 1) / warps_per_block;
   const int cap = sms * kBlocksPerSm;
   return want < cap ? want : cap;
 }
@@ -323,19 +477,35 @@ void launch(const int* keys, const float* x, const void* labels,
             const float* v, const int* slots, float* gw, float* gv,
             double* acc, int B, int K, int D, const HotArgs& h,
             cudaStream_t stream) {
-  train_kernel<CAP, LW><<<grid_for(B), kThreads, 0, stream>>>(
+  train_kernel<CAP, LW><<<grid_for(B, kWarpsPerBlock), kThreads, 0, stream>>>(
       keys, x, static_cast<const LW*>(labels),
       static_cast<const LW*>(weights), num_real, w, v, slots, gw, gv, acc, B,
       K, D, h);
 }
+
+struct Fields {
+  const void* cold;
+  const void* hot;
+  int i32, S;
+};
 
 template <typename LW>
 int dispatch(const int* keys, const float* x, const void* labels,
              const void* weights, float num_real, const float* w,
              const float* v, const int* slots, float* gw, float* gv,
              double* acc, int B, int K, int D, const HotArgs& h,
-             cudaStream_t s) {
-  if (v == nullptr || D == 0) {
+             const Fields& f, cudaStream_t s) {
+  if (f.cold != nullptr) {
+    int warps = 1;
+    size_t smem = 0;
+    const int rc = mvm::launch_shape(train_mvm_kernel<LW>, K + h.KH,
+                                     kWarpsPerBlock, &warps, &smem);
+    if (rc != 0) return rc;
+    train_mvm_kernel<LW><<<grid_for(B, warps), 32 * warps, smem, s>>>(
+        keys, x, static_cast<const LW*>(labels),
+        static_cast<const LW*>(weights), num_real, v, slots, gv, acc, B, K, D,
+        f.cold, f.hot, f.i32, f.S, h);
+  } else if (v == nullptr || D == 0) {
     launch<0, LW>(keys, x, labels, weights, num_real, w, nullptr, slots, gw,
                   nullptr, acc, B, K, 0, h, s);
   } else if (D <= 8) {
@@ -344,25 +514,25 @@ int dispatch(const int* keys, const float* x, const void* labels,
   } else if (D <= 16) {
     launch<16, LW>(keys, x, labels, weights, num_real, w, v, slots, gw, gv,
                    acc, B, K, D, h, s);
-  } else if (D <= kMaxDim) {
-    launch<kMaxDim, LW>(keys, x, labels, weights, num_real, w, v, slots, gw,
-                        gv, acc, B, K, D, h, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch<32, LW>(keys, x, labels, weights, num_real, w, v, slots, gw, gv,
+                   acc, B, K, D, h, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int xf_train_max_dim() { return kMaxDim; }
+extern "C" int xf_mvm_bytes_per_slot() { return mvm::kBytesPerSlot; }
 
 // Launches K2 on `stream`; labels/weights are u8 when lw_u8 != 0, else
 // f32; `slots` null is the dense mode, else the index mode (header).
-// KH = 0 means no hot plane (the hot_* pointers unread); snap_w null is
-// the live-table mode, else the window-start mode (header).  Returns
-// cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a D it has no variant for.
+// KH = 0 means no hot plane (the hot_* pointers unread); snap_v null is
+// the live-table mode, else the window-start mode (header).  fields not
+// null selects the MVM form (w, gw, hgw, snap_w unread; f_i32: int32
+// field planes, else u8; S = max_fields).  Returns cudaGetLastError()
+// after the launch (0 = launched), or cudaErrorInvalidValue when an MVM
+// row's stage does not fit the card's shared memory.
 extern "C" int xf_train_step(const int* keys, const float* x,
                              const void* labels, const void* weights,
                              int lw_u8, float num_real, const float* w,
@@ -371,15 +541,18 @@ extern "C" int xf_train_step(const int* keys, const float* x,
                              const void* hot, const float* hot_x, int hot_u16,
                              int H, int hot_bf16, int KH, float* hgw,
                              float* hgv, const float* snap_w,
-                             const float* snap_v, void* stream) {
+                             const float* snap_v, const void* fields,
+                             const void* hot_fields, int f_i32, int S,
+                             void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const HotArgs h{hot,  hot_x, hot_u16, H,      hot_bf16, KH > 0 ? KH : 0,
                   hgw,  hgv,   snap_w,  snap_v};
+  const Fields f{fields, hot_fields, f_i32, S};
   if (lw_u8 != 0) {
     return dispatch<std::uint8_t>(keys, x, labels, weights, num_real, w, v,
-                                  slots, gw, gv, acc, B, K, D, h, s);
+                                  slots, gw, gv, acc, B, K, D, h, f, s);
   }
   return dispatch<float>(keys, x, labels, weights, num_real, w, v, slots, gw,
-                         gv, acc, B, K, D, h, s);
+                         gv, acc, B, K, D, h, f, s);
 }

@@ -15,10 +15,14 @@
 //            hot counts, a tier bitmap (1 = u8 id), the u8 ids and the
 //            large tier, u16 ids or (H <= 2^12) u12 ids as u8 lows plus
 //            packed nibble highs (even entry: low nibble, odd: high).
+//   B4s      step.py:691-701 flat_slots, applied to cw_cs (:727-731) and
+//            cw_hs (:758-762): the field-id streams of models that read
+//            slots (MVM), u8 as the host clamps them, gathered at the same
+//            row starts into [B, K] and [B, KH] with 0 past each row's
+//            count (each entry clipped to its stream's capacity).
 //   The consolidation plan that region also emits (cold_uidx, ...) has
 //   no consumer in the port: dense cold_consolidate runs the plain dense
-//   step (ops/train.py), so K6 emits the compact-wire planes only.  Hot
-//   slots are not decoded: LR and FM read none, and none ship.
+//   step (ops/train.py), so K6 emits the compact-wire planes only.
 //
 // Inputs (device, contiguous):  cc u8 [B] per-row counts; cf u8
 // [cf_bytes] the flag bitmap, LSB first, 1 = dictionary entry; ci u16
@@ -34,7 +38,11 @@
 // [capx] with hxh u8 [ceil(capx/2)] nibble highs; output hot i32
 // [B, KH] (-1 on padding); scratch hot_row_start i32 [B], hot_prefix
 // i32 [ceil(hf_bytes/4)].  The same rank-by-popcount rule picks the
-// tier and the entry; an empty plane is never read.
+// tier and the entry; an empty plane is never read.  The field streams
+// (cs not null): cs u8 [cap_cs], and with the hot tiers hs u8 [cap_hs];
+// outputs fields u8 [B, K] and hot_fields u8 [B, KH] (0 on padding).
+// They reuse the scan's row starts and ride the decode launch: one
+// byte read and one written per entry, no new pass.
 //
 // Launches (one wrapper call, ops/wire.py):
 //   1. scan, ONE block of 1024 threads: row_start = exclusive scan of
@@ -49,7 +57,9 @@
 //      entries, e - rank its rank among the tail entries; the thread
 //      writes cu[ci[rank]] or ct[e - rank].  Threads i < B*KH decode hot
 //      entry i the same way (h8[rank] or the large tier's e - rank), and
-//      threads i < B also unpack the label and weight bits.
+//      threads i < B also unpack the label and weight bits; with the
+//      field streams, each (row, col) thread also writes its field id
+//      (cs[row_start[row] + col]) and each hot thread its hot field id.
 // Every index is clipped to its plane's capacity (a zero-length plane
 // is never read), as the reference clips: malformed planes cannot read
 // out of bounds.
@@ -58,7 +68,8 @@
 // or 4 per tail entry, cu 3 or 4 per dictionary entry, lb, wb) and
 // the outputs written once (4 B K + 2 B): about 17 MB, 0.005 ms at
 // 3.35 TB/s, for the repo's FM batches (B = 65,536, K = 40); the hot
-// tiers add hc, hf, about 1.2 bytes per hot entry and 4 B KH out.  A few
+// tiers add hc, hf, about 1.2 bytes per hot entry and 4 B KH out; the
+// field streams 1 B per real entry in and 1 B per slot out.  A few
 // integer operations per byte: bytes bound it.  The one-block scan
 // (about 65,536 counts and 82,000 flag words) is latency-bound and
 // costs more than its bytes; a multi-block scan, or fusing the decode
@@ -241,7 +252,10 @@ decode_kernel(const uint8_t* __restrict__ cc, int b, int k,
               const uint8_t* __restrict__ h8, int cap8,
               const void* __restrict__ hx, int capx, int hx_u16,
               const uint8_t* __restrict__ hxh, int caph,
-              int* __restrict__ hot) {
+              int* __restrict__ hot, const uint8_t* __restrict__ cs,
+              int cap_cs, uint8_t* __restrict__ fields,
+              const uint8_t* __restrict__ hs, int cap_hs,
+              uint8_t* __restrict__ hot_fields) {
   const long long total = static_cast<long long>(b) * k;
   const long long hot_total = static_cast<long long>(b) * kh;
   long long n = total > b ? total : b;
@@ -255,7 +269,10 @@ decode_kernel(const uint8_t* __restrict__ cc, int b, int k,
       const int row = static_cast<int>(i / k);
       const int col = static_cast<int>(i - static_cast<long long>(row) * k);
       int key = -1;
+      int field = 0;
       if (col < cc[row]) {
+        const long long e_raw = static_cast<long long>(row_start[row]) + col;
+        if (cap_cs > 0) field = cs[e_raw < cap_cs - 1 ? e_raw : cap_cs - 1];
         key = 0;
         if (cap_bits > 0) {
           long long e = static_cast<long long>(row_start[row]) + col;
@@ -273,12 +290,21 @@ decode_kernel(const uint8_t* __restrict__ cc, int b, int k,
         }
       }
       ckeys[i] = key;
+      if (fields != nullptr) fields[i] = static_cast<uint8_t>(field);
     }
     if (i < hot_total) {
       const int row = static_cast<int>(i / kh);
       const int col = static_cast<int>(i - static_cast<long long>(row) * kh);
       hot[i] = hot_id(hc, row, col, hot_row_start, hf, hf_bytes, hot_prefix,
                       h8, cap8, hx, capx, hx_u16, hxh, caph);
+      if (hot_fields != nullptr) {
+        int field = 0;
+        if (col < hc[row] && cap_hs > 0) {
+          const long long e = static_cast<long long>(hot_row_start[row]) + col;
+          field = hs[e < cap_hs - 1 ? e : cap_hs - 1];
+        }
+        hot_fields[i] = static_cast<uint8_t>(field);
+      }
     }
     if (i < b) {
       labels[i] = (lb[i >> 3] >> (i & 7)) & 1;
@@ -290,7 +316,8 @@ decode_kernel(const uint8_t* __restrict__ cc, int b, int k,
 }  // namespace
 
 // K6 on `stream`: the scan launch, then the decode launch; kh = 0
-// means no hot tiers (their pointers unread).  Returns
+// means no hot tiers (their pointers unread); cs null means no field
+// streams (cs, fields, hs, hot_fields unread).  Returns
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int xf_dict_decode(const uint8_t* cc, int b, int k,
                               const uint8_t* cf, long long cf_bytes,
@@ -304,13 +331,17 @@ extern "C" int xf_dict_decode(const uint8_t* cc, int b, int k,
                               const uint8_t* h8, int cap8, const void* hx,
                               int capx, int hx_u16, const uint8_t* hxh,
                               int caph, int* hot_row_start, int* hot_prefix,
-                              int* hot, void* stream) {
+                              int* hot, const uint8_t* cs, int cap_cs,
+                              uint8_t* fields, const uint8_t* hs, int cap_hs,
+                              uint8_t* hot_fields, void* stream) {
   if (b <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kh <= 0) {
     kh = 0;
     hc = nullptr;
   }
+  if (cs == nullptr) fields = nullptr;
+  if (cs == nullptr || kh == 0) hot_fields = nullptr;
   const int n_words = static_cast<int>((cf_bytes + 3) / 4);
   const int n_hwords = static_cast<int>((hf_bytes + 3) / 4);
   scan_kernel<<<1, kScanThreads, 0, s>>>(cc, b, cf, cf_bytes, n_words,
@@ -327,6 +358,6 @@ extern "C" int xf_dict_decode(const uint8_t* cc, int b, int k,
       cc, b, k, row_start, cf, cf_bytes, word_prefix, ci, cap_i, cu, cap_d,
       ct, cap_t, key_bytes, lb, wb, ckeys, labels, weights, kh, hc,
       hot_row_start, hf, hf_bytes, hot_prefix, h8, cap8, hx, capx, hx_u16, hxh,
-      caph, hot);
+      caph, hot, cs, cap_cs, fields, hs, cap_hs, hot_fields);
   return static_cast<int>(cudaGetLastError());
 }

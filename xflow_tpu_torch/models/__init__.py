@@ -10,25 +10,29 @@ from __future__ import annotations
 from xflow_tpu_torch.models.base import Model, TableSpec
 from xflow_tpu_torch.models.fm import FMModel
 from xflow_tpu_torch.models.lr import LRModel
+from xflow_tpu_torch.models.mvm import MVMModel
 
 # family -> ROADMAP item that ports it
 UNPORTED = {
-    "mvm": "A9 (B9)",
-    "ffm": "A9 (B10)",
-    "wide_deep": "A9 (B11)",
-    "two_tower": "A9 (B11)",
-    "dcn": "A9 (B11)",
+    "ffm": "A9b (B10)",
+    "wide_deep": "A9c (B11)",
+    "two_tower": "A9c (B11)",
+    "dcn": "A9c (B11)",
 }
 
-PORTED = ("lr", "fm")
+PORTED = ("lr", "fm", "mvm")
 
 
 def make_model(cfg) -> Model:
-    # Reference model dispatch: main.cc:27-45, argv[3] '0'→LR '1'→FM.
+    # Reference model dispatch: main.cc:27-45, argv[3] '0'→LR '1'→FM
+    # '2'→MVM.
     if cfg.model == "lr":
         return LRModel()
     if cfg.model == "fm":
         return FMModel(v_dim=cfg.v_dim, v_init_scale=cfg.v_init_scale)
+    if cfg.model == "mvm":
+        return MVMModel(v_dim=cfg.v_dim, v_init_scale=cfg.v_init_scale,
+                        max_fields=cfg.max_fields)
     if cfg.model in UNPORTED:
         raise NotImplementedError(
             f"model family {cfg.model!r} is not ported to the PyTorch "
@@ -38,4 +42,5 @@ def make_model(cfg) -> Model:
     raise ValueError(f"unknown model {cfg.model!r}")
 
 
-__all__ = ["FMModel", "LRModel", "Model", "PORTED", "TableSpec", "make_model"]
+__all__ = ["FMModel", "LRModel", "MVMModel", "Model", "PORTED", "TableSpec",
+           "make_model"]

@@ -5,7 +5,12 @@ runs one dense-mode forward/backward for LR (``v`` None) or FM over
 sentinel-coded keys [B, K] and ACCUMULATES into its outputs: the
 residual-scaled per-occurrence gradients are scatter-added into ``g_w``
 [T, 1] and ``g_v`` [T, D], and ``acc`` float64 [2] (csrc/train.cu says
-why) gains the batch's log-loss sum and weight sum.  ``x`` None means x = 1 on live slots (the compact
+why) gains the batch's log-loss sum and weight sum.  Any ``v`` width
+runs (D in tiles of 32).  With ``fields`` (and ``hot_fields``,
+``max_fields``) it is MVM's step (B9): no ``w``, ``g_w``, ``hg_w`` or
+``snap_w``, and each present slot's gradient prod / own * x (zero
+under the guard, and for fields outside [0, max_fields)) lands where
+FM's would, in every mode below.  ``x`` None means x = 1 on live slots (the compact
 wire); ``labels``/``weights`` are uint8 (compact wire) or float32 (full
 wire); ``num_real`` is the host float max(sum(weights), 1).
 
@@ -43,15 +48,16 @@ import ctypes
 
 import torch
 
-from xflow_tpu_torch.models.fm import FMModel
-from xflow_tpu_torch.models.lr import LRModel
 from xflow_tpu_torch.ops.hot import hot_scatter
-from xflow_tpu_torch.ops.score import check_hot, plain_view
+from xflow_tpu_torch.ops.score import (
+    check_fields,
+    check_hot,
+    check_mvm_stage,
+    check_tables,
+    plain_model,
+    plain_view,
+)
 from xflow_tpu_torch.utils.metrics import logloss_sum, sigmoid_ref
-
-# the kernel's register-resident D capacity (csrc/train.cu kMaxDim)
-MAX_DIM = 32
-_I32_MAX = 2**31 - 1
 
 _bound: ctypes.CDLL | None = None
 
@@ -67,28 +73,19 @@ def _lib() -> ctypes.CDLL:
             vp, vp, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp, ci, ci, ci,
             vp, vp, ci, ci, ci, ci,  # hot, hot_x, hot_u16, H, bf16, KH
             vp, vp, vp, vp,  # hg_w, hg_v, snap_w, snap_v
+            vp, vp, ci, ci,  # fields, hot_fields, f_i32, S
             vp,
         ]
         lib.xf_train_step.restype = ci
-        lib.xf_train_max_dim.argtypes = []
-        lib.xf_train_max_dim.restype = ci
-        if lib.xf_train_max_dim() != MAX_DIM:
-            raise RuntimeError(
-                f"csrc/train.cu kMaxDim {lib.xf_train_max_dim()} != "
-                f"ops/train.py MAX_DIM {MAX_DIM}"
-            )
+        check_mvm_stage(lib)
         _bound = lib
     return _bound
 
 
-def _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots) -> None:
-    if keys.dtype != torch.int32 or keys.dim() != 2:
-        raise ValueError(f"keys must be int32 [B, K], got {keys.dtype} {tuple(keys.shape)}")
+def _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots, fields) -> None:
+    tensors = check_tables(keys, x, w, v, fields is not None)
     b = keys.shape[0]
-    if w.dtype != torch.float32 or w.dim() != 2 or w.shape[1] != 1:
-        raise ValueError(f"w must be float32 [T, 1], got {w.dtype} {tuple(w.shape)}")
-    if w.shape[0] > _I32_MAX:
-        raise ValueError(f"table of {w.shape[0]} rows does not fit int32 keys")
+    t = (w if w is not None else v).shape[0]
     if labels.dtype not in (torch.uint8, torch.float32):
         raise ValueError(f"labels must be uint8 or float32, got {labels.dtype}")
     if labels.shape != (b,) or weights.shape != (b,) or weights.dtype != labels.dtype:
@@ -97,18 +94,28 @@ def _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots) -> None:
             f"{labels.dtype} {tuple(labels.shape)} / {weights.dtype} "
             f"{tuple(weights.shape)}"
         )
-    # the gradient buffers' rows: T (dense mode) or the slots' M >= B*K
-    rows = w.shape[0] if slots is None else max(keys.numel(), 1)
-    if (g_w.dtype != torch.float32 or g_w.dim() != 2 or g_w.shape[1] != 1
-            or (g_w.shape[0] != rows if slots is None else g_w.shape[0] < rows)):
-        raise ValueError(
-            f"g_w must be float32 [{rows}, 1] (dense) or [>= B*K, 1] (index "
-            f"mode), got {g_w.dtype} {tuple(g_w.shape)}"
-        )
     if acc.shape != (2,) or acc.dtype != torch.float64:
         raise ValueError("acc must be float64 [2]")
-    tensors = [("keys", keys), ("labels", labels), ("weights", weights),
-               ("w", w), ("g_w", g_w), ("acc", acc)]
+    tensors += [("labels", labels), ("weights", weights), ("acc", acc)]
+    # the gradient buffers' rows: T (dense mode) or the slots' M >= B*K
+    rows = t if slots is None else max(keys.numel(), 1)
+    grads = [("g_w", g_w, w, 1, "w and g_w come together (LR, FM) or not at all (MVM)"),
+             ("g_v", g_v, v, v.shape[1] if v is not None else 0,
+              "v and g_v come together (FM, MVM) or not at all (LR)")]
+    for name, g, table, width, pairing in grads:
+        if (table is None) != (g is None):
+            raise ValueError(pairing)
+        if g is None:
+            continue
+        if (g.dtype != torch.float32 or g.dim() != 2 or g.shape[1] != width
+                or (g.shape[0] != rows if slots is None else g.shape[0] < rows)):
+            raise ValueError(
+                f"{name} must be float32 [{rows}, {width}] (dense) or "
+                f"[>= B*K, {width}] (index mode), got {g.dtype} {tuple(g.shape)}"
+            )
+        tensors.append((name, g))
+    if g_w is not None and g_v is not None and g_w.shape[0] != g_v.shape[0]:
+        raise ValueError(f"g_w has {g_w.shape[0]} rows, g_v {g_v.shape[0]}")
     if slots is not None:
         if slots.dtype != torch.int32 or slots.shape != keys.shape:
             raise ValueError(
@@ -116,31 +123,10 @@ def _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots) -> None:
                 f"{tuple(slots.shape)}"
             )
         tensors.append(("slots", slots))
-    if x is not None:
-        if x.dtype != torch.float32 or x.shape != keys.shape:
-            raise ValueError(
-                f"x must be float32 {tuple(keys.shape)}, got {x.dtype} {tuple(x.shape)}"
-            )
-        tensors.append(("x", x))
-    if (v is None) != (g_v is None):
-        raise ValueError("v and g_v come together (FM) or not at all (LR)")
-    if v is not None:
-        if v.dtype != torch.float32 or v.dim() != 2 or v.shape[0] != w.shape[0]:
-            raise ValueError(
-                f"v must be float32 [{w.shape[0]}, D], got {v.dtype} {tuple(v.shape)}"
-            )
-        if not 1 <= v.shape[1] <= MAX_DIM:
-            raise ValueError(f"v width {v.shape[1]} outside [1, {MAX_DIM}]")
-        if g_v.dtype != torch.float32 or g_v.shape != (g_w.shape[0], v.shape[1]):
-            raise ValueError(
-                f"g_v must be float32 {(g_w.shape[0], v.shape[1])}, got "
-                f"{g_v.dtype} {tuple(g_v.shape)}"
-            )
-        tensors += [("v", v), ("g_v", g_v)]
-    for name, t in tensors:
-        if t.device != keys.device:
-            raise ValueError(f"{name} on {t.device}, keys on {keys.device}")
-        if not t.is_contiguous():
+    for name, tt in tensors:
+        if tt.device != keys.device:
+            raise ValueError(f"{name} on {tt.device}, keys on {keys.device}")
+        if not tt.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
@@ -149,15 +135,17 @@ def _check_head(keys, hot, hot_x, hot_size, w, v, hg_w, hg_v, snap_w, snap_v) ->
     start snapshot: each [H, dim] float32 and contiguous, beside w/v."""
     if hot is None and (hg_w is not None or hg_v is not None):
         raise ValueError("hg_w/hg_v need a hot plane")
-    if hot is None and snap_w is None:
+    windowed = snap_w is not None or snap_v is not None
+    if hot is None and not windowed:
         return
-    if not 0 < hot_size <= w.shape[0]:
-        raise ValueError(f"hot_size {hot_size} outside (0, {w.shape[0]}]")
+    table = w if w is not None else v
+    if not 0 < hot_size <= table.shape[0]:
+        raise ValueError(f"hot_size {hot_size} outside (0, {table.shape[0]}]")
     heads = []
     if hot is not None:
-        check_hot(keys, hot, hot_x, hot_size, w)
+        check_hot(keys, hot, hot_x, hot_size, table)
         heads += [("hg_w", hg_w, w), ("hg_v", hg_v, v)]
-    if snap_w is not None:
+    if windowed:
         heads += [("snap_w", snap_w, w), ("snap_v", snap_v, v)]
     for name, t, table in heads:
         if (t is None) != (table is None):
@@ -175,20 +163,20 @@ def _check_head(keys, hot, hot_x, hot_size, w, v, hg_w, hg_v, snap_w, snap_v) ->
 
 def occurrence_grads(keys, x, labels, weights, num_real, w, v, hot=None,
                      hot_x=None, hot_size=0, hot_bf16=False, snap_w=None,
-                     snap_v=None):
+                     snap_v=None, fields=None, hot_fields=None, max_fields=0):
     """The plain forward and backward up to the scatter: the forward's
     plain half (ops/score.py ``plain_view``: the wire decoded, cold rows
     gathered — from the window-start head at keys < H when given — and
     the hot rows through ``hot_gather``), the model's logit and explicit
     gradient times the residual.  Returns (the per-occurrence gradients
-    {"w", "v"} [B, Kh + K, dim], hot slots first and not yet rounded to
+    {table: [B, Kh + K, dim]}, hot slots first and not yet rounded to
     bfloat16, the hot keys [B, Kh] or None, pctr, the model's batch
     view)."""
     rows, batch, hk = plain_view(keys, x, w, v, hot, hot_x, hot_size,
-                                 hot_bf16, snap_w, snap_v)
+                                 hot_bf16, snap_w, snap_v, fields, hot_fields)
     batch["labels"] = labels.to(torch.float32)
     batch["weights"] = weights.to(torch.float32)
-    model = LRModel() if v is None else FMModel(v_dim=v.shape[1])
+    model = plain_model(w, v, fields, max_fields)
     pctr = sigmoid_ref(model.logit(rows, batch))
     residual = (pctr - batch["labels"]) * batch["weights"] / num_real
     occ = {name: g * residual[:, None, None]
@@ -198,7 +186,8 @@ def occurrence_grads(keys, x, labels, weights, num_real, w, v, hot=None,
 
 def train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
                 slots=None, hot=None, hot_x=None, hot_size=0, hot_bf16=False,
-                hg_w=None, hg_v=None, snap_w=None, snap_v=None) -> None:
+                hg_w=None, hg_v=None, snap_w=None, snap_v=None, fields=None,
+                hot_fields=None, max_fields=0) -> None:
     """K2's plain PyTorch version, step for step the reference's
     ``_train_impl`` up to the optimizer: ``occurrence_grads``, the
     scatter-add of live cold occurrences (at ``slots`` in index mode),
@@ -206,7 +195,8 @@ def train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
     log-loss sum."""
     occs, hk, pctr, batch = occurrence_grads(keys, x, labels, weights, num_real,
                                              w, v, hot, hot_x, hot_size, hot_bf16,
-                                             snap_w, snap_v)
+                                             snap_w, snap_v, fields, hot_fields,
+                                             max_fields)
     # The reference drops padding occurrences (sentinel key T, mode=
     # "drop", step.py:923).  Their x is 0, so their gradients are
     # exactly +-0 and adding them at the clamped row 0 leaves every
@@ -235,24 +225,28 @@ def train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
 
 def train_step(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
                slots=None, hot=None, hot_x=None, hot_size=0, hot_bf16=False,
-               hg_w=None, hg_v=None, snap_w=None, snap_v=None) -> None:
+               hg_w=None, hg_v=None, snap_w=None, snap_v=None, fields=None,
+               hot_fields=None, max_fields=0) -> None:
     """Accumulate one batch's gradients into ``g_w``/``g_v`` (at the
     keys' rows, or at ``slots``' rows in index mode), its hot plane's
     into ``hg_w``/``hg_v``, and its log-loss and weight sums into
-    ``acc``.  CPU tensors take the plain version; CUDA tensors launch
-    K2."""
-    _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots)
+    ``acc``; ``fields`` selects the MVM form.  CPU tensors take the
+    plain version; CUDA tensors launch K2."""
+    _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots, fields)
     _check_head(keys, hot, hot_x, hot_size, w, v, hg_w, hg_v, snap_w, snap_v)
+    if fields is not None:
+        check_fields(keys, fields, hot, hot_fields, max_fields)
     if keys.device.type == "cpu":
         train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
                     slots, hot, hot_x, hot_size, hot_bf16, hg_w, hg_v, snap_w,
-                    snap_v)
+                    snap_v, fields, hot_fields, max_fields)
         return
     if keys.device.type != "cuda":
         raise ValueError(f"train_step: unsupported device {keys.device}")
     lib = _lib()
     b, k = keys.shape
     kh = hot.shape[1] if hot is not None else 0
+    windowed = snap_w is not None or snap_v is not None
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -260,16 +254,16 @@ def train_step(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
     with torch.cuda.device(keys.device):
         rc = lib.xf_train_step(
             keys.data_ptr(),
-            x.data_ptr() if x is not None else None,
+            ptr(x),
             labels.data_ptr(),
             weights.data_ptr(),
             1 if labels.dtype == torch.uint8 else 0,
             float(num_real),
-            w.data_ptr(),
-            v.data_ptr() if v is not None else None,
-            slots.data_ptr() if slots is not None else None,
-            g_w.data_ptr(),
-            g_v.data_ptr() if g_v is not None else None,
+            ptr(w),
+            ptr(v),
+            ptr(slots),
+            ptr(g_w),
+            ptr(g_v),
             acc.data_ptr(),
             b,
             k,
@@ -277,13 +271,17 @@ def train_step(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
             ptr(hot) if kh else None,
             ptr(hot_x) if kh else None,
             1 if kh and hot.dtype == torch.int16 else 0,
-            hot_size if (kh or snap_w is not None) else 0,
+            hot_size if (kh or windowed) else 0,
             1 if kh and hot_bf16 else 0,
             kh,
             ptr(hg_w),
             ptr(hg_v),
             ptr(snap_w),
             ptr(snap_v),
+            ptr(fields),
+            ptr(hot_fields) if kh else None,
+            1 if fields is not None and fields.dtype == torch.int32 else 0,
+            max_fields,
             torch.cuda.current_stream(keys.device).cuda_stream,
         )
     if rc != 0:

@@ -5,8 +5,12 @@ on the device, into the compact wire's planes that K1 and K2 read:
 ``ckeys`` int32 [B, K] with -1 on padding, ``labels_u8`` and
 ``weights_u8`` [B], and with a hot table (``hot_nnz`` > 0, the
 ``cw_h*`` planes) the hot plane ``hot`` int32 [B, Kh] with -1 on
-padding.  It replaces the reference's ``TrainStep._expand_dict_wire``
-(parallel/step.py:621-766, ROADMAP B4 dict and its hot tiers).
+padding, and for a model that reads field ids (MVM: the ``cw_cs`` and
+``cw_hs`` streams ship) the field planes ``fields`` uint8 [B, K] and
+``hot_fields`` uint8 [B, Kh], 0 on padding (the u8 ids as the host
+clamped them; K1 and K2 read them at 1 B a slot).  It replaces the
+reference's ``TrainStep._expand_dict_wire`` (parallel/step.py:621-766,
+ROADMAP B4 dict, its hot tiers and B4s's ``flat_slots``).
 ``to_device`` ships the numpy planes: the u16 and u32 planes go as
 int16 and int32 views of the same bits, since the kernel reads them by
 their bytes.
@@ -32,6 +36,9 @@ PLANES = ("cw_cc", "cw_cf", "cw_ci", "cw_cu", "cw_ct", "cw_lb", "cw_wb")
 # the hot tiers: per-row counts, the tier bitmap (1 = u8), the u8 ids,
 # the large tier (u16, or u12's u8 lows) and u12's nibble highs
 HOT_PLANES = ("cw_hc", "cw_hf", "cw_h8", "cw_hx", "cw_hxh")
+# the field-id streams (u8, flat, row-major): cold, and hot with the
+# hot tiers
+FIELD_PLANES = ("cw_cs", "cw_hs")
 
 
 def to_device(wire: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
@@ -93,11 +100,35 @@ def _hot_plain(wire: dict[str, torch.Tensor], kh: int) -> torch.Tensor:
     return torch.where(valid, ids, torch.full_like(ids, -1)).to(torch.int32)
 
 
+def _flat_fields(plane: torch.Tensor, counts: torch.Tensor, width: int) -> torch.Tensor:
+    """The reference's ``flat_slots`` (step.py:691-701): a flat u8
+    stream gathered at each row's start (the cumsum of the counts) into
+    uint8 [B, width], 0 past each row's count, entries clipped to the
+    stream's capacity."""
+    counts = counts.long()
+    b = counts.shape[0]
+    colj = torch.arange(width, device=counts.device)[None, :]
+    cap = plane.shape[0]
+    if cap == 0:
+        return torch.zeros((b, width), dtype=torch.uint8, device=counts.device)
+    e = ((torch.cumsum(counts, 0) - counts)[:, None] + colj).clamp(0, cap - 1)
+    return torch.where(colj < counts[:, None], plane[e], torch.zeros_like(plane[e]))
+
+
+def _outputs(planes: list, fields) -> tuple:
+    """(ckeys, labels, weights[, hot][, fields[, hot_fields]])."""
+    if fields is not None:
+        planes += [f for f in fields if f is not None]
+    return tuple(planes)
+
+
 def dict_decode_plain(wire: dict[str, torch.Tensor], max_nnz: int, hot_nnz: int = 0):
     """K6's plain version: the reference's ``_expand_dict_wire``
     (step.py:636-766) on tensors, with its clipping.  Returns (ckeys
-    int32 [B, K], labels_u8 [B], weights_u8 [B]), and the hot plane
-    int32 [B, hot_nnz] after them when ``hot_nnz`` > 0."""
+    int32 [B, K], labels_u8 [B], weights_u8 [B]), the hot plane int32
+    [B, hot_nnz] after them when ``hot_nnz`` > 0, and when the field
+    streams ship, the field planes uint8 [B, K] (and [B, hot_nnz])
+    last."""
     cc = wire["cw_cc"].long()
     dev = cc.device
     b, k = cc.shape[0], max_nnz
@@ -126,9 +157,14 @@ def dict_decode_plain(wire: dict[str, torch.Tensor], max_nnz: int, hot_nnz: int 
     ckeys = torch.where(valid, keys, torch.full_like(keys, -1)).to(torch.int32)
     labels = _bits(wire["cw_lb"], b).to(torch.uint8)
     weights = _bits(wire["cw_wb"], b).to(torch.uint8)
+    planes = [ckeys, labels, weights]
     if hot_nnz:
-        return ckeys, labels, weights, _hot_plain(wire, hot_nnz)
-    return ckeys, labels, weights
+        planes.append(_hot_plain(wire, hot_nnz))
+    fields = None
+    if "cw_cs" in wire:
+        fields = (_flat_fields(wire["cw_cs"], wire["cw_cc"], k),
+                  _flat_fields(wire["cw_hs"], wire["cw_hc"], hot_nnz) if hot_nnz else None)
+    return _outputs(planes, fields)
 
 
 def _lib() -> ctypes.CDLL:
@@ -148,6 +184,7 @@ def _lib() -> ctypes.CDLL:
             ci, vp, vp, ll,  # kh, hc, hf, hf_bytes
             vp, ci, vp, ci, ci, vp, ci,  # h8, cap8, hx, capx, hx_u16, hxh, caph
             vp, vp, vp,  # hot_row_start, hot_prefix, hot
+            vp, ci, vp, vp, ci, vp,  # cs, cap_cs, fields, hs, cap_hs, hot_fields
             vp,  # stream
         ]
         lib.xf_dict_decode.restype = ci
@@ -170,6 +207,15 @@ def _check(wire: dict[str, torch.Tensor], max_nnz: int, hot_nnz: int) -> int:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     u8 = ("cw_cc", "cw_cf", "cw_lb", "cw_wb")
+    if "cw_cs" in wire:
+        streams = FIELD_PLANES if hot_nnz else FIELD_PLANES[:1]
+        missing = [p for p in streams if p not in wire]
+        if missing:
+            raise ValueError(f"dict_decode: the wire has no {missing}")
+        for name in streams:
+            if wire[name].device != dev or not wire[name].is_contiguous():
+                raise ValueError(f"{name} must be contiguous on {dev}")
+        u8 += streams
     if hot_nnz:
         u8 += ("cw_hc", "cw_hf", "cw_h8", "cw_hxh")
         if wire["cw_hc"].shape[0] != b:
@@ -211,10 +257,11 @@ def _check(wire: dict[str, torch.Tensor], max_nnz: int, hot_nnz: int) -> int:
 
 def dict_decode(wire: dict[str, torch.Tensor], max_nnz: int, hot_nnz: int = 0):
     """(ckeys int32 [B, K], labels_u8 [B], weights_u8 [B]) from the
-    dictionary-wire planes ``wire`` (``to_device``'s tensors), and
-    after them the hot plane int32 [B, hot_nnz] (-1 on padding) when
-    ``hot_nnz`` > 0.  CPU tensors take the plain version; CUDA tensors
-    launch K6."""
+    dictionary-wire planes ``wire`` (``to_device``'s tensors), after
+    them the hot plane int32 [B, hot_nnz] (-1 on padding) when
+    ``hot_nnz`` > 0, and last, when the field streams ship, the field
+    planes uint8 [B, K] and [B, hot_nnz] (0 on padding).  CPU tensors
+    take the plain version; CUDA tensors launch K6."""
     key_bytes = _check(wire, max_nnz, hot_nnz)
     cc = wire["cw_cc"]
     dev = cc.device
@@ -244,6 +291,16 @@ def dict_decode(wire: dict[str, torch.Tensor], max_nnz: int, hot_nnz: int = 0):
         )
     else:
         hot_args = (0, None, None, 0, None, 0, None, 0, 0, None, 0, None, None, None)
+    fields = None
+    field_args = (None, 0, None, None, 0, None)
+    if "cw_cs" in wire:
+        cs = wire["cw_cs"]
+        fields = (torch.empty((b, max_nnz), dtype=torch.uint8, device=dev),
+                  torch.empty((b, kh), dtype=torch.uint8, device=dev) if kh else None)
+        hs = wire["cw_hs"] if kh else None
+        field_args = (cs.data_ptr(), cs.shape[0], fields[0].data_ptr(),
+                      hs.data_ptr() if kh else None, hs.shape[0] if kh else 0,
+                      fields[1].data_ptr() if kh else None)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.xf_dict_decode(
@@ -255,14 +312,14 @@ def dict_decode(wire: dict[str, torch.Tensor], max_nnz: int, hot_nnz: int = 0):
             row_start.data_ptr(), word_prefix.data_ptr(),
             ckeys.data_ptr(), labels.data_ptr(), weights.data_ptr(),
             *hot_args,
+            *field_args,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"dictionary-wire decode launch failed: CUDA error {rc}")
     dict_decode.launches += 1
-    if kh:
-        return ckeys, labels, weights, hot
-    return ckeys, labels, weights
+    planes = [ckeys, labels, weights] + ([hot] if kh else [])
+    return _outputs(planes, fields)
 
 
 dict_decode.launches = 0

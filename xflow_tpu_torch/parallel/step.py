@@ -1,6 +1,6 @@
-"""The reference's parallel/step.py for LR and FM: the host wire, the
-train step in every update mode, with and without the hot table, and
-the device scoring call.
+"""The reference's parallel/step.py for LR, FM and MVM: the host wire,
+the train step in every update mode, with and without the hot table,
+and the device scoring call.
 
 The reference jits ``_train_impl`` (step.py:1024-1129) as one XLA
 program.  Here :class:`TrainStep` runs each of its update modes as a
@@ -76,7 +76,15 @@ weights; the hot plane ships as uint16 with ``0xFFFF`` padding when
 H <= 2^15, else as int32 with ``-1`` (step.py:225-233,297-300).  The
 full wire (numeric mode or ``wire_mode="full"``) ships the same keys
 plus the masked values ``x = vals * mask`` (and ``hot_x``) and float32
-labels and weights.  The dictionary wire (``wire_dedup="auto"`` or
+labels and weights.  A model that reads field ids (``uses_slots``: MVM;
+the reference's step.py:296) also gets its field planes, on the card
+``fields`` [B, K] and ``hot_fields`` [B, Kh]: uint8 on the compact wire
+(``slots_u8``, anything outside [0, 255] clamped to 255, which every
+slot consumer ignores since such a model's compact wire needs
+``max_fields <= 255``; step.py:174-235), int32 on the full wire (the
+raw slots; the only wire when ``max_fields > 255``, step.py:321-327),
+and the ``cw_cs``/``cw_hs`` streams on the dictionary wire, which K6
+decodes to uint8.  The dictionary wire (``wire_dedup="auto"`` or
 ``"on"``, hash mode on one device: :func:`dict_wire_ok`) compacts each
 batch on the host (io/compact.py::CompactBatch) and ships its tiered
 planes, the hot tiers included; K6 (ops/wire.py) decodes them on the
@@ -98,11 +106,11 @@ import torch
 
 from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.io.batch import Batch, narrow_keys_i32
-from xflow_tpu_torch.io.compact import CompactBatch
+from xflow_tpu_torch.io.compact import CompactBatch, _clamp_slots_u8
 from xflow_tpu_torch.models import PORTED, make_model
 from xflow_tpu_torch.obs import Obs
 from xflow_tpu_torch.ops.optim import optim_update
-from xflow_tpu_torch.ops.score import MAX_DIM, score
+from xflow_tpu_torch.ops.score import check_mvm_slots, score
 from xflow_tpu_torch.ops.sparse import consolidate_keys, touched_update
 from xflow_tpu_torch.ops.train import train_step
 from xflow_tpu_torch.ops.wire import dict_decode, to_device
@@ -140,17 +148,23 @@ def sentinel_keys(keys: np.ndarray, mask: np.ndarray) -> np.ndarray:
     return np.where(mask > 0, live, np.int32(-1))
 
 
-def compact_wire_np(batch: Batch, hot_u16: bool = False) -> dict[str, np.ndarray]:
+def compact_wire_np(batch: Batch, hot_u16: bool = False,
+                    ship_slots: bool = False) -> dict[str, np.ndarray]:
     """The host half of the compact wire (the reference's
-    ``compact_wire_np`` for slot-free models): sentinel-coded int32 keys
-    + uint8 labels/weights, and a batch's hot plane as uint16 with
-    0xFFFF padding (``hot_u16``: hot ids are < H <= 2^15, so they never
-    reach the sentinel) or as sentinel-coded int32."""
+    ``compact_wire_np``): sentinel-coded int32 keys + uint8
+    labels/weights, a batch's hot plane as uint16 with 0xFFFF padding
+    (``hot_u16``: hot ids are < H <= 2^15, so they never reach the
+    sentinel) or as sentinel-coded int32, and with ``ship_slots`` the
+    uint8 field planes of both sections (anything outside [0, 255]
+    clamped to 255, which the models ignore as >= max_fields; a plain
+    cast would wrap negatives into the live field range)."""
     out = {
         "ckeys": sentinel_keys(batch.keys, batch.mask),
         "labels_u8": batch.labels.astype(np.uint8),
         "weights_u8": batch.weights.astype(np.uint8),
     }
+    if ship_slots:
+        out["slots_u8"] = _clamp_slots_u8(batch.slots)
     if batch.hot_nnz:
         if hot_u16:
             out["hot_ckeys_u16"] = np.where(
@@ -158,28 +172,38 @@ def compact_wire_np(batch: Batch, hot_u16: bool = False) -> dict[str, np.ndarray
             ).astype(np.uint16)
         else:
             out["hot_ckeys"] = sentinel_keys(batch.hot_keys, batch.hot_mask)
+        if ship_slots:
+            out["hot_slots_u8"] = _clamp_slots_u8(batch.hot_slots)
     return out
 
 
-def full_wire_np(batch: Batch) -> dict[str, np.ndarray]:
+def full_wire_np(batch: Batch, ship_slots: bool = False) -> dict[str, np.ndarray]:
     """The full wire's planes: sentinel-coded keys, the masked values,
-    float32 labels and weights, and the hot plane's keys and values."""
+    float32 labels and weights, the hot plane's keys and values, and
+    with ``ship_slots`` the int32 field planes, unclamped."""
     out = {
         "ckeys": sentinel_keys(batch.keys, batch.mask),
         "x": (batch.vals * batch.mask).astype(np.float32),
         "labels": batch.labels.astype(np.float32),
         "weights": batch.weights.astype(np.float32),
     }
+    if ship_slots:
+        out["slots"] = batch.slots.astype(np.int32)
     if batch.hot_nnz:
         out["hot_ckeys"] = sentinel_keys(batch.hot_keys, batch.hot_mask)
         out["hot_x"] = (batch.hot_vals * batch.hot_mask).astype(np.float32)
+        if ship_slots:
+            out["hot_slots"] = batch.hot_slots.astype(np.int32)
     return out
 
 
 # host wire plane -> device array: both hot key planes are "hot" on the
-# card (uint16 as its int16 view, the bits K1 and K2 read)
-_DEVICE_NAMES = {"hot_ckeys_u16": "hot", "hot_ckeys": "hot"}
-PREDICT_PLANES = ("ckeys", "x", "hot", "hot_x")
+# card (uint16 as its int16 view, the bits K1 and K2 read), and the
+# field planes of both wires "fields" / "hot_fields"
+_DEVICE_NAMES = {"hot_ckeys_u16": "hot", "hot_ckeys": "hot",
+                 "slots_u8": "fields", "slots": "fields",
+                 "hot_slots_u8": "hot_fields", "hot_slots": "hot_fields"}
+PREDICT_PLANES = ("ckeys", "x", "hot", "hot_x", "fields", "hot_fields")
 
 
 def to_device_planes(wire: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
@@ -237,6 +261,7 @@ class PredictStep:
                 f"max_fields={cfg.max_fields} does not qualify"
             )
         self.compact_wire = cfg.wire_mode != "full" and compact_ok
+        self.ship_slots = uses_slots
         self.hot_size = cfg.hot_size
         # hot ids fit u16 with the 0xFFFF sentinel only below 2^15 rows
         self.hot_u16 = bool(cfg.hot_size_log2 and cfg.hot_size_log2 <= 15)
@@ -245,9 +270,9 @@ class PredictStep:
     def host_wire_np(self, batch: Batch) -> dict[str, np.ndarray]:
         """The numpy planes predict ships for ``batch``."""
         if self.compact_wire:
-            wire = compact_wire_np(batch, self.hot_u16)
+            wire = compact_wire_np(batch, self.hot_u16, self.ship_slots)
             return {k: a for k, a in wire.items() if k not in ("labels_u8", "weights_u8")}
-        wire = full_wire_np(batch)
+        wire = full_wire_np(batch, self.ship_slots)
         return {k: a for k, a in wire.items() if k not in ("labels", "weights")}
 
     def put_batch(self, batch: Batch) -> dict[str, torch.Tensor]:
@@ -257,12 +282,25 @@ class PredictStep:
     def predict(self, state: State, arrays: dict[str, torch.Tensor]) -> torch.Tensor:
         """pctr [B] per example (reference calculate_pctr,
         lr_worker.cc:46-61): one K1 launch on the card, the hot plane
-        read beside the cold one."""
-        tables = state["tables"]
-        v = tables["v"]["param"] if "v" in tables else None
-        return score(arrays["ckeys"], arrays.get("x"), tables["w"]["param"], v,
+        read beside the cold one, and the field planes for MVM."""
+        w, v = (param(state["tables"], n) for n in ("w", "v"))
+        return score(arrays["ckeys"], arrays.get("x"), w, v,
                      hot=arrays.get("hot"), hot_x=arrays.get("hot_x"),
-                     hot_size=self.hot_size, hot_bf16=self.hot_bf16)
+                     hot_size=self.hot_size, hot_bf16=self.hot_bf16,
+                     **self.field_args(arrays))
+
+    def field_args(self, arrays: dict[str, torch.Tensor]) -> dict:
+        """K1's and K2's MVM-form arguments (none for LR and FM)."""
+        if not self.ship_slots:
+            return {}
+        return {"fields": arrays["fields"], "hot_fields": arrays.get("hot_fields"),
+                "max_fields": self.cfg.max_fields}
+
+
+def param(tables: dict, name: str) -> torch.Tensor | None:
+    """Table ``name``'s param, or None where the model has no such
+    table (MVM has no ``w``, LR no ``v``)."""
+    return tables[name]["param"] if name in tables else None
 
 
 def table_generator(seed: int, index: int, device: torch.device) -> torch.Generator:
@@ -318,11 +356,8 @@ def check_servable(cfg: Config) -> None:
         )
     if cfg.model not in PORTED:
         make_model(cfg)  # raises NotImplementedError naming the item
-    if cfg.model == "fm" and cfg.v_dim > MAX_DIM:
-        raise NotImplementedError(
-            f"v_dim={cfg.v_dim} exceeds the scoring kernel's register "
-            f"capacity {MAX_DIM} (csrc/score.cu kMaxDim)"
-        )
+    if cfg.model == "mvm":
+        check_mvm_slots(cfg.max_nnz + (cfg.hot_nnz if cfg.hot_size else 0))
 
 
 def dict_wire_ok(cfg: Config, uses_slots: bool) -> bool:
@@ -433,22 +468,22 @@ class TrainStep:
         loader batches satisfy the invariants by construction)."""
         check = not self._compact_validated
         self._compact_validated = True
+        ship = self.predict_step.ship_slots
         if isinstance(batch, CompactBatch):
             if self.dict_wire and self._dict_geometry_ok(batch):
-                return batch.wire(ship_slots=False), batch
+                return batch.wire(ship_slots=ship), batch
             batch = batch.expand()
         if self.dict_wire and self._dict_geometry_ok(batch):
-            # LR and FM read no slots, so none ship
             cb = CompactBatch.from_batch(batch, self.cfg.table_size, self.hot_size,
                                          check=check)
-            return cb.wire(ship_slots=False), cb
+            return cb.wire(ship_slots=ship), cb
         if predict:
             return self.predict_step.host_wire_np(batch), None
         if self.compact_wire:
             if check:
                 validate_compact_batch(batch)
-            return compact_wire_np(batch, self.predict_step.hot_u16), None
-        return full_wire_np(batch), None
+            return compact_wire_np(batch, self.predict_step.hot_u16, ship), None
+        return full_wire_np(batch, ship), None
 
     def slice_order(self, b: int) -> np.ndarray:
         """Row order that makes the reference's interleaved slices
@@ -511,8 +546,11 @@ class TrainStep:
             if cb is not None:
                 planes = dict_decode(to_device(wire, self.device), self.cfg.max_nnz,
                                      self.hot_nnz)
-                arrays: dict[str, Any] = dict(zip(
-                    ("ckeys", "labels_u8", "weights_u8", "hot"), planes))
+                # K6's outputs, in order (ops/wire.py dict_decode)
+                names = ("ckeys", "labels_u8", "weights_u8") + ("hot",) * bool(self.hot_nnz)
+                if "cw_cs" in wire:
+                    names += ("fields", "hot_fields")[:1 + bool(self.hot_nnz)]
+                arrays: dict[str, Any] = dict(zip(names, planes))
             else:
                 arrays = to_device_planes(wire, self.device)
             if predict:
@@ -573,7 +611,6 @@ class TrainStep:
         """One K2 launch over ``view``: cold gradients into ``grads``
         (at ``slots`` in index mode), the hot plane's into ``heads``,
         cold keys < H read from ``snaps`` when given."""
-        w, v = tables["w"], tables.get("v")
         if "labels_u8" in view:
             labels, weights = view["labels_u8"], view["weights_u8"]
         else:
@@ -583,11 +620,12 @@ class TrainStep:
         snaps = snaps or {}
         train_step(
             view["ckeys"], view.get("x"), labels, weights, num_real,
-            w["param"], v["param"] if v is not None else None,
-            grads["w"], grads.get("v"), acc, slots=slots,
+            param(tables, "w"), param(tables, "v"),
+            grads.get("w"), grads.get("v"), acc, slots=slots,
             hot=hot, hot_x=view.get("hot_x"), hot_size=self.hot_size,
             hot_bf16=self.hot_bf16, hg_w=heads.get("w"), hg_v=heads.get("v"),
             snap_w=snaps.get("w"), snap_v=snaps.get("v"),
+            **self.predict_step.field_args(view),
         )
 
     def _touched_rows(self, tables: dict, view: dict, num_real: float,

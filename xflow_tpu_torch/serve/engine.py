@@ -23,7 +23,7 @@ remap (the artifact's ``remap.npy``): request rows arrive in the raw
 hash key space and are remapped and steered into the hot and cold
 planes before scoring (io/batch.py::remap_batch), and a hot model
 without its remap is refused, as the reference refuses it.  The tiered
-store and the five other families are refused at load with the
+store and the four other families are refused at load with the
 ROADMAP item that ports them; the failpoints and flight recorder come
 with ROADMAP A14.
 """

@@ -217,7 +217,39 @@ Phases, in order; any failure raises and the exit code is 1:
    eval AUC inside the planted bars;
 27. ``mvm_nohot`` (40 cold slots) dense on the default input path
    (native text, the dictionary wire with the field streams), the card
-   against the CPU.
+   against the CPU;
+28. K1's FFM form (B10) against its plain version at the flagship
+   ``ffm`` (scripts/bench_models.py:84-92: T = 2^21, 40 slots, F = 39
+   fields, D = 4 factors, u8 fields) on the compact and full wires
+   (values, int32 fields with negative ids), and ``ffm_hot``'s planes
+   (12 cold + 32 hot slots, u16 ids at H = 2^14) with and without the
+   bf16 flag (w's head alone rounds: v opts out of the hot path), every
+   bucket, within ffm_tolerances' derived bound, and timed at B = 512;
+29. serving a full-width ``ffm`` artifact and a hot ``ffm_hot`` one
+   (phases 3-4 again, the float64 reference FFM's pairwise sum);
+30. training the flagship ``ffm`` on the default input path in dense
+   microbatch 4 and sparse mode (2 epochs) and sequential + sparse
+   inner (microbatch 128, 1 epoch), and one dispatch each of dense
+   microbatch 1 and
+   the sequential dense inner (microbatch 2), from one seeded state:
+   exact launches, the card against the CPU within TRAIN_BOUNDS (every
+   path's first dispatch through ``lockstep_tables``: FFM's dense paths
+   meet FTRL's n' == 0 split too; the eval at that depth card against
+   CPU), the sync guard on the
+   sequential path's first dispatch, the eval AUC inside the planted
+   bars;
+31. ``ffm_hot`` dense (2 epochs) and hybrid (sequential + sparse
+   inner, microbatch 128, 1 epoch) the same way, and the hot inner
+   refused with the reference's message;
+32. K2's FFM form against its plain version on the paths' own batches:
+   dense (65,536 rows, with and without the hot plane), index mode (the
+   sparse path's batch, the sequential path's slice 0), the hybrid's
+   slice 0, and the dense batch with every logit below -30 (the
+   residual is the unclamped sigmoid's), within ffm_tolerances'
+   per-row bound; each timed with its bound; K6 with the field streams
+   (exactly) and K3 on the ``ffm`` path, timed;
+33. K1 and K2 at D = 16 (F = 39) and F = 64 (D = 4), where they run two
+   D-tiles, against their plain versions, and timed.
 
 Output: the card line, per-phase lines, a ``{"kernels": [...]}`` JSON
 line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
@@ -226,7 +258,8 @@ plus the training paths' eval and engine batches (phases 8, 11, 12,
 16), K2-K6's training paths (phases 8, 11-13 and 16, by path in
 ``launches_by_path``); the hot modes' entries count the hot paths
 (phases 18-19), the D-tiled FM forms their phase-21 paths, and the
-MVM forms the MVM paths (phases 25-27); every count is set to 0 just
+MVM forms the MVM paths (phases 25-27), the FFM forms the FFM paths
+(phases 29-31); every count is set to 0 just
 before each path and read just after it.
 """
 
@@ -245,6 +278,7 @@ import time
 import numpy as np
 
 SEED = 0
+T_START = time.perf_counter()  # main() resets it: the progress lines' clock
 K = 40  # fm_nohot max_nnz
 D = 10  # fm_nohot v_dim (reference ftrl.h:16)
 T_LOG2 = 24  # fm_nohot table_size_log2
@@ -520,8 +554,10 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
     from the scored lines' keys, and the engine remaps and steers each
     request before K1 reads its hot and cold planes.  ``model="mvm"``
     (phase 25) serves the flagship ``mvm`` the same way (its field
-    planes beside the keys), and ``v_dim`` (phase 21: 64) an FM wider
-    than one of the kernels' 32-factor tiles."""
+    planes beside the keys), ``model="ffm"`` (phase 29) the flagship
+    ``ffm`` (T = 2^21, v [T, 39 x 4]) or with ``hot`` ``ffm_hot``, and
+    ``v_dim`` (phase 21: 64) an FM wider than one of the kernels'
+    32-factor tiles."""
     import torch
 
     from xflow_tpu_torch.io import freq
@@ -534,6 +570,10 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
     from xflow_tpu_torch.serve.engine import PredictEngine
 
     cfg = dataclasses.replace(fm_nohot_config(t_log2), model=model, v_dim=v_dim)
+    ffm = model == "ffm"
+    if ffm:
+        cfg = dataclasses.replace(cfg, ffm_v_dim=FFM["ffm_v_dim"], max_fields=FFM["max_fields"])
+        v_dim = cfg.max_fields * cfg.ffm_v_dim
     if hot:
         cfg = dataclasses.replace(cfg, **HOT_GEOMETRY[model])
     mvm = model == "mvm"
@@ -576,12 +616,13 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
     # the same parsed planes through the plain version, on the card
     batch = remap_batch(pack_batch(block, 0, n_lines, n_lines, cfg.max_nnz), remap,
                         cfg.hot_size, cfg.hot_nnz)
-    planes = to_device_planes(compact_wire_np(batch, hot_u16=True, ship_slots=mvm), dev)
+    planes = to_device_planes(compact_wire_np(batch, hot_u16=True, ship_slots=mvm or ffm),
+                              dev)
     tables = engine.state["tables"]
     want = score_plain(planes["ckeys"], None, tables["w"]["param"] if not mvm else None,
                        tables["v"]["param"], hot=planes.get("hot"), hot_size=cfg.hot_size,
                        fields=planes.get("fields"), hot_fields=planes.get("hot_fields"),
-                       max_fields=cfg.max_fields)
+                       max_fields=cfg.max_fields, form=cfg.model)
     err = float(np.abs(pctr - want.cpu().numpy()).max())
     if err > PCTR_ATOL:
         raise AssertionError(f"engine vs plain on the card: max err {err}")
@@ -599,6 +640,14 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
             for f in np.unique(fields_i[(fields_i >= 0) & (fields_i < cfg.max_fields)]):
                 prod *= 1.0 + vr[fields_i == f].sum(0)
             logit = float((prod - 1.0).sum())
+        elif ffm:  # the pairwise definition: <v[k_a, f_b], v[k_b, f_a]> over a < b
+            fields_i = np.concatenate([batch.hot_slots[i][hlive], batch.slots[i][live]])
+            ok = (fields_i >= 0) & (fields_i < cfg.max_fields)
+            v4 = vr[ok].reshape(-1, cfg.max_fields, cfg.ffm_v_dim)
+            fv = fields_i[ok]
+            cross = v4[:, fv, :]  # [a, b, D] = v[k_a, f_b]
+            pair = np.einsum("abd,bad->ab", cross, cross)
+            logit = float(w[keys_i, 0].astype(np.float64).sum()) + float(np.triu(pair, 1).sum())
         else:
             lin = float(w[keys_i, 0].astype(np.float64).sum())
             logit = lin + float((vr.sum(0) ** 2 - (vr * vr).sum(0)).sum())
@@ -1701,16 +1750,20 @@ def guard_first_dispatch(trainer) -> dict:
 def run_mode(dev, model: str, t_log2: int, data: dict, init: dict, mode: dict,
              label: str, workdir: str, evaluate: bool = True, keep: bool = False,
              sync_check: bool = False, bars: dict | None = None,
-             lockstep: bool = False) -> dict:
+             lockstep: bool = False, replay_dispatches: int | None = None) -> dict:
     """One update mode's training main path through ``Trainer``: on the
     card from ``init`` (launch counts zeroed just before, read just after,
     and held to ``expected_launches``), then the same steps on the CPU
     from the same state, held to TRAIN_BOUNDS.  With ``lockstep`` (the
-    sequential path, whose many passes meet FTRL's n' == 0
-    discontinuity) the tables are held to TRAIN_BOUNDS by
-    ``lockstep_tables`` over the shipped batches instead, and the two
-    runs' tables are reported.  Returns the row, the card's trainer and,
-    with ``keep``, the batches it shipped."""
+    paths whose many passes meet FTRL's n' == 0 discontinuity) the CPU
+    replay is ``lockstep_tables`` over the shipped batches, which holds
+    each update's log-loss and the tables to TRAIN_BOUNDS, and the CPU
+    then evaluates its replayed tables.  ``replay_dispatches`` cuts the
+    lockstep replay to the first dispatches: then the card's replayed
+    tables are evaluated too, and the CPU's eval is held to them at
+    that depth (the main path's eval still meets the planted bars).
+    Returns the row, the card's trainer and, with ``keep``, the batches
+    it shipped."""
     import os
 
     import torch
@@ -1756,30 +1809,46 @@ def run_mode(dev, model: str, t_log2: int, data: dict, init: dict, mode: dict,
         raise AssertionError(f"{model} {label}: eval AUC {result['auc']} outside the "
                              f"planted signal's bars {bars}")
 
-    cpu = Trainer(dataclasses.replace(cfg, metrics_out=""), device="cpu",
-                  log=lambda _: None)
-    cpu.state = state_from_numpy(cfg, init, "cpu")
+    # the CPU trainer evaluates, and without lockstep trains too
+    cpu = (Trainer(dataclasses.replace(cfg, metrics_out=""), device="cpu",
+                   log=lambda _: None) if evaluate or not lockstep else None)
+    cpu_history = None
     t0 = time.perf_counter()
-    cpu_history = cpu.train()
+    if lockstep:
+        replay = {}
+        depth = replay_dispatches or len(shipped)
+        lock = lockstep_tables(trainer.step, cfg, init, shipped[:depth], keep=replay)
+        lock["replayed_dispatches"] = depth
+        if cpu is not None:
+            cpu.state = replay["cpu"]
+        if depth < len(shipped) and evaluate:  # the card's eval at the replay's depth
+            trained, trainer.state = trainer.state, replay["card"]
+            result_at_depth = trainer.evaluate()
+            trainer.state = trained
+            lock["card_eval_at_depth"] = {k: result_at_depth[k] for k in ("auc", "logloss")}
+    else:
+        cpu.state = state_from_numpy(cfg, init, "cpu")
+        cpu_history = cpu.train()
     cpu_s = time.perf_counter() - t0
     cpu_result = cpu.evaluate() if evaluate else None
-    cpu.close()
-    if len(trainer.step_logloss) != len(cpu.step_logloss):
+    if cpu is not None:
+        cpu.close()
+    if not lockstep and len(trainer.step_logloss) != len(cpu.step_logloss):
         raise AssertionError(f"{model} {label}: step counts differ")
-    for a, b in zip(trainer.step_logloss, cpu.step_logloss):
+    for a, b in zip(trainer.step_logloss, [] if lockstep else cpu.step_logloss):
         if abs(a - b) > TRAIN_BOUNDS["logloss_rtol"] * max(abs(b), 1.0):
             raise AssertionError(f"{model} {label}: step log-loss {a} on the card vs "
                                  f"{b} on the CPU")
-    if evaluate and (abs(result["auc"] - cpu_result["auc"]) > TRAIN_BOUNDS["auc_atol"] or abs(
-            result["logloss"] - cpu_result["logloss"]) > TRAIN_BOUNDS["logloss_rtol"] * abs(
+    held = lock["card_eval_at_depth"] if lockstep and "card_eval_at_depth" in lock else result
+    if evaluate and (abs(held["auc"] - cpu_result["auc"]) > TRAIN_BOUNDS["auc_atol"] or abs(
+            held["logloss"] - cpu_result["logloss"]) > TRAIN_BOUNDS["logloss_rtol"] * abs(
             cpu_result["logloss"])):
-        raise AssertionError(f"{model} {label}: eval on the card {result} vs CPU {cpu_result}")
-    occ = row_occurrences(shipped, cfg.table_size) if keep else None
-    state_cmp = compare_states(trainer.state, cpu.state, occ, gate=not lockstep)
-    if lockstep:
-        t0 = time.perf_counter()
-        state_cmp["lockstep"] = lockstep_tables(trainer.step, cfg, init, shipped)
-        state_cmp["lockstep"]["seconds"] = time.perf_counter() - t0
+        raise AssertionError(f"{model} {label}: eval on the card {held} vs CPU {cpu_result}")
+    if lockstep:  # lockstep_tables held the tables
+        state_cmp = {"lockstep": dict(lock, seconds=cpu_s)}
+    else:
+        occ = row_occurrences(shipped, cfg.table_size) if keep else None
+        state_cmp = compare_states(trainer.state, cpu.state, occ)
     row = {
         "model": model, "mode": label, "config": mode, "steps": steps, "tables": tables,
         "launches": got, "train_seconds": train_s, "cpu_train_seconds": cpu_s,
@@ -1789,7 +1858,8 @@ def run_mode(dev, model: str, t_log2: int, data: dict, init: dict, mode: dict,
                                                 "device_block")}
                    for p in (h["phases"] for h in history)],
         "train_logloss": [h["train_logloss"] for h in history],
-        "cpu_train_logloss": [h["train_logloss"] for h in cpu_history],
+        "cpu_train_logloss": ([h["train_logloss"] for h in cpu_history] if cpu_history
+                              else None),
         **state_cmp,
     }
     if guard is not None:
@@ -2064,7 +2134,7 @@ def k5_bounds(ukeys, n: int, d: int, form: str, hot_size: int = 0) -> dict:
 
 
 def sparse_kernel_timings(model: str, trainer, keys, labels, weights, num_real,
-                          label: str) -> list:
+                          label: str, form_kw: dict | None = None, k2: bool = True) -> list:
     """K4, K2 in index mode and K5 (FTRL, every table) on one key plane
     of a sparse main path, after its run, on copies of its trained
     tables: device ms behind ``_sleep`` (60 launches), the plain
@@ -2072,7 +2142,9 @@ def sparse_kernel_timings(model: str, trainer, keys, labels, weights, num_real,
     return_inverse=True)`` as the library call (timed on the host path:
     it synchronises to size its output).  K4's calls each start from a
     cleared slot map (the clear is outside the timed events); K2's and
-    K5's each behind an L2 flush, as in the run."""
+    K5's each behind an L2 flush, as in the run.  ``form_kw`` are K2's
+    field-form keywords (field_kw) for a model that reads field ids;
+    without ``k2`` K2 is not timed here (FFM's is, by time_ffm_k2)."""
     import torch
 
     from xflow_tpu_torch.ops.sparse import (
@@ -2116,30 +2188,37 @@ def sparse_kernel_timings(model: str, trainer, keys, labels, weights, num_real,
     gv = torch.zeros((m, v.shape[1]), device=dev) if v is not None else None
     acc = torch.zeros(2, device=dev, dtype=torch.float64)
 
+    form_kw = form_kw or {}
+
     def k2_index(slots):
-        train_step(keys, None, labels, weights, num_real, w, v, gw, gv, acc, slots=slots)
+        train_step(keys, None, labels, weights, num_real, w, v, gw, gv, acc, slots=slots,
+                   **form_kw)
 
     def k2_index_plain(slots):
-        train_plain(keys, None, labels, weights, num_real, w, v, gw, gv, acc, slots=slots)
+        train_plain(keys, None, labels, weights, num_real, w, v, gw, gv, acc, slots=slots,
+                    **form_kw)
 
     dim = v.shape[1] if v is not None else 0
     b2 = k2_bounds(keys, None, labels, dim)
     stream = 4 * m  # the slot plane
-    rows.append({
-        "kernel": "train_step (index mode)", "model": model, "path": label, "M": m, "U": n,
-        "ms": time_device_ms(k2_index, [(plan[2],)] * TIMED_RUNS, prelude=flush.zero_),
-        "plain_ms": time_device_ms(k2_index_plain, [(plan[2],)] * TIMED_RUNS,
-                                   prelude=flush.zero_),
-        **dict(b2, bound_bytes=b2["bound_bytes"] + stream,
-               bound_sector_bytes=b2["bound_sector_bytes"] + stream,
-               bound_ms=max((b2["bound_bytes"] + stream) / HBM_BYTES_PER_S * 1e3,
-                            b2["bound_ops"] / FP32_FLOPS_PER_S * 1e3),
-               bound_sector_ms=max((b2["bound_sector_bytes"] + stream) / HBM_BYTES_PER_S
-                                   * 1e3, b2["bound_ops"] / FP32_FLOPS_PER_S * 1e3)),
-        "library_ms": None,
-        "library_why_null": "no single PyTorch call computes the gather, logit, residual, "
-        "per-key scatter-add and log-loss",
-    })
+    if k2:
+        rows.append({
+            "kernel": "train_step (index mode)", "model": model, "path": label, "M": m, "U": n,
+            "ms": time_device_ms(k2_index, [(plan[2],)] * TIMED_RUNS, prelude=flush.zero_),
+            "plain_ms": time_device_ms(k2_index_plain, [(plan[2],)] * TIMED_RUNS,
+                                       prelude=flush.zero_),
+            **dict(b2, bound_bytes=b2["bound_bytes"] + stream,
+                   bound_sector_bytes=b2["bound_sector_bytes"] + stream,
+                   bound_ms=max((b2["bound_bytes"] + stream) / HBM_BYTES_PER_S * 1e3,
+                                b2["bound_ops"] / FP32_FLOPS_PER_S * 1e3),
+                   bound_sector_ms=max((b2["bound_sector_bytes"] + stream) / HBM_BYTES_PER_S
+                                       * 1e3, b2["bound_ops"] / FP32_FLOPS_PER_S * 1e3)),
+            "library_ms": None,
+            "library_why_null": "no single PyTorch call computes the gather, logit, residual, "
+            "per-key scatter-add and log-loss",
+        })
+    else:  # K5's gradients, from one K2 launch
+        k2_index(plan[2])
     opt = trainer.step.optimizer
     for name, gsum in (("w", gw), ("v", gv)):
         if gsum is None:
@@ -2556,6 +2635,8 @@ HOT_GEOMETRY = {
     "lr": {"max_nnz": 16, "hot_size_log2": 12, "hot_nnz": 32},
     # scripts/bench_models.py:79-82 (mvm), max_fields 39 as fm_nohot_config
     "mvm": {"max_nnz": 12, "hot_size_log2": 14, "hot_nnz": 32, "v_dim": D},
+    # ffm_hot: the flagship ffm with fm's hot geometry (phase 29)
+    "ffm": {"max_nnz": 12, "hot_size_log2": 14, "hot_nnz": 32},
 }
 HOT_MODES = (
     ("hot_dense", {}),
@@ -2683,12 +2764,13 @@ def hot_timing_row(kernel: str, fn, plain, args, bound: dict, prelude=None, phas
 
 
 def field_kw(arrays: dict) -> dict:
-    """K1's and K2's MVM-form keywords for a view that carries field
-    planes (and its ``max_fields``), else none."""
+    """K1's and K2's field-form keywords for a view that carries field
+    planes (and its ``max_fields`` and ``form``: MVM's views name no
+    form), else none."""
     if "fields" not in arrays:
         return {}
     return {"fields": arrays["fields"], "hot_fields": arrays.get("hot_fields"),
-            "max_fields": arrays["max_fields"]}
+            "max_fields": arrays["max_fields"], "form": arrays.get("form", "mvm")}
 
 
 def k2_hot_call(form: str, arrays: dict, tables: dict, h: int, snap=None,
@@ -4098,6 +4180,800 @@ def mvm_kernel_entries(wide: dict, mvm: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# FFM, B10 (phases 28-33)
+
+FFM_T_LOG2 = 21  # scripts/bench_models.py:84-92 ffm: table_size_log2 21
+# the flagship ``ffm`` (scripts/bench_models.py:84-92): max_nnz 40 (K, as
+# fm_nohot_config), ffm_v_dim 4, max_fields 39, microbatch 4, FTRL
+FFM = {"ffm_v_dim": 4, "max_fields": 39, "microbatch": 4}
+# ``ffm_hot``: the flagship with fm's hot geometry (bench_models.py:66)
+FFM_HOT = dict(FFM, max_nnz=12, hot_size_log2=14, hot_nnz=32)
+FFM_DIM = FFM["ffm_v_dim"]
+FFM_FIELDS = FFM["max_fields"]
+FFM_WIDE = ((16, 39), (4, 64))  # (D, F) at which K1 and K2 run two D-tiles
+FFM_WIDE_T_LOG2 = 20
+B10_REPLACES = (
+    "xflow_tpu/models/blocks.py:205 (B10 ffm_field_interaction) + "
+    "xflow_tpu/models/blocks.py:56 (valid_fields) + xflow_tpu/models/ffm.py:74-92 "
+    "(FFMModel.logit) + xflow_tpu/parallel/step.py:59-74 (its value_and_grad "
+    "gradient, written out) + xflow_tpu/parallel/step.py:782-810 (B4s field planes); "
+    "no pl.pallas_call in the reference"
+)
+FFM_LIBRARY_WHY_NULL = ("no single PyTorch call computes FFM's field-aware sums, cross "
+                        "term and their gradient (with the gather, scatter and log-loss "
+                        "in K2)")
+
+
+def ffm_tolerances(keys, fields, x, labels, weights, num_real, w, v, f: int,
+                   logit_only: bool = False, chunk: int = 4096, dw=None, dv=None) -> dict:
+    """Bounds on K1's and K2's FFM form against their plain versions for
+    one batch, in float64 from the inputs (``keys`` [B, N] index the rows
+    of ``w`` and ``v``, the hot plane ahead of the cold one, -1 on
+    padding; a field outside [0, f) drops the slot from the pair term).
+    Per side: each S[f1, f2, d] within EPS32 (count + 1) of its slots'
+    summed magnitudes; the cross term within the first-order error of
+    its F^2 D products plus EPS32 (F^2 D + 2) of their magnitudes; the
+    diagonal and the linear term within EPS32 (terms + 2) of theirs; the
+    logit within the sum plus 3 EPS32 of its parts; the residual (the
+    UNCLAMPED sigmoid's) within its slope times that; each occurrence's
+    v gradient x (S - own x v) r within S's error, the subtraction's and
+    the residual's, and the scatter (atomics in any order) within
+    EPS32 (occurrences + 4) of each row's summed magnitudes; every side's
+    bound taken twice.  ``dw``/``dv`` (shaped as w and v), when given,
+    are how far the two sides' input tables lie apart (``lockstep_tables``
+    holds them within TRAIN_BOUNDS): each S, the linear term and the
+    own-field subtraction take their first-order effect too, since in
+    FFM one element's exact 0 (FTRL's soft threshold) makes its partners'
+    gradients exactly 0.  Returns {"logit" [B]} and, unless
+    ``logit_only``, "w" [rows, 1], "v" [rows, F D] and "logloss"."""
+    import torch
+
+    b, n = keys.shape
+    e = v.shape[1]
+    d = e // f
+    dev = keys.device
+    live = keys >= 0
+    valid = live & (fields >= 0) & (fields < f)
+    kl = keys.clamp(min=0).long()
+    xk = (torch.ones((b, n), dtype=torch.float64, device=dev) if x is None
+          else x.double()) * live
+    out = {"logit": torch.zeros(b, dtype=torch.float64, device=dev)}
+    rows = v.shape[0]
+    if not logit_only:
+        tol = {"w": torch.zeros((rows, 1), dtype=torch.float64, device=dev),
+               "v": torch.zeros((rows, e), dtype=torch.float64, device=dev)}
+        mag = {k: torch.zeros_like(t) for k, t in tol.items()}
+        ll_err, ll_abs = 0.0, 0.0
+    for r0 in range(0, b, chunk):
+        sl = slice(r0, min(b, r0 + chunk))
+        c = sl.stop - sl.start
+        xs, ok = xk[sl], valid[sl]
+        xe = xs * ok
+        vr = v[kl[sl]].double()  # [c, n, e]
+        vx = vr * xe[..., None]
+        fl = torch.where(ok, fields[sl].long(), torch.full_like(kl[sl], f))
+        idx = (torch.arange(c, device=dev)[:, None] * (f + 1) + fl).reshape(-1)
+
+        def per_field(vals):
+            acc = torch.zeros((c * (f + 1), vals.shape[-1]), dtype=torch.float64,
+                              device=dev)
+            acc.index_add_(0, idx, vals.reshape(-1, vals.shape[-1]))
+            return acc.view(c, f + 1, -1)[:, :f]
+
+        s = per_field(vx).reshape(c, f, f, d)
+        cnt = per_field(ok.double()[..., None])[..., None]  # [c, f, 1, 1]
+        es = EPS32 * (cnt + 1) * per_field(vx.abs()).reshape(c, f, f, d)
+        dvx = None
+        if dv is not None:  # the sides' v apart: S moves by sum |x| dv
+            dvx = dv[kl[sl]].double() * xe.abs()[..., None]
+            es = es + per_field(dvx).reshape(c, f, f, d)
+        st, est = s.transpose(1, 2), es.transpose(1, 2)
+        prod = (s * st).abs().sum((1, 2, 3))
+        cross = (s * st).sum((1, 2, 3))
+        err_cross = ((es * st.abs() + s.abs() * est + es * est).sum((1, 2, 3))
+                     + EPS32 * (f * f * d + 2) * prod)
+        own_block = (torch.arange(e, device=dev) // d)[None, None, :] == fl[..., None]
+        diag = torch.where(own_block, vx * vx, torch.zeros_like(vx)).sum((1, 2))
+        err_diag = EPS32 * (n * d + 2) * diag
+        if dvx is not None:
+            err_diag = err_diag + torch.where(own_block, 2 * vx.abs() * dvx + dvx * dvx,
+                                              torch.zeros_like(vx)).sum((1, 2))
+        lin_terms = w[kl[sl], 0].double() * xs
+        lin = lin_terms.sum(1)
+        err_lin = EPS32 * (n + 2) * lin_terms.abs().sum(1)
+        if dw is not None:
+            err_lin = err_lin + (dw[kl[sl], 0].double() * xs.abs()).sum(1)
+        logit = lin + 0.5 * (cross - diag)
+        el = err_lin + 0.5 * (err_cross + err_diag) + 3 * EPS32 * (
+            lin.abs() + 0.5 * cross.abs() + 0.5 * diag)
+        out["logit"][sl] = 2 * el
+        if logit_only:
+            continue
+        dl = 2 * el
+        p = torch.sigmoid(logit)
+        dp = p * (1 - p) * dl + 4 * EPS32 * p
+        y, wt = labels[sl].double(), weights[sl].double()
+        r = (p - y) * wt / num_real
+        dr = dp * wt / num_real + 4 * EPS32 * r.abs()
+        ar = torch.arange(c, device=dev)[:, None]
+        fc = fl.clamp(max=f - 1)
+        own = s.permute(0, 2, 1, 3)[ar, fc]  # S[f2, f_i, :] per slot: [c, n, f, d]
+        eown = es.permute(0, 2, 1, 3)[ar, fc]
+        same = (torch.arange(f, device=dev)[None, None, :] == fc[..., None])[..., None]
+        v4 = vr.view(c, n, f, d)
+        x4 = xe[..., None, None]
+        inner = own - torch.where(same, v4 * x4, torch.zeros_like(v4))
+        g = x4 * inner
+        own_err = EPS32 * (v4 * x4).abs()
+        if dvx is not None:
+            own_err = own_err + dvx.view(c, n, f, d)
+        eg = x4.abs() * (eown + torch.where(same, own_err, 0.0) + 2 * EPS32 * inner.abs())
+        occ_v = (g * r[:, None, None, None]).reshape(c, n, e)
+        err_v = (eg * r.abs()[:, None, None, None]
+                 + g.abs() * dr[:, None, None, None]).reshape(c, n, e) + 2 * EPS32 * occ_v.abs()
+        occ_w = xs * r[:, None]
+        err_w = xs.abs() * dr[:, None] + 2 * EPS32 * occ_w.abs()
+        lk = kl[sl][live[sl]]
+        tol["v"].index_add_(0, kl[sl][ok], err_v[ok])
+        mag["v"].index_add_(0, kl[sl][ok], occ_v[ok].abs())
+        tol["w"].index_add_(0, lk, err_w[live[sl]][:, None])
+        mag["w"].index_add_(0, lk, occ_w[live[sl]].abs()[:, None])
+        pc = torch.where(logit < -30, torch.full_like(p, 1e-6), p)
+        pc = torch.where(logit > 30, torch.ones_like(pc), pc).clamp(1e-6, 1 - 1e-6)
+        dpc = p * (1 - p) * dl + 4 * EPS32 * pc + torch.where(
+            (logit + 30).abs() <= dl, 1e-6, 0.0)
+        ll = -(y * torch.log(pc) + (1 - y) * torch.log(1 - pc)) * wt
+        ll_err += float((dpc / torch.minimum(pc, 1 - pc) * wt).sum())
+        ll_abs += float(ll.abs().sum())
+    if logit_only:
+        return out
+    count = {}
+    flat_live = kl[live]
+    count["w"] = torch.bincount(flat_live, minlength=rows).double()[:, None]
+    count["v"] = torch.bincount(kl[valid], minlength=rows).double()[:, None]
+    for k in ("w", "v"):
+        out[k] = 2 * (tol[k] + EPS32 * (count[k] + 4) * mag[k])
+    out["logloss"] = 2 * (ll_err + EPS32 * (b + 4) * ll_abs)
+    return out
+
+
+def ffm_bounds(view: dict, f: int, d: int, hot_size: int, train: bool,
+               index: bool = False) -> dict:
+    """K1's (``train`` False: w and v rows read, pctr written) or K2's
+    (w and v rows read, their gradient rows read and written; K4's slot
+    plane in ``index`` mode) least time on this card for THIS batch:
+    each byte once, or the float32 operations (per live slot 2 F D for
+    the sums and, in K2, 5 F D for the backward; per example 2 F^2 D for
+    the cross term), whichever is longer."""
+    import torch
+
+    keys, hot = view["ckeys"], view.get("hot")
+    live_keys, hot_bytes = hot_stream(keys, hot, hot_size)
+    b, k = keys.shape
+    kh = hot.shape[1] if hot is not None else 0
+    e = f * d
+    stream = (4 * b * k + hot_bytes + b * (k + kh) * view["fields"].element_size()
+              + (4 * b * k if view.get("x") is not None else 0)
+              + (2 * b * view["labels_u8"].element_size() if train else 4 * b))
+    rows = int(torch.unique(live_keys).numel())
+    live = int(live_keys.numel())
+    used = stream + rows * (3 if train else 1) * (4 + 4 * e) + (4 * b * k if index else 0)
+    ops = live * e * (7 if train else 2) + b * 2 * f * f * d
+    used_ms = used / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(used_ms, ops_ms),
+            "bound_by": "bytes" if used_ms >= ops_ms else "operations",
+            "bound_bytes": used, "bound_ops": ops, "distinct_rows": rows,
+            "live_slots": live}
+
+
+def ffm_planes(b: int, kc: int, kh: int, h: int, t: int, f: int, g, dev,
+               full: bool = False) -> dict:
+    """K1's FFM inputs at a serving shape: make_keys' cold plane cut to
+    ``kc`` slots (x values on the full wire), a hot plane of ``kh``
+    slots (hot_keys: u16, or int32 on the full wire), and field planes
+    over ``f`` fields with about 5 % outside it (the u8 clamp's 255, or
+    on the full wire's int32 planes negative ids and ids past f)."""
+    import torch
+
+    def fields(shape):
+        fl = torch.randint(0, f, shape, generator=g, device=dev)
+        r = torch.rand(shape, generator=g, device=dev)
+        if full:
+            fl[r < 0.03] = -2
+            fl[(r >= 0.03) & (r < 0.05)] = f + 3
+            return fl.to(torch.int32).contiguous()
+        fl[r < 0.05] = 255
+        return fl.to(torch.uint8).contiguous()
+
+    keys, x = make_keys(b, t, g, dev, full)
+    keys = keys[:, :kc].contiguous()
+    out = {"ckeys": keys, "fields": fields((b, kc)), "max_fields": f, "form": "ffm"}
+    if full:
+        out["x"] = x[:, :kc].contiguous()
+    if kh:
+        out.update(hot=hot_keys(b, kh, h, g, dev, not full), hot_fields=fields((b, kh)))
+        if full:
+            hk = out["hot"]
+            out["hot_x"] = torch.where(hk >= 0, torch.rand(hk.shape, generator=g, device=dev)
+                                       + 0.5, 0.0).contiguous()
+    return out
+
+
+def ffm_k1_case(pl: dict, w, v, h: int, bf16: bool, worst: dict, case: str) -> None:
+    """K1's FFM form against score_plain on one batch of planes: the
+    logit within ffm_tolerances' bound (over w with its head rounded to
+    bfloat16 under the flag, v as it is) and pctr within PCTR_ATOL plus
+    that bound through the sigmoid's slope."""
+    import torch
+
+    from xflow_tpu_torch.ops.hot import to_bf16_f32
+    from xflow_tpu_torch.ops.score import hot_plane_keys, score, score_plain
+
+    kh = pl["hot"].shape[1] if "hot" in pl else 0
+    kw = dict(hot=pl.get("hot"), hot_x=pl.get("hot_x"), hot_size=h if kh else 0,
+              hot_bf16=bf16, **field_kw(pl))
+    got_p, got_l = score(pl["ckeys"], pl.get("x"), w, v, True, **kw)
+    want_p, want_l = score_plain(pl["ckeys"], pl.get("x"), w, v, True, **kw)
+    torch.cuda.synchronize()
+    keys, x = pl["ckeys"].long(), pl.get("x")
+    if kh:
+        keys = torch.cat([hot_plane_keys(pl["hot"], h), keys], dim=1)
+        if x is not None:
+            x = torch.cat([pl["hot_x"], x], dim=1)
+    wb = w
+    if bf16:  # the bound over the rounded head both sides read (w alone)
+        wb = w.clone()
+        wb[:h] = to_bf16_f32(w[:h])
+    ltol = 1.01 * ffm_tolerances(keys, view_fields(pl), x, None, None, 1.0, wb, v,
+                                 pl["max_fields"], logit_only=True)["logit"] + 1e-7
+    ptol = PCTR_ATOL + want_p * (1 - want_p) * ltol
+    if (float(((got_l - want_l).abs() - ltol).max()) > 0
+            or float(((got_p - want_p).abs() - ptol).max()) > 0
+            or not bool(torch.isfinite(got_p).all())):
+        raise AssertionError(f"K1 FFM form disagrees with score_plain: {case}")
+    worst["max_abs_err"] = max(worst["max_abs_err"], float((got_p - want_p).abs().max()))
+    worst["max_abs_err_logit"] = max(worst["max_abs_err_logit"],
+                                     float((got_l - want_l).abs().max()))
+    worst["clamped"] += int((want_l.abs() > 30).sum())
+    worst["cases"] += 1
+
+
+def phase_ffm_k1(dev) -> dict:
+    """Phase 28: K1's FFM form against score_plain at T = 2^21: the
+    flagship ``ffm`` planes (40 cold slots, u8 fields, F = 39, D = 4) on
+    the compact wire and on the full wire (values, int32 fields with
+    negative ids and ids past F), the ``ffm_hot`` planes (12 cold + 32
+    hot slots, u16 ids at H = 2^14) with and without the bf16 flag (w's
+    head alone rounds), every serving bucket; rows [0, 64) of w hold 12
+    and rows [64, 128) -12, so steered rows reach the clamps.  K1 timed
+    at B = 512 on the flagship planes.  Then (phase 33) the same checks
+    at D = 16 (F = 39) and F = 64 (D = 4), where K1 runs two D-tiles,
+    and K1 timed there."""
+    import torch
+
+    from xflow_tpu_torch.ops.score import ffm_tile, score, score_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    t, h = 1 << FFM_T_LOG2, 1 << FFM_HOT["hot_size_log2"]
+    w = torch.randn((t, 1), generator=g, device=dev) * 0.3
+    w[:64] = 12.0
+    w[64:128] = -12.0
+    v = torch.randn((t, FFM_FIELDS * FFM_DIM), generator=g, device=dev) * 0.1
+    worst = {"max_abs_err": 0.0, "max_abs_err_logit": 0.0, "cases": 0, "clamped": 0}
+    for case, kc, kh, bf16, full in (("ffm K=40", K, 0, False, False),
+                                     ("ffm K=40 full wire", K, 0, False, True),
+                                     ("ffm_hot u16 H=2^14", 12, 32, False, False),
+                                     ("ffm_hot u16 H=2^14 bf16", 12, 32, True, False),
+                                     ("ffm_hot int32 full wire", 12, 32, False, True)):
+        for b in BUCKETS:
+            pl = ffm_planes(b, kc, kh, h, t, FFM_FIELDS, g, dev, full=full)
+            ffm_k1_case(pl, w, v, h, bf16, worst, f"{case} B={b}")
+    if not worst["clamped"]:
+        raise AssertionError("phase 28 did not reach the sigmoid's clamps")
+    b = BUCKETS[-1]
+    pool = [ffm_planes(b, K, 0, h, t, FFM_FIELDS, g, dev) for _ in range(KEY_POOL)]
+    args = [(pool[i % KEY_POOL],) for i in range(TIMED_RUNS)]
+
+    def kernel(pl):
+        return score(pl["ckeys"], None, w, v, **field_kw(pl))
+
+    def plain(pl):
+        return score_plain(pl["ckeys"], None, w, v, **field_kw(pl))
+
+    worst["timing"] = {"kernel": "score (ffm)", "model": "ffm", "B": b, "K": K,
+                       "F": FFM_FIELDS, "D": FFM_DIM, "plane": "int32 keys, u8 fields",
+                       "ms": time_device_ms(kernel, args),
+                       "host_path_ms": time_host_path_ms(kernel, args),
+                       "plain_ms": time_device_ms(plain, args),
+                       **ffm_bounds(pool[0], FFM_FIELDS, FFM_DIM, 0, train=False),
+                       "library_ms": None, "library_why_null": FFM_LIBRARY_WHY_NULL}
+    log(json.dumps({"phase": 28, "k1_ffm": worst}))
+    del v, pool
+    torch.cuda.empty_cache()
+    # phase 33: two D-tiles
+    tw = 1 << FFM_WIDE_T_LOG2
+    wide = {"max_abs_err": 0.0, "max_abs_err_logit": 0.0, "cases": 0, "clamped": 0,
+            "shapes": []}
+    for d, f in FFM_WIDE:
+        vw = (torch.randn((tw, f * d), generator=g, device=dev) * (0.1 * math.sqrt(4 / d)))
+        ww = w[:tw].contiguous()
+        tiles = math.ceil(d / ffm_tile(f, d, K))
+        if tiles < 2:
+            raise AssertionError(f"D={d} F={f} runs {tiles} tile")
+        for b in BUCKETS:
+            for full in (False, True):
+                pl = ffm_planes(b, K, 0, h, tw, f, g, dev, full=full)
+                ffm_k1_case(pl, ww, vw, h, False, wide, f"D={d} F={f} B={b}")
+        pool = [ffm_planes(BUCKETS[-1], K, 0, h, tw, f, g, dev) for _ in range(KEY_POOL)]
+        args = [(pool[i % KEY_POOL],) for i in range(TIMED_RUNS)]
+
+        def kernel_w(pl, ww=ww, vw=vw):
+            return score(pl["ckeys"], None, ww, vw, **field_kw(pl))
+
+        def plain_w(pl, ww=ww, vw=vw):
+            return score_plain(pl["ckeys"], None, ww, vw, **field_kw(pl))
+
+        wide["shapes"].append({
+            "kernel": "score (ffm, D tiled)", "B": BUCKETS[-1], "K": K, "F": f, "D": d,
+            "tiles": tiles, "ms": time_device_ms(kernel_w, args),
+            "plain_ms": time_device_ms(plain_w, args),
+            **ffm_bounds(pool[0], f, d, 0, train=False), "library_ms": None,
+            "library_why_null": FFM_LIBRARY_WHY_NULL})
+        del vw, pool
+        torch.cuda.empty_cache()
+    log(json.dumps({"phase": 33, "k1_ffm_d_tiled": wide}))
+    del w
+    return {"k1": worst, "k1_wide": wide}
+
+
+def ffm_view(arrays: dict, rows: int | None = None, num_real: float | None = None) -> dict:
+    """A shipped batch (or its first ``rows`` rows: a sequential slice
+    at ``num_real``) as the FFM checks read it."""
+    import torch
+
+    if rows is None:
+        view = dict(arrays)
+    else:
+        view = {k: a[:rows] for k, a in arrays.items() if isinstance(a, torch.Tensor)}
+        view["num_real"] = num_real
+    view.update(max_fields=FFM_FIELDS, form="ffm")
+    return view
+
+
+def check_ffm_k2(case: str, form: str, view: dict, tables: dict, h: int, worst: dict,
+                 unclamped: bool = False) -> None:
+    """K2's FFM form against train_plain on one batch or slice
+    (``k2_hot_call``'s forms: "dense" — hot gradients in g's first H
+    rows — and "hybrid": index mode, with a head buffer when the view
+    has a hot plane), compared in table-row space at the batch's
+    distinct rows within ffm_tolerances' per-row bound over the hot and
+    cold planes together (every other row 0 on both sides); the log-loss
+    sum within its bound, the count exact.  With ``unclamped`` the
+    tables' w is -1 everywhere and every label 0, so each row of the
+    synth traffic (39 live slots) has a logit near -39, below -30 and
+    above float32's underflow: the kernel's gradients must match the
+    plain version's unclamped residual, and lie 1,000 times under what
+    the clamped sigmoid's 1e-6 would give."""
+    import torch
+
+    from xflow_tpu_torch.ops.score import hot_plane_keys
+    from xflow_tpu_torch.ops.train import train_plain, train_step
+
+    if unclamped:
+        tables = {"w": {"param": torch.full_like(tables["w"]["param"], -1.0)},
+                  "v": tables["v"]}
+        view = dict(view, labels_u8=torch.zeros_like(view["labels_u8"]))
+    w, v = tables["w"]["param"], tables["v"]["param"]
+    outs = []
+    for fn in (train_step, train_plain):
+        args, kw, rows = k2_hot_call(form, view, tables, h)
+        fn(*args, **kw)
+        outs.append(rows())
+    torch.cuda.synchronize()
+    keys = view["ckeys"].long()
+    if "hot" in view:
+        keys = torch.cat([hot_plane_keys(view["hot"], h), keys], dim=1)
+    uk = torch.unique(keys[keys >= 0])
+    local = torch.where(keys >= 0, torch.searchsorted(uk, keys.clamp(min=0)),
+                        torch.full_like(keys, -1))
+    tols = ffm_tolerances(local, view_fields(view), None, view["labels_u8"],
+                          view["weights_u8"], view["num_real"], w[uk], v[uk],
+                          view["max_fields"])
+    (gk, acc), (gp, pacc) = outs
+    for name in ("w", "v"):
+        a, b = gk[name][uk].double(), gp[name][uk].double()
+        diff = (a - b).abs()
+        excess = float((diff - tols[name]).max())
+        elsewhere = (int((gk[name] != 0).sum()) - int((gk[name][uk] != 0).sum()),
+                     int((gp[name] != 0).sum()) - int((gp[name][uk] != 0).sum()))
+        if excess > 0 or elsewhere != (0, 0) or not bool(torch.isfinite(gk[name]).all()):
+            raise AssertionError(f"K2 FFM {form} form disagrees with train_plain: {case} "
+                                 f"{name} excess {excess}, rows outside the batch {elsewhere}")
+        worst["max_abs_err_g"] = max(worst["max_abs_err_g"], float(diff.max()))
+        ratio = diff / torch.where(tols[name] > 0, tols[name], 1.0)
+        worst["max_err_over_tol"] = max(worst["max_err_over_tol"], float(ratio.max()))
+        if unclamped:
+            clamp_scale = 1e-6 / view["num_real"]
+            top = float(gk[name].abs().max())
+            if not 0 < top < 1e-3 * clamp_scale:
+                raise AssertionError(f"K2 FFM below -30: {name} gradients up to {top}, "
+                                     f"the clamped residual's would be ~{clamp_scale}")
+            worst["unclamped"] = {"max_abs_g": top, "clamped_residual_scale": clamp_scale}
+    if abs(float(acc[0]) - float(pacc[0])) > tols["logloss"] or float(acc[1]) != float(pacc[1]):
+        raise AssertionError(f"K2 FFM {form} form log-loss/count {acc.tolist()} vs plain "
+                             f"{pacc.tolist()} ({case})")
+    worst["cases"] += 1
+    del outs, gk, gp
+    torch.cuda.empty_cache()
+
+
+def time_ffm_k2(label: str, form: str, view: dict, tables: dict, h: int, flush,
+                name: str, phase: int = 32) -> dict:
+    """K2's FFM form timed alone on one batch (or slice) of its path,
+    beside its plain version (k2_hot_call's buffers, the plan made once
+    before; each call behind an L2 flush), with ffm_bounds."""
+    import torch
+
+    from xflow_tpu_torch.ops.train import train_plain, train_step
+
+    torch.cuda.empty_cache()
+    args, kw, _ = k2_hot_call(form, view, tables, h)
+
+    def kernel():
+        train_step(*args, **kw)
+
+    def plain():
+        train_plain(*args, **kw)
+
+    f = view["max_fields"]
+    d = tables["v"]["param"].shape[1] // f
+    row = {"kernel": name, "model": "ffm", "path": label, "B": view["ckeys"].shape[0],
+           "Kc": view["ckeys"].shape[1], "Kh": view["hot"].shape[1] if "hot" in view else 0,
+           "H": h if "hot" in view else 0, "F": f, "D": d,
+           "ms": time_device_ms(kernel, [()] * TIMED_RUNS, prelude=flush.zero_),
+           "plain_ms": time_device_ms(plain, [()] * 10, prelude=flush.zero_, chunk_size=2),
+           **ffm_bounds(view, f, d, h, train=True, index=form == "hybrid"),
+           "library_ms": None, "library_why_null": FFM_LIBRARY_WHY_NULL}
+    del args, kw
+    log(json.dumps(dict(row, phase=phase)))
+    return row
+
+
+def ffm_wide_k2(dev, worst: dict, flush) -> list:
+    """Phase 33's K2 half: K2's FFM form at D = 16 (F = 39) and F = 64
+    (D = 4), two D-tiles each, against train_plain on a 65,536-row
+    compact batch of 40 slots (u8 fields, 5 % at 255) at T = 2^20, and
+    timed there."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    tw = 1 << FFM_WIDE_T_LOG2
+    rows = []
+    for d, f in FFM_WIDE:
+        b = TRAIN_BATCHES[-1]
+        tables = {"w": {"param": torch.randn((tw, 1), generator=g, device=dev) * 0.3},
+                  "v": {"param": torch.randn((tw, f * d), generator=g, device=dev)
+                        * (0.1 * math.sqrt(4 / d))}}
+        pl = ffm_planes(b, K, 0, 0, tw, f, g, dev)
+        labels = (torch.rand(b, generator=g, device=dev) < 0.3).to(torch.uint8)
+        weights = torch.ones(b, dtype=torch.uint8, device=dev)
+        weights[-5:] = 0
+        view = dict(pl, labels_u8=labels, weights_u8=weights,
+                    num_real=max(float(weights.sum()), 1.0))
+        check_ffm_k2(f"D={d} F={f} B={b}", "dense", view, tables, 0, worst)
+        rows.append(time_ffm_k2(f"synthetic D={d} F={f}", "dense", view, tables, 0, flush,
+                                "train_step (ffm, D tiled)", phase=33))
+        del tables, view, pl
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ffm_dict_decode(cfg, trainer, dev) -> dict:
+    """K6 with the field streams on the ``ffm`` path's first batch, as
+    its loader builds it: exactly its plain version, and timed (device
+    ms behind _sleep, plain ms, the byte bound over every plane read
+    and written)."""
+    import torch
+
+    from xflow_tpu_torch.io.compact import compact_batch
+    from xflow_tpu_torch.ops.wire import dict_decode, dict_decode_plain, to_device
+
+    loader = trainer._loader(f"{cfg.train_path}-00000")
+    batch = next(iter(loader.iter_batches()))[0]
+    wire = compact_batch(batch, cfg.table_size, cfg.hot_size).wire(ship_slots=True)
+    planes = to_device(wire, dev)
+    kc, kh = batch.max_nnz, 0
+    got = dict_decode(planes, kc, kh)
+    want = dict_decode_plain(planes, kc, kh)
+    torch.cuda.synchronize()
+    if len(got) != len(want) or any(not torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("K6 with the field streams differs from its plain version on "
+                             "the ffm batch")
+    in_bytes = sum(int(a.nbytes) for k, a in wire.items() if k != "cw_cun")
+    out_bytes = batch.batch_size * (5 * kc + 2)
+    return hot_timing_row(
+        "dict_decode (field streams)", dict_decode, dict_decode_plain,
+        [(planes, kc, kh)] * TIMED_RUNS,
+        {"bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes", "bytes": in_bytes + out_bytes}, phase=32,
+        model="ffm", B=batch.batch_size, K=kc, Kh=kh, max_abs_err=0.0,
+        library_why_null=K6_LIBRARY_WHY_NULL)
+
+
+def ffm_k3_timings(trainer, flush, head: int = 0) -> list:
+    """K3 over the trained ``ffm`` tables ([2^21, 1] and [2^21, 156],
+    FTRL), or over their first ``head`` rows (the hybrid's head step),
+    on copies, behind an L2 flush: the dense paths' per-table pass."""
+    import torch
+
+    from xflow_tpu_torch.ops.optim import optim_plain, optim_update
+
+    rows = []
+    opt = trainer.step.optimizer
+    for name, table in trainer.state["tables"].items():
+        copy = {k: (a[:head] if head else a).clone() for k, a in table.items()}
+        if "g" not in copy:
+            copy["g"] = torch.zeros_like(copy["param"])
+        args = [(copy, opt)] * TIMED_RUNS
+        rows.append({"kernel": "optim_update" + (" (head rows)" if head else ""),
+                     "model": "ffm", "table": name,
+                     "T": copy["param"].shape[0], "D": copy["param"].shape[1],
+                     "ms": time_device_ms(optim_update, args, prelude=flush.zero_),
+                     "plain_ms": time_device_ms(optim_plain, args[:10],
+                                                prelude=flush.zero_, chunk_size=2),
+                     **k3_bounds(copy["param"].numel(), opt.name == "ftrl"),
+                     "library_ms": None})
+        log(json.dumps(dict(rows[-1], phase=32)))
+        del copy
+        torch.cuda.empty_cache()
+    return rows
+
+
+FFM_MODES = (
+    # (label, geometry, mode, one dispatch): the flagship's dense
+    # microbatch 4, the sparse mode, the sequential sparse inner at
+    # microbatch 128 (B_eff = 512), one dispatch each of dense
+    # microbatch 1 and the sequential dense inner (microbatch 2); then
+    # ffm_hot dense and the hybrid (sequential + sparse inner, 128).
+    # The sequential paths train one epoch (2 dispatches): their AUC
+    # clears the planted floor in one, and the time limit wants it
+    ("dense_mb4", FFM, {}, False),
+    ("sparse", FFM, {"update_mode": "sparse", "microbatch": 1}, False),
+    ("sequential_sparse_mb128", FFM, {"update_mode": "sequential",
+                                      "microbatch": SEQ_MICROBATCH,
+                                      "sequential_inner": "sparse", "epochs": 1}, False),
+    ("dense_mb1", FFM, {"microbatch": 1}, True),
+    ("sequential_dense_mb2", FFM, {"update_mode": "sequential", "microbatch": 2}, True),
+    ("hot_dense", FFM_HOT, {}, False),
+    ("hot_hybrid_mb128", FFM_HOT, {"update_mode": "sequential",
+                                   "microbatch": SEQ_MICROBATCH,
+                                   "sequential_inner": "sparse", "epochs": 1}, False),
+)
+
+
+def phase_ffm(dev, workdir: str, dense: dict) -> dict:
+    """Phases 28-33 at the flagship ``ffm`` (scripts/bench_models.py:84-92:
+    T = 2^21, 40 slots, ffm_v_dim 4, max_fields 39, microbatch 4, FTRL,
+    batch 65,536; phase 8's shards) and ``ffm_hot`` (12 cold + 32 hot
+    slots, H = 2^14): 28 K1's FFM form against its plain version; 29
+    serving a full-width ``ffm`` and a hot ``ffm`` artifact; 30 training
+    ``ffm`` on the default input path (native text, dictionary wire with
+    the field streams) in FFM_MODES' first five modes and 31 ``ffm_hot``
+    dense and hybrid (2 epochs dense, 1 sequential, one dispatch for the
+    one-dispatch modes) from one seeded initial state: exact launches, the card
+    against the CPU within TRAIN_BOUNDS (every path's tables through
+    ``lockstep_tables``), the sync guard on the sequential paths' first
+    dispatch, the eval AUC inside the planted bars; and the hot inner
+    refused with the reference's message; 32 K2's FFM form against its
+    plain version on the paths' own batches (dense 65,536 rows with and
+    without the hot plane, index mode on the sparse path's batch and the
+    sequential slice 0, the hybrid's slice 0, and the dense batch with
+    every logit below -30), K6 with the field streams and K3 on the
+    path's tables, each timed; 33 K1 and K2 at two D-tiles."""
+    import torch
+
+    from xflow_tpu_torch.models import make_model
+    from xflow_tpu_torch.optim import make_optimizer
+    from xflow_tpu_torch.parallel.step import TrainStep
+
+    data, bars = dense["data"], dense["bars"]
+    one = single_shard(data, workdir)
+    out = {"rows": [], "timings": [], "launches_by_path": {}}
+    k2w = {"max_abs_err_g": 0.0, "max_err_over_tol": 0.0, "cases": 0}
+    out["checks"] = phase_ffm_k1(dev)
+    torch.cuda.empty_cache()
+    out["serve"] = phase_main_path(dev, FFM_T_LOG2, workdir, model="ffm", phase=(29, 29))
+    torch.cuda.empty_cache()
+    out["serve_hot"] = phase_main_path(dev, FFM_T_LOG2, workdir, hot=True, model="ffm",
+                                       phase=(29, 29))
+    torch.cuda.empty_cache()
+    init = fresh_init(dev, mode_config("ffm", FFM_T_LOG2, data, "", **FFM))
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
+    h = 1 << FFM_HOT["hot_size_log2"]
+    for label, geom, mode, single in FFM_MODES:
+        seq = mode.get("update_mode") == "sequential"
+        hot = "hot_size_log2" in geom
+        full_mode = dict(geom, **mode, **({"epochs": 1} if single else {}))
+        # every FFM path through lockstep_tables: FTRL zeroes most v
+        # elements it touches (|z| <= lambda1), and a gradient that
+        # multiplies such an element is exactly 0 on a side where it is
+        # 0 and a rounding's size where the soft threshold left it a
+        # rounding's size, so FTRL's n' == 0 rule splits dense paths too.
+        # The replay holds the first dispatch (the time limit); the
+        # card's later dispatches are there for the eval AUC's bars
+        run = run_mode(dev, "ffm", FFM_T_LOG2, one if single else data, init, full_mode,
+                       label, workdir, evaluate=not single, keep=True,
+                       bars=None if single else bars, lockstep=True,
+                       sync_check=seq and not single, replay_dispatches=1)
+        log(f"phase {31 if hot else 30}: ffm {label} done at "
+            f"{time.perf_counter() - T_START:.1f} s")
+        row = dict(run["row"], phase=31 if hot else 30)
+        trainer = run["trainer"]
+        tables = trainer.state["tables"]
+        if not single:
+            arrays = run["shipped"][0]
+            if seq:
+                rows = arrays["ckeys"].shape[0] // SEQ_MICROBATCH
+                view = ffm_view(arrays, rows, arrays["slice_num_real"][0])
+            else:
+                view = ffm_view(arrays)
+            hh = h if hot else 0
+            form = "hybrid" if (seq or mode.get("update_mode") == "sparse") else "dense"
+            what = f"ffm{'_hot' if hot else ''} {label} {'slice 0' if seq else 'batch 0'}"
+            check_ffm_k2(what, form, view, tables, hh, k2w)
+            name = {("dense", False): "train_step (ffm: dense)",
+                    ("dense", True): "train_step (ffm: hot dense)",
+                    ("hybrid", False): "train_step (ffm: index)",
+                    ("hybrid", True): "train_step (ffm: hybrid)"}[(form, hot)]
+            if seq and not hot:
+                name = "train_step (ffm: index, slice 0)"
+            out["timings"].append(time_ffm_k2(label, form, view, tables, hh, flush, name))
+            if label == "dense_mb4":
+                check_ffm_k2("ffm dense batch 0, logits below -30", "dense", view, tables, 0,
+                             k2w, unclamped=True)
+                out["timings"].append(ffm_dict_decode(trainer.cfg, trainer, dev))
+                out["timings"] += ffm_k3_timings(trainer, flush)
+            elif label == "hot_dense":
+                out["timings"] += ffm_k3_timings(trainer, flush, head=h)
+            elif form == "hybrid" and not hot:  # K4 and K5 at FFM's width
+                path = ("sparse main path" if not seq
+                        else "sequential main path, slice 0")
+                out["timings"] += sparse_kernel_timings(
+                    "ffm", trainer, view["ckeys"], view["labels_u8"], view["weights_u8"],
+                    view["num_real"], path, form_kw=field_kw(view), k2=False)
+            del view, arrays
+        out["rows"].append(row)
+        out["launches_by_path"][f"ffm {label}"] = row["launches"]
+        log(json.dumps(row))
+        del run, trainer, tables
+        torch.cuda.empty_cache()
+    # the hot inner: refused with the reference's message
+    cfg = mode_config("ffm", FFM_T_LOG2, data, "", **dict(
+        FFM_HOT, update_mode="sequential", microbatch=SEQ_MICROBATCH,
+        sequential_inner="hot"))
+    try:
+        TrainStep(make_model(cfg), make_optimizer(cfg), cfg, dev)
+    except ValueError as e:
+        if "opts table(s) ['v'] out of the MXU hot path" not in str(e):
+            raise
+        out["hot_inner_refused"] = str(e)
+    else:
+        raise AssertionError("ffm_hot with the hot inner was not refused")
+    out["timings"] += ffm_wide_k2(dev, k2w, flush)
+    out["checks"]["k2"] = k2w
+    log(json.dumps({"phase": 32, "k2_ffm": k2w, "hot_inner_refused": out["hot_inner_refused"]}))
+    del flush, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def ffm_train_rows(ffm: dict, card: str) -> list:
+    """The ``train`` line's rows for the FFM paths (phases 30-31): device
+    busy from the launches times each kernel's device ms at FFM's
+    widths, measured on the path's own batch or slice 0 or its trained
+    tables (phase 32: K2 by form, K6 with the field streams, K3 per
+    table over the whole table or the head rows, K4 and K5 per table on
+    the sparse and sequential paths).  The hybrid's K5 with the fold is
+    not timed at FFM's width: its busy share leaves it out."""
+    ms = {(r["kernel"], r.get("table"), r.get("path")): r["ms"] for r in ffm["timings"]}
+
+    def total(kernel, path=None):
+        return sum(t for (k, _, p), t in ms.items() if k == kernel and (path is None
+                                                                           or p == path))
+
+    k2 = {"dense_mb4": "train_step (ffm: dense)", "sparse": "train_step (ffm: index)",
+          "sequential_sparse_mb128": "train_step (ffm: index, slice 0)",
+          "hot_dense": "train_step (ffm: hot dense)",
+          "hot_hybrid_mb128": "train_step (ffm: hybrid)"}
+    rows = []
+    for row in ffm["rows"]:
+        if "eval" not in row:
+            continue
+        n, label = row["launches"], row["mode"]
+        tables = row["tables"]
+        busy_ms = (n["train_step"] * total(k2[label])
+                   + n["dict_decode"] * total("dict_decode (field streams)"))
+        excluded = None
+        if label in ("dense_mb4", "hot_dense"):
+            busy_ms += row["steps"] * total("optim_update")
+        elif label == "hot_hybrid_mb128":
+            busy_ms += n["optim_update"] / tables * total("optim_update (head rows)")
+            excluded = "K4 and K5 with the fold (not timed at FFM's width on this path)"
+        else:
+            path = "sparse main path" if label == "sparse" else "sequential main path, slice 0"
+            busy_ms += (n["consolidate_keys"] * total("consolidate_keys", path)
+                        + n["touched_update"] / tables * total("touched_update", path))
+        busy = busy_ms / 1e3
+        rows.append({
+            "model": "ffm" if not label.startswith("hot") else "ffm_hot", "mode": label,
+            "card": card, "examples_per_sec": row["examples_per_sec"],
+            "step_time_p50": row["step_time_p50"], "phases": row["phases"],
+            "put_batch_ms_per_dispatch": [p["h2d"] / (row["steps"] / len(row["phases"])) * 1e3
+                                          for p in row["phases"]],
+            "train_seconds": row["train_seconds"],
+            "device_busy_s_from_kernel_times": busy, "device_busy_excludes": excluded,
+            "device_idle_share_from_kernel_times": 1.0 - busy / row["train_seconds"],
+            "eval_auc": row["eval"]["auc"], "eval_logloss": row["eval"]["logloss"],
+        })
+    return rows
+
+
+def ffm_kernel_entries(ffm: dict) -> list:
+    """The ``kernels`` line's entries for K1's and K2's FFM form (phases
+    28-33): launches counted on their paths (each from 0 just before
+    it), times on the paths' own batches, the second shape's (two
+    D-tiles) beside them."""
+    by_path = ffm["launches_by_path"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_why_null")
+
+    def timing(kernel):
+        return next(r for r in ffm["timings"] if r["kernel"] == kernel)
+
+    def launches(kernel, labels):
+        return sum(n[kernel] for path, n in by_path.items() if path.split(" ", 1)[1] in labels)
+
+    k1 = ffm["checks"]["k1"]["timing"]
+    k2 = ffm["checks"]["k2"]
+    wide_k2 = [r for r in ffm["timings"] if r["kernel"] == "train_step (ffm, D tiled)"]
+    every = tuple(p.split(" ", 1)[1] for p in by_path)
+    entries = [{
+        "name": "score (ffm)", "route": "cuda", "source": "xflow_tpu_torch/csrc/score.cu",
+        "replaces": B10_REPLACES,
+        "launches": (ffm["serve"]["launches"] + ffm["serve_hot"]["launches"]
+                     + launches("score", every)),
+        "launches_of": "the served ffm and ffm_hot artifacts (phase 29) and the FFM "
+        "training paths' eval batches (phases 30-31)",
+        "max_abs_err": max(ffm["checks"]["k1"]["max_abs_err"],
+                           ffm["checks"]["k1_wide"]["max_abs_err"]),
+        "host_path_ms": k1["host_path_ms"], **{k: k1[k] for k in keys},
+        "shape": {k: k1[k] for k in ("model", "B", "K", "F", "D", "plane")},
+        "second_shape": ffm["checks"]["k1_wide"]["shapes"]}]
+    for name, labels in (("train_step (ffm: dense)", ("dense_mb4", "dense_mb1",
+                                                      "sequential_dense_mb2", "hot_dense")),
+                         ("train_step (ffm: index)", ("sparse", "sequential_sparse_mb128")),
+                         ("train_step (ffm: hybrid)", ("hot_hybrid_mb128",))):
+        t = timing(name)
+        entry = {"name": name, "route": "cuda", "source": "xflow_tpu_torch/csrc/train.cu",
+                 "replaces": B10_REPLACES + "; " + K2_REPLACES,
+                 "launches": launches("train_step", labels),
+                 "launches_of": ", ".join(f"ffm {x}" for x in labels),
+                 "max_abs_err": k2["max_abs_err_g"], "max_err_over_tol": k2["max_err_over_tol"],
+                 **{k: t[k] for k in keys},
+                 "shape": {k: t[k] for k in ("path", "B", "Kc", "Kh", "H", "F", "D")}}
+        if name.endswith("dense)"):
+            entry["with_hot_plane"] = {k: timing("train_step (ffm: hot dense)")[k]
+                                       for k in keys}
+            entry["unclamped_residual_checked"] = k2.get("unclamped")
+            entry["second_shape"] = wide_k2
+        if name.endswith("index)"):
+            entry["sequential_slice_0"] = {k: timing("train_step (ffm: index, slice 0)")[k]
+                                           for k in keys}
+        entries.append(entry)
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # The sequential path's float32 drift (``--seq-witness RUNS``)
 
 def replay_float64(cfg, init: dict, shipped: list) -> dict:
@@ -4287,22 +5163,38 @@ def local_keys(view: dict, uk, hot_size: int):
                        torch.full_like(keys, -1)).to(torch.int32)
 
 
-def split_tolerance(name: str, view: dict, num_real: float, uk, before: dict,
-                    hot_size: int = 0, max_fields: int = 0):
+def split_tolerance(view: dict, num_real: float, uk, before: dict, hot_size: int = 0,
+                    max_fields: int = 0, form: str = "", other: dict | None = None) -> dict:
     """Phase 6's per-row bound on K2's summed gradients (k2_tolerances;
-    for MVM, mvm_tolerances), for the slice ``view`` (hot plane and cold
-    plane) over the tables as they were before it, gathered at the
-    sorted unique keys ``uk``, which hold every live key of the view:
-    the [U, width] tolerances of table ``name``."""
+    for MVM, mvm_tolerances; for FFM, ffm_tolerances), for the slice
+    ``view`` (hot plane and cold plane) over the tables as they were
+    before it, gathered at the sorted unique keys ``uk``, which hold
+    every live key of the view: {table: [U, width] tolerances}.  For
+    FFM, ``other`` (the card's rows before the slice) adds how far the
+    two sides' inputs lie apart, and the bound is computed on the card
+    where there is one (float64 over a 65,536-row batch)."""
+    import torch
+
     local = local_keys(view, uk, hot_size)
+    if form == "ffm":
+        dev = torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")
+        rows = {n: before[n]["param"].to(dev) for n in ("w", "v")}
+        apart = ({n: (rows[n] - other[n]["param"].to(dev)).abs() for n in ("w", "v")}
+                 if other is not None else {})
+        tol = ffm_tolerances(local.to(dev), view_fields(view).to(dev),
+                             view["x"].to(dev) if "x" in view else None,
+                             view["labels_u8"].to(dev), view["weights_u8"].to(dev), num_real,
+                             rows["w"], rows["v"], max_fields, dw=apart.get("w"),
+                             dv=apart.get("v"))
+        return {n: tol[n].cpu() for n in ("w", "v")}
     if "fields" in view:
-        return mvm_tolerances(local, view_fields(view), None, view["labels_u8"],
-                              view["weights_u8"], num_real, before["v"]["param"],
-                              max_fields)["v"]
+        return {"v": mvm_tolerances(local, view_fields(view), None, view["labels_u8"],
+                                    view["weights_u8"], num_real, before["v"]["param"],
+                                    max_fields)["v"]}
     v = before["v"]["param"] if "v" in before else None
     tol_w, tol_v, _ = k2_tolerances(local, None, view["labels_u8"], view["weights_u8"],
                                     num_real, before["w"]["param"], v)
-    return tol_w if name == "w" else tol_v
+    return {"w": tol_w, "v": tol_v}
 
 
 def guard_rows(view: dict, num_real: float, uk, before: dict, hot_size: int,
@@ -4322,10 +5214,11 @@ def guard_rows(view: dict, num_real: float, uk, before: dict, hot_size: int,
 
 
 def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool = True,
-                    records: int = 6) -> dict:
+                    records: int = 6, keep: dict | None = None) -> dict:
     """Replay the sequential batches ``shipped`` from ``init`` on the
     card (``card_step``, the main path's TrainStep) and on the CPU in
-    lockstep, slice by slice, each side through the per-slice update the
+    lockstep, slice by slice (an unsliced dispatch as one update), each
+    side through the per-slice update the
     main path runs (``TrainStep._update``; with the hot inner,
     ``window_open``, ``window_slice`` per slice and ``window_close``),
     and compare the rows each slice touched (hot and cold keys) and
@@ -4353,7 +5246,10 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
     fails the verification raises.  Without it the run goes on unsynced
     and nothing is held (the diagnostic).  Records the first ``records``
     splits, and elements whose z moved apart by more than half of
-    TRAIN_BOUNDS' terms in one slice."""
+    TRAIN_BOUNDS' terms in one slice.  Each update's log-loss is held
+    to TRAIN_BOUNDS' (with ``synchronize``) and its largest relative gap
+    recorded; ``keep`` receives both sides' final states ("card",
+    "cpu")."""
     import torch
 
     from xflow_tpu_torch.convert import state_from_numpy
@@ -4362,12 +5258,16 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
     dev = card_step.device
     h = cfg.hot_size
     s_fields = cfg.max_fields if card_step.predict_step.ship_slots else 0
+    form = card_step.predict_step.form
+    # MVM's guard is the second discontinuity (FFM has none)
+    guard = s_fields if form == "mvm" else 0
     steps = {"card": card_step,
              "cpu": TrainStep(card_step.model, card_step.optimizer, cfg, torch.device("cpu"))}
     states = {"card": state_from_numpy(cfg, init, dev),
               "cpu": state_from_numpy(cfg, init, "cpu")}
     out = {"slices": 0, "windows": 0, "splits": 0, "split_records": [], "jump_slices": 0,
-           "jump_records": [], "guard_splits": 0, "guard_records": []}
+           "jump_records": [], "guard_splits": 0, "guard_records": [],
+           "logloss_max_rel_gap": 0.0}
 
     def rows_of(side, uk):
         idx = uk.to(steps[side].device)
@@ -4376,8 +5276,9 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
 
     def step_both(uk, update, tolerance, straddle=None):
         """``update(side)`` on both sides, then the n' == 0 splits and z
-        jumps among the rows ``uk``; ``tolerance(name)`` gives the bound
-        on their summed gradients ([U, width]) when a split needs it, and
+        jumps among the rows ``uk``; ``tolerance(before, other)`` gives the
+        bounds on their summed gradients ({table: [U, width]}), computed
+        once when a split needs them, and
         ``straddle(before)`` (MVM) the rows whose slots straddle the
         guard, when a z jump needs it."""
         snap = {}
@@ -4386,12 +5287,15 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
             update(side)
             snap[side] = (before, rows_of(side, uk))
         (cb, ca), (pb, pa) = snap["card"], snap["cpu"]
+        tols = {}
         for name in ca:
             split = (ca[name]["n"] == 0) != (pa[name]["n"] == 0)
             tol = None
             for i, col in split.nonzero().tolist():
                 if tol is None:
-                    tol = tolerance(name, pb)
+                    if not tols:
+                        tols.update(tolerance(pb, cb))
+                    tol = tols[name]
                 g = {"card": math.sqrt(float(ca[name]["n"][i, col])),
                      "cpu": math.sqrt(float(pa[name]["n"][i, col]))}
                 ok = (float(cb[name]["n"][i, col]) == 0.0 == float(pb[name]["n"][i, col])
@@ -4444,17 +5348,19 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
     for arrays in shipped:
         planes = {"card": arrays, "cpu": {k: a.cpu() if isinstance(a, torch.Tensor) else a
                                           for k, a in arrays.items()}}
-        rows = arrays["ckeys"].shape[0] // cfg.microbatch
+        # a sequential dispatch's slices, or an unsliced one whole
+        slices = arrays.get("slice_num_real", [arrays["num_real"]])
+        rows = arrays["ckeys"].shape[0] // len(slices)
         views = [{side: {k: a[j * rows:(j + 1) * rows] for k, a in planes[side].items()
                          if isinstance(a, torch.Tensor)} for side in steps}
-                 for j in range(len(arrays["slice_num_real"]))]
+                 for j in range(len(slices))]
         window = {}
         if card_step.window:
             uk_batch = live_unique(planes["cpu"])
             start = rows_of("cpu", uk_batch)
             window = {side: steps[side].window_open(states[side]["tables"], planes[side])
                       for side in steps}
-        for j, num_real in enumerate(arrays["slice_num_real"]):
+        for j, num_real in enumerate(slices):
             view = views[j]
             uk = live_unique(view["cpu"])
             acc = {side: torch.zeros(2, dtype=torch.float64, device=steps[side].device)
@@ -4468,11 +5374,18 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
                     steps[side]._update(states[side]["tables"], view[side], num_real,
                                         acc[side])
 
-            step_both(uk, update, lambda name, before, view=view, num_real=num_real, uk=uk:
-                      split_tolerance(name, view["cpu"], num_real, uk, before, h, s_fields),
-                      straddle=None if not s_fields else
+            step_both(uk, update, lambda before, other, view=view, num_real=num_real,
+                      uk=uk: split_tolerance(view["cpu"], num_real, uk, before, h,
+                                             s_fields, form, other),
+                      straddle=None if not guard else
                       lambda before, view=view, num_real=num_real, uk=uk:
                       guard_rows(view["cpu"], num_real, uk, before, h, s_fields))
+            ll = {side: float(acc[side][0]) / max(float(acc[side][1]), 1.0) for side in steps}
+            gap = abs(ll["card"] - ll["cpu"]) / max(abs(ll["cpu"]), 1.0)
+            out["logloss_max_rel_gap"] = max(out["logloss_max_rel_gap"], gap)
+            if synchronize and gap > TRAIN_BOUNDS["logloss_rtol"]:
+                raise AssertionError(f"slice {out['slices']}: log-loss {ll['card']} on the "
+                                     f"card vs {ll['cpu']} on the CPU")
             out["slices"] += 1
         if window:
             keys = planes["cpu"]["ckeys"]
@@ -4481,14 +5394,15 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
             def close(side):
                 steps[side].window_close(states[side]["tables"], window[side])
 
-            def window_tolerance(name, _before, uk=uk, views=views, arrays=arrays,
+            def window_tolerance(_before, _other, uk=uk, views=views, arrays=arrays,
                                  uk_batch=uk_batch, start=start):
-                total = None
+                total = {}
                 for j, num_real in enumerate(arrays["slice_num_real"]):
-                    tol = split_tolerance(name, views[j]["cpu"], num_real, uk_batch, start, h,
-                                          s_fields)
-                    total = tol if total is None else total + tol
-                return total[torch.searchsorted(uk_batch, uk)]
+                    for name, tol in split_tolerance(views[j]["cpu"], num_real, uk_batch,
+                                                     start, h, s_fields, form).items():
+                        total[name] = tol if name not in total else total[name] + tol
+                at = torch.searchsorted(uk_batch, uk)
+                return {name: tol[at] for name, tol in total.items()}
 
             def window_straddle(_before, uk=uk, views=views, arrays=arrays,
                                 uk_batch=uk_batch, start=start):
@@ -4498,9 +5412,11 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
                 return rows[torch.searchsorted(uk_batch, uk)]
 
             step_both(uk, close, window_tolerance,
-                      straddle=window_straddle if s_fields else None)
+                      straddle=window_straddle if guard else None)
             out["windows"] += 1
     out["tables"] = compare_states(states["card"], states["cpu"], gate=synchronize)
+    if keep is not None:
+        keep.update(states)
     return out
 
 
@@ -4573,7 +5489,8 @@ def main() -> int:
     from xflow_tpu_torch.device import resolve_device
     from xflow_tpu_torch.ops.build import build_log
 
-    t_start = time.perf_counter()
+    global T_START
+    t_start = T_START = time.perf_counter()
     dev = resolve_device("cuda")
     card = card_line()
     log(card)
@@ -4624,6 +5541,7 @@ def main() -> int:
                             check="K2 against train_plain on the main path's batches")))
         torch.cuda.empty_cache()
         modes = phase_update_modes(dev, T_LOG2, workdir, train_path)
+        log(f"phases 1-14 done at {time.perf_counter() - t_start:.1f} s")
         torch.cuda.empty_cache()
         k6 = phase_k6(dev, train_path["data"], T_LOG2)
         log(json.dumps({"phase": 15, "checks": k6["checks"]}))
@@ -4631,12 +5549,16 @@ def main() -> int:
         paths = phase_input_paths(dev, T_LOG2, workdir, train_path)
         torch.cuda.empty_cache()
         hot = phase_hot(dev, T_LOG2, workdir, train_path)
+        log(f"phases 17-20 done at {time.perf_counter() - t_start:.1f} s")
         torch.cuda.empty_cache()
         wide = phase_wide_fm(dev, workdir, train_path)
         log(json.dumps({"phase": 21, "k1_fm_d_tiled": wide["k1"],
                         "k2_fm_d_tiled": wide["k2"]}))
         torch.cuda.empty_cache()
         mvm = phase_mvm(dev, T_LOG2, workdir, train_path)
+        log(f"phases 21-27 done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        ffm = phase_ffm(dev, workdir, train_path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase": 17, "checks": hot["checks"]}))
@@ -4711,6 +5633,7 @@ def main() -> int:
                            if k not in ("vs_dict_wire_card", "launches")})
     train_rows += hot_train_rows(hot, modes, train_path, card)
     train_rows += mvm_train_rows(mvm, hot, modes, train_path, card)
+    train_rows += ffm_train_rows(ffm, card)
     log(json.dumps({"train": train_rows}))
 
     head = next(r for r in timings if r["mode"] == "fm" and r["B"] == BUCKETS[-1])
@@ -4865,6 +5788,7 @@ def main() -> int:
     }]
     kernels += hot_kernel_entries(hot, k3_check["max_abs_err"])
     kernels += mvm_kernel_entries(wide, mvm)
+    kernels += ffm_kernel_entries(ffm)
     # the hot paths' K4 plans and full-table K3 passes, beside the
     # entries' own paths above
     hot_rows = {f"{r['model']} {r['mode']}": r for r in hot["rows"]}

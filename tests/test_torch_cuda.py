@@ -719,7 +719,7 @@ def test_k1_mvm_matches_plain(dev, case):
     t = lambda a: None if a is None else torch.tensor(a, device=dev)  # noqa: E731
     kw = dict(hot=t(m["hot"]), hot_x=t(m["hot_x"]), hot_size=m["h"] if m["hot"] is not None
               else 0, hot_bf16=case == "bf16", fields=t(m["fields"]),
-              hot_fields=t(m["hot_fields"]), max_fields=m["s"])
+              hot_fields=t(m["hot_fields"]), max_fields=m["s"], form="mvm")
     before = score.launches
     got = score(t(m["keys"]), t(m["x"]), None, t(m["v"]), return_logit=True, **kw)
     want = score_plain(t(m["keys"]), t(m["x"]), None, t(m["v"]), True, **kw)
@@ -791,12 +791,14 @@ def test_k2_mvm_forms_match_plain(dev, form):
         fn(tk, t(m["x"]), t(m["labels"]), t(weights), float(b), None, t(m["v"]), None, g_v,
            acc, slots=slots, hot=hot, hot_x=t(m["hot_x"]), hot_size=h if hot is not None
            else (h if snap else 0), hot_bf16=form == "bf16", hg_v=hg_v,
-           fields=t(m["fields"]), hot_fields=t(m["hot_fields"]), max_fields=m["s"], **snap)
+           fields=t(m["fields"]), hot_fields=t(m["hot_fields"]), max_fields=m["s"],
+           form="mvm", **snap)
         outs.append((None, g_v, None, hg_v, acc))
     torch.cuda.synchronize()
     if form == "bf16":
         fields = dict(fields=torch.tensor(m["fields"]),
-                      hot_fields=torch.tensor(m["hot_fields"]), max_fields=m["s"])
+                      hot_fields=torch.tensor(m["hot_fields"]), max_fields=m["s"],
+                      form="mvm")
         plain = (torch.tensor(m["keys"]), None, torch.tensor(m["labels"]),
                  torch.tensor(weights), float(b), None, torch.tensor(m["v"]))
         _check_bf16_k2(outs, plain, torch.tensor(m["hot"]), h, **fields)
@@ -809,7 +811,7 @@ def test_k2_mvm_forms_match_plain(dev, form):
             torch.tensor(m["keys"]), None, torch.tensor(m["labels"]), torch.tensor(weights),
             float(b), None, torch.tensor(m["v"]), hot=torch.tensor(m["hot"]), hot_size=h,
             fields=torch.tensor(m["fields"]), hot_fields=torch.tensor(m["hot_fields"]),
-            max_fields=m["s"])
+            max_fields=m["s"], form="mvm")
         kh = m["hot"].shape[1]
         assert all(float(occ["v"][r, kh + j, 0]) == 0.0 for r, j in zip(*guarded))
 
@@ -918,3 +920,212 @@ def test_mvm_modes_on_card_match_cpu(dev, wire, mode):
             np.testing.assert_allclose(
                 got.numpy(), want.numpy(), rtol=1e-4,
                 atol=1e-5 * float(want.abs().max()) if want.numel() else 0.0)
+
+
+# -- FFM (B10): K1's and K2's FFM forms -----------------------------------------
+
+
+def _ffm_inputs(seed, b=256, k=40, kh=0, h=1 << 10, f=39, d=4, t=1 << 14, u16=True,
+                full=False, vscale=0.1):
+    """FFM planes: _inputs' keys (padding, an all-padding row, a repeated
+    key) and w, field ids in [0, f) with some past it (the u8 clamp's
+    255, or negative on the full wire), a hot plane with its fields, and
+    seed-made v [T, f * d]."""
+    rng = np.random.default_rng(seed)
+    keys, x, w, _, labels = _inputs(seed=seed, t=t, d=1, b=b, k=k, full=full)
+    v = (rng.standard_normal((t, f * d)) * vscale).astype(np.float32)
+    dtype = np.int32 if full else np.uint8
+    out_of_range = -3 if full else 255
+    fields = rng.integers(0, f, (b, k))
+    fields[rng.random((b, k)) < 0.05] = out_of_range
+    hot = hot_fields = hot_x = None
+    if kh:
+        hot = _hot_plane(seed + 1, b, kh, h, u16)
+        hot_fields = rng.integers(0, f, (b, kh))
+        hot_fields[rng.random((b, kh)) < 0.05] = out_of_range
+        hot_fields = hot_fields.astype(dtype)
+        if full:
+            hot_x = np.where(hot >= 0, rng.uniform(0.25, 2.0, hot.shape), 0).astype(np.float32)
+    return dict(keys=keys, x=x, w=w, v=v, labels=labels, fields=fields.astype(dtype),
+                hot=hot, hot_fields=hot_fields, hot_x=hot_x, h=h, f=f)
+
+
+FFM_CASES = {
+    # _ffm_inputs keywords: the flagship's 40 slots (F = 39, D = 4: one
+    # tile), a hot plane (12 + 32 slots, u16 ids at H = 2^14), the full
+    # wire's int32 fields and values, the bf16 flag (w alone), D = 16 and
+    # F = 64 (two tiles each)
+    "ffm": {}, "hot": dict(k=12, kh=32, h=1 << 14), "full": dict(full=True, u16=False, kh=8),
+    "bf16": dict(k=12, kh=32, h=1 << 14), "d16": dict(d=16), "f64": dict(f=64),
+}
+
+
+def _ffm_kw(m, t, bf16=False):
+    return dict(hot=t(m["hot"]), hot_x=t(m["hot_x"]),
+                hot_size=m["h"] if m["hot"] is not None else 0, hot_bf16=bf16,
+                fields=t(m["fields"]), hot_fields=t(m["hot_fields"]), max_fields=m["f"],
+                form="ffm")
+
+
+@pytest.mark.parametrize("case", list(FFM_CASES))
+def test_k1_ffm_matches_plain(dev, case):
+    from xflow_tpu_torch.ops.score import ffm_tile
+
+    m = _ffm_inputs(2, **FFM_CASES[case])
+    t = lambda a: None if a is None else torch.tensor(a, device=dev)  # noqa: E731
+    kw = _ffm_kw(m, t, bf16=case == "bf16")
+    d = m["v"].shape[1] // m["f"]
+    slots = m["keys"].shape[1] + (m["hot"].shape[1] if m["hot"] is not None else 0)
+    assert (ffm_tile(m["f"], d, slots) < d) == (case in ("d16", "f64"))
+    before = score.launches
+    got = score(t(m["keys"]), t(m["x"]), t(m["w"]), t(m["v"]), return_logit=True, **kw)
+    want = score_plain(t(m["keys"]), t(m["x"]), t(m["w"]), t(m["v"]), True, **kw)
+    torch.cuda.synchronize()
+    assert score.launches - before == 1
+    for g, p in zip(got, want):
+        _close(g, p)
+
+
+def _ffm_k2(dev, m, form, labels=None):
+    """K2's FFM form (kernel, then plain) into ``form``'s destinations:
+    dense (hot gradients in g's first H rows) or index mode with a head
+    buffer (the hybrid); returns [(g_w, g_v, hg_w, hg_v, acc)] for each."""
+    t_size, h, e = m["v"].shape[0], m["h"], m["v"].shape[1]
+    b = m["keys"].shape[0]
+    weights = np.ones(b, np.float32)
+    labels = m["labels"] if labels is None else labels
+    outs = []
+    for kernel in (True, False):
+        dv = dev if kernel else torch.device("cpu")
+        t = lambda a: None if a is None else torch.tensor(a, device=dv)  # noqa: E731
+        tk = t(m["keys"])
+        index = form == "index"
+        rows = max(m["keys"].size, 1) if index else t_size
+        g_w, g_v = torch.zeros((rows, 1), device=dv), torch.zeros((rows, e), device=dv)
+        slots = None
+        if index:
+            ukeys = torch.empty(m["keys"].size, dtype=torch.int32, device=dv)
+            count = torch.zeros(1, dtype=torch.int32, device=dv)
+            slots = torch.empty_like(tk)
+            consolidate_keys_plain(tk, t_size, ukeys, count, slots)
+        hg_w = hg_v = None
+        if m["hot"] is not None:
+            hg_w, hg_v = ((torch.zeros((h, 1), device=dv), torch.zeros((h, e), device=dv))
+                          if index else (g_w[:h], g_v[:h]))
+        acc = torch.zeros(2, dtype=torch.float64, device=dv)
+        fn = train_step if kernel else train_plain
+        fn(tk, t(m["x"]), t(labels), t(weights), float(b), t(m["w"]), t(m["v"]), g_w, g_v,
+           acc, slots=slots, hg_w=hg_w, hg_v=hg_v, **_ffm_kw(m, t, bf16=form == "bf16"))
+        outs.append((g_w, g_v, hg_w if index else None, hg_v if index else None, acc))
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("form", ["dense", "index", "hot-dense", "hot-index", "full",
+                                  "d16", "f64", "bf16", "unclamped"])
+def test_k2_ffm_forms_match_plain(dev, form):
+    """K2's FFM form into each destination (dense, index mode; with the
+    hot plane's gradients in g's first H rows or a head buffer), on the
+    full wire, at two tiles (D = 16, F = 64), under the bf16 flag (w
+    alone rounds), and at logits below -30 with every label 0, where
+    the residual is the unclamped sigmoid's (about 1e-26): the clamped
+    one's 1e-6 would show in every gradient."""
+    kw = {"hot-dense": dict(k=12, kh=32, h=1 << 14), "hot-index": dict(k=12, kh=32, h=1 << 14),
+          "full": dict(full=True, u16=False, kh=8), "d16": dict(d=16), "f64": dict(f=64),
+          "bf16": dict(k=12, kh=32, h=1 << 14)}.get(form, {})
+    m = _ffm_inputs(3, **kw)
+    labels = None
+    if form == "unclamped":
+        m["w"][:] = -2.0
+        labels = np.zeros_like(m["labels"])
+    before = train_step.launches
+    outs = _ffm_k2(dev, m, "index" if form.endswith("index") else form, labels)
+    assert train_step.launches - before == 1
+    if form == "bf16":
+        (kw_, kv, _, _, kacc), (pw, pv, _, _, pacc) = outs
+        _close(kv, pv)  # v opts out of the hot path: float32 throughout
+        fields = _ffm_kw(m, lambda a: None if a is None else torch.tensor(a))
+        fields.pop("hot"), fields.pop("hot_x"), fields.pop("hot_size"), fields.pop("hot_bf16")
+        plain = (torch.tensor(m["keys"]), None, torch.tensor(m["labels"]),
+                 torch.ones(m["keys"].shape[0]), float(m["keys"].shape[0]),
+                 torch.tensor(m["w"]), torch.tensor(m["v"]))
+        _check_bf16_k2([(kw_, None, None, None, kacc), (pw, None, None, None, pacc)], plain,
+                       torch.tensor(m["hot"]), m["h"], **fields)
+        return
+    for got, want in zip(*outs):
+        if got is not None:
+            _close(got, want)
+    if form == "unclamped":
+        for g in outs[0][:2] + outs[1][:2]:
+            assert 0 < float(g.abs().max()) < 1e-20
+
+
+@pytest.mark.parametrize("mode", [
+    {},
+    {"microbatch": 4},
+    {"update_mode": "sparse", "hot_size_log2": 0},
+    {"update_mode": "sequential", "microbatch": 4},
+    {"update_mode": "sequential", "microbatch": 4, "sequential_inner": "sparse"},
+    {"hot_size_log2": 0},
+], ids=["hot-dense", "hot-mb4", "sparse-nohot", "hot-seq-dense", "hybrid", "nohot"])
+@pytest.mark.parametrize("wire", ["off", "auto", "full"], ids=["compact", "dict", "full"])
+def test_ffm_modes_on_card_match_cpu(dev, wire, mode):
+    """Three steps of an FFM TrainStep on the card and on the CPU from
+    the same state, within _card_vs_cpu's bound."""
+    kw = dict(model="ffm", table_size_log2=12, max_nnz=24, hot_size_log2=8, hot_nnz=16,
+              batch_size=256, ffm_v_dim=4, max_fields=39,
+              wire_dedup="off" if wire == "full" else wire,
+              wire_mode="full" if wire == "full" else "auto", hash_mode=wire != "full")
+    cfg = Config(**{**kw, **mode})
+    mdl, opt = make_model(cfg), make_optimizer(cfg)
+    cpu_state = init_state(mdl, opt, cfg, torch.device("cpu"))
+    card_state = {"tables": {n: {k: a.to(dev, copy=True) for k, a in t.items()}
+                             for n, t in cpu_state["tables"].items()},
+                  "dense": {}, "step": 0}
+    steps = {d: TrainStep(mdl, opt, cfg, d) for d in (dev, torch.device("cpu"))}
+    before = train_step.launches
+    for seed in range(3):
+        batch = _field_batch(seed, 256, cfg.max_nnz, cfg.hot_nnz if cfg.hot_size else 0,
+                             12, cfg.hot_size_log2, 0.6, slot_lo=-2, slot_hi=42)
+        if wire == "full":
+            rng = np.random.default_rng(seed)
+            batch.vals[:] = rng.uniform(0.5, 1.5, batch.vals.shape) * batch.mask
+            batch.hot_vals[:] = rng.uniform(0.5, 1.5, batch.hot_vals.shape) * batch.hot_mask
+        m_card = steps[dev].train(card_state, steps[dev].put_batch(batch))
+        m_cpu = steps[torch.device("cpu")].train(
+            cpu_state, steps[torch.device("cpu")].put_batch(batch))
+        np.testing.assert_allclose(float(m_card["logloss"]), float(m_cpu["logloss"]),
+                                   rtol=1e-5)
+    assert train_step.launches > before
+    for n, t in cpu_state["tables"].items():
+        for k, want in t.items():
+            got = card_state["tables"][n][k].cpu()
+            np.testing.assert_allclose(
+                got.numpy(), want.numpy(), rtol=1e-4,
+                atol=1e-5 * float(want.abs().max()) if want.numel() else 0.0)
+
+
+def test_ffm_card_path_runs_kernels_only(dev, monkeypatch):
+    """An FFM TrainStep and its predict on the card launch K1 and K2 and
+    never reach a plain version (each is replaced by a raise here)."""
+    import xflow_tpu_torch.ops.score as score_mod
+    import xflow_tpu_torch.ops.train as train_mod
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card path")
+
+    monkeypatch.setattr(train_mod, "train_plain", refuse)
+    monkeypatch.setattr(train_mod, "occurrence_grads", refuse)
+    monkeypatch.setattr(score_mod, "score_plain", refuse)
+    cfg = Config(model="ffm", table_size_log2=12, max_nnz=24, hot_size_log2=8, hot_nnz=16,
+                 batch_size=256, ffm_v_dim=4, max_fields=39, microbatch=4)
+    mdl, opt = make_model(cfg), make_optimizer(cfg)
+    state = init_state(mdl, opt, cfg, dev)
+    step = TrainStep(mdl, opt, cfg, dev)
+    before = (score.launches, train_step.launches)
+    batch = _field_batch(5, 256, cfg.max_nnz, cfg.hot_nnz, 12, cfg.hot_size_log2, 0.6)
+    step.train(state, step.put_batch(batch))
+    pctr = step.predict(state, step.put_batch(batch, predict=True))
+    torch.cuda.synchronize()
+    assert (score.launches - before[0], train_step.launches - before[1]) == (1, 1)
+    assert bool(torch.isfinite(pctr).all())

@@ -468,19 +468,19 @@ def test_mvm_slot_limit_is_refused_by_name():
     wide = torch.zeros((2, MVM_MAX_SLOTS + 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="shared-memory stage"):
         score(wide, None, None, torch.zeros((8, 2)), fields=torch.zeros_like(wide),
-              max_fields=4)
+              max_fields=4, form="mvm")
     keys = torch.zeros((2, 3), dtype=torch.int32)
     with pytest.raises(ValueError, match="v and no w"):
         score(keys, None, torch.zeros((8, 1)), torch.zeros((8, 2)),
-              fields=torch.zeros((2, 3), dtype=torch.uint8), max_fields=4)
+              fields=torch.zeros((2, 3), dtype=torch.uint8), max_fields=4, form="mvm")
     with pytest.raises(ValueError, match="fields must be uint8 or int32"):
         score(keys, None, None, torch.zeros((8, 2)),
-              fields=torch.zeros((2, 3), dtype=torch.int64), max_fields=4)
+              fields=torch.zeros((2, 3), dtype=torch.int64), max_fields=4, form="mvm")
     acc = torch.zeros(2, dtype=torch.float64)
     with pytest.raises(ValueError, match="w and g_w come together"):
         train_step(keys, None, torch.zeros(2), torch.ones(2), 2.0, None,
                    torch.zeros((8, 2)), torch.zeros((8, 1)), torch.zeros((8, 2)), acc,
-                   fields=torch.zeros((2, 3), dtype=torch.uint8), max_fields=4)
+                   fields=torch.zeros((2, 3), dtype=torch.uint8), max_fields=4, form="mvm")
 
 
 # -- the Trainer, learning, artifacts, the CLI ----------------------------------

@@ -250,7 +250,8 @@ def test_put_batch_wires_and_num_real(toy_dataset):
     ({"input_streams": 2}, "A10"),
     # MVM trains now (tests/test_torch_mvm.py), on one device
     ({"model": "mvm", "num_devices": 2}, "A13"),
-    ({"model": "ffm"}, "A9"),
+    # FFM trains now (tests/test_torch_ffm.py), on one device
+    ({"model": "ffm", "num_devices": 2}, "A13"),
     ({"model": "wide_deep"}, "A9"),
     ({"model": "two_tower"}, "A9"),
     ({"model": "dcn"}, "A9"),
@@ -258,7 +259,7 @@ def test_put_batch_wires_and_num_real(toy_dataset):
 def test_train_step_refuses_unported(kw, item):
     cfg = Config(**{**_kw("lr", "ftrl", True), **kw})
     with pytest.raises(NotImplementedError, match=item):
-        TrainStep(make_model(cfg) if cfg.model in ("lr", "fm", "mvm") else None,
+        TrainStep(make_model(cfg) if cfg.model in ("lr", "fm", "mvm", "ffm") else None,
                   make_optimizer(cfg), cfg, torch.device("cpu"))
 
 

@@ -6,7 +6,7 @@ here has its counterpart at the same path there.  It imports ``torch``
 and nothing of the reference package: host code it needs is copied, and
 the tests hold each copy against its original.
 
-It trains LR, FM and MVM with FTRL or SGD in every update mode from
+It trains LR, FM, MVM and FFM with FTRL or SGD in every update mode from
 libffm text or packed shards (trainer.py::Trainer, ``python -m
 xflow_tpu_torch.train``) and serves them from exported artifacts
 (serve/engine.py::PredictEngine).  Its device work is six hand-written

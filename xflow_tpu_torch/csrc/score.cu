@@ -71,12 +71,24 @@
 // arithmetic (about 2D flops a slot and D per present field) is far
 // below the card's rate, so bytes bound it, and at serving sizes the
 // launch does.
+//
+// The FFM form (B10, form 2; ffm.cuh has its regions, bound and
+// design): w and v [T, S * D] (D = the row width over S), the field
+// planes as the MVM form's; one block per example, the linear term over
+// every live slot (an out-of-range field included) and the pair term
+// 1/2 (cross - diag) over the slots whose field lies in [0, S).  With
+// the hot plane, hot_bf16 rounds w's hot rows alone: FFM's v opts out
+// of the hot path (TableSpec.hot=False), so its hot rows are read as
+// they are.  Bound: the keys (and x), the fields, each distinct row's
+// 4 + 4 S D B and 4B out; bytes bound it, and at serving sizes the
+// launch does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "ffm.cuh"
 #include "mvm.cuh"
 
 namespace {
@@ -237,6 +249,50 @@ score_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
   if (lane == 0) write_score(logit, pctr, logit_out, b);
 }
 
+// The FFM form: one block per example (ffm.cuh).
+__global__ void __launch_bounds__(ffm::kMaxThreads)
+score_ffm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
+                 const void* __restrict__ hot, const float* __restrict__ hot_x,
+                 int hot_u16, int H, int hot_bf16,
+                 const void* __restrict__ fields,
+                 const void* __restrict__ hot_fields, int f_i32, int F,
+                 const float* __restrict__ w, const float* __restrict__ v,
+                 float* __restrict__ pctr, float* __restrict__ logit_out,
+                 int K, int KH, int D, int dt) {
+  extern __shared__ float ffm_smem[];
+  const long long b = blockIdx.x;
+  const int n = KH + K;
+  const ffm::Stage s = ffm::stage_at(ffm_smem, F, dt, n);
+  const long long row = b * K;
+  float lin = 0.0f;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    float xv;
+    bool to_bf16;
+    const int key = entry_key(keys + row, x != nullptr ? x + row : nullptr, hot,
+                              hot_x, hot_u16, H, hot_bf16, b, KH, j, xv, to_bf16);
+    const int f = mvm::field_of(fields, hot_fields, f_i32, b, K, KH, j);
+    if (key >= 0) {
+      const float wv = w[key];
+      lin += (to_bf16 ? bf16_round(wv) : wv) * xv;
+    }
+    s.key[j] = key;
+    s.x[j] = xv;
+    s.fld[j] = key >= 0 && f >= 0 && f < F ? f : -1;
+  }
+  __syncthreads();
+  const ffm::Rows rows{v, s.key, F * D};
+  float pair = 0.0f;
+  for (int d0 = 0; d0 < D; d0 += dt) {
+    const int t = min(dt, D - d0);
+    const float diag = ffm::tile_sums(s, n, F, D, d0, t, rows);
+    __syncthreads();
+    pair += ffm::tile_cross(s, F, t) - diag;
+    __syncthreads();  // before the next tile's sums overwrite S
+  }
+  const float logit = ffm::block_sum(lin + 0.5f * pair, s.red);
+  if (threadIdx.x == 0) write_score(logit, pctr, logit_out, static_cast<int>(b));
+}
+
 struct HotPlane {
   const void* keys;
   const float* x;
@@ -256,23 +312,41 @@ void launch(const int* keys, const float* x, const HotPlane& h,
 }  // namespace
 
 extern "C" int xf_mvm_bytes_per_slot() { return mvm::kBytesPerSlot; }
+extern "C" int xf_ffm_stage_bytes(int F, int n, int dt) {
+  return static_cast<int>(ffm::stage_bytes(F, n, dt));
+}
+extern "C" int xf_ffm_tile(int F, int D, int n) {
+  return ffm::tile_factors(F, D, n);
+}
 
 // Launches K1 on `stream`; KH = 0 means no hot plane (hot, hot_x,
-// hot_fields unread).  fields not null selects the MVM form (w unread;
-// f_i32: int32 field planes, else u8; S = max_fields).  Returns
-// cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue when an MVM row's stage does not fit the
-// card's shared memory.
+// hot_fields unread).  form 0 is LR (v null) or FM, 1 the MVM form (w
+// unread), 2 the FFM form (D is v's row width, S * the factors); the
+// field forms read the field planes (f_i32: int32, else u8; S =
+// max_fields).  Returns cudaGetLastError() after the launch (0 =
+// launched), or cudaErrorInvalidValue when a field form's stage does
+// not fit the card's shared memory.
 extern "C" int xf_score(const int* keys, const float* x, const void* hot,
                         const float* hot_x, int hot_u16, int H, int hot_bf16,
-                        const void* fields, const void* hot_fields, int f_i32,
-                        int S, const float* w, const float* v, float* pctr,
-                        float* logit, int B, int K, int KH, int D,
+                        int form, const void* fields, const void* hot_fields,
+                        int f_i32, int S, const float* w, const float* v,
+                        float* pctr, float* logit, int B, int K, int KH, int D,
                         void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const HotPlane h{hot, hot_x, hot_u16, H, hot_bf16, KH > 0 ? KH : 0};
-  if (fields != nullptr) {
+  if (form == 2) {
+    const int dv = D / S;
+    const int dt = ffm::tile_factors(S, dv, K + h.KH);
+    int threads = 0;
+    size_t smem = 0;
+    const int rc = ffm::launch_shape(score_ffm_kernel, S, dt, K + h.KH,
+                                     &threads, &smem);
+    if (rc != 0) return rc;
+    score_ffm_kernel<<<B, threads, smem, s>>>(
+        keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32,
+        S, w, v, pctr, logit, K, h.KH, dv, dt);
+  } else if (form == 1) {
     int warps = 1;
     size_t smem = 0;
     const int rc = mvm::launch_shape(score_mvm_kernel, K + h.KH, kMvmWarps,

@@ -121,12 +121,33 @@
 // bound it (about 3D flops a slot and 2D per present field).  The
 // atomics land one per factor per slot, lanes over the factors, so a
 // slot's D adds hit one contiguous row.
+//
+// The FFM form (B10, form 2; ffm.cuh has its regions, bound and
+// design): w and v [T, S * D], the field planes as the MVM form's; one
+// block per example, a grid of as many blocks as fit the card looping
+// over the examples.  The residual is the UNCLAMPED sigmoid's, (1 / (1
+// + exp(-logit)) - y) * weight / num_real: the reference takes FFM's
+// gradient by autodiff of softplus(logit) - y * logit (step.py:59-74),
+// whose derivative is the plain logistic; pctr's clamp stays in the
+// log-loss.  Each live slot's w gradient x * r lands at its row (an
+// out-of-range field included: the linear term reads masked_x), each
+// slot with a field in [0, S) adds its F * D gradient row, coalesced
+// atomics along the row, to the same destinations as FM's (g or its
+// first H rows, K4's slots, the head buffer).  hot_bf16 rounds w's hot
+// rows and hot gradients alone: FFM's v opts out of the hot path
+// (TableSpec.hot=False), so its hot rows and gradients stay float32.
+// There is no window-start mode (the hot inner alone uses it, and FFM
+// refuses it).  Bound: the keys (and x), fields, labels and weights
+// once, per distinct row 4 + 4 S D B of w and v read and as much of g
+// read and written; bytes bound it (ffm.cuh).  At the flagship the
+// 156-wide rows take 156 atomics a slot: 6,240 an example.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "ffm.cuh"
 #include "mvm.cuh"
 
 namespace {
@@ -216,13 +237,16 @@ __device__ __forceinline__ void land_loss(float ll_acc, float w_acc,
 }
 
 // The residual of example b, and its clipped log-loss times its weight
-// into lane 0's partials.
+// into lane 0's partials.  With `unclamped` (the FFM form) the residual
+// takes the plain logistic, the log-loss still the clamped pctr.
 template <typename LW>
 __device__ __forceinline__ float residual(float logit, const LW* labels,
                                           const LW* weights, long long b,
                                           float num_real, int lane,
-                                          float& ll_acc, float& w_acc) {
+                                          float& ll_acc, float& w_acc,
+                                          bool unclamped = false) {
   float p = 1.0f / (1.0f + expf(-logit));
+  const float logistic = p;
   if (logit < -30.0f) p = 1e-6f;
   if (logit > 30.0f) p = 1.0f;
   const float y = as_float(labels[b]);
@@ -233,7 +257,7 @@ __device__ __forceinline__ float residual(float logit, const LW* labels,
     ll_acc += ll * wt;
     w_acc += wt;
   }
-  return (p - y) * wt / num_real;
+  return ((unclamped ? logistic : p) - y) * wt / num_real;
 }
 
 template <int CAP, typename LW>
@@ -461,6 +485,104 @@ train_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
   land_loss(ll_acc, w_acc, acc);
 }
 
+// The FFM form: one block per example, the grid looping over them
+// (ffm.cuh; the header says what it computes).
+template <typename LW>
+__global__ void __launch_bounds__(ffm::kMaxThreads)
+train_ffm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
+                 const LW* __restrict__ labels, const LW* __restrict__ weights,
+                 float num_real, const float* __restrict__ w,
+                 const float* __restrict__ v, const int* __restrict__ slots,
+                 float* __restrict__ gw, float* __restrict__ gv,
+                 double* __restrict__ acc, int B, int K, int D, int dt,
+                 const void* __restrict__ fields,
+                 const void* __restrict__ hot_fields, int f_i32, int F,
+                 const HotArgs h) {
+  extern __shared__ float ffm_smem[];
+  const int n = h.KH + K;
+  const int E = F * D;
+  const ffm::Stage s = ffm::stage_at(ffm_smem, F, dt, n);
+  const ffm::Rows rows{v, s.key, E};
+  const int tiles = (D + dt - 1) / dt;
+  float ll_acc = 0.0f;
+  float w_acc = 0.0f;
+
+  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
+    const long long row = b * K;
+    const int* srow = slots != nullptr ? slots + row : nullptr;
+    __syncthreads();  // the previous example's stage and sums are read out
+    float lin = 0.0f;
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      float xv;
+      bool is_hot;
+      const int key = entry_key(keys + row, x != nullptr ? x + row : nullptr, h,
+                                b, j, xv, is_hot);
+      const int f = mvm::field_of(fields, hot_fields, f_i32, b, K, h.KH, j);
+      if (key >= 0) {
+        const float wv = w[key];
+        lin += (is_hot && h.bf16 ? bf16_round(wv) : wv) * xv;
+      }
+      s.key[j] = key;
+      s.x[j] = xv;
+      s.fld[j] = key >= 0 && f >= 0 && f < F ? f : -1;
+      s.dst[j] = key < 0 ? -1 : static_cast<int>(grad_row(srow, j, h.KH, key,
+                                                          is_hot));
+    }
+    __syncthreads();
+    // the forward, tile by tile; S keeps the last tile's sums
+    float pair = 0.0f;
+    for (int t = 0; t < tiles; ++t) {
+      const int d0 = t * dt;
+      const int tw = min(dt, D - d0);
+      const float diag = ffm::tile_sums(s, n, F, D, d0, tw, rows);
+      __syncthreads();
+      pair += ffm::tile_cross(s, F, tw) - diag;
+      if (t != tiles - 1) __syncthreads();
+    }
+    const float logit = ffm::block_sum(lin + 0.5f * pair, s.red);
+    const float r = residual(logit, labels, weights, b, num_real,
+                             static_cast<int>(threadIdx.x), ll_acc, w_acc,
+                             true);
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const int dst = s.dst[j];
+      if (dst < 0) continue;
+      const bool hot = j < h.KH;
+      const float g = s.x[j] * r;
+      atomicAdd((hot ? h.gw : gw) + dst, hot && h.bf16 ? bf16_round(g) : g);
+    }
+    // the backward, the last tile first (its sums are in S)
+    for (int t = tiles - 1; t >= 0; --t) {
+      const int d0 = t * dt;
+      const int tw = min(dt, D - d0);
+      const int cols = F * tw;
+      if (t != tiles - 1) {
+        __syncthreads();  // the later tile's gradients have read S
+        ffm::tile_sums(s, n, F, D, d0, tw, rows);
+        __syncthreads();
+      }
+      for (int j = 0; j < n; ++j) {
+        const int fj = s.fld[j];
+        const int dst = s.dst[j];
+        if (fj < 0 || dst < 0) continue;
+        const float xj = s.x[j];
+        const float* vrow = rows(j);
+        float* grow = (j < h.KH ? h.gv : gv) + static_cast<long long>(dst) * E;
+        for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+          const int f2 = c / tw;
+          const int dd = c - f2 * tw;
+          const int at = f2 * D + d0 + dd;
+          float g = s.S[f2 * cols + fj * tw + dd];
+          // unfused, as the sum was formed: a slot alone in its field
+          // gets exactly 0 here, as autodiff gives it in the reference
+          if (f2 == fj) g -= __fmul_rn(vrow[at], xj);
+          atomicAdd(grow + at, g * xj * r);
+        }
+      }
+    }
+  }
+  land_loss(ll_acc, w_acc, acc);
+}
+
 int grid_for(int B, int warps_per_block) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) {
@@ -484,6 +606,7 @@ void launch(const int* keys, const float* x, const void* labels,
 }
 
 struct Fields {
+  int form;  // 0 LR / FM, 1 MVM, 2 FFM
   const void* cold;
   const void* hot;
   int i32, S;
@@ -495,7 +618,26 @@ int dispatch(const int* keys, const float* x, const void* labels,
              const float* v, const int* slots, float* gw, float* gv,
              double* acc, int B, int K, int D, const HotArgs& h,
              const Fields& f, cudaStream_t s) {
-  if (f.cold != nullptr) {
+  if (f.form == 2) {
+    const int dv = D / f.S;
+    const int dt = ffm::tile_factors(f.S, dv, K + h.KH);
+    int threads = 0;
+    size_t smem = 0;
+    const int rc = ffm::launch_shape(train_ffm_kernel<LW>, f.S, dt, K + h.KH,
+                                     &threads, &smem);
+    if (rc != 0) return rc;
+    int dev = 0, sms = 132, per_sm = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, train_ffm_kernel<LW>,
+                                                  threads, smem);
+    const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+    const int grid = static_cast<int>(B < cap ? B : cap);
+    train_ffm_kernel<LW><<<grid, threads, smem, s>>>(
+        keys, x, static_cast<const LW*>(labels),
+        static_cast<const LW*>(weights), num_real, w, v, slots, gw, gv, acc, B,
+        K, dv, dt, f.cold, f.hot, f.i32, f.S, h);
+  } else if (f.form == 1) {
     int warps = 1;
     size_t smem = 0;
     const int rc = mvm::launch_shape(train_mvm_kernel<LW>, K + h.KH,
@@ -524,15 +666,23 @@ int dispatch(const int* keys, const float* x, const void* labels,
 }  // namespace
 
 extern "C" int xf_mvm_bytes_per_slot() { return mvm::kBytesPerSlot; }
+extern "C" int xf_ffm_stage_bytes(int F, int n, int dt) {
+  return static_cast<int>(ffm::stage_bytes(F, n, dt));
+}
+extern "C" int xf_ffm_tile(int F, int D, int n) {
+  return ffm::tile_factors(F, D, n);
+}
 
 // Launches K2 on `stream`; labels/weights are u8 when lw_u8 != 0, else
 // f32; `slots` null is the dense mode, else the index mode (header).
 // KH = 0 means no hot plane (the hot_* pointers unread); snap_v null is
-// the live-table mode, else the window-start mode (header).  fields not
-// null selects the MVM form (w, gw, hgw, snap_w unread; f_i32: int32
-// field planes, else u8; S = max_fields).  Returns cudaGetLastError()
-// after the launch (0 = launched), or cudaErrorInvalidValue when an MVM
-// row's stage does not fit the card's shared memory.
+// the live-table mode, else the window-start mode (header).  form 0 is
+// LR (v null) or FM, 1 the MVM form (w, gw, hgw, snap_w unread), 2 the
+// FFM form (D is v's row width, S * the factors; snap_* unread); the
+// field forms read the field planes (f_i32: int32, else u8; S =
+// max_fields).  Returns cudaGetLastError() after the launch (0 =
+// launched), or cudaErrorInvalidValue when a field form's stage does
+// not fit the card's shared memory.
 extern "C" int xf_train_step(const int* keys, const float* x,
                              const void* labels, const void* weights,
                              int lw_u8, float num_real, const float* w,
@@ -541,14 +691,14 @@ extern "C" int xf_train_step(const int* keys, const float* x,
                              const void* hot, const float* hot_x, int hot_u16,
                              int H, int hot_bf16, int KH, float* hgw,
                              float* hgv, const float* snap_w,
-                             const float* snap_v, const void* fields,
-                             const void* hot_fields, int f_i32, int S,
-                             void* stream) {
+                             const float* snap_v, int form,
+                             const void* fields, const void* hot_fields,
+                             int f_i32, int S, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const HotArgs h{hot,  hot_x, hot_u16, H,      hot_bf16, KH > 0 ? KH : 0,
                   hgw,  hgv,   snap_w,  snap_v};
-  const Fields f{fields, hot_fields, f_i32, S};
+  const Fields f{form, fields, hot_fields, f_i32, S};
   if (lw_u8 != 0) {
     return dispatch<std::uint8_t>(keys, x, labels, weights, num_real, w, v,
                                   slots, gw, gv, acc, B, K, D, h, f, s);

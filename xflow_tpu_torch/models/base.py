@@ -11,7 +11,11 @@ are already gathered to [B, K, D] blocks:
 
 Gradients are explicit, not autodiff, because the reference's FM
 backward is *not* the true gradient of its forward (fm_worker.cc:82 vs
-:140-142).  On the card the forward runs fused in K1 (ops/score.py) and
+:140-142).  FFM is the reference's first ``AutodiffModel`` (its step
+takes the autodiff gradient of ``softplus(logit) - y * logit``): the port writes
+that gradient out as FFM's ``grad_logit`` and marks the model
+``autodiff = True``, which makes the train step's residual the
+unclamped sigmoid's (ops/train.py).  On the card the forward runs fused in K1 (ops/score.py) and
 the forward + backward + scatter in K2 (ops/train.py); ``logit`` and
 ``grad_logit`` are their plain forms, held against the reference in the
 tests.
@@ -38,6 +42,12 @@ class TableSpec:
     # parallel/step.py::init_state does).
     init_kind: str = "zeros"  # {"zeros", "normal"}
     init_scale: float = 0.0
+    # Whether the table's hot-plane rows take the hot table's path (the
+    # reference's TableSpec.hot, models/base.py:48).  FFM's 156-wide v
+    # opts out: its hot occurrences are plain float32 row reads and
+    # writes of rows [0, H), so ``hot_dtype="bfloat16"`` never rounds
+    # them, and the hot inner is refused for such a model.
+    hot: bool = True
 
     def init(
         self,

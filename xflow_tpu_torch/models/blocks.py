@@ -1,10 +1,10 @@
-"""Model blocks: the reference's models/blocks.py pieces that LR, FM
-and MVM use, on tensors.
+"""Model blocks: the reference's models/blocks.py pieces that LR, FM,
+MVM and FFM use, on tensors.
 
 Each body is the reference block's expression, in the same order, so
 the plain path and the reference agree up to float rounding of the
-same sums.  The field-pooling, FFM and dense blocks come with their
-families (ROADMAP A9b, A9c).
+same sums.  The field-pooling and dense blocks come with their
+families (ROADMAP A9c).
 """
 
 from __future__ import annotations
@@ -24,6 +24,15 @@ def linear_term(w_rows: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Sparse linear reduction ``sum_i w_i x_i`` [B] over gathered
     [B, K, 1] w rows — LR's whole forward, FM's linear half."""
     return torch.sum(w_rows[..., 0] * x, dim=-1)
+
+
+def valid_fields(
+    slots: torch.Tensor, mask: torch.Tensor, num_fields: int
+) -> torch.Tensor:
+    """Bool [B, K]: the entry is real AND its field id is in
+    [0, num_fields) — the shared out-of-range-field drop semantics
+    (negative or oversized field ids contribute nothing)."""
+    return (slots >= 0) & (slots < num_fields) & (mask > 0)
 
 
 def fm_pair_pieces(
@@ -66,3 +75,51 @@ def mvm_slot_terms(
     one_plus = 1.0 + slotsum
     prod = torch.prod(one_plus, dim=1)  # [B, D]
     return one_plus, prod
+
+
+def ffm_field_sums(
+    v_rows: torch.Tensor,
+    x_eff: torch.Tensor,
+    slot: torch.Tensor,
+    valid: torch.Tensor,
+    num_fields: int,
+) -> torch.Tensor:
+    """FFM's field-aggregated sums ``S[b, f1, f2*D + d] = sum over the
+    slots i of field f1 of x_eff_i * v[k_i, f2, d]`` [B, F, E], E = F*D,
+    from the flat [B, K, E] gathered v plane: the first half of the
+    reference's ``ffm_field_interaction`` (its one-hot of each slot's own
+    field, zero for invalid slots, and the batch matmul over K)."""
+    f = num_fields
+    onehot = (
+        (slot[:, :, None] == torch.arange(f, device=slot.device)[None, None, :])
+        & valid[:, :, None]
+    ).to(v_rows.dtype)  # [B, K, F]
+    vx = v_rows * x_eff[:, :, None]  # [B, K, E]
+    return torch.einsum("bkf,bke->bfe", onehot, vx)  # [B, F, E]
+
+
+def ffm_field_interaction(
+    v_rows: torch.Tensor,
+    x_eff: torch.Tensor,
+    slot: torch.Tensor,
+    valid: torch.Tensor,
+    num_fields: int,
+    v_dim: int,
+) -> torch.Tensor:
+    """FFM pairwise term via the field-aggregated identity (models/ffm.py
+    docstring): ``v_rows`` is the flat [B, K, F*D] gathered v plane,
+    ``x_eff`` the validity-zeroed values, ``slot`` the [0, F)-clipped
+    field ids.  Returns the [B] interaction ½(cross − diag)."""
+    b, k = slot.shape
+    f, d = num_fields, v_dim
+    vx = v_rows * x_eff[:, :, None]  # [B, K, E]
+    s = ffm_field_sums(v_rows, x_eff, slot, valid, f)  # [B, F, E]
+    # cross term sum_{f1,f2,d} S[b,f1,f2,d] * S[b,f2,f1,d]
+    s4 = s.reshape(b, f, f, d)
+    cross = torch.sum(s4 * s4.permute(0, 2, 1, 3), dim=(1, 2, 3))
+    # subtract the i == i diagonal: x_i^2 * ||v[k_i, f_i, :]||^2,
+    # selecting each key's own-field block of E elementwise
+    eslot = (torch.arange(f * d, device=slot.device) // d).to(slot.dtype)  # [E]
+    emask = eslot[None, None, :] == slot[:, :, None]  # [B, K, E]
+    diag = torch.sum(torch.where(emask, vx * vx, torch.zeros_like(vx)), dim=(1, 2))
+    return 0.5 * (cross - diag)

@@ -1,12 +1,19 @@
 """K1, the fused scoring kernel: wrapper, plain version and binding.
 
-``score(keys, x, w, v)`` returns the clamped-sigmoid pctr [B] of LR
-(``v`` None) or FM (any ``v`` width: the kernel runs D in tiles of 32)
-for sentinel-coded keys, and with ``fields`` given, MVM's (B9: no
-``w``; ``fields`` [B, K] and ``hot_fields`` [B, Kh] the field ids,
-uint8 as the compact and dictionary wires ship them or int32 as the
-full wire does, ``max_fields`` the S of the reference's one-hot; a slot
-whose field lies outside [0, S) is dropped).  On CUDA tensors it launches
+``score(keys, x, w, v, form=...)`` returns the clamped-sigmoid pctr
+[B] for sentinel-coded keys in one of four forms, named by ``form``:
+
+* ``"lr"``: ``w`` alone;
+* ``"fm"``: ``w`` and ``v`` of any width (the kernel runs D in tiles of
+  32); ``form=None`` means ``"lr"`` without ``v`` and ``"fm"`` with it;
+* ``"mvm"`` (B9): ``v`` and no ``w``;
+* ``"ffm"`` (B10): ``w`` and ``v`` [T, F*D], F = ``max_fields``.
+
+The field forms read ``fields`` [B, K] and ``hot_fields`` [B, Kh], the
+field ids, uint8 as the compact and dictionary wires ship them or int32
+as the full wire does, and ``max_fields``, the F of the reference's
+one-hot; a slot whose field lies outside [0, F) is dropped from the
+field terms (FFM keeps it in its linear term).  On CUDA tensors it launches
 the hand-written kernel in csrc/score.cu (which names the JAX regions it
 replaces and states its bound); on CPU tensors it runs
 :func:`score_plain`, the literal PyTorch transcription of the reference's
@@ -23,7 +30,9 @@ a hot key outside [0, ``hot_size``) counts as padding, as the
 reference's ``hot_gather`` gives it a zero row.  ``hot_bf16`` rounds
 the hot plane's rows to bfloat16 (nearest even) before use: the
 reference's ``hot_impl="mxu"`` with ``hot_dtype="bfloat16"``
-(ops/hot.py).  :func:`plain_view` is the forward's plain half, shared
+(ops/hot.py).  In the FFM form it rounds ``w``'s alone: FFM's ``v``
+opts out of the hot table's path (``TableSpec.hot=False``), so its hot
+rows are read as they are.  :func:`plain_view` is the forward's plain half, shared
 with K2's plain version.
 
 ``score.launches`` counts kernel launches (never plain-version calls),
@@ -47,6 +56,16 @@ _I32_MAX = 2**31 - 1
 MVM_BYTES_PER_SLOT = 148
 MVM_SMEM_BYTES = 232_448
 MVM_MAX_SLOTS = MVM_SMEM_BYTES // MVM_BYTES_PER_SLOT
+# The FFM forms (csrc/ffm.cuh) stage an example's slots (key, x, field,
+# gradient row: FFM_BYTES_PER_SLOT each), a block-reduction scratch and
+# the field sums S [F, F, Dt] of a tile of Dt factors in one block's
+# shared memory.  Dt is the most factors whose stage fits the default
+# FFM_TILE_SMEM (at least 1); one factor's stage past MVM_SMEM_BYTES
+# (the opt-in per block) is refused (check_ffm_stage).
+FFM_BYTES_PER_SLOT = 16
+FFM_SCRATCH_BYTES = 32 * 4
+FFM_TILE_SMEM = 48 * 1024
+FORMS = ("lr", "fm", "mvm", "ffm")
 
 _bound: ctypes.CDLL | None = None
 
@@ -60,24 +79,85 @@ def _lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.xf_score.argtypes = [
             vp, vp, vp, vp, ci, ci, ci,  # keys, x, hot, hot_x, hot_u16, H, bf16
-            vp, vp, ci, ci,  # fields, hot_fields, f_i32, S
+            ci, vp, vp, ci, ci,  # form, fields, hot_fields, f_i32, S
             vp, vp, vp, vp, ci, ci, ci, ci, vp,  # w, v, pctr, logit, B, K, KH, D
         ]
         lib.xf_score.restype = ci
-        check_mvm_stage(lib)
+        check_stage_abi(lib)
         _bound = lib
     return _bound
 
 
-def check_mvm_stage(lib: ctypes.CDLL) -> None:
-    """The library's MVM stage bytes a slot must be MVM_BYTES_PER_SLOT."""
+# the C ABI's form codes (csrc/score.cu, csrc/train.cu)
+FORM_CODES = {"lr": 0, "fm": 0, "mvm": 1, "ffm": 2}
+
+
+def check_stage_abi(lib: ctypes.CDLL) -> None:
+    """The library's shared-memory stages must be the ones this module
+    refuses by: MVM_BYTES_PER_SLOT a slot, and FFM's stage and tile as
+    ``ffm_stage_bytes`` and ``ffm_tile`` compute them."""
+    ci = ctypes.c_int
     lib.xf_mvm_bytes_per_slot.argtypes = []
-    lib.xf_mvm_bytes_per_slot.restype = ctypes.c_int
+    lib.xf_mvm_bytes_per_slot.restype = ci
     if lib.xf_mvm_bytes_per_slot() != MVM_BYTES_PER_SLOT:
         raise RuntimeError(
             f"csrc/mvm.cuh kBytesPerSlot {lib.xf_mvm_bytes_per_slot()} != "
             f"ops/score.py MVM_BYTES_PER_SLOT {MVM_BYTES_PER_SLOT}"
         )
+    lib.xf_ffm_stage_bytes.argtypes = [ci, ci, ci]
+    lib.xf_ffm_stage_bytes.restype = ci
+    lib.xf_ffm_tile.argtypes = [ci, ci, ci]
+    lib.xf_ffm_tile.restype = ci
+    for f, d, n in ((39, 4, 40), (39, 16, 44), (64, 4, 40), (240, 1, 8)):
+        if (lib.xf_ffm_stage_bytes(f, n, 1) != ffm_stage_bytes(f, n, 1)
+                or lib.xf_ffm_tile(f, d, n) != ffm_tile(f, d, n)):
+            raise RuntimeError(
+                f"csrc/ffm.cuh's stage at F={f}, D={d}, {n} slots differs from "
+                "ops/score.py's ffm_stage_bytes / ffm_tile"
+            )
+
+
+def ffm_stage_bytes(max_fields: int, slots: int, dt: int = 1) -> int:
+    """Shared bytes of one FFM block: S [F, F, dt], the slot stage and
+    the reduction scratch (csrc/ffm.cuh)."""
+    return 4 * max_fields * max_fields * dt + FFM_BYTES_PER_SLOT * slots + FFM_SCRATCH_BYTES
+
+
+def ffm_tile(max_fields: int, d: int, slots: int) -> int:
+    """Factors per tile of the FFM forms: the most (at most D) whose
+    stage fits FFM_TILE_SMEM, and at least one (csrc/ffm.cuh)."""
+    dt = d
+    while dt > 1 and ffm_stage_bytes(max_fields, slots, dt) > FFM_TILE_SMEM:
+        dt -= 1
+    return dt
+
+
+def check_ffm_stage(max_fields: int, slots: int) -> None:
+    """Refuse an FFM geometry whose one-factor stage exceeds a block's
+    shared memory: S [F, F] of one factor (4 F^2 B) beside the row's
+    slots, at most MVM_SMEM_BYTES (232,448 B on an H100/H200), so F is
+    at most 240 for a narrow row."""
+    need = ffm_stage_bytes(max_fields, slots)
+    if need > MVM_SMEM_BYTES:
+        raise ValueError(
+            f"FFM at max_fields={max_fields} with {slots} slots (hot + cold) "
+            f"exceeds the FFM kernels' shared-memory stage: the field sums of "
+            f"one factor take 4 * {max_fields}^2 B, with {FFM_BYTES_PER_SLOT} B "
+            f"a slot and {FFM_SCRATCH_BYTES} B of scratch {need} B, and a block "
+            f"holds at most {MVM_SMEM_BYTES} B (csrc/ffm.cuh)"
+        )
+
+
+def resolve_form(form: str | None, v, fields) -> str:
+    """The kernel form a call names: ``form`` itself, or without one
+    ``"lr"`` (no ``v``) or ``"fm"``; field planes need a field form."""
+    if form is None:
+        if fields is not None:
+            raise ValueError("field planes need form='mvm' or form='ffm'")
+        return "lr" if v is None else "fm"
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}; one of {FORMS}")
+    return form
 
 
 def check_mvm_slots(slots: int) -> None:
@@ -91,10 +171,16 @@ def check_mvm_slots(slots: int) -> None:
         )
 
 
-def check_fields(keys, fields, hot, hot_fields, max_fields: int) -> None:
-    """The MVM form's field planes: ``fields`` beside ``keys`` and
-    ``hot_fields`` beside ``hot`` (and only with it), uint8 or int32,
-    one dtype, and a positive ``max_fields``."""
+def check_fields(keys, fields, hot, hot_fields, max_fields: int, form: str) -> None:
+    """The field forms' planes: ``fields`` beside ``keys`` (given in the
+    MVM and FFM forms, and only then) and ``hot_fields`` beside ``hot``
+    (and only with it), uint8 or int32, one dtype, a positive
+    ``max_fields``, and a row the form's shared-memory stage holds."""
+    if (fields is not None) != (form in ("mvm", "ffm")):
+        raise ValueError(f"field planes come with the mvm and ffm forms, and "
+                         f"only then (form {form!r})")
+    if fields is None:
+        return
     if fields.dtype not in (torch.uint8, torch.int32) or fields.shape != keys.shape:
         raise ValueError(
             f"fields must be uint8 or int32 {tuple(keys.shape)}, got "
@@ -112,7 +198,11 @@ def check_fields(keys, fields, hot, hot_fields, max_fields: int) -> None:
         tensors.append(("hot_fields", hot_fields))
     if max_fields < 1:
         raise ValueError(f"max_fields must be positive, got {max_fields}")
-    check_mvm_slots(keys.shape[1] + (hot.shape[1] if hot is not None else 0))
+    slots = keys.shape[1] + (hot.shape[1] if hot is not None else 0)
+    if form == "mvm":
+        check_mvm_slots(slots)
+    else:
+        check_ffm_stage(max_fields, slots)
     for name, t in tensors:
         if t.device != keys.device:
             raise ValueError(f"{name} on {t.device}, keys on {keys.device}")
@@ -151,18 +241,20 @@ def check_hot(keys, hot, hot_x, hot_size: int, table) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def check_tables(keys, x, w, v, mvm: bool) -> list:
-    """Validate the key plane, ``x`` and the tables: ``w`` float32
-    [T, 1] (LR, FM; None in the MVM form), ``v`` float32 [T, D] with
-    D >= 1 (FM, MVM; None for LR).  Returns [(name, tensor)] for the
-    device and contiguity checks."""
+def check_tables(keys, x, w, v, form: str, max_fields: int = 0) -> list:
+    """Validate the key plane, ``x`` and the tables for ``form``: ``w``
+    float32 [T, 1] (LR, FM, FFM; None in the MVM form), ``v`` float32
+    [T, D] with D >= 1 (FM, MVM; None for LR), [T, F*D] in the FFM form.
+    Returns [(name, tensor)] for the device and contiguity checks."""
     if keys.dtype != torch.int32 or keys.dim() != 2:
         raise ValueError(f"keys must be int32 [B, K], got {keys.dtype} {tuple(keys.shape)}")
-    if mvm:
+    if form == "mvm":
         if w is not None or v is None:
             raise ValueError("the MVM form takes v and no w")
     elif w is None:
         raise ValueError("w must be float32 [T, 1], got None (only MVM has no w)")
+    elif (v is None) != (form == "lr"):
+        raise ValueError(f"the {form} form takes {'no v' if form == 'lr' else 'v'}")
     elif w.dtype != torch.float32 or w.dim() != 2 or w.shape[1] != 1:
         raise ValueError(f"w must be float32 [T, 1], got {w.dtype} {tuple(w.shape)}")
     rows = (w if w is not None else v).shape[0]
@@ -182,12 +274,17 @@ def check_tables(keys, x, w, v, mvm: bool) -> list:
             )
         if v.shape[1] < 1:
             raise ValueError(f"v width {v.shape[1]} outside [1, inf)")
+        if form == "ffm" and (max_fields < 1 or v.shape[1] % max_fields):
+            raise ValueError(
+                f"the FFM form's v is [T, max_fields * D]: width {v.shape[1]} "
+                f"with max_fields {max_fields}"
+            )
         tensors.append(("v", v))
     return tensors
 
 
-def _check(keys, x, w, v, fields) -> None:
-    tensors = check_tables(keys, x, w, v, fields is not None)
+def _check(keys, x, w, v, form, max_fields) -> None:
+    tensors = check_tables(keys, x, w, v, form, max_fields)
     for name, t in tensors:
         if t.device != keys.device:
             raise ValueError(f"{name} on {t.device}, keys on {keys.device}")
@@ -206,15 +303,17 @@ def hot_plane_keys(hot: torch.Tensor, hot_size: int) -> torch.Tensor:
 
 def plain_view(keys, x, w, v, hot=None, hot_x=None, hot_size=0,
                hot_bf16=False, snap_w=None, snap_v=None, fields=None,
-               hot_fields=None):
+               hot_fields=None, opted_out=()):
     """The forward's plain half, step for step the reference's
     ``_expand_wire`` → ``_gather_model_rows`` → ``_model_view``: decode
     the planes (padding → mask 0, key 0), gather the cold rows (padding
     reads row 0 and is masked out) and the hot rows through
     ``hot_gather`` over rows [0, H), hot first.  ``snap_w``/``snap_v``
     [H, D] (the hot inner's window-start head) stand in for the table
-    at cold keys < H.  ``fields``/``hot_fields`` (MVM) widen to the
+    at cold keys < H.  ``fields``/``hot_fields`` (MVM, FFM) widen to the
     view's int64 ``slots``, as ``_expand_wire`` widens the u8 plane.
+    The tables named in ``opted_out`` (``TableSpec.hot=False``: FFM's v)
+    read their hot rows as plain float32 rows, whatever ``hot_bf16``.
     Returns (rows {"w", "v"} for the tables given, the model's batch
     view {"keys", "vals", "mask"[, "slots"]}, the hot keys [B, Kh] with
     -1 on padding, or None without a hot plane)."""
@@ -241,7 +340,10 @@ def plain_view(keys, x, w, v, hot=None, hot_x=None, hot_size=0,
     b, kh = hk.shape
     for name in rows:
         t = tables[name][0]
-        head = hot_gather(t[:hot_size], hk.reshape(-1), dtype=dtype, impl=impl)
+        if name in opted_out:
+            head = hot_gather(t[:hot_size], hk.reshape(-1))
+        else:
+            head = hot_gather(t[:hot_size], hk.reshape(-1), dtype=dtype, impl=impl)
         rows[name] = torch.cat([head.reshape(b, kh, -1), rows[name]], dim=1)
     hot_view = {
         "keys": torch.cat([hk.clamp(min=0), ck], dim=1),
@@ -253,16 +355,23 @@ def plain_view(keys, x, w, v, hot=None, hot_x=None, hot_size=0,
     return rows, hot_view, hk
 
 
-def plain_model(w, v, fields, max_fields: int):
-    """The model a plain version computes: MVM with field planes, else
-    LR (no ``v``) or FM of ``v``'s width."""
+def plain_model(form: str, v, max_fields: int):
+    """The model a plain version computes in ``form``, at ``v``'s width."""
+    from xflow_tpu_torch.models.ffm import FFMModel
     from xflow_tpu_torch.models.fm import FMModel
     from xflow_tpu_torch.models.lr import LRModel
     from xflow_tpu_torch.models.mvm import MVMModel
 
-    if fields is not None:
+    if form == "mvm":
         return MVMModel(v_dim=v.shape[1], max_fields=max_fields)
-    return LRModel() if v is None else FMModel(v_dim=v.shape[1])
+    if form == "ffm":
+        return FFMModel(v_dim=v.shape[1] // max_fields, max_fields=max_fields)
+    return LRModel() if form == "lr" else FMModel(v_dim=v.shape[1])
+
+
+def opted_out_tables(model) -> tuple:
+    """The tables of ``model`` that opt out of the hot table's path."""
+    return tuple(spec.name for spec in model.tables() if not spec.hot)
 
 
 def score_plain(
@@ -278,12 +387,15 @@ def score_plain(
     fields: torch.Tensor | None = None,
     hot_fields: torch.Tensor | None = None,
     max_fields: int = 0,
+    form: str | None = None,
 ):
     """K1's plain PyTorch version, step for step the reference's
     predict: :func:`plain_view`, the model's logit, the clamp."""
+    model = plain_model(resolve_form(form, v, fields), v, max_fields)
     rows, batch, _ = plain_view(keys, x, w, v, hot, hot_x, hot_size, hot_bf16,
-                                fields=fields, hot_fields=hot_fields)
-    logit = plain_model(w, v, fields, max_fields).logit(rows, batch)
+                                fields=fields, hot_fields=hot_fields,
+                                opted_out=opted_out_tables(model))
+    logit = model.logit(rows, batch)
     pctr = sigmoid_ref(logit)
     return (pctr, logit) if return_logit else pctr
 
@@ -301,20 +413,22 @@ def score(
     fields: torch.Tensor | None = None,
     hot_fields: torch.Tensor | None = None,
     max_fields: int = 0,
+    form: str | None = None,
 ):
     """pctr [B] (and the logit [B] with ``return_logit``) for
     sentinel-coded keys [B, K] and, with a hot table, the hot plane
     ``hot`` [B, Kh] (module docstring); ``x``/``hot_x`` None mean x = 1
-    on live slots; ``fields`` selects the MVM form.  CPU tensors take
-    the plain version; CUDA tensors launch K1."""
-    _check(keys, x, w, v, fields)
+    on live slots; ``form`` names the model's form (``fields`` come with
+    ``"mvm"`` and ``"ffm"``).  CPU tensors take the plain version; CUDA
+    tensors launch K1."""
+    form = resolve_form(form, v, fields)
+    _check(keys, x, w, v, form, max_fields)
     if hot is not None:
         check_hot(keys, hot, hot_x, hot_size, w if w is not None else v)
-    if fields is not None:
-        check_fields(keys, fields, hot, hot_fields, max_fields)
+    check_fields(keys, fields, hot, hot_fields, max_fields, form)
     if keys.device.type == "cpu":
         return score_plain(keys, x, w, v, return_logit, hot, hot_x, hot_size,
-                           hot_bf16, fields, hot_fields, max_fields)
+                           hot_bf16, fields, hot_fields, max_fields, form)
     if keys.device.type != "cuda":
         raise ValueError(f"score: unsupported device {keys.device}")
     lib = _lib()
@@ -335,6 +449,7 @@ def score(
             1 if kh and hot.dtype == torch.int16 else 0,
             hot_size if kh else 0,
             1 if kh and hot_bf16 else 0,
+            FORM_CODES[form],
             ptr(fields),
             ptr(hot_fields) if kh else None,
             1 if fields is not None and fields.dtype == torch.int32 else 0,

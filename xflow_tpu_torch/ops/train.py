@@ -6,11 +6,21 @@ sentinel-coded keys [B, K] and ACCUMULATES into its outputs: the
 residual-scaled per-occurrence gradients are scatter-added into ``g_w``
 [T, 1] and ``g_v`` [T, D], and ``acc`` float64 [2] (csrc/train.cu says
 why) gains the batch's log-loss sum and weight sum.  Any ``v`` width
-runs (D in tiles of 32).  With ``fields`` (and ``hot_fields``,
-``max_fields``) it is MVM's step (B9): no ``w``, ``g_w``, ``hg_w`` or
-``snap_w``, and each present slot's gradient prod / own * x (zero
-under the guard, and for fields outside [0, max_fields)) lands where
-FM's would, in every mode below.  ``x`` None means x = 1 on live slots (the compact
+runs (D in tiles of 32).  ``form`` names the model's form, as K1's
+(ops/score.py): ``"lr"``/``"fm"`` (``form=None``: by whether ``v`` is
+given), ``"mvm"`` (B9: no ``w``, ``g_w``, ``hg_w`` or ``snap_w``; each
+present slot's gradient prod / own * x, zero under the guard and for
+fields outside [0, max_fields), lands where FM's would, in every mode
+below) and ``"ffm"`` (B10: ``w`` and ``v`` [T, F*D]; each slot's w
+gradient x * r, and its v gradient ``FFMModel.grad_logit``'s times r,
+zero for fields outside [0, F); the residual r is the UNCLAMPED
+sigmoid's, (sigmoid(logit) - y) * weight / num_real, as the reference's
+autodiff loss ``softplus(logit) - y * logit`` gives it, while pctr and
+the log-loss keep ``sigmoid_ref``'s clamp; with the hot plane, the bf16
+flag rounds w's hot rows and gradients alone, since v opts out of the
+hot path; there is no window-start mode, which the hot inner alone
+uses and FFM refuses).  The field forms read ``fields``, ``hot_fields``
+and ``max_fields`` as K1 does.  ``x`` None means x = 1 on live slots (the compact
 wire); ``labels``/``weights`` are uint8 (compact wire) or float32 (full
 wire); ``num_real`` is the host float max(sum(weights), 1).
 
@@ -39,7 +49,11 @@ of the reference's ``_expand_wire`` → gather → ``logit`` →
 kernel or raises.
 
 ``train_step.launches`` counts kernel launches (never plain-version
-calls).
+calls).  ``row_chunks`` is read by the plain version alone: it takes
+the batch in that many row ranges, each through the whole forward and
+backward with the batch's ``num_real``, and sums them into the same
+outputs, which bounds FFM's [B, K, F*D] and [B, F, F*D] intermediates as
+the reference's dense ``microbatch`` does (the kernel builds none).
 """
 
 from __future__ import annotations
@@ -50,12 +64,15 @@ import torch
 
 from xflow_tpu_torch.ops.hot import hot_scatter
 from xflow_tpu_torch.ops.score import (
+    FORM_CODES,
     check_fields,
     check_hot,
-    check_mvm_stage,
+    check_stage_abi,
     check_tables,
+    opted_out_tables,
     plain_model,
     plain_view,
+    resolve_form,
 )
 from xflow_tpu_torch.utils.metrics import logloss_sum, sigmoid_ref
 
@@ -73,17 +90,17 @@ def _lib() -> ctypes.CDLL:
             vp, vp, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp, ci, ci, ci,
             vp, vp, ci, ci, ci, ci,  # hot, hot_x, hot_u16, H, bf16, KH
             vp, vp, vp, vp,  # hg_w, hg_v, snap_w, snap_v
-            vp, vp, ci, ci,  # fields, hot_fields, f_i32, S
+            ci, vp, vp, ci, ci,  # form, fields, hot_fields, f_i32, S
             vp,
         ]
         lib.xf_train_step.restype = ci
-        check_mvm_stage(lib)
+        check_stage_abi(lib)
         _bound = lib
     return _bound
 
 
-def _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots, fields) -> None:
-    tensors = check_tables(keys, x, w, v, fields is not None)
+def _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots, form, max_fields) -> None:
+    tensors = check_tables(keys, x, w, v, form, max_fields)
     b = keys.shape[0]
     t = (w if w is not None else v).shape[0]
     if labels.dtype not in (torch.uint8, torch.float32):
@@ -99,9 +116,9 @@ def _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots, fields) -> None
     tensors += [("labels", labels), ("weights", weights), ("acc", acc)]
     # the gradient buffers' rows: T (dense mode) or the slots' M >= B*K
     rows = t if slots is None else max(keys.numel(), 1)
-    grads = [("g_w", g_w, w, 1, "w and g_w come together (LR, FM) or not at all (MVM)"),
+    grads = [("g_w", g_w, w, 1, "w and g_w come together (LR, FM, FFM) or not at all (MVM)"),
              ("g_v", g_v, v, v.shape[1] if v is not None else 0,
-              "v and g_v come together (FM, MVM) or not at all (LR)")]
+              "v and g_v come together (FM, MVM, FFM) or not at all (LR)")]
     for name, g, table, width, pairing in grads:
         if (table is None) != (g is None):
             raise ValueError(pairing)
@@ -163,22 +180,27 @@ def _check_head(keys, hot, hot_x, hot_size, w, v, hg_w, hg_v, snap_w, snap_v) ->
 
 def occurrence_grads(keys, x, labels, weights, num_real, w, v, hot=None,
                      hot_x=None, hot_size=0, hot_bf16=False, snap_w=None,
-                     snap_v=None, fields=None, hot_fields=None, max_fields=0):
+                     snap_v=None, fields=None, hot_fields=None, max_fields=0,
+                     form=None):
     """The plain forward and backward up to the scatter: the forward's
     plain half (ops/score.py ``plain_view``: the wire decoded, cold rows
     gathered — from the window-start head at keys < H when given — and
     the hot rows through ``hot_gather``), the model's logit and explicit
-    gradient times the residual.  Returns (the per-occurrence gradients
-    {table: [B, Kh + K, dim]}, hot slots first and not yet rounded to
-    bfloat16, the hot keys [B, Kh] or None, pctr, the model's batch
-    view)."""
+    gradient times the residual (the unclamped sigmoid's for an
+    ``autodiff`` model: the reference's step.py:59-74).  Returns (the
+    per-occurrence gradients {table: [B, Kh + K, dim]}, hot slots first
+    and not yet rounded to bfloat16, the hot keys [B, Kh] or None, pctr,
+    the model's batch view)."""
+    model = plain_model(resolve_form(form, v, fields), v, max_fields)
     rows, batch, hk = plain_view(keys, x, w, v, hot, hot_x, hot_size,
-                                 hot_bf16, snap_w, snap_v, fields, hot_fields)
+                                 hot_bf16, snap_w, snap_v, fields, hot_fields,
+                                 opted_out_tables(model))
     batch["labels"] = labels.to(torch.float32)
     batch["weights"] = weights.to(torch.float32)
-    model = plain_model(w, v, fields, max_fields)
-    pctr = sigmoid_ref(model.logit(rows, batch))
-    residual = (pctr - batch["labels"]) * batch["weights"] / num_real
+    logit = model.logit(rows, batch)
+    pctr = sigmoid_ref(logit)
+    p = torch.sigmoid(logit) if getattr(model, "autodiff", False) else pctr
+    residual = (p - batch["labels"]) * batch["weights"] / num_real
     occ = {name: g * residual[:, None, None]
            for name, g in model.grad_logit(rows, batch).items()}
     return occ, hk, pctr, batch
@@ -187,16 +209,32 @@ def occurrence_grads(keys, x, labels, weights, num_real, w, v, hot=None,
 def train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
                 slots=None, hot=None, hot_x=None, hot_size=0, hot_bf16=False,
                 hg_w=None, hg_v=None, snap_w=None, snap_v=None, fields=None,
-                hot_fields=None, max_fields=0) -> None:
+                hot_fields=None, max_fields=0, form=None, row_chunks=1) -> None:
     """K2's plain PyTorch version, step for step the reference's
     ``_train_impl`` up to the optimizer: ``occurrence_grads``, the
     scatter-add of live cold occurrences (at ``slots`` in index mode),
-    ``hot_scatter`` of the hot ones into ``hg_w``/``hg_v``, and the
-    log-loss sum."""
+    ``hot_scatter`` of the hot ones into ``hg_w``/``hg_v`` (a plain
+    float32 scatter for a table that opts out of the hot path), and the
+    log-loss sum; in ``row_chunks`` row ranges (module docstring)."""
+    b = keys.shape[0]
+    if row_chunks > 1 and b > 1:
+        step = -(-b // row_chunks)
+        for r0 in range(0, b, step):
+            rows = slice(r0, r0 + step)
+
+            def part(t):
+                return t[rows] if t is not None else None
+
+            train_plain(part(keys), part(x), part(labels), part(weights), num_real, w, v,
+                        g_w, g_v, acc, part(slots), part(hot), part(hot_x), hot_size,
+                        hot_bf16, hg_w, hg_v, snap_w, snap_v, part(fields),
+                        part(hot_fields), max_fields, form)
+        return
     occs, hk, pctr, batch = occurrence_grads(keys, x, labels, weights, num_real,
                                              w, v, hot, hot_x, hot_size, hot_bf16,
                                              snap_w, snap_v, fields, hot_fields,
-                                             max_fields)
+                                             max_fields, form)
+    opted_out = opted_out_tables(plain_model(resolve_form(form, v, fields), v, max_fields))
     # The reference drops padding occurrences (sentinel key T, mode=
     # "drop", step.py:923).  Their x is 0, so their gradients are
     # exactly +-0 and adding them at the clamped row 0 leaves every
@@ -217,8 +255,13 @@ def train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
             # masked hot slots carry H, dropped (the reference's
             # _hot_keys_eff, step.py:1131-1141)
             hot_keys_eff = torch.where(hk >= 0, hk, torch.full_like(hk, hot_size))
-            hbufs[name] += hot_scatter(hot_keys_eff.reshape(-1), occ[:, :kh].reshape(-1, d),
-                                       hot_size, dtype=dtype, impl=impl)
+            if name in opted_out:
+                hbufs[name] += hot_scatter(hot_keys_eff.reshape(-1),
+                                           occ[:, :kh].reshape(-1, d), hot_size)
+            else:
+                hbufs[name] += hot_scatter(hot_keys_eff.reshape(-1),
+                                           occ[:, :kh].reshape(-1, d), hot_size,
+                                           dtype=dtype, impl=impl)
     acc[0] += logloss_sum(batch["labels"], pctr, batch["weights"])
     acc[1] += torch.sum(batch["weights"])
 
@@ -226,20 +269,23 @@ def train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
 def train_step(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
                slots=None, hot=None, hot_x=None, hot_size=0, hot_bf16=False,
                hg_w=None, hg_v=None, snap_w=None, snap_v=None, fields=None,
-               hot_fields=None, max_fields=0) -> None:
+               hot_fields=None, max_fields=0, form=None, row_chunks=1) -> None:
     """Accumulate one batch's gradients into ``g_w``/``g_v`` (at the
     keys' rows, or at ``slots``' rows in index mode), its hot plane's
     into ``hg_w``/``hg_v``, and its log-loss and weight sums into
-    ``acc``; ``fields`` selects the MVM form.  CPU tensors take the
-    plain version; CUDA tensors launch K2."""
-    _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots, fields)
+    ``acc``; ``form`` names the model's form (module docstring).  CPU
+    tensors take the plain version; CUDA tensors launch K2."""
+    form = resolve_form(form, v, fields)
+    _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots, form, max_fields)
     _check_head(keys, hot, hot_x, hot_size, w, v, hg_w, hg_v, snap_w, snap_v)
-    if fields is not None:
-        check_fields(keys, fields, hot, hot_fields, max_fields)
+    check_fields(keys, fields, hot, hot_fields, max_fields, form)
+    if form == "ffm" and (snap_w is not None or snap_v is not None):
+        raise ValueError("the FFM form has no window-start mode: the hot inner, which "
+                         "alone uses it, is refused for FFM (TableSpec.hot)")
     if keys.device.type == "cpu":
         train_plain(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
                     slots, hot, hot_x, hot_size, hot_bf16, hg_w, hg_v, snap_w,
-                    snap_v, fields, hot_fields, max_fields)
+                    snap_v, fields, hot_fields, max_fields, form, row_chunks)
         return
     if keys.device.type != "cuda":
         raise ValueError(f"train_step: unsupported device {keys.device}")
@@ -278,6 +324,7 @@ def train_step(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
             ptr(hg_v),
             ptr(snap_w),
             ptr(snap_v),
+            FORM_CODES[form],
             ptr(fields),
             ptr(hot_fields) if kh else None,
             1 if fields is not None and fields.dtype == torch.int32 else 0,

@@ -1,4 +1,4 @@
-"""The reference's parallel/step.py for LR, FM and MVM: the host wire,
+"""The reference's parallel/step.py for LR, FM, MVM and FFM: the host wire,
 the train step in every update mode, with and without the hot table,
 and the device scoring call.
 
@@ -55,6 +55,21 @@ reference (step.py:333-342), so on the card ``hot_dtype`` matters only
 under an explicit ``hot_impl="mxu"``: then, with ``"bfloat16"``, K1 and
 K2 round the hot rows and the hot gradients to bfloat16 (ops/hot.py).
 
+A table that opts out of the hot path (``TableSpec.hot=False``: FFM's
+v) keeps float32 hot rows and gradients (K1's and K2's FFM form round
+w's alone).  The reference gathers such a table's hot rows from rows
+[0, H) of the table and scatters their gradients into the full table
+(step.py:836-845, 1013-1016), which is what the dense form's first H
+rows of ``g`` are.  In the hybrid the reference applies one touched-
+rows update to such a table's cold and hot occurrences together
+(step.py:1180-1184, 1215-1225); here its hot gradients go to the head
+buffer like every table's, K5 folds its cold keys < H in, and K3 steps
+rows [0, H).  That gives the same tables: a head row no occurrence
+touched has g = 0, and FTRL keeps its z and n and recomputes the same w
+from them (init where n == 0), SGD subtracts 0.  The hot inner, which
+carries every table's head through its window, is refused for such a
+model with the reference's message (step.py:306-320).
+
 ``_predict_impl`` (step.py:1516) is :class:`PredictStep`'s one K1
 launch (ops/score.py), shared by all.
 
@@ -110,7 +125,7 @@ from xflow_tpu_torch.io.compact import CompactBatch, _clamp_slots_u8
 from xflow_tpu_torch.models import PORTED, make_model
 from xflow_tpu_torch.obs import Obs
 from xflow_tpu_torch.ops.optim import optim_update
-from xflow_tpu_torch.ops.score import check_mvm_slots, score
+from xflow_tpu_torch.ops.score import check_ffm_stage, check_mvm_slots, score
 from xflow_tpu_torch.ops.sparse import consolidate_keys, touched_update
 from xflow_tpu_torch.ops.train import train_step
 from xflow_tpu_torch.ops.wire import dict_decode, to_device
@@ -262,6 +277,8 @@ class PredictStep:
             )
         self.compact_wire = cfg.wire_mode != "full" and compact_ok
         self.ship_slots = uses_slots
+        # K1's and K2's form: the family's name (lr, fm, mvm, ffm)
+        self.form = model.name
         self.hot_size = cfg.hot_size
         # hot ids fit u16 with the 0xFFFF sentinel only below 2^15 rows
         self.hot_u16 = bool(cfg.hot_size_log2 and cfg.hot_size_log2 <= 15)
@@ -287,14 +304,15 @@ class PredictStep:
         return score(arrays["ckeys"], arrays.get("x"), w, v,
                      hot=arrays.get("hot"), hot_x=arrays.get("hot_x"),
                      hot_size=self.hot_size, hot_bf16=self.hot_bf16,
-                     **self.field_args(arrays))
+                     **self.form_args(arrays))
 
-    def field_args(self, arrays: dict[str, torch.Tensor]) -> dict:
-        """K1's and K2's MVM-form arguments (none for LR and FM)."""
+    def form_args(self, arrays: dict[str, torch.Tensor]) -> dict:
+        """K1's and K2's form and, in the field forms (MVM, FFM), the
+        field planes and ``max_fields``."""
         if not self.ship_slots:
-            return {}
-        return {"fields": arrays["fields"], "hot_fields": arrays.get("hot_fields"),
-                "max_fields": self.cfg.max_fields}
+            return {"form": self.form}
+        return {"form": self.form, "fields": arrays["fields"],
+                "hot_fields": arrays.get("hot_fields"), "max_fields": self.cfg.max_fields}
 
 
 def param(tables: dict, name: str) -> torch.Tensor | None:
@@ -356,8 +374,11 @@ def check_servable(cfg: Config) -> None:
         )
     if cfg.model not in PORTED:
         make_model(cfg)  # raises NotImplementedError naming the item
+    slots = cfg.max_nnz + (cfg.hot_nnz if cfg.hot_size else 0)
     if cfg.model == "mvm":
-        check_mvm_slots(cfg.max_nnz + (cfg.hot_nnz if cfg.hot_size else 0))
+        check_mvm_slots(slots)
+    if cfg.model == "ffm":
+        check_ffm_stage(cfg.max_fields, slots)
 
 
 def dict_wire_ok(cfg: Config, uses_slots: bool) -> bool:
@@ -411,6 +432,17 @@ class TrainStep:
     def __init__(self, model, optimizer, cfg: Config, device: torch.device,
                  obs: Obs | None = None):
         check_trainable(cfg)
+        # the hot inner carries every table's head through its window:
+        # refused for a model with a table that opts out of the hot path
+        # (the reference's check and message, step.py:306-320; legal in
+        # the other update modes, where sequential_inner is unused)
+        opted_out = [spec.name for spec in model.tables() if not spec.hot]
+        if cfg.update_mode == "sequential" and cfg.sequential_inner == "hot" and opted_out:
+            raise ValueError(
+                "sequential_inner='hot' carries every table's head in "
+                f"the scan; model {model.name!r} opts table(s) "
+                f"{opted_out} out of the MXU hot path (TableSpec.hot)"
+            )
         self.model = model
         self.optimizer = optimizer
         self.cfg = cfg
@@ -434,6 +466,12 @@ class TrainStep:
         self.hot_bf16 = hot_bf16(cfg)
         self.window = hot_window(cfg)
         self.windowend = hot_windowend(cfg)
+        # the plain dense step of an autodiff model (FFM) takes the batch
+        # in `microbatch` row ranges, bounding its [B, K, F*D] and
+        # [B, F, F*D] intermediates as the reference's dense microbatch
+        # does (ops/train.py); the kernel reads no such argument
+        self.row_chunks = (cfg.microbatch if cfg.update_mode == "dense"
+                           and getattr(model, "autodiff", False) else 1)
         self._scratch: dict[str, Any] = {}
 
     @property
@@ -625,7 +663,7 @@ class TrainStep:
             hot=hot, hot_x=view.get("hot_x"), hot_size=self.hot_size,
             hot_bf16=self.hot_bf16, hg_w=heads.get("w"), hg_v=heads.get("v"),
             snap_w=snaps.get("w"), snap_v=snaps.get("v"),
-            **self.predict_step.field_args(view),
+            row_chunks=self.row_chunks, **self.predict_step.form_args(view),
         )
 
     def _touched_rows(self, tables: dict, view: dict, num_real: float,

@@ -249,7 +249,53 @@ Phases, in order; any failure raises and the exit code is 1:
    per-row bound; each timed with its bound; K6 with the field streams
    (exactly) and K3 on the ``ffm`` path, timed;
 33. K1 and K2 at D = 16 (F = 39) and F = 64 (D = 4), where they run two
-   D-tiles, against their plain versions, and timed.
+   D-tiles, against their plain versions, and timed;
+34. K7 (``field_pool``) and K8 (``field_pool_grad``, ops/pool.py,
+   csrc/pool.cu; B11, the embedding tower of wide_deep, dcn and
+   two_tower) against their plain versions on seed-made planes at
+   T = 2^20: with ``w`` and without (two_tower), u8 fields with the
+   clamp's 255 and int32 fields with negative ids, the hot plane (u16
+   and int32 keys, keys past H) and the bf16 flag on both tables, dense,
+   index and hybrid destinations, B = 512 and 65,536.  Tolerances: K7
+   per element twice n 2^-23 times the sum of the magnitudes it adds
+   (n the row's slots); K8 per destination element twice its
+   occurrences times 2^-23 times the sum of its terms' magnitudes, the
+   log-loss within B 2^-23 of its sum, the weight sum exactly;
+35. the flagship ``wide_deep`` (scripts/bench_models.py:93-99: 12 cold
+   + 32 hot slots, H = 2^14, E = 8, hidden 64, T = 2^24, batch 65,536)
+   on the default input path: dense (2 epochs), the hybrid (sequential +
+   sparse inner, microbatch 128, 1 epoch) and one dispatch of the hot
+   inner, from one seeded state (tables and dense parameters): exact
+   launches (K7 = forward calls, K8 = updates), each path's first
+   dispatch held through ``lockstep_tables`` (the dense parameters
+   compared too), the sync guard on the hybrid's first dispatch (8
+   slices a segment: a pooled slice queues about 40 launches), eval AUC
+   inside the planted bars (AUC_Z); the trained dense model exported
+   and served (``score_text`` against the plain version, 1e-6, and a
+   float64 numpy reference, 1e-5; ``MicroBatcher``, ``compile_count``);
+36. the flagship ``dcn`` (40 slots, cross_layers 2): dense (2 epochs),
+   one dispatch each of sparse and the sequential dense inner
+   (microbatch 2), the same way, and its dense model served;
+37. the flagship ``two_tower`` (40 slots, tower_dim 16, split at field
+   20): the sequential sparse inner at microbatch 128 and sgd_lr 0.02
+   (1 epoch, AUC bars) and one dense dispatch (lockstep alone: no AUC
+   bar), the sequential model served, its item index built on the card
+   from the test shard's item-side features (``item_catalog_from_block``),
+   and ``topk`` held against a float64 numpy full scan of the same user
+   embeddings (ids equal up to near-ties), ``compile_count`` = 2 x
+   len(buckets) and flat under mixed batch sizes and ``k``,
+   requests/s and latency of single-row requests;
+38. K7 and K8 against their plain versions on each pooled path's own
+   first batch or slice (dense, index, hybrid), and timed on the dense
+   paths' batches and their first 512 rows beside their bounds, plain
+   versions and (K7) ``F.embedding_bag`` over (row, field) bags.
+
+The card-against-CPU replays are cut for the time limit: every
+``compare_states`` holds the two sides on the card (the CPU's arrays
+copied there one at a time), and the CPU replays run K3 on the rows
+whose summed gradient is nonzero (``cpu_k3_on_touched_rows``: where g
+== 0 FTRL and SGD leave a row exactly as it was); K3 is still held
+against its plain version over whole tables (phases 7, 32).
 
 Output: the card line, per-phase lines, a ``{"kernels": [...]}`` JSON
 line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
@@ -259,8 +305,9 @@ plus the training paths' eval and engine batches (phases 8, 11, 12,
 ``launches_by_path``); the hot modes' entries count the hot paths
 (phases 18-19), the D-tiled FM forms their phase-21 paths, and the
 MVM forms the MVM paths (phases 25-27), the FFM forms the FFM paths
-(phases 29-31); every count is set to 0 just
-before each path and read just after it.
+(phases 29-31), K7 and K8 the pooled paths, serving and top-k
+(phases 35-37); every count is set to 0 just before each path and
+read just after it.
 """
 
 from __future__ import annotations
@@ -792,12 +839,13 @@ K3_REPLACES = (
 
 
 KERNEL_WRAPPERS = ("score", "train_step", "optim_update", "consolidate_keys",
-                   "touched_update", "dict_decode")
+                   "touched_update", "dict_decode", "field_pool", "field_pool_grad")
 
 
 def wrappers() -> dict:
-    """The kernels' wrappers by name, K1-K6."""
+    """The kernels' wrappers by name, K1-K8."""
     from xflow_tpu_torch.ops.optim import optim_update
+    from xflow_tpu_torch.ops.pool import field_pool, field_pool_grad
     from xflow_tpu_torch.ops.score import score
     from xflow_tpu_torch.ops.sparse import consolidate_keys, touched_update
     from xflow_tpu_torch.ops.train import train_step
@@ -805,7 +853,37 @@ def wrappers() -> dict:
 
     return {"score": score, "train_step": train_step, "optim_update": optim_update,
             "consolidate_keys": consolidate_keys, "touched_update": touched_update,
-            "dict_decode": dict_decode}
+            "dict_decode": dict_decode, "field_pool": field_pool,
+            "field_pool_grad": field_pool_grad}
+
+
+def cpu_k3_on_touched_rows() -> None:
+    """The CPU side of every card-against-CPU replay runs the plain K3 on
+    the rows whose summed gradient is nonzero, and leaves the others.
+    That is the same table the whole-table pass leaves: where g == 0,
+    FTRL's n' = n and sigma = 0, so z' = z and w' is recomputed from the
+    same z and n by the same plain formula that last wrote it (or keeps
+    its init where n == 0), and SGD subtracts 0.  The card still runs
+    K3 over every row, and every table is held against the CPU's in
+    full (compare_states); K3 is held against its plain version over
+    whole tables in phases 7 and 32.  Installed in the train step's
+    module, where ``_update`` and the head steps call K3; a CUDA table
+    goes to K3 as before."""
+    import xflow_tpu_torch.parallel.step as step_mod
+    from xflow_tpu_torch.ops.optim import optim_plain, optim_update
+
+    def k3(table: dict, opt) -> None:
+        g = table["g"]
+        if g.device.type != "cpu":
+            optim_update(table, opt)
+            return
+        rows = (g != 0).any(dim=1).nonzero().squeeze(1)
+        sub = {k: t[rows] for k, t in table.items()}
+        optim_plain(sub, opt)
+        for k, t in sub.items():
+            table[k][rows] = t
+
+    step_mod.optim_update = k3
 
 
 def zero_launches() -> None:
@@ -1145,13 +1223,17 @@ def train_config(model: str, t_log2: int, data: dict, metrics_out: str):
 
 
 def compare_states(gpu_state, cpu_state, occ=None, gate: bool = True) -> dict:
-    """Tables of the card's run against the CPU run's, held to
-    TRAIN_BOUNDS' table terms.  Reports the worst ratio to them, the
+    """Tables of the card's run against the CPU run's, and the dense
+    parameters of the pooled families, held to TRAIN_BOUNDS' table
+    terms.  Reports the worst ratio to them, the
     elements whose |z| lies within rounding of lambda1, and the worst
     element: its table array, row and column, its values on both sides,
     its FTRL state on the CPU (|z| over lambda1, n) and, given ``occ``
     (occurrences per row over the run's batches), how often its row
-    occurred.  With ``gate``, a breach raises with that element."""
+    occurred.  With ``gate``, a breach raises with that element.  The
+    arithmetic runs where the card's state lies (the CPU's arrays are
+    copied there one at a time): elementwise passes over the full
+    tables, which take seconds each on the host."""
     import torch
 
     from xflow_tpu_torch.optim import FTRL
@@ -1159,33 +1241,42 @@ def compare_states(gpu_state, cpu_state, occ=None, gate: bool = True) -> dict:
     worst = {"max_err_over_bound": 0.0, "near_lambda1": 0, "worst_element": None}
     l1 = FTRL().lambda1
     failed = None
-    for name, table in cpu_state["tables"].items():
-        for key, want in table.items():
-            if key == "g":
-                continue
-            got = gpu_state["tables"][name][key].cpu()
-            bound = (TRAIN_BOUNDS["table_rtol"] * want.abs()
-                     + TRAIN_BOUNDS["table_atol_frac"] * float(want.abs().max()))
-            ratios = (got - want).abs() / torch.where(bound > 0, bound, 1.0)
-            i = int(torch.argmax(ratios))
-            row, col = divmod(i, want.shape[1])
-            ratio = float(ratios.view(-1)[i])
-            if ratio > worst["max_err_over_bound"] or worst["worst_element"] is None:
-                worst["max_err_over_bound"] = ratio
-                worst["worst_element"] = {
-                    "array": f"{name}.{key}", "row": row, "col": col,
-                    "card": float(got[row, col]), "cpu": float(want[row, col]),
-                    "bound": float(bound[row, col]),
-                    "cpu_z_over_lambda1": float(table["z"][row, col]) / l1
-                    if "z" in table else None,
-                    "cpu_n": float(table["n"][row, col]) if "n" in table else None,
-                    "row_occurrences": int(occ[row]) if occ is not None else None,
-                }
-            if ratio > 1.0 and failed is None:
-                failed = dict(worst["worst_element"], ratio=ratio)
-            if key == "z":
-                zb = TRAIN_BOUNDS["table_rtol"] * want.abs()
-                worst["near_lambda1"] += int(((want.abs() - l1).abs() <= zb).sum())
+    arrays = [(name, key, want, gpu_state["tables"][name][key])
+              for name, table in cpu_state["tables"].items()
+              for key, want in table.items() if key != "g"]
+
+    def as_2d(t):
+        return t.reshape(t.shape[0] if t.dim() else 1, -1)
+
+    arrays += [("dense", key, as_2d(want), as_2d(gpu_state["dense"][key]))
+               for key, want in cpu_state.get("dense", {}).items()]
+    for name, key, want_host, got in arrays:
+        table = cpu_state["tables"].get(name, {})
+        want = want_host.to(got.device)
+        bound = (TRAIN_BOUNDS["table_rtol"] * want.abs()
+                 + TRAIN_BOUNDS["table_atol_frac"] * want.abs().max())
+        ratios = (got - want).abs() / torch.where(bound > 0, bound, 1.0)
+        i = int(torch.argmax(ratios))
+        row, col = divmod(i, want.shape[1])
+        ratio = float(ratios.view(-1)[i])
+        if ratio > worst["max_err_over_bound"] or worst["worst_element"] is None:
+            worst["max_err_over_bound"] = ratio
+            worst["worst_element"] = {
+                "array": f"{name}.{key}", "row": row, "col": col,
+                "card": float(got[row, col]), "cpu": float(want[row, col]),
+                "bound": float(bound[row, col]),
+                "cpu_z_over_lambda1": float(table["z"][row, col]) / l1
+                if "z" in table else None,
+                "cpu_n": float(table["n"][row, col]) if "n" in table else None,
+                "row_occurrences": int(occ[row]) if occ is not None and name != "dense"
+                else None,
+            }
+        if ratio > 1.0 and failed is None:
+            failed = dict(worst["worst_element"], ratio=ratio)
+        if key == "z":
+            zb = TRAIN_BOUNDS["table_rtol"] * want.abs()
+            worst["near_lambda1"] += int(((want.abs() - l1).abs() <= zb).sum())
+        del want, bound, ratios
     if gate and failed is not None:
         raise AssertionError(f"table {failed['array']}: card vs CPU beyond TRAIN_BOUNDS "
                              f"{json.dumps(failed)}")
@@ -1248,7 +1339,7 @@ def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
 
     import torch
 
-    from xflow_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from xflow_tpu_torch.convert import state_to_numpy
     from xflow_tpu_torch.serve.artifact import export_artifact
     from xflow_tpu_torch.serve.engine import PredictEngine
     from xflow_tpu_torch.trainer import Trainer
@@ -1319,7 +1410,7 @@ def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
         # the same steps on the CPU, from the same initial state
         cpu = Trainer(dataclasses.replace(cfg, metrics_out=""), device="cpu",
                       log=lambda _: None)
-        cpu.state = state_from_numpy(cfg, init, "cpu")
+        cpu.state = state_of(cfg, init, "cpu")
         cpu_history = cpu.train()
         cpu_result = cpu.evaluate()
         cpu.close()
@@ -1635,7 +1726,7 @@ def mode_config(model: str, t_log2: int, data: dict, metrics_out: str, **mode):
 
 
 def expected_launches(mode: dict, steps: int, tables: int, eval_batches: int,
-                      windowend: str = "sparse") -> dict:
+                      windowend: str = "sparse", pooled: bool = False) -> dict:
     """Each kernel's launches over ``steps`` dispatches of ``mode``
     (xflow_tpu_torch/parallel/step.py's module docstring): K2 once per
     update (per slice in sequential mode, per batch otherwise: dense
@@ -1646,7 +1737,8 @@ def expected_launches(mode: dict, steps: int, tables: int, eval_batches: int,
     dispatch and eval batch on the dictionary wire.  The hot inner's
     window (``windowend`` resolved): K2 and K3 over the head per slice,
     then K4 once and K5 per table (sparse end) or K3 per table (dense
-    end) per dispatch."""
+    end) per dispatch.  A pooled family (``pooled``) runs K7 where the
+    others run K1 (and once per update) and K8 where they run K2."""
     update = mode.get("update_mode", "dense")
     s = mode.get("microbatch", 1) if update == "sequential" else 1
     inner = mode.get("sequential_inner", "dense") if update == "sequential" else None
@@ -1655,7 +1747,12 @@ def expected_launches(mode: dict, steps: int, tables: int, eval_batches: int,
     # the dictionary wire (the default) decodes every shipped batch: K6
     # per training dispatch and per eval batch
     decodes = 0 if mode.get("wire_dedup") == "off" else steps + eval_batches
-    out = {"score": eval_batches, "train_step": steps * s, "dict_decode": decodes}
+    if pooled:
+        out = {"score": 0, "train_step": 0, "dict_decode": decodes,
+               "field_pool": steps * s + eval_batches, "field_pool_grad": steps * s}
+    else:
+        out = {"score": eval_batches, "train_step": steps * s, "dict_decode": decodes,
+               "field_pool": 0, "field_pool_grad": 0}
     if inner == "hot" and s > 1:
         sparse_end = windowend == "sparse"
         return dict(out, optim_update=steps * tables * (s + (0 if sparse_end else 1)),
@@ -1673,10 +1770,10 @@ GUARD_SLEEP_CYCLES = 5 * SLEEP_CYCLES  # ~100 ms, 5x a sequential dispatch's hos
 GUARD_SEGMENT_SLICES = 32  # at most 8 queued launches a slice: ~260 a segment
 
 
-def guard_first_dispatch(trainer) -> dict:
+def guard_first_dispatch(trainer, segment: int = GUARD_SEGMENT_SLICES) -> dict:
     """Check that the trainer's first dispatch never waits for the card.
     It runs under ``torch.cuda.set_sync_debug_mode("error")``, in
-    segments of ``GUARD_SEGMENT_SLICES`` sequential slices (one segment
+    segments of ``segment`` sequential slices (one segment
     for an unsliced step), each queued behind a ``torch.cuda._sleep``.
     When a segment returns, its sleep must still hold the stream: any
     host synchronisation inside it (which the debug mode, a prototype,
@@ -1722,7 +1819,7 @@ def guard_first_dispatch(trainer) -> dict:
         def run(*args, **kwargs):
             out = inner[name](*args, **kwargs)
             hold["slices"] += 1
-            if hold["slices"] % GUARD_SEGMENT_SLICES == 0:
+            if hold["slices"] % segment == 0:
                 release()
                 arm()
             return out
@@ -1750,7 +1847,8 @@ def guard_first_dispatch(trainer) -> dict:
 def run_mode(dev, model: str, t_log2: int, data: dict, init: dict, mode: dict,
              label: str, workdir: str, evaluate: bool = True, keep: bool = False,
              sync_check: bool = False, bars: dict | None = None,
-             lockstep: bool = False, replay_dispatches: int | None = None) -> dict:
+             lockstep: bool = False, replay_dispatches: int | None = None,
+             guard_segment: int = GUARD_SEGMENT_SLICES) -> dict:
     """One update mode's training main path through ``Trainer``: on the
     card from ``init`` (launch counts zeroed just before, read just after,
     and held to ``expected_launches``), then the same steps on the CPU
@@ -1762,13 +1860,13 @@ def run_mode(dev, model: str, t_log2: int, data: dict, init: dict, mode: dict,
     lockstep replay to the first dispatches: then the card's replayed
     tables are evaluated too, and the CPU's eval is held to them at
     that depth (the main path's eval still meets the planted bars).
+    ``guard_segment`` is the sync guard's slices a segment.
     Returns the row, the card's trainer and, with ``keep``, the batches
     it shipped."""
     import os
 
     import torch
 
-    from xflow_tpu_torch.convert import state_from_numpy
     from xflow_tpu_torch.parallel.step import hot_windowend, uses_grad_buffer
     from xflow_tpu_torch.trainer import Trainer
 
@@ -1777,9 +1875,9 @@ def run_mode(dev, model: str, t_log2: int, data: dict, init: dict, mode: dict,
     zero_launches()
     # the main path starts here
     trainer = Trainer(cfg, device=dev, log=log)
-    trainer.state = state_from_numpy(cfg, init, dev)
+    trainer.state = state_of(cfg, init, dev)
     shipped = keep_shipped_batches(trainer) if keep else None
-    guard = guard_first_dispatch(trainer) if sync_check else None
+    guard = guard_first_dispatch(trainer, guard_segment) if sync_check else None
     t0 = time.perf_counter()
     history = trainer.train()
     torch.cuda.synchronize()
@@ -1793,7 +1891,7 @@ def run_mode(dev, model: str, t_log2: int, data: dict, init: dict, mode: dict,
     tables = len(trainer.state["tables"])
     want = expected_launches(mode, steps, tables,
                              math.ceil(TEST_LINES / cfg.batch_size) if evaluate else 0,
-                             hot_windowend(cfg))
+                             hot_windowend(cfg), trainer.step.pooled)
     if got != want:
         raise AssertionError(f"{model} {label}: launches {got}, expected {want}")
     header = run_header(cfg.metrics_out)
@@ -1827,7 +1925,7 @@ def run_mode(dev, model: str, t_log2: int, data: dict, init: dict, mode: dict,
             trainer.state = trained
             lock["card_eval_at_depth"] = {k: result_at_depth[k] for k in ("auc", "logloss")}
     else:
-        cpu.state = state_from_numpy(cfg, init, "cpu")
+        cpu.state = state_of(cfg, init, "cpu")
         cpu_history = cpu.train()
     cpu_s = time.perf_counter() - t0
     cpu_result = cpu.evaluate() if evaluate else None
@@ -2499,13 +2597,12 @@ def card_run(dev, cfg, init: dict) -> dict:
     planes kept on the host."""
     import torch
 
-    from xflow_tpu_torch.convert import state_from_numpy
     from xflow_tpu_torch.trainer import Trainer
 
     zero_launches()
     # the path starts here
     trainer = Trainer(cfg, device=dev, log=log)
-    trainer.state = state_from_numpy(cfg, init, dev)
+    trainer.state = state_of(cfg, init, dev)
     shipped = keep_shipped_batches(trainer)
     t0 = time.perf_counter()
     history = trainer.train()
@@ -3553,16 +3650,30 @@ def mvm_bounds(view: dict, dim: int, hot_size: int, train: bool, index: bool = F
 
 def fresh_init(dev, cfg) -> dict:
     """A Trainer's seeded initial state for ``cfg`` on the card, as
-    numpy (the paths of a cell start from it on the card and the CPU)."""
-    from xflow_tpu_torch.convert import state_to_numpy
+    numpy (the paths of a cell start from it on the card and the CPU):
+    its tables, and for a pooled family ``{"tables", "dense"}``
+    (``state_of`` reads both)."""
+    from xflow_tpu_torch.convert import dense_to_numpy, state_to_numpy
     from xflow_tpu_torch.trainer import Trainer
 
     trainer = Trainer(dataclasses.replace(cfg, metrics_out=""), device=dev,
                       log=lambda _: None)
     init = state_to_numpy(trainer.state, aux=True)
+    if trainer.state["dense"]:
+        init = {"tables": init, "dense": dense_to_numpy(trainer.state)}
     trainer.close()
     del trainer
     return init
+
+
+def state_of(cfg, init: dict, device):
+    """The state ``init`` (fresh_init's numpy tables, or ``{"tables",
+    "dense"}`` for a pooled family) on ``device``."""
+    from xflow_tpu_torch.convert import state_from_numpy
+
+    if "dense" in init and "tables" in init:
+        return state_from_numpy(cfg, init["tables"], device, dense=init["dense"])
+    return state_from_numpy(cfg, init, device)
 
 
 def phase_wide_fm(dev, workdir: str, dense: dict) -> dict:
@@ -4974,6 +5085,774 @@ def ffm_kernel_entries(ffm: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# B11: wide_deep, dcn and two_tower (phases 34-38)
+
+# scripts/bench_models.py:93-108 at its accelerator size: T = 2^24, batch
+# 65,536, max_fields 39, FTRL; wide_deep at the hot flagship (12 cold + 32
+# hot slots, H = 2^14), dcn and two_tower at 40 cold slots
+POOLED_FIELDS = 39
+POOLED = {
+    "wide_deep": {"emb_dim": 8, "hidden_dim": 64, "max_nnz": 12, "hot_size_log2": 14,
+                  "hot_nnz": 32},
+    "dcn": {"emb_dim": 8, "hidden_dim": 64, "max_nnz": K, "cross_layers": 2},
+    "two_tower": {"emb_dim": 8, "hidden_dim": 64, "max_nnz": K, "tower_dim": 16,
+                  "tower_split_field": 20},
+}
+POOLED_SEQ_SPARSE = {"update_mode": "sequential", "microbatch": SEQ_MICROBATCH,
+                     "sequential_inner": "sparse"}
+POOLED_MODES = (
+    # (family, label, mode, one dispatch, AUC bar): wide_deep dense (2
+    # epochs), the hybrid (1 epoch) and one dispatch of the hot inner;
+    # dcn dense and one dispatch each of sparse and the sequential dense
+    # inner (microbatch 2); two_tower's sequential sparse inner at the
+    # tower rate of docs/CONVERGENCE.md (sgd_lr 0.02, 1 epoch) and one
+    # dense dispatch.  Four updates at B = 65,536 cannot move a pure-dot
+    # model off chance, and the one-dispatch paths hold no AUC: those
+    # are held by lockstep_tables alone
+    ("wide_deep", "dense", {}, False, True),
+    ("wide_deep", "hot_hybrid_mb128", dict(POOLED_SEQ_SPARSE, epochs=1), False, True),
+    ("wide_deep", "hot_inner_mb128", {"update_mode": "sequential",
+                                      "microbatch": SEQ_MICROBATCH,
+                                      "sequential_inner": "hot"}, True, False),
+    ("dcn", "dense", {}, False, True),
+    ("dcn", "sparse", {"update_mode": "sparse"}, True, False),
+    ("dcn", "sequential_dense_mb2", {"update_mode": "sequential", "microbatch": 2}, True,
+     False),
+    ("two_tower", "sequential_sparse_mb128", dict(POOLED_SEQ_SPARSE, epochs=1, sgd_lr=0.02),
+     False, True),
+    ("two_tower", "dense", {}, True, False),
+)
+# a pooled slice queues about 40 launches (K4, K7, the head and its
+# backward, K8, K5 and K3 per table, the dense SGD): 8 slices a segment
+# stay well inside the card's ~1,000 pending launches.  (Run alone,
+# without phases 10-14, the hybrid's first dispatch would be the first
+# launch of K4 and K5, whose module load synchronises.)
+POOLED_GUARD_SEGMENT = 8
+B11_REPLACES = (
+    "xflow_tpu/models/blocks.py:69 (B11 field_sum_tower: one_hot + einsum "
+    "bkf,bke->bfe) + xflow_tpu/models/blocks.py:41 (masked_x / linear_term, the wide "
+    "term); no pl.pallas_call in the reference"
+)
+B11_GRAD_REPLACES = (
+    "xflow_tpu/parallel/step.py:49 (grads_from_rows: value_and_grad of the tower, "
+    "the unclamped residual) + xflow_tpu/parallel/step.py:923 (B2 drop-mode scatter) + "
+    "xflow_tpu/ops/sparse.py:110 (B5 index mode) + xflow_tpu/ops/hot.py:122 (B7 "
+    "hot_scatter) + xflow_tpu/utils/metrics.py:49 (logloss_sum); no pl.pallas_call in "
+    "the reference"
+)
+K8_LIBRARY_WHY_NULL = ("no single PyTorch call computes the tower's backward: the "
+                       "gather of dP at each slot's field times x, the scatter-add of "
+                       "those rows and of x * r into two tables' buffers, and the "
+                       "log-loss (index_add_ is only the last of those steps)")
+
+
+def pooled_config(family: str, data: dict, metrics_out: str, **mode):
+    """A pooled family's flagship (POOLED) training on ``data``'s shards."""
+    return mode_config(family, T_LOG2, data, metrics_out, **POOLED[family], **mode)
+
+
+def shipped_view(arrays: dict, rows: int | None = None, num_real: float | None = None) -> dict:
+    """The first ``rows`` rows of a shipped dispatch (the whole dispatch
+    by default) as K7 and K8 read them."""
+    n = arrays["ckeys"].shape[0] if rows is None else rows
+    view = {k: a[:n] for k, a in arrays.items()
+            if k in ("ckeys", "fields", "hot", "hot_fields", "labels_u8", "weights_u8")}
+    view["num_real"] = arrays["num_real"] if num_real is None else num_real
+    return view
+
+
+def pool_args(view: dict, tables: dict, h: int) -> tuple:
+    """field_pool's arguments for ``view`` over ``tables``."""
+    kw = {"w": tables["w"]["param"] if "w" in tables else None, "hot": view.get("hot"),
+          "hot_fields": view.get("hot_fields"), "hot_size": h if "hot" in view else 0}
+    return (view["ckeys"], None, view["fields"], tables["emb"]["param"], POOLED_FIELDS), kw
+
+
+def pool_magnitudes(view: dict, tables: dict, h: int):
+    """K7's per-element bound on ``view``: twice n 2^-23 times the sum
+    of the magnitudes the output sums (the plain version over |emb| and
+    |w|), n the row's slots (hot + cold)."""
+    from xflow_tpu_torch.ops.pool import field_pool_plain
+
+    mags = {n: {"param": t["param"].abs()} for n, t in tables.items()}
+    margs, mkw = pool_args(view, mags, h)
+    pooled, wide = field_pool_plain(*margs, **mkw)
+    n = view["ckeys"].shape[1] + (view["hot"].shape[1] if "hot" in view else 0)
+    scale = 2.0 * n * 2.0 ** -23
+    return scale * pooled, (scale * wide if wide is not None else None)
+
+
+def head_grads(model, dense: dict, pooled, wide, view: dict):
+    """The step's head on the card: (dP, r, logit) for the pooled tower,
+    as TrainStep._pooled_grads forms them."""
+    import torch
+
+    leaf = pooled.detach().clone().requires_grad_(True)
+    params = {k: p.detach().requires_grad_(True) for k, p in dense.items()}
+    with torch.enable_grad():
+        logit = model.head(params, leaf, wide)
+    r = ((torch.sigmoid(logit) - view["labels_u8"].float()) * view["weights_u8"].float()
+         / view["num_real"]).detach()
+    dp = torch.autograd.grad(logit, leaf, grad_outputs=r)[0].contiguous()
+    return dp, r, logit.detach()
+
+
+def k8_call(view: dict, tables: dict, h: int, dp, r, logit, index: bool, head_buffer: bool):
+    """K8's arguments and zeroed destinations on ``view``: the [T, D]
+    buffers (dense; the hot plane in their first H rows), or index mode
+    over K4's plain plan ([M, D] sums) with the hot plane in [H, D] head
+    buffers (the hybrid)."""
+    import torch
+
+    from xflow_tpu_torch.ops.sparse import consolidate_keys_plain
+
+    keys = view["ckeys"]
+    dev = keys.device
+    rows = keys.numel() if index else tables["emb"]["param"].shape[0]
+    bufs = {n: torch.zeros(rows, t["param"].shape[1], device=dev) for n, t in tables.items()}
+    hot = "hot" in view
+    heads = {}
+    if hot:
+        heads = ({n: torch.zeros(h, t["param"].shape[1], device=dev)
+                  for n, t in tables.items()} if head_buffer or index
+                 else {n: b[:h] for n, b in bufs.items()})
+    slots = None
+    if index:
+        plan = torch.empty_like(keys.cpu())
+        consolidate_keys_plain(keys.cpu(), tables["emb"]["param"].shape[0],
+                               torch.empty(keys.numel(), dtype=torch.int32),
+                               torch.zeros(1, dtype=torch.int32), plan)
+        slots = plan.to(dev)
+    acc = torch.zeros(2, dtype=torch.float64, device=dev)
+    args = (keys, None, view["fields"], dp, r, logit, view["labels_u8"], view["weights_u8"],
+            POOLED_FIELDS, bufs["emb"], acc)
+    kw = {"g_w": bufs.get("w"), "slots": slots, "hot": view.get("hot"),
+          "hot_fields": view.get("hot_fields"), "hot_size": h if hot else 0,
+          "hg_w": heads.get("w"), "hg_emb": heads.get("emb")}
+    return args, kw, (bufs, heads, acc)
+
+
+def check_pool_kernels(case: str, model, view: dict, tables: dict, dense: dict, h: int,
+                       worst: dict, forms=("dense", "index")) -> dict:
+    """K7 and K8 against their plain versions on ``view`` (on the card):
+    K7's pooled tower and wide term within pool_magnitudes' bound; K8's
+    sums (each destination row: twice its occurrences times 2^-23 times
+    the sum of its terms' magnitudes) in each of ``forms``, its log-loss
+    within B 2^-23 of the sum and its weight sum exactly.  Records the
+    worst ratios in ``worst``; returns (pooled, dP) for the caller."""
+    import torch
+
+    from xflow_tpu_torch.ops.pool import (
+        field_pool,
+        field_pool_grad,
+        field_pool_grad_plain,
+        field_pool_plain,
+    )
+
+    args, kw = pool_args(view, tables, h)
+    pooled, wide = field_pool(*args, **kw)
+    want_p, want_w = field_pool_plain(*args, **kw)
+    bound_p, bound_w = pool_magnitudes(view, tables, h)
+    for name, got, want, bound in (("pooled", pooled, want_p, bound_p),
+                                   ("wide", wide, want_w, bound_w)):
+        if got is None:
+            continue
+        diff = (got - want).abs()
+        excess = float((diff - bound).max())
+        if excess > 0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K7 disagrees with field_pool_plain: {case} {name} "
+                                 f"excess {excess}")
+        worst["k7_max_abs_err"] = max(worst["k7_max_abs_err"], float(diff.max()))
+        worst["k7_max_err_over_tol"] = max(
+            worst["k7_max_err_over_tol"],
+            float((diff / torch.where(bound > 0, bound, 1.0)).max()))
+    dp, r, logit = head_grads(model, dense, pooled, wide, view)
+    for form in forms:
+        index = form != "dense"
+        outs = []
+        for fn in (field_pool_grad, field_pool_grad_plain):
+            a, k, dst = k8_call(view, tables, h, dp, r, logit, index, form == "hybrid")
+            fn(*a, **k)
+            outs.append(dst)
+        # the magnitudes and the occurrence counts each destination sums
+        a, k, mag = k8_call(view, tables, h, dp.abs(), r.abs(), logit, index,
+                            form == "hybrid")
+        field_pool_grad_plain(*a, **k)
+        a, k, cnt = k8_call(view, tables, h, torch.ones_like(dp), torch.ones_like(r), logit,
+                            index, form == "hybrid")
+        field_pool_grad_plain(*a, **k)
+        (gk, hk, acc_k), (gp, hp, acc_p) = outs
+        for part, (k_, p_, m_, c_) in (("cold", (gk, gp, mag[0], cnt[0])),
+                                       ("head", (hk, hp, mag[1], cnt[1]))):
+            for name in k_:
+                if part == "head" and not index and form != "hybrid":
+                    continue  # the dense form's head is g's first H rows, held above
+                diff = (k_[name] - p_[name]).abs()
+                bound = 2.0 * c_[name] * 2.0 ** -23 * m_[name]
+                excess = float((diff - bound).max())
+                if excess > 0 or not bool(torch.isfinite(k_[name]).all()):
+                    raise AssertionError(f"K8 disagrees with field_pool_grad_plain: {case} "
+                                         f"{form} {part} {name} excess {excess}")
+                worst["k8_max_abs_err"] = max(worst["k8_max_abs_err"], float(diff.max()))
+                worst["k8_max_err_over_tol"] = max(
+                    worst["k8_max_err_over_tol"],
+                    float((diff / torch.where(bound > 0, bound, 1.0)).max()))
+        ll_bound = view["ckeys"].shape[0] * 2.0 ** -23 * abs(float(acc_p[0]))
+        if abs(float(acc_k[0]) - float(acc_p[0])) > ll_bound or float(acc_k[1]) != float(
+                acc_p[1]):
+            raise AssertionError(f"K8 log-loss/count {acc_k.tolist()} vs plain "
+                                 f"{acc_p.tolist()} ({case} {form})")
+        worst["cases"] += 1
+        del outs, mag, cnt
+    torch.cuda.empty_cache()
+    return pooled, dp
+
+
+def pool_bounds(view: dict, tables: dict, h: int, grad: bool) -> dict:
+    """K7's (or with ``grad`` K8's) least time on ``view``: each input
+    read once and each output written once, with the tables' rows read
+    (and K8's destination rows read and written) once per distinct live
+    key; the flops (2 per slot and factor) are far below the card's
+    rate, so bytes bound it."""
+    import torch
+
+    keys = view_keys(view, h)
+    live = keys >= 0
+    distinct = int(torch.unique(keys[live]).numel())
+    b, n = keys.shape
+    e = tables["emb"]["param"].shape[1]
+    width = e + (1 if "w" in tables else 0)
+    planes = sum(t.numel() * t.element_size() for k, t in view.items()
+                 if k in ("ckeys", "fields", "hot", "hot_fields"))
+    tower = 4 * b * POOLED_FIELDS * e
+    if grad:
+        moved = (planes + tower + 4 * b * 2 + 2 * b * view["labels_u8"].element_size()
+                 + 2 * 4 * width * distinct + 16)
+    else:
+        moved = planes + 4 * width * distinct + tower + (4 * b if "w" in tables else 0)
+    ops = 2 * int(live.sum()) * e
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
+            else "operations", "bound_bytes": moved, "bound_ops": ops,
+            "distinct_rows": distinct, "live_slots": int(live.sum())}
+
+
+def embedding_bag_args(view: dict, tables: dict, h: int) -> tuple:
+    """K7's library yardstick: one ``F.embedding_bag(mode="sum",
+    per_sample_weights=x)`` over (row, field) bags, its inputs grouped
+    by bag here (the sort is not timed).  The wide term is not in it."""
+    import torch
+
+    keys = view_keys(view, h)
+    fields = view_fields(view)
+    ok = (keys >= 0) & (fields >= 0) & (fields < POOLED_FIELDS)
+    b = keys.shape[0]
+    bag = torch.arange(b, device=keys.device)[:, None] * POOLED_FIELDS + fields.clamp(
+        0, POOLED_FIELDS - 1)
+    bag = torch.where(ok, bag, torch.full_like(bag, b * POOLED_FIELDS))
+    order = torch.argsort(bag.reshape(-1), stable=True)
+    flat_bag = bag.reshape(-1)[order]
+    take = flat_bag < b * POOLED_FIELDS
+    idx = keys.reshape(-1)[order][take]
+    counts = torch.bincount(flat_bag[take], minlength=b * POOLED_FIELDS)
+    offsets = torch.cumsum(counts, 0) - counts
+    weights = torch.ones(idx.numel(), device=keys.device)
+    return idx, tables["emb"]["param"], offsets, weights
+
+
+def time_pool_kernels(label: str, view: dict, tables: dict, dense: dict, model, h: int,
+                      flush) -> list:
+    """K7 and K8 timed on ``view`` (device ms behind ``_sleep``, an L2
+    flush before each call), beside their plain versions, their bounds
+    and K7's embedding_bag yardstick (its result checked against K7's
+    pooled tower first)."""
+    import torch
+    import torch.nn.functional as F
+
+    from xflow_tpu_torch.ops.pool import (
+        field_pool,
+        field_pool_grad,
+        field_pool_grad_plain,
+        field_pool_plain,
+    )
+
+    args, kw = pool_args(view, tables, h)
+    pooled, wide = field_pool(*args, **kw)
+    dp, r, logit = head_grads(model, dense, pooled, wide, view)
+    bag = embedding_bag_args(view, tables, h)
+    lib = F.embedding_bag(bag[0], bag[1], bag[2], mode="sum", per_sample_weights=bag[3])
+    lib_err = float((lib.reshape(pooled.shape) - pooled).abs().max())
+    if lib_err > 1e-4 * max(float(pooled.abs().max()), 1.0):
+        raise AssertionError(f"embedding_bag's yardstick computes another tower: {lib_err}")
+    b = view["ckeys"].shape[0]
+    common = {"path": label, "B": b, "Kc": view["ckeys"].shape[1],
+              "Kh": view["hot"].shape[1] if "hot" in view else 0,
+              "H": h if "hot" in view else 0, "F": POOLED_FIELDS,
+              "E": tables["emb"]["param"].shape[1], "with_w": "w" in tables}
+    k8_args, k8_kw, _ = k8_call(view, tables, h, dp, r, logit, False, False)
+    rows = [{
+        "kernel": "field_pool", **common,
+        "ms": time_device_ms(lambda: field_pool(*args, **kw), [()] * TIMED_RUNS,
+                             prelude=flush.zero_),
+        "plain_ms": time_device_ms(lambda: field_pool_plain(*args, **kw), [()] * 10,
+                                   prelude=flush.zero_, chunk_size=2),
+        "library_ms": time_device_ms(
+            lambda: F.embedding_bag(bag[0], bag[1], bag[2], mode="sum",
+                                    per_sample_weights=bag[3]),
+            [()] * TIMED_RUNS, prelude=flush.zero_),
+        "library_call": "F.embedding_bag(mode='sum', per_sample_weights=x) over (row, "
+        "field) bags; the grouping sort untimed; no wide term",
+        **pool_bounds(view, tables, h, grad=False)}, {
+        "kernel": "field_pool_grad", **common,
+        "ms": time_device_ms(lambda: field_pool_grad(*k8_args, **k8_kw), [()] * TIMED_RUNS,
+                             prelude=flush.zero_),
+        "plain_ms": time_device_ms(lambda: field_pool_grad_plain(*k8_args, **k8_kw),
+                                   [()] * 10, prelude=flush.zero_, chunk_size=2),
+        "library_ms": None, "library_why_null": K8_LIBRARY_WHY_NULL,
+        **pool_bounds(view, tables, h, grad=True)}]
+    for row in rows:
+        log(json.dumps(dict(row, phase=38)))
+    del k8_args, k8_kw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pool_synthetic_planes(dev, b: int, k: int, kh: int, h: int, t: int, full: bool,
+                          seed: int) -> dict:
+    """Seed-made planes on the card as the wires ship them: sentinel keys
+    (20 % padding, two all-padding rows), u8 fields with the clamp's 255
+    (compact) or int32 fields with negative ids and ids past F (full,
+    with values), a hot plane with keys past H (u16, or int32 on the
+    full wire), u8 labels and weights."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.randint(0, t, (b, k), generator=g, device=dev, dtype=torch.int32)
+    keys = torch.where(torch.rand(b, k, generator=g, device=dev) < 0.2,
+                       torch.full_like(keys, -1), keys)
+    keys[:2] = -1
+    if full:
+        fields = torch.randint(-3, POOLED_FIELDS + 3, (b, k), generator=g, device=dev,
+                               dtype=torch.int32)
+    else:
+        fields = torch.randint(0, POOLED_FIELDS + 2, (b, k), generator=g, device=dev,
+                               dtype=torch.int32).to(torch.uint8)
+        fields = torch.where(torch.rand(b, k, generator=g, device=dev) < 0.1,
+                             torch.full_like(fields, 255), fields)
+    view = {"ckeys": keys, "fields": fields,
+            "labels_u8": (torch.rand(b, generator=g, device=dev) < 0.4).to(torch.uint8),
+            "weights_u8": torch.ones(b, dtype=torch.uint8, device=dev), "num_real": float(b)}
+    if kh:
+        hk = torch.randint(0, h + 64, (b, kh), generator=g, device=dev, dtype=torch.int32)
+        hk = torch.where(torch.rand(b, kh, generator=g, device=dev) < 0.3,
+                         torch.full_like(hk, -1), hk)
+        view["hot"] = hk if full else torch.where(hk >= 0, hk, 0xFFFF).to(torch.int16)
+        view["hot_fields"] = torch.randint(0, POOLED_FIELDS, (b, kh), generator=g,
+                                           device=dev, dtype=torch.int32).to(fields.dtype)
+    return view
+
+
+def phase_pool_synthetic(dev, worst: dict) -> list:
+    """Phase 34: K7 and K8 against their plain versions on seed-made
+    planes at T = 2^20: with w (wide_deep, dcn) and without (two_tower),
+    compact (u8 fields) and full wire (int32 fields, negative ids), the
+    hot plane (u16 and int32 keys, keys past H) and the bf16 flag on
+    both tables, dense and index mode, B in {512, 65,536}."""
+    import torch
+
+    from xflow_tpu_torch.config import Config
+    from xflow_tpu_torch.models import make_model
+    from xflow_tpu_torch.ops.pool import field_pool, field_pool_plain
+
+    t = 1 << 20
+    cases = []
+    for family, b, k, kh, full in (("wide_deep", 65536, 12, 32, False),
+                                   ("wide_deep", 512, 12, 32, True),
+                                   ("dcn", 65536, K, 0, True),
+                                   ("two_tower", 512, K, 0, False),
+                                   ("two_tower", 65536, 12, 32, True)):
+        cfg = Config(model=family, table_size_log2=20, max_fields=POOLED_FIELDS,
+                     **{k_: v for k_, v in POOLED[family].items()
+                        if k_ not in ("max_nnz", "hot_size_log2", "hot_nnz")})
+        model = make_model(cfg)
+        g = torch.Generator().manual_seed(len(cases))
+        tables = {spec.name: {"param": (torch.randn(t, spec.dim, generator=g) * 0.3).to(dev)}
+                  for spec in model.tables()}
+        dense = {n: p.to(dev) for n, p in model.dense_init(g).items()}
+        h = 1 << 14
+        view = pool_synthetic_planes(dev, b, k, kh, h, t, full, seed=len(cases))
+        case = f"{family} B={b} {'full' if full else 'compact'}{' hot' if kh else ''}"
+        forms = ("dense", "index") + (("hybrid",) if kh else ())
+        check_pool_kernels(case, model, view, tables, dense, h, worst, forms)
+        if kh:  # the bf16 flag rounds the hot rows of every table (K7) ...
+            args, kw = pool_args(view, tables, h)
+            got = field_pool(*args, **kw, hot_bf16=True)[0]
+            want = field_pool_plain(*args, **kw, hot_bf16=True)[0]
+            unflagged = field_pool_plain(*args, **kw)[0]
+            bound = pool_magnitudes(view, tables, h)[0]
+            if float(((got - want).abs() - bound).max()) > 0:
+                raise AssertionError(f"K7 with the bf16 flag disagrees: {case}")
+            if float((unflagged - want).abs().max()) == 0.0:
+                raise AssertionError(f"the bf16 flag changed nothing: {case}")
+        cases.append(case)
+    log(json.dumps({"phase": 34, "cases": cases, **worst}))
+    return cases
+
+
+def pooled_reference_logit(family: str, cfg, dense: dict, tables: dict, keys, fields):
+    """The float64 numpy reference of one example: the field-sum pool of
+    its live slots with a field in [0, F), the wide term over every live
+    slot, and the family's head."""
+    d = {k: v.astype(np.float64) for k, v in dense.items()}
+    f, e = cfg.max_fields, cfg.emb_dim
+    emb = tables["emb"][keys].astype(np.float64)
+    ok = (fields >= 0) & (fields < f)
+    pooled = np.zeros((f, e))
+    np.add.at(pooled, fields[ok], emb[ok])
+    x0 = pooled.reshape(1, -1)
+    wide = float(tables["w"][keys, 0].astype(np.float64).sum()) if "w" in tables else 0.0
+
+    def relu(a):
+        return np.maximum(a, 0.0)
+
+    if family == "wide_deep":
+        return wide + float((relu(x0 @ d["w1"] + d["b1"]) @ d["w2"] + d["b2"])[0, 0])
+    if family == "dcn":
+        x = x0
+        for layer in range(d["cross_w"].shape[0]):
+            x = x0 * (x * d["cross_w"][layer]).sum(-1, keepdims=True) + d["cross_b"][layer] + x
+        hh = relu(x0 @ d["w1"] + d["b1"])
+        return wide + float((np.concatenate([x, hh], -1) @ d["w_out"] + d["b_out"])[0, 0])
+    split, td = cfg.tower_split_field, cfg.tower_dim
+    user, item = pooled[:split].reshape(1, -1), pooled[split:].reshape(1, -1)
+    m_u = relu(user @ d["u_w1"] + d["u_b1"]) @ d["u_w2"] + d["u_b2"]
+    m_i = relu(item @ d["i_w1"] + d["i_b1"]) @ d["i_w2"] + d["i_b2"]
+    u = np.concatenate([m_u, [[1.0]]], -1)
+    i = np.concatenate([m_i[:, :td], [[1.0]], m_i[:, td:]], -1)
+    return float((u * i).sum())
+
+
+def serve_pooled(dev, trainer, family: str, workdir: str, test_lines: list,
+                 requests: int = 1024, concurrency: int = 16) -> dict:
+    """Phases 35-37's serving: the trained card model exported, then
+    ``PredictEngine.load`` on the card, ``score_text`` of the test
+    shard's first 2,048 lines against the plain version on the same
+    planes (1e-6) and a float64 numpy reference (1e-5, first 64 lines),
+    and the ``MicroBatcher`` bench (``compile_count`` = len(buckets));
+    K7's launches counted from 0 just before and read just after."""
+    import os
+
+    import torch
+
+    from xflow_tpu_torch.io.batch import pack_batch, remap_batch
+    from xflow_tpu_torch.io.libffm import parse_block
+    from xflow_tpu_torch.ops.pool import field_pool, field_pool_plain
+    from xflow_tpu_torch.parallel.step import compact_wire_np, to_device_planes
+    from xflow_tpu_torch.serve.__main__ import run_bench
+    from xflow_tpu_torch.serve.artifact import export_artifact
+    from xflow_tpu_torch.serve.engine import PredictEngine
+    from xflow_tpu_torch.utils.metrics import sigmoid_ref
+
+    art = export_artifact(trainer, os.path.join(workdir, f"{family}_artifact"))
+    lines = test_lines[:2048]
+    field_pool.launches = 0  # the serving path starts here
+    engine = PredictEngine.load(art, device=dev)
+    pctr = engine.score_text(lines)
+    calls = len(engine.buckets) + math.ceil(len(lines) / engine.buckets[-1])
+    if field_pool.launches != calls:
+        raise AssertionError(f"{family}: {calls} device calls, K7 launched "
+                             f"{field_pool.launches} times")
+    if not np.all((pctr > 0) & (pctr <= 1)):
+        raise AssertionError(f"{family}: pctr outside (0, 1]")
+    cfg = engine.cfg
+    block = parse_block("\n".join(lines).encode() + b"\n", cfg.table_size, cfg.hash_mode,
+                        cfg.seed)
+    batch = remap_batch(pack_batch(block, 0, len(lines), len(lines), cfg.max_nnz),
+                        engine.remap, cfg.hot_size, cfg.hot_nnz)
+    planes = to_device_planes(compact_wire_np(batch, hot_u16=True, ship_slots=True), dev)
+    tables = engine.state["tables"]
+    with torch.no_grad():
+        pooled, wide = field_pool_plain(
+            planes["ckeys"], None, planes["fields"], tables["emb"]["param"], cfg.max_fields,
+            tables["w"]["param"] if "w" in tables else None, hot=planes.get("hot"),
+            hot_fields=planes.get("hot_fields"), hot_size=cfg.hot_size)
+        want = sigmoid_ref(engine.model.head(engine.state["dense"], pooled, wide))
+    err = float(np.abs(pctr - want.cpu().numpy()).max())
+    if err > PCTR_ATOL:
+        raise AssertionError(f"{family}: engine vs plain on the card: max err {err}")
+    host = {n: t["param"].cpu().numpy() for n, t in tables.items()}
+    dense = {k: t.cpu().numpy() for k, t in engine.state["dense"].items()}
+    ref_err = 0.0
+    for i in range(64):
+        live, hlive = batch.mask[i] > 0, batch.hot_mask[i] > 0
+        keys = np.concatenate([batch.hot_keys[i][hlive], batch.keys[i][live]])
+        fields = np.concatenate([batch.hot_slots[i][hlive], batch.slots[i][live]])
+        logit = pooled_reference_logit(family, cfg, dense, host, keys, fields)
+        p = 1e-6 if logit < -30 else 1.0 if logit > 30 else 1 / (1 + math.exp(-logit))
+        ref_err = max(ref_err, abs(p - float(pctr[i])))
+    if ref_err > 1e-5:
+        raise AssertionError(f"{family}: engine vs float64 reference: max err {ref_err}")
+    before = field_pool.launches
+    summary = run_bench(engine, requests, concurrency, K, SEED)
+    if engine.compile_count != len(engine.buckets):
+        raise AssertionError(f"{family}: compile_count {engine.compile_count} != "
+                             f"{len(engine.buckets)} buckets")
+    if field_pool.launches - before != summary["batches"]:
+        raise AssertionError(f"{family}: {summary['batches']} batches but "
+                             f"{field_pool.launches - before} K7 launches")
+    out = {"family": family, "launches": field_pool.launches,  # the path ends here
+           "lines": len(lines), "max_abs_err_vs_plain": err,
+           "max_abs_err_vs_float64": ref_err, "bench": summary,
+           "compile_count": engine.compile_count, "artifact": art}
+    del engine
+    return out
+
+
+def phase_topk(dev, art: str, test_prefix: str, requests: int = 1024) -> dict:
+    """Phase 37's retrieval: the two_tower artifact's item index built on
+    the card from the test shard's item-side features
+    (``item_catalog_from_block``: fields >= tower_split_field, one item
+    per distinct key set), then ``topk`` of the first 512 test lines'
+    user-side features against a float64 numpy full scan of the same
+    user embeddings over the same index (ids equal up to near-ties: an
+    id only one side keeps must score within the tolerance of the last
+    kept score); ``compile_count`` = len(buckets) per leg after warm,
+    flat under mixed batch sizes and ``k``; requests/s and latency of
+    single-row requests from one client, closed loop."""
+    import torch
+
+    from xflow_tpu_torch.io.loader import make_parse_fn
+    from xflow_tpu_torch.ops.pool import field_pool
+    from xflow_tpu_torch.serve.artifact import export_item_index, item_catalog_from_block
+    from xflow_tpu_torch.serve.engine import PredictEngine
+
+    engine = PredictEngine.load(art, device=dev, warm=False)
+    cfg = engine.cfg
+    with open(f"{test_prefix}-00000", "rb") as f:
+        block = make_parse_fn(cfg.table_size, cfg.hash_mode, cfg.seed)(f.read())
+    items = item_catalog_from_block(block, cfg.tower_split_field)
+    t0 = time.perf_counter()
+    field_pool.launches = 0  # the index build starts here
+    meta = export_item_index(engine, art, items)
+    build = {"items": meta["count"], "dim": meta["dim"],
+             "seconds": time.perf_counter() - t0, "k7_launches": field_pool.launches}
+    if field_pool.launches != math.ceil(len(items) / engine.buckets[-1]):
+        raise AssertionError(f"index build: K7 launched {field_pool.launches} times")
+    field_pool.launches = 0  # the top-k path starts here
+    engine = PredictEngine.load(art, device=dev, topk_k=16)
+    legs = engine.compile_count
+    if legs != 2 * len(engine.buckets):
+        raise AssertionError(f"top-k engine warmed {legs} shapes, want 2 x "
+                             f"{len(engine.buckets)}")
+    users = []
+    for i in range(512):
+        lo, hi = int(block.row_ptr[i]), int(block.row_ptr[i + 1])
+        sel = block.slots[lo:hi] < cfg.tower_split_field
+        users.append((block.keys[lo:hi][sel].astype(np.int64),
+                      block.slots[lo:hi][sel].astype(np.int32), None))
+    batch = engine.featurize(users)
+    ids, scores, u = engine.topk_prepared(batch)
+    index = engine.item_index["item_index"].astype(np.float64)
+    full = u.astype(np.float64) @ index.T
+    order = np.argsort(-full, axis=1, kind="stable")[:, :engine.topk_k]
+    want_ids = engine.item_index["item_ids"][order]
+    want_scores = np.take_along_axis(full, order, 1)
+    tol = 1e-5 * np.abs(want_scores).max() + 1e-6
+    worst = float(np.abs(scores - want_scores).max())
+    if worst > tol:
+        raise AssertionError(f"top-k scores vs the numpy scan: {worst} > {tol}")
+    swaps = 0
+    for gi, wi, ws in zip(ids, want_ids, want_scores):
+        kept = set(wi.tolist())
+        swaps += len(kept - set(gi.tolist()))
+        for j in kept - set(gi.tolist()):  # the scan's alone: tied with its last
+            if abs(float(ws[list(wi).index(j)]) - float(ws[-1])) > tol:
+                raise AssertionError(f"top-k dropped item {j}, which scores above its last")
+    # mixed traffic: batch sizes and k within topk_k, no new shape
+    rng = np.random.default_rng(SEED)
+    for n, k in ((1, 1), (7, 16), (64, 5), (300, 9), (512, 16), (33, 2)):
+        got_ids, got_scores = engine.topk(engine.featurize_raw(users[:n]), k=k)
+        if got_ids.shape != (n, k) or not np.all(np.diff(got_scores, axis=1) <= 0):
+            raise AssertionError(f"top-k of {n} rows at k={k}: {got_ids.shape}")
+    if engine.compile_count != legs:
+        raise AssertionError(f"compile_count moved under mixed top-k traffic: "
+                             f"{engine.compile_count} != {legs}")
+    lat = []
+    t0 = time.perf_counter()
+    for i in range(requests):
+        t1 = time.perf_counter()
+        engine.topk(engine.featurize_raw([users[int(rng.integers(0, len(users)))]]), k=10)
+        lat.append(time.perf_counter() - t1)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out = {"phase": 37, "index": build, "k": engine.topk_k, "users_checked": len(users),
+           "max_abs_score_err_vs_numpy": worst, "near_tie_swaps": swaps,
+           "compile_count": engine.compile_count, "legs": legs,
+           "requests": requests, "requests_per_sec": requests / seconds,
+           "e2e_p50": float(np.percentile(lat, 50)), "e2e_p99": float(np.percentile(lat, 99)),
+           "k7_launches": field_pool.launches}  # the top-k path ends here
+    log(json.dumps(out))
+    return out
+
+
+def phase_pooled(dev, workdir: str, dense: dict) -> dict:
+    """Phases 34-38 at the flagship ``wide_deep`` (hot), ``dcn`` and
+    ``two_tower`` (POOLED): 34 K7 and K8 against their plain versions on
+    seed-made planes; 35-37 each family trained on the default input
+    path (native text, the dictionary wire with the field streams) in
+    its POOLED_MODES from one seeded state, each path's launches exact
+    (K7 = forward calls, K8 = updates), its first dispatch held through
+    ``lockstep_tables`` (tables and dense parameters, n' == 0 splits
+    verified as rounding), the sync guard on the sequential paths, the
+    eval AUC inside the planted bars where the table says; the family's
+    trained model exported and served; two_tower's item index built and
+    top-k served; 38 K7 and K8 against their plain versions on each
+    path's own first batch or slice, and timed on the dense paths'
+    batches and at B = 512."""
+    import torch
+
+    data, bars = dense["data"], dense["bars"]
+    one = single_shard(data, workdir)
+    with open(f"{data['test']}-00000") as f:
+        test_lines = f.read().splitlines()
+    out = {"rows": [], "timings": [], "launches_by_path": {}, "serve": {}}
+    worst = {"k7_max_abs_err": 0.0, "k7_max_err_over_tol": 0.0, "k8_max_abs_err": 0.0,
+             "k8_max_err_over_tol": 0.0, "cases": 0}
+    out["synthetic"] = phase_pool_synthetic(dev, worst)
+    torch.cuda.empty_cache()
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
+    inits = {}
+    for family, label, mode, single, bar in POOLED_MODES:
+        geom = POOLED[family]
+        if family not in inits:
+            inits[family] = fresh_init(dev, pooled_config(family, data, ""))
+        seq = mode.get("update_mode") == "sequential"
+        full_mode = dict(geom, **mode, **({"epochs": 1} if single else {}))
+        run = run_mode(dev, family, T_LOG2, one if single else data, inits[family],
+                       full_mode, label, workdir, evaluate=not single, keep=True,
+                       bars=bars if bar else None, lockstep=True,
+                       sync_check=seq and not single, replay_dispatches=1,
+                       guard_segment=POOLED_GUARD_SEGMENT)
+        phase = {"wide_deep": 35, "dcn": 36, "two_tower": 37}[family]
+        log(f"phase {phase}: {family} {label} done at {time.perf_counter() - T_START:.1f} s")
+        row = dict(run["row"], phase=phase, family=family)
+        trainer = run["trainer"]
+        tables, dense_p = trainer.state["tables"], trainer.state["dense"]
+        h = trainer.cfg.hot_size
+        arrays = run["shipped"][0]
+        if seq:
+            rows = arrays["ckeys"].shape[0] // trainer.cfg.microbatch
+            view = shipped_view(arrays, rows, arrays["slice_num_real"][0])
+            forms = ("index", "hybrid") if "hot" in view else ("index",)
+        else:
+            view = shipped_view(arrays)
+            forms = ("dense", "index")
+        check_pool_kernels(f"{family} {label} {'slice 0' if seq else 'batch 0'}",
+                           trainer.model, view, tables, dense_p, h, worst, forms)
+        if label == "dense":
+            out["timings"] += time_pool_kernels(f"{family} dense", view, tables, dense_p,
+                                                trainer.model, h, flush)
+            out["timings"] += time_pool_kernels(f"{family} dense, first 512 rows",
+                                                shipped_view(arrays, SLICE_ROWS), tables,
+                                                dense_p, trainer.model, h, flush)
+        if label == POOLED_MODES_SERVED[family]:
+            out["serve"][family] = serve_pooled(dev, trainer, family, workdir, test_lines)
+            log(json.dumps({"phase": phase, "serve": {
+                k: v for k, v in out["serve"][family].items() if k != "artifact"}}))
+            if family == "two_tower":
+                out["topk"] = phase_topk(dev, out["serve"][family]["artifact"], data["test"])
+        out["rows"].append(row)
+        out["launches_by_path"][f"{family} {label}"] = row["launches"]
+        log(json.dumps(row))
+        del run, trainer, tables, dense_p, view, arrays
+        torch.cuda.empty_cache()
+    out["checks"] = worst
+    log(json.dumps({"phase": 38, **worst}))
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+# the path whose trained model each family serves (phases 35-37)
+POOLED_MODES_SERVED = {"wide_deep": "dense", "dcn": "dense",
+                       "two_tower": "sequential_sparse_mb128"}
+
+
+def pooled_train_rows(pooled: dict, card: str) -> list:
+    """The ``train`` line's rows for the pooled paths (phases 35-37):
+    device busy from K7's and K8's launches times their device ms on the
+    family's 65,536-row dense batch (the head, K3-K6 left out, and said
+    so).  A sequential path's launches run 512-row slices, which take a
+    fiftieth of that time (phase 38), so its busy share is overstated
+    and its idle share a lower bound.  With the examples/s,
+    ``put_batch`` ms and the eval AUC."""
+    ms = {}
+    for r in pooled["timings"]:
+        if r["path"].endswith("dense"):
+            ms[(r["kernel"], r["path"].split(" ")[0])] = r["ms"]
+    rows = []
+    for row in pooled["rows"]:
+        if "eval" not in row:
+            continue
+        n, family = row["launches"], row["family"]
+        busy_ms = sum(n[k] * ms.get((k, family), 0.0) for k in ("field_pool",
+                                                                "field_pool_grad"))
+        busy = busy_ms / 1e3
+        rows.append({
+            "model": family, "mode": row["mode"], "card": card,
+            "examples_per_sec": row["examples_per_sec"],
+            "step_time_p50": row["step_time_p50"], "phases": row["phases"],
+            "put_batch_ms_per_dispatch": [p["h2d"] / (row["steps"] / len(row["phases"])) * 1e3
+                                          for p in row["phases"]],
+            "train_seconds": row["train_seconds"],
+            "device_busy_s_from_kernel_times": busy,
+            "device_busy_counts": "K7 and K8 at their dense-batch times; the head, K3-K6 "
+            "left out",
+            "device_idle_share_from_kernel_times": 1.0 - busy / row["train_seconds"],
+            "eval_auc": row["eval"]["auc"], "eval_logloss": row["eval"]["logloss"],
+        })
+    return rows
+
+
+def pooled_kernel_entries(pooled: dict) -> list:
+    """The ``kernels`` line's entries for K7 and K8 (phases 34-38):
+    launches counted on the pooled paths (each from 0 just before it)
+    and the serving and top-k paths, times on wide_deep's dense batch
+    with every other shape beside them."""
+    by_path = pooled["launches_by_path"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    serve = sum(s["launches"] for s in pooled["serve"].values())
+    entries = []
+    for name, replaces, err, ratio in (
+            ("field_pool", B11_REPLACES, "k7_max_abs_err", "k7_max_err_over_tol"),
+            ("field_pool_grad", B11_GRAD_REPLACES, "k8_max_abs_err", "k8_max_err_over_tol")):
+        head = next(r for r in pooled["timings"]
+                    if r["kernel"] == name and r["path"] == "wide_deep dense")
+        launches = sum(n[name] for n in by_path.values())
+        entry = {"name": name, "route": "cuda", "source": "xflow_tpu_torch/csrc/pool.cu",
+                 "replaces": replaces,
+                 "launches": launches + (serve + pooled["topk"]["k7_launches"]
+                                         + pooled["topk"]["index"]["k7_launches"]
+                                         if name == "field_pool" else 0),
+                 "launches_by_path": {p: n[name] for p, n in by_path.items()},
+                 "max_abs_err": pooled["checks"][err],
+                 "max_err_over_tol": pooled["checks"][ratio],
+                 **{k: head[k] for k in keys},
+                 "shape": {k: head[k] for k in ("path", "B", "Kc", "Kh", "H", "F", "E")},
+                 "per_shape": [r for r in pooled["timings"] if r["kernel"] == name]}
+        if name == "field_pool":
+            entry["library_call"] = head["library_call"]
+            entry["launches_serving"] = serve
+            entry["launches_topk_and_index"] = (pooled["topk"]["k7_launches"]
+                                                + pooled["topk"]["index"]["k7_launches"])
+        else:
+            entry["library_why_null"] = K8_LIBRARY_WHY_NULL
+        entries.append(entry)
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # The sequential path's float32 drift (``--seq-witness RUNS``)
 
 def replay_float64(cfg, init: dict, shipped: list) -> dict:
@@ -5197,6 +6076,245 @@ def split_tolerance(view: dict, num_real: float, uk, before: dict, hot_size: int
     return {"w": tol_w, "v": tol_v}
 
 
+def pool_tolerances(model, view: dict, num_real: float, uk, before: dict, other: dict,
+                    dense: dict, other_dense: dict, max_fields: int, hot_size: int) -> dict:
+    """The pooled families' per-row bound on how far the two sides' K8
+    sums may lie apart over the slice ``view`` where no ReLU unit kinks
+    (the n' == 0 split's test, as split_tolerance's for K2;
+    relu_kinks' jumps add to it): both sides' dloss/dpooled and
+    residuals recomputed on the host from their own rows ``before`` /
+    ``other`` (at the sorted unique keys ``uk``) and dense parameters,
+    then per occurrence |x| times their gap plus twice each side's
+    float32 rounding (the side's own run and this recomputation each
+    round within it), and per row the float32 summation bound of its n
+    occurrences (n 2^-23 times the sum of |x dP|).  A side's dP rounds
+    by at most gamma (|r| + dr) times the head's derivative taken on
+    absolute values (tower magnitudes sum |x emb|, |dense|, sum |x w|),
+    which bounds the magnitudes of all its terms, and r by dr = gamma /
+    4 times that head's logit, weighted, over num_real, plus 2^-23 |r|.
+    gamma = 2^-23 (P + H + k + 32): the longest chain of float32 sums
+    from an emb row to dP (k slots, the P tower inputs, the H units,
+    and at most 32 cross layers or tower lanes at these geometries).
+    Returns {table: [U, width]}."""
+    import torch
+
+    from xflow_tpu_torch.ops.pool import field_pool_plain
+
+    local = local_keys(view, uk, hot_size)
+    fields = view_fields(view)
+    x = None
+    if "x" in view:
+        x = torch.cat([view["hot_x"], view["x"]], 1) if "hot_x" in view else view["x"]
+    labels = view["labels_u8"].float() if "labels_u8" in view else view["labels"]
+    weights = view["weights_u8"].float() if "weights_u8" in view else view["weights"]
+    grads = []
+    for rows, dn in ((before, dense), (other, other_dense)):
+        w = rows["w"]["param"] if "w" in rows else None
+        emb = rows["emb"]["param"]
+        pooled, wide = field_pool_plain(local, x, fields, emb, max_fields, w)
+        mag, wide_mag = field_pool_plain(local, None if x is None else x.abs(), fields,
+                                         emb.abs(), max_fields,
+                                         None if w is None else w.abs())
+        params = {k: t.detach().cpu().clone().requires_grad_(True) for k, t in dn.items()}
+        hidden = next(t.shape[1] for k, t in params.items() if k.endswith("w1"))
+        gamma = EPS32 * (pooled[0].numel() + hidden + local.shape[1] + 32)
+        leaf, mag_leaf = pooled.requires_grad_(True), mag.requires_grad_(True)
+        with torch.enable_grad():
+            logit = model.head(params, leaf, wide)
+            mag_logit = model.head({k: t.detach().abs() for k, t in params.items()},
+                                   mag_leaf, wide_mag)
+        r = ((torch.sigmoid(logit) - labels) * weights / num_real).detach()
+        dp = torch.autograd.grad(logit, leaf, grad_outputs=r)[0]
+        dp_mag = torch.autograd.grad(mag_logit, mag_leaf,
+                                     grad_outputs=torch.ones_like(mag_logit))[0]
+        dr = gamma / 4 * mag_logit.detach() * weights / num_real + EPS32 * r.abs()
+        grads.append((dp, r, (gamma * r.abs() + dr)[:, None, None] * dp_mag, dr))
+    (dpa, ra, ea, dra), (dpb, rb, eb, drb) = grads
+    local = local.long()
+    live = local >= 0
+    xm = torch.where(live, torch.ones_like(local, dtype=torch.float32) if x is None else x.abs(),
+                     torch.zeros(local.shape))
+    ok = live & (fields >= 0) & (fields < max_fields)
+    f = fields.clamp(0, max_fields - 1)
+    b = torch.arange(local.shape[0])[:, None]
+    gap_e = ((dpa - dpb).abs() + 2 * (ea + eb))[b, f]  # [B, n, E]
+    mag_e = dpa.abs()[b, f]
+    gap_w = (ra - rb).abs() + 2 * (dra + drb)
+    idx = local.clamp(min=0).reshape(-1)
+    u = uk.numel()
+    count = torch.zeros(u).index_add_(0, idx, live.reshape(-1).float())
+    out = {}
+    terms = {"emb": (torch.where(ok[..., None], xm[..., None] * gap_e, 0.0),
+                     torch.where(ok[..., None], xm[..., None] * mag_e, 0.0)),
+             "w": ((xm * gap_w[:, None])[..., None], (xm * ra.abs()[:, None])[..., None])}
+    for name in before:
+        gap, mag = terms[name]
+        d = gap.shape[-1]
+        tol = torch.zeros(u, d).index_add_(0, idx, gap.reshape(-1, d))
+        tol += count[:, None] * 2.0 ** -23 * torch.zeros(u, d).index_add_(
+            0, idx, mag.reshape(-1, d))
+        out[name] = tol
+    return out
+
+
+def relu_layers(model, dense: dict, pooled) -> list:
+    """The pooled family's ReLU layers on ``pooled`` [B, F, E], each as
+    (its dense-parameter prefix, its input h [B, P], w1 [P, H], b1 [H],
+    dlogit/d(its output) [B, H]): wide_deep's and dcn's deep layer
+    (whose output weights, w2 or w_out's last H rows, are the same for
+    every example) and two_tower's two towers (logit = u . i + b_u +
+    b_i, so a tower's output takes the other's lanes [i, 1] or [u, 1]
+    through its w2)."""
+    import torch
+
+    from xflow_tpu_torch.models.blocks import mlp_tower
+
+    b = pooled.shape[0]
+    if model.name == "two_tower":
+        s, td = model.split_field, model.tower_dim
+        hu, hi = pooled[:, :s].reshape(b, -1), pooled[:, s:].reshape(b, -1)
+        mu, mi = mlp_tower(dense, hu, "u_"), mlp_tower(dense, hi, "i_")
+        ones = torch.ones_like(mu[:, :1])
+        return [("u_", hu, dense["u_w1"], dense["u_b1"],
+                 torch.cat([mi[:, :td], ones], 1) @ dense["u_w2"].T),
+                ("i_", hi, dense["i_w1"], dense["i_b1"],
+                 torch.cat([mu[:, :td], ones], 1) @ dense["i_w2"].T)]
+    h = pooled.reshape(b, -1)
+    out = dense["w2"][:, 0] if model.name == "wide_deep" else dense["w_out"][h.shape[1]:, 0]
+    return [("", h, dense["w1"], dense["b1"], out.expand(b, -1))]
+
+
+def relu_kinks(model, views: dict, tables: dict, dense: dict, snaps: dict,
+               max_fields: int, hot_size: int, num_real: float) -> dict:
+    """ReLU's kink, where a unit's derivative jumps: the units of a
+    slice the two sides may put on different sides of it.  Each side's
+    pre-activations a = h w1 + b1 are recomputed from its own ``views``,
+    ``tables``, ``dense`` parameters and (a hot window's) head ``snaps``
+    ({"cpu": ..., "card": ...}) before the update, as K7 and the head
+    read them.  They lie apart by at most
+
+        bound = D + R_cpu + R_card,
+        D = |h_cpu - h_card| |w1_cpu| + |h_card| |w1_cpu - w1_card|
+            + |b1_cpu - b1_card|        (the two sides' inputs apart),
+        R = 2^-23 (P + 1 + k) (|h| |w1| + |b1|)
+                                        (float32 rounding of either
+                                        side's sum, and of the card's
+                                        pooled input, over P + 1 terms
+                                        and a row's k slots),
+
+    so a unit is kinked where both sides' a lie within ``bound`` of 0.
+    A unit whose sides' signs differ and which is not kinked raises.
+
+    A kinked unit u of example b moves the example's dloss/dpooled by
+    at most |r_b| |dlogit/dout_bu| |w1[:, u]| (r the residual): each
+    occurrence's emb gradient by |x| times that at its field, and the
+    gradients of w1[:, u] and b1[u] by that times |h_b| and 1.  The
+    wide term's gradient x r does not jump.  Returns {"units": {prefix:
+    [B, H] bool}, "examples": [B] bool, "occurrences": [B, Kh + K, E]
+    the emb jump of each occurrence (view_keys' order), "dense": {name:
+    its gradient's jump}}, jumps the larger of the two sides', raised by
+    2^-23 (P + 1 + k) of themselves for their own float32 rounding."""
+    import torch
+
+    from xflow_tpu_torch.ops.pool import field_pool_plain
+
+    sides = {}
+    for side in ("cpu", "card"):
+        view, tbl, snap = views[side], tables[side], snaps.get(side) or {}
+        labels = view["labels_u8"] if "labels_u8" in view else view["labels"]
+        weights = view["weights_u8"] if "weights_u8" in view else view["weights"]
+        with torch.no_grad():
+            w = tbl["w"]["param"] if "w" in tbl else None
+            pooled, wide = field_pool_plain(
+                view["ckeys"], view.get("x"), view["fields"], tbl["emb"]["param"],
+                max_fields, w, hot=view.get("hot"), hot_x=view.get("hot_x"),
+                hot_fields=view.get("hot_fields"), hot_size=hot_size if "hot" in view else 0,
+                snap_w=snap.get("w") if w is not None else None, snap_emb=snap.get("emb"))
+            dn = {k: t.detach() for k, t in dense[side].items()}
+            logit = model.head(dn, pooled, wide)
+            r = ((torch.sigmoid(logit) - labels.float()) * weights.float() / num_real).abs()
+            sides[side] = (r.cpu(), [(pre, h.cpu(), w1.cpu(), b1.cpu(), (h @ w1 + b1).cpu(),
+                                      (h.abs() @ w1.abs() + b1.abs()).cpu(), dout.abs().cpu())
+                                     for pre, h, w1, b1, dout in relu_layers(model, dn, pooled)])
+    view = views["cpu"]
+    slots = view["ckeys"].shape[1] + (view["hot"].shape[1] if "hot" in view else 0)
+    b = view["ckeys"].shape[0]
+    units, kinked, dense_jump, jumps = {}, torch.zeros(b, dtype=torch.bool), {}, []
+    (rc, lc), (rk, lk) = sides["cpu"], sides["card"]
+    for (pre, hc, w1c, b1c, ac, magc, dc), (_, hk, w1k, b1k, ak, magk, dk) in zip(lc, lk):
+        n = hc.shape[1] + 1 + slots
+        apart = ((hc - hk).abs() @ w1c.abs() + hk.abs() @ (w1c - w1k).abs()
+                 + (b1c - b1k).abs())
+        # float32 sums of nonnegative terms: 2^-23 n of their own size
+        bound = (apart + EPS32 * n * (magc + magk)) * (1 + EPS32 * n)
+        unit = (ac.abs() <= bound) & (ak.abs() <= bound)
+        flips = (torch.sign(ac) != torch.sign(ak)) & ~unit
+        if bool(flips.any()):
+            i, u = (int(v) for v in flips.nonzero()[0])
+            raise AssertionError(
+                f"ReLU unit {pre}{u} of example {i}: pre-activation {float(ac[i, u])} on the "
+                f"CPU, {float(ak[i, u])} on the card, beyond their bound "
+                f"{float(bound[i, u])} of each other")
+        units[pre] = unit
+        kinked |= unit.any(dim=1)
+        margin = 1 + EPS32 * n
+        parts, dj = [], {}
+        for r, h, w1, d in ((rc, hc, w1c, dc), (rk, hk, w1k, dk)):
+            c = torch.where(unit, margin * r[:, None] * d, 0.0)  # [B, H]
+            parts.append(c @ w1.abs().T)  # [B, P]
+            for name, jump in ((pre + "w1", h.abs().T @ c), (pre + "b1", c.sum(dim=0))):
+                dj[name] = jump if name not in dj else torch.maximum(dj[name], jump)
+        jumps.append(torch.maximum(*parts))
+        dense_jump.update(dj)
+    per_field = torch.cat(jumps, dim=1).reshape(b, max_fields, -1)  # [B, F, E]
+    keys, fields = view_keys(view, hot_size), view_fields(view)
+    x = torch.ones(keys.shape)
+    if "x" in view:
+        x = torch.cat([view["hot_x"], view["x"]], 1) if "hot_x" in view else view["x"]
+    ok = (keys >= 0) & (fields >= 0) & (fields < max_fields)
+    occ = per_field[torch.arange(b)[:, None], fields.clamp(0, max_fields - 1)]
+    occ = torch.where(ok[..., None], x.abs()[..., None] * occ, 0.0)
+    return {"units": units, "examples": kinked, "occurrences": occ, "dense": dense_jump}
+
+
+def kink_row_jumps(view: dict, uk, kinks: dict, hot_size: int) -> dict:
+    """relu_kinks' occurrence jumps summed per row of the sorted unique
+    keys ``uk``: {"emb": [U, E], "w": zeros [U, 1]}."""
+    import torch
+
+    local = local_keys(view, uk, hot_size).long()
+    occ = kinks["occurrences"]
+    e = occ.shape[-1]
+    emb = torch.zeros(uk.numel(), e).index_add_(0, local.clamp(min=0).reshape(-1),
+                                                occ.reshape(-1, e))
+    return {"emb": emb, "w": torch.zeros(uk.numel(), 1)}
+
+
+def recovered_grads(before: dict, after: dict, opt) -> tuple:
+    """The summed gradient an FTRL step (``opt``; lockstep_tables
+    replays FTRL tables) applied to each element of a table's rows, read
+    back from the rows ``before`` and ``after`` it in float64: g = z' -
+    z + (sqrt(n') - sqrt(n)) / alpha * w, n' as stored, as K3 and K5
+    wrote it and used it.  Its error is K3's float32 rounding of z'
+    (k3_tolerances).  Returns (g, err)."""
+    import torch
+
+    w = before["param"].double()
+    n, n_new = before["n"].double(), after["n"].double()
+    z, z_new = before["z"].double(), after["z"].double()
+    g = z_new - z + (torch.sqrt(n_new) - torch.sqrt(n)) / opt.alpha * w
+    return g, k3_tolerances({"param": w, "g": g, "n": n, "z": z}, n_new, opt)["z"]
+
+
+# The largest share of a dispatch's examples that may hold a kinked
+# ReLU unit: about twice the most the phases' paths showed on an H100
+# (4.7 % on the 65,536-row dense dispatches, 1.2-2.6 % on the sequential
+# ones; 0.07 % of the units).  A fault that moves pre-activations by
+# more than rounding shows as a sign flip beyond relu_kinks' bound
+# (raised), and one that moves many by a little, as more kinks than this.
+KINK_SHARE_CAP = 0.10
+
+
 def guard_rows(view: dict, num_real: float, uk, before: dict, hot_size: int,
                max_fields: int):
     """MVM: which of the rows ``uk`` hold a slot of ``view`` whose
@@ -5214,7 +6332,8 @@ def guard_rows(view: dict, num_real: float, uk, before: dict, hot_size: int,
 
 
 def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool = True,
-                    records: int = 6, keep: dict | None = None) -> dict:
+                    records: int = 6, keep: dict | None = None,
+                    kink_sync: bool = True) -> dict:
     """Replay the sequential batches ``shipped`` from ``init`` on the
     card (``card_step``, the main path's TrainStep) and on the CPU in
     lockstep, slice by slice (an unsliced dispatch as one update), each
@@ -5234,13 +6353,35 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
     sides, and the nonzero side's gradient (sqrt(n')) lies within phase
     6's bound on K2's sum (``split_tolerance``; at a window's close, the
     sum of that bound over the window's slices, each over the rows at
-    the window's start).  MVM's gradient has a second discontinuity, its
+    the window's start; for the pooled families, ``pool_tolerances``
+    plus the kinks' jumps below).
+    MVM's gradient has a second discontinuity, its
     guard: a slot whose own-field factor lies within rounding of 1e-12
     takes a zero gradient on one side and prod / own on the other.  An
     element whose z jumps apart in a slice is such a guard split when
     its row holds a slot that straddles the guard (``guard_rows``); it
     is recorded and, with ``synchronize``, synchronised like an n' == 0
-    split.  With ``synchronize``
+    split.  The pooled families' head has a third, ReLU's kink: a unit
+    whose pre-activation lies within its bound of 0 on both sides
+    (``relu_kinks``, which raises on a sign flip beyond that bound) may
+    take dP's jump of its contribution on one side only.  After each
+    update, every emb element of a row such a unit reaches is held
+    (``hold_kinks``): the gradient each side applied, read back from its
+    rows (``recovered_grads``), lies within ``pool_tolerances`` plus the
+    read-back's error of the other side's, plus the element's jump
+    (``kink_row_jumps``; at a hot window's close, summed over the
+    window's slices); an element beyond raises.  With ``kink_sync`` the
+    CPU then takes the card's state at the held elements, as at a
+    verified n' == 0 split.  After such a slice the dense parameters are
+    held to TRAIN_BOUNDS' terms plus sgd_lr times the jump of the kinked
+    units' w1 columns and b1 entries, and the CPU takes the card's.  A
+    dispatch whose kinked examples pass KINK_SHARE_CAP raises.  Without
+    ``kink_sync`` (the diagnostic) nothing is synchronised for a kink,
+    the dense parameters are not held, and the final comparison does
+    not gate: the emb elements held, and those whose gap went beyond
+    the bound without the jump (which took one), are returned
+    (``kink_elements``: {"held", "beyond_rounding"} -> [T, E] bool).  With
+    ``synchronize``
     the CPU then takes the card's state at that element, and the final
     tables are held to TRAIN_BOUNDS (``compare_states``); a split that
     fails the verification raises.  Without it the run goes on unsynced
@@ -5252,50 +6393,149 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
     "cpu")."""
     import torch
 
-    from xflow_tpu_torch.convert import state_from_numpy
     from xflow_tpu_torch.parallel.step import TrainStep
 
     dev = card_step.device
     h = cfg.hot_size
     s_fields = cfg.max_fields if card_step.predict_step.ship_slots else 0
     form = card_step.predict_step.form
+    pooled = card_step.pooled
+    opt = card_step.optimizer
     # MVM's guard is the second discontinuity (FFM has none)
     guard = s_fields if form == "mvm" else 0
     steps = {"card": card_step,
              "cpu": TrainStep(card_step.model, card_step.optimizer, cfg, torch.device("cpu"))}
-    states = {"card": state_from_numpy(cfg, init, dev),
-              "cpu": state_from_numpy(cfg, init, "cpu")}
+    states = {"card": state_of(cfg, init, dev), "cpu": state_of(cfg, init, "cpu")}
     out = {"slices": 0, "windows": 0, "splits": 0, "split_records": [], "jump_slices": 0,
            "jump_records": [], "guard_splits": 0, "guard_records": [],
            "logloss_max_rel_gap": 0.0}
+    if pooled:
+        out.update(kink_slices=0, kink_examples=0, kink_units=0, kink_share_per_dispatch=[],
+                   kink_elements_held=0, kink_elements_beyond_rounding=0,
+                   kink_max_gap_over_bound=0.0, kink_dense_max_err_over_bound=0.0)
+        if not kink_sync:
+            shape = states["cpu"]["tables"]["emb"]["param"].shape
+            out["kink_elements"] = {key: torch.zeros(shape, dtype=torch.bool)
+                                    for key in ("held", "beyond_rounding")}
 
     def rows_of(side, uk):
         idx = uk.to(steps[side].device)
         return {n: {k: t[k][idx].cpu() for k in ("param", "n", "z")}
                 for n, t in states[side]["tables"].items()}
 
-    def step_both(uk, update, tolerance, straddle=None):
+    dense_before = {}
+
+    def kinks_of(view: dict, window: dict, num_real: float) -> dict:
+        """relu_kinks on both sides' state as it stands (before the
+        update)."""
+        return relu_kinks(card_step.model, view,
+                          {side: states[side]["tables"] for side in steps},
+                          {side: states[side]["dense"] for side in steps},
+                          {side: window[side]["snaps"] for side in window},
+                          s_fields, h, num_real)
+
+    def hold_kinks(uk, snap, tolerance, jumps) -> None:
+        """Pooled families: hold every emb element of the rows ``uk``
+        that a kinked unit reaches (``jumps`` > 0) and the update stepped
+        (``snap``: step_both's rows before and after, each side): the two
+        sides' recovered gradients lie within ``tolerance`` (computed
+        once, when needed) plus both read-backs' errors plus the jump;
+        then (with ``kink_sync``) the CPU takes the card's state there.
+        Counts the held elements, and those beyond the bound without the
+        jump (which took it), which the diagnostic returns.  An n' == 0
+        split was held by step_both already."""
+        jump = jumps["emb"].double()
+        held = jump > 0
+        if not bool(held.any()):
+            return
+        (cb, ca), (pb, pa) = snap["card"], snap["cpu"]
+        # the elements this update stepped on either side, but no split
+        held &= ((ca["emb"]["n"] == 0) == (pa["emb"]["n"] == 0)) & (
+            (ca["emb"]["z"] != cb["emb"]["z"]) | (ca["emb"]["n"] != cb["emb"]["n"])
+            | (pa["emb"]["z"] != pb["emb"]["z"]) | (pa["emb"]["n"] != pb["emb"]["n"]))
+        g_card, err_card = recovered_grads(cb["emb"], ca["emb"], opt)
+        g_cpu, err_cpu = recovered_grads(pb["emb"], pa["emb"], opt)
+        base = tolerance()["emb"].double() + err_card + err_cpu
+        gap = (g_card - g_cpu).abs()
+        over = held & (gap > base)
+        ratio = torch.where(held, gap / (base + jump), 0.0)
+        out["kink_elements_held"] += int(held.sum())
+        out["kink_elements_beyond_rounding"] += int(over.sum())
+        out["kink_max_gap_over_bound"] = max(out["kink_max_gap_over_bound"],
+                                             float(ratio.max()))
+        if synchronize and bool((ratio > 1.0).any()):
+            i, col = divmod(int(torch.argmax(ratio)), jump.shape[1])
+            raise AssertionError("an emb element of a kinked row beyond its bound: " + json.dumps(
+                {"slice": out["slices"], "row": int(uk[i]), "col": col,
+                 "g": {"card": float(g_card[i, col]), "cpu": float(g_cpu[i, col])},
+                 "bound": float(base[i, col]), "jump": float(jump[i, col])}))
+        if not kink_sync:
+            for key, mask in (("held", held), ("beyond_rounding", over)):
+                idx = mask.nonzero()
+                out["kink_elements"][key][uk[idx[:, 0]], idx[:, 1]] = True
+        elif synchronize:
+            idx = held.nonzero()
+            rows, cols = uk[idx[:, 0]], idx[:, 1]
+            for k in ca["emb"]:
+                states["cpu"]["tables"]["emb"][k][rows, cols] = ca["emb"][k][idx[:, 0], cols]
+
+    def hold_dense(dense_jump: dict) -> None:
+        """Pooled families, after a slice with a kinked unit: the dense
+        parameters on the card within TRAIN_BOUNDS' terms of the CPU's
+        plus sgd_lr times the kinked units' gradient jumps; then (with
+        ``kink_sync``) the CPU takes the card's."""
+        for name, t in states["card"]["dense"].items():
+            want, got = states["cpu"]["dense"][name], t.detach().cpu()
+            bound = (TRAIN_BOUNDS["table_rtol"] * want.abs()
+                     + TRAIN_BOUNDS["table_atol_frac"] * want.abs().max())
+            if name in dense_jump:
+                bound = bound + cfg.sgd_lr * dense_jump[name]
+            ratio = float(((got - want).abs() / bound.clamp(min=1e-30)).max())
+            out["kink_dense_max_err_over_bound"] = max(out["kink_dense_max_err_over_bound"],
+                                                       ratio)
+            if not kink_sync:
+                continue
+            if ratio > 1.0:
+                raise AssertionError(f"slice {out['slices']}: dense {name} on the card "
+                                     f"{ratio} times its bound from the CPU's")
+            if synchronize:
+                want.copy_(got)
+
+    def step_both(uk, update, tolerance, straddle=None, jumps=None):
         """``update(side)`` on both sides, then the n' == 0 splits and z
         jumps among the rows ``uk``; ``tolerance(before, other)`` gives the
         bounds on their summed gradients ({table: [U, width]}), computed
-        once when a split needs them, and
+        once when a split needs them (plus ``jumps``, the kinks' jumps,
+        when given), and
         ``straddle(before)`` (MVM) the rows whose slots straddle the
-        guard, when a z jump needs it."""
+        guard, when a z jump needs it.  A pooled family's dense
+        parameters before the update are kept in ``dense_before``.
+        Returns the rows before and after, each side, and the bounds
+        (a callable, computed once)."""
         snap = {}
         for side in steps:
             before = rows_of(side, uk)
+            if pooled:
+                dense_before[side] = {k: t.detach().cpu().clone()
+                                      for k, t in states[side]["dense"].items()}
             update(side)
             snap[side] = (before, rows_of(side, uk))
         (cb, ca), (pb, pa) = snap["card"], snap["cpu"]
         tols = {}
+
+        def tols_once():
+            if not tols:
+                tols.update(tolerance(pb, cb))
+            return tols
+
         for name in ca:
             split = (ca[name]["n"] == 0) != (pa[name]["n"] == 0)
             tol = None
             for i, col in split.nonzero().tolist():
                 if tol is None:
-                    if not tols:
-                        tols.update(tolerance(pb, cb))
-                    tol = tols[name]
+                    tol = tols_once()[name]
+                    if jumps is not None:
+                        tol = tol + jumps[name]
                 g = {"card": math.sqrt(float(ca[name]["n"][i, col])),
                      "cpu": math.sqrt(float(pa[name]["n"][i, col]))}
                 ok = (float(cb[name]["n"][i, col]) == 0.0 == float(pb[name]["n"][i, col])
@@ -5340,6 +6580,7 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
                         {"slice": out["slices"], "array": name, "row": int(uk[i]),
                          "col": col, "z": {"card": float(ca[name]["z"][i, col]),
                                            "cpu": float(pa[name]["z"][i, col])}})
+        return snap, tols_once
 
     def live_unique(view):
         keys = view_keys(view, h)
@@ -5355,11 +6596,18 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
                          if isinstance(a, torch.Tensor)} for side in steps}
                  for j in range(len(slices))]
         window = {}
+        uk_batch = live_unique(planes["cpu"])
+        dispatch_kinked = 0
         if card_step.window:
-            uk_batch = live_unique(planes["cpu"])
             start = rows_of("cpu", uk_batch)
+            start_card = rows_of("card", uk_batch)
+            dense_start = {side: {k: t.detach().cpu().clone()
+                                  for k, t in states[side]["dense"].items()}
+                           for side in steps}
             window = {side: steps[side].window_open(states[side]["tables"], planes[side])
                       for side in steps}
+            window_jumps = ({"emb": torch.zeros(uk_batch.numel(), cfg.emb_dim),
+                             "w": torch.zeros(uk_batch.numel(), 1)} if pooled else None)
         for j, num_real in enumerate(slices):
             view = views[j]
             uk = live_unique(view["cpu"])
@@ -5369,17 +6617,39 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
             def update(side, j=j, view=view, num_real=num_real):
                 if window:
                     steps[side].window_slice(states[side]["tables"], window[side], j,
-                                             view[side], num_real, acc[side])
+                                             view[side], num_real, acc[side],
+                                             states[side]["dense"])
                 else:
                     steps[side]._update(states[side]["tables"], view[side], num_real,
-                                        acc[side])
+                                        acc[side], states[side]["dense"])
 
-            step_both(uk, update, lambda before, other, view=view, num_real=num_real,
-                      uk=uk: split_tolerance(view["cpu"], num_real, uk, before, h,
-                                             s_fields, form, other),
-                      straddle=None if not guard else
-                      lambda before, view=view, num_real=num_real, uk=uk:
-                      guard_rows(view["cpu"], num_real, uk, before, h, s_fields))
+            def tolerance(before, other, view=view, num_real=num_real, uk=uk):
+                if pooled:
+                    return pool_tolerances(card_step.model, view["cpu"], num_real, uk,
+                                           before, other, dense_before["cpu"],
+                                           dense_before["card"], s_fields, h)
+                return split_tolerance(view["cpu"], num_real, uk, before, h, s_fields,
+                                       form, other)
+
+            kinks = jumps = None
+            if pooled:
+                kinks = kinks_of(view, window, num_real)
+                jumps = kink_row_jumps(view["cpu"], uk, kinks, h)
+                dispatch_kinked += int(kinks["examples"].sum())
+                if window:
+                    at = torch.searchsorted(uk_batch, uk)
+                    for name, jump in jumps.items():
+                        window_jumps[name].index_add_(0, at, jump)
+            snap, tols = step_both(uk, update, tolerance, jumps=jumps,
+                                   straddle=None if not guard else
+                                   lambda before, view=view, num_real=num_real, uk=uk:
+                                   guard_rows(view["cpu"], num_real, uk, before, h, s_fields))
+            if pooled and bool(kinks["examples"].any()):
+                out["kink_slices"] += 1
+                out["kink_examples"] += int(kinks["examples"].sum())
+                out["kink_units"] += sum(int(u.sum()) for u in kinks["units"].values())
+                hold_kinks(uk, snap, tols, jumps)
+                hold_dense(kinks["dense"])
             ll = {side: float(acc[side][0]) / max(float(acc[side][1]), 1.0) for side in steps}
             gap = abs(ll["card"] - ll["cpu"]) / max(abs(ll["cpu"]), 1.0)
             out["logloss_max_rel_gap"] = max(out["logloss_max_rel_gap"], gap)
@@ -5387,34 +6657,48 @@ def lockstep_tables(card_step, cfg, init: dict, shipped: list, synchronize: bool
                 raise AssertionError(f"slice {out['slices']}: log-loss {ll['card']} on the "
                                      f"card vs {ll['cpu']} on the CPU")
             out["slices"] += 1
+        if pooled:
+            share = dispatch_kinked / arrays["ckeys"].shape[0]
+            out["kink_share_per_dispatch"].append(share)
+            if synchronize and share > KINK_SHARE_CAP:
+                raise AssertionError(f"{share:.4f} of a dispatch's examples hold a kinked "
+                                     f"ReLU unit, above KINK_SHARE_CAP {KINK_SHARE_CAP}")
         if window:
-            keys = planes["cpu"]["ckeys"]
-            uk = torch.unique(keys[keys >= 0].long())
+            uk = uk_batch  # the hot and cold rows the window's close steps
 
             def close(side):
                 steps[side].window_close(states[side]["tables"], window[side])
 
-            def window_tolerance(_before, _other, uk=uk, views=views, arrays=arrays,
-                                 uk_batch=uk_batch, start=start):
+            def window_tolerance(_before, _other, views=views, arrays=arrays,
+                                 uk_batch=uk_batch, start=start, start_card=start_card,
+                                 dense_start=dense_start):
                 total = {}
                 for j, num_real in enumerate(arrays["slice_num_real"]):
-                    for name, tol in split_tolerance(views[j]["cpu"], num_real, uk_batch,
-                                                     start, h, s_fields, form).items():
+                    tols = (pool_tolerances(card_step.model, views[j]["cpu"], num_real,
+                                            uk_batch, start, start_card, dense_start["cpu"],
+                                            dense_start["card"], s_fields, h)
+                            if pooled else split_tolerance(views[j]["cpu"], num_real,
+                                                           uk_batch, start, h, s_fields,
+                                                           form))
+                    for name, tol in tols.items():
                         total[name] = tol if name not in total else total[name] + tol
-                at = torch.searchsorted(uk_batch, uk)
-                return {name: tol[at] for name, tol in total.items()}
+                return total
 
-            def window_straddle(_before, uk=uk, views=views, arrays=arrays,
+            def window_straddle(_before, views=views, arrays=arrays,
                                 uk_batch=uk_batch, start=start):
                 rows = torch.zeros(uk_batch.numel(), dtype=torch.bool)
                 for j, num_real in enumerate(arrays["slice_num_real"]):
                     rows |= guard_rows(views[j]["cpu"], num_real, uk_batch, start, h, s_fields)
-                return rows[torch.searchsorted(uk_batch, uk)]
+                return rows
 
-            step_both(uk, close, window_tolerance,
-                      straddle=window_straddle if guard else None)
+            snap, tols = step_both(uk, close, window_tolerance,
+                                   straddle=window_straddle if guard else None,
+                                   jumps=window_jumps)
+            if pooled:
+                hold_kinks(uk, snap, tols, window_jumps)
             out["windows"] += 1
-    out["tables"] = compare_states(states["card"], states["cpu"], gate=synchronize)
+    out["tables"] = compare_states(states["card"], states["cpu"],
+                                   gate=synchronize and kink_sync)
     if keep is not None:
         keep.update(states)
     return out
@@ -5458,6 +6742,67 @@ def seq_lockstep(dev, t_log2: int, workdir: str, runs: int, budget_s: float = 78
     log(json.dumps({"lockstep_summary": summary}))
     return summary
 
+def kink_witness(dev, workdir: str) -> dict:
+    """wide_deep's hot inner (phase 35's ``hot_inner_mb128``: one
+    dispatch of 128 slices, the path whose card-vs-CPU replay once
+    missed TRAIN_BOUNDS on a hot emb row) trained on the card, then
+    replayed through ``lockstep_tables`` from the same seeded state
+    twice: as the phases replay it, and with ReLU's kinks left
+    unsynchronised (each kinked element still held to its bound).  For
+    the second, the final emb arrays against TRAIN_BOUNDS: the worst
+    element over all, over the elements a kinked unit never reached,
+    and over those that never went beyond their bound without the
+    jump, and whether the worst lies among either."""
+    import torch
+
+    from xflow_tpu_torch.trainer import Trainer
+
+    data = write_train_shards(workdir)
+    mode = next(m for f, label, m, *_ in POOLED_MODES
+                if f == "wide_deep" and label == "hot_inner_mb128")
+    cfg = pooled_config("wide_deep", single_shard(data, workdir), "", **mode, epochs=1)
+    init = fresh_init(dev, cfg)
+    trainer = Trainer(cfg, device=dev, log=lambda _: None)
+    trainer.state = state_of(cfg, init, dev)
+    shipped = keep_shipped_batches(trainer)
+    trainer.train()
+    torch.cuda.synchronize()
+    trainer.close()
+    out = {}
+    for kink_sync in (True, False):
+        t0 = time.perf_counter()
+        keep = {}
+        rep = lockstep_tables(trainer.step, cfg, init, shipped, kink_sync=kink_sync,
+                              keep=keep)
+        masks = rep.pop("kink_elements", None)
+        rep["seconds"] = time.perf_counter() - t0
+        if masks is not None:
+            worst = {}
+            for key in ("param", "n", "z"):
+                want = keep["cpu"]["tables"]["emb"][key].to(dev)
+                got = keep["card"]["tables"]["emb"][key]
+                bound = (TRAIN_BOUNDS["table_rtol"] * want.abs()
+                         + TRAIN_BOUNDS["table_atol_frac"] * want.abs().max())
+                ratio = (got - want).abs() / torch.where(bound > 0, bound, 1.0)
+                i = int(torch.argmax(ratio))
+                row, col = divmod(i, ratio.shape[1])
+                worst[key] = {
+                    "max_err_over_bound": float(ratio.view(-1)[i]), "row": row, "col": col,
+                    "row_is_hot": row < cfg.hot_size,
+                    **{f"worst_{m}": bool(masks[m][row, col]) for m in masks},
+                    **{f"max_err_over_bound_outside_{m}":
+                       float(torch.where(masks[m].to(dev), 0.0, ratio).max()) for m in masks},
+                    "elements": {m: int(masks[m].sum()) for m in masks}}
+                del want, got, bound, ratio
+            rep["unsynced_emb"] = worst
+        out["synchronised" if kink_sync else "kinks_unsynchronised"] = rep
+        log(json.dumps({"kink_witness": kink_sync, **{k: v for k, v in rep.items()
+                                                      if not k.endswith("records")}}))
+        del keep
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -5470,6 +6815,10 @@ def main() -> int:
         "--seq-lockstep", type=int, default=0, metavar="RUNS",
         help="instead of the phases: the sequential sparse FM path RUNS times "
         "on the card and the CPU in lockstep, comparing each slice's rows")
+    parser.add_argument(
+        "--kink-witness", action="store_true",
+        help="instead of the phases: wide_deep's hot inner replayed on the card "
+        "and the CPU in lockstep with ReLU's kinks synchronised and not")
     args = parser.parse_args()
     try:
         import torch
@@ -5492,23 +6841,29 @@ def main() -> int:
     global T_START
     t_start = T_START = time.perf_counter()
     dev = resolve_device("cuda")
+    cpu_k3_on_touched_rows()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(dev)}")
+    # the dense blocks run in full float32: neither flag is changed
+    log(json.dumps({"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                    "float32_matmul_precision": torch.get_float32_matmul_precision()}))
     log(json.dumps(dict(build_all(), phase=1)))
-    if args.seq_witness or args.seq_lockstep:
+    if args.seq_witness or args.seq_lockstep or args.kink_witness:
         workdir = tempfile.mkdtemp(prefix="xflow-seq-witness-")
         try:
             if args.seq_witness:
                 seq_witness(dev, T_LOG2, workdir, args.seq_witness)
+            elif args.kink_witness:
+                kink_witness(dev, workdir)
             else:
                 seq_lockstep(dev, T_LOG2, workdir, args.seq_lockstep)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         log(f"chip_smoke: diagnostic done in {time.perf_counter() - t_start:.1f} s")
         return 0
-    for name in ("score", "train", "optim", "sparse", "wire"):
+    for name in ("score", "train", "optim", "sparse", "wire", "pool"):
         for line in build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
@@ -5559,6 +6914,10 @@ def main() -> int:
         log(f"phases 21-27 done at {time.perf_counter() - t_start:.1f} s")
         torch.cuda.empty_cache()
         ffm = phase_ffm(dev, workdir, train_path)
+        log(f"phases 28-33 done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        pooled = phase_pooled(dev, workdir, train_path)
+        log(f"phases 34-38 done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase": 17, "checks": hot["checks"]}))
@@ -5634,6 +6993,7 @@ def main() -> int:
     train_rows += hot_train_rows(hot, modes, train_path, card)
     train_rows += mvm_train_rows(mvm, hot, modes, train_path, card)
     train_rows += ffm_train_rows(ffm, card)
+    train_rows += pooled_train_rows(pooled, card)
     log(json.dumps({"train": train_rows}))
 
     head = next(r for r in timings if r["mode"] == "fm" and r["B"] == BUCKETS[-1])
@@ -5789,6 +7149,7 @@ def main() -> int:
     kernels += hot_kernel_entries(hot, k3_check["max_abs_err"])
     kernels += mvm_kernel_entries(wide, mvm)
     kernels += ffm_kernel_entries(ffm)
+    kernels += pooled_kernel_entries(pooled)
     # the hot paths' K4 plans and full-table K3 passes, beside the
     # entries' own paths above
     hot_rows = {f"{r['model']} {r['mode']}": r for r in hot["rows"]}
@@ -5797,6 +7158,10 @@ def main() -> int:
     kernels[2]["launches_hot_paths_full_table"] = sum(
         r["steps"] * r["tables"] for p, r in hot_rows.items()
         if r["mode"] in ("hot_dense", "hot_inner_windowend_dense"))
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("a float32 matmul flag changed during the run: the dense "
+                             "blocks must run in full float32")
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -1129,3 +1129,209 @@ def test_ffm_card_path_runs_kernels_only(dev, monkeypatch):
     torch.cuda.synchronize()
     assert (score.launches - before[0], train_step.launches - before[1]) == (1, 1)
     assert bool(torch.isfinite(pctr).all())
+
+
+# -- B11: K7 field_pool and K8 field_pool_grad (wide_deep, dcn, two_tower) --
+
+
+def _pool_planes(dev, seed, b=300, k=24, kh=0, h=0, t=1 << 13, f=39, e=8, full=False,
+                 u16=True, with_w=True):
+    """Planes on ``dev`` and on the CPU: keys with padding (all-padding
+    rows), fields u8 (255 past the clamp) or int32 (negative and past
+    F), values on the full wire, a hot plane whose keys past H count as
+    padding, tables."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, t, (b, k)).astype(np.int32)
+    keys[rng.random((b, k)) < 0.2] = -1
+    keys[:2] = -1
+    if full:
+        fields = rng.integers(-3, f + 3, (b, k)).astype(np.int32)
+        x = rng.uniform(0.5, 1.5, (b, k)).astype(np.float32)
+    else:
+        fields = rng.integers(0, f + 2, (b, k)).astype(np.uint8)
+        fields[rng.random((b, k)) < 0.1] = 255
+        x = None
+    p = {"keys": keys, "fields": fields, "x": x,
+         "emb": (rng.standard_normal((t, e)) * 0.3).astype(np.float32),
+         "w": (rng.standard_normal((t, 1)) * 0.3).astype(np.float32) if with_w else None}
+    if kh:
+        hk = rng.integers(0, h + 16, (b, kh))
+        hk[rng.random((b, kh)) < 0.3] = -1
+        p["hot"] = (np.where(hk >= 0, hk, 0xFFFF).astype(np.uint16).view(np.int16) if u16
+                    else hk.astype(np.int32))
+        p["hot_fields"] = rng.integers(0, f, (b, kh)).astype(fields.dtype)
+        p["hot_x"] = rng.uniform(0.5, 1.5, (b, kh)).astype(np.float32) if full else None
+    on = {n: (torch.tensor(a, device=dev) if a is not None else None) for n, a in p.items()}
+    cpu = {n: (torch.tensor(a) if a is not None else None) for n, a in p.items()}
+    return on, cpu
+
+
+POOL_CASES = {
+    # (kh, h, full, u16, with_w, bf16)
+    "compact": (0, 0, False, True, True, False),
+    "full-negative-fields": (0, 0, True, True, True, False),
+    "no-w": (0, 0, False, True, False, False),
+    "hot-u16": (16, 1 << 10, False, True, True, False),
+    "hot-i32-full": (16, 1 << 10, True, False, True, False),
+    "hot-bf16": (16, 1 << 10, False, True, True, True),
+}
+
+
+@pytest.mark.parametrize("case", list(POOL_CASES))
+def test_k7_field_pool_matches_plain(dev, case):
+    from xflow_tpu_torch.ops.pool import field_pool, field_pool_plain
+
+    kh, h, full, u16, with_w, bf16 = POOL_CASES[case]
+    on, cpu = _pool_planes(dev, 3, kh=kh, h=h, full=full, u16=u16, with_w=with_w)
+    f = 39
+    args = lambda p: (p["keys"], p["x"], p["fields"], p["emb"], f)  # noqa: E731
+    kw = lambda p: dict(w=p["w"], hot=p.get("hot"), hot_x=p.get("hot_x"),  # noqa: E731
+                        hot_fields=p.get("hot_fields"), hot_size=h, hot_bf16=bf16)
+    before = field_pool.launches
+    pooled, wide = field_pool(*args(on), **kw(on))
+    torch.cuda.synchronize()
+    assert field_pool.launches == before + 1
+    want_p, want_w = field_pool_plain(*args(cpu), **kw(cpu))
+    _close(pooled, want_p)
+    assert float(pooled[:2].abs().max()) == 0.0 or kh  # all-padding rows
+    if with_w:
+        _close(wide, want_w)
+    else:
+        assert wide is None
+    if kh:  # window-start mode: cold keys < H from a snapshot
+        g = torch.Generator().manual_seed(4)
+        snap = {"emb": torch.randn(h, 8, generator=g), "w": torch.randn(h, 1, generator=g)}
+        on["keys"][:, :4] = on["keys"][:, :4].remainder(h)
+        cpu["keys"] = on["keys"].cpu()
+        got = field_pool(*args(on), **kw(on), snap_w=snap["w"].to(dev) if with_w else None,
+                         snap_emb=snap["emb"].to(dev))
+        want = field_pool_plain(*args(cpu), **kw(cpu), snap_w=snap["w"] if with_w else None,
+                                snap_emb=snap["emb"])
+        _close(got[0], want[0])
+
+
+@pytest.mark.parametrize("form", ["dense", "index", "hot-dense", "hot-head-buffer",
+                                  "hot-bf16", "full", "no-w"])
+def test_k8_field_pool_grad_matches_plain(dev, form):
+    """K8's scatter into the [T, D] buffers (dense), K4's [M, D] sums
+    (index) and the hot plane's [H, D] destination, and its log-loss and
+    weight sums, against the plain version (rtol 1e-5, atol 1e-5 of the
+    largest magnitude: atomics add in any order)."""
+    from xflow_tpu_torch.ops.pool import field_pool_grad, field_pool_grad_plain
+
+    hot = form.startswith("hot")
+    h = 1 << 10 if hot else 0
+    on, cpu = _pool_planes(dev, 5, kh=16 if hot else 0, h=h, full=form == "full",
+                           with_w=form != "no-w")
+    b, f, e, t = on["keys"].shape[0], 39, 8, on["emb"].shape[0]
+    rng = np.random.default_rng(6)
+    src = {"dP": rng.standard_normal((b, f, e)).astype(np.float32) * 1e-3,
+           "r": rng.standard_normal(b).astype(np.float32) * 1e-3,
+           "logit": rng.standard_normal(b).astype(np.float32) * 40,
+           "labels": (rng.random(b) < 0.4).astype(np.uint8),
+           "weights": (np.arange(b) < b - 5).astype(np.uint8)}
+    index = form == "index" or form == "hot-head-buffer"
+    results = {}
+    for side, p in (("card", on), ("plain", cpu)):
+        d = p["keys"].device
+        t_ = {n: torch.tensor(a, device=d) for n, a in src.items()}
+        rows = p["keys"].numel() if index else t
+        bufs = {"g_emb": torch.zeros(rows, e, device=d),
+                "g_w": torch.zeros(rows, 1, device=d) if p["w"] is not None else None,
+                "hg_emb": torch.zeros(h, e, device=d) if hot else None,
+                "hg_w": torch.zeros(h, 1, device=d) if hot and p["w"] is not None else None}
+        slots = None
+        if index:
+            # K4's plain plan, the same slots on both sides
+            plan = torch.empty_like(p["keys"].cpu())
+            consolidate_keys_plain(p["keys"].cpu(), t, torch.empty(rows, dtype=torch.int32),
+                                   torch.zeros(1, dtype=torch.int32), plan)
+            slots = plan.to(d)
+        acc = torch.zeros(2, dtype=torch.float64, device=d)
+        fn = field_pool_grad if side == "card" else field_pool_grad_plain
+        fn(p["keys"], p["x"], p["fields"], t_["dP"], t_["r"], t_["logit"], t_["labels"],
+           t_["weights"], f, bufs["g_emb"], acc, g_w=bufs["g_w"], slots=slots,
+           hot=p.get("hot"), hot_x=p.get("hot_x"), hot_fields=p.get("hot_fields"),
+           hot_size=h, hot_bf16=form == "hot-bf16", hg_w=bufs["hg_w"],
+           hg_emb=bufs["hg_emb"])
+        results[side] = (bufs, acc)
+    torch.cuda.synchronize()
+    for name, got in results["card"][0].items():
+        if got is not None:
+            _close(got, results["plain"][0][name])
+    got_acc, want_acc = results["card"][1].cpu(), results["plain"][1]
+    np.testing.assert_allclose(float(got_acc[0]), float(want_acc[0]), rtol=1e-5)
+    assert float(got_acc[1]) == float(want_acc[1])
+
+
+@pytest.mark.parametrize("mode", [
+    {},
+    {"microbatch": 4, "hot_size_log2": 0},
+    {"update_mode": "sparse", "hot_size_log2": 0},
+    {"update_mode": "sequential", "microbatch": 4},
+    {"update_mode": "sequential", "microbatch": 4, "sequential_inner": "sparse"},
+    {"update_mode": "sequential", "microbatch": 4, "sequential_inner": "hot"},
+], ids=["hot-dense", "mb4", "sparse", "hot-seq-dense", "hybrid", "hot-inner"])
+@pytest.mark.parametrize("model", ["wide_deep", "dcn", "two_tower"])
+def test_pooled_modes_on_card_match_cpu(dev, model, mode):
+    """Three steps of a pooled family's TrainStep on the card and on the
+    CPU from the same state: log-losses, tables and dense parameters
+    within _card_vs_cpu's bound."""
+    kw = dict(model=model, table_size_log2=12, max_nnz=24, hot_size_log2=8, hot_nnz=16,
+              batch_size=256, emb_dim=8, hidden_dim=16, max_fields=39,
+              tower_split_field=20, tower_dim=6, sgd_lr=0.05)
+    cfg = Config(**{**kw, **mode})
+    mdl, opt = make_model(cfg), make_optimizer(cfg)
+    cpu_state = init_state(mdl, opt, cfg, torch.device("cpu"))
+    card_state = {"tables": {n: {k: a.to(dev, copy=True) for k, a in t.items()}
+                             for n, t in cpu_state["tables"].items()},
+                  "dense": {k: a.to(dev, copy=True) for k, a in cpu_state["dense"].items()},
+                  "step": 0}
+    steps = {d: TrainStep(mdl, opt, cfg, d) for d in (dev, torch.device("cpu"))}
+    for seed in range(3):
+        batch = _field_batch(seed, 256, cfg.max_nnz, cfg.hot_nnz if cfg.hot_size else 0,
+                             12, cfg.hot_size_log2, 0.6, slot_lo=-2, slot_hi=42)
+        m_card = steps[dev].train(card_state, steps[dev].put_batch(batch))
+        m_cpu = steps[torch.device("cpu")].train(
+            cpu_state, steps[torch.device("cpu")].put_batch(batch))
+        np.testing.assert_allclose(float(m_card["logloss"]), float(m_cpu["logloss"]),
+                                   rtol=1e-5)
+    for n, t in cpu_state["tables"].items():
+        for k, want in t.items():
+            got = card_state["tables"][n][k].cpu()
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                       atol=1e-5 * float(want.abs().max()))
+    for k, want in cpu_state["dense"].items():
+        np.testing.assert_allclose(card_state["dense"][k].cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+
+
+def test_pooled_card_path_runs_kernels_only(dev, monkeypatch):
+    """A wide_deep TrainStep and its predict on the card launch K7 twice
+    and K8 once, never reach a plain version (each replaced by a raise),
+    and leave the float32 matmul flags at their defaults (no TF32)."""
+    import xflow_tpu_torch.ops.pool as pool_mod
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card path")
+
+    monkeypatch.setattr(pool_mod, "field_pool_plain", refuse)
+    monkeypatch.setattr(pool_mod, "field_pool_grad_plain", refuse)
+    cfg = Config(model="wide_deep", table_size_log2=12, max_nnz=24, hot_size_log2=8,
+                 hot_nnz=16, batch_size=256, emb_dim=8, hidden_dim=16, max_fields=39,
+                 microbatch=4)
+    mdl, opt = make_model(cfg), make_optimizer(cfg)
+    state = init_state(mdl, opt, cfg, dev)
+    step = TrainStep(mdl, opt, cfg, dev)
+    before = (pool_mod.field_pool.launches, pool_mod.field_pool_grad.launches,
+              score.launches, train_step.launches)
+    batch = _field_batch(5, 256, cfg.max_nnz, cfg.hot_nnz, 12, cfg.hot_size_log2, 0.6)
+    step.train(state, step.put_batch(batch))
+    pctr = step.predict(state, step.put_batch(batch, predict=True))
+    torch.cuda.synchronize()
+    after = (pool_mod.field_pool.launches, pool_mod.field_pool_grad.launches,
+             score.launches, train_step.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 1, 0, 0)
+    assert bool(torch.isfinite(pctr).all())
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"

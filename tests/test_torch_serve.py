@@ -197,7 +197,10 @@ def test_load_refusals(tmp_path):
         # MVM and FFM serve now (tests/test_torch_mvm.py,
         # tests/test_torch_ffm.py); the tiered store stays refused
         ({"model": "ffm", "store_mode": "tiered", "hot_capacity_log2": 6}, "A11"),
-        ({"model": "two_tower", "max_fields": 8, "tower_split_field": 4}, "A9"),
+        # two_tower serves now (tests/test_torch_topk.py); the tiered
+        # store stays refused
+        ({"model": "two_tower", "max_fields": 8, "tower_split_field": 4,
+          "store_mode": "tiered", "hot_capacity_log2": 6}, "A11"),
     ):
         _rewrite_config(art, cfg.replace(**changes))
         with pytest.raises(NotImplementedError, match=item):

@@ -252,15 +252,16 @@ def test_put_batch_wires_and_num_real(toy_dataset):
     ({"model": "mvm", "num_devices": 2}, "A13"),
     # FFM trains now (tests/test_torch_ffm.py), on one device
     ({"model": "ffm", "num_devices": 2}, "A13"),
-    ({"model": "wide_deep"}, "A9"),
-    ({"model": "two_tower"}, "A9"),
-    ({"model": "dcn"}, "A9"),
+    # wide_deep, two_tower and dcn train now (tests/test_torch_dense_*.py),
+    # on one device, without the tiered store
+    ({"model": "wide_deep", "num_devices": 2}, "A13"),
+    ({"model": "two_tower", "store_mode": "tiered", "hot_capacity_log2": 10}, "A11"),
+    ({"model": "dcn", "input_streams": 2}, "A10"),
 ])
 def test_train_step_refuses_unported(kw, item):
     cfg = Config(**{**_kw("lr", "ftrl", True), **kw})
     with pytest.raises(NotImplementedError, match=item):
-        TrainStep(make_model(cfg) if cfg.model in ("lr", "fm", "mvm", "ffm") else None,
-                  make_optimizer(cfg), cfg, torch.device("cpu"))
+        TrainStep(make_model(cfg), make_optimizer(cfg), cfg, torch.device("cpu"))
 
 
 def test_jax_train_state_converts_both_ways():

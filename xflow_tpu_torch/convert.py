@@ -12,7 +12,10 @@ the sparse forms, ``parallel/step.py::uses_grad_buffer``), and a state
 going out leaves it behind.  A hot-table model's state has the same
 layout (its head is rows [0, H) of each table); its frequency remap
 travels beside the state (``Trainer.remap``, an artifact's
-``remap.npy``).
+``remap.npy``).  The dense (MLP) parameters of wide_deep, dcn and
+two_tower cross by name (the reference's pytree keys: ``w1``, ``b1``,
+``u_w1``, ``cross_w``, ``w_out``...), as float32 arrays of the same
+shapes, in ``state["dense"]`` on both sides.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from xflow_tpu_torch.config import Config
-from xflow_tpu_torch.models import make_model
+from xflow_tpu_torch.models import dense_shapes, make_model
 from xflow_tpu_torch.parallel.step import uses_grad_buffer
 
 
@@ -32,6 +35,7 @@ def state_from_numpy(
     tables: dict[str, Any],
     device: str | torch.device,
     step: int = 0,
+    dense: dict[str, Any] | None = None,
 ) -> dict[str, Any]:
     """The port's state from numpy tables, one per table of ``cfg``'s
     model: each value is a float32 [T, dim] param array, or a dict of
@@ -39,10 +43,13 @@ def state_from_numpy(
     table given as a dict is a train state's: where ``cfg``'s update
     mode keeps one, it also gets the port's zeroed gradient buffer
     ``g``, which ``TrainStep.train`` needs.
-    Refuses a missing, extra or misshapen table.  The tensors are copies
-    (``device="cpu"`` included), so the caller's arrays are never
-    aliased."""
-    specs = make_model(cfg).tables()
+    ``dense`` holds the model's dense parameters by name (exactly its
+    own, each of its init's shape; none for a table-only model).
+    Refuses a missing, extra or misshapen table or dense parameter.  The
+    tensors are copies (``device="cpu"`` included), so the caller's
+    arrays are never aliased."""
+    model = make_model(cfg)
+    specs = model.tables()
     want = {spec.name for spec in specs}
     if set(tables) != want:
         raise ValueError(
@@ -67,7 +74,26 @@ def state_from_numpy(
             out[spec.name][key] = torch.tensor(arr, device=device)
         if isinstance(tables[spec.name], dict) and uses_grad_buffer(cfg):
             out[spec.name]["g"] = torch.zeros(shape, device=device)
-    return {"tables": out, "dense": {}, "step": int(step)}
+    shapes = dense_shapes(model)
+    dense = dense or {}
+    if set(dense) != set(shapes):
+        raise ValueError(f"model {cfg.model!r} has dense parameters {sorted(shapes)}, "
+                         f"got {sorted(dense)}")
+    dense_out = {}
+    for name, arr in dense.items():
+        arr = np.asarray(arr)
+        if arr.shape != shapes[name] or arr.dtype != np.float32:
+            raise ValueError(f"dense {name!r} must be float32 {shapes[name]}, got "
+                             f"{arr.dtype} {arr.shape}")
+        dense_out[name] = torch.tensor(arr, device=device)
+    return {"tables": out, "dense": dense_out, "step": int(step)}
+
+
+def dense_to_numpy(state: dict[str, Any]) -> dict[str, np.ndarray]:
+    """Host copies of a state's dense parameters ({} for a table-only
+    model)."""
+    return {name: t.detach().cpu().numpy().copy()
+            for name, t in state.get("dense", {}).items()}
 
 
 def state_to_numpy(state: dict[str, Any], aux: bool = False) -> dict[str, Any]:

@@ -19,6 +19,14 @@ unclamped sigmoid's (ops/train.py).  On the card the forward runs fused in K1 (o
 the forward + backward + scatter in K2 (ops/train.py); ``logit`` and
 ``grad_logit`` are their plain forms, held against the reference in the
 tests.
+
+``AutodiffModel`` is the reference's base for the families whose
+gradient the reference takes by autodiff and that own dense (MLP)
+parameters: ``wide_deep``, ``dcn`` and ``two_tower``.  They define
+``logit(rows, batch, dense)`` through the pooled embedding tower, and
+``head(dense, pooled, wide)``, the logit from the tower's output; the
+train step runs K7 (ops/pool.py) to the tower, the head under
+``torch.autograd``, and K8 back to the tables.
 """
 
 from __future__ import annotations
@@ -83,3 +91,30 @@ class Model(Protocol):
         self, rows: dict[str, torch.Tensor], batch: BatchArrays
     ) -> dict[str, torch.Tensor]:
         ...
+
+
+class AutodiffModel:
+    """Base of the families with dense (non-table) parameters: the
+    reference's ``AutodiffModel`` (its models/base.py:78-98).  The train
+    step reads ``dense_params`` to run the pooled path (parallel/step.py)
+    and ``autodiff`` for the unclamped residual."""
+
+    #: markers the train step dispatches on
+    autodiff = True
+    dense_params = True
+    uses_slots = True
+
+    def dense_init(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
+        """The dense parameters, float32 on the CPU, drawn from
+        ``generator`` ({} if none)."""
+        return {}
+
+    def head(self, dense: dict, pooled: torch.Tensor,
+             wide: torch.Tensor | None) -> torch.Tensor:
+        """The logit [B] from the pooled tower [B, F, E] and the wide
+        term [B] (None for a family without ``w``)."""
+        raise NotImplementedError
+
+    def logit(self, rows: dict[str, torch.Tensor], batch: BatchArrays,
+              dense: dict | None = None) -> torch.Tensor:
+        raise NotImplementedError

@@ -1,13 +1,19 @@
-"""Model blocks: the reference's models/blocks.py pieces that LR, FM,
-MVM and FFM use, on tensors.
+"""Model blocks: the reference's models/blocks.py pieces, on tensors.
 
 Each body is the reference block's expression, in the same order, so
 the plain path and the reference agree up to float rounding of the
-same sums.  The field-pooling and dense blocks come with their
-families (ROADMAP A9c).
+same sums.  ``field_sum_tower`` is the plain form of K7's tower
+(ops/pool.py, csrc/pool.cu); the dense blocks (``mlp_head``,
+``mlp_tower``, ``dot_interaction``, ``cross_network``) are plain matrix
+products on every device, as the reference leaves them to XLA.  The
+dense inits draw from an explicit ``torch.Generator`` with the
+reference's He scales and key names, so dense state converts by name;
+the draws themselves differ from JAX's PRNG.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -123,3 +129,94 @@ def ffm_field_interaction(
     emask = eslot[None, None, :] == slot[:, :, None]  # [B, K, E]
     diag = torch.sum(torch.where(emask, vx * vx, torch.zeros_like(vx)), dim=(1, 2))
     return 0.5 * (cross - diag)
+
+
+# -- embedding tower ----------------------------------------------------------
+
+
+def field_sum_tower(
+    emb_rows: torch.Tensor,
+    x: torch.Tensor,
+    slots: torch.Tensor,
+    num_fields: int,
+) -> torch.Tensor:
+    """The embedding tower: value-scaled embeddings field-sum-pooled into
+    ``num_fields`` buckets, [B, F, E] from gathered [B, K, E] rows, by
+    the reference's one-hot einsum; a slot whose field lies outside
+    [0, num_fields), negatives included, gets an all-zero one-hot row
+    and drops out (the reference's ``one_hot`` semantics)."""
+    onehot = (
+        slots[..., None] == torch.arange(num_fields, device=slots.device)
+    ).to(x.dtype)  # [B, K, F]; out-of-range fields drop out
+    embx = emb_rows * x[..., None]  # [B, K, E]
+    return torch.einsum("bkf,bke->bfe", onehot, embx)  # [B, F, E]
+
+
+def flatten_tower(field_emb: torch.Tensor) -> torch.Tensor:
+    """[B, F, E] -> [B, F*E]: the tower's dense-layer interface."""
+    return field_emb.reshape(field_emb.shape[0], -1)
+
+
+# -- MLP blocks (dense parameters, plain-SGD updated: parallel/step.py) ------
+
+
+def _he(generator: torch.Generator, shape: tuple, scale: float) -> torch.Tensor:
+    """N(0, 1) * ``scale`` float32 of ``shape``, on the CPU."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32) * scale
+
+
+def mlp_head_init(
+    generator: torch.Generator, in_dim: int, hidden: int
+) -> dict[str, torch.Tensor]:
+    """He-init 2-layer scalar head: in_dim -> hidden (ReLU) -> 1."""
+    return {
+        "w1": _he(generator, (in_dim, hidden), math.sqrt(2.0 / in_dim)),
+        "b1": torch.zeros(hidden, dtype=torch.float32),
+        "w2": _he(generator, (hidden, 1), math.sqrt(1.0 / hidden)),
+        "b2": torch.zeros(1, dtype=torch.float32),
+    }
+
+
+def mlp_head(dense: dict, h: torch.Tensor) -> torch.Tensor:
+    """2-layer ReLU scalar head -> [B]."""
+    h = torch.relu(h @ dense["w1"] + dense["b1"])
+    return (h @ dense["w2"] + dense["b2"])[:, 0]
+
+
+def mlp_tower_init(
+    generator: torch.Generator, in_dim: int, hidden: int, out_dim: int,
+    prefix: str = "",
+) -> dict[str, torch.Tensor]:
+    """He-init 2-layer vector tower: in_dim -> hidden (ReLU) -> out_dim,
+    keys prefixed so two towers share one dense dict (two_tower's
+    ``u_``/``i_`` pair)."""
+    return {
+        f"{prefix}w1": _he(generator, (in_dim, hidden), math.sqrt(2.0 / in_dim)),
+        f"{prefix}b1": torch.zeros(hidden, dtype=torch.float32),
+        f"{prefix}w2": _he(generator, (hidden, out_dim), math.sqrt(1.0 / hidden)),
+        f"{prefix}b2": torch.zeros(out_dim, dtype=torch.float32),
+    }
+
+
+def mlp_tower(dense: dict, h: torch.Tensor, prefix: str = "") -> torch.Tensor:
+    """2-layer ReLU vector tower -> [B, out_dim]."""
+    h = torch.relu(h @ dense[f"{prefix}w1"] + dense[f"{prefix}b1"])
+    return h @ dense[f"{prefix}w2"] + dense[f"{prefix}b2"]
+
+
+def dot_interaction(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Row-wise dot product [B] of two [B, D] tower outputs: the
+    two-tower training logit and the top-k score."""
+    return torch.sum(u * v, dim=-1)
+
+
+def cross_network(
+    x0: torch.Tensor, cross_w: torch.Tensor, cross_b: torch.Tensor
+) -> torch.Tensor:
+    """DCN's cross stack: ``x_{l+1} = x0 * (x_l . w_l) + b_l + x_l`` over
+    ``cross_w [L, P]`` / ``cross_b [L, P]``, in that order."""
+    x = x0
+    for layer in range(cross_w.shape[0]):
+        xw = torch.sum(x * cross_w[layer], dim=-1, keepdim=True)  # [B, 1]
+        x = x0 * xw + cross_b[layer] + x
+    return x

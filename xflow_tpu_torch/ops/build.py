@@ -1,5 +1,7 @@
 """Builds the hand-written CUDA kernels under ``csrc/`` with ``nvcc``
-into shared libraries with a plain C interface, bound with ``ctypes``.
+into shared libraries with a plain C interface, bound with ``ctypes``:
+one library per source — ``score`` (K1), ``train`` (K2), ``optim``
+(K3), ``sparse`` (K4, K5), ``wire`` (K6) and ``pool`` (K7, K8).
 
 A library builds at first use into ``xflow_tpu_torch/_build/`` (listed
 in .gitignore), named by a hash of its source and the flags, so an

@@ -1,6 +1,6 @@
-"""The reference's parallel/step.py for LR, FM, MVM and FFM: the host wire,
-the train step in every update mode, with and without the hot table,
-and the device scoring call.
+"""The reference's parallel/step.py: the host wire, the train step in
+every update mode, with and without the hot table, and the device
+scoring call, for every model family.
 
 The reference jits ``_train_impl`` (step.py:1024-1129) as one XLA
 program.  Here :class:`TrainStep` runs each of its update modes as a
@@ -73,8 +73,31 @@ model with the reference's message (step.py:306-320).
 ``_predict_impl`` (step.py:1516) is :class:`PredictStep`'s one K1
 launch (ops/score.py), shared by all.
 
-State.  ``{"tables": {name: {"param", <aux>..., "g"}}, "dense": {},
-"step": int}``: the reference's layout plus ``g``, the table's gradient
+The pooled families (``wide_deep``, ``dcn``, ``two_tower``: models with
+``dense_params``, B11) run another kernel pair in every place where
+the others run K1 or K2.  Predict: K7 (ops/pool.py ``field_pool``:
+the field-pooled tower [B, F, E] and the wide term), the model's
+``head`` in torch (cuBLAS on the card), ``sigmoid_ref``.  An update
+(the reference's ``grads_from_rows`` autodiff branch, step.py:49-74):
+K7, the head under ``torch.autograd`` with the pooled tower as a leaf,
+the residual r = (sigmoid(logit) - y) * weight / num_real of the
+UNCLAMPED sigmoid (autodiff of ``softplus(logit) - y * logit``; pctr
+and the log-loss keep the clamp), ``torch.autograd.grad`` of the logit
+with ``grad_outputs=r`` to the tower and the dense parameters, then K8
+(``field_pool_grad``) scatters the tower's gradient and x * r into the
+same destinations as K2's (``g`` and its first H rows, K4's slots, the
+head buffers) and sums the log-loss.  The dense parameters then take
+plain SGD at ``sgd_lr`` whatever the table optimizer is
+(``apply_dense_sgd``, step.py:90-97), once per update: per dispatch in
+dense mode (the reference's microbatch scan sums ``grad_dense`` first,
+step.py:1083-1128; the port takes the batch whole), per slice in
+sequential mode (step.py:1310) and per slice of the hot inner's
+window (step.py:1427), where K7 reads cold keys < H from the
+window-start head snapshot.  No step of the head reads a value back to
+the host.
+
+State.  ``{"tables": {name: {"param", <aux>..., "g"}}, "dense": {name:
+tensor}, "step": int}``: the reference's layout plus ``g``, the table's gradient
 buffer, which the port keeps across steps (K3 clears it) where the
 reference allocates a zeroed one per step (step.py:1075-1081); the
 sparse forms keep none (:func:`uses_grad_buffer`).  The consolidation
@@ -122,15 +145,17 @@ import torch
 from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.io.batch import Batch, narrow_keys_i32
 from xflow_tpu_torch.io.compact import CompactBatch, _clamp_slots_u8
-from xflow_tpu_torch.models import PORTED, make_model
+from xflow_tpu_torch.models import make_model
 from xflow_tpu_torch.obs import Obs
 from xflow_tpu_torch.ops.optim import optim_update
+from xflow_tpu_torch.ops.pool import check_pool_slots, field_pool, field_pool_grad
 from xflow_tpu_torch.ops.score import check_ffm_stage, check_mvm_slots, score
 from xflow_tpu_torch.ops.sparse import consolidate_keys, touched_update
 from xflow_tpu_torch.ops.train import train_step
 from xflow_tpu_torch.ops.wire import dict_decode, to_device
+from xflow_tpu_torch.utils.metrics import sigmoid_ref
 
-# {"tables": {name: {"param": [T, D], <aux>, "g"}}, "dense": {}, "step": int}
+# {"tables": {name: {"param": [T, D], <aux>, "g"}}, "dense": {name: tensor}, "step": int}
 State = dict[str, Any]
 
 
@@ -277,8 +302,10 @@ class PredictStep:
             )
         self.compact_wire = cfg.wire_mode != "full" and compact_ok
         self.ship_slots = uses_slots
-        # K1's and K2's form: the family's name (lr, fm, mvm, ffm)
+        # K1's and K2's form: the family's name (lr, fm, mvm, ffm); the
+        # pooled families run K7 and their head instead
         self.form = model.name
+        self.pooled = bool(getattr(model, "dense_params", False))
         self.hot_size = cfg.hot_size
         # hot ids fit u16 with the 0xFFFF sentinel only below 2^15 rows
         self.hot_u16 = bool(cfg.hot_size_log2 and cfg.hot_size_log2 <= 15)
@@ -299,12 +326,23 @@ class PredictStep:
     def predict(self, state: State, arrays: dict[str, torch.Tensor]) -> torch.Tensor:
         """pctr [B] per example (reference calculate_pctr,
         lr_worker.cc:46-61): one K1 launch on the card, the hot plane
-        read beside the cold one, and the field planes for MVM."""
+        read beside the cold one, and the field planes for MVM; for a
+        pooled family K7, the head, the clamp."""
+        if self.pooled:
+            with torch.no_grad():
+                pooled, wide = self.pool(state, arrays)
+                return sigmoid_ref(self.model.head(state["dense"], pooled, wide))
         w, v = (param(state["tables"], n) for n in ("w", "v"))
         return score(arrays["ckeys"], arrays.get("x"), w, v,
                      hot=arrays.get("hot"), hot_x=arrays.get("hot_x"),
                      hot_size=self.hot_size, hot_bf16=self.hot_bf16,
                      **self.form_args(arrays))
+
+    def pool(self, state: State, arrays: dict[str, torch.Tensor]):
+        """K7 over ``arrays``' planes: (pooled [B, F, E], wide [B] or
+        None)."""
+        return pool_view(state["tables"], arrays, self.cfg.max_fields, self.hot_size,
+                         self.hot_bf16)
 
     def form_args(self, arrays: dict[str, torch.Tensor]) -> dict:
         """K1's and K2's form and, in the field forms (MVM, FFM), the
@@ -313,6 +351,19 @@ class PredictStep:
             return {"form": self.form}
         return {"form": self.form, "fields": arrays["fields"],
                 "hot_fields": arrays.get("hot_fields"), "max_fields": self.cfg.max_fields}
+
+
+def pool_view(tables: dict, view: dict, max_fields: int, hot_size: int, hot_bf16: bool,
+              snaps: dict | None = None):
+    """K7 (``field_pool``) over a view's planes and the tables' ``emb``
+    and ``w`` (None for two_tower), cold keys < H read from the head
+    ``snaps`` when given."""
+    snaps = snaps or {}
+    return field_pool(view["ckeys"], view.get("x"), view["fields"],
+                      tables["emb"]["param"], max_fields, w=param(tables, "w"),
+                      hot=view.get("hot"), hot_x=view.get("hot_x"),
+                      hot_fields=view.get("hot_fields"), hot_size=hot_size,
+                      hot_bf16=hot_bf16, snap_w=snaps.get("w"), snap_emb=snaps.get("emb"))
 
 
 def param(tables: dict, name: str) -> torch.Tensor | None:
@@ -324,11 +375,14 @@ def param(tables: dict, name: str) -> torch.Tensor | None:
 def table_generator(seed: int, index: int, device: torch.device) -> torch.Generator:
     """The init stream of table ``index``: one generator per table, from
     ``(seed, index)`` (the reference folds the index into its PRNG key,
-    step.py:114)."""
+    step.py:114); index 1000 seeds the dense parameters (step.py:128)."""
     mixed = np.random.SeedSequence([int(seed) & 0xFFFFFFFF, index])
     return torch.Generator(device=device).manual_seed(
         int(mixed.generate_state(1, dtype=np.uint64)[0])
     )
+
+
+DENSE_STREAM = 1000  # the reference's fold_in(PRNGKey(seed), 1000)
 
 
 def sparse_update(cfg: Config) -> bool:
@@ -362,7 +416,11 @@ def init_state(model, optimizer, cfg: Config, device: torch.device) -> State:
         tables[spec.name] = {"param": param, **optimizer.init_aux(param)}
         if uses_grad_buffer(cfg):
             tables[spec.name]["g"] = torch.zeros_like(param)
-    return {"tables": tables, "dense": {}, "step": 0}
+    dense = {}
+    if hasattr(model, "dense_init"):
+        gen = table_generator(cfg.seed, DENSE_STREAM, torch.device("cpu"))
+        dense = {k: t.to(device) for k, t in model.dense_init(gen).items()}
+    return {"tables": tables, "dense": dense, "step": 0}
 
 
 def check_servable(cfg: Config) -> None:
@@ -372,9 +430,10 @@ def check_servable(cfg: Config) -> None:
         raise NotImplementedError(
             "store_mode='tiered' is not ported yet (ROADMAP A11)"
         )
-    if cfg.model not in PORTED:
-        make_model(cfg)  # raises NotImplementedError naming the item
+    model = make_model(cfg)  # refuses an invalid family geometry
     slots = cfg.max_nnz + (cfg.hot_nnz if cfg.hot_size else 0)
+    if getattr(model, "dense_params", False):
+        check_pool_slots(slots)
     if cfg.model == "mvm":
         check_mvm_slots(slots)
     if cfg.model == "ffm":
@@ -466,12 +525,15 @@ class TrainStep:
         self.hot_bf16 = hot_bf16(cfg)
         self.window = hot_window(cfg)
         self.windowend = hot_windowend(cfg)
-        # the plain dense step of an autodiff model (FFM) takes the batch
-        # in `microbatch` row ranges, bounding its [B, K, F*D] and
-        # [B, F, F*D] intermediates as the reference's dense microbatch
-        # does (ops/train.py); the kernel reads no such argument
+        self.pooled = self.predict_step.pooled
+        # FFM's plain dense step takes the batch in `microbatch` row
+        # ranges, bounding its [B, K, F*D] and [B, F, F*D] intermediates
+        # as the reference's dense microbatch does (ops/train.py); the
+        # kernel reads no such argument.  A pooled family takes the view
+        # whole on either device.
         self.row_chunks = (cfg.microbatch if cfg.update_mode == "dense"
-                           and getattr(model, "autodiff", False) else 1)
+                           and getattr(model, "autodiff", False) and not self.pooled
+                           else 1)
         self._scratch: dict[str, Any] = {}
 
     @property
@@ -608,13 +670,13 @@ class TrainStep:
         # float64: every K2 launch of the step adds its block partials here
         acc = torch.zeros(2, dtype=torch.float64, device=self.device)
         if self.window:
-            self._train_window(tables, arrays, acc)
+            self._train_window(tables, arrays, acc, state["dense"])
         elif self.slices > 1:
             # sequential: each slice is a whole update at its own num_real
             for view, num_real in self._slice_views(arrays):
-                self._update(tables, view, num_real, acc)
+                self._update(tables, view, num_real, acc, state["dense"])
         else:
-            self._update(tables, arrays, arrays["num_real"], acc)
+            self._update(tables, arrays, arrays["num_real"], acc, state["dense"])
         state["step"] += 1
         return {"logloss": acc[0] / torch.clamp(acc[1], min=1.0), "count": acc[1]}
 
@@ -626,29 +688,42 @@ class TrainStep:
             yield {name: a[k * rows:(k + 1) * rows] for name, a in arrays.items()
                    if isinstance(a, torch.Tensor)}, num_real
 
+    def _dense_sgd(self, dense: dict | None, grad_dense: dict | None) -> None:
+        """The reference's ``apply_dense_sgd``: p - lr * g, in place."""
+        if grad_dense:
+            lr = self.cfg.sgd_lr
+            for name, p in dense.items():
+                p.sub_(lr * grad_dense[name])
+
     def _update(self, tables: dict, view: dict, num_real: float,
-                acc: torch.Tensor) -> None:
+                acc: torch.Tensor, dense: dict | None = None) -> None:
         """One optimizer application over ``view`` (the batch, or one
         sequential slice), every gradient divided by ``num_real``: the
         touched-rows form (K4, K2 in index mode, K5 per table, and with
         a hot plane the hybrid's head step), or the dense form (K2 into
         ``g``, hot gradients into its first H rows, then K3 per
-        table)."""
+        table); a pooled family runs K7 and K8 where K2 runs, and its
+        ``dense`` parameters take one SGD step."""
         if self.sparse:
-            self._touched_rows(tables, view, num_real, acc)
-            return
-        grads = {n: t["g"] for n, t in tables.items()}
-        self._k2(tables, view, num_real, acc, grads,
-                 heads={n: g[:self.hot_size] for n, g in grads.items()})
-        for table in tables.values():
-            optim_update(table, self.optimizer)
+            grad_dense = self._touched_rows(tables, view, num_real, acc, dense)
+        else:
+            grads = {n: t["g"] for n, t in tables.items()}
+            grad_dense = self._k2(tables, view, num_real, acc, grads,
+                                  heads={n: g[:self.hot_size] for n, g in grads.items()},
+                                  dense=dense)
+            for table in tables.values():
+                optim_update(table, self.optimizer)
+        self._dense_sgd(dense, grad_dense)
 
     def _k2(self, tables: dict, view: dict, num_real: float, acc: torch.Tensor,
             grads: dict, slots: torch.Tensor | None = None,
-            heads: dict | None = None, snaps: dict | None = None) -> None:
+            heads: dict | None = None, snaps: dict | None = None,
+            dense: dict | None = None) -> dict | None:
         """One K2 launch over ``view``: cold gradients into ``grads``
         (at ``slots`` in index mode), the hot plane's into ``heads``,
-        cold keys < H read from ``snaps`` when given."""
+        cold keys < H read from ``snaps`` when given.  A pooled family
+        runs :meth:`_pooled_grads` instead and returns the dense
+        parameters' gradients."""
         if "labels_u8" in view:
             labels, weights = view["labels_u8"], view["weights_u8"]
         else:
@@ -656,6 +731,9 @@ class TrainStep:
         hot = view.get("hot")
         heads = heads if hot is not None else {}
         snaps = snaps or {}
+        if self.pooled:
+            return self._pooled_grads(tables, view, labels, weights, num_real, acc,
+                                      grads, slots, heads, dense, snaps)
         train_step(
             view["ckeys"], view.get("x"), labels, weights, num_real,
             param(tables, "w"), param(tables, "v"),
@@ -665,9 +743,37 @@ class TrainStep:
             snap_w=snaps.get("w"), snap_v=snaps.get("v"),
             row_chunks=self.row_chunks, **self.predict_step.form_args(view),
         )
+        return None
+
+    def _pooled_grads(self, tables: dict, view: dict, labels, weights,
+                      num_real: float, acc: torch.Tensor, grads: dict,
+                      slots: torch.Tensor | None, heads: dict, dense: dict,
+                      snaps: dict) -> dict:
+        """A pooled family's forward and backward over ``view`` (module
+        docstring): K7, the head under autograd, the unclamped residual,
+        K8 into ``grads`` (at ``slots`` in index mode) and ``heads``;
+        returns the dense parameters' gradients.  ``snaps`` (the hot
+        inner) hold the window-start head K7 reads cold keys < H from."""
+        pooled, wide = pool_view(tables, view, self.cfg.max_fields, self.hot_size,
+                                 self.hot_bf16, snaps)
+        leaf = pooled.requires_grad_(True)
+        params = {k: p.detach().requires_grad_(True) for k, p in dense.items()}
+        with torch.enable_grad():
+            logit = self.model.head(params, leaf, wide)
+        with torch.no_grad():
+            r = ((torch.sigmoid(logit) - labels.to(torch.float32))
+                 * weights.to(torch.float32) / num_real)
+        got = torch.autograd.grad(logit, [leaf, *params.values()], grad_outputs=r)
+        field_pool_grad(
+            view["ckeys"], view.get("x"), view["fields"], got[0].contiguous(), r,
+            logit.detach(), labels, weights, self.cfg.max_fields, grads["emb"], acc,
+            g_w=grads.get("w"), slots=slots, hot=view.get("hot"), hot_x=view.get("hot_x"),
+            hot_fields=view.get("hot_fields"), hot_size=self.hot_size,
+            hot_bf16=self.hot_bf16, hg_w=heads.get("w"), hg_emb=heads.get("emb"))
+        return dict(zip(params, got[1:]))
 
     def _touched_rows(self, tables: dict, view: dict, num_real: float,
-                      acc: torch.Tensor) -> None:
+                      acc: torch.Tensor, dense: dict | None = None) -> dict | None:
         """K4 over the view's cold keys, K2 in index mode into the
         per-table ``gsum``, then K5 per table: the optimizer on the
         touched rows.  The last table's K5 resets the slot map.  With a
@@ -683,7 +789,8 @@ class TrainStep:
                          scratch["slot_map"])
         gsum = {n: g[:m] for n, g in scratch["gsum"].items()}
         heads = self._heads(tables) if "hot" in view else None
-        self._k2(tables, view, num_real, acc, gsum, slots=slots, heads=heads)
+        grad_dense = self._k2(tables, view, num_real, acc, gsum, slots=slots, heads=heads,
+                              dense=dense)
         names = list(tables)
         for name in names:
             touched_update(
@@ -694,14 +801,16 @@ class TrainStep:
         if heads:
             for name in names:
                 self._head_step(tables[name], heads[name])
+        return grad_dense
 
-    def _train_window(self, tables: dict, arrays: dict, acc: torch.Tensor) -> None:
+    def _train_window(self, tables: dict, arrays: dict, acc: torch.Tensor,
+                      dense: dict | None = None) -> None:
         """The hot inner's dispatch window (the reference's
         ``_train_sequential_hot``, step.py:1327-1497): ``window_open``,
         ``window_slice`` per slice in order, ``window_close``."""
         window = self.window_open(tables, arrays)
         for k, (view, num_real) in enumerate(self._slice_views(arrays)):
-            self.window_slice(tables, window, k, view, num_real, acc)
+            self.window_slice(tables, window, k, view, num_real, acc, dense)
         self.window_close(tables, window)
 
     def window_open(self, tables: dict, arrays: dict) -> dict:
@@ -734,17 +843,19 @@ class TrainStep:
         return window
 
     def window_slice(self, tables: dict, window: dict, k: int, view: dict,
-                     num_real: float, acc: torch.Tensor) -> None:
+                     num_real: float, acc: torch.Tensor, dense: dict | None = None) -> None:
         """Slice ``k`` of the window: K2 (the hot plane on the live head
         into the head buffers, cold keys < H from the snapshot, the cold
-        gradients accumulated into the window's buffers), then K3 over
-        rows [0, H) per table."""
+        gradients accumulated into the window's buffers; K7 and K8 for a
+        pooled family), then K3 over rows [0, H) per table, and the
+        dense parameters' SGD step."""
         rows = window["rows"]
         slots = window["slots"][k * rows:(k + 1) * rows] if "slots" in window else None
-        self._k2(tables, view, num_real, acc, window["cold"], slots=slots,
-                 heads=window["heads"], snaps=window["snaps"])
+        grad_dense = self._k2(tables, view, num_real, acc, window["cold"], slots=slots,
+                              heads=window["heads"], snaps=window["snaps"], dense=dense)
         for name, table in tables.items():
             self._head_step(table, window["heads"][name])
+        self._dense_sgd(dense, grad_dense)
 
     def window_close(self, tables: dict, window: dict) -> None:
         """Close the window: the cold gradients go in one pass, K5 over

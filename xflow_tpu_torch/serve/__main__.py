@@ -1,12 +1,17 @@
-"""CLI: ``python -m xflow_tpu_torch.serve <score|bench> ARTIFACT``
+"""CLI: ``python -m xflow_tpu_torch.serve <score|bench|index> ARTIFACT``
 
     score   ARTIFACT --input FILE     pctr per libffm line (stdout/--out)
     bench   ARTIFACT [--requests N]   closed-loop concurrent load through
                                       one MicroBatcher; prints a JSON
                                       summary with queue/featurize/
                                       device/e2e p50+p99
+    index   ARTIFACT --input FILE     build the serve-time item index of
+                                      a retrieval (two_tower) artifact
+                                      from libffm lines (the reference's
+                                      ``index``; serve.artifact.
+                                      export_item_index)
 
-Both run on the card (``--device cuda``, the default) unless
+All run on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given; with no card, the default refuses to start.
 The HTTP and binary serving tiers, the fleet and the load generator
 come with ROADMAP A7.
@@ -62,6 +67,38 @@ def cmd_score(args) -> int:
     finally:
         if args.out:
             out.close()
+    return 0
+
+
+def cmd_index(args) -> int:
+    """Build the serve-time item index beside a retrieval artifact from
+    libffm lines: each line's item-side features (fields >= the
+    artifact's tower_split_field) become one catalog item, deduplicated
+    by feature set, embedded through the item tower (K7 and the tower on
+    the card), and frozen by serve.artifact.export_item_index."""
+    from xflow_tpu_torch.io.loader import make_parse_fn
+    from xflow_tpu_torch.serve.artifact import export_item_index, item_catalog_from_block
+    from xflow_tpu_torch.serve.engine import PredictEngine
+
+    engine = PredictEngine.load(args.artifact, device=args.device,
+                                buckets=_buckets(args.buckets), warm=False)
+    cfg = engine.cfg
+    parse = make_parse_fn(cfg.table_size, cfg.hash_mode, cfg.seed,
+                          prefer_native=cfg.native_parser)
+    src = open(args.input, "rb") if args.input else sys.stdin.buffer
+    try:
+        block = parse(src.read())
+    finally:
+        if args.input:
+            src.close()
+    items = item_catalog_from_block(block, cfg.tower_split_field, args.max_items)
+    if not items:
+        print("error: no item-side features found (fields >= "
+              f"tower_split_field={cfg.tower_split_field})", file=sys.stderr)
+        return 1
+    meta = export_item_index(engine, args.artifact, items)
+    print(json.dumps({"artifact": args.artifact, "items": meta["count"],
+                      "dim": meta["dim"], "servable": meta["servable"]}, sort_keys=True))
     return 0
 
 
@@ -184,9 +221,20 @@ def main(argv: list[str] | None = None) -> int:
     pb.add_argument("--nnz", type=int, default=16, help="features/request")
     pb.add_argument("--seed", type=int, default=0)
 
+    pi = sub.add_parser("index", help="build a retrieval artifact's item index")
+    common(pi)
+    pi.add_argument("--input", default="",
+                    help="libffm file of item rows (default stdin); item-side "
+                    "features (fields >= the artifact's tower_split_field) are "
+                    "deduplicated into the catalog")
+    pi.add_argument("--max-items", type=int, default=0,
+                    help="cap the catalog size (0 = no cap)")
+
     args = p.parse_args(argv)
     if args.cmd == "score":
         return cmd_score(args)
+    if args.cmd == "index":
+        return cmd_index(args)
     return cmd_bench(args)
 
 

@@ -7,24 +7,33 @@ reference (its serve/engine.py):
 
 * **Shape buckets.**  Every request batch is padded onto a small fixed
   set of batch-size buckets (default 1/8/64/512) so the device only ever
-  sees ``len(buckets)`` shapes.  ``compile_count`` counts the distinct
-  bucket shapes run so far: after ``warm()`` it equals ``len(buckets)``
-  and must stay there under any traffic mix.  Eager PyTorch compiles
+  sees ``len(buckets)`` shapes per leg.  ``compile_count`` counts the
+  distinct (leg, bucket shape) pairs run so far, as the reference keys
+  its executables: after ``warm()`` it equals ``len(buckets)`` per warmed
+  leg (predict, and top-k with an item index attached) and must stay
+  there under any traffic mix and any ``k``.  Eager PyTorch compiles
   nothing, but the invariant is what a captured CUDA graph per bucket
   will need.
 * **Digest-checked identity.**  ``load`` refuses an artifact whose
   manifest digest doesn't match its embedded config, or the caller's
   expected config.
 
-One predict call is one K1 launch (ops/score.py).  The engine runs on
+One predict call is one K1 launch (ops/score.py); for wide_deep, dcn
+and two_tower one K7 launch (ops/pool.py) and the dense head on
+cuBLAS, with the artifact's dense parameters.  A retrieval model
+(two_tower) also serves top-k: ``attach_item_index`` puts an item index
+[N, index_dim] on the card (``load`` attaches the artifact's own), and
+``topk`` runs K7, the user tower and one dot-product scan ``u @
+index.T`` per bucket, then a stable descending sort, so tied scores
+keep the lower index first as ``lax.top_k`` does.  The engine runs on
 the card unless the caller passes ``device="cpu"``
 (device.py::resolve_device).  A hot-table model needs its frequency
 remap (the artifact's ``remap.npy``): request rows arrive in the raw
 hash key space and are remapped and steered into the hot and cold
 planes before scoring (io/batch.py::remap_batch), and a hot model
 without its remap is refused, as the reference refuses it.  The tiered
-store and the four other families are refused at load with the
-ROADMAP item that ports them; the failpoints and flight recorder come
+store is refused at load with the
+ROADMAP item that ports it; the failpoints and flight recorder come
 with ROADMAP A14.
 """
 
@@ -47,6 +56,7 @@ from xflow_tpu_torch.parallel.step import (
 )
 
 DEFAULT_BUCKETS = (1, 8, 64, 512)
+DEFAULT_TOPK = 16
 
 
 def _slice_rows(batch: Batch, start: int, stop: int) -> Batch:
@@ -99,10 +109,16 @@ class PredictEngine:
             raise ValueError(f"bucket sizes must be >= 1, got {raw}")
         self.buckets = tuple(sorted(set(raw)))
         self.state = self._strip_state(state)
-        # Distinct (rows, nnz) shapes run so far.  SHARED across
+        # Distinct (leg, rows, nnz) shapes run so far.  SHARED across
         # ``clone()`` replicas, so compile_count counts fleet-wide.
-        self._shapes: set[tuple[int, int]] = set()
+        self._shapes: set[tuple[str, int, int]] = set()
         self._parse_fn = None
+        # the serve-time item index (retrieval families): attached by
+        # ``load`` from the artifact's item_index.* files or by
+        # ``attach_item_index``; ``topk`` refuses until one is
+        self.item_index: dict | None = None
+        self._index_arr: torch.Tensor | None = None
+        self.topk_k = 0
         if warm:
             self.warm()
 
@@ -120,13 +136,21 @@ class PredictEngine:
         device: str | torch.device = "cuda",
         buckets: Sequence[int] | None = None,
         warm: bool = True,
+        topk_k: int | None = None,
     ) -> "PredictEngine":
         """Load an exported artifact onto ``device`` (the card unless
-        ``"cpu"`` is asked for).  ``config``, when given, is the
-        caller's expectation: its digest must equal the artifact's or
-        the load is refused (never score through the wrong model)."""
+        ``"cpu"`` is asked for), with its dense parameters and, when it
+        holds one, its item index (``topk_k`` wide).  ``config``, when
+        given, is the caller's expectation: its digest must equal the
+        artifact's or the load is refused (never score through the
+        wrong model)."""
         from xflow_tpu_torch.convert import state_from_numpy
-        from xflow_tpu_torch.serve.artifact import load_manifest, load_remap
+        from xflow_tpu_torch.serve.artifact import (
+            load_dense,
+            load_item_index,
+            load_manifest,
+            load_remap,
+        )
         from xflow_tpu_torch.utils.checkpoint import RangeReader
 
         dev = resolve_device(device)
@@ -151,11 +175,18 @@ class PredictEngine:
                 directory, key, tuple(meta["shape"]), np.dtype(meta["dtype"])
             )
             tables[spec.name] = reader.read()
-        state = state_from_numpy(cfg, tables, dev, step=manifest["step"])
-        return cls(
-            cfg, state, device=dev, buckets=buckets, digest=digest, warm=warm,
+        state = state_from_numpy(cfg, tables, dev, step=manifest["step"],
+                                 dense=load_dense(directory, manifest))
+        engine = cls(
+            cfg, state, device=dev, buckets=buckets, digest=digest, warm=False,
             remap=load_remap(directory, manifest),
         )
+        index = load_item_index(directory)
+        if index is not None:
+            engine.attach_item_index(index, topk_k=topk_k)
+        if warm:  # after the index attach, so the top-k buckets warm too
+            engine.warm()
+        return engine
 
     def clone(self) -> "PredictEngine":
         """A replica view over the SAME weights and the SAME shape set —
@@ -170,6 +201,9 @@ class PredictEngine:
             remap=self.remap,
         )
         replica._shapes = self._shapes
+        replica.item_index = self.item_index
+        replica._index_arr = self._index_arr
+        replica.topk_k = self.topk_k
         return replica
 
     @staticmethod
@@ -184,15 +218,25 @@ class PredictEngine:
             "step": state.get("step", 0),
         }
 
+    @property
+    def servable_digest(self) -> str:
+        """Identity of the served (config, train step) point
+        (serve/artifact.py::servable_digest)."""
+        from xflow_tpu_torch.serve.artifact import servable_digest
+
+        return servable_digest(self.digest, int(self.state["step"]))
+
     # -- warmup ------------------------------------------------------------
 
     def warm(self) -> float:
-        """Run every bucket once (one all-padding batch each), so every
-        serving shape has run before the first request; returns the
-        seconds."""
+        """Run every bucket once (one all-padding batch each), and with
+        an item index attached every top-k bucket too, so every serving
+        shape has run before the first request; returns the seconds."""
         t0 = time.perf_counter()
         for b in self.buckets:
             self.predict(self._empty_batch(b))
+            if self._index_arr is not None:
+                self.topk(self._empty_batch(b))
         return time.perf_counter() - t0
 
     def _empty_batch(self, rows: int) -> Batch:
@@ -285,6 +329,112 @@ class PredictEngine:
             out.append(self.predict(raw))
         return np.concatenate(out)
 
+    # -- retrieval: item index + top-k --------------------------------------
+
+    def attach_item_index(self, index: dict, topk_k: int | None = None) -> None:
+        """Arm the top-k mode with an item index (serve/artifact.py::
+        load_item_index's dict, or any dict with ``item_index`` [N, D]
+        and ``item_ids`` [N]): the scan operand goes to the device once;
+        ``topk_k`` fixes the result width (DEFAULT_TOPK, capped at N)."""
+        if not hasattr(self.model, "user_embed"):
+            raise ValueError(
+                f"model {self.cfg.model!r} has no user tower "
+                "(models/__init__.py registry: retrieval=False) — "
+                "top-k retrieval needs a two-tower-factored family"
+            )
+        emb = np.asarray(index["item_index"], np.float32)
+        if emb.ndim != 2 or not len(emb):
+            raise ValueError(f"item index must be [N, index_dim], got {emb.shape}")
+        want = self.model.index_dim
+        if emb.shape[1] != want:
+            raise ValueError(
+                f"item index rows are {emb.shape[1]} wide but model "
+                f"{self.cfg.model!r} scans {want} lanes (tower_dim "
+                f"{self.cfg.tower_dim} + 2 bias lanes) — the index was "
+                "exported from a different tower geometry; re-run "
+                "export_item_index"
+            )
+        self.item_index = dict(index)
+        self.item_index["ids_order"] = np.argsort(np.asarray(index["item_ids"]),
+                                                  kind="stable")
+        self._index_arr = torch.tensor(emb, device=self.device)
+        self.topk_k = min(topk_k if topk_k is not None else DEFAULT_TOPK, len(emb))
+        if self.topk_k < 1:
+            raise ValueError("topk_k must be >= 1")
+
+    def _tower_run(self, leg: str, batch: Batch) -> torch.Tensor:
+        """One prepared bucket-sized batch through K7 and a tower (the
+        user tower for ``leg="topk"``, the item tower for
+        ``"item_embed"``): [B, index_dim] on the device."""
+        arrays = self.step.put_batch(batch)
+        self._shapes.add((leg, batch.batch_size, batch.max_nnz))
+        with torch.no_grad():
+            pooled, _ = self.step.pool(self.state, arrays)
+            tower = (self.model.user_from_pooled if leg == "topk"
+                     else self.model.item_from_pooled)
+            return tower(self.state["dense"], pooled)
+
+    def topk_prepared(self, batch: Batch) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(item_ids [B, topk_k], scores [B, topk_k], user_emb [B, D])
+        for one already-prepared bucket-sized batch: K7, the user
+        tower, the scan against the index, a stable descending sort (a
+        tie keeps the lower index first, as ``lax.top_k``)."""
+        if self._index_arr is None:
+            raise ValueError(
+                "top-k refused: no item index attached — export one "
+                "with serve.artifact.export_item_index (retrieval "
+                "families only) or attach_item_index(...)"
+            )
+        u = self._tower_run("topk", batch)
+        with torch.no_grad():
+            scores = u @ self._index_arr.T  # [B, N]
+            vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+            vals, idx = vals[:, :self.topk_k], idx[:, :self.topk_k]
+        idx = idx.cpu().numpy()
+        return self.item_index["item_ids"][idx], vals.cpu().numpy(), u.cpu().numpy()
+
+    def topk(self, batch: Batch, k: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+        """(item_ids [B, k], scores [B, k]) for an externally built
+        raw-key-space batch of user-side features.  Any batch size
+        (padded and chunked like ``predict``); any ``k <= topk_k``
+        slices the one result width, so mixed-k traffic adds no shape."""
+        kk = self.topk_k if k is None else int(k)
+        if kk < 1 or kk > self.topk_k:
+            raise ValueError(
+                f"k={kk} outside (0, topk_k={self.topk_k}] — the "
+                "engine serves ONE top-k width; raise topk_k at "
+                "load/attach time for deeper candidate sets"
+            )
+        n = batch.batch_size
+        batch = self._prepare(batch)
+        cap = self.buckets[-1]
+        ids_out, score_out = [], []
+        for s in range(0, n, cap):
+            e = min(s + cap, n)
+            chunk = pad_batch_rows(_slice_rows(batch, s, e), self.bucket_for(e - s))
+            ids, vals, _ = self.topk_prepared(chunk)
+            ids_out.append(ids[: e - s, :kk])
+            score_out.append(vals[: e - s, :kk])
+        return np.concatenate(ids_out), np.concatenate(score_out)
+
+    def item_embeddings(self, rows: Sequence) -> np.ndarray:
+        """Item-tower embeddings [len(rows), index_dim] for
+        featurize_raw-protocol catalog rows: export_item_index's compute
+        leg, bucket-chunked."""
+        if not hasattr(self.model, "item_embed"):
+            raise ValueError(
+                f"model {self.cfg.model!r} has no item tower "
+                "(registry: retrieval=False)"
+            )
+        cap = self.buckets[-1]
+        out = []
+        for s in range(0, len(rows), cap):
+            chunk = rows[s:s + cap]
+            b = pad_batch_rows(self._prepare(self.featurize_raw(chunk)),
+                               self.bucket_for(len(chunk)))
+            out.append(self._tower_run("item_embed", b).cpu().numpy()[: len(chunk)])
+        return np.concatenate(out)
+
     # -- predict -----------------------------------------------------------
 
     def _prepare(self, batch: Batch) -> Batch:
@@ -350,5 +500,5 @@ class PredictEngine:
             # a value-carrying request would score with vals=1
             validate_compact_batch(batch)
         arrays = self.step.put_batch(batch)
-        self._shapes.add((batch.batch_size, batch.max_nnz))
+        self._shapes.add(("predict", batch.batch_size, batch.max_nnz))
         return self.step.predict(self.state, arrays).cpu().numpy()

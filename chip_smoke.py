@@ -53,16 +53,29 @@ Phases, in order; any failure raises and the exit code is 1:
    sigmoid's slope (and the 1e-6 step of the -30 clamp when the logit
    lies within that bound of it); the same for the log-loss sum; the
    weight sum (count) is exact;
+6b. K2's LR/FM form, which sums repeated destinations in a block's
+   shared-memory table first (csrc/train.cu), within the same bounds
+   at T=2^20 on the batches that stress the table: one key in every
+   row and in every live slot, uniform keys whose distinct rows
+   overflow every block's table (LR and FM; the phase asserts from the
+   card's launch shape that some block takes the direct-to-global
+   path), v widths 4, 24 and 33 (the table on at
+   CAP 8 and 32; off for tiles), and the hot plane (u16 and int32, the
+   dense, hybrid and window forms, bf16);
 7. hold K3 (ops/optim.py, csrc/optim.cu) against its plain version on
-   the card at T=2^24, D in {1, 10}, FTRL and SGD, with rows never
-   touched (g = 0, n = 0) and |z'| near lambda1.  Tolerances
+   the card at T=2^24, D in {1, 10}, FTRL and SGD, on three gradients:
+   the first quarter of the rows, 2 % of the rows at random (groups
+   straddling rows), and all zero; with rows never touched (n = 0) and
+   |z'| near lambda1.  Every element of a zero 16-byte gradient group
+   (w, n, z and g) must keep every bit (the kernel skips it, even where
+   the random state's w is not FTRL's and the plain version rewrites
+   it); every other element is held to the tolerances
    (k3_tolerances): elementwise float32 rounding bounds — n' 2 ulp
    (FMA contraction of n + g*g), z' 4 ulp of |z| + |g| + |sigma w|
    terms, w' that z' bound over the FTRL denominator plus 4 ulp (the
    soft threshold is continuous in z', so a last-ulp difference at
    |z'| = lambda1 moves w' by at most that much); SGD 2 ulp of
-   |w| + |lr g|.  Untouched rows must keep w exactly, and g == 0
-   afterwards everywhere;
+   |w| + |lr g|.  g == 0 afterwards everywhere;
 8. the training main path on the repo's own CTR traffic
    (scripts/gen_synth.py, copied as xflow_tpu_torch/io/synth.py: 39
    fields, ids zipf(1.2) over 100,000 per field, a planted logistic
@@ -81,10 +94,17 @@ Phases, in order; any failure raises and the exit code is 1:
    steps + eval batches.  After
    the run, K2 is held against its plain version on the path's own
    batches and timed on them (and on the same batches with every
-   repeated key made distinct), and K3 on the trained tables;
+   repeated key made distinct), and K3 on copies of the trained
+   tables with g restored before every call (outside the events) to
+   what one dense K2 launch leaves for the path's first batch: K3
+   skips zero gradient groups, so a pass over the g a step has already
+   cleared would time nothing;
 9. K2 and K3 timings at synthetic shapes (keys uniform and Zipf-like;
-   device time behind ``_sleep``, host path, plain, bounds, library
-   call where one exists) and the ``train`` line, whose device busy
+   K3 on the g one K2 launch leaves for each, and on a g with no zero
+   group; device time behind ``_sleep``, host path, plain, bounds, for
+   K3 the full pass's bound beside this g's, library call where one
+   exists: for SGD ``param.add_`` then ``g.zero_()``, the same work)
+   and the ``train`` line, whose device busy
    share comes from phase 8's and phase 14's kernel times on the paths'
    own inputs;
 10. hold K4 (``consolidate_keys``) and K5 (``touched_update``, both in
@@ -247,7 +267,8 @@ Phases, in order; any failure raises and the exit code is 1:
    slice 0, and the dense batch with every logit below -30 (the
    residual is the unclamped sigmoid's), within ffm_tolerances'
    per-row bound; each timed with its bound; K6 with the field streams
-   (exactly) and K3 on the ``ffm`` path, timed;
+   (exactly) and K3 on the ``ffm`` path, timed on the g one K2 launch
+   leaves for the path's first batch;
 33. K1 and K2 at D = 16 (F = 39) and F = 64 (D = 4), where they run two
    D-tiles, against their plain versions, and timed;
 34. K7 (``field_pool``) and K8 (``field_pool_grad``, ops/pool.py,
@@ -333,6 +354,7 @@ BUCKETS = (1, 8, 64, 512)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, outside the tensor cores
 SECTOR = 32  # bytes: the least a random DRAM read moves
+SECTOR_FLOATS = SECTOR // 4
 PCTR_ATOL = 1e-6
 LOGIT_RTOL = 1e-5
 LOGIT_ATOL = 1e-5
@@ -362,11 +384,12 @@ def card_line() -> str:
     return out[0]
 
 
-def time_host_path_ms(fn, args_list) -> float:
+def time_host_path_ms(fn, args_list, prelude=None) -> float:
     """Median milliseconds of ``fn(*args)`` over ``args_list``, CUDA
     events around each call on an idle stream: the card waits at the
     start event until the host reaches the launch, so this is the
-    device work plus the Python path to it."""
+    device work plus the Python path to it.  ``prelude()``, when given,
+    is enqueued ahead of each call, outside its events."""
     import torch
 
     for args in args_list[:5]:
@@ -374,6 +397,9 @@ def time_host_path_ms(fn, args_list) -> float:
     torch.cuda.synchronize()
     pairs = []
     for args in args_list:
+        if prelude is not None:
+            prelude()
+            torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1103,6 +1129,126 @@ def phase_k2_vs_plain(dev, t_log2: int) -> dict:
                 all_padding_rows=padded_rows, hottest_key_occurrences=max_repeat)
 
 
+def k2_table_cover(keys, d: int, hot=None, hot_size: int = 0, slots=None,
+                   lw_u8: bool = True) -> dict:
+    """How K2's LR/FM form meets this batch in shared memory: the shape
+    it launches with (ops/train.py ``table_shape``) and, per block, the
+    distinct gradient destinations among the rows it walks (cold rows,
+    or K4's slots with ``slots``, and head rows, told apart).  A block
+    with more of them than its table's entries certainly sends some
+    slots down the direct-to-global path; ``blocks_over`` counts those
+    blocks."""
+    import torch
+
+    from xflow_tpu_torch.ops.score import hot_plane_keys
+    from xflow_tpu_torch.ops.train import table_shape
+
+    b, k = keys.shape
+    kh = hot.shape[1] if hot is not None else 0
+    shape = table_shape(b, k, kh, d, lw_u8)
+    block = ((torch.arange(b, device=keys.device) // shape["warps"])
+             % shape["grid"])[:, None]
+    cold = (slots if slots is not None else keys).long()
+    live = (keys >= 0) & (cold >= 0)
+    tags = [(cold * 2)[live]]
+    blocks = [block.expand(-1, k)[live]]
+    if hot is not None:
+        hk = hot_plane_keys(hot, hot_size)
+        tags.append((hk * 2 + 1)[hk >= 0])
+        blocks.append(block.expand(-1, kh)[hk >= 0])
+    pairs = torch.unique(torch.cat(blocks) * (1 << 33) + torch.cat(tags))
+    per_block = torch.bincount(pairs // (1 << 33), minlength=shape["grid"])
+    over = int((per_block > shape["entries"]).sum()) if shape["entries"] else 0
+    return dict(shape, max_destinations_a_block=int(per_block.max()),
+                min_destinations_a_block=int(per_block.min()), blocks_over=over)
+
+
+def one_key_batch(b: int, w, g, dev, full: bool, every_slot: bool):
+    """k2_inputs' uniform batch with key 1000 in slot 0 of every row
+    (live there), or in every live slot: one row that every example of
+    the batch adds into."""
+    import torch
+
+    keys, x, labels, weights, num_real = k2_inputs(b, w, g, dev, full, False)
+    if every_slot:
+        keys = torch.where(keys >= 0, 1000, keys)
+    else:
+        keys[:, 0] = 1000
+        if x is not None:
+            x[:, 0] = torch.where(x[:, 0] > 0, x[:, 0], 1.0)
+    return keys.contiguous(), x, labels, weights, num_real
+
+
+K2_TABLE_DIMS = (4, 24, 33)  # CAP 8 and 32 with the table; tiles, without
+K2_TABLE_T_LOG2 = 20
+
+
+def phase_k2_table(dev) -> dict:
+    """Phase 6b: K2's LR/FM form, its privatised table, against
+    train_plain within phase 6's bounds (check_k2, check_k2_hot) at
+    T = 2^20, B = 65,536: one key in every row and in every live slot
+    (LR, FM, compact and full wire), uniform keys whose distinct rows
+    overflow every block's table (LR and FM), v widths 4, 24
+    (CAP 8 and 32 with the table) and 33 (tiles: the table off), and the
+    hot plane (u16 and int32, a log-uniform head, the dense, hybrid and
+    window forms, bf16 on the dense one).  Asserts that the overflow
+    cases drive the direct-to-global path in some block."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    t = 1 << K2_TABLE_T_LOG2
+    b = TRAIN_BATCHES[-1]
+    worst = {"max_abs_err_g": 0.0, "max_err_over_tol": 0.0,
+             "max_abs_err_logloss_sum": 0.0, "cases": 0}
+    cover = []
+    w = torch.randn((t, 1), generator=g, device=dev) * 0.3
+    v = torch.randn((t, D), generator=g, device=dev) * 0.05
+
+    def case(name, keys, x, labels, weights, num_real, vv):
+        check_k2(name, keys, x, labels, weights, num_real, w, vv, worst)
+        worst["cases"] += 1
+        cover.append(dict(k2_table_cover(keys, vv.shape[1] if vv is not None else 0,
+                                         lw_u8=labels.dtype == torch.uint8), case=name))
+        log(json.dumps(dict(cover[-1], phase="6b")))
+        return cover[-1]
+
+    for mode, vv in (("lr", None), ("fm", v)):
+        for full in (False, True):
+            for every in (False, True):
+                case(f"{mode} {'full' if full else 'compact'} one key in every "
+                     f"{'slot' if every else 'row'}",
+                     *one_key_batch(b, w, g, dev, full, every), vv)
+    for mode, vv in (("lr", None), ("fm", v)):
+        got = case(f"{mode} uniform (overflow)", *k2_inputs(b, w, g, dev, False, False), vv)
+        if not got["blocks_over"]:
+            raise AssertionError(f"phase 6b: {mode}'s uniform batch fit every table: {got}")
+    for d in K2_TABLE_DIMS:
+        vd = torch.randn((t, d), generator=g, device=dev) * 0.05
+        for name, batch in (("zipf", k2_inputs(b, w, g, dev, False, True)),
+                            ("one key in every row", one_key_batch(b, w, g, dev, False,
+                                                                   False))):
+            case(f"fm D={d} {name}", *batch, vd)
+        del vd
+    # the hot plane: 12 cold slots and 32 hot ones over H = 2^14
+    h = 1 << 14
+    tables = {"w": {"param": w}, "v": {"param": v}}
+    for u16 in (True, False):
+        keys, _, labels, weights, num_real = k2_inputs(b, w, g, dev, False, True)
+        arrays = {"ckeys": keys[:, :12].contiguous(), "labels_u8": labels,
+                  "weights_u8": weights, "num_real": num_real,
+                  "hot": hot_keys(b, 32, h, g, dev, u16)}
+        for form in ("dense", "hybrid", "window"):
+            name = f"hot {'u16' if u16 else 'int32'} {form}"
+            check_k2_hot(name, form, arrays, tables, h, worst)
+            if form == "dense":
+                check_k2_hot(name + " bf16", form, arrays, tables, h, worst, bf16=True)
+        cover.append(dict(k2_table_cover(arrays["ckeys"], D, arrays["hot"], h),
+                          case=f"hot {'u16' if u16 else 'int32'} dense"))
+        log(json.dumps(dict(cover[-1], phase="6b")))
+    del w, v, tables
+    return dict(worst, table_cover=cover)
+
+
 def k3_tolerances(table: dict, new_n, opt) -> dict:
     """Elementwise tolerances for K3 against its plain version (module
     docstring, phase 7), from the inputs and the plain n'."""
@@ -1121,64 +1267,113 @@ def k3_tolerances(table: dict, new_n, opt) -> dict:
     return {"n": tol_n, "z": tol_z, "param": (tol_z + 2 * EPS32 * opt.lambda1) / denom}
 
 
-def phase_k3_vs_plain(dev, t_log2: int) -> dict:
-    """Phase 7: K3 against optim_plain at D in {1, 10}, FTRL and SGD."""
+def k3_untouched(g):
+    """Elementwise: True where the element's 16-byte group of ``g`` is
+    +0.0 bit for bit, which K3 leaves as it is (csrc/optim.cu)."""
+    import torch
+
+    groups = g.reshape(-1).view(torch.int32).view(-1, 4)
+    return (groups == 0).all(dim=1, keepdim=True).expand(-1, 4).reshape(g.shape)
+
+
+def check_k3(case: str, table: dict, opt, worst: dict) -> dict:
+    """K3 against optim_plain on one table, in place: every element of a
+    nonzero 16-byte gradient group within k3_tolerances of the plain
+    version, every element of a zero group (w, n, z and g) bit-equal to
+    its input, and g all zero after.  Raises on a disagreement, else
+    updates ``worst`` and returns the counts."""
     import torch
 
     from xflow_tpu_torch.ops.optim import optim_plain, optim_update
+    from xflow_tpu_torch.optim import FTRL
+
+    plain = {k: a.clone() for k, a in table.items()}
+    before = {k: a.clone() for k, a in table.items()}
+    optim_update(table, opt)
+    optim_plain(plain, opt)
+    torch.cuda.synchronize()
+    skip = k3_untouched(before["g"])
+    tols = k3_tolerances(before, plain.get("n"), opt)
+    rewritten = 0
+    for name in table:
+        got = table[name]
+        if not torch.equal(got.view(torch.int32)[skip], before[name].view(torch.int32)[skip]):
+            raise AssertionError(f"K3 changed an element of a zero gradient group: "
+                                 f"{case} {name}")
+        if name == "g":
+            continue
+        rewritten += int((plain[name].view(torch.int32)[skip]
+                          != before[name].view(torch.int32)[skip]).sum())
+        diff = torch.where(skip, 0.0, (got - plain[name]).abs())
+        excess = float((diff - tols[name]).max())
+        if excess > 0:
+            raise AssertionError(f"K3 disagrees with optim_plain: {case} {name} "
+                                 f"excess {excess}")
+        worst["max_abs_err"] = max(worst["max_abs_err"], float(diff.max()))
+        ratio = diff / torch.where(tols[name] > 0, tols[name], 1.0)
+        worst["max_err_over_tol"] = max(worst["max_err_over_tol"], float(ratio.max()))
+    if not bool((table["g"] == 0).all()):
+        raise AssertionError(f"K3 left a non-zero gradient ({case})")
+    out = {"skipped_elements": int(skip.sum()),
+           "plain_rewrote_skipped": rewritten}
+    if isinstance(opt, FTRL):
+        zn = plain["z"].abs()
+        out["near_lambda1"] = int((~skip & ((zn - opt.lambda1).abs() <= tols["z"])).sum())
+    del plain, before
+    return out
+
+
+K3_G_CASES = ("quarter", "rows", "zero")
+
+
+def phase_k3_vs_plain(dev, t_log2: int) -> dict:
+    """Phase 7: K3 against optim_plain at D in {1, 10}, FTRL and SGD, on
+    three gradients: rows [0, T/4) nonzero ("quarter"), 2 % of the rows
+    at random, each straddling 16-byte groups at D = 10 ("rows"), and
+    all zero ("zero": every byte of the state and g unchanged)."""
+    import torch
+
     from xflow_tpu_torch.optim import FTRL, SGD
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     t = 1 << t_log2
     worst = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
-    near_l1 = untouched = 0
+    near_l1 = untouched = skipped = rewritten = 0
     for d in (1, D):
         for opt in (FTRL(), SGD()):
-            quarter = t // 4
-            gr = torch.zeros((t, d), device=dev)
-            gr[:quarter] = torch.randn((quarter, d), generator=g, device=dev) * 0.01
-            table = {"param": torch.randn((t, d), generator=g, device=dev) * 0.01, "g": gr}
-            if isinstance(opt, FTRL):
-                n = torch.rand((t, d), generator=g, device=dev) * 1e-3
-                n[t // 2:] = 0.0  # rows [t/2, t): never touched (g = 0, n = 0)
-                z = torch.randn((t, d), generator=g, device=dev) * 1e-3
-                # rows [t/8, t/4): w = 0 and z = +-lambda1 - g, so |z'|
-                # lands within rounding of lambda1
-                near = slice(t // 8, quarter)
-                sgn = torch.where(torch.rand((quarter - t // 8, d), generator=g,
-                                             device=dev) > 0.5, 1.0, -1.0)
-                z[near] = sgn * opt.lambda1 - gr[near]
-                table["param"][near] = 0.0
-                table.update(n=n, z=z)
-            plain = {k: a.clone() for k, a in table.items()}
-            before = {k: a.clone() for k, a in table.items()}
-            optim_update(table, opt)
-            optim_plain(plain, opt)
-            torch.cuda.synchronize()
-            tols = k3_tolerances(before, plain.get("n"), opt)
-            case = f"D={d} {opt.name}"
-            for name, tol in tols.items():
-                diff = (table[name] - plain[name]).abs()
-                excess = float((diff - tol).max())
-                if excess > 0:
-                    raise AssertionError(f"K3 disagrees with optim_plain: {case} {name} "
-                                         f"excess {excess}")
-                worst["max_abs_err"] = max(worst["max_abs_err"], float(diff.max()))
-                ratio = diff / torch.where(tol > 0, tol, 1.0)
-                worst["max_err_over_tol"] = max(worst["max_err_over_tol"], float(ratio.max()))
-            if not bool((table["g"] == 0).all()):
-                raise AssertionError(f"K3 left a non-zero gradient ({case})")
-            if isinstance(opt, FTRL):
-                idle = before["n"][t // 2:] == 0
-                if not bool((table["param"][t // 2:] == before["param"][t // 2:]).all()):
-                    raise AssertionError(f"K3 moved w on never-touched rows ({case})")
-                untouched += int(idle.sum())
-                zn = plain["z"].abs()
-                near_l1 += int(((zn - opt.lambda1).abs() <= tols["z"]).sum())
-            del table, plain, before
+            for kind in K3_G_CASES:
+                quarter = t // 4
+                gr = torch.zeros((t, d), device=dev)
+                if kind == "quarter":
+                    gr[:quarter] = torch.randn((quarter, d), generator=g, device=dev) * 0.01
+                elif kind == "rows":
+                    rows = torch.rand(t, generator=g, device=dev) < 0.02
+                    gr[rows] = torch.randn((int(rows.sum()), d), generator=g,
+                                           device=dev) * 0.01
+                table = {"param": torch.randn((t, d), generator=g, device=dev) * 0.01,
+                         "g": gr}
+                if isinstance(opt, FTRL):
+                    n = torch.rand((t, d), generator=g, device=dev) * 1e-3
+                    n[t // 2:] = 0.0  # rows [t/2, t): never touched (n = 0)
+                    z = torch.randn((t, d), generator=g, device=dev) * 1e-3
+                    # rows [t/8, t/4): w = 0 and z = +-lambda1 - g, so |z'|
+                    # lands within rounding of lambda1
+                    near = slice(t // 8, quarter)
+                    sgn = torch.where(torch.rand((quarter - t // 8, d), generator=g,
+                                                 device=dev) > 0.5, 1.0, -1.0)
+                    z[near] = sgn * opt.lambda1 - gr[near]
+                    table["param"][near] = 0.0
+                    table.update(n=n, z=z)
+                    untouched += int((n[t // 2:] == 0).sum())
+                got = check_k3(f"D={d} {opt.name} g={kind}", table, opt, worst)
+                skipped += got["skipped_elements"]
+                rewritten += got["plain_rewrote_skipped"]
+                near_l1 += got.get("near_lambda1", 0)
+                del table
     if not near_l1:
         raise AssertionError("phase 7 did not cover |z'| near lambda1")
-    return dict(worst, never_touched_elements=untouched, near_lambda1_elements=near_l1)
+    return dict(worst, never_touched_elements=untouched, near_lambda1_elements=near_l1,
+                skipped_elements=skipped, plain_rewrote_skipped=rewritten)
 
 
 def write_train_shards(root: str) -> dict:
@@ -1479,11 +1674,11 @@ def main_path_kernels(model: str, trainer, batches: list, worst: dict) -> dict:
     time (behind an L2 flush, as in the run, where K3's full-table pass
     precedes each K2), host path, plain time and bounds; the same batch
     with every repeated key replaced by a distinct one (distinct while
-    B*K <= T), which isolates what the repeats cost; and K3 on the trained tables (g is 0 after
-    a step, so a K3 pass leaves them as they are)."""
+    B*K <= T), which isolates what the repeats cost; and K3 on copies of
+    the trained tables, with g restored before every call to what one
+    dense K2 launch leaves for the path's first batch (k3_timing_row)."""
     import torch
 
-    from xflow_tpu_torch.ops.optim import optim_plain, optim_update
     from xflow_tpu_torch.ops.train import train_plain, train_step
 
     tables = trainer.state["tables"]
@@ -1525,22 +1720,27 @@ def main_path_kernels(model: str, trainer, batches: list, worst: dict) -> dict:
             })
             log(json.dumps(dict(k2_rows[-1], phase=8)))
             del g_w, g_v
+    # K3 on copies of the trained tables, g restored before every call
+    # to what one dense K2 launch leaves for the path's first batch
+    arrays = batches[0]
+    lw = ("labels_u8", "weights_u8") if "labels_u8" in arrays else ("labels", "weights")
+    grads = {"w": torch.zeros_like(w)}
+    if v is not None:
+        grads["v"] = torch.zeros_like(v)
+    train_step(arrays["ckeys"], arrays.get("x"), arrays[lw[0]], arrays[lw[1]],
+               arrays["num_real"], w, v, grads["w"], grads.get("v"),
+               torch.zeros(2, device=dev, dtype=torch.float64))
     k3_rows = []
     opt = trainer.step.optimizer
     for name, table in tables.items():
-        args = [(table, opt)] * TIMED_RUNS
-        d = table["param"].shape[1]
-        k3_rows.append({
-            "optimizer": opt.name, "table": name, "T": table["param"].shape[0], "D": d,
-            "ms": time_device_ms(optim_update, args),
-            "host_path_ms": time_host_path_ms(optim_update, args),
-            "plain_ms": time_device_ms(optim_plain, args),
-            **k3_bounds(table["param"].numel(), opt.name == "ftrl"),
-            "library_ms": None,
-            "library_why_null": "no single PyTorch call applies the FTRL recurrence",
-        })
+        copy = {k: a.clone() for k, a in table.items()}
+        k3_rows.append(k3_timing_row(copy, opt, grads[name], prelude=flush.zero_,
+                                     table=name,
+                                     g="one dense K2 launch on the path's batch 0"))
         log(json.dumps(dict(k3_rows[-1], phase=8, model=model)))
-    del flush
+        del copy
+        torch.cuda.empty_cache()
+    del flush, grads
     return {"batch_stats": batch_stats, "k2_main_path": k2_rows, "k3_main_path": k3_rows}
 
 
@@ -1604,26 +1804,95 @@ def k2_bounds(keys, x, labels, dim: int, hot=None, hot_size: int = 0) -> dict:
     }
 
 
-def k3_bounds(count: int, ftrl: bool) -> dict:
-    """K3's least time: every element's arrays read once and written
-    once (FTRL w, n, z, g in and w, n, z, g out; SGD w, g in and out),
-    and about 20 (FTRL) or 2 (SGD) float32 operations per element."""
-    used = count * 4 * (8 if ftrl else 4)
-    ops = count * (20 if ftrl else 2)
+def k3_bounds(g, ftrl: bool) -> dict:
+    """K3's least time for THIS gradient (csrc/optim.cu header): every
+    element of g read once (4 B), and each 32-byte sector of g that
+    holds a nonzero bit with its state read and written and g cleared
+    (FTRL: w, n, z in and w, n, z, g out, 7 sectors; SGD: w in and w, g
+    out, 3), or about 20 (FTRL) or 2 (SGD) float32 operations per
+    element of such a sector, whichever takes longer.  ``bound_full_ms``
+    is a pass that rewrites every element, the work of K3's first form,
+    whatever g holds.  Synchronises (it counts on g's device)."""
+    import torch
+
+    flat = g.detach().reshape(-1)
+    count = flat.numel()
+    bits = flat.view(torch.int32)
+    pad = (-count) % SECTOR_FLOATS
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros(pad)])
+    touched = int((bits.view(-1, SECTOR_FLOATS) != 0).any(dim=1).sum())
+    used = 4 * count + touched * SECTOR * (7 if ftrl else 3)
+    ops = touched * SECTOR_FLOATS * (20 if ftrl else 2)
+    full = count * 4 * (8 if ftrl else 4)
     used_ms = used / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOPS_PER_S * 1e3
     return {"bound_ms": max(used_ms, ops_ms),
             "bound_by": "bytes" if used_ms >= ops_ms else "operations",
-            "bound_bytes": used, "bound_ops": ops}
+            "bound_bytes": used, "bound_ops": ops,
+            "touched_sectors": touched, "sectors": (count + pad) // SECTOR_FLOATS,
+            "bound_full_ms": max(full / HBM_BYTES_PER_S * 1e3,
+                                 count * (20 if ftrl else 2) / FP32_FLOPS_PER_S * 1e3),
+            "bound_full_bytes": full}
+
+
+def k3_timing_row(state: dict, opt, g_src, prelude=None, plain_runs: int = TIMED_RUNS,
+                  **extra) -> dict:
+    """K3's device time on ``state`` (one table's param, aux tensors and
+    g) with its g set to ``g_src`` before every call, outside the events
+    (a K3 call clears g, so without it every call after the first would
+    time a pass over zeros), beside the
+    plain version's on the same g, the bounds of this g, and for SGD the
+    library call at equal work (``param.add_(g, alpha=-lr)`` then
+    ``g.zero_()``; ``library_add_ms`` the add alone).  ``prelude`` runs
+    after the restore (an L2 flush, say)."""
+    import torch
+
+    from xflow_tpu_torch.ops.optim import optim_plain, optim_update
+    from xflow_tpu_torch.optim import FTRL
+
+    ftrl = isinstance(opt, FTRL)
+
+    def restore():
+        state["g"].copy_(g_src)
+        if prelude is not None:
+            prelude()
+
+    args = [(state, opt)] * TIMED_RUNS
+    row = dict(extra, optimizer=opt.name, T=state["param"].shape[0],
+               D=state["param"].shape[1],
+               ms=time_device_ms(optim_update, args, prelude=restore),
+               host_path_ms=time_host_path_ms(optim_update, args, prelude=restore),
+               plain_ms=time_device_ms(optim_plain, args[:plain_runs], prelude=restore,
+                                       chunk_size=5),
+               **k3_bounds(g_src, ftrl))
+    if ftrl:
+        row.update(library_ms=None,
+                   library_why_null="no single PyTorch call applies the FTRL recurrence")
+    else:
+        def library(table_, opt_):
+            table_["param"].add_(table_["g"], alpha=-opt_.lr)
+            table_["g"].zero_()
+
+        def library_add(table_, opt_):
+            table_["param"].add_(table_["g"], alpha=-opt_.lr)
+
+        row.update(library_ms=time_device_ms(library, args, prelude=restore),
+                   library_add_ms=time_device_ms(library_add, args, prelude=restore),
+                   library_why_null=None,
+                   library_call="param.add_(g, alpha=-lr); g.zero_()")
+    torch.cuda.synchronize()
+    return row
 
 
 def phase_train_timings(dev, t_log2: int) -> dict:
     """Phase 9: K2 and K3 device times beside their plain versions,
     their bounds and, where one exists, one PyTorch call computing the
-    same function."""
+    same function.  K3 runs on the g that one dense K2 launch leaves for
+    this phase's uniform and Zipf batches, and on a g with no zero group,
+    restored before every call (k3_timing_row)."""
     import torch
 
-    from xflow_tpu_torch.ops.optim import optim_plain, optim_update
     from xflow_tpu_torch.ops.train import train_plain, train_step
     from xflow_tpu_torch.optim import FTRL, SGD
 
@@ -1632,6 +1901,7 @@ def phase_train_timings(dev, t_log2: int) -> dict:
     w = torch.randn((t, 1), generator=g, device=dev) * 0.3
     v = torch.randn((t, D), generator=g, device=dev) * 0.05
     k2_rows = []
+    k3_batches = {}  # keys name -> an FM batch of 65,536 rows
     for mode in ("lr", "fm"):
         vv = v if mode == "fm" else None
         g_w = torch.zeros_like(w)
@@ -1652,6 +1922,8 @@ def phase_train_timings(dev, t_log2: int) -> dict:
                     labels = (torch.rand(b, generator=g, device=dev) > 0.5).to(torch.uint8)
                     pool.append((keys, None, labels, torch.ones_like(labels), float(b),
                                  w, vv, g_w, g_v, acc))
+                if mode == "fm" and b == TRAIN_BATCHES[-1] and keys_name != "zipf_row_distinct":
+                    k3_batches[keys_name] = pool[0]
                 args = [pool[i % len(pool)] for i in range(TIMED_RUNS)]
                 k2_rows.append({
                     "mode": mode, "B": b, "K": K, "D": D if vv is not None else 0,
@@ -1667,35 +1939,37 @@ def phase_train_timings(dev, t_log2: int) -> dict:
                 })
                 log(json.dumps(dict(k2_rows[-1], phase=9)))
         del g_w, g_v, acc
-    del w, v
+    # K3 on the g one dense K2 launch leaves for a 65,536-row batch of
+    # each key kind (FM: g_w for D = 1, g_v for D = 10), and on a g with
+    # no zero group
+    grads = {}
+    for keys_name, (keys, _, labels, *_rest) in k3_batches.items():
+        g_w, g_v = torch.zeros_like(w), torch.zeros_like(v)
+        train_step(keys, None, labels, torch.ones_like(labels), float(keys.shape[0]),
+                   w, v, g_w, g_v, torch.zeros(2, device=dev, dtype=torch.float64))
+        grads[keys_name] = {1: g_w, D: g_v}
+    del w, v, k3_batches
     torch.cuda.empty_cache()
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)  # 128 MiB > L2
     k3_rows = []
     for d in (1, D):
+        grads["dense"] = {d: torch.randn((t, d), generator=g, device=dev) * 0.01}
         for opt in (FTRL(), SGD()):
-            table = {"param": torch.randn((t, d), generator=g, device=dev) * 0.01,
-                     "g": torch.zeros((t, d), device=dev)}
-            table.update(opt.init_aux(table["param"]))
-            args = [(table, opt)] * TIMED_RUNS
-            row = {
-                "optimizer": opt.name, "T": t, "D": d,
-                "ms": time_device_ms(optim_update, args),
-                "host_path_ms": time_host_path_ms(optim_update, args),
-                "plain_ms": time_device_ms(optim_plain, args),
-                **k3_bounds(t * d, isinstance(opt, FTRL)),
-                "library_ms": None,
-                "library_why_null": "no single PyTorch call applies the FTRL "
-                "recurrence",
-            }
-            if isinstance(opt, SGD):
-                def library(table_, opt_):
-                    return table_["param"].add_(table_["g"], alpha=-opt_.lr)
-
-                row["library_ms"] = time_device_ms(library, args)
-                row["library_host_path_ms"] = time_host_path_ms(library, args)
-                row["library_why_null"] = None
-            k3_rows.append(row)
-            log(json.dumps(dict(row, phase=9)))
-            del table
+            for keys_name, by_d in grads.items():
+                table = {"param": torch.randn((t, d), generator=g, device=dev) * 0.01,
+                         "g": torch.zeros((t, d), device=dev)}
+                table.update(opt.init_aux(table["param"]))
+                row = k3_timing_row(table, opt, by_d[d], prelude=flush.zero_,
+                                    plain_runs=20, keys=keys_name,
+                                    g="a g with no zero group" if keys_name == "dense"
+                                    else f"one dense FM K2 launch on {keys_name} keys, "
+                                    f"B={TRAIN_BATCHES[-1]}")
+                k3_rows.append(row)
+                log(json.dumps(dict(row, phase=9)))
+                del table
+        del grads["dense"]
+        torch.cuda.empty_cache()
+    del flush
     return {"k2": k2_rows, "k3": k3_rows}
 
 
@@ -3076,12 +3350,13 @@ def time_k2_hot(model: str, label: str, form: str, view: dict, tables: dict, h: 
                              b2["bound_ops"] / FP32_FLOPS_PER_S * 1e3),
              "bound_by": b2["bound_by"], "bound_bytes": used,
              "distinct_rows": b2["distinct_rows"], "live_slots": b2["live_slots"]}
-    return hot_timing_row(
+    row = hot_timing_row(
         f"train_step (hot: {form})", kernel, plain, [()] * TIMED_RUNS, bound,
         prelude=flush.zero_, model=model, path=label, B=view["ckeys"].shape[0],
         Kc=view["ckeys"].shape[1], Kh=view["hot"].shape[1], H=h, D=dim,
         library_why_null="no single PyTorch call computes the gather, logit, residual, "
         "scatter-add and log-loss")
+    return row
 
 
 def check_k5_fold(case: str, tables: dict, opt, arrays: dict, h: int, worst: dict):
@@ -3452,18 +3727,17 @@ def phase_hot(dev, t_log2: int, workdir: str, dense: dict) -> dict:
                     prelude=flush.zero_, model=model, path=label, table=name, U=fold["n"],
                     H=h, library_why_null="no single PyTorch call applies FTRL to gathered "
                     "rows"))
-                # K3 over the head rows, the hybrid's and the hot inner's step
-                from xflow_tpu_torch.ops.optim import optim_plain, optim_update
-
-                hd = {k: tables[name][k][:h] for k in ("param", "n", "z")}
+                # K3 over the head rows, the hybrid's and the hot inner's
+                # step: a head buffer has no zero group after a slice
+                hd = {k: tables[name][k][:h].clone() for k in ("param", "n", "z")}
                 hd["g"] = torch.zeros_like(hd["param"])
-                out["timings"].append(hot_timing_row(
-                    "optim_update (head rows)", optim_update, optim_plain,
-                    [(hd, trainer.step.optimizer)] * TIMED_RUNS,
-                    k3_bounds(hd["param"].numel(), True), model=model, path=label,
-                    table=name, H=h, D=hd["param"].shape[1],
-                    library_why_null="no single PyTorch call applies the FTRL recurrence"))
-                del fold, copy, hd
+                g_head = torch.randn(hd["param"].shape, device=dev) * 0.01
+                out["timings"].append(k3_timing_row(
+                    hd, trainer.step.optimizer, g_head, prelude=flush.zero_,
+                    plain_runs=20, kernel="optim_update (head rows)", model=model,
+                    path=label, table=name, H=h, g="a head buffer with no zero group"))
+                log(json.dumps(dict(out["timings"][-1], phase=20)))
+                del fold, copy, hd, g_head
             book(label, model, run, windowend=hot_windowend(cfg) if form == "window" else None,
                  hot_mass=trainer.hot_mass)
             del run, trainer, arrays, view, tables
@@ -4812,33 +5086,40 @@ def ffm_dict_decode(cfg, trainer, dev) -> dict:
         library_why_null=K6_LIBRARY_WHY_NULL)
 
 
-def ffm_k3_timings(trainer, flush, head: int = 0) -> list:
-    """K3 over the trained ``ffm`` tables ([2^21, 1] and [2^21, 156],
-    FTRL), or over their first ``head`` rows (the hybrid's head step),
-    on copies, behind an L2 flush: the dense paths' per-table pass."""
+def ffm_k3_timings(trainer, flush, grads: dict, head: int = 0) -> list:
+    """K3 over copies of the trained ``ffm`` tables ([2^21, 1] and
+    [2^21, 156], FTRL), or over their first ``head`` rows (the hybrid's
+    head step), with g restored before every call to ``grads`` (what one
+    K2 launch leaves for the path's batch 0) and an L2 flush: the dense
+    paths' per-table pass."""
     import torch
-
-    from xflow_tpu_torch.ops.optim import optim_plain, optim_update
 
     rows = []
     opt = trainer.step.optimizer
     for name, table in trainer.state["tables"].items():
         copy = {k: (a[:head] if head else a).clone() for k, a in table.items()}
-        if "g" not in copy:
-            copy["g"] = torch.zeros_like(copy["param"])
-        args = [(copy, opt)] * TIMED_RUNS
-        rows.append({"kernel": "optim_update" + (" (head rows)" if head else ""),
-                     "model": "ffm", "table": name,
-                     "T": copy["param"].shape[0], "D": copy["param"].shape[1],
-                     "ms": time_device_ms(optim_update, args, prelude=flush.zero_),
-                     "plain_ms": time_device_ms(optim_plain, args[:10],
-                                                prelude=flush.zero_, chunk_size=2),
-                     **k3_bounds(copy["param"].numel(), opt.name == "ftrl"),
-                     "library_ms": None})
+        g_src = grads[name][:head] if head else grads[name]
+        copy["g"] = torch.zeros_like(copy["param"])
+        rows.append(k3_timing_row(copy, opt, g_src, prelude=flush.zero_, plain_runs=10,
+                                  kernel="optim_update" + (" (head rows)" if head else ""),
+                                  model="ffm", table=name,
+                                  g="one FFM K2 launch on the path's batch 0"))
         log(json.dumps(dict(rows[-1], phase=32)))
         del copy
         torch.cuda.empty_cache()
     return rows
+
+
+def ffm_path_grads(view: dict, tables: dict, h: int) -> dict:
+    """The g one dense K2 launch leaves for ``view`` (FFM form; the hot
+    gradients in the first ``h`` rows), by table name."""
+    args, kw, rows = k2_hot_call("dense", view, tables, h)
+    from xflow_tpu_torch.ops.train import train_step
+
+    train_step(*args, **kw)
+    g, _ = rows()
+    del args, kw
+    return g
 
 
 FFM_MODES = (
@@ -4944,9 +5225,11 @@ def phase_ffm(dev, workdir: str, dense: dict) -> dict:
                 check_ffm_k2("ffm dense batch 0, logits below -30", "dense", view, tables, 0,
                              k2w, unclamped=True)
                 out["timings"].append(ffm_dict_decode(trainer.cfg, trainer, dev))
-                out["timings"] += ffm_k3_timings(trainer, flush)
+                out["timings"] += ffm_k3_timings(trainer, flush,
+                                                 ffm_path_grads(view, tables, 0))
             elif label == "hot_dense":
-                out["timings"] += ffm_k3_timings(trainer, flush, head=h)
+                out["timings"] += ffm_k3_timings(trainer, flush,
+                                                 ffm_path_grads(view, tables, h), head=h)
             elif form == "hybrid" and not hot:  # K4 and K5 at FFM's width
                 path = ("sparse main path" if not seq
                         else "sequential main path, slice 0")
@@ -6884,6 +7167,10 @@ def main() -> int:
     k2_check = phase_k2_vs_plain(dev, T_LOG2)
     log(json.dumps(dict(k2_check, phase=6)))
     torch.cuda.empty_cache()
+    k2_table = phase_k2_table(dev)
+    log(json.dumps({"phase": "6b", **{k: a for k, a in k2_table.items()
+                                      if k != "table_cover"}}))
+    torch.cuda.empty_cache()
     k3_check = phase_k3_vs_plain(dev, T_LOG2)
     log(json.dumps(dict(k3_check, phase=7)))
     torch.cuda.empty_cache()
@@ -7004,7 +7291,7 @@ def main() -> int:
     k3_main = [dict(r, model=row["model"]) for row in train_path["rows"]
                for r in row["k3_main_path"]]
     k2_err = {k: max(k2_check[k], train_path["k2_check"][k],
-                     modes["worst"]["k2_index"][k])
+                     modes["worst"]["k2_index"][k], k2_table[k])
               for k in ("max_abs_err_g", "max_err_over_tol")}
     # launches on every training path: phase 8's dense path and phases
     # 11-13's update modes, each counted from 0 just before its run
@@ -7074,6 +7361,7 @@ def main() -> int:
         "plain_ms": k3_head["plain_ms"],
         "bound_ms": k3_head["bound_ms"],
         "bound_by": k3_head["bound_by"],
+        "bound_full_ms": k3_head["bound_full_ms"],
         "library_ms": None,
         "library_why_null": k3_head["library_why_null"],
         "shape": {"optimizer": "ftrl", "T": 1 << T_LOG2, "D": D,

@@ -16,6 +16,9 @@ slots exactly; K6's decoded planes exactly.  The full-width checks,
 with bounds derived per element, are chip_smoke.py's phases 2, 6, 7,
 10 and 15."""
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -127,6 +130,108 @@ def test_k3_matches_plain(dev, opt, dim):
         with pytest.raises(ValueError, match="16-byte"):
             optim_update(bad, opt)
     assert optim_update.launches == before + 1
+
+
+def _chip_smoke():
+    """chip_smoke.py (JAX-free), for its helpers that read K2's launch
+    shape and K3's skipped groups."""
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("g_kind", ["sparse", "zero"])
+@pytest.mark.parametrize("dim", [1, 10])
+@pytest.mark.parametrize("opt", [FTRL(), SGD(lr=0.05)], ids=["ftrl", "sgd"])
+def test_k3_leaves_zero_gradient_groups(dev, opt, dim, g_kind):
+    """K3 touches no element of a zero gradient group: w, n, z and g keep
+    every bit there (even a w that FTRL did not compute from its z and
+    n, which the plain version would rewrite), and the other groups
+    match the plain version.  An all-zero g is a no-op."""
+    rng = np.random.default_rng(5)
+    rows = 4096
+    arr = lambda scale: torch.tensor(  # noqa: E731
+        (rng.standard_normal((rows, dim)) * scale).astype(np.float32), device=dev)
+    table = {"param": arr(0.01), "g": torch.zeros((rows, dim), device=dev)}
+    if g_kind == "sparse":
+        touched = torch.tensor(rng.random(rows) < 0.03, device=dev)
+        table["g"][touched] = arr(0.01)[touched]
+    if isinstance(opt, FTRL):
+        table.update(n=arr(0.01).abs(), z=arr(1e-3))
+        table["n"][: rows // 8] = 0.0  # never touched
+    before = {k: a.clone() for k, a in table.items()}
+    plain = {k: a.clone() for k, a in table.items()}
+    launches = optim_update.launches
+    optim_update(table, opt)
+    optim_plain(plain, opt)
+    torch.cuda.synchronize()
+    assert optim_update.launches == launches + 1
+    skip = _chip_smoke().k3_untouched(before["g"])
+    assert bool(skip.any()) and (g_kind == "zero") == bool(skip.all())
+    for key in table:
+        assert torch.equal(table[key].view(torch.int32)[skip],
+                           before[key].view(torch.int32)[skip]), key
+        np.testing.assert_allclose(table[key][~skip].cpu().numpy(),
+                                   plain[key][~skip].cpu().numpy(), rtol=RTOL, atol=1e-6)
+    assert not table["g"].any()
+
+
+K2_TABLE_ROWS = {"one-row": 4096, "overflow": 65536}
+
+
+@pytest.mark.parametrize("case", ["one-row", "overflow"])
+@pytest.mark.parametrize("form", ["lr", "fm", "hot-u16", "hot-int32"])
+def test_k2_table_matches_plain(dev, form, case):
+    """K2's LR/FM form, which sums repeated destinations in a shared-memory
+    table before its global atomics, against the plain version: one row
+    in every example (cold slot 0, or hot slot 0 with the hot plane),
+    and uniform keys with more distinct rows a block than its table
+    holds (the direct-to-global path, shown to be taken).  The hot forms put the hot gradients in g's first H
+    rows (dense mode)."""
+    t_size, h, d = 1 << 20, 1 << 14, 10
+    b = K2_TABLE_ROWS[case]
+    rng = np.random.default_rng(11)
+    kc = 40 if form in ("lr", "fm") else 12
+    keys = rng.integers(0, t_size, size=(b, kc)).astype(np.int32)
+    keys[:, kc // 2:][rng.random((b, kc - kc // 2)) > 0.8] = -1
+    hot = None
+    if form.startswith("hot"):
+        ids = rng.integers(0, h, size=(b, 32))
+        if case == "one-row":
+            ids[:, 0] = 3
+        hot = (ids.astype(np.uint16).view(np.int16) if form == "hot-u16"
+               else ids.astype(np.int32))
+    elif case == "one-row":
+        keys[:, 0] = 7
+    # one sign of residual for the one-row cases: the row's sum then has
+    # no cancellation for float32 rounding to stand out against
+    labels = (np.zeros(b) if case == "one-row" else rng.random(b) > 0.5).astype(np.float32)
+    w = (rng.standard_normal((t_size, 1)) * 0.3).astype(np.float32)
+    v = (rng.standard_normal((t_size, d)) * 0.05).astype(np.float32)
+    with_v = form != "lr"
+    t = lambda a: None if a is None else torch.tensor(a, device=dev)  # noqa: E731
+    tk, th = t(keys), t(hot)
+    outs = []
+    for fn in (train_step, train_plain):
+        g_w = torch.zeros((t_size, 1), device=dev)
+        g_v = torch.zeros((t_size, d), device=dev) if with_v else None
+        acc = torch.zeros(2, dtype=torch.float64, device=dev)
+        kw = {}
+        if hot is not None:
+            kw = dict(hot=th, hot_size=h, hg_w=g_w[:h], hg_v=g_v[:h])
+        fn(tk, None, t(labels), t(np.ones(b, np.float32)), float(b), t(w),
+           t(v) if with_v else None, g_w, g_v, acc, **kw)
+        outs.append((g_w, g_v, acc))
+    torch.cuda.synchronize()
+    for got, want in zip(*outs):
+        if got is not None:
+            _close(got, want)
+    if case == "overflow":
+        cover = _chip_smoke().k2_table_cover(tk, d if with_v else 0, hot=th, hot_size=h,
+                                             lw_u8=False)
+        assert cover["entries"] > 0 and cover["blocks_over"] > 0
 
 
 def _plan(keys, t, dev, slot_map=None):

@@ -186,3 +186,151 @@ def test_k3_wrapper_rejects_bad_tables():
     with pytest.raises(ValueError, match="unsupported optimizer"):
         optim_update(good, object())
 
+
+
+# K3 (csrc/optim.cu) leaves every 16-byte group whose gradient is zero as
+# it is.  That is exact because FTRL and SGD leave a row whose g is 0 bit
+# for bit as it was, for any state they produced: the tests below pin
+# that property on the port's plain version and on the reference's
+# jitted update_rows, over the kinds of rows a trained table holds.
+ZERO_G_KINDS = ("touched", "never_touched", "at_l1")
+STEPS = 5
+
+
+def _trained_rows(opt_name, dim, seed=7):
+    """A [ROWS, dim] table after STEPS plain steps from the port's init
+    (w random, n = z = 0) on random sparse gradients, with the last
+    step's g: rows [0, 64) never get a gradient (n == 0, the init kept);
+    rows [64, 128) start at w = 0 and take +-lambda1 (and its float32
+    neighbours) once, so |z| lands at lambda1 with w = 0; the others take
+    a gradient on a tenth of the steps' rows.  The last g is zero on
+    every other row.  Returns the initial state, the gradients and the
+    row kinds."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((ROWS, dim)) * 0.01).astype(np.float32)
+    w[64:128] = 0.0
+    grads = []
+    for step in range(STEPS + 1):
+        g = np.where(rng.random((ROWS, 1)) < 0.1,
+                     rng.standard_normal((ROWS, dim)) * 0.01, 0.0).astype(np.float32)
+        g[:128] = 0.0
+        if step == 0:
+            sign = np.where(rng.random((64, dim)) > 0.5, 1.0, -1.0)
+            nudge = rng.integers(-1, 2, (64, dim))
+            g[64:128] = (sign * np.float32(L1)).astype(np.float32)
+            g[64:128] = np.where(nudge > 0, np.nextafter(g[64:128], np.float32(np.inf)),
+                                 np.where(nudge < 0, np.nextafter(g[64:128], np.float32(0)),
+                                          g[64:128])).astype(np.float32)
+        if step == STEPS:
+            g[1::2] = 0.0  # the last step: every other row untouched
+        grads.append(g)
+    kinds = {"touched": np.arange(128, ROWS), "never_touched": np.arange(0, 64),
+             "at_l1": np.arange(64, 128)}
+    return w, grads, kinds
+
+
+def _steps_port(opt, w, grads):
+    table = {"param": torch.tensor(w), "g": torch.zeros(w.shape)}
+    table.update(opt.init_aux(table["param"]))
+    for g in grads[:-1]:
+        table["g"].copy_(torch.tensor(g))
+        optim_plain(table, opt)
+    before = {k: t.clone() for k, t in table.items() if k != "g"}
+    table["g"].copy_(torch.tensor(grads[-1]))
+    optim_plain(table, opt)
+    return before, {k: t for k, t in table.items() if k != "g"}
+
+
+def _steps_reference(opt_name, w, grads):
+    ref = RefFTRL(ALPHA, BETA, L1, L2) if opt_name == "ftrl" else RefSGD(lr=0.05)
+    update = jax.jit(ref.update_rows)
+    rows = {"param": jnp.asarray(w)}
+    if opt_name == "ftrl":
+        rows.update(n=jnp.zeros_like(rows["param"]), z=jnp.zeros_like(rows["param"]))
+    for g in grads[:-1]:
+        rows = update(rows, jnp.asarray(g))
+    before = {k: torch.tensor(np.asarray(a)) for k, a in rows.items()}
+    after = {k: torch.tensor(np.asarray(a))
+             for k, a in update(rows, jnp.asarray(grads[-1])).items()}
+    return before, after
+
+
+@pytest.mark.parametrize("kind", ZERO_G_KINDS)
+@pytest.mark.parametrize("dim", [1, 10])
+@pytest.mark.parametrize("opt_name", ["ftrl", "sgd"])
+@pytest.mark.parametrize("side", ["port", "reference"])
+def test_zero_gradient_rows_stay_bit_identical(side, opt_name, dim, kind):
+    w, grads, kinds = _trained_rows(opt_name, dim)
+    opt = FTRL(ALPHA, BETA, L1, L2) if opt_name == "ftrl" else SGD(lr=0.05)
+    if side == "port":
+        before, after = _steps_port(opt, w, grads)
+    else:
+        before, after = _steps_reference(opt_name, w, grads)
+    zero = np.flatnonzero(~grads[-1].any(axis=1))
+    rows = torch.tensor(np.intersect1d(zero, kinds[kind]))
+    moved = np.flatnonzero(grads[-1].any(axis=1))
+    assert len(rows) >= 32
+    for key in before:
+        b, a = before[key][rows], after[key][rows]
+        assert torch.equal(b.view(torch.int32), a.view(torch.int32)), key
+        # the step did move the rows it had a gradient for
+        assert not torch.equal(before[key][moved], after[key][moved]), key
+    if opt_name == "ftrl":
+        n = before["n"][rows]
+        if kind == "never_touched":
+            assert not n.any()
+            assert torch.equal(before["param"][rows], torch.tensor(w)[rows])
+        elif kind == "at_l1":
+            z = before["z"][rows].abs()
+            assert bool((n > 0).all())
+            assert bool(((z - L1).abs() <= 2 * np.spacing(np.float32(L1))).all())
+            assert bool((z == np.float32(L1)).any())
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("opt_name", ["ftrl", "sgd"])
+@pytest.mark.parametrize("case", ["sparse", "zero", "dense", "ragged"])
+def test_k3_bounds_count_touched_sectors(opt_name, case):
+    """chip_smoke.py's k3_bounds, K3's least bytes for a given g: 4 B an
+    element of g read, plus 7 (FTRL) or 3 (SGD) 32-byte sectors of state
+    and g for each sector of g with a nonzero bit (-0.0 included);
+    ``bound_full_ms`` the old full pass's 32 or 16 B an element."""
+    cs = _chip_smoke()
+    ftrl = opt_name == "ftrl"
+    shape = (12, 1) if case == "ragged" else (64, 10)
+    g = torch.zeros(shape)
+    if case == "sparse":
+        g[3, 0] = 1.0  # element 30: sector 3
+        g[3, 9] = 2.0  # element 39: sector 4
+        g[10, 5] = -0.0  # element 105: sector 13, by its sign bit alone
+        g[10, 6] = 5.0  # element 106: sector 13 again
+        touched = 3
+    elif case == "zero":
+        touched = 0
+    elif case == "dense":
+        g.fill_(0.5)
+        touched = g.numel() // 8
+    else:  # 12 elements: a second, padded sector holds elements 8-11
+        g[9, 0] = 1.0
+        touched = 1
+    count = g.numel()
+    got = cs.k3_bounds(g, ftrl)
+    per_sector = 32 * (7 if ftrl else 3)
+    assert got["touched_sectors"] == touched
+    assert got["sectors"] == -(-count // 8)
+    assert got["bound_bytes"] == 4 * count + touched * per_sector
+    assert got["bound_full_bytes"] == count * (32 if ftrl else 16)
+    assert got["bound_ms"] == pytest.approx(max(
+        got["bound_bytes"] / cs.HBM_BYTES_PER_S * 1e3,
+        got["bound_ops"] / cs.FP32_FLOPS_PER_S * 1e3))
+    assert got["bound_ms"] <= got["bound_full_ms"]

@@ -1,6 +1,6 @@
 // K2 — the fused sparse train step for LR and FM: forward, residual,
-// per-occurrence gradients, scatter-add and the log-loss sum in one
-// kernel.
+// per-occurrence gradients, scatter-add (repeats summed in shared
+// memory first) and the log-loss sum in one kernel.
 //
 // Replaces these XLA-lowered regions of the JAX reference's dense,
 // microbatch=1 train step (xflow_tpu/parallel/step.py::
@@ -41,10 +41,10 @@
 // slot plane (csrc/sparse.cu), and occurrence (b, k)'s gradient is added
 // into row slots[b, k] of g_w [M, 1] and g_v [M, D] — the per-unique-key
 // sums K5 then applies — instead of row key.  The forward, residual and
-// log-loss are unchanged.  The atomics stay per occurrence (a hot row
-// still serialises); the slot plane adds 4 B per slot read, and the
-// gradient rows land in a compact [U, D] block instead of U rows
-// scattered over [T, D].
+// log-loss are unchanged.  Repeats sum in the block's table as in
+// dense mode (below), keyed by slot; the slot plane adds 4 B per slot
+// read, and the gradient rows land in a compact [U, D] block instead of
+// U rows scattered over [T, D].
 //
 // The hot plane (B7; KH = 0 without a hot table).  hot [B, KH] holds a
 // row's hot keys, u16 (hot_u16, 0xFFFF padding) or i32 (-1 padding),
@@ -86,21 +86,63 @@
 // B = 65,536, K = 40, uniform keys over T = 2^24 (about 2.5 M distinct
 // rows), that is about 0.8 ms for FM (D = 10) at sector granularity.
 // The arithmetic (about 9D + 4 flops per live slot) is far below the
-// card's rate.  Repeated keys within a batch (skewed data) serialise
-// their atomics on one address; that cost is measured, not avoided.
+// card's rate.  What held the first form of this kernel far above that
+// bound was skew: the path's traffic is zipf(1.2) over 100,000 ids a
+// field, so a field's hottest row takes about a fifth of its
+// occurrences, some 12,800 in a 65,536-row batch, and each occurrence's
+// 1 + D float atomics on one address serialise in L2 (about 22 ns an
+// occurrence on an H100: 0.28 ms for one such row alone).
 //
-// Design (first, simple and right): one warp per example, a grid of a
-// few blocks per SM looping over the examples.  Lanes stride over the
-// K slots, so an example's keys are read coalesced; a padding slot is
-// skipped before any table access (the JAX path reads row 0 and masks
-// it; this kernel never touches it).  Each live slot accumulates
-// linear, s[d], s2[d] in registers, CAP factors at a time (CAP = 8, 16
-// or 32, unrolled and guarded by the runtime D; a v wider than 32 runs
-// in tiles of 32, so any D the reference accepts runs with the same
+// Design.  One warp per example: lanes stride over the KH + K slots,
+// so an example's keys are read coalesced; a padding slot is skipped
+// before any table access (the JAX path reads row 0 and masks it; this
+// kernel never touches it).  Each live slot accumulates linear, s[d],
+// s2[d] in registers, CAP factors at a time (CAP = 8, 16 or 32,
+// unrolled and guarded by the runtime D; a v wider than 32 runs in
+// tiles of 32, so any D the reference accepts runs with the same
 // registers); xor butterflies leave the sums on every lane, so every
-// lane forms the same residual and scatters its own slots with
-// atomicAdd (the v row is read again, from L1/L2; with more than one
-// tile the backward recomputes each tile's s but the last one's).
+// lane forms the same residual and the gradients of its own slots
+// (the v row is read again, from L1/L2; with more than one tile the
+// backward recomputes each tile's s but the last one's).
+//
+// Privatised accumulation.  The grid is two large persistent blocks of
+// 16 warps an SM for D <= 16 (one for D <= 32), so a block walks about
+// 250 examples of a 65,536-row batch and a hot row's repeats meet in
+// it.  Each block keeps a direct-mapped table in shared memory, keyed
+// by the gradient's destination (a row of the cold buffer or of the
+// head buffer hgw/hgv; K4's slot in index mode), each entry 1 + D
+// float32 sums: at most 768 entries, and at most twice the slots the
+// block walks, so a 512-row slice clears a small one.  A slot hashes
+// its destination to one entry; it adds its w and v gradient there
+// with shared-memory atomics when the entry holds that destination or
+// is free (claimed with atomicCAS on the key word), and otherwise adds
+// to global memory directly: no batch is refused, and an occupied
+// entry costs the slot one shared-memory read.  Entries go to the
+// destinations the block meets first, and on skewed traffic those are
+// the hot rows.  When the block's examples are done, each claimed
+// entry goes to global memory once.  A hot row then costs one global
+// add per block (264) and shared-memory adds, not 12,800 serialised
+// ones.  Every global add of a v row, direct or from the flush, uses
+// Hopper's 8- and 16-byte vector reductions (red.global.add.v2/v4.f32,
+// as far as the row's alignment allows): 3 for D = 10 where the first
+// form made 10.  Why this shape (timed on an H100 80GB HBM3 at 700 W
+// against the other shapes and designs while the kernel was
+// redesigned, on a batch drawn as the training path's; PERF.md): the
+// vector reductions alone took the path's FM batch from 0.89 to 0.40
+// ms; shared-memory float atomics compile to compare-and-swap loops
+// (ATOMS.CAST.SPIN) on sm_90a, so a table large enough to hold a
+// block's cold rows (2,394 entries with linear probing) cost more than
+// it saved (0.82 ms), while a small direct-mapped one keeps mostly hot
+// rows and took it to 0.31 ms (Zipf-1 keys: 1.49 to 0.38 ms; uniform
+// keys, where almost nothing repeats, 0.76 to 0.81 ms).  For D > 32
+// (tiles; the v_dim = 64 path) the table is off and every slot adds
+// directly: one tile's sums would need a table per tile.  Only the
+// order in which gradients are summed changes: the residual and its
+// clamp, the 1/2-form backward, bf16 rounding of hot rows and of each
+// hot occurrence's gradient (before its float32 add, now into the
+// table), the sentinel and padding rules and the float64 log-loss
+// accumulator are as they were.
+//
 // Lane 0 adds the example's clipped log-loss times its weight into a
 // register; each block reduces its warps' partials in shared memory
 // and lands them with one atomic pair into acc.  Offsets are 64-bit.
@@ -145,6 +187,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "ffm.cuh"
@@ -152,7 +195,7 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 8;  // the MVM form's
 constexpr int kThreads = 32 * kWarpsPerBlock;
 constexpr int kBlocksPerSm = 8;
 constexpr float kLoglossEps = 1e-6f;
@@ -215,8 +258,8 @@ __device__ __forceinline__ long long grad_row(const int* srow, int j, int KH,
 // The block's log-loss and weight partials into acc (one atomic pair).
 __device__ __forceinline__ void land_loss(float ll_acc, float w_acc,
                                           double* acc) {
-  __shared__ float part_ll[kWarpsPerBlock];
-  __shared__ float part_w[kWarpsPerBlock];
+  __shared__ float part_ll[32];
+  __shared__ float part_w[32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -260,26 +303,138 @@ __device__ __forceinline__ float residual(float logit, const LW* labels,
   return ((unclamped ? logistic : p) - y) * wt / num_real;
 }
 
+// The LR/FM form's privatised gradient table (header): a block's
+// direct-mapped table in shared memory, `entries` keys (the
+// destination: row * 2 + 1 for the head buffer, row * 2 for the cold
+// one; kEmpty when free) and `entries` x `stride` float sums (w's, then
+// D of v's).  Returns the entry of `tag`: its one slot when that holds
+// `tag` or is free (claimed with atomicCAS), else -1 (the occurrence
+// then adds to global memory directly).
+constexpr unsigned kEmpty = 0xFFFFFFFFu;
+// The LR/FM form's launch shape (header): 16 warps a block, two blocks
+// an SM (one for D > 16), at most 768 table entries a block.
+constexpr int kTableWarps = 16;
+constexpr int kTableBlocksPerSm = 2;
+constexpr int kTableEntries = 768;
+
+__device__ __forceinline__ int table_entry(unsigned* key, int entries,
+                                           unsigned tag) {
+  const unsigned e =
+      __umulhi(tag * 2654435761u, static_cast<unsigned>(entries));
+  const unsigned k = *reinterpret_cast<volatile unsigned*>(key + e);
+  if (k == tag) return static_cast<int>(e);
+  if (k == kEmpty) {
+    const unsigned old = atomicCAS(key + e, kEmpty, tag);
+    if (old == kEmpty || old == tag) return static_cast<int>(e);
+  }
+  return -1;
+}
+
+// Global float reductions of n <= CAP consecutive values at dst:
+// Hopper's 8- and 16-byte vector reductions where dst's alignment
+// allows (A: dst's float offset mod 4), one float each elsewhere.
+__device__ __forceinline__ void red2(float* p, float a, float b) {
+  atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
+}
+
+__device__ __forceinline__ void red4(float* p, float a, float b, float c,
+                                     float d) {
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
+}
+
+template <int CAP, int A>
+__device__ __forceinline__ void red_row_at(float* dst, const float* v, int n) {
+  // the head, up to the first 16-byte boundary: A = 1 one float and a
+  // pair, A = 2 a pair, A = 3 one float
+  constexpr int H = (4 - A) & 3;
+  if (A == 1 || A == 3) {
+    if (n > 0) atomicAdd(dst, v[0]);
+  }
+  if (A == 1 || A == 2) {
+    constexpr int P = A == 1 ? 1 : 0;
+    if (n > P + 1) {
+      red2(dst + P, v[P], v[P + 1]);
+    } else if (n > P) {
+      atomicAdd(dst + P, v[P]);
+    }
+  }
+#pragma unroll
+  for (int d = H; d < CAP; d += 4) {
+    if (d + 3 < CAP && d + 3 < n) {
+      red4(dst + d, v[d], v[d + 1], v[d + 2], v[d + 3]);
+    } else if (d + 1 < CAP && d + 1 < n) {  // the tail: a pair, one float
+      red2(dst + d, v[d], v[d + 1]);
+      if (d + 2 < CAP && d + 2 < n) atomicAdd(dst + d + 2, v[d + 2]);
+    } else if (d < n) {
+      atomicAdd(dst + d, v[d]);
+    }
+  }
+}
+
+template <int CAP>
+__device__ __forceinline__ void red_row(float* dst, const float* v, int n) {
+  switch ((reinterpret_cast<std::uintptr_t>(dst) >> 2) & 3u) {
+    case 0: red_row_at<CAP, 0>(dst, v, n); break;
+    case 1: red_row_at<CAP, 1>(dst, v, n); break;
+    case 2: red_row_at<CAP, 2>(dst, v, n); break;
+    default: red_row_at<CAP, 3>(dst, v, n); break;
+  }
+}
+
+// One slot's gradients: w's and the tile's v ones (d0 on, at most CAP;
+// zeros past D), each rounded to bf16 when to_bf16.
+template <int CAP>
+__device__ __forceinline__ void slot_grads(float* gv, float& gw, float xv,
+                                           float r, const float* vrow,
+                                           const float* s, int d0, int D,
+                                           bool to_bf16) {
+  const float gwv = xv * r;
+  gw = to_bf16 ? bf16_round(gwv) : gwv;
+#pragma unroll
+  for (int d = 0; d < CAP; ++d) {
+    gv[d] = 0.0f;
+    if (d0 + d < D) {
+      const float vx = (to_bf16 ? bf16_round(vrow[d]) : vrow[d]) * xv;
+      const float gvv = (s[d] - vx) * xv * r;
+      gv[d] = to_bf16 ? bf16_round(gvv) : gvv;
+    }
+  }
+}
+
+// two blocks an SM at 64 registers a thread for D <= 16, one above
 template <int CAP, typename LW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kTableWarps,
+                                  CAP <= 16 ? kTableBlocksPerSm : 1)
 train_kernel(const int* __restrict__ keys, const float* __restrict__ x,
              const LW* __restrict__ labels, const LW* __restrict__ weights,
              float num_real, const float* __restrict__ w,
              const float* __restrict__ v, const int* __restrict__ slots,
              float* __restrict__ gw,
              float* __restrict__ gv, double* __restrict__ acc, int B, int K,
-             int D, const HotArgs h) {
+             int D, const HotArgs h, int entries) {
+  extern __shared__ float table_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long warps_total =
-      static_cast<long long>(gridDim.x) * kWarpsPerBlock;
+  const int warps = blockDim.x >> 5;
+  const long long warps_total = static_cast<long long>(gridDim.x) * warps;
   const int tiles = CAP > 0 ? (D + CAP - 1) / CAP : 1;
+  // the table holds one tile's sums; wider v adds directly (header)
+  const bool use_table = entries > 0 && tiles == 1;
+  const int stride = 1 + (CAP > 0 ? D : 0);
+  unsigned* tkey = reinterpret_cast<unsigned*>(table_smem);
+  float* tval = table_smem + entries;
+  if (use_table) {
+    for (int i = threadIdx.x; i < entries; i += blockDim.x) tkey[i] = kEmpty;
+    for (int i = threadIdx.x; i < entries * stride; i += blockDim.x) {
+      tval[i] = 0.0f;
+    }
+    __syncthreads();
+  }
   float ll_acc = 0.0f;
   float w_acc = 0.0f;
 
-  for (long long b = static_cast<long long>(blockIdx.x) * kWarpsPerBlock +
-                     warp;
-       b < B; b += warps_total) {
+  for (long long b = static_cast<long long>(blockIdx.x) * warps + warp; b < B;
+       b += warps_total) {
     const long long row = b * K;
     const int* krow = keys + row;
     const int* srow = slots != nullptr ? slots + row : nullptr;
@@ -368,23 +523,51 @@ train_kernel(const int* __restrict__ keys, const float* __restrict__ x,
         const long long dst = grad_row(srow, j, h.KH, key, is_hot);
         if (dst < 0) continue;  // a key K4 took for padding (>= T)
         const bool to_bf16 = is_hot && h.bf16;
-        if (t == 0) {
-          const float gwv = xv * r;
-          atomicAdd((is_hot ? h.gw : gw) + dst, to_bf16 ? bf16_round(gwv) : gwv);
-        }
-        if (CAP > 0) {
-          const float* vrow = (from_snap(h, key, is_hot) ? h.snap_v : v) +
-                              static_cast<long long>(key) * D + d0;
-          float* grow = (is_hot ? h.gv : gv) + dst * D + d0;
+        const float* vrow = CAP > 0 ? (from_snap(h, key, is_hot) ? h.snap_v : v) +
+                                          static_cast<long long>(key) * D + d0
+                                    : nullptr;
+        float gvs[CAP > 0 ? CAP : 1];
+        float gws;
+        slot_grads<CAP>(gvs, gws, xv, r, vrow, s, d0, D, to_bf16);
+        // this slot's sums go to its table entry, else to the global rows
+        const int e = use_table
+                          ? table_entry(tkey, entries,
+                                        static_cast<unsigned>(dst) * 2u +
+                                            (is_hot ? 1u : 0u))
+                          : -1;
+        if (e >= 0) {
+          float* ew = tval + static_cast<long long>(e) * stride;
+          atomicAdd(ew, gws);
 #pragma unroll
           for (int d = 0; d < CAP; ++d) {
-            if (d0 + d < D) {
-              const float vx = (to_bf16 ? bf16_round(vrow[d]) : vrow[d]) * xv;
-              const float gvv = (s[d] - vx) * xv * r;
-              atomicAdd(grow + d, to_bf16 ? bf16_round(gvv) : gvv);
-            }
+            if (d < D) atomicAdd(ew + 1 + d, gvs[d]);
+          }
+        } else {
+          if (t == 0) atomicAdd((is_hot ? h.gw : gw) + dst, gws);
+          if constexpr (CAP > 0) {
+            red_row<CAP>((is_hot ? h.gv : gv) + dst * D + d0, gvs,
+                         D - d0 < CAP ? D - d0 : CAP);
           }
         }
+      }
+    }
+  }
+  if (use_table) {
+    // the flush: a thread an entry, its w sum and then its v row's, with
+    // vector reductions where the row's alignment allows
+    __syncthreads();
+    for (int e = threadIdx.x; e < entries; e += blockDim.x) {
+      const unsigned tag = tkey[e];
+      if (tag == kEmpty) continue;
+      const long long dst = tag >> 1;
+      const bool hot = (tag & 1u) != 0;
+      const float* ev = tval + static_cast<long long>(e) * stride;
+      atomicAdd((hot ? h.gw : gw) + dst, ev[0]);
+      if constexpr (CAP > 0) {
+        float vals[CAP > 0 ? CAP : 1];
+#pragma unroll
+        for (int d = 0; d < CAP; ++d) vals[d] = d < D ? ev[1 + d] : 0.0f;
+        red_row<CAP>((hot ? h.gv : gv) + dst * D, vals, D);
       }
     }
   }
@@ -593,16 +776,111 @@ int grid_for(int B, int warps_per_block) {
   return want < cap ? want : cap;
 }
 
+struct TableShape {
+  int grid, warps, entries;
+  size_t smem;
+};
+
+// The LR/FM form's launch shape for a batch of B rows of K cold and KH
+// hot slots at v width D: the grid, warps a block, the table's entries
+// (0: off) and the dynamic shared memory; opts the kernel in to that
+// much shared memory.  Each instantiation keeps the shape of the last
+// (device, B, K, KH, D) it was asked for, so the sequential paths' run
+// of equal slices reads the card's attributes and the kernel's
+// occupancy once, not once a launch.  Returns 0 or a CUDA error.
 template <int CAP, typename LW>
-void launch(const int* keys, const float* x, const void* labels,
-            const void* weights, float num_real, const float* w,
-            const float* v, const int* slots, float* gw, float* gv,
-            double* acc, int B, int K, int D, const HotArgs& h,
-            cudaStream_t stream) {
-  train_kernel<CAP, LW><<<grid_for(B, kWarpsPerBlock), kThreads, 0, stream>>>(
+int table_shape(int B, int K, int KH, int D, TableShape* out) {
+  struct Cache {
+    int key[5] = {-1, -1, -1, -1, -1};  // device, B, K, KH, D
+    TableShape shape{};
+    int opted_dev = -1;
+    size_t opted_in = 0;
+  };
+  static Cache c;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int key[5] = {dev, B, K, KH, D};
+  if (std::equal(key, key + 5, c.key)) {
+    *out = c.shape;
+    return 0;
+  }
+  int sms = 132, per_sm = 233472;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                         dev);
+  TableShape t{0, kTableWarps, 0, 0};
+  const int tiles = CAP > 0 ? (D + CAP - 1) / CAP : 1;
+  const int stride = 1 + (CAP > 0 ? D : 0);
+  if (tiles == 1) {
+    // at most kTableEntries, at most twice the slots the block walks
+    // (a small slice clears a small table), and within the block's
+    // share of the SM's shared memory (1 KB a block is the system's,
+    // 256 B land_loss's, 512 B spare)
+    const long long blocks = static_cast<long long>(sms) * kTableBlocksPerSm;
+    const long long rows =
+        (B + blocks * t.warps - 1) / (blocks * t.warps) * t.warps;
+    const long long occ = 2LL * rows * (static_cast<long long>(K) + KH);
+    const long long fit = (per_sm / kTableBlocksPerSm - 1024 - 256 - 512) /
+                          (4LL * (1 + stride));
+    long long e = kTableEntries;
+    if (e > occ) e = occ;
+    if (e > fit) e = fit;
+    t.entries = static_cast<int>(e > 32 ? e : 32);
+  }
+  t.smem = static_cast<size_t>(t.entries) * 4u * static_cast<size_t>(1 + stride);
+  if (dev != c.opted_dev) {
+    c.opted_dev = dev;
+    c.opted_in = 0;
+  }
+  if (t.smem > c.opted_in) {
+    rc = cudaFuncSetAttribute(train_kernel<CAP, LW>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(t.smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    c.opted_in = t.smem;
+  }
+  // as many blocks as are resident at once: a second wave would leave
+  // most of the card idle behind the first one's tail
+  int resident = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, train_kernel<CAP, LW>,
+                                                32 * t.warps, t.smem);
+  const int per_sm_blocks =
+      resident < kTableBlocksPerSm ? (resident > 0 ? resident : 1)
+                                   : kTableBlocksPerSm;
+  const int want = (B + t.warps - 1) / t.warps;
+  const int cap = sms * per_sm_blocks;
+  t.grid = want < cap ? want : cap;
+  std::copy(key, key + 5, c.key);
+  c.shape = t;
+  *out = t;
+  return 0;
+}
+
+template <int CAP, typename LW>
+int launch(const int* keys, const float* x, const void* labels,
+           const void* weights, float num_real, const float* w,
+           const float* v, const int* slots, float* gw, float* gv,
+           double* acc, int B, int K, int D, const HotArgs& h,
+           cudaStream_t stream) {
+  TableShape t;
+  const int rc = table_shape<CAP, LW>(B, K, h.KH, D, &t);
+  if (rc != 0) return rc;
+  train_kernel<CAP, LW><<<t.grid, 32 * t.warps, t.smem, stream>>>(
       keys, x, static_cast<const LW*>(labels),
       static_cast<const LW*>(weights), num_real, w, v, slots, gw, gv, acc, B,
-      K, D, h);
+      K, D, h, t.entries);
+  return 0;
+}
+
+// table_shape for the instantiation K2 launches at this D (v width, 0
+// for LR).
+template <typename LW>
+int shape_for(int B, int K, int KH, int D, TableShape* t) {
+  if (D == 0) return table_shape<0, LW>(B, K, KH, D, t);
+  if (D <= 8) return table_shape<8, LW>(B, K, KH, D, t);
+  if (D <= 16) return table_shape<16, LW>(B, K, KH, D, t);
+  return table_shape<32, LW>(B, K, KH, D, t);
 }
 
 struct Fields {
@@ -647,23 +925,43 @@ int dispatch(const int* keys, const float* x, const void* labels,
         keys, x, static_cast<const LW*>(labels),
         static_cast<const LW*>(weights), num_real, v, slots, gv, acc, B, K, D,
         f.cold, f.hot, f.i32, f.S, h);
-  } else if (v == nullptr || D == 0) {
-    launch<0, LW>(keys, x, labels, weights, num_real, w, nullptr, slots, gw,
-                  nullptr, acc, B, K, 0, h, s);
-  } else if (D <= 8) {
-    launch<8, LW>(keys, x, labels, weights, num_real, w, v, slots, gw, gv,
-                  acc, B, K, D, h, s);
-  } else if (D <= 16) {
-    launch<16, LW>(keys, x, labels, weights, num_real, w, v, slots, gw, gv,
-                   acc, B, K, D, h, s);
   } else {
-    launch<32, LW>(keys, x, labels, weights, num_real, w, v, slots, gw, gv,
-                   acc, B, K, D, h, s);
+    int rc = 0;
+    if (v == nullptr || D == 0) {
+      rc = launch<0, LW>(keys, x, labels, weights, num_real, w, nullptr, slots,
+                         gw, nullptr, acc, B, K, 0, h, s);
+    } else if (D <= 8) {
+      rc = launch<8, LW>(keys, x, labels, weights, num_real, w, v, slots, gw,
+                         gv, acc, B, K, D, h, s);
+    } else if (D <= 16) {
+      rc = launch<16, LW>(keys, x, labels, weights, num_real, w, v, slots, gw,
+                          gv, acc, B, K, D, h, s);
+    } else {
+      rc = launch<32, LW>(keys, x, labels, weights, num_real, w, v, slots, gw,
+                          gv, acc, B, K, D, h, s);
+    }
+    if (rc != 0) return rc;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// The LR/FM form's launch shape for a batch of B rows of K cold and KH
+// hot slots at v width D (0: LR): grid, warps a block and the table's
+// entries a block (0: off), as K2 would launch it.  Returns 0 or a CUDA
+// error.
+extern "C" int xf_train_table_shape(int B, int K, int KH, int D, int lw_u8,
+                                    int* grid, int* warps, int* entries) {
+  TableShape t;
+  const int rc = lw_u8 != 0 ? shape_for<std::uint8_t>(B, K, KH, D, &t)
+                            : shape_for<float>(B, K, KH, D, &t);
+  if (rc != 0) return rc;
+  *grid = t.grid;
+  *warps = t.warps;
+  *entries = t.entries;
+  return 0;
+}
 
 extern "C" int xf_mvm_bytes_per_slot() { return mvm::kBytesPerSlot; }
 extern "C" int xf_ffm_stage_bytes(int F, int n, int dt) {

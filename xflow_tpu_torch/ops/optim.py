@@ -7,7 +7,11 @@ tensors (``n``, ``z`` for FTRL), all float32 [T, D] on one device.  On
 CUDA tensors it launches the hand-written kernel in csrc/optim.cu
 (which names the JAX region it replaces and states its bound); on CPU
 tensors it runs :func:`optim_plain`, the optimizer's ``update_rows``
-written back in place.  The kernel makes 16-byte loads only, so on the
+written back in place.  The kernel reads g first and leaves every
+16-byte group whose gradient is zero as it is, which is what the update
+writes there for any state FTRL or SGD produced (csrc/optim.cu gives
+the argument and its one exception, an imported w that FTRL did not
+compute from its z and n).  The kernel makes 16-byte loads only, so on the
 card every tensor must be 16-byte aligned and T*D a multiple of 4 (true
 of every table the port allocates); other tensors are refused.  There is no fallback: a CUDA tensor launches
 the kernel or raises.

@@ -94,9 +94,24 @@ def _lib() -> ctypes.CDLL:
             vp,
         ]
         lib.xf_train_step.restype = ci
+        ip = ctypes.POINTER(ci)
+        lib.xf_train_table_shape.argtypes = [ci, ci, ci, ci, ci, ip, ip, ip]
+        lib.xf_train_table_shape.restype = ci
         check_stage_abi(lib)
         _bound = lib
     return _bound
+
+
+def table_shape(b: int, k: int, kh: int, d: int, lw_u8: bool = True) -> dict:
+    """The LR/FM form's launch shape on this card for a batch of ``b``
+    rows, ``k`` cold and ``kh`` hot slots, v width ``d`` (0: LR): its
+    grid, warps a block and table entries a block (0: the table is off).
+    Block ``i`` walks the rows ``r`` with ``(r // warps) % grid == i``."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    rc = _lib().xf_train_table_shape(b, k, kh, d, int(lw_u8), *map(ctypes.byref, out))
+    if rc != 0:
+        raise RuntimeError(f"train_step: table shape failed: CUDA error {rc}")
+    return dict(zip(("grid", "warps", "entries"), (o.value for o in out)))
 
 
 def _check(keys, x, labels, weights, w, v, g_w, g_v, acc, slots, form, max_fields) -> None:

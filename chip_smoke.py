@@ -270,14 +270,19 @@ Phases, in order; any failure raises and the exit code is 1:
    (exactly) and K3 on the ``ffm`` path, timed on the g one K2 launch
    leaves for the path's first batch;
 33. K1 and K2 at D = 16 (F = 39) and F = 64 (D = 4), where they run two
-   D-tiles, against their plain versions, and timed;
+   D-tiles, against their plain versions, and timed; K2 on FFM_EDGE's
+   cases (its vector reductions at D = 4 and the scalar atomics at D =
+   3 and in tiles; a key in every example, a key twice in one example;
+   dense, index mode and the head buffer);
 34. K7 (``field_pool``) and K8 (``field_pool_grad``, ops/pool.py,
    csrc/pool.cu; B11, the embedding tower of wide_deep, dcn and
    two_tower) against their plain versions on seed-made planes at
    T = 2^20: with ``w`` and without (two_tower), u8 fields with the
    clamp's 255 and int32 fields with negative ids, the hot plane (u16
    and int32 keys, keys past H) and the bf16 flag on both tables, dense,
-   index and hybrid destinations, B = 512 and 65,536.  Tolerances: K7
+   index and hybrid destinations, B = 512 and 65,536, and the edges of
+   K7's per-field slot lists (every slot in one field, a field of 34
+   slots, fields -5 and 255, B = 1 and 513).  Tolerances: K7
    per element twice n 2^-23 times the sum of the magnitudes it adds
    (n the row's slots); K8 per destination element twice its
    occurrences times 2^-23 times the sum of its terms' magnitudes, the
@@ -5054,6 +5059,63 @@ def ffm_wide_k2(dev, worst: dict, flush) -> list:
     return rows
 
 
+# Phase 33's edges of K2's FFM form at B = 2,048, T = 2^20: (label, D,
+# F, cold slots, hot slots, form, edit).  Its vector reductions run
+# where one tile holds D and D % 4 == 0 (D = 4 at F = 39); D = 3 and the
+# two-tile shapes (D = 16, F = 64) keep one atomic a column.  A key in
+# every example takes a reduction of every row on the same 16-byte
+# groups; a key twice in one example (in one field, and in two) sums
+# two slots' rows into one destination; index mode and the head buffer
+# are the sparse and hybrid paths' destinations
+FFM_EDGE_ROWS = 2048
+FFM_EDGE = (
+    ("D=4", 4, 39, K, 0, "dense", None),
+    ("D=4 index mode", 4, 39, K, 0, "hybrid", None),
+    ("D=4 hot plane into g's first H rows", 4, 39, 12, 32, "dense", None),
+    ("D=4 hot plane, index mode and head buffer", 4, 39, 12, 32, "hybrid", None),
+    ("D=3", 3, 39, K, 0, "dense", None),
+    ("D=3 index mode", 3, 39, K, 0, "hybrid", None),
+    ("D=16 index mode", 16, 39, K, 0, "hybrid", None),
+    ("F=64 index mode", 4, 64, K, 0, "hybrid", None),
+    ("one key in every example", 4, 39, K, 0, "dense", "one key"),
+    ("one key in every example, index mode", 4, 39, K, 0, "hybrid", "one key"),
+    ("one key twice in one example", 4, 39, K, 0, "dense", "twice"),
+    ("one key twice in one example, index mode", 4, 39, K, 0, "hybrid", "twice"),
+)
+
+
+def ffm_edge_k2(dev, worst: dict) -> list:
+    """Phase 33's FFM_EDGE cases: K2's FFM form against train_plain
+    (check_ffm_k2's per-row bound) on seed-made compact planes (u8
+    fields, 5 % at 255; the hot plane u16 at H = 2^14)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    tw, h, b = 1 << FFM_WIDE_T_LOG2, 1 << FFM_HOT["hot_size_log2"], FFM_EDGE_ROWS
+    cases = []
+    for label, d, f, kc, kh, form, edit in FFM_EDGE:
+        tables = {"w": {"param": torch.randn((tw, 1), generator=g, device=dev) * 0.3},
+                  "v": {"param": torch.randn((tw, f * d), generator=g, device=dev)
+                        * (0.1 * math.sqrt(4 / d))}}
+        pl = ffm_planes(b, kc, kh, h, tw, f, g, dev)
+        if edit == "one key":
+            pl["ckeys"][:, 0] = 5
+            pl["fields"][:, 0] = 3
+        elif edit == "twice":
+            pl["ckeys"][0, :2] = 77
+            pl["fields"][0, :2] = 4
+            pl["ckeys"][1, :2] = 78
+            pl["fields"][1, 0], pl["fields"][1, 1] = 4, 9
+        labels = (torch.rand(b, generator=g, device=dev) < 0.3).to(torch.uint8)
+        weights = torch.ones(b, dtype=torch.uint8, device=dev)
+        view = dict(pl, labels_u8=labels, weights_u8=weights, num_real=float(b))
+        check_ffm_k2(f"{label} B={b}", form, view, tables, h, worst)
+        cases.append(label)
+        del tables, view, pl
+    torch.cuda.empty_cache()
+    return cases
+
+
 def ffm_dict_decode(cfg, trainer, dev) -> dict:
     """K6 with the field streams on the ``ffm`` path's first batch, as
     its loader builds it: exactly its plain version, and timed (device
@@ -5255,6 +5317,7 @@ def phase_ffm(dev, workdir: str, dense: dict) -> dict:
     else:
         raise AssertionError("ffm_hot with the hot inner was not refused")
     out["timings"] += ffm_wide_k2(dev, k2w, flush)
+    k2w["edges"] = ffm_edge_k2(dev, k2w)
     out["checks"]["k2"] = k2w
     log(json.dumps({"phase": 32, "k2_ffm": k2w, "hot_inner_refused": out["hot_inner_refused"]}))
     del flush, init
@@ -5313,6 +5376,27 @@ def ffm_train_rows(ffm: dict, card: str) -> list:
     return rows
 
 
+def launches_by_shape(rows: list, kernel: str, labels=None) -> dict:
+    """``kernel``'s launches on the training paths ``rows`` (those of
+    ``labels``, by default all) by the rows each launch covers: a
+    sequential path's slices (the batch over its microbatch), the other
+    paths' whole batches, and past those (K7 alone) the eval batches."""
+    split: dict = {}
+    batch = TRAIN_BATCHES[-1]
+    for row in rows:
+        if labels is not None and row["mode"] not in labels:
+            continue
+        mode = row["config"]
+        s = mode.get("microbatch", 1) if mode.get("update_mode") == "sequential" else 1
+        n, train = row["launches"][kernel], row["steps"] * s
+        name = f"training, {batch // s}-row {'slices' if s > 1 else 'batches'}"
+        split[name] = split.get(name, 0) + min(n, train)
+        if n > train:
+            name = f"eval, {min(TEST_LINES, batch)}-row batches"
+            split[name] = split.get(name, 0) + n - train
+    return split
+
+
 def ffm_kernel_entries(ffm: dict) -> list:
     """The ``kernels`` line's entries for K1's and K2's FFM form (phases
     28-33): launches counted on their paths (each from 0 just before
@@ -5352,6 +5436,7 @@ def ffm_kernel_entries(ffm: dict) -> list:
                  "replaces": B10_REPLACES + "; " + K2_REPLACES,
                  "launches": launches("train_step", labels),
                  "launches_of": ", ".join(f"ffm {x}" for x in labels),
+                 "launches_by_shape": launches_by_shape(ffm["rows"], "train_step", labels),
                  "max_abs_err": k2["max_abs_err_g"], "max_err_over_tol": k2["max_err_over_tol"],
                  **{k: t[k] for k in keys},
                  "shape": {k: t[k] for k in ("path", "B", "Kc", "Kh", "H", "F", "D")}}
@@ -5645,7 +5730,7 @@ def embedding_bag_args(view: dict, tables: dict, h: int) -> tuple:
 
 
 def time_pool_kernels(label: str, view: dict, tables: dict, dense: dict, model, h: int,
-                      flush) -> list:
+                      flush, phase=38) -> list:
     """K7 and K8 timed on ``view`` (device ms behind ``_sleep``, an L2
     flush before each call), beside their plain versions, their bounds
     and K7's embedding_bag yardstick (its result checked against K7's
@@ -5695,7 +5780,7 @@ def time_pool_kernels(label: str, view: dict, tables: dict, dense: dict, model, 
         "library_ms": None, "library_why_null": K8_LIBRARY_WHY_NULL,
         **pool_bounds(view, tables, h, grad=True)}]
     for row in rows:
-        log(json.dumps(dict(row, phase=38)))
+        log(json.dumps(dict(row, phase=phase)))
     del k8_args, k8_kw
     torch.cuda.empty_cache()
     return rows
@@ -5736,12 +5821,50 @@ def pool_synthetic_planes(dev, b: int, k: int, kh: int, h: int, t: int, full: bo
     return view
 
 
+# Phase 34's cases: (family, B, cold slots, hot slots, full wire, edit).
+# The edits put K7's per-field slot lists at their edges: every slot of
+# every row in one field (44 slots: more than one warp's 32), a field
+# of 34 slots beside the others, fields outside [0, F) both negative
+# and 255 on the int32 plane, B = 1 (a live row), and B = 513, not a
+# multiple of the examples a block pools
+POOL_SYNTHETIC_CASES = (
+    ("wide_deep", 65536, 12, 32, False, None),
+    ("wide_deep", 512, 12, 32, True, None),
+    ("dcn", 65536, K, 0, True, None),
+    ("two_tower", 512, K, 0, False, None),
+    ("two_tower", 65536, 12, 32, True, None),
+    ("wide_deep", 512, 12, 32, False, "every slot in one field"),
+    ("dcn", 512, K, 0, True, "a field of 34 slots"),
+    ("dcn", 512, K, 0, True, "fields -5 and 255"),
+    ("wide_deep", 1, 12, 32, False, "B = 1"),
+    ("two_tower", 513, K, 0, False, None),
+)
+
+
+def pool_edge(view: dict, edit: str | None) -> dict:
+    """``view`` with POOL_SYNTHETIC_CASES' ``edit`` applied."""
+    if edit == "every slot in one field":
+        for name in ("fields", "hot_fields"):
+            if name in view:
+                view[name].fill_(7)
+    elif edit == "a field of 34 slots":
+        view["fields"][:, :34] = 3
+    elif edit == "fields -5 and 255":
+        view["fields"][:, 0::3] = -5
+        view["fields"][:, 1::3] = 255
+    elif edit == "B = 1":  # row 2: rows 0 and 1 are all padding
+        view = {n: (a[2:3] if hasattr(a, "shape") else a) for n, a in view.items()}
+        view["num_real"] = 1.0
+    return view
+
+
 def phase_pool_synthetic(dev, worst: dict) -> list:
     """Phase 34: K7 and K8 against their plain versions on seed-made
     planes at T = 2^20: with w (wide_deep, dcn) and without (two_tower),
     compact (u8 fields) and full wire (int32 fields, negative ids), the
     hot plane (u16 and int32 keys, keys past H) and the bf16 flag on
-    both tables, dense and index mode, B in {512, 65,536}."""
+    both tables, dense and index mode, B in {512, 65,536}, and
+    POOL_SYNTHETIC_CASES' edges of K7's per-field lists."""
     import torch
 
     from xflow_tpu_torch.config import Config
@@ -5750,11 +5873,7 @@ def phase_pool_synthetic(dev, worst: dict) -> list:
 
     t = 1 << 20
     cases = []
-    for family, b, k, kh, full in (("wide_deep", 65536, 12, 32, False),
-                                   ("wide_deep", 512, 12, 32, True),
-                                   ("dcn", 65536, K, 0, True),
-                                   ("two_tower", 512, K, 0, False),
-                                   ("two_tower", 65536, 12, 32, True)):
+    for family, b, k, kh, full, edit in POOL_SYNTHETIC_CASES:
         cfg = Config(model=family, table_size_log2=20, max_fields=POOLED_FIELDS,
                      **{k_: v for k_, v in POOLED[family].items()
                         if k_ not in ("max_nnz", "hot_size_log2", "hot_nnz")})
@@ -5764,8 +5883,10 @@ def phase_pool_synthetic(dev, worst: dict) -> list:
                   for spec in model.tables()}
         dense = {n: p.to(dev) for n, p in model.dense_init(g).items()}
         h = 1 << 14
-        view = pool_synthetic_planes(dev, b, k, kh, h, t, full, seed=len(cases))
-        case = f"{family} B={b} {'full' if full else 'compact'}{' hot' if kh else ''}"
+        view = pool_edge(pool_synthetic_planes(dev, max(b, 3), k, kh, h, t, full,
+                                               seed=len(cases)), edit)
+        case = (f"{family} B={b} {'full' if full else 'compact'}{' hot' if kh else ''}"
+                + (f" ({edit})" if edit else ""))
         forms = ("dense", "index") + (("hybrid",) if kh else ())
         check_pool_kernels(case, model, view, tables, dense, h, worst, forms)
         if kh:  # the bf16 flag rounds the hot rows of every table (K7) ...
@@ -6119,6 +6240,7 @@ def pooled_kernel_entries(pooled: dict) -> list:
                                          + pooled["topk"]["index"]["k7_launches"]
                                          if name == "field_pool" else 0),
                  "launches_by_path": {p: n[name] for p, n in by_path.items()},
+                 "launches_by_shape": launches_by_shape(pooled["rows"], name),
                  "max_abs_err": pooled["checks"][err],
                  "max_err_over_tol": pooled["checks"][ratio],
                  **{k: head[k] for k in keys},
@@ -6129,10 +6251,152 @@ def pooled_kernel_entries(pooled: dict) -> list:
             entry["launches_serving"] = serve
             entry["launches_topk_and_index"] = (pooled["topk"]["k7_launches"]
                                                 + pooled["topk"]["index"]["k7_launches"])
+            entry["launches_by_shape"].update({
+                "serving, MicroBatcher buckets of up to 512 rows": serve,
+                "top-k requests and the index build, up to 512 rows":
+                    entry["launches_topk_and_index"]})
         else:
             entry["library_why_null"] = K8_LIBRARY_WHY_NULL
         entries.append(entry)
     return entries
+
+
+# ---------------------------------------------------------------------------
+# K2's FFM form and K7 alone on path-like batches (``--kernel-times``)
+
+def path_like_ranks(b: int, seed: int) -> np.ndarray:
+    """[b, 39] per-field id ranks as the repo's traffic draws them
+    (io/synth.py: zipf(1.2) over 100,000 ids a field)."""
+    from xflow_tpu_torch.io.synth import FIELDS, _zipf_draw
+
+    return _zipf_draw(np.random.default_rng(seed), (b, FIELDS), 1.2)
+
+
+def path_like_key(ranks: np.ndarray, t: int) -> np.ndarray:
+    """Each (field, id) hashed over a table of ``t`` rows."""
+    glob = np.arange(ranks.shape[1], dtype=np.int64)[None, :] * 100_000 + ranks
+    return ((glob * 2654435761) % t).astype(np.int32)
+
+
+def path_like_ffm(dev, b: int, hot: bool, seed: int) -> dict:
+    """An ``ffm`` (40 slots: a field each, the last padding) or
+    ``ffm_hot`` batch of the repo's traffic, compact wire, u8 fields.
+    The hot plane takes a row's ids of rank below H / 39 in their field
+    (about 80 % of them, the share the remap captures), at most 32, the
+    rest go cold, at most 12."""
+    import torch
+
+    ranks = path_like_ranks(b, seed)
+    t = 1 << FFM_T_LOG2
+    view = {"max_fields": FFM_FIELDS, "form": "ffm", "num_real": float(b),
+            "labels_u8": torch.tensor(np.random.default_rng(seed + 1).random(b) < 0.3,
+                                      dtype=torch.uint8, device=dev),
+            "weights_u8": torch.ones(b, dtype=torch.uint8, device=dev)}
+    if not hot:
+        keys = np.full((b, K), -1, np.int32)
+        keys[:, :ranks.shape[1]] = path_like_key(ranks, t)
+        fields = np.zeros((b, K), np.uint8)
+        fields[:, :ranks.shape[1]] = np.arange(ranks.shape[1])
+        view.update(ckeys=torch.tensor(keys, device=dev),
+                    fields=torch.tensor(fields, device=dev))
+        return view
+    return dict(view, **steered_planes(dev, ranks, t, 1 << FFM_HOT["hot_size_log2"],
+                                       FFM_HOT["max_nnz"], FFM_HOT["hot_nnz"]))
+
+
+def steered_planes(dev, ranks: np.ndarray, t: int, h: int, kc: int, kh: int) -> dict:
+    """The cold and hot planes of ``ranks``: ids of rank below h / 39 in
+    their field take head row field * (h / 39) + rank (u16, 0xFFFF
+    padding; at most ``kh``, the first in field order), the others their
+    hashed key (at most ``kc``)."""
+    import torch
+
+    b, nf = ranks.shape
+    per = h // nf
+    is_hot = ranks < per
+    keys = path_like_key(ranks, t)
+    hot = np.full((b, kh), 0xFFFF, np.uint16)
+    hot_f = np.zeros((b, kh), np.uint8)
+    cold = np.full((b, kc), -1, np.int32)
+    cold_f = np.zeros((b, kc), np.uint8)
+    for i in range(b):
+        fh = np.flatnonzero(is_hot[i])[:kh]
+        fc = np.flatnonzero(~is_hot[i])[:kc]
+        hot[i, :fh.size] = fh * per + ranks[i, fh]
+        hot_f[i, :fh.size] = fh
+        cold[i, :fc.size] = keys[i, fc]
+        cold_f[i, :fc.size] = fc
+    return {"ckeys": torch.tensor(cold, device=dev), "fields": torch.tensor(cold_f, device=dev),
+            "hot": torch.tensor(hot.view(np.int16), device=dev),
+            "hot_fields": torch.tensor(hot_f, device=dev)}
+
+
+def kernel_times(dev) -> list:
+    """K2's FFM form and K7 (with K8 beside it, which this tree and its
+    parent share) timed on path-like batches of the repo's traffic: the
+    flagship ``ffm`` dense batch (65,536 rows) and a 512-row index-mode
+    slice, an ``ffm_hot`` 512-row hybrid slice; ``wide_deep`` (12 + 32
+    slots, H = 2^14) and ``dcn`` (40 slots) at 65,536 rows and 512.
+    Run from two checkouts in one call to compare them on one card."""
+    import torch
+
+    from xflow_tpu_torch.config import Config
+    from xflow_tpu_torch.models import make_model
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
+    rows = []
+    t = 1 << FFM_T_LOG2
+    tables = {"w": {"param": torch.randn((t, 1), generator=g, device=dev) * 0.3},
+              "v": {"param": torch.randn((t, FFM_FIELDS * FFM_DIM), generator=g,
+                                         device=dev) * 0.1}}
+    h = 1 << FFM_HOT["hot_size_log2"]
+    full = path_like_ffm(dev, TRAIN_BATCHES[-1], False, SEED)
+    rows.append(time_ffm_k2("path-like dense batch", "dense", full, tables, 0, flush,
+                            "train_step (ffm: dense)", phase="kernel-times"))
+    rows.append(time_ffm_k2("path-like 512-row slice", "hybrid", ffm_view(full, SLICE_ROWS,
+                                                                          float(SLICE_ROWS)),
+                            tables, 0, flush, "train_step (ffm: index, slice)",
+                            phase="kernel-times"))
+    hot = path_like_ffm(dev, SLICE_ROWS, True, SEED + 2)
+    rows.append(time_ffm_k2("path-like ffm_hot 512-row slice", "hybrid", hot, tables, h,
+                            flush, "train_step (ffm: hybrid)", phase="kernel-times"))
+    del tables, full, hot
+    torch.cuda.empty_cache()
+    t = 1 << T_LOG2
+    for family in ("wide_deep", "dcn"):
+        geom = POOLED[family]
+        cfg = Config(model=family, table_size_log2=T_LOG2, max_fields=POOLED_FIELDS,
+                     **{k: v for k, v in geom.items()
+                        if k not in ("max_nnz", "hot_size_log2", "hot_nnz")})
+        model = make_model(cfg)
+        cg = torch.Generator().manual_seed(SEED + 11)
+        tables = {spec.name: {"param": torch.randn((t, spec.dim), generator=g, device=dev)
+                              * 0.3} for spec in model.tables()}
+        dense = {n: p.to(dev) for n, p in model.dense_init(cg).items()}
+        ranks = path_like_ranks(TRAIN_BATCHES[-1], SEED + 3)
+        hh = 1 << geom["hot_size_log2"] if "hot_size_log2" in geom else 0
+        if hh:
+            view = steered_planes(dev, ranks, t, hh, geom["max_nnz"], geom["hot_nnz"])
+        else:
+            keys = np.full((ranks.shape[0], K), -1, np.int32)
+            keys[:, :ranks.shape[1]] = path_like_key(ranks, t)
+            fields = np.zeros(keys.shape, np.uint8)
+            fields[:, :ranks.shape[1]] = np.arange(ranks.shape[1])
+            view = {"ckeys": torch.tensor(keys, device=dev),
+                    "fields": torch.tensor(fields, device=dev)}
+        view.update(labels_u8=torch.tensor(np.random.default_rng(SEED).random(
+            ranks.shape[0]) < 0.3, dtype=torch.uint8, device=dev),
+            weights_u8=torch.ones(ranks.shape[0], dtype=torch.uint8, device=dev),
+            num_real=float(ranks.shape[0]))
+        for label, v in ((f"{family} path-like batch", view),
+                         (f"{family} path-like first 512 rows",
+                          shipped_view(view, SLICE_ROWS, float(SLICE_ROWS)))):
+            rows += time_pool_kernels(label, v, tables, dense, model, hh, flush,
+                                      phase="kernel-times")
+        del tables, view
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -7102,6 +7366,10 @@ def main() -> int:
         "--kink-witness", action="store_true",
         help="instead of the phases: wide_deep's hot inner replayed on the card "
         "and the CPU in lockstep with ReLU's kinks synchronised and not")
+    parser.add_argument(
+        "--kernel-times", action="store_true",
+        help="instead of the phases: K2's FFM form and K7 (K8 beside it) timed on "
+        "path-like batches; run from two checkouts in one call to compare them")
     args = parser.parse_args()
     try:
         import torch
@@ -7133,6 +7401,10 @@ def main() -> int:
     log(json.dumps({"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
                     "float32_matmul_precision": torch.get_float32_matmul_precision()}))
     log(json.dumps(dict(build_all(), phase=1)))
+    if args.kernel_times:
+        log(json.dumps({"kernel_times": kernel_times(dev), "card": card}))
+        log(f"chip_smoke: diagnostic done in {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.seq_witness or args.seq_lockstep or args.kink_witness:
         workdir = tempfile.mkdtemp(prefix="xflow-seq-witness-")
         try:

@@ -1126,19 +1126,41 @@ def _ffm_k2(dev, m, form, labels=None):
     return outs
 
 
+def _one_key(m):
+    m["keys"][:, 0] = 5
+    m["fields"][:, 0] = 3
+
+
+def _key_twice(m):  # in one field (row 0) and in two (row 1)
+    m["keys"][0, :2] = 77
+    m["fields"][0, :2] = 4
+    m["keys"][1, :2] = 78
+    m["fields"][1, :2] = (4, 9)
+
+
 @pytest.mark.parametrize("form", ["dense", "index", "hot-dense", "hot-index", "full",
-                                  "d16", "f64", "bf16", "unclamped"])
+                                  "d16", "f64", "bf16", "unclamped", "d3", "d3-index",
+                                  "one-key", "one-key-index", "key-twice",
+                                  "key-twice-index"])
 def test_k2_ffm_forms_match_plain(dev, form):
     """K2's FFM form into each destination (dense, index mode; with the
     hot plane's gradients in g's first H rows or a head buffer), on the
     full wire, at two tiles (D = 16, F = 64), under the bf16 flag (w
     alone rounds), and at logits below -30 with every label 0, where
     the residual is the unclamped sigmoid's (about 1e-26): the clamped
-    one's 1e-6 would show in every gradient."""
+    one's 1e-6 would show in every gradient.  D = 4 lands its rows with
+    vector reductions, D = 3 and the tiles with scalar atomics; a key
+    in every example and a key twice in one example sum many slots'
+    rows into one destination."""
     kw = {"hot-dense": dict(k=12, kh=32, h=1 << 14), "hot-index": dict(k=12, kh=32, h=1 << 14),
           "full": dict(full=True, u16=False, kh=8), "d16": dict(d=16), "f64": dict(f=64),
-          "bf16": dict(k=12, kh=32, h=1 << 14)}.get(form, {})
+          "bf16": dict(k=12, kh=32, h=1 << 14), "d3": dict(d=3),
+          "d3-index": dict(d=3)}.get(form, {})
     m = _ffm_inputs(3, **kw)
+    if form.startswith("one-key"):
+        _one_key(m)
+    elif form.startswith("key-twice"):
+        _key_twice(m)
     labels = None
     if form == "unclamped":
         m["w"][:] = -2.0
@@ -1240,11 +1262,11 @@ def test_ffm_card_path_runs_kernels_only(dev, monkeypatch):
 
 
 def _pool_planes(dev, seed, b=300, k=24, kh=0, h=0, t=1 << 13, f=39, e=8, full=False,
-                 u16=True, with_w=True):
+                 u16=True, with_w=True, edit=None):
     """Planes on ``dev`` and on the CPU: keys with padding (all-padding
     rows), fields u8 (255 past the clamp) or int32 (negative and past
     F), values on the full wire, a hot plane whose keys past H count as
-    padding, tables."""
+    padding, tables; then ``edit`` (POOL_EDITS)."""
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, t, (b, k)).astype(np.int32)
     keys[rng.random((b, k)) < 0.2] = -1
@@ -1266,19 +1288,53 @@ def _pool_planes(dev, seed, b=300, k=24, kh=0, h=0, t=1 << 13, f=39, e=8, full=F
                     else hk.astype(np.int32))
         p["hot_fields"] = rng.integers(0, f, (b, kh)).astype(fields.dtype)
         p["hot_x"] = rng.uniform(0.5, 1.5, (b, kh)).astype(np.float32) if full else None
+    if edit is not None:
+        POOL_EDITS[edit](p)
     on = {n: (torch.tensor(a, device=dev) if a is not None else None) for n, a in p.items()}
     cpu = {n: (torch.tensor(a) if a is not None else None) for n, a in p.items()}
     return on, cpu
 
 
+def _one_field(p):
+    p["fields"][:] = 7
+    if "hot_fields" in p:
+        p["hot_fields"][:] = 7
+
+
+def _field_of_34(p):
+    p["fields"][:, :34] = 3
+
+
+def _negative_and_255(p):
+    p["fields"][:, 0::3] = -5
+    p["fields"][:, 1::3] = 255
+
+
+def _live_row(p):  # row 2 alone: rows 0 and 1 are all padding
+    for n in ("keys", "fields", "x", "hot", "hot_fields", "hot_x"):
+        if p.get(n) is not None:
+            p[n] = p[n][2:3].copy()
+
+
+# K7's per-field slot lists at their edges: every slot of a row in one
+# field (40 + 16: more than a warp's 32), a field of 34 slots, fields
+# outside [0, F) both negative and 255, B = 1 (a live row)
+POOL_EDITS = {"one-field": _one_field, "field-of-34": _field_of_34,
+              "negative-and-255": _negative_and_255, "b1": _live_row}
+
 POOL_CASES = {
-    # (kh, h, full, u16, with_w, bf16)
-    "compact": (0, 0, False, True, True, False),
-    "full-negative-fields": (0, 0, True, True, True, False),
-    "no-w": (0, 0, False, True, False, False),
-    "hot-u16": (16, 1 << 10, False, True, True, False),
-    "hot-i32-full": (16, 1 << 10, True, False, True, False),
-    "hot-bf16": (16, 1 << 10, False, True, True, True),
+    # (kh, h, full, u16, with_w, bf16, b, k, edit)
+    "compact": (0, 0, False, True, True, False, 300, 24, None),
+    "full-negative-fields": (0, 0, True, True, True, False, 300, 24, None),
+    "no-w": (0, 0, False, True, False, False, 300, 24, None),
+    "hot-u16": (16, 1 << 10, False, True, True, False, 300, 24, None),
+    "hot-i32-full": (16, 1 << 10, True, False, True, False, 300, 24, None),
+    "hot-bf16": (16, 1 << 10, False, True, True, True, 300, 24, None),
+    "every-slot-in-one-field": (16, 1 << 10, False, True, True, False, 300, 40, "one-field"),
+    "field-of-34-slots": (0, 0, True, True, True, False, 300, 40, "field-of-34"),
+    "fields-negative-and-255": (0, 0, True, True, True, False, 300, 40, "negative-and-255"),
+    "b1": (16, 1 << 10, False, True, True, False, 3, 24, "b1"),
+    "b301-not-a-multiple-of-4": (0, 0, False, True, True, False, 301, 24, None),
 }
 
 
@@ -1286,8 +1342,9 @@ POOL_CASES = {
 def test_k7_field_pool_matches_plain(dev, case):
     from xflow_tpu_torch.ops.pool import field_pool, field_pool_plain
 
-    kh, h, full, u16, with_w, bf16 = POOL_CASES[case]
-    on, cpu = _pool_planes(dev, 3, kh=kh, h=h, full=full, u16=u16, with_w=with_w)
+    kh, h, full, u16, with_w, bf16, b, k, edit = POOL_CASES[case]
+    on, cpu = _pool_planes(dev, 3, b=b, k=k, kh=kh, h=h, full=full, u16=u16,
+                           with_w=with_w, edit=edit)
     f = 39
     args = lambda p: (p["keys"], p["x"], p["fields"], p["emb"], f)  # noqa: E731
     kw = lambda p: dict(w=p["w"], hot=p.get("hot"), hot_x=p.get("hot_x"),  # noqa: E731
@@ -1298,7 +1355,7 @@ def test_k7_field_pool_matches_plain(dev, case):
     assert field_pool.launches == before + 1
     want_p, want_w = field_pool_plain(*args(cpu), **kw(cpu))
     _close(pooled, want_p)
-    assert float(pooled[:2].abs().max()) == 0.0 or kh  # all-padding rows
+    assert float(pooled[:2].abs().max()) == 0.0 or kh or edit == "b1"  # all-padding rows
     if with_w:
         _close(wide, want_w)
     else:

@@ -99,13 +99,16 @@ def _step_kw(optimizer, wire, **mode):
                 wire_dedup="on" if wire == "dict" else "off", **mode)
 
 
-def _check_step_parity(kw, atol=ATOL):
+def _check_step_parity(kw, atol=ATOL, edge=None):
     """Two steps from the reference's initial state (the second starts
-    with n > 0): tables and log-losses."""
+    with n > 0): tables and log-losses; the batches cut by ``edge``
+    (_edge) when given."""
     full = not kw["hash_mode"]
     h = (1 << kw["hot_size_log2"]) if kw["hot_size_log2"] else 0
     raws = [_zipf_raw(s, 64, KC, kw["hot_nnz"], h, full=full, slot_lo=-2 if full else 0)
             for s in (1, 2)]
+    if edge is not None:
+        raws = [_edge(r, edge) for r in raws]
     if kw["wire_dedup"] == "on":
         raws = [_left(r) for r in raws]
     rcfg = RefConfig(**kw)
@@ -140,6 +143,35 @@ def _check_step_parity(kw, atol=ATOL):
 def test_ffm_step_matches_reference(mode, optimizer, wire):
     step = _check_step_parity(_step_kw(optimizer, wire, **MODES[mode]))
     assert step.row_chunks == (4 if mode in ("dense-mb4", "hot-dense-mb4") else 1)
+
+
+def _edge(raw, edge):
+    """A _zipf_raw batch at an edge K2's FFM form is held to on the card:
+    every slot of every row in one field, one key live in every example,
+    a key twice in one example (in one field, and in two), B = 1 (its
+    first, live row)."""
+    keys, slots, vals, mask, labels, weights = (a.copy() for a in raw)
+    if edge == "one-field":
+        slots[:] = 2
+    elif edge == "one-key":
+        keys[:, 0], slots[:, 0], mask[:-3, 0] = 5, 1, 1.0
+    elif edge == "key-twice":
+        keys[:2, :2], slots[:2, :2], mask[:2, :2] = 9, 3, 1.0
+        slots[1, 1] = 4
+    elif edge == "b1":
+        return tuple(a[:1] for a in (keys, slots, vals, mask, labels, weights))
+    return keys, slots, vals, mask, labels, weights
+
+
+@pytest.mark.parametrize("mode", ["dense", "sparse"])
+@pytest.mark.parametrize("edge", ["one-field", "one-key", "key-twice", "b1"])
+def test_ffm_step_edges_match_reference(edge, mode):
+    """One FFM step's plain K2 (dense: at the keys' rows; sparse: at
+    K4's slots) against the JAX TrainStep on _edge's batches."""
+    kw = _step_kw("ftrl", "compact", **MODES[mode])
+    if edge == "b1":
+        kw["batch_size"] = 1
+    _check_step_parity(kw, edge=edge)
 
 
 def test_ffm_mxu_bf16_rounds_w_alone():

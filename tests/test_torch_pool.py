@@ -309,6 +309,61 @@ def test_field_pool_grad_plain_matches_jax_grad(wire, hot, with_w, bf16):
             assert float(g_w[key].abs().max()) > 0.0
 
 
+def _edge_planes(edge):
+    """_planes (compact wire, hot plane) at the edges K7's and K8's card
+    checks hold the kernels to: every slot of every row in one field,
+    one key in every example, a key twice in one example (in one field,
+    and in two), B = 1 (a live row, no hot plane)."""
+    p = _planes(17, "compact", edge != "b1")
+    if edge == "one-field":
+        p["fields"][:] = 2
+        p["hot_fields"][:] = 2
+    elif edge == "one-key":
+        p["keys"][:, 0] = 5
+        p["fields"][:, 0] = 1
+    elif edge == "key-twice":
+        p["keys"][:2, :2] = 9
+        p["fields"][:2, :2] = 3
+        p["fields"][1, 1] = 4
+    elif edge == "b1":
+        p["keys"], p["fields"] = p["keys"][:1].copy(), p["fields"][:1].copy()
+    return p
+
+
+@pytest.mark.parametrize("edge", ["one-field", "one-key", "key-twice", "b1"])
+def test_field_pool_plain_edges_match_reference(edge):
+    """K7's and K8's plain versions against the reference's tower, wide
+    term and their jax.grad scattered as the reference scatters, on
+    _edge_planes' edges."""
+    p = _edge_planes(edge)
+    t = _tensors(p)
+    b, hot = p["keys"].shape[0], "hot" in p
+    kw = dict(hot=t.get("hot"), hot_fields=t.get("hot_fields"), hot_size=H if hot else 0)
+    pooled, wide = field_pool(t["keys"], None, t["fields"], t["emb"], F, w=t["w"], **kw)
+    rows_e, rows_w, x, slots, _ = _ref_view(p, False)
+    np.testing.assert_allclose(pooled.numpy(),
+                               _np(ref_blocks.field_sum_tower(rows_e, x, slots, F)),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(wide.numpy(), _np(ref_blocks.linear_term(rows_w, x)),
+                               rtol=RTOL, atol=ATOL)
+    rng = np.random.default_rng(18)
+    dP = rng.normal(0, 0.1, (b, F, E)).astype(np.float32)
+    r = rng.normal(0, 0.1, b).astype(np.float32)
+    got = {"emb": torch.zeros(T, E), "w": torch.zeros(T, 1)}
+    if hot:
+        got.update(hemb=torch.zeros(H, E), hw=torch.zeros(H, 1))
+    acc = torch.zeros(2, dtype=torch.float64)
+    field_pool_grad(t["keys"], None, t["fields"], torch.tensor(dP), torch.tensor(r),
+                    torch.zeros(b), torch.zeros(b), torch.ones(b), F, got["emb"], acc,
+                    g_w=got["w"], hg_w=got.get("hw"), hg_emb=got.get("hemb"), **kw)
+    want = _ref_grads(p, jnp.asarray(dP), jnp.asarray(r), False)
+    assert set(want) == set(got)
+    for name, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want[name], rtol=RTOL, atol=ATOL,
+                                   err_msg=name)
+    assert float(acc[1]) == float(b)
+
+
 def test_field_pool_grad_index_mode_sums_at_unique_keys():
     """Index mode: the per-unique-key sums at K4's slots equal the dense
     scatter at those keys; the hot plane lands in the head buffers."""

@@ -27,18 +27,22 @@
 // field lies outside [0, F), gradient row) and the sums S[f1, f2, d]
 // of a tile of Dt factors are built in shared memory, F * F * Dt
 // floats, with one thread per column (f2, d) of the tile: the thread
-// walks the slots in order and adds x_i * v[k_i, f2, d0 + d] into row
-// f_i of its own column, so there are no shared-memory atomics and
-// the order of addition is fixed.  The v row's F * Dt reads of a slot
+// walks the slots in order (reading kAhead slots' v ahead) and adds
+// x_i * v[k_i, f2, d0 + d] into row f_i of its own column, so there
+// are no shared-memory atomics and the order of addition is fixed.  The v row's F * Dt reads of a slot
 // are coalesced across the threads (contiguous when Dt = D).  The
 // diagonal is added in the same walk (the column whose f2 is the
 // slot's own field), the cross term is each column's sum over f1 of
 // S[f1, f2, d] S[f2, f1, d] after a block barrier, and a block
 // reduction in a fixed order gives every thread the same logit.  K2
-// then forms the residual on every thread and, for each staged slot,
-// each column adds (S[f2, f_i, d] - [f2 == f_i] x_i v[k_i, f_i, d]) *
-// x_i * r into the slot's gradient row with one atomicAdd, coalesced
-// along the row; w's gradient x_i * r takes one atomic per slot.
+// then forms the residual on every thread and adds, for each staged
+// slot, (S[f2, f_i, d] - [f2 == f_i] x_i v[k_i, f_i, d]) * x_i * r into
+// the slot's gradient row, coalesced along the row: where one tile
+// holds all of D and D % 4 == 0, one 16-byte vector reduction
+// (red.global.add.v4.f32) per 4 factors of a field block, the (slot,
+// group) items spread over the block (1,560 an example at the flagship,
+// a quarter of the scalar form's 6,240 atomics); elsewhere one atomicAdd
+// per column.  w's gradient x_i * r takes one atomic per slot.
 // Both the cross term and the gradient separate over d, so D is tiled
 // exactly: Dt is the most factors whose stage fits kTileSmem (48 KB,
 // the default dynamic limit; all of D at the flagship F = 39, D = 4,
@@ -54,6 +58,17 @@
 // (n = 40, F = 39, D = 4) about 37 kflop an example against about 25 KB
 // of v rows, 1.5 flop a byte, far below the card's 20 flop/B float32
 // ridge, so bytes bound it.
+//
+// Why K2 keeps no shared-memory table of hot destinations, as its
+// LR/FM form does (timed with chip_smoke.py --kernel-times on a
+// path-like flagship batch of 65,536 rows, H100 80GB HBM3 at 700 W):
+// with the vector reductions K2 took 1.552 ms, and 1.444 ms with the
+// reductions computed but not issued, so they are 7 % of its time; a
+// 32-row table (20 KB a block beside the stage, each table column owned
+// by one thread, since shared-memory float atomics are compare-and-swap
+// loops on sm_90a) took 3.570 ms.  The rest is the forward: reading the
+// v rows kAhead slots ahead took 1.552 to 1.386 ms (2 ahead 1.454, 6
+// and 8 slower for their registers).
 
 #pragma once
 
@@ -69,6 +84,7 @@ constexpr int kBytesPerSlot = 16;  // key, x, field, gradient row
 constexpr int kScratchBytes = 32 * 4;  // one float per warp
 constexpr int kTileSmem = 48 * 1024;
 constexpr int kMaxThreads = 256;
+constexpr int kAhead = 4;  // slots whose v reads tile_sums issues together
 
 __host__ __device__ inline size_t stage_bytes(int F, int n, int dt) {
   return static_cast<size_t>(4) * F * F * dt +
@@ -146,12 +162,23 @@ __device__ __forceinline__ float tile_sums(const Stage& s, int n, int F, int D,
     const int f2 = c / dt;
     const int at = f2 * D + d0 + (c - f2 * dt);
     for (int f1 = 0; f1 < F; ++f1) s.S[f1 * cols + c] = 0.0f;
-    for (int j = 0; j < n; ++j) {
-      const int f = s.fld[j];
-      if (f < 0) continue;
-      const float vx = __fmul_rn(row(j)[at], s.x[j]);
-      s.S[f * cols + c] += vx;
-      if (f == f2) diag += vx * vx;
+    // kAhead slots' v reads in flight together, then their sums in
+    // slot order
+    for (int j0 = 0; j0 < n; j0 += kAhead) {
+      float vx[kAhead];
+      int fl[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int j = j0 + u;
+        fl[u] = j < n ? s.fld[j] : -1;
+        vx[u] = fl[u] >= 0 ? __fmul_rn(row(j)[at], s.x[j]) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        if (fl[u] < 0) continue;
+        s.S[fl[u] * cols + c] += vx[u];
+        if (fl[u] == f2) diag += vx[u] * vx[u];
+      }
     }
   }
   return diag;

@@ -181,8 +181,13 @@
 // There is no window-start mode (the hot inner alone uses it, and FFM
 // refuses it).  Bound: the keys (and x), fields, labels and weights
 // once, per distinct row 4 + 4 S D B of w and v read and as much of g
-// read and written; bytes bound it (ffm.cuh).  At the flagship the
-// 156-wide rows take 156 atomics a slot: 6,240 an example.
+// read and written; bytes bound it (ffm.cuh).  Where one tile holds all
+// of D and D % 4 == 0 (the flagship's F = 39, D = 4), each (slot, f2,
+// 4 factors) group of a gradient row lands with one 16-byte vector
+// reduction (red.global.add.v4.f32), the groups spread over the
+// block's threads: 39 a slot at the flagship where the scalar form
+// made 156 atomics (ffm.cuh says why no shared-memory table sums them
+// first).  The tiled shapes and D % 4 != 0 keep one atomic a column.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -680,8 +685,8 @@ train_ffm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
                  double* __restrict__ acc, int B, int K, int D, int dt,
                  const void* __restrict__ fields,
                  const void* __restrict__ hot_fields, int f_i32, int F,
-                 const HotArgs h) {
-  extern __shared__ float ffm_smem[];
+                 const HotArgs h, int vec) {
+  extern __shared__ __align__(16) float ffm_smem[];
   const int n = h.KH + K;
   const int E = F * D;
   const ffm::Stage s = ffm::stage_at(ffm_smem, F, dt, n);
@@ -732,6 +737,35 @@ train_ffm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
       const bool hot = j < h.KH;
       const float g = s.x[j] * r;
       atomicAdd((hot ? h.gw : gw) + dst, hot && h.bf16 ? bf16_round(g) : g);
+    }
+    if (vec) {
+      // one tile, D % 4 == 0: work items (slot, 16-byte group of its
+      // row), consecutive threads on consecutive groups of one row; a
+      // group is S[f2, f_j, 4 factors] (one 16-byte shared read), the
+      // own field's less x v unfused as below, landed with one vector
+      // reduction
+      const int groups = E >> 2;
+      const int per_field = D >> 2;
+      for (int u = threadIdx.x; u < n * groups; u += blockDim.x) {
+        const int j = u / groups;
+        const int at = (u - j * groups) << 2;  // f2 * D + dd, dd % 4 == 0
+        const int fj = s.fld[j];
+        const int dst = s.dst[j];
+        if (fj < 0 || dst < 0) continue;
+        const int f2 = (at >> 2) / per_field;
+        const float xj = s.x[j];
+        const float4 sv =
+            *reinterpret_cast<const float4*>(s.S + f2 * E + fj * D + at - f2 * D);
+        float g[4] = {sv.x, sv.y, sv.z, sv.w};
+        if (f2 == fj) {
+          const float* vrow = rows(j) + at;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) g[q] -= __fmul_rn(vrow[q], xj);
+        }
+        red4((j < h.KH ? h.gv : gv) + static_cast<long long>(dst) * E + at,
+             g[0] * xj * r, g[1] * xj * r, g[2] * xj * r, g[3] * xj * r);
+      }
+      continue;
     }
     // the backward, the last tile first (its sums are in S)
     for (int t = tiles - 1; t >= 0; --t) {
@@ -883,6 +917,54 @@ int shape_for(int B, int K, int KH, int D, TableShape* t) {
   return table_shape<32, LW>(B, K, KH, D, t);
 }
 
+struct FfmShape {
+  int dt, threads;
+  long long cap;  // blocks resident at once on the card
+  size_t smem;
+};
+
+// The FFM form's launch shape for F fields of dv factors and n slots a
+// row: the tile, threads, dynamic shared memory (the kernel opted in)
+// and the resident blocks.  Each instantiation keeps the shape of the
+// last (device, F, dv, n) it was asked for, so a run of equal batches
+// or slices reads the card's attributes and the occupancy once.
+// Returns 0 or a CUDA error (cudaErrorInvalidValue: the stage does not
+// fit the card's shared memory).
+template <typename LW>
+int ffm_shape(int F, int dv, int n, FfmShape* out) {
+  struct Cache {
+    int key[4] = {-1, -1, -1, -1};  // device, F, dv, n
+    FfmShape shape{};
+  };
+  static Cache c;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int key[4] = {dev, F, dv, n};
+  if (std::equal(key, key + 4, c.key)) {
+    *out = c.shape;
+    return 0;
+  }
+  FfmShape t{};
+  t.dt = ffm::tile_factors(F, dv, n);
+  const int rc = ffm::launch_shape(train_ffm_kernel<LW>, F, t.dt, n, &t.threads,
+                                   &t.smem);
+  if (rc != 0) return rc;
+  int sms = 132, per_sm = 1;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, train_ffm_kernel<LW>,
+                                                t.threads, t.smem);
+  t.cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  std::copy(key, key + 4, c.key);
+  c.shape = t;
+  *out = t;
+  return 0;
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
+}
+
 struct Fields {
   int form;  // 0 LR / FM, 1 MVM, 2 FFM
   const void* cold;
@@ -898,23 +980,18 @@ int dispatch(const int* keys, const float* x, const void* labels,
              const Fields& f, cudaStream_t s) {
   if (f.form == 2) {
     const int dv = D / f.S;
-    const int dt = ffm::tile_factors(f.S, dv, K + h.KH);
-    int threads = 0;
-    size_t smem = 0;
-    const int rc = ffm::launch_shape(train_ffm_kernel<LW>, f.S, dt, K + h.KH,
-                                     &threads, &smem);
+    FfmShape t;
+    const int rc = ffm_shape<LW>(f.S, dv, K + h.KH, &t);
     if (rc != 0) return rc;
-    int dev = 0, sms = 132, per_sm = 1;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, train_ffm_kernel<LW>,
-                                                  threads, smem);
-    const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-    const int grid = static_cast<int>(B < cap ? B : cap);
-    train_ffm_kernel<LW><<<grid, threads, smem, s>>>(
+    const int grid = static_cast<int>(B < t.cap ? B : t.cap);
+    // the vector reductions want one tile, whole 16-byte groups and
+    // 16-byte aligned gradient rows (E % 4 == 0 and aligned bases)
+    const int vec = t.dt == dv && dv % 4 == 0 && aligned16(gv) &&
+                    (h.KH == 0 || aligned16(h.gv));
+    train_ffm_kernel<LW><<<grid, t.threads, t.smem, s>>>(
         keys, x, static_cast<const LW*>(labels),
         static_cast<const LW*>(weights), num_real, w, v, slots, gw, gv, acc, B,
-        K, dv, dt, f.cold, f.hot, f.i32, f.S, h);
+        K, dv, t.dt, f.cold, f.hot, f.i32, f.S, h, vec);
   } else if (f.form == 1) {
     int warps = 1;
     size_t smem = 0;

@@ -55,10 +55,11 @@ from xflow_tpu_torch.ops.hot import hot_scatter
 from xflow_tpu_torch.ops.score import check_hot, hot_plane_keys, plain_view
 from xflow_tpu_torch.utils.metrics import logloss_sum, sigmoid_ref
 
-# Either kernel stages a row's Kh + K slots in one block's shared memory
+# K8 stages a row's Kh + K slots in one block's shared memory
 # (csrc/pool.cu): POOL_BYTES_PER_SLOT a slot within POOL_STAGE_BYTES,
 # the 48 KiB a block gets without the opt-in less the static part.  That
-# caps a row at POOL_MAX_SLOTS slots.
+# caps a row at POOL_MAX_SLOTS slots, for K7 too (its warp's stage fits
+# any such row).
 POOL_BYTES_PER_SLOT = 12
 POOL_STAGE_BYTES = 48 * 1024 - 64
 POOL_MAX_SLOTS = POOL_STAGE_BYTES // POOL_BYTES_PER_SLOT

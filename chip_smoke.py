@@ -111,18 +111,22 @@ Phases, in order; any failure raises and the exit code is 1:
    csrc/sparse.cu) and K2's index mode against their plain versions on
    the sparse path's own first batch (B = 65,536, FM and LR) and on
    cases made from it: its first 512 rows, 512 rows of padding, one key
-   in every row, uniform keys.  K4 exactly: the same count and key set
+   in every row, uniform keys; and (FM) K4 at M = 0 and 1, on keys -1,
+   T - 1 and T, at the slice form's threshold and one past it, with its device
+   operations per call counted by torch.profiler (1 at a 512-row slice,
+   3 at the batch), and K5 at widths 1 + 10, 1 + 156 and 1 + 8, U = 0
+   and U = cap.  K4 exactly: the same count and key set
    as the plain version (the kernel's slots are a permutation of the
    plain version's sorted ones), every occurrence's slot holding its
    own key, padding -1.  K2's per-key sums within the sum of their
-   occurrences' phase-6 bounds.  K5 (FTRL on every table; SGD on the
-   widest) within phase 7's
+   occurrences' phase-6 bounds.  K5 (FTRL on every table in ONE
+   launch; SGD on the widest) within phase 7's
    bounds, with planted rows that keep w (g = 0, n = 0) and rows whose
    |z'| lands on lambda1; every row outside the unique keys
    bit-identical, the summed gradients cleared, the slot map restored;
 11. the sparse update mode (``update_mode="sparse"``) on phase 8's
    shards from phase 8's initial state, 2 epochs, FM and LR: launches
-   K4 = K2 = steps, K5 = steps x tables, K3 = 0, no [T, D] gradient
+   K4 = K2 = K5 = steps, K3 = 0, no [T, D] gradient
    buffer; the card against the CPU (TRAIN_BOUNDS) and against phase
    8's dense card run (dense and sparse are the same training);
 12. sequential mode with the sparse inner at microbatch 128 (B_eff =
@@ -314,7 +318,12 @@ Phases, in order; any failure raises and the exit code is 1:
 38. K7 and K8 against their plain versions on each pooled path's own
    first batch or slice (dense, index, hybrid), and timed on the dense
    paths' batches and their first 512 rows beside their bounds, plain
-   versions and (K7) ``F.embedding_bag`` over (row, field) bags.
+   versions and (K7) ``F.embedding_bag`` over (row, field) bags;
+39. ROADMAP C5: each field form past its shared-memory cap stages a row in
+   device memory (csrc/stage.cuh): K1 and K2's MVM form at 1,600 slots,
+   their FFM form at max_fields 256 with 40 slots, K7 and K8 at 4,200
+   slots, dense and index mode, against their plain versions at B = 64
+   (rtol 1e-5 with an atol of 1e-5 of the largest magnitude), timed.
 
 The card-against-CPU replays are cut for the time limit: every
 ``compare_states`` holds the two sides on the card (the CPU's arrays
@@ -2010,12 +2019,12 @@ def expected_launches(mode: dict, steps: int, tables: int, eval_batches: int,
     (xflow_tpu_torch/parallel/step.py's module docstring): K2 once per
     update (per slice in sequential mode, per batch otherwise: dense
     microbatch and cold_consolidate run the plain dense step); K4 with
-    each K2 of the touched-rows form, K5 per table after it; K3 per
-    table per update of the dense form, and with a hot table per table
-    per hybrid update (the head rows); K1 per eval batch; K6 per
-    dispatch and eval batch on the dictionary wire.  The hot inner's
-    window (``windowend`` resolved): K2 and K3 over the head per slice,
-    then K4 once and K5 per table (sparse end) or K3 per table (dense
+    each K2 of the touched-rows form, and one K5 launch over every table
+    after it; K3 per table per update of the dense form, and with a hot
+    table per table per hybrid update (the head rows); K1 per eval
+    batch; K6 per dispatch and eval batch on the dictionary wire.  The
+    hot inner's window (``windowend`` resolved): K2 and K3 over the head
+    per slice, then K4 and K5 once (sparse end) or K3 per table (dense
     end) per dispatch.  A pooled family (``pooled``) runs K7 where the
     others run K1 (and once per update) and K8 where they run K2."""
     update = mode.get("update_mode", "dense")
@@ -2036,17 +2045,17 @@ def expected_launches(mode: dict, steps: int, tables: int, eval_batches: int,
         sparse_end = windowend == "sparse"
         return dict(out, optim_update=steps * tables * (s + (0 if sparse_end else 1)),
                     consolidate_keys=steps if sparse_end else 0,
-                    touched_update=steps * tables if sparse_end else 0)
+                    touched_update=steps if sparse_end else 0)
     plans = steps * s if sparse else 0
     # the dense form steps every table per update; the hybrid steps the
     # head rows per update; the plain touched-rows form none
     passes = (plans if hot else 0) if sparse else steps * s
     return dict(out, optim_update=passes * tables, consolidate_keys=plans,
-                touched_update=plans * tables)
+                touched_update=plans)
 
 
 GUARD_SLEEP_CYCLES = 5 * SLEEP_CYCLES  # ~100 ms, 5x a sequential dispatch's host path
-GUARD_SEGMENT_SLICES = 32  # at most 8 queued launches a slice: ~260 a segment
+GUARD_SEGMENT_SLICES = 32  # at most 5 queued launches a slice: ~160 a segment
 
 
 def guard_first_dispatch(trainer, segment: int = GUARD_SEGMENT_SLICES) -> dict:
@@ -2059,8 +2068,9 @@ def guard_first_dispatch(trainer, segment: int = GUARD_SEGMENT_SLICES) -> dict:
     may not see) would have waited for the sleep to end.  Between
     segments the guard itself waits for the card, outside the check, so
     no segment queues more launches than the card holds pending (a
-    hybrid fm dispatch queues about 1,030: 128 slices of K4's memset
-    and two kernels, K2, and K5 and K3 per table).  Records the
+    hybrid fm dispatch queues about 645: 128 slices of K4's one launch,
+    K2, one K5 over both tables and K3 per table, and K6; 1,030 when
+    K4 made three operations a slice and K5 one a table).  Records the
     segments' host time and the sleeps' device times."""
     import torch
 
@@ -2271,11 +2281,12 @@ def check_k4(case: str, keys, t: int, slot_map, worst: dict):
     from xflow_tpu_torch.ops.sparse import consolidate_keys, consolidate_keys_plain
 
     kern, plain = new_plan(keys, keys.device), new_plan(keys, keys.device)
+    kern[1].fill_(-7)  # K4 must write the count, 0 included
     consolidate_keys(keys, t, *kern, slot_map)
     consolidate_keys_plain(keys, t, *plain)
     torch.cuda.synchronize()
     n, pn = int(kern[1]), int(plain[1])
-    live = keys >= 0
+    live = (keys >= 0) & (keys < t)
     want = int(torch.unique(keys[live]).numel())
     sl = kern[2][live].long()
     in_range = not n or (int(sl.min()) >= 0 and int(sl.max()) < n)
@@ -2340,14 +2351,14 @@ def check_k2_index(case, keys, labels, weights, num_real, w, v, kern, plain, n, 
     return outs[0][0], outs[0][1]
 
 
-def check_k5(case: str, tables: dict, opt, ukeys, count, n: int, gsum, slot_map,
+def check_k5(case: str, tables: list, opt, ukeys, count, n: int, gsums: list, slot_map,
              worst: dict) -> None:
     """K5 against its plain version on ``tables`` (copies the caller
-    made: param plus aux) with ``gsum``.  For
-    FTRL it plants rows with g = 0 and n = 0 (never touched: w kept
-    exactly) and rows with w = 0 and z = +-lambda1 - g (|z'| at lambda1);
-    the touched rows are held to phase 7's elementwise bounds
-    (k3_tolerances); every other row must be
+    made: param plus aux, one dict a table, all stepped by ONE launch)
+    with ``gsums`` beside them.  For FTRL it plants rows with g = 0 and
+    n = 0 (never touched: w kept exactly) and rows with w = 0 and z =
+    +-lambda1 - g (|z'| at lambda1); the touched rows are held to phase
+    7's elementwise bounds (k3_tolerances); every other row must be
     bit-identical, gsum[:count] cleared, and the slot map (when given)
     back at -1."""
     import torch
@@ -2355,51 +2366,144 @@ def check_k5(case: str, tables: dict, opt, ukeys, count, n: int, gsum, slot_map,
     from xflow_tpu_torch.ops.sparse import touched_plain, touched_update
     from xflow_tpu_torch.optim import FTRL
 
-    gsum = gsum.clone()
+    gsums = [g.clone() for g in gsums]
     rows = ukeys[:n].long()
     if isinstance(opt, FTRL):
-        gsum[0:n:8] = 0.0
-        tables["n"][rows[0::8]] = 0.0
-        near = rows[4::8]
-        sgn = torch.where(torch.arange(near.numel(), device=rows.device) % 2 == 0, 1.0, -1.0)
-        tables["param"][near] = 0.0
-        tables["z"][near] = sgn[:, None] * opt.lambda1 - gsum[4:n:8]
-    g_in = gsum[:n].clone()
-    before = {k: a.clone() for k, a in tables.items()}
-    plain = {k: a.clone() for k, a in tables.items()}
-    g_plain = gsum.clone()
-    touched_update(tables, opt, ukeys, count, gsum, slot_map)
+        for tab, gsum in zip(tables, gsums):
+            gsum[0:n:8] = 0.0
+            tab["n"][rows[0::8]] = 0.0
+            near = rows[4::8]
+            sgn = torch.where(torch.arange(near.numel(), device=rows.device) % 2 == 0,
+                              1.0, -1.0)
+            tab["param"][near] = 0.0
+            tab["z"][near] = sgn[:, None] * opt.lambda1 - gsum[4:n:8]
+    g_in = [g[:n].clone() for g in gsums]
+    before = [{k: a.clone() for k, a in tab.items()} for tab in tables]
+    plain = [{k: a.clone() for k, a in tab.items()} for tab in tables]
+    g_plain = [g.clone() for g in gsums]
+    launched = touched_update.launches
+    touched_update(tables, opt, ukeys, count, gsums, slot_map)
     touched_plain(plain, opt, ukeys, count, g_plain)
     torch.cuda.synchronize()
-    mask = torch.zeros(before[next(iter(before))].shape[0], dtype=torch.bool,
-                       device=rows.device)
+    if touched_update.launches - launched != 1:
+        raise AssertionError(f"K5 {case}: {len(tables)} tables took "
+                             f"{touched_update.launches - launched} launches")
+    worst["tables_in_one_launch"] = max(worst.get("tables_in_one_launch", 0), len(tables))
+    mask = torch.zeros(tables[0]["param"].shape[0], dtype=torch.bool, device=rows.device)
     mask[rows] = True
-    for k in tables:
-        if not torch.equal(tables[k][~mask], before[k][~mask]):
-            raise AssertionError(f"K5 {case}: a row outside ukeys changed ({k})")
-    if n:
-        rows_before = {k: a[rows] for k, a in before.items()}
-        rows_before["g"] = g_in
-        tols = k3_tolerances(rows_before, plain["n"][rows] if "n" in plain else None, opt)
-        for k, tol in tols.items():
-            diff = (tables[k][rows] - plain[k][rows]).abs()
-            excess = float((diff - tol).max())
-            if excess > 0:
-                raise AssertionError(f"K5 {case} {opt.name} {k}: excess {excess}")
-            worst["max_abs_err"] = max(worst["max_abs_err"], float(diff.max()))
-            ratio = diff / torch.where(tol > 0, tol, 1.0)
-            worst["max_err_over_tol"] = max(worst["max_err_over_tol"], float(ratio.max()))
-        if isinstance(opt, FTRL):
-            kept = rows[0::8]
-            if not torch.equal(tables["param"][kept], before["param"][kept]):
-                raise AssertionError(f"K5 {case}: w moved on a row with g = 0, n = 0")
-            worst["never_touched_rows"] += int(kept.numel())
-            zn = plain["z"][rows].abs()
-            worst["near_lambda1"] += int(((zn - opt.lambda1).abs() <= tols["z"]).sum())
-    if bool(gsum[:n].any()):
-        raise AssertionError(f"K5 {case}: gsum not cleared")
+    for i, tab in enumerate(tables):
+        for k in tab:
+            if not torch.equal(tab[k][~mask], before[i][k][~mask]):
+                raise AssertionError(f"K5 {case} table {i}: a row outside ukeys changed ({k})")
+        if n:
+            rows_before = {k: a[rows] for k, a in before[i].items()}
+            rows_before["g"] = g_in[i]
+            tols = k3_tolerances(rows_before,
+                                 plain[i]["n"][rows] if "n" in plain[i] else None, opt)
+            for k, tol in tols.items():
+                diff = (tab[k][rows] - plain[i][k][rows]).abs()
+                excess = float((diff - tol).max())
+                if excess > 0:
+                    raise AssertionError(f"K5 {case} table {i} {opt.name} {k}: excess "
+                                         f"{excess}")
+                worst["max_abs_err"] = max(worst["max_abs_err"], float(diff.max()))
+                ratio = diff / torch.where(tol > 0, tol, 1.0)
+                worst["max_err_over_tol"] = max(worst["max_err_over_tol"],
+                                                float(ratio.max()))
+            if isinstance(opt, FTRL):
+                kept = rows[0::8]
+                if not torch.equal(tab["param"][kept], before[i]["param"][kept]):
+                    raise AssertionError(f"K5 {case}: w moved on a row with g = 0, n = 0")
+                worst["never_touched_rows"] += int(kept.numel())
+                zn = plain[i]["z"][rows].abs()
+                worst["near_lambda1"] += int(((zn - opt.lambda1).abs() <= tols["z"]).sum())
+        if bool(gsums[i][:n].any()):
+            raise AssertionError(f"K5 {case} table {i}: gsum not cleared")
     if slot_map is not None and bool((slot_map != -1).any()):
         raise AssertionError(f"K5 {case}: the slot map was not restored")
+
+
+def k4_device_ops(keys, t: int, slot_map) -> int:
+    """Device operations (kernels and memsets) one K4 call on ``keys``
+    queues, counted by torch.profiler over one call after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from xflow_tpu_torch.ops.sparse import consolidate_keys
+
+    plan = new_plan(keys, keys.device)
+    consolidate_keys(keys, t, *plan, slot_map)
+    slot_map.fill_(-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        consolidate_keys(keys, t, *plan, slot_map)
+        torch.cuda.synchronize()
+    slot_map.fill_(-1)
+    torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def k4_k5_edge_checks(keys, t: int, worst: dict) -> dict:
+    """Phase 10's edge cases on the sparse main path's first batch: K4
+    at M = 0 and 1, keys -1, T - 1 and T (padding), M at the slice
+    form's threshold and one past it (the batch form), each exactly as
+    the plain version; K4's device
+    operations at a 512-row slice (torch.profiler: 1) and at the batch
+    (3); K5 over two tables in one launch at widths 1 + 10, 1 + 156 and
+    1 + 8 (T = 2^20), with U = 0 and U = cap."""
+    import torch
+
+    from xflow_tpu_torch.ops.sparse import K4_SLICE_MAX, consolidate_keys
+    from xflow_tpu_torch.optim import FTRL
+
+    dev = keys.device
+    flat = keys.reshape(-1)
+    first = keys[:SLICE_ROWS]
+    edge = first.clone()
+    edge[:, 1], edge[:, 2], edge[:, 3] = -1, t - 1, t
+    slot_map = torch.full((t,), -1, dtype=torch.int32, device=dev)
+    cases = [("m0", flat[:0]), ("m1", torch.tensor([t - 1], dtype=torch.int32, device=dev)),
+             ("keys -1, T-1 and T", edge), ("at the threshold", flat[:K4_SLICE_MAX]),
+             ("one past the threshold", flat[:K4_SLICE_MAX + 1])]
+    for case, kk in cases:
+        check_k4(case, kk.contiguous(), t, slot_map, worst["k4"])
+        slot_map.fill_(-1)
+    ops = {"slice_512": k4_device_ops(first.contiguous(), t, slot_map),
+           "batch": k4_device_ops(keys, t, slot_map)}
+    if ops["slice_512"] != 1 or ops["batch"] != 3:
+        raise AssertionError(f"K4's device operations per call: {ops} (profiler; want 1 at "
+                             "a slice and 3 at the batch)")
+    worst["k4"]["device_ops_per_call"] = ops
+    del slot_map
+    # K5: two tables in one launch at each width, on T = 2^20
+    t5 = 1 << 20
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    opt = FTRL()
+    small = torch.where(first >= 0, first.remainder(t5), -1).contiguous()
+    m = small.numel()
+    unique = torch.randperm(t5, generator=g, device=dev)[:m].to(torch.int32)
+    out = []
+    for label, kk, widths in (("1+10", small, (1, 10)), ("1+156", small, (1, 156)),
+                              ("1+8", small, (1, 8)),
+                              ("U = 0", torch.full_like(small, -1), (1, 10)),
+                              ("U = cap", unique.view_as(small), (1, 10))):
+        smap = torch.full((t5,), -1, dtype=torch.int32, device=dev)
+        plan = new_plan(kk, dev)
+        consolidate_keys(kk, t5, *plan, smap)
+        torch.cuda.synchronize()
+        n = int(plan[1])
+        if label == "U = cap" and n != m:
+            raise AssertionError(f"K5 U = cap: {n} unique keys of {m}")
+        tables = [{k: (torch.randn((t5, d), generator=g, device=dev) * 0.1).abs()
+                   if k == "n" else torch.randn((t5, d), generator=g, device=dev) * 0.1
+                   for k in ("param", "n", "z")} for d in widths]
+        gsums = [torch.randn((m, d), generator=g, device=dev) * 0.1 for d in widths]
+        check_k5(f"edge {label}", tables, opt, plan[0], plan[1], n, gsums, smap, worst["k5"])
+        out.append({"case": f"K5 {label}", "U": n, "widths": list(widths)})
+        del tables, gsums, smap
+        torch.cuda.empty_cache()
+    return {"k4_device_ops": ops, "k5_cases": out}
 
 
 def phase_sparse_kernel_checks(model: str, trainer, arrays: dict, worst: dict) -> list:
@@ -2443,18 +2547,16 @@ def phase_sparse_kernel_checks(model: str, trainer, arrays: dict, worst: dict) -
         kern, plain, n = check_k4(label, kk, t, slot_map, worst["k4"])
         gw, gv = check_k2_index(label, kk, lab, wt, num_real, w, v, kern, plain, n,
                                 worst["k2_index"])
-        forms = [(name, opt) for name in names]
-        if case == "main_path":
-            forms += [(names[-1], SGD())]
-        for i, (name, form) in enumerate(forms):
-            if isinstance(form, FTRL):
-                copy = {k: tables[name][k].clone() for k in ("param", "n", "z")}
-            else:
-                copy = {"param": tables[name]["param"].clone()}
-            check_k5(f"{label} {name}", copy, form, kern[0], kern[1], n,
-                     gw if name == "w" else gv,
+        grads = {"w": gw, "v": gv}
+        # every table in one launch (FTRL, the path's), then SGD on the widest
+        forms = [(names, opt)] + ([([names[-1]], SGD())] if case == "main_path" else [])
+        for i, (group, form) in enumerate(forms):
+            keep = ("param", "n", "z") if isinstance(form, FTRL) else ("param",)
+            copies = [{k: tables[name][k].clone() for k in keep} for name in group]
+            check_k5(f"{label} {'+'.join(group)}", copies, form, kern[0], kern[1], n,
+                     [grads[name] for name in group],
                      slot_map if i == len(forms) - 1 else None, worst["k5"])
-            del copy
+            del copies
         kl = kk[kk >= 0]
         stats.append({"model": model, "case": case, "rows": kk.shape[0],
                       "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
@@ -2502,6 +2604,22 @@ def k5_bounds(ukeys, n: int, d: int, form: str, hot_size: int = 0) -> dict:
     sectors = (4 * n + 4 * d * n + 2 * arrays * span(keys[keys >= hot_size])
                + 2 * span(keys[keys < hot_size]))
     ops = stepped * d * (20 if form == "ftrl" else 2) + folded * d
+    used_ms = used / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(used_ms, ops_ms),
+            "bound_by": "bytes" if used_ms >= ops_ms else "operations",
+            "bound_sector_ms": max(sectors / HBM_BYTES_PER_S * 1e3, ops_ms),
+            "bound_bytes": used, "bound_sector_bytes": sectors, "bound_ops": ops}
+
+
+def k5_bounds_tables(ukeys, n: int, dims: list, form: str, hot_size: int = 0) -> dict:
+    """K5's least time for one launch over tables of widths ``dims``:
+    each table's k5_bounds, with the 4-byte key of a row read once."""
+    parts = [k5_bounds(ukeys, n, d, form, hot_size) for d in dims]
+    once = 4 * n * (len(dims) - 1)
+    used = sum(p["bound_bytes"] for p in parts) - once
+    sectors = sum(p["bound_sector_bytes"] for p in parts) - once
+    ops = sum(p["bound_ops"] for p in parts)
     used_ms = used / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOPS_PER_S * 1e3
     return {"bound_ms": max(used_ms, ops_ms),
@@ -2597,24 +2715,23 @@ def sparse_kernel_timings(model: str, trainer, keys, labels, weights, num_real,
     else:  # K5's gradients, from one K2 launch
         k2_index(plan[2])
     opt = trainer.step.optimizer
-    for name, gsum in (("w", gw), ("v", gv)):
-        if gsum is None:
-            continue
-        copy = {k: tables[name][k].clone() for k in ("param", "n", "z")}
-        args = [(copy, opt, plan[0], plan[1], gsum, None)] * TIMED_RUNS
-        rows.append({
-            "kernel": "touched_update", "model": model, "path": label, "table": name,
-            "optimizer": opt.name, "U": n, "D": gsum.shape[1],
-            "ms": time_device_ms(touched_update, args, prelude=flush.zero_),
-            # about 65 launches a call: 4 calls per sleep stay well
-            # inside the card's queue of pending launches
-            "plain_ms": time_device_ms(touched_plain, [a[:5] for a in args],
-                                       prelude=flush.zero_, chunk_size=4),
-            **k5_bounds(plan[0], n, gsum.shape[1], opt.name),
-            "library_ms": None,
-            "library_why_null": "no single PyTorch call applies FTRL to gathered rows",
-        })
-        del copy
+    names = [name for name, g in (("w", gw), ("v", gv)) if g is not None]
+    gsums = [g for g in (gw, gv) if g is not None]
+    copies = [{k: tables[name][k].clone() for k in ("param", "n", "z")} for name in names]
+    args = [(copies, opt, plan[0], plan[1], gsums, None)] * TIMED_RUNS
+    rows.append({
+        "kernel": "touched_update", "model": model, "path": label, "table": "+".join(names),
+        "optimizer": opt.name, "U": n, "D": [g.shape[1] for g in gsums],
+        "ms": time_device_ms(touched_update, args, prelude=flush.zero_),
+        # about 65 launches a table a call: 4 calls per sleep stay well
+        # inside the card's queue of pending launches
+        "plain_ms": time_device_ms(touched_plain, [a[:5] for a in args],
+                                   prelude=flush.zero_, chunk_size=4),
+        **k5_bounds_tables(plan[0], n, [g.shape[1] for g in gsums], opt.name),
+        "library_ms": None,
+        "library_why_null": "no single PyTorch call applies FTRL to gathered rows",
+    })
+    del copies
     for row in rows:
         log(json.dumps(dict(row, phase=14)))
     del flush, slot_map, gw, gv
@@ -2678,6 +2795,9 @@ def phase_update_modes(dev, t_log2: int, workdir: str, dense: dict) -> dict:
         run["row"]["phase"] = 11
         arrays = run["shipped"][0]
         out["checks"] += phase_sparse_kernel_checks(model, run["trainer"], arrays, worst)
+        if model == "fm":
+            out["edges"] = k4_k5_edge_checks(arrays["ckeys"], 1 << t_log2, worst)
+            log(json.dumps(dict(out["edges"], phase=10)))
         first = slice(0, SLICE_ROWS)
         timings = sparse_kernel_timings(
             model, run["trainer"], arrays["ckeys"], arrays["labels_u8"],
@@ -3397,17 +3517,23 @@ def check_k5_fold(case: str, tables: dict, opt, arrays: dict, h: int, worst: dic
     rows = ukeys[:n].long()
     folded = rows < h
     names = list(tables)
+    copies = [{k: tables[name][k].clone() for k in ("param", "n", "z")} for name in names]
+    plains = [{k: a.clone() for k, a in c.items()} for c in copies]
+    befores = [{k: a.clone() for k, a in c.items()} for c in copies]
+    g_ins = [gsum[name][:n].clone() for name in names]
+    g_plains = [gsum[name].clone() for name in names]
+    head = [heads[name].clone() for name in names]
+    head_plain = [heads[name].clone() for name in names]
+    launched = touched_update.launches
+    touched_update(copies, opt, ukeys, count, [gsum[name] for name in names], slot_map,
+                   head=head, hot_size=h)
+    touched_plain(plains, opt, ukeys, count, g_plains, head=head_plain, hot_size=h)
+    torch.cuda.synchronize()
+    if touched_update.launches - launched != 1:
+        raise AssertionError(f"K5 fold {case}: the tables took more than one launch")
     for i, name in enumerate(names):
-        copy = {k: tables[name][k].clone() for k in ("param", "n", "z")}
-        plain = {k: a.clone() for k, a in copy.items()}
-        before = {k: a.clone() for k, a in copy.items()}
-        g_in, g_plain = gsum[name][:n].clone(), gsum[name].clone()
-        head, head_plain = heads[name].clone(), heads[name].clone()
-        touched_update(copy, opt, ukeys, count, gsum[name],
-                       slot_map if i == len(names) - 1 else None, head=head, hot_size=h)
-        touched_plain(plain, opt, ukeys, count, g_plain, head=head_plain, hot_size=h)
-        torch.cuda.synchronize()
-        if not torch.equal(head, head_plain):
+        copy, plain, before = copies[i], plains[i], befores[i]
+        if not torch.equal(head[i], head_plain[i]):
             raise AssertionError(f"K5 fold {case} {name}: head buffers differ")
         mask = torch.zeros(t, dtype=torch.bool, device=dev)
         mask[rows[~folded]] = True
@@ -3417,7 +3543,7 @@ def check_k5_fold(case: str, tables: dict, opt, arrays: dict, h: int, worst: dic
                                      f"changed ({k})")
         stepped = rows[~folded]
         rb = {k: a[stepped] for k, a in before.items()}
-        rb["g"] = g_in[~folded]
+        rb["g"] = g_ins[i][~folded]
         tols = k3_tolerances(rb, plain["n"][stepped], opt)
         for k, tol in tols.items():
             diff = (copy[k][stepped] - plain[k][stepped]).abs()
@@ -3430,8 +3556,10 @@ def check_k5_fold(case: str, tables: dict, opt, arrays: dict, h: int, worst: dic
             raise AssertionError(f"K5 fold {case} {name}: gsum not cleared")
         worst["folded_rows"] += int(folded.sum())
         worst["stepped_rows"] += int((~folded).sum())
+    worst["tables_in_one_launch"] = max(worst.get("tables_in_one_launch", 0), len(names))
     if bool((slot_map != -1).any()):
         raise AssertionError(f"K5 fold {case}: the slot map was not restored")
+    del copies, plains, befores
     return {"ukeys": ukeys, "count": count, "n": n, "gsum": gsum, "heads": heads}
 
 
@@ -3718,20 +3846,25 @@ def phase_hot(dev, t_log2: int, workdir: str, dense: dict) -> dict:
                                      view, h, k5w)
                 from xflow_tpu_torch.ops.sparse import touched_plain, touched_update
 
-                name = "v" if "v" in tables else "w"
-                copy = {k: tables[name][k].clone() for k in ("param", "n", "z")}
-                head = fold["heads"][name]
-                args = [(copy, trainer.step.optimizer, fold["ukeys"], fold["count"],
-                         fold["gsum"][name], None, head, h)] * TIMED_RUNS
+                names = list(tables)
+                copies = [{k: tables[n_][k].clone() for k in ("param", "n", "z")}
+                          for n_ in names]
+                args = [(copies, trainer.step.optimizer, fold["ukeys"], fold["count"],
+                         [fold["gsum"][n_] for n_ in names], None,
+                         [fold["heads"][n_] for n_ in names], h)] * TIMED_RUNS
+
                 def fold_plain(table, opt, ukeys, count, gsum, _slot_map, head, hot_size):
                     touched_plain(table, opt, ukeys, count, gsum, head, hot_size)
 
+                bound = k5_bounds_tables(fold["ukeys"], fold["n"],
+                                         [c["param"].shape[1] for c in copies], "ftrl", h)
                 out["timings"].append(hot_timing_row(
-                    "touched_update (fold)", touched_update, fold_plain, args,
-                    k5_bounds(fold["ukeys"], fold["n"], copy["param"].shape[1], "ftrl", h),
-                    prelude=flush.zero_, model=model, path=label, table=name, U=fold["n"],
-                    H=h, library_why_null="no single PyTorch call applies FTRL to gathered "
-                    "rows"))
+                    "touched_update (fold)", touched_update, fold_plain, args, bound,
+                    prelude=flush.zero_, model=model, path=label, table="+".join(names),
+                    U=fold["n"], H=h, library_why_null="no single PyTorch call applies "
+                    "FTRL to gathered rows"))
+                name = "v" if "v" in tables else "w"
+                del copies
                 # K3 over the head rows, the hybrid's and the hot inner's
                 # step: a head buffer has no zero group after a slice
                 hd = {k: tables[name][k][:h].clone() for k in ("param", "n", "z")}
@@ -3742,7 +3875,7 @@ def phase_hot(dev, t_log2: int, workdir: str, dense: dict) -> dict:
                     plain_runs=20, kernel="optim_update (head rows)", model=model,
                     path=label, table=name, H=h, g="a head buffer with no zero group"))
                 log(json.dumps(dict(out["timings"][-1], phase=20)))
-                del fold, copy, hd, g_head
+                del fold, hd, g_head
             book(label, model, run, windowend=hot_windowend(cfg) if form == "window" else None,
                  hot_mass=trainer.hot_mass)
             del run, trainer, arrays, view, tables
@@ -5330,8 +5463,8 @@ def ffm_train_rows(ffm: dict, card: str) -> list:
     busy from the launches times each kernel's device ms at FFM's
     widths, measured on the path's own batch or slice 0 or its trained
     tables (phase 32: K2 by form, K6 with the field streams, K3 per
-    table over the whole table or the head rows, K4 and K5 per table on
-    the sparse and sequential paths).  The hybrid's K5 with the fold is
+    table over the whole table or the head rows, K4 and one K5 over both
+    tables on the sparse and sequential paths).  The hybrid's K5 with the fold is
     not timed at FFM's width: its busy share leaves it out."""
     ms = {(r["kernel"], r.get("table"), r.get("path")): r["ms"] for r in ffm["timings"]}
 
@@ -5360,7 +5493,7 @@ def ffm_train_rows(ffm: dict, card: str) -> list:
         else:
             path = "sparse main path" if label == "sparse" else "sequential main path, slice 0"
             busy_ms += (n["consolidate_keys"] * total("consolidate_keys", path)
-                        + n["touched_update"] / tables * total("touched_update", path))
+                        + n["touched_update"] * total("touched_update", path))
         busy = busy_ms / 1e3
         rows.append({
             "model": "ffm" if not label.startswith("hot") else "ffm_hot", "mode": label,
@@ -6331,13 +6464,146 @@ def steered_planes(dev, ranks: np.ndarray, t: int, h: int, kc: int, kh: int) -> 
             "hot_fields": torch.tensor(hot_f, device=dev)}
 
 
+def k4_k5_times(dev, flush) -> list:
+    """K4 and K5 (FTRL on w and v) on path-like planes of the repo's
+    traffic: fm_nohot's 65,536-row sparse batch (39 fields and a padding
+    slot over T = 2^24), its first 512-row slice, and a hybrid fm
+    512-row slice (12 cold slots beside 32 hot ones, H = 2^14) with the
+    fold into both head buffers.  K5 steps w and v in one call: one
+    launch in a tree whose K5 takes every table, two (one a table,
+    timed together) in a parent whose K5 takes one.  K4 starts each
+    call from a cleared slot map, K5 behind an L2 flush."""
+    import torch
+
+    from xflow_tpu_torch.ops import sparse as sp
+    from xflow_tpu_torch.optim import FTRL
+
+    multi = hasattr(sp, "K5_MAX_TABLES")
+    t = 1 << T_LOG2
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    ranks = path_like_ranks(TRAIN_BATCHES[-1], SEED + 5)
+    keys = np.full((ranks.shape[0], K), -1, np.int32)
+    keys[:, :ranks.shape[1]] = path_like_key(ranks, t)
+    keys = torch.tensor(keys, device=dev)
+    hot = steered_planes(dev, path_like_ranks(SLICE_ROWS, SEED + 6), t, 1 << 14,
+                         HOT_GEOMETRY["fm"]["max_nnz"], HOT_GEOMETRY["fm"]["hot_nnz"])
+    tables = [{"param": torch.randn((t, d), generator=g, device=dev) * 0.1,
+               "n": torch.rand((t, d), generator=g, device=dev) * 0.1,
+               "z": torch.randn((t, d), generator=g, device=dev) * 0.1} for d in (1, D)]
+    opt = FTRL()
+    slot_map = torch.full((t,), -1, dtype=torch.int32, device=dev)
+    rows = []
+    for label, kk, h in (("fm_nohot path-like sparse batch", keys, 0),
+                         ("fm_nohot path-like first 512-row slice",
+                          keys[:SLICE_ROWS].contiguous(), 0),
+                         ("fm path-like hybrid 512-row slice, fold", hot["ckeys"], 1 << 14)):
+        m = kk.numel()
+        plan = new_plan(kk, dev)
+        k4_ms = time_device_ms(sp.consolidate_keys, [(kk, t, *plan, slot_map)] * TIMED_RUNS,
+                               prelude=lambda: slot_map.fill_(-1))
+        slot_map.fill_(-1)
+        sp.consolidate_keys(kk, t, *plan, slot_map)
+        torch.cuda.synchronize()
+        n = int(plan[1])
+        slot_map.fill_(-1)
+        rows.append({"kernel": "consolidate_keys", "path": label, "M": m, "U": n,
+                     "ms": k4_ms, **k4_bounds(m, n)})
+        gsums = [torch.randn((m, d), generator=g, device=dev) * 0.01 for d in (1, D)]
+        heads = [torch.zeros((h, d), device=dev) for d in (1, D)] if h else None
+
+        def k5(gsums=gsums, heads=heads, h=h, plan=plan):
+            if multi:
+                sp.touched_update(tables, opt, plan[0], plan[1], gsums, None, head=heads,
+                                  hot_size=h)
+                return
+            for i, table in enumerate(tables):
+                sp.touched_update(table, opt, plan[0], plan[1], gsums[i], None,
+                                  head=heads[i] if heads else None, hot_size=h)
+
+        rows.append({"kernel": "touched_update", "path": label, "tables": "w+v", "U": n,
+                     "H": h, "launches_per_call": 1 if multi else 2,
+                     "ms": time_device_ms(k5, [()] * TIMED_RUNS, prelude=flush.zero_),
+                     **k5_bounds_tables(plan[0], n, [1, D], "ftrl", h)})
+        for i, name in enumerate(("w", "v")):  # each table alone: one launch in both
+            rows.append({"kernel": f"touched_update ({name} alone)", "path": label, "U": n,
+                         "H": h, "ms": time_device_ms(
+                             lambda i=i, gsums=gsums, heads=heads, h=h, plan=plan:
+                             sp.touched_update(tables[i], opt, plan[0], plan[1], gsums[i],
+                                               None, head=heads[i] if heads else None,
+                                               hot_size=h), [()] * TIMED_RUNS,
+                             prelude=flush.zero_),
+                         **k5_bounds(plan[0], n, (1, D)[i], "ftrl", h)})
+        del gsums, heads, plan
+    for row in rows:
+        log(json.dumps(dict(row, phase="kernel-times")))
+    del tables, slot_map, keys
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flagship_field_times(dev, flush) -> list:
+    """The field forms' flagship shapes, which C5's device-memory stage
+    must leave as they were: K1's MVM form at 512 rows and K2's at a
+    65,536-row dense batch of the flagship ``mvm`` (12 + 32 slots, H =
+    2^14, 39 fields, D = 10, T = 2^24), and K1's FFM form at 512 rows of
+    the flagship ``ffm`` (40 slots, F = 39, D = 4, T = 2^21); K2's FFM
+    form and K7/K8 are timed beside them (kernel_times)."""
+    import torch
+
+    from xflow_tpu_torch.ops.score import score
+    from xflow_tpu_torch.ops.train import train_step
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    rows = []
+    t = 1 << T_LOG2
+    h = 1 << HOT_GEOMETRY["mvm"]["hot_size_log2"]
+    v = torch.randn((t, D), generator=g, device=dev) * 0.1
+    gv = torch.zeros_like(v)
+    planes = steered_planes(dev, path_like_ranks(TRAIN_BATCHES[-1], SEED + 7), t, h,
+                            HOT_GEOMETRY["mvm"]["max_nnz"], HOT_GEOMETRY["mvm"]["hot_nnz"])
+    fk = {"hot_size": h, "max_fields": MVM_FIELDS, "form": "mvm"}
+    b = TRAIN_BATCHES[-1]
+    labels = torch.tensor(np.random.default_rng(SEED).random(b) < 0.3, dtype=torch.uint8,
+                          device=dev)
+    weights = torch.ones(b, dtype=torch.uint8, device=dev)
+    acc = torch.zeros(2, dtype=torch.float64, device=dev)
+    small = {k: a[:SLICE_ROWS].contiguous() for k, a in planes.items()}
+    rows.append({"kernel": "score (mvm, flagship)", "B": SLICE_ROWS,
+                 "ms": time_device_ms(lambda: score(
+                     small["ckeys"], None, None, v, hot=small["hot"], fields=small["fields"],
+                     hot_fields=small["hot_fields"], **fk), [()] * TIMED_RUNS,
+                     prelude=flush.zero_)})
+    rows.append({"kernel": "train_step (mvm: dense, flagship)", "B": b,
+                 "ms": time_device_ms(lambda: train_step(
+                     planes["ckeys"], None, labels, weights, float(b), None, v, None, gv, acc,
+                     hot=planes["hot"], hg_v=gv[:h], fields=planes["fields"],
+                     hot_fields=planes["hot_fields"], **fk), [()] * TIMED_RUNS,
+                     prelude=flush.zero_)})
+    del v, gv, planes, small
+    torch.cuda.empty_cache()
+    t = 1 << FFM_T_LOG2
+    w = torch.randn((t, 1), generator=g, device=dev) * 0.3
+    v = torch.randn((t, FFM_FIELDS * FFM_DIM), generator=g, device=dev) * 0.1
+    view = path_like_ffm(dev, SLICE_ROWS, False, SEED + 8)
+    rows.append({"kernel": "score (ffm, flagship)", "B": SLICE_ROWS,
+                 "ms": time_device_ms(lambda: score(
+                     view["ckeys"], None, w, v, fields=view["fields"], max_fields=FFM_FIELDS,
+                     form="ffm"), [()] * TIMED_RUNS, prelude=flush.zero_)})
+    for row in rows:
+        log(json.dumps(dict(row, phase="kernel-times")))
+    del w, v, view
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_times(dev) -> list:
-    """K2's FFM form and K7 (with K8 beside it, which this tree and its
-    parent share) timed on path-like batches of the repo's traffic: the
-    flagship ``ffm`` dense batch (65,536 rows) and a 512-row index-mode
-    slice, an ``ffm_hot`` 512-row hybrid slice; ``wide_deep`` (12 + 32
-    slots, H = 2^14) and ``dcn`` (40 slots) at 65,536 rows and 512.
-    Run from two checkouts in one call to compare them on one card."""
+    """K4 and K5 (k4_k5_times), the field forms' flagship shapes
+    (flagship_field_times), K2's FFM form and K7 with K8 timed on
+    path-like batches of the repo's traffic: the flagship ``ffm`` dense
+    batch (65,536 rows) and a 512-row index-mode slice, an ``ffm_hot``
+    512-row hybrid slice; ``wide_deep`` (12 + 32 slots, H = 2^14) and
+    ``dcn`` (40 slots) at 65,536 rows and 512.  Run from two checkouts
+    in one call to compare them on one card."""
     import torch
 
     from xflow_tpu_torch.config import Config
@@ -6345,7 +6611,7 @@ def kernel_times(dev) -> list:
 
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
-    rows = []
+    rows = k4_k5_times(dev, flush) + flagship_field_times(dev, flush)
     t = 1 << FFM_T_LOG2
     tables = {"w": {"param": torch.randn((t, 1), generator=g, device=dev) * 0.3},
               "v": {"param": torch.randn((t, FFM_FIELDS * FFM_DIM), generator=g,
@@ -6397,6 +6663,165 @@ def kernel_times(dev) -> list:
         del tables, view
         torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# C5: the field forms past their shared-memory caps (phase 39)
+
+C5_ROWS = 64
+C5_T_LOG2 = 16
+C5_GEOMETRY = {  # (form, slots, max_fields, factors): one past each cap
+    "mvm": ("mvm", 1600, MVM_FIELDS, D),
+    "ffm": ("ffm", 40, 256, 4),
+    "pooled": ("pooled", 4200, POOLED_FIELDS, 8),
+}
+C5_RTOL = 1e-5  # with an atol of C5_RTOL of the largest magnitude compared:
+# the kernels sum in another order than the plain versions (atomics in any)
+
+
+def c5_close(case: str, got, want, worst: dict) -> None:
+    import torch
+
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    diff = (got.double() - want.double()).abs()
+    tol = C5_RTOL * want.double().abs() + C5_RTOL * scale
+    if not bool(torch.isfinite(got).all()) or float((diff - tol).max()) > 0:
+        raise AssertionError(f"C5 {case}: kernel and plain version differ by "
+                             f"{float(diff.max())} (scale {scale})")
+    worst["max_abs_err"] = max(worst["max_abs_err"], float(diff.max()))
+    worst["cases"] += 1
+
+
+def phase_c5(dev) -> dict:
+    """Phase 39: each field form's device-memory stage past its shared-
+    memory cap (C5) against its plain version at B = 64 on seed-made
+    planes (T = 2^16, 20 % padding, u8 fields with some at the clamp's
+    255): MVM at 1,600 slots, FFM at max_fields 256 with 40 slots, a
+    pooled row (w and emb, E = 8) of 4,200 slots; K1 and K2 (K7 and
+    K8), dense and index mode, each timed beside its plain version."""
+    import torch
+
+    from xflow_tpu_torch.ops.pool import (
+        POOL_MAX_SLOTS,
+        field_pool,
+        field_pool_grad,
+        field_pool_grad_plain,
+        field_pool_plain,
+    )
+    from xflow_tpu_torch.ops.score import field_stage_global, score, score_plain
+    from xflow_tpu_torch.ops.sparse import consolidate_keys_plain
+    from xflow_tpu_torch.ops.train import train_plain, train_step
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    t = 1 << C5_T_LOG2
+    b = C5_ROWS
+    worst = {"max_abs_err": 0.0, "cases": 0}
+    rows = []
+    for name, (form, k, f, d) in C5_GEOMETRY.items():
+        if form == "pooled":
+            assert k > POOL_MAX_SLOTS
+        else:
+            assert field_stage_global(form, f, k)
+        keys = torch.randint(0, t, (b, k), generator=g, device=dev, dtype=torch.int32)
+        keys = torch.where(torch.rand((b, k), generator=g, device=dev) < 0.2, -1, keys)
+        fields = torch.randint(0, f, (b, k), generator=g, device=dev).to(torch.uint8)
+        fields = torch.where(torch.rand((b, k), generator=g, device=dev) < 0.03, 255, fields)
+        labels = (torch.rand(b, generator=g, device=dev) < 0.3).to(torch.uint8)
+        weights = torch.ones(b, dtype=torch.uint8, device=dev)
+        view = {"ckeys": keys, "fields": fields, "labels_u8": labels}
+        slots = torch.empty_like(keys)
+        consolidate_keys_plain(keys, t, torch.empty(keys.numel(), dtype=torch.int32,
+                                                    device=dev),
+                               torch.zeros(1, dtype=torch.int32, device=dev), slots)
+        common = {"phase": 39, "geometry": name, "B": b, "slots": k, "max_fields": f, "D": d}
+        if form != "pooled":
+            width = f * d if form == "ffm" else d
+            scale = 0.1 if form == "ffm" else 0.01  # MVM: 39 factors of 1 + a field's sum
+            v = torch.randn((t, width), generator=g, device=dev) * scale
+            w = torch.randn((t, 1), generator=g, device=dev) * 0.1 if form == "ffm" else None
+            fk = {"fields": fields, "max_fields": f, "form": form}
+            got = score(keys, None, w, v, return_logit=True, **fk)
+            want = score_plain(keys, None, w, v, True, **fk)
+            c5_close(f"{name} K1 logit", got[1], want[1], worst)
+            k1 = lambda: score(keys, None, w, v, **fk)  # noqa: E731
+            k1p = lambda: score_plain(keys, None, w, v, **fk)  # noqa: E731
+            bound = (mvm_bounds(view, d, 0, False) if form == "mvm"
+                     else ffm_bounds(view, f, d, 0, False))
+            rows.append(dict(common, kernel=f"score ({form}, device-memory stage)",
+                             ms=time_device_ms(k1, [()] * 20),
+                             plain_ms=time_device_ms(k1p, [()] * 4, chunk_size=1), **bound))
+            for index in (False, True):
+                m = keys.numel() if index else t
+                outs = []
+                for fn in (train_step, train_plain):
+                    g_w = torch.zeros((m, 1), device=dev) if w is not None else None
+                    g_v = torch.zeros((m, width), device=dev)
+                    acc = torch.zeros(2, dtype=torch.float64, device=dev)
+                    fn(keys, None, labels, weights, float(b), w, v, g_w, g_v, acc,
+                       slots=slots if index else None, **fk)
+                    outs.append((g_w, g_v, acc))
+                mode = "index" if index else "dense"
+                for i, what in enumerate(("g_w", "g_v", "acc")):
+                    if outs[0][i] is not None:
+                        c5_close(f"{name} K2 {mode} {what}", outs[0][i], outs[1][i], worst)
+
+                def k2(fn=train_step, index=index, outs=outs):
+                    fn(keys, None, labels, weights, float(b), w, v, outs[0][0], outs[0][1],
+                       outs[0][2], slots=slots if index else None, **fk)
+
+                bound = (mvm_bounds(view, d, 0, True, index) if form == "mvm"
+                         else ffm_bounds(view, f, d, 0, True, index))
+                rows.append(dict(common, kernel=f"train_step ({form}, device-memory stage, "
+                                 f"{mode})", ms=time_device_ms(k2, [()] * 20),
+                                 plain_ms=time_device_ms(lambda: k2(train_plain), [()] * 4,
+                                                         chunk_size=1), **bound))
+                del outs
+            del v, w
+        else:
+            emb = torch.randn((t, d), generator=g, device=dev) * 0.3
+            w = torch.randn((t, 1), generator=g, device=dev) * 0.3
+            tables = {"emb": {"param": emb}, "w": {"param": w}}
+            pooled, wide = field_pool(keys, None, fields, emb, f, w=w)
+            want_p, want_w = field_pool_plain(keys, None, fields, emb, f, w=w)
+            c5_close(f"{name} K7 pooled", pooled, want_p, worst)
+            c5_close(f"{name} K7 wide", wide, want_w, worst)
+            rows.append(dict(common, kernel="field_pool (device-memory stage)",
+                             ms=time_device_ms(lambda: field_pool(keys, None, fields, emb, f,
+                                                                  w=w), [()] * 20),
+                             plain_ms=time_device_ms(lambda: field_pool_plain(
+                                 keys, None, fields, emb, f, w=w), [()] * 4, chunk_size=1),
+                             **pool_bounds(view, tables, 0, grad=False)))
+            dp = torch.randn((b, f, d), generator=g, device=dev) * 1e-3
+            r = torch.randn(b, generator=g, device=dev) * 1e-3
+            logit = torch.randn(b, generator=g, device=dev) * 4
+            for index in (False, True):
+                m = keys.numel() if index else t
+                outs = []
+                for fn in (field_pool_grad, field_pool_grad_plain):
+                    g_emb, g_w = torch.zeros((m, d), device=dev), torch.zeros((m, 1), device=dev)
+                    acc = torch.zeros(2, dtype=torch.float64, device=dev)
+                    fn(keys, None, fields, dp, r, logit, labels, weights, f, g_emb, acc,
+                       g_w=g_w, slots=slots if index else None)
+                    outs.append((g_emb, g_w, acc))
+                mode = "index" if index else "dense"
+                for i, what in enumerate(("g_emb", "g_w", "acc")):
+                    c5_close(f"{name} K8 {mode} {what}", outs[0][i], outs[1][i], worst)
+
+                def k8(fn=field_pool_grad, index=index, outs=outs):
+                    fn(keys, None, fields, dp, r, logit, labels, weights, f, outs[0][0],
+                       outs[0][2], g_w=outs[0][1], slots=slots if index else None)
+
+                rows.append(dict(common, kernel=f"field_pool_grad (device-memory stage, "
+                                 f"{mode})", ms=time_device_ms(k8, [()] * 20),
+                                 plain_ms=time_device_ms(lambda: k8(field_pool_grad_plain),
+                                                         [()] * 4, chunk_size=1),
+                                 **pool_bounds(view, tables, 0, grad=True)))
+                del outs
+            del emb, w, tables
+        for row in rows[-3:]:
+            log(json.dumps(row))
+        torch.cuda.empty_cache()
+    return {"timings": rows, "worst": worst}
 
 
 # ---------------------------------------------------------------------------
@@ -7368,8 +7793,9 @@ def main() -> int:
         "and the CPU in lockstep with ReLU's kinks synchronised and not")
     parser.add_argument(
         "--kernel-times", action="store_true",
-        help="instead of the phases: K2's FFM form and K7 (K8 beside it) timed on "
-        "path-like batches; run from two checkouts in one call to compare them")
+        help="instead of the phases: K4, K5, the field forms' flagship shapes, K2's FFM "
+        "form and K7/K8 timed on path-like batches; run from two checkouts in one call "
+        "to compare them")
     args = parser.parse_args()
     try:
         import torch
@@ -7477,6 +7903,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         pooled = phase_pooled(dev, workdir, train_path)
         log(f"phases 34-38 done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        c5 = phase_c5(dev)
+        log(json.dumps({"phase": 39, "c5_worst": c5["worst"]}))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase": 17, "checks": hot["checks"]}))
@@ -7574,8 +8003,7 @@ def main() -> int:
     k4_head = next(r for r in modes["timings"] if r["kernel"] == "consolidate_keys"
                    and r["model"] == "fm" and r["path"] == "sparse main path")
     k5_head = next(r for r in modes["timings"] if r["kernel"] == "touched_update"
-                   and r["model"] == "fm" and r["path"] == "sparse main path"
-                   and r["table"] == "v")
+                   and r["model"] == "fm" and r["path"] == "sparse main path")
     k2_index = [r for r in modes["timings"] if r["kernel"].startswith("train_step")]
     kernels = [{
         "name": "score",
@@ -7681,8 +8109,8 @@ def main() -> int:
         "bound_sector_ms": k5_head["bound_sector_ms"],
         "library_ms": None,
         "library_why_null": k5_head["library_why_null"],
-        "shape": {"optimizer": "ftrl", "table": "v", "U": k5_head["U"], "D": D,
-                  "keys": "the sparse main path's first batch"},
+        "shape": {"optimizer": "ftrl", "tables": "w and v in one launch", "U": k5_head["U"],
+                  "D": [1, D], "keys": "the sparse main path's first batch"},
         "per_shape": [r for r in modes["timings"] if r["kernel"] == "touched_update"],
     }, {
         "name": "dict_decode",
@@ -7710,6 +8138,17 @@ def main() -> int:
     kernels += mvm_kernel_entries(wide, mvm)
     kernels += ffm_kernel_entries(ffm)
     kernels += pooled_kernel_entries(pooled)
+    # C5: each field form's device-memory stage past its cap (phase 39),
+    # beside the entry of its form
+    for entry in kernels:
+        name = entry["name"]
+        geometry = ("mvm" if "mvm" in name else "ffm" if "ffm" in name
+                    else "pooled" if name.startswith("field_pool") else None)
+        if geometry is None or "dict_decode" in name:
+            continue
+        entry["past_cap"] = [r for r in c5["timings"] if r["geometry"] == geometry
+                             and r["kernel"].split(" ")[0] == name.split(" ")[0]]
+        entry["past_cap_max_abs_err"] = c5["worst"]["max_abs_err"]
     # the hot paths' K4 plans and full-table K3 passes, beside the
     # entries' own paths above
     hot_rows = {f"{r['model']} {r['mode']}": r for r in hot["rows"]}

@@ -1497,3 +1497,329 @@ def test_pooled_card_path_runs_kernels_only(dev, monkeypatch):
     assert bool(torch.isfinite(pctr).all())
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+# -- K4's forms at their edges, K5 over every table in one launch -----------
+
+def _k4_keys(case: str, t: int) -> np.ndarray:
+    """K4's edge cases: no key, one key, all padding, one key in every
+    row, the keys -1, T - 1 and T (padding), M at the slice form's
+    threshold and one past it (the batch form), the path's 65,536-row
+    batch."""
+    from xflow_tpu_torch.ops.sparse import K4_SLICE_MAX
+
+    rng = np.random.default_rng(12)
+
+    def rows(b, k):
+        keys = rng.integers(0, t, (b, k)).astype(np.int32)
+        keys[rng.random((b, k)) < 0.25] = -1
+        return keys
+
+    if case == "m0":
+        return np.zeros((0, 40), np.int32)
+    if case == "m1":
+        return np.array([[t - 1]], np.int32)
+    if case == "all-padding":
+        return np.full((512, 40), -1, np.int32)
+    if case == "one-key-every-row":
+        keys = rows(512, 40)
+        keys[:, 0] = 4242
+        return keys
+    if case == "keys-minus-one-last-and-t":
+        keys = rows(512, 40)
+        keys[:, 1], keys[:, 2], keys[:, 3] = -1, t - 1, t
+        return keys
+    if case == "threshold":
+        return rows(K4_SLICE_MAX // 32, 32)
+    if case == "past-threshold":
+        return rows(1, K4_SLICE_MAX + 1)
+    return rows(65_536, 40)
+
+
+K4_EDGE_CASES = ("m0", "m1", "all-padding", "one-key-every-row",
+                 "keys-minus-one-last-and-t", "threshold", "past-threshold", "batch-65536")
+
+
+@pytest.mark.parametrize("case", K4_EDGE_CASES)
+def test_k4_edge_cases_match_plain(dev, case):
+    """K4 against its plain version, exactly: the same count and key set,
+    every live occurrence's slot holding its own key, padding -1, and
+    the map holding each unique key's slot and -1 elsewhere; one launch
+    a call (the slice form up to K4_SLICE_MAX keys, the batch form past
+    it: both sides of the threshold are cases)."""
+    t = 1 << 20
+    keys = torch.tensor(_k4_keys(case, t), device=dev)
+    m = keys.numel()
+    live = (keys >= 0) & (keys < t)
+    distinct = torch.unique(keys[live])
+    slot_map = torch.full((t,), -1, dtype=torch.int32, device=dev)
+    puk, pcnt, psl = _plan(keys, t, dev)
+    ukeys = torch.full((max(m, 1),), 123, dtype=torch.int32, device=dev)
+    count = torch.full((1,), 77, dtype=torch.int32, device=dev)
+    slots = torch.empty_like(keys)
+    before = consolidate_keys.launches
+    consolidate_keys(keys, t, ukeys, count, slots, slot_map)
+    torch.cuda.synchronize()
+    assert consolidate_keys.launches - before == 1
+    n = int(count)
+    assert n == int(pcnt) == distinct.numel()
+    assert torch.equal(torch.sort(ukeys[:n]).values, puk[:n])
+    assert torch.equal(ukeys[slots[live].long()], keys[live])
+    assert bool((slots[~live] == -1).all())
+    assert int((slot_map >= 0).sum()) == n
+    assert torch.equal(slot_map[ukeys[:n].long()],
+                       torch.arange(n, dtype=torch.int32, device=dev))
+
+
+K5_WIDTHS = {"fm": (1, 10), "ffm": (1, 156), "wide_deep": (1, 8)}
+
+
+def _k5_tables(widths, opt, dv, t_size, cap, h, fold):
+    r = np.random.default_rng(8)
+
+    def arr(shape):
+        return torch.tensor(r.standard_normal(shape).astype(np.float32), device=dv)
+
+    tables, gsums, heads = [], [], []
+    for d in widths:
+        table = {"param": arr((t_size, d))}
+        if isinstance(opt, FTRL):
+            table["n"] = arr((t_size, d)).abs()
+            table["z"] = arr((t_size, d))
+        tables.append(table)
+        gsums.append(arr((cap, d)))
+        heads.append(arr((h, d)) if fold else None)
+    return tables, gsums, heads if fold else None
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["plain", "fold"])
+@pytest.mark.parametrize("widths", list(K5_WIDTHS))
+@pytest.mark.parametrize("opt", [FTRL(), SGD(lr=0.05)], ids=["ftrl", "sgd"])
+def test_k5_tables_in_one_launch_match_plain(dev, opt, widths, fold):
+    """One K5 launch steps both tables of an update (widths 1 + 10, 1 +
+    156, 1 + 8), with and without the fold: the stepped rows within
+    phase 7's per-element bound of the plain per-table version, every
+    other row bit-identical, the head buffers as the plain fold's,
+    gsum cleared and the map reset at the keys, once a row."""
+    t_size, h, cap, n = 1 << 12, 1 << 8, 1024, 700
+    rng = np.random.default_rng(7)
+    ukeys_np = rng.permutation(t_size)[:900].astype(np.int32)
+    states = []
+    for dv in (dev, torch.device("cpu")):
+        tables, gsums, heads = _k5_tables(K5_WIDTHS[widths], opt, dv, t_size, cap, h, fold)
+        before = [{k: a.cpu().clone() for k, a in tb.items()} for tb in tables]
+        g_before = [g.cpu().clone() for g in gsums]
+        ukeys = torch.zeros(cap, dtype=torch.int32, device=dv)
+        ukeys[:900] = torch.tensor(ukeys_np, device=dv)
+        count = torch.tensor([n], dtype=torch.int32, device=dv)
+        smap = torch.full((t_size,), 5, dtype=torch.int32, device=dv) \
+            if dv.type == "cuda" else None
+        launched = touched_update.launches
+        touched_update(tables, opt, ukeys, count, gsums, smap, head=heads,
+                       hot_size=h if fold else 0)
+        if dv.type == "cuda":
+            torch.cuda.synchronize()
+            assert touched_update.launches - launched == 1
+            assert bool((smap[ukeys[:n].long()] == -1).all())
+            untouched_map = torch.ones(t_size, dtype=torch.bool, device=dv)
+            untouched_map[ukeys[:n].long()] = False
+            assert bool((smap[untouched_map] == 5).all())
+        states.append((tables, gsums, heads))
+    (ct, cg, ch), (pt, pg, ph) = states
+    keys = torch.tensor(ukeys_np[:n]).long()
+    stepped = keys >= h if fold else torch.ones(n, dtype=torch.bool)
+    rows = keys[stepped]
+    for i in range(len(ct)):
+        assert not cg[i][:n].any() and not pg[i][:n].any()
+        assert torch.equal(cg[i][n:].cpu(), g_before[i][n:])
+        if fold:
+            _close(ch[i], ph[i])
+        tols = _k3_tolerances({k: a[rows] for k, a in before[i].items()},
+                              g_before[i][:n][stepped],
+                              pt[i]["n"][rows] if "n" in pt[i] else None, opt)
+        for k, tol in tols.items():
+            got, want = ct[i][k].cpu()[rows].double(), pt[i][k][rows].double()
+            assert float(((got - want).abs() - tol).max()) <= 0, (widths, i, k)
+            untouched = torch.ones(t_size, dtype=torch.bool)
+            untouched[rows] = False
+            assert torch.equal(ct[i][k].cpu()[untouched], before[i][k][untouched])
+
+
+K5_LIVE = {  # (table rows, cap, live rows, H): row-major, and table-major
+    # past the rows one pass of the grid covers (with the fold)
+    "u0": (1 << 12, 512, 0, 0), "ucap": (1 << 12, 512, 512, 0),
+    "table-major": (1 << 18, 65_536, 65_536, 0),
+    "table-major-fold": (1 << 18, 65_536, 60_000, 1 << 10),
+}
+
+
+@pytest.mark.parametrize("live", list(K5_LIVE))
+def test_k5_no_rows_and_every_row(dev, live):
+    """K5 over two tables (widths 1 + 10) with count 0 (nothing moves,
+    gsum kept), with count = cap (every slot's row steps), and past the
+    rows one pass of its grid covers (the table-major order), with and
+    without the fold: within phase 7's bound of the plain version, the
+    map reset at the live keys alone."""
+    t_size, cap, n, h = K5_LIVE[live]
+    opt = FTRL()
+    ukeys_np = np.random.default_rng(9).permutation(t_size)[:cap].astype(np.int32)
+    states = []
+    for dv in (dev, torch.device("cpu")):
+        tables, gsums, heads = _k5_tables((1, 10), opt, dv, t_size, cap, h, h > 0)
+        before = [{k: a.cpu().clone() for k, a in tb.items()} for tb in tables]
+        g_before = [g.cpu().clone() for g in gsums]
+        ukeys = torch.tensor(ukeys_np, device=dv)
+        count = torch.tensor([n], dtype=torch.int32, device=dv)
+        smap = torch.full((t_size,), 3, dtype=torch.int32, device=dv) \
+            if dv.type == "cuda" else None
+        touched_update(tables, opt, ukeys, count, gsums, smap, head=heads, hot_size=h)
+        if dv.type == "cuda":
+            torch.cuda.synchronize()
+            assert int((smap == -1).sum()) == n
+            assert bool((smap[ukeys[:n].long()] == -1).all())
+        states.append((tables, gsums, heads))
+    (ct, cg, ch), (pt, pg, ph) = states
+    for i in range(2):
+        if n == 0:
+            assert torch.equal(cg[i].cpu(), g_before[i])
+            for k in ct[i]:
+                assert torch.equal(ct[i][k].cpu(), before[i][k])
+            continue
+        assert not cg[i][:n].any() and not pg[i][:n].any()
+        if h:
+            _close(ch[i], ph[i])
+        keys = torch.tensor(ukeys_np[:n]).long()
+        rows = keys[keys >= h]
+        tols = _k3_tolerances({k: a[rows] for k, a in before[i].items()},
+                              g_before[i][:n][keys >= h], pt[i]["n"][rows], opt)
+        for k, tol in tols.items():
+            diff = (ct[i][k].cpu()[rows].double() - pt[i][k][rows].double()).abs()
+            assert float((diff - tol).max()) <= 0, (i, k)
+            untouched = torch.ones(t_size, dtype=torch.bool)
+            untouched[rows] = False
+            assert torch.equal(ct[i][k].cpu()[untouched], before[i][k][untouched])
+
+
+# -- C5: the field forms' device-memory stage past the shared-memory caps ----
+
+def _k2_field_pair(dev, m, form, index, with_w):
+    """K2 (kernel, then plain) in the MVM or FFM form over the planes
+    ``m``, into [T, D] buffers or (``index``) K4's plain slots; returns
+    [(g_w, g_v, acc)] for each side."""
+    t_size, e = m["v"].shape
+    b = m["keys"].shape[0]
+    outs = []
+    for kernel in (True, False):
+        dv = dev if kernel else torch.device("cpu")
+        t = lambda a: None if a is None else torch.tensor(a, device=dv)  # noqa: E731
+        tk = t(m["keys"])
+        rows = m["keys"].size if index else t_size
+        g_w = torch.zeros((rows, 1), device=dv) if with_w else None
+        g_v = torch.zeros((rows, e), device=dv)
+        slots = None
+        if index:
+            slots = torch.empty_like(tk)
+            consolidate_keys_plain(tk, t_size, torch.empty(rows, dtype=torch.int32, device=dv),
+                                   torch.zeros(1, dtype=torch.int32, device=dv), slots)
+        hot = t(m["hot"])
+        hg = {}
+        if hot is not None:
+            hg["hg_v"] = torch.zeros((m["h"], e), device=dv) if index else g_v[:m["h"]]
+            if with_w:
+                hg["hg_w"] = torch.zeros((m["h"], 1), device=dv) if index else g_w[:m["h"]]
+        acc = torch.zeros(2, dtype=torch.float64, device=dv)
+        fn = train_step if kernel else train_plain
+        fn(tk, t(m["x"]), t(m["labels"]), t(np.ones(b, np.float32)), float(b),
+           t(m.get("w")), t(m["v"]), g_w, g_v, acc, slots=slots, hot=hot, hot_x=t(m["hot_x"]),
+           hot_size=m["h"] if hot is not None else 0, fields=t(m["fields"]),
+           hot_fields=t(m["hot_fields"]), max_fields=m.get("s", m.get("f")), form=form,
+           **hg)
+        outs.append((g_w, g_v, hg.get("hg_v"), acc))
+    torch.cuda.synchronize()
+    return outs
+
+
+C5_CASES = ("mvm-1600", "ffm-f256", "pooled-4200")
+
+
+@pytest.mark.parametrize("case", C5_CASES)
+def test_c5_device_memory_stage_matches_plain(dev, case):
+    """Past each shared-memory cap (MVM at 1,600 slots, FFM at
+    max_fields 256 with 40 slots, a pooled row of 4,200 slots) the
+    kernels stage a row in device memory: K1 and K2 (K7 and K8), dense
+    and index mode, against their plain versions at B = 64."""
+    from xflow_tpu_torch.ops.pool import (
+        POOL_MAX_SLOTS,
+        field_pool,
+        field_pool_grad,
+        field_pool_grad_plain,
+        field_pool_plain,
+    )
+    from xflow_tpu_torch.ops.score import ffm_stage_global, mvm_stage_global
+
+    before = (score.launches, train_step.launches, field_pool.launches,
+              field_pool_grad.launches)
+    if case != "pooled-4200":
+        if case == "mvm-1600":
+            m = _mvm_inputs(5, b=64, k=1568, kh=32, h=1 << 10, vscale=0.01)
+            form, w = "mvm", None
+            assert mvm_stage_global(1600)
+        else:
+            m = _ffm_inputs(5, b=64, k=40, f=256, d=4, t=1 << 12)
+            form, w = "ffm", m["w"]
+            assert ffm_stage_global(256, 40)
+        t = lambda a: None if a is None else torch.tensor(a, device=dev)  # noqa: E731
+        kw = dict(hot=t(m["hot"]), hot_x=t(m["hot_x"]),
+                  hot_size=m["h"] if m["hot"] is not None else 0, fields=t(m["fields"]),
+                  hot_fields=t(m["hot_fields"]), max_fields=m.get("s", m.get("f")), form=form)
+        got = score(t(m["keys"]), t(m["x"]), t(w), t(m["v"]), return_logit=True, **kw)
+        want = score_plain(t(m["keys"]), t(m["x"]), t(w), t(m["v"]), True, **kw)
+        torch.cuda.synchronize()
+        for g, p in zip(got, want):
+            _close(g, p)
+        for index in (False, True):
+            for got_t, want_t in zip(*_k2_field_pair(dev, m, form, index, w is not None)):
+                if got_t is not None:
+                    _close(got_t, want_t)
+        assert (score.launches - before[0], train_step.launches - before[1]) == (1, 2)
+        return
+    on, cpu = _pool_planes(dev, 7, b=64, k=4200)
+    assert 4200 > POOL_MAX_SLOTS
+    f, e, t_size = 39, 8, on["emb"].shape[0]
+    pooled, wide = field_pool(on["keys"], on["x"], on["fields"], on["emb"], f, w=on["w"])
+    want_p, want_w = field_pool_plain(cpu["keys"], cpu["x"], cpu["fields"], cpu["emb"], f,
+                                      w=cpu["w"])
+    torch.cuda.synchronize()
+    _close(pooled, want_p)
+    _close(wide, want_w)
+    rng = np.random.default_rng(6)
+    b = on["keys"].shape[0]
+    src = {"dP": rng.standard_normal((b, f, e)).astype(np.float32) * 1e-3,
+           "r": rng.standard_normal(b).astype(np.float32) * 1e-3,
+           "logit": rng.standard_normal(b).astype(np.float32) * 4,
+           "labels": (rng.random(b) < 0.4).astype(np.uint8),
+           "weights": np.ones(b, np.uint8)}
+    for index in (False, True):
+        results = []
+        for fn, p in ((field_pool_grad, on), (field_pool_grad_plain, cpu)):
+            d = p["keys"].device
+            s = {n: torch.tensor(a, device=d) for n, a in src.items()}
+            rows = p["keys"].numel() if index else t_size
+            g_emb, g_w = torch.zeros(rows, e, device=d), torch.zeros(rows, 1, device=d)
+            slots = None
+            if index:
+                plan = torch.empty_like(p["keys"].cpu())
+                consolidate_keys_plain(p["keys"].cpu(), t_size,
+                                       torch.empty(rows, dtype=torch.int32),
+                                       torch.zeros(1, dtype=torch.int32), plan)
+                slots = plan.to(d)
+            acc = torch.zeros(2, dtype=torch.float64, device=d)
+            fn(p["keys"], p["x"], p["fields"], s["dP"], s["r"], s["logit"], s["labels"],
+               s["weights"], f, g_emb, acc, g_w=g_w, slots=slots)
+            results.append((g_emb, g_w, acc))
+        torch.cuda.synchronize()
+        (ge, gw, ga), (pe, pw, pa) = results
+        _close(ge, pe)
+        _close(gw, pw)
+        np.testing.assert_allclose(float(ga[0]), float(pa[0]), rtol=1e-5)
+    assert (field_pool.launches - before[2], field_pool_grad.launches - before[3]) == (1, 2)

@@ -14,7 +14,7 @@
   refusal;)
 * the Trainer against the JAX Trainer on ``toy_dataset``, FFM's
   learning test (tests/test_extended_models.py:91), artifacts both
-  ways, the CLI's ``--model ffm``, and ``check_ffm_stage``'s refusal.
+  ways, the CLI's ``--model ffm``, and FFM past the shared-memory stage (C5).
 
 Tolerances: rtol 1e-5 / atol 1e-6 for the logit and the gradients
 (ROADMAP's parity bar: the port sums in another order than XLA, and
@@ -42,8 +42,8 @@ from xflow_tpu_torch.models import FFMModel, make_model
 from xflow_tpu_torch.models.blocks import ffm_field_interaction, valid_fields
 from xflow_tpu_torch.ops.score import (
     MVM_SMEM_BYTES,
-    check_ffm_stage,
     ffm_stage_bytes,
+    ffm_stage_global,
     ffm_tile,
     score,
 )
@@ -195,21 +195,22 @@ def test_registry_builds_ffm():
 
 
 def test_ffm_stage_limit_is_refused_by_name():
-    """One factor's stage (4 F^2 B plus the slots) past a block's 232,448
-    B of shared memory is refused by name, in check_servable and the
-    wrappers; the flagship's whole D fits one tile."""
+    """C5: an FFM geometry whose one-factor stage (4 F^2 B plus the
+    slots) passes a block's 232,448 B of shared memory is servable and
+    trains (the kernels stage it in device memory): at max_fields = 241,
+    predict and one dense and one sparse step against the JAX package;
+    the flagship's whole D fits one tile.  The wrappers' other refusals
+    stand."""
     assert ffm_tile(39, 4, 40) == 4 and ffm_stage_bytes(39, 40, 4) == 24_336 + 640 + 128
     assert ffm_tile(39, 16, 40) == 7 and ffm_tile(64, 4, 40) == 2
     check_servable(Config(model="ffm", max_fields=240, wire_mode="full", hash_mode=False))
     assert ffm_stage_bytes(241, 40) > MVM_SMEM_BYTES >= ffm_stage_bytes(240, 40)
-    with pytest.raises(ValueError, match="shared-memory stage"):
-        check_servable(Config(model="ffm", max_fields=241, wire_mode="full", hash_mode=False))
-    with pytest.raises(ValueError, match="shared-memory stage"):
-        check_ffm_stage(241, 40)
+    assert ffm_stage_global(241, 40) and not ffm_stage_global(240, 40)
+    check_servable(Config(model="ffm", max_fields=241, wire_mode="full", hash_mode=False))
+    kw = dict(model="ffm", table_size_log2=12, max_nnz=40, batch_size=8, ffm_v_dim=2,
+              max_fields=241, num_devices=1)
+    _past_cap_parity(kw, _past_cap_raw(22, 8, 40, 12, 241))
     keys = torch.zeros((2, 3), dtype=torch.int32)
-    with pytest.raises(ValueError, match="shared-memory stage"):
-        score(keys, None, torch.zeros((8, 1)), torch.zeros((8, 241)),
-              fields=torch.zeros((2, 3), dtype=torch.int32), max_fields=241, form="ffm")
     with pytest.raises(ValueError, match="max_fields \\* D"):
         score(keys, None, torch.zeros((8, 1)), torch.zeros((8, 10)),
               fields=torch.zeros((2, 3), dtype=torch.uint8), max_fields=4, form="ffm")
@@ -223,6 +224,80 @@ def test_ffm_stage_limit_is_refused_by_name():
                    hot_size=4, snap_w=torch.zeros((4, 1)), snap_v=torch.zeros((4, 8)),
                    fields=torch.zeros((2, 3), dtype=torch.uint8), max_fields=4, form="ffm")
 
+
+
+def _past_cap_parity(kw, raw):
+    """C5: a geometry past the kernels' shared-memory stage, on the CPU
+    against the JAX package: predict from the reference's initial tables
+    (params plus seed-made noise of 0.01), then one step from its
+    initial state in the dense and in the sparse update mode, tables
+    (and dense parameters) and log-loss at rtol 1e-5 / atol 1e-6, pctr
+    at atol 1e-6."""
+    import jax.numpy as jnp
+
+    from xflow_tpu.io import batch as ref_batch
+    from xflow_tpu.optim import make_optimizer as ref_make_optimizer
+    from xflow_tpu.parallel.mesh import make_mesh
+    from xflow_tpu.parallel.step import TrainStep as RefTrainStep
+    from xflow_tpu.parallel.step import init_state as ref_init_state
+    from xflow_tpu_torch.convert import dense_to_numpy
+    from xflow_tpu_torch.io import batch as port_batch
+    from xflow_tpu_torch.optim import make_optimizer
+    from xflow_tpu_torch.parallel.step import TrainStep
+
+    cpu = torch.device("cpu")
+    for mode in ({}, {"update_mode": "sparse"}):
+        rcfg = RefConfig(**kw, **mode)
+        mdl, opt = ref_make_model(rcfg), ref_make_optimizer(rcfg)
+        rstep = RefTrainStep(mdl, opt, rcfg, make_mesh(1))
+        state = ref_init_state(mdl, opt, rcfg, make_mesh(1))
+        start = {n: {k: np.asarray(a).copy() for k, a in t.items()}
+                 for n, t in state["tables"].items()}
+        dense = {k: np.asarray(a).copy() for k, a in state["dense"].items()}
+        cfg = Config(**kw, **mode)
+        step = TrainStep(make_model(cfg), make_optimizer(cfg), cfg, cpu)
+        if not mode:
+            rng = np.random.default_rng(11)
+            noisy = {n: dict(t, param=(t["param"] + rng.normal(0, 0.01, t["param"].shape))
+                             .astype(np.float32)) for n, t in start.items()}
+            ref_state = {"tables": {n: {k: jnp.asarray(a) for k, a in t.items()}
+                                    for n, t in noisy.items()}, "dense": state["dense"]}
+            batch = ref_batch.make_batch(*raw, 0, 0)
+            want = np.asarray(rstep.predict(ref_state, rstep.put_batch(batch, predict=True)))
+            ours = state_from_numpy(cfg, noisy, "cpu", dense=dense or None)
+            got = step.predict(ours, step.put_batch(port_batch.make_batch(*raw, 0, 0),
+                                                     predict=True)).numpy()
+            np.testing.assert_allclose(got, want, atol=1e-6)
+        ours = state_from_numpy(cfg, start, "cpu", dense=dense or None)
+        state, m = rstep.train(state, rstep.put_batch(ref_batch.make_batch(*raw, 0, 0)))
+        got = step.train(ours, step.put_batch(port_batch.make_batch(*raw, 0, 0)))
+        assert float(got["count"]) == float(m["count"])
+        np.testing.assert_allclose(float(got["logloss"]), float(m["logloss"]), rtol=1e-5,
+                                   atol=1e-6)
+        back = state_to_numpy(ours, aux=True)
+        for n, t in state["tables"].items():
+            for k, a in t.items():
+                np.testing.assert_allclose(back[n][k], np.asarray(a), rtol=1e-5, atol=1e-6,
+                                           err_msg=f"{mode} {n}.{k}")
+        for k, a in state["dense"].items():
+            np.testing.assert_allclose(dense_to_numpy(ours)[k], np.asarray(a), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{mode} dense {k}")
+
+
+def _past_cap_raw(seed, b, k, t_log2, fields):
+    """Seed-made [B, K] planes (keys, field ids in [0, fields) with some
+    past it, values, mask, labels, weights; the last row padding)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 1 << t_log2, (b, k)).astype(np.int32)
+    slots = rng.integers(0, fields, (b, k)).astype(np.int32)
+    slots[rng.random((b, k)) < 0.03] = fields + 1
+    mask = (rng.random((b, k)) < 0.85).astype(np.float32)
+    mask[-1] = 0.0
+    vals = np.ones((b, k), np.float32)
+    labels = (rng.random(b) < 0.4).astype(np.float32)
+    weights = np.ones(b, np.float32)
+    weights[-1] = 0.0
+    return keys, slots, vals, mask, labels, weights
 
 # -- the Trainer, learning, artifacts, the CLI ----------------------------------
 

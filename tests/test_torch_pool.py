@@ -33,7 +33,11 @@ from xflow_tpu.ops.hot import hot_gather as ref_hot_gather
 from xflow_tpu.ops.hot import hot_scatter as ref_hot_scatter
 from xflow_tpu.utils.metrics import logloss_sum as ref_logloss_sum
 from xflow_tpu.utils.metrics import sigmoid_ref as ref_sigmoid
-from xflow_tpu_torch.models import blocks
+from xflow_tpu.config import Config as RefConfig
+from xflow_tpu.models import make_model as ref_make_model
+from xflow_tpu_torch.config import Config
+from xflow_tpu_torch.convert import state_from_numpy, state_to_numpy
+from xflow_tpu_torch.models import blocks, make_model
 from xflow_tpu_torch.ops.pool import field_pool, field_pool_grad
 from xflow_tpu_torch.ops.sparse import consolidate_keys
 
@@ -423,21 +427,103 @@ def test_pool_wrappers_refuse_bad_planes():
 
 
 def test_pool_slot_limit_is_refused_by_name():
-    from xflow_tpu_torch.config import Config
+    """C5: a pooled row past POOL_MAX_SLOTS (the most K8's shared-memory
+    stage holds; K7 and K8 stage a wider row in device memory) is
+    servable and trains: dcn at POOL_MAX_SLOTS + 1 slots, predict and
+    one dense and one sparse step against the JAX package, and K7's and
+    K8's plain versions take such a row."""
     from xflow_tpu_torch.ops.pool import POOL_MAX_SLOTS
     from xflow_tpu_torch.parallel.step import check_servable
 
     check_servable(Config(model="dcn", max_nnz=POOL_MAX_SLOTS))
-    with pytest.raises(ValueError, match="shared-memory stage"):
-        check_servable(Config(model="dcn", max_nnz=POOL_MAX_SLOTS + 1))
-    with pytest.raises(ValueError, match="shared-memory stage"):
-        check_servable(Config(model="wide_deep", max_nnz=POOL_MAX_SLOTS, hot_size_log2=6,
-                              hot_nnz=1))
-    wide = torch.zeros((2, POOL_MAX_SLOTS + 1), dtype=torch.int32)
-    with pytest.raises(ValueError, match="shared-memory stage"):
-        field_pool(wide, None, torch.zeros_like(wide, dtype=torch.uint8), torch.zeros(8, E), F)
+    check_servable(Config(model="dcn", max_nnz=POOL_MAX_SLOTS + 1))
+    check_servable(Config(model="wide_deep", max_nnz=POOL_MAX_SLOTS, hot_size_log2=6,
+                          hot_nnz=1))
+    wide = POOL_MAX_SLOTS + 1
+    kw = dict(model="dcn", table_size_log2=12, max_nnz=wide, batch_size=8, emb_dim=3,
+              hidden_dim=5, cross_layers=2, max_fields=6, num_devices=1)
+    _past_cap_parity(kw, _past_cap_raw(23, 8, wide, 12, 6))
+    keys = torch.zeros((2, wide), dtype=torch.int32)
+    pooled, _ = field_pool(keys, None, torch.zeros_like(keys, dtype=torch.uint8),
+                           torch.ones(8, E), F)
+    assert torch.equal(pooled[:, 0], torch.full((2, E), float(wide)))
     acc = torch.zeros(2, dtype=torch.float64)
-    with pytest.raises(ValueError, match="shared-memory stage"):
-        field_pool_grad(wide, None, torch.zeros_like(wide, dtype=torch.uint8),
-                        torch.zeros(2, F, E), torch.zeros(2), torch.zeros(2), torch.zeros(2),
-                        torch.ones(2), F, torch.zeros(8, E), acc)
+    g = torch.zeros(8, E)
+    field_pool_grad(keys, None, torch.zeros_like(keys, dtype=torch.uint8),
+                    torch.ones(2, F, E), torch.zeros(2), torch.zeros(2), torch.zeros(2),
+                    torch.ones(2), F, g, acc)
+    assert torch.equal(g[0], torch.full((E,), 2.0 * wide))
+
+
+def _past_cap_parity(kw, raw):
+    """C5: a geometry past the kernels' shared-memory stage, on the CPU
+    against the JAX package: predict from the reference's initial tables
+    (params plus seed-made noise of 0.01), then one step from its
+    initial state in the dense and in the sparse update mode, tables
+    (and dense parameters) and log-loss at rtol 1e-5 / atol 1e-6, pctr
+    at atol 1e-6."""
+    import jax.numpy as jnp
+
+    from xflow_tpu.io import batch as ref_batch
+    from xflow_tpu.optim import make_optimizer as ref_make_optimizer
+    from xflow_tpu.parallel.mesh import make_mesh
+    from xflow_tpu.parallel.step import TrainStep as RefTrainStep
+    from xflow_tpu.parallel.step import init_state as ref_init_state
+    from xflow_tpu_torch.convert import dense_to_numpy
+    from xflow_tpu_torch.io import batch as port_batch
+    from xflow_tpu_torch.optim import make_optimizer
+    from xflow_tpu_torch.parallel.step import TrainStep
+
+    cpu = torch.device("cpu")
+    for mode in ({}, {"update_mode": "sparse"}):
+        rcfg = RefConfig(**kw, **mode)
+        mdl, opt = ref_make_model(rcfg), ref_make_optimizer(rcfg)
+        rstep = RefTrainStep(mdl, opt, rcfg, make_mesh(1))
+        state = ref_init_state(mdl, opt, rcfg, make_mesh(1))
+        start = {n: {k: np.asarray(a).copy() for k, a in t.items()}
+                 for n, t in state["tables"].items()}
+        dense = {k: np.asarray(a).copy() for k, a in state["dense"].items()}
+        cfg = Config(**kw, **mode)
+        step = TrainStep(make_model(cfg), make_optimizer(cfg), cfg, cpu)
+        if not mode:
+            rng = np.random.default_rng(11)
+            noisy = {n: dict(t, param=(t["param"] + rng.normal(0, 0.01, t["param"].shape))
+                             .astype(np.float32)) for n, t in start.items()}
+            ref_state = {"tables": {n: {k: jnp.asarray(a) for k, a in t.items()}
+                                    for n, t in noisy.items()}, "dense": state["dense"]}
+            batch = ref_batch.make_batch(*raw, 0, 0)
+            want = np.asarray(rstep.predict(ref_state, rstep.put_batch(batch, predict=True)))
+            ours = state_from_numpy(cfg, noisy, "cpu", dense=dense or None)
+            got = step.predict(ours, step.put_batch(port_batch.make_batch(*raw, 0, 0),
+                                                     predict=True)).numpy()
+            np.testing.assert_allclose(got, want, atol=1e-6)
+        ours = state_from_numpy(cfg, start, "cpu", dense=dense or None)
+        state, m = rstep.train(state, rstep.put_batch(ref_batch.make_batch(*raw, 0, 0)))
+        got = step.train(ours, step.put_batch(port_batch.make_batch(*raw, 0, 0)))
+        assert float(got["count"]) == float(m["count"])
+        np.testing.assert_allclose(float(got["logloss"]), float(m["logloss"]), rtol=1e-5,
+                                   atol=1e-6)
+        back = state_to_numpy(ours, aux=True)
+        for n, t in state["tables"].items():
+            for k, a in t.items():
+                np.testing.assert_allclose(back[n][k], np.asarray(a), rtol=1e-5, atol=1e-6,
+                                           err_msg=f"{mode} {n}.{k}")
+        for k, a in state["dense"].items():
+            np.testing.assert_allclose(dense_to_numpy(ours)[k], np.asarray(a), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{mode} dense {k}")
+
+
+def _past_cap_raw(seed, b, k, t_log2, fields):
+    """Seed-made [B, K] planes (keys, field ids in [0, fields) with some
+    past it, values, mask, labels, weights; the last row padding)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 1 << t_log2, (b, k)).astype(np.int32)
+    slots = rng.integers(0, fields, (b, k)).astype(np.int32)
+    slots[rng.random((b, k)) < 0.03] = fields + 1
+    mask = (rng.random((b, k)) < 0.85).astype(np.float32)
+    mask[-1] = 0.0
+    vals = np.ones((b, k), np.float32)
+    labels = (rng.random(b) < 0.4).astype(np.float32)
+    weights = np.ones(b, np.float32)
+    weights[-1] = 0.0
+    return keys, slots, vals, mask, labels, weights

@@ -185,3 +185,62 @@ def test_touched_update_plain_matches_reference(opt, dist):
         np.testing.assert_allclose(got, want[k], rtol=RTOL, atol=1e-7, err_msg=k)
         np.testing.assert_array_equal(got[~touched], start[k][~touched])
     assert not gsum.any()
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["plain", "fold"])
+@pytest.mark.parametrize("widths", [(1, 10), (1, 156)], ids=["1+10", "1+156"])
+@pytest.mark.parametrize("opt", ["ftrl", "sgd"])
+def test_touched_update_tables_plain_matches_reference(opt, widths, fold):
+    """K5's plain version over two tables in one call (the form the
+    kernel takes in one launch) against the reference's per-table
+    _apply_touched_rows on seed-made rows, and with the fold against
+    the reference's hybrid (step.py:1194-1238): the cold keys < H made
+    the sentinel, their sums added into the [H, d] head buffer with
+    ``.at[].add(mode="drop")``.  rtol 1e-5 / atol 1e-7; rows outside
+    the plan bit-identical; every gsum[:count] cleared."""
+    keys, _ = _keys("zipf", seed=4)
+    hot = 16 if fold else 0
+    rng = np.random.default_rng(6)
+    wire = np.where(keys == TABLE, -1, keys).astype(np.int32)
+    ukeys, count, slots = _plan(wire.reshape(-1, 16))
+    r_ukeys = jnp.asarray(ukeys.numpy()[:keys.size])
+    n = int(count)
+    r_ukeys = jnp.where(jnp.arange(r_ukeys.shape[0]) < n, r_ukeys, TABLE)
+    tables, gsums, heads, wants, head_wants = [], [], [], [], []
+    r_opt = RefFTRL() if opt == "ftrl" else RefSGD(lr=0.05)
+    for d in widths:
+        start = {"param": (rng.normal(size=(TABLE, d)) * 0.1).astype(np.float32)}
+        if opt == "ftrl":
+            start["n"] = np.abs(rng.normal(size=(TABLE, d))).astype(np.float32) * 0.01
+            start["n"][: TABLE // 4] = 0.0
+            start["z"] = (rng.normal(size=(TABLE, d)) * 0.01).astype(np.float32)
+        grads = rng.normal(size=(keys.size, d)).astype(np.float32) * 0.1
+        gsum = torch.zeros(keys.size, d)
+        gsum.index_add_(0, slots.reshape(-1).clamp(min=0).long(),
+                        torch.where(torch.tensor(wire.reshape(-1, 1)) >= 0,
+                                    torch.tensor(grads), torch.zeros(1)))
+        r_gsum = jnp.asarray(gsum.numpy())
+        cold = jnp.where(r_ukeys < hot, TABLE, r_ukeys) if fold else r_ukeys
+        table = {k: jnp.asarray(a) for k, a in start.items()}
+        rows = {k: ref.gather_rows(a, cold) for k, a in table.items()}
+        new = r_opt.update_rows(rows, r_gsum)
+        wants.append({k: np.asarray(ref.scatter_rows(table[k], cold, new[k]))
+                      for k in table})
+        head0 = rng.normal(size=(max(hot, 1), d)).astype(np.float32)
+        if fold:
+            part = jnp.where(r_ukeys < hot, r_ukeys, hot)
+            head_wants.append(np.asarray(jnp.asarray(head0).at[part].add(r_gsum,
+                                                                          mode="drop")))
+        tables.append({k: torch.tensor(a) for k, a in start.items()})
+        gsums.append(gsum)
+        heads.append(torch.tensor(head0))
+    assert fold is False or int((ukeys[:n] < hot).sum()) > 0
+    ours.touched_update(tables, FTRL() if opt == "ftrl" else SGD(lr=0.05), ukeys, count,
+                        gsums, head=heads if fold else None, hot_size=hot)
+    for i, want in enumerate(wants):
+        for k in want:
+            np.testing.assert_allclose(tables[i][k].numpy(), want[k], rtol=RTOL, atol=1e-7,
+                                       err_msg=f"{widths[i]} {k}")
+        if fold:
+            np.testing.assert_allclose(heads[i].numpy(), head_wants[i], rtol=RTOL, atol=1e-7)
+        assert not gsums[i][:n].any()

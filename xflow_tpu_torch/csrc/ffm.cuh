@@ -48,8 +48,9 @@
 // the default dynamic limit; all of D at the flagship F = 39, D = 4,
 // 24,336 B), and K2 recomputes each tile's sums for its backward but
 // the last one's.  One factor's stage past the card's opt-in shared
-// memory per block (F above about 240) is refused (ops/score.py
-// check_ffm_stage).
+// memory per block (F above about 240) takes the device-memory stage
+// (stage.cuh), one a block, with the same code over global addresses
+// (global_plan; Dt is then 1, as tile_factors gives it).
 //
 // Bound.  Per live slot: its key, x and field, w[k] (4 B) and the v row
 // (4 F D B), and in K2 the gradient rows read and written; per example
@@ -77,6 +78,7 @@
 #include <cstddef>
 
 #include "mvm.cuh"
+#include "stage.cuh"
 
 namespace ffm {
 
@@ -199,23 +201,46 @@ __device__ __forceinline__ float tile_cross(const Stage& s, int F, int dt) {
   return cross;
 }
 
+// Threads of an FFM block whose tile has F * dt columns.
+inline int threads_for(int F, int dt) {
+  const int t = (F * dt + 31) / 32 * 32;
+  return t < 64 ? 64 : (t > kMaxThreads ? kMaxThreads : t);
+}
+
+// Whether the block's stage (tile dt) fits a block's shared memory.
+inline bool fits_shared(int F, int n, int dt) {
+  return stage_bytes(F, n, dt) <= stage::optin_bytes();
+}
+
+// The device-memory form for B rows: the grid of `threads`-thread
+// blocks, and the scratch bytes (a stage a block).
+inline int global_plan(int B, int F, int n, int dt, int threads,
+                       size_t* bytes) {
+  const size_t per_block = stage::aligned(stage_bytes(F, n, dt));
+  const int grid = stage::blocks(B, threads, per_block);
+  *bytes = static_cast<size_t>(grid) * per_block;
+  return grid;
+}
+
+// Block `block`'s stage in the device-memory scratch.
+__device__ __forceinline__ Stage global_stage_at(char* scratch, long long block,
+                                                 int F, int dt, int n) {
+  const size_t per_block = (stage_bytes(F, n, dt) + stage::kAlign - 1) /
+                           stage::kAlign * stage::kAlign;
+  return stage_at(scratch + block * per_block, F, dt, n);
+}
+
 // Threads and dynamic shared bytes for an FFM block of n slots (tile
 // dt factors), raising the kernel's dynamic limit when it needs more
 // than 48 KB.  Returns a CUDA error code, cudaErrorInvalidValue when
-// the stage exceeds the card's per-block shared memory.
+// the stage exceeds the card's per-block shared memory (the caller
+// takes the device-memory form there).
 template <typename Kernel>
 int launch_shape(Kernel kernel, int F, int dt, int n, int* threads,
                  size_t* smem) {
   *smem = stage_bytes(F, n, dt);
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (*smem > static_cast<size_t>(optin)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int cols = F * dt;
-  int t = (cols + 31) / 32 * 32;
-  *threads = t < 64 ? 64 : (t > kMaxThreads ? kMaxThreads : t);
+  if (!fits_shared(F, n, dt)) return static_cast<int>(cudaErrorInvalidValue);
+  *threads = threads_for(F, dt);
   if (*smem > static_cast<size_t>(mvm::kSmallSmem)) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -226,3 +251,22 @@ int launch_shape(Kernel kernel, int F, int dt, int n, int* threads,
 }
 
 }  // namespace ffm
+
+// A field form's device-memory stage for B rows of n slots (form 1 MVM
+// at `mvm_warps` warps a block, 2 FFM at S fields of D / S factors):
+// the grid, and the scratch bytes, 0 where the row's stage fits shared
+// memory (K1's and K2's launches and their stage_bytes queries agree).
+inline int field_stage_plan(int form, int S, int B, int n, int D, int mvm_warps,
+                            size_t* bytes) {
+  *bytes = 0;
+  if (form == 1) {
+    return mvm::fits_shared(n) ? 0 : mvm::global_plan(B, n, mvm_warps, bytes);
+  }
+  if (form == 2) {
+    const int dt = ffm::tile_factors(S, D / S, n);
+    return ffm::fits_shared(S, n, dt)
+               ? 0
+               : ffm::global_plan(B, S, n, dt, ffm::threads_for(S, dt), bytes);
+  }
+  return 0;
+}

@@ -33,7 +33,10 @@
 // prod - 1 stays in float32 and the guard divides, as the reference
 // does (no expm1, no exclusive product: they differ where it fires).
 // D > kTile runs in tiles of kTile factors; K2 recomputes a tile's sums
-// for its backward, all but the last one's.
+// for its backward, all but the last one's.  A row past the shared
+// memory a block holds (n * kBytesPerSlot > 232,448 B: past 1,570
+// slots) takes the device-memory stage (stage.cuh), one a warp, with
+// the same code over global addresses (global_plan).
 
 #pragma once
 
@@ -41,6 +44,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "stage.cuh"
 
 namespace mvm {
 
@@ -162,20 +167,38 @@ __device__ __forceinline__ float slot_grad(const Stage& s, int j, float prod,
   return g * s.x[j];
 }
 
+// Whether one warp's stage of n slots fits a block's shared memory.
+inline bool fits_shared(int n) {
+  return static_cast<size_t>(n) * kBytesPerSlot <= stage::optin_bytes();
+}
+
+// The device-memory form for B rows of n slots at `warps` warps a
+// block: the grid, and the scratch bytes (a stage a warp).
+inline int global_plan(int B, int n, int warps, size_t* bytes) {
+  const size_t per_warp = stage::aligned(static_cast<size_t>(n) * kBytesPerSlot);
+  const int grid = stage::blocks((B + warps - 1) / warps, 32 * warps, warps * per_warp);
+  *bytes = static_cast<size_t>(grid) * warps * per_warp;
+  return grid;
+}
+
+// The stage of warp `warp` (of the grid) in the device-memory scratch.
+__device__ __forceinline__ Stage global_stage_at(char* scratch, long long warp,
+                                                 int n) {
+  const size_t per_warp = (static_cast<size_t>(n) * kBytesPerSlot +
+                           stage::kAlign - 1) / stage::kAlign * stage::kAlign;
+  return stage_at(scratch + warp * per_warp, 0, n);
+}
+
 // Warps per block and dynamic shared bytes for n slots a warp (at most
 // max_warps), raising the kernel's dynamic limit when it needs more
 // than 48 KB.  Returns a CUDA error code, cudaErrorInvalidValue when
-// one warp's stage exceeds the card's per-block shared memory.
+// one warp's stage exceeds the card's per-block shared memory (the
+// caller takes the device-memory form there).
 template <typename Kernel>
 int launch_shape(Kernel kernel, int n, int max_warps, int* warps,
                  size_t* smem) {
   const size_t per_warp = static_cast<size_t>(n) * kBytesPerSlot;
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (per_warp > static_cast<size_t>(optin)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!fits_shared(n)) return static_cast<int>(cudaErrorInvalidValue);
   int w = max_warps;
   while (w > 1 && w * per_warp > static_cast<size_t>(kSmallSmem)) --w;
   *warps = w;

@@ -96,13 +96,18 @@
 
 #include <cstdint>
 
+#include "stage.cuh"
+
 namespace {
 
 constexpr int kGradThreads = 256;
 // K8's block stages 12 B a slot (key, x, field) in dynamic shared
 // memory, within the 48 KiB a block gets without the opt-in, less 64 B
 // kept for its static shared memory (two partial sums): the widest row
-// either kernel takes (K7's warp stage below fits it with the opt-in).
+// either kernel stages in shared memory (K7's warp stage below fits it
+// with the opt-in).  A wider row takes the device-memory stage in both
+// kernels (stage.cuh: one a group in K7, one a block in K8; K7's
+// counting-sort atomics then land in device memory).
 constexpr int kBytesPerSlot = 12;
 constexpr int kStageBytes = 48 * 1024 - 64;
 constexpr int kMaxSlots = kStageBytes / kBytesPerSlot;
@@ -122,6 +127,13 @@ constexpr int kSmallSmem = 48 * 1024;
 
 __host__ __device__ inline int pool_stage_words(int n) {
   return 4 * n + kFieldChunk;
+}
+
+// A device-memory stage's stride in words: `words` rounded up to
+// stage::kAlign bytes.
+__host__ __device__ inline long long global_stride_words(long long words) {
+  constexpr long long kAlignWords = stage::kAlign / 4;
+  return (words + kAlignWords - 1) / kAlignWords * kAlignWords;
 }
 constexpr float kLoglossEps = 1e-6f;
 constexpr float kLoglossHi = 0.999999f;  // f32(1 - 1e-6), as the reference
@@ -189,12 +201,16 @@ __device__ __forceinline__ void group_sync(int threads) {
   }
 }
 
+// kGlobalStage: the groups' stages in the device-memory scratch
+// `gstage` (header), their counting sort's atomics global ones; else
+// in shared memory.
+template <bool kGlobalStage>
 __global__ void __launch_bounds__(32 * kPoolWarps)
 pool_kernel(const Planes p, int bf16, const float* __restrict__ w,
             const float* __restrict__ emb, const float* __restrict__ snap_w,
             const float* __restrict__ snap_emb, int E,
             float* __restrict__ pooled, float* __restrict__ wide, int B,
-            int groups) {
+            int groups, int* __restrict__ gstage) {
   extern __shared__ int pool_smem[];
   const int threads = blockDim.x / groups;  // a group's: a multiple of 32
   const int group = threadIdx.x / threads;
@@ -204,7 +220,13 @@ pool_kernel(const Planes p, int bf16, const float* __restrict__ w,
   const int last_warp = (threads >> 5) - 1;
   const unsigned below = (1u << lane) - 1u;  // the lanes before this one
   const int n = p.KH + p.K;
-  int* skey = pool_smem + group * pool_stage_words(n);
+  int* skey;
+  if constexpr (kGlobalStage) {
+    skey = gstage + (static_cast<long long>(blockIdx.x) * groups + group) *
+                        global_stride_words(pool_stage_words(n));
+  } else {
+    skey = pool_smem + group * pool_stage_words(n);
+  }
   float* sx = reinterpret_cast<float*>(skey + n);
   int* sfld = reinterpret_cast<int*>(sx + n);
   int* sord = sfld + n;  // the chunk's slots, by field, in slot order
@@ -328,7 +350,9 @@ pool_kernel(const Planes p, int bf16, const float* __restrict__ w,
   }
 }
 
-template <typename LW>
+// kGlobalStage: the blocks' stages in the device-memory scratch
+// `gstage` (header); else in shared memory.
+template <typename LW, bool kGlobalStage>
 __global__ void __launch_bounds__(kGradThreads)
 pool_grad_kernel(const Planes p, int bf16, const float* __restrict__ dP,
                  const float* __restrict__ r, const float* __restrict__ logit,
@@ -336,10 +360,16 @@ pool_grad_kernel(const Planes p, int bf16, const float* __restrict__ dP,
                  const int* __restrict__ slots, float* __restrict__ gw,
                  float* __restrict__ gemb, float* __restrict__ hgw,
                  float* __restrict__ hgemb, int E, double* __restrict__ acc,
-                 int B) {
+                 int B, int* __restrict__ gstage) {
   extern __shared__ int grad_smem[];
   const int n = p.KH + p.K;
-  int* sdst = grad_smem;
+  int* sdst;
+  if constexpr (kGlobalStage) {
+    sdst = gstage + static_cast<long long>(blockIdx.x) *
+                        global_stride_words(kBytesPerSlot / 4 * n);
+  } else {
+    sdst = grad_smem;
+  }
   float* sx = reinterpret_cast<float*>(sdst + n);
   int* sfld = reinterpret_cast<int*>(sx + n);
   __shared__ float part_ll, part_w;
@@ -450,12 +480,12 @@ int pool_shape(int n, PoolShape* out) {
     if (t.stage > static_cast<size_t>(optin)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    rc = cudaFuncSetAttribute(pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    rc = cudaFuncSetAttribute(pool_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(t.stage));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   for (int i = 0; i < 2; ++i) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&t.resident[i], pool_kernel,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&t.resident[i], pool_kernel<false>,
                                                   32 * kPoolWarps,
                                                   (i ? kPoolWarps : 1) * t.stage);
     if (t.resident[i] < 1) t.resident[i] = 1;
@@ -469,13 +499,56 @@ int pool_shape(int n, PoolShape* out) {
 
 }  // namespace
 
-// The widest row (hot + cold slots) K7 and K8 stage.
+// The widest row (hot + cold slots) K7 and K8 stage in shared memory;
+// wider rows take the device-memory stage.
 extern "C" int xf_pool_max_slots() { return kMaxSlots; }
+
+namespace {
+
+// A group count for K7 over B rows: a warp an example while that
+// leaves every SM two blocks, else a block an example.
+int pool_groups(int B, int fit_groups) {
+  return fit_groups > 1 && (B + kPoolWarps - 1) / kPoolWarps >= 2 * sm_count()
+             ? kPoolWarps
+             : 1;
+}
+
+// The device-memory form of K7 (kernel 0) or K8 (kernel 1) for B rows
+// of n slots: the grid and the scratch bytes (0: the row fits the
+// shared-memory stage).
+int pool_plan(int kernel, int B, int n, size_t* bytes) {
+  *bytes = 0;
+  if (n <= kMaxSlots) return 0;
+  if (kernel == 0) {
+    const int groups = pool_groups(B, kPoolWarps);
+    const size_t per = 4 * static_cast<size_t>(global_stride_words(pool_stage_words(n)));
+    const int grid = stage::blocks((static_cast<long long>(B) + groups - 1) / groups,
+                                   32 * kPoolWarps, groups * per);
+    *bytes = static_cast<size_t>(grid) * groups * per;
+    return grid;
+  }
+  const size_t per = 4 * static_cast<size_t>(global_stride_words(kBytesPerSlot / 4 * n));
+  const int grid = stage::blocks(B, kGradThreads, per);
+  *bytes = static_cast<size_t>(grid) * per;
+  return grid;
+}
+
+}  // namespace
+
+// The device-memory scratch K7 (kernel 0) or K8 (kernel 1) needs for B
+// rows of K + KH slots (bytes; 0: none).
+extern "C" long long xf_pool_stage_bytes(int kernel, int B, int K, int KH) {
+  size_t bytes = 0;
+  if (B > 0) pool_plan(kernel, B, K + (KH > 0 ? KH : 0), &bytes);
+  return static_cast<long long>(bytes);
+}
 
 // Launches K7 on `stream`: pooled [B, F, E] and, with w, wide [B]
 // (header).  KH = 0: no hot plane (hot, hot_x, hot_fields unread);
-// snap_emb null: the live tables (else window-start mode, H rows).
-// Returns cudaGetLastError() after the launch (0 = launched).
+// snap_emb null: the live tables (else window-start mode, H rows).  A
+// row past kMaxSlots stages in `gstage`, xf_pool_stage_bytes(0, ...)
+// of device memory.  Returns cudaGetLastError() after the launch (0 =
+// launched), cudaErrorInvalidValue for such a row without its scratch.
 extern "C" int xf_field_pool(const int* keys, const float* x,
                              const void* fields, const void* hot,
                              const float* hot_x, const void* hot_fields,
@@ -483,24 +556,31 @@ extern "C" int xf_field_pool(const int* keys, const float* x,
                              int f_i32, int F, const float* w,
                              const float* emb, const float* snap_w,
                              const float* snap_emb, int E, float* pooled,
-                             float* wide, int B, int K, void* stream) {
+                             float* wide, int B, int K, void* gstage,
+                             void* stream) {
   if (B <= 0) return 0;
   const Planes p{keys, x, fields, hot, hot_x, hot_fields,
                  K, KH > 0 ? KH : 0, H, hot_u16, f_i32, F};
-  if (K + p.KH > kMaxSlots) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  size_t global_bytes = 0;
+  const int global_grid = pool_plan(0, B, K + p.KH, &global_bytes);
+  if (global_bytes > 0) {
+    if (gstage == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    pool_kernel<true><<<global_grid, 32 * kPoolWarps, 0, s>>>(
+        p, hot_bf16, w, emb, snap_w, snap_emb, E, pooled, wide, B,
+        pool_groups(B, kPoolWarps), static_cast<int*>(gstage));
+    return static_cast<int>(cudaGetLastError());
+  }
   PoolShape t;
   const int rc = pool_shape(K + p.KH, &t);
   if (rc != 0) return rc;
-  // a warp an example while that leaves every SM two blocks, else a
-  // block an example
   const long long sms = sm_count();
-  const int groups =
-      t.groups > 1 && (B + kPoolWarps - 1) / kPoolWarps >= 2 * sms ? kPoolWarps : 1;
+  const int groups = pool_groups(B, t.groups);
   const long long want = (static_cast<long long>(B) + groups - 1) / groups;
   const long long cap = sms * t.resident[groups > 1 ? 1 : 0];
-  pool_kernel<<<static_cast<int>(want < cap ? want : cap), 32 * kPoolWarps,
-                groups * t.stage, static_cast<cudaStream_t>(stream)>>>(
-      p, hot_bf16, w, emb, snap_w, snap_emb, E, pooled, wide, B, groups);
+  pool_kernel<false><<<static_cast<int>(want < cap ? want : cap), 32 * kPoolWarps,
+                       groups * t.stage, s>>>(
+      p, hot_bf16, w, emb, snap_w, snap_emb, E, pooled, wide, B, groups, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -509,7 +589,9 @@ extern "C" int xf_field_pool(const int* keys, const float* x,
 // the keys' rows (dense) or at K4's slots (slots not null, index mode;
 // hot slots always at their key in hgw / hgemb), and acc [2] += the
 // log-loss and weight sums.  labels/weights are u8 when lw_u8 != 0,
-// else f32.  Returns cudaGetLastError() after the launch.
+// else f32.  A row past kMaxSlots stages in `gstage`,
+// xf_pool_stage_bytes(1, ...) of device memory.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int xf_field_pool_grad(const int* keys, const float* x,
                                   const void* fields, const void* hot,
                                   const float* hot_x, const void* hot_fields,
@@ -520,23 +602,38 @@ extern "C" int xf_field_pool_grad(const int* keys, const float* x,
                                   int lw_u8, const int* slots, float* gw,
                                   float* gemb, float* hgw, float* hgemb,
                                   int E, double* acc, int B, int K,
-                                  void* stream) {
+                                  void* gstage, void* stream) {
   if (B <= 0) return 0;
   const Planes p{keys, x, fields, hot, hot_x, hot_fields,
                  K, KH > 0 ? KH : 0, H, hot_u16, f_i32, F};
-  if (K + p.KH > kMaxSlots) return static_cast<int>(cudaErrorInvalidValue);
+  size_t global_bytes = 0;
+  const int global_grid = pool_plan(1, B, K + p.KH, &global_bytes);
+  if (global_bytes > 0 && gstage == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* scratch = static_cast<int*>(gstage);
   const size_t smem = static_cast<size_t>(kBytesPerSlot) * (K + p.KH);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lw_u8 != 0) {
-    pool_grad_kernel<std::uint8_t><<<grid_for(B), kGradThreads, smem, s>>>(
-        p, hot_bf16, dP, r, logit, static_cast<const std::uint8_t*>(labels),
-        static_cast<const std::uint8_t*>(weights), slots, gw, gemb, hgw, hgemb,
-        E, acc, B);
+  const auto* lab8 = static_cast<const std::uint8_t*>(labels);
+  const auto* wt8 = static_cast<const std::uint8_t*>(weights);
+  const auto* lab32 = static_cast<const float*>(labels);
+  const auto* wt32 = static_cast<const float*>(weights);
+  if (global_bytes > 0 && lw_u8 != 0) {
+    pool_grad_kernel<std::uint8_t, true><<<global_grid, kGradThreads, 0, s>>>(
+        p, hot_bf16, dP, r, logit, lab8, wt8, slots, gw, gemb, hgw, hgemb, E,
+        acc, B, scratch);
+  } else if (global_bytes > 0) {
+    pool_grad_kernel<float, true><<<global_grid, kGradThreads, 0, s>>>(
+        p, hot_bf16, dP, r, logit, lab32, wt32, slots, gw, gemb, hgw, hgemb, E,
+        acc, B, scratch);
+  } else if (lw_u8 != 0) {
+    pool_grad_kernel<std::uint8_t, false><<<grid_for(B), kGradThreads, smem, s>>>(
+        p, hot_bf16, dP, r, logit, lab8, wt8, slots, gw, gemb, hgw, hgemb, E,
+        acc, B, nullptr);
   } else {
-    pool_grad_kernel<float><<<grid_for(B), kGradThreads, smem, s>>>(
-        p, hot_bf16, dP, r, logit, static_cast<const float*>(labels),
-        static_cast<const float*>(weights), slots, gw, gemb, hgw, hgemb, E,
-        acc, B);
+    pool_grad_kernel<float, false><<<grid_for(B), kGradThreads, smem, s>>>(
+        p, hot_bf16, dP, r, logit, lab32, wt32, slots, gw, gemb, hgw, hgemb, E,
+        acc, B, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

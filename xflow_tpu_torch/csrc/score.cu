@@ -90,6 +90,7 @@
 
 #include "ffm.cuh"
 #include "mvm.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -207,21 +208,13 @@ struct ScoreRows {
   }
 };
 
-__global__ void __launch_bounds__(32 * kMvmWarps)
-score_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
-                 const void* __restrict__ hot, const float* __restrict__ hot_x,
-                 int hot_u16, int H, int hot_bf16,
-                 const void* __restrict__ fields,
-                 const void* __restrict__ hot_fields, int f_i32, int S,
-                 const float* __restrict__ v, float* __restrict__ pctr,
-                 float* __restrict__ logit_out, int B, int K, int KH, int D) {
-  extern __shared__ char smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= B) return;  // warp-uniform; the kernel has no block barrier
+// Row b of the MVM form on one warp's stage.
+__device__ __forceinline__ void score_mvm_row(
+    const mvm::Stage& s, int b, int lane, const int* keys, const float* x,
+    const void* hot, const float* hot_x, int hot_u16, int H, int hot_bf16,
+    const void* fields, const void* hot_fields, int f_i32, int S,
+    const float* v, float* pctr, float* logit_out, int K, int KH, int D) {
   const int n = KH + K;
-  const mvm::Stage s = mvm::stage_at(smem, warp, n);
   const long long row = static_cast<long long>(b) * K;
   for (int j = lane; j < n; j += 32) {
     float xv;
@@ -249,20 +242,47 @@ score_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
   if (lane == 0) write_score(logit, pctr, logit_out, b);
 }
 
-// The FFM form: one block per example (ffm.cuh).
-__global__ void __launch_bounds__(ffm::kMaxThreads)
-score_ffm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
+// kGlobalStage: the warps' stages in the device-memory scratch `gstage`
+// (stage.cuh), the grid looping over the rows; else in shared memory,
+// a warp a row.
+template <bool kGlobalStage>
+__global__ void __launch_bounds__(32 * kMvmWarps)
+score_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
                  const void* __restrict__ hot, const float* __restrict__ hot_x,
                  int hot_u16, int H, int hot_bf16,
                  const void* __restrict__ fields,
-                 const void* __restrict__ hot_fields, int f_i32, int F,
-                 const float* __restrict__ w, const float* __restrict__ v,
-                 float* __restrict__ pctr, float* __restrict__ logit_out,
-                 int K, int KH, int D, int dt) {
-  extern __shared__ float ffm_smem[];
-  const long long b = blockIdx.x;
+                 const void* __restrict__ hot_fields, int f_i32, int S,
+                 const float* __restrict__ v, float* __restrict__ pctr,
+                 float* __restrict__ logit_out, int B, int K, int KH, int D,
+                 char* __restrict__ gstage) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int first = blockIdx.x * warps + warp;
+  if constexpr (kGlobalStage) {
+    const mvm::Stage s = mvm::global_stage_at(gstage, first, KH + K);
+    for (int b = first; b < B; b += gridDim.x * warps) {
+      __syncwarp();  // the previous row's stage is read out
+      score_mvm_row(s, b, lane, keys, x, hot, hot_x, hot_u16, H, hot_bf16,
+                    fields, hot_fields, f_i32, S, v, pctr, logit_out, K, KH, D);
+    }
+  } else {
+    extern __shared__ char smem[];
+    if (first >= B) return;  // warp-uniform; the kernel has no block barrier
+    score_mvm_row(mvm::stage_at(smem, warp, KH + K), first, lane, keys, x, hot,
+                  hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32, S, v,
+                  pctr, logit_out, K, KH, D);
+  }
+}
+
+// Row b of the FFM form on the block's stage (ffm.cuh).
+__device__ __forceinline__ void score_ffm_row(
+    const ffm::Stage& s, long long b, const int* keys, const float* x,
+    const void* hot, const float* hot_x, int hot_u16, int H, int hot_bf16,
+    const void* fields, const void* hot_fields, int f_i32, int F,
+    const float* w, const float* v, float* pctr, float* logit_out, int K,
+    int KH, int D, int dt) {
   const int n = KH + K;
-  const ffm::Stage s = ffm::stage_at(ffm_smem, F, dt, n);
   const long long row = b * K;
   float lin = 0.0f;
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
@@ -293,6 +313,35 @@ score_ffm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
   if (threadIdx.x == 0) write_score(logit, pctr, logit_out, static_cast<int>(b));
 }
 
+// The FFM form: one block per row.  kGlobalStage: the blocks' stages
+// in the device-memory scratch `gstage` (stage.cuh), the grid looping
+// over the rows; else in shared memory.
+template <bool kGlobalStage>
+__global__ void __launch_bounds__(ffm::kMaxThreads)
+score_ffm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
+                 const void* __restrict__ hot, const float* __restrict__ hot_x,
+                 int hot_u16, int H, int hot_bf16,
+                 const void* __restrict__ fields,
+                 const void* __restrict__ hot_fields, int f_i32, int F,
+                 const float* __restrict__ w, const float* __restrict__ v,
+                 float* __restrict__ pctr, float* __restrict__ logit_out,
+                 int B, int K, int KH, int D, int dt, char* __restrict__ gstage) {
+  const int n = KH + K;
+  if constexpr (kGlobalStage) {
+    const ffm::Stage s = ffm::global_stage_at(gstage, blockIdx.x, F, dt, n);
+    for (long long b = blockIdx.x; b < B; b += gridDim.x) {
+      __syncthreads();  // the previous row's stage and sums are read out
+      score_ffm_row(s, b, keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields,
+                    hot_fields, f_i32, F, w, v, pctr, logit_out, K, KH, D, dt);
+    }
+  } else {
+    extern __shared__ float ffm_smem[];
+    score_ffm_row(ffm::stage_at(ffm_smem, F, dt, n), blockIdx.x, keys, x, hot,
+                  hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32, F, w,
+                  v, pctr, logit_out, K, KH, D, dt);
+  }
+}
+
 struct HotPlane {
   const void* keys;
   const float* x;
@@ -319,43 +368,75 @@ extern "C" int xf_ffm_tile(int F, int D, int n) {
   return ffm::tile_factors(F, D, n);
 }
 
+// The device-memory scratch xf_score needs for these shapes (bytes; 0:
+// none, the field form stages in shared memory, or another form).
+extern "C" long long xf_score_stage_bytes(int form, int S, int B, int K,
+                                          int KH, int D) {
+  size_t bytes = 0;
+  if (B > 0) {
+    field_stage_plan(form, S, B, K + (KH > 0 ? KH : 0), D, kMvmWarps, &bytes);
+  }
+  return static_cast<long long>(bytes);
+}
+
 // Launches K1 on `stream`; KH = 0 means no hot plane (hot, hot_x,
 // hot_fields unread).  form 0 is LR (v null) or FM, 1 the MVM form (w
 // unread), 2 the FFM form (D is v's row width, S * the factors); the
 // field forms read the field planes (f_i32: int32, else u8; S =
-// max_fields).  Returns cudaGetLastError() after the launch (0 =
-// launched), or cudaErrorInvalidValue when a field form's stage does
-// not fit the card's shared memory.
+// max_fields).  A field form whose row does not fit shared memory
+// stages it in `gstage`, xf_score_stage_bytes of device memory
+// (stage.cuh).  Returns cudaGetLastError() after the launch (0 =
+// launched), or cudaErrorInvalidValue when such a row comes without
+// its scratch.
 extern "C" int xf_score(const int* keys, const float* x, const void* hot,
                         const float* hot_x, int hot_u16, int H, int hot_bf16,
                         int form, const void* fields, const void* hot_fields,
                         int f_i32, int S, const float* w, const float* v,
                         float* pctr, float* logit, int B, int K, int KH, int D,
-                        void* stream) {
+                        void* gstage, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const HotPlane h{hot, hot_x, hot_u16, H, hot_bf16, KH > 0 ? KH : 0};
+  size_t global_bytes = 0;
+  const int global_grid =
+      field_stage_plan(form, S, B, K + h.KH, D, kMvmWarps, &global_bytes);
+  if (global_bytes > 0 && gstage == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  char* scratch = static_cast<char*>(gstage);
   if (form == 2) {
     const int dv = D / S;
     const int dt = ffm::tile_factors(S, dv, K + h.KH);
-    int threads = 0;
-    size_t smem = 0;
-    const int rc = ffm::launch_shape(score_ffm_kernel, S, dt, K + h.KH,
-                                     &threads, &smem);
-    if (rc != 0) return rc;
-    score_ffm_kernel<<<B, threads, smem, s>>>(
-        keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32,
-        S, w, v, pctr, logit, K, h.KH, dv, dt);
+    if (global_bytes > 0) {
+      score_ffm_kernel<true><<<global_grid, ffm::threads_for(S, dt), 0, s>>>(
+          keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32,
+          S, w, v, pctr, logit, B, K, h.KH, dv, dt, scratch);
+    } else {
+      int threads = 0;
+      size_t smem = 0;
+      const int rc = ffm::launch_shape(score_ffm_kernel<false>, S, dt, K + h.KH,
+                                       &threads, &smem);
+      if (rc != 0) return rc;
+      score_ffm_kernel<false><<<B, threads, smem, s>>>(
+          keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32,
+          S, w, v, pctr, logit, B, K, h.KH, dv, dt, nullptr);
+    }
   } else if (form == 1) {
-    int warps = 1;
-    size_t smem = 0;
-    const int rc = mvm::launch_shape(score_mvm_kernel, K + h.KH, kMvmWarps,
-                                     &warps, &smem);
-    if (rc != 0) return rc;
-    const int grid = (B + warps - 1) / warps;
-    score_mvm_kernel<<<grid, 32 * warps, smem, s>>>(
-        keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32,
-        S, v, pctr, logit, B, K, h.KH, D);
+    if (global_bytes > 0) {
+      score_mvm_kernel<true><<<global_grid, 32 * kMvmWarps, 0, s>>>(
+          keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32,
+          S, v, pctr, logit, B, K, h.KH, D, scratch);
+    } else {
+      int warps = 1;
+      size_t smem = 0;
+      const int rc = mvm::launch_shape(score_mvm_kernel<false>, K + h.KH,
+                                       kMvmWarps, &warps, &smem);
+      if (rc != 0) return rc;
+      const int grid = (B + warps - 1) / warps;
+      score_mvm_kernel<false><<<grid, 32 * warps, smem, s>>>(
+          keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32,
+          S, v, pctr, logit, B, K, h.KH, D, nullptr);
+    }
   } else if (v == nullptr || D == 0) {
     launch<0>(keys, x, h, w, nullptr, pctr, logit, B, K, 0, s);
   } else if (D <= 8) {

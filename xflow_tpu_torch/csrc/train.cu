@@ -197,6 +197,7 @@
 
 #include "ffm.cuh"
 #include "mvm.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -597,7 +598,9 @@ struct TrainRows {
   }
 };
 
-template <typename LW>
+// kGlobalStage: the warps' stages in the device-memory scratch
+// `gstage` (stage.cuh); else in shared memory.
+template <typename LW, bool kGlobalStage>
 __global__ void __launch_bounds__(kThreads)
 train_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
                  const LW* __restrict__ labels, const LW* __restrict__ weights,
@@ -606,14 +609,19 @@ train_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
                  double* __restrict__ acc, int B, int K, int D,
                  const void* __restrict__ fields,
                  const void* __restrict__ hot_fields, int f_i32, int S,
-                 const HotArgs h) {
+                 const HotArgs h, char* __restrict__ gstage) {
   extern __shared__ char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   const long long warps_total = static_cast<long long>(gridDim.x) * warps;
   const int n = h.KH + K;
-  const mvm::Stage s = mvm::stage_at(smem, warp, n);
+  mvm::Stage s;
+  if constexpr (kGlobalStage) {
+    s = mvm::global_stage_at(gstage, static_cast<long long>(blockIdx.x) * warps + warp, n);
+  } else {
+    s = mvm::stage_at(smem, warp, n);
+  }
   const TrainRows rows{v, h.snap_v, s.key, D, h.KH, h.H, h.bf16};
   const int tiles = (D + mvm::kTile - 1) / mvm::kTile;
   float ll_acc = 0.0f;
@@ -675,7 +683,9 @@ train_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
 
 // The FFM form: one block per example, the grid looping over them
 // (ffm.cuh; the header says what it computes).
-template <typename LW>
+// kGlobalStage: the blocks' stages in the device-memory scratch
+// `gstage` (stage.cuh); else in shared memory.
+template <typename LW, bool kGlobalStage>
 __global__ void __launch_bounds__(ffm::kMaxThreads)
 train_ffm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
                  const LW* __restrict__ labels, const LW* __restrict__ weights,
@@ -685,11 +695,16 @@ train_ffm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
                  double* __restrict__ acc, int B, int K, int D, int dt,
                  const void* __restrict__ fields,
                  const void* __restrict__ hot_fields, int f_i32, int F,
-                 const HotArgs h, int vec) {
+                 const HotArgs h, int vec, char* __restrict__ gstage) {
   extern __shared__ __align__(16) float ffm_smem[];
   const int n = h.KH + K;
   const int E = F * D;
-  const ffm::Stage s = ffm::stage_at(ffm_smem, F, dt, n);
+  ffm::Stage s;
+  if constexpr (kGlobalStage) {
+    s = ffm::global_stage_at(gstage, blockIdx.x, F, dt, n);
+  } else {
+    s = ffm::stage_at(ffm_smem, F, dt, n);
+  }
   const ffm::Rows rows{v, s.key, E};
   const int tiles = (D + dt - 1) / dt;
   float ll_acc = 0.0f;
@@ -947,12 +962,13 @@ int ffm_shape(int F, int dv, int n, FfmShape* out) {
   }
   FfmShape t{};
   t.dt = ffm::tile_factors(F, dv, n);
-  const int rc = ffm::launch_shape(train_ffm_kernel<LW>, F, t.dt, n, &t.threads,
-                                   &t.smem);
+  const int rc = ffm::launch_shape(train_ffm_kernel<LW, false>, F, t.dt, n,
+                                   &t.threads, &t.smem);
   if (rc != 0) return rc;
   int sms = 132, per_sm = 1;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, train_ffm_kernel<LW>,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                train_ffm_kernel<LW, false>,
                                                 t.threads, t.smem);
   t.cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   std::copy(key, key + 4, c.key);
@@ -977,9 +993,26 @@ int dispatch(const int* keys, const float* x, const void* labels,
              const void* weights, float num_real, const float* w,
              const float* v, const int* slots, float* gw, float* gv,
              double* acc, int B, int K, int D, const HotArgs& h,
-             const Fields& f, cudaStream_t s) {
+             const Fields& f, char* gstage, cudaStream_t s) {
+  size_t global_bytes = 0;
+  const int global_grid = field_stage_plan(f.form, f.S, B, K + h.KH, D,
+                                           kWarpsPerBlock, &global_bytes);
+  if (global_bytes > 0 && gstage == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (f.form == 2) {
     const int dv = D / f.S;
+    if (global_bytes > 0) {
+      const int dt = ffm::tile_factors(f.S, dv, K + h.KH);
+      const int vec = dt == dv && dv % 4 == 0 && aligned16(gv) &&
+                      (h.KH == 0 || aligned16(h.gv));
+      train_ffm_kernel<LW, true>
+          <<<global_grid, ffm::threads_for(f.S, dt), 0, s>>>(
+              keys, x, static_cast<const LW*>(labels),
+              static_cast<const LW*>(weights), num_real, w, v, slots, gw, gv,
+              acc, B, K, dv, dt, f.cold, f.hot, f.i32, f.S, h, vec, gstage);
+      return static_cast<int>(cudaGetLastError());
+    }
     FfmShape t;
     const int rc = ffm_shape<LW>(f.S, dv, K + h.KH, &t);
     if (rc != 0) return rc;
@@ -988,20 +1021,27 @@ int dispatch(const int* keys, const float* x, const void* labels,
     // 16-byte aligned gradient rows (E % 4 == 0 and aligned bases)
     const int vec = t.dt == dv && dv % 4 == 0 && aligned16(gv) &&
                     (h.KH == 0 || aligned16(h.gv));
-    train_ffm_kernel<LW><<<grid, t.threads, t.smem, s>>>(
+    train_ffm_kernel<LW, false><<<grid, t.threads, t.smem, s>>>(
         keys, x, static_cast<const LW*>(labels),
         static_cast<const LW*>(weights), num_real, w, v, slots, gw, gv, acc, B,
-        K, dv, t.dt, f.cold, f.hot, f.i32, f.S, h, vec);
+        K, dv, t.dt, f.cold, f.hot, f.i32, f.S, h, vec, nullptr);
   } else if (f.form == 1) {
+    if (global_bytes > 0) {
+      train_mvm_kernel<LW, true><<<global_grid, kThreads, 0, s>>>(
+          keys, x, static_cast<const LW*>(labels),
+          static_cast<const LW*>(weights), num_real, v, slots, gv, acc, B, K, D,
+          f.cold, f.hot, f.i32, f.S, h, gstage);
+      return static_cast<int>(cudaGetLastError());
+    }
     int warps = 1;
     size_t smem = 0;
-    const int rc = mvm::launch_shape(train_mvm_kernel<LW>, K + h.KH,
+    const int rc = mvm::launch_shape(train_mvm_kernel<LW, false>, K + h.KH,
                                      kWarpsPerBlock, &warps, &smem);
     if (rc != 0) return rc;
-    train_mvm_kernel<LW><<<grid_for(B, warps), 32 * warps, smem, s>>>(
+    train_mvm_kernel<LW, false><<<grid_for(B, warps), 32 * warps, smem, s>>>(
         keys, x, static_cast<const LW*>(labels),
         static_cast<const LW*>(weights), num_real, v, slots, gv, acc, B, K, D,
-        f.cold, f.hot, f.i32, f.S, h);
+        f.cold, f.hot, f.i32, f.S, h, nullptr);
   } else {
     int rc = 0;
     if (v == nullptr || D == 0) {
@@ -1048,6 +1088,18 @@ extern "C" int xf_ffm_tile(int F, int D, int n) {
   return ffm::tile_factors(F, D, n);
 }
 
+// The device-memory scratch xf_train_step needs for these shapes
+// (bytes; 0: none, the field form stages in shared memory, or another
+// form).
+extern "C" long long xf_train_stage_bytes(int form, int S, int B, int K,
+                                          int KH, int D) {
+  size_t bytes = 0;
+  if (B > 0) {
+    field_stage_plan(form, S, B, K + (KH > 0 ? KH : 0), D, kWarpsPerBlock, &bytes);
+  }
+  return static_cast<long long>(bytes);
+}
+
 // Launches K2 on `stream`; labels/weights are u8 when lw_u8 != 0, else
 // f32; `slots` null is the dense mode, else the index mode (header).
 // KH = 0 means no hot plane (the hot_* pointers unread); snap_v null is
@@ -1055,9 +1107,11 @@ extern "C" int xf_ffm_tile(int F, int D, int n) {
 // LR (v null) or FM, 1 the MVM form (w, gw, hgw, snap_w unread), 2 the
 // FFM form (D is v's row width, S * the factors; snap_* unread); the
 // field forms read the field planes (f_i32: int32, else u8; S =
-// max_fields).  Returns cudaGetLastError() after the launch (0 =
-// launched), or cudaErrorInvalidValue when a field form's stage does
-// not fit the card's shared memory.
+// max_fields).  A field form whose row does not fit shared memory
+// stages it in `gstage`, xf_train_stage_bytes of device memory
+// (stage.cuh).  Returns cudaGetLastError() after the launch (0 =
+// launched), or cudaErrorInvalidValue when such a row comes without
+// its scratch.
 extern "C" int xf_train_step(const int* keys, const float* x,
                              const void* labels, const void* weights,
                              int lw_u8, float num_real, const float* w,
@@ -1068,16 +1122,17 @@ extern "C" int xf_train_step(const int* keys, const float* x,
                              float* hgv, const float* snap_w,
                              const float* snap_v, int form,
                              const void* fields, const void* hot_fields,
-                             int f_i32, int S, void* stream) {
+                             int f_i32, int S, void* gstage, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const HotArgs h{hot,  hot_x, hot_u16, H,      hot_bf16, KH > 0 ? KH : 0,
                   hgw,  hgv,   snap_w,  snap_v};
   const Fields f{form, fields, hot_fields, f_i32, S};
+  char* scratch = static_cast<char*>(gstage);
   if (lw_u8 != 0) {
     return dispatch<std::uint8_t>(keys, x, labels, weights, num_real, w, v,
-                                  slots, gw, gv, acc, B, K, D, h, f, s);
+                                  slots, gw, gv, acc, B, K, D, h, f, scratch, s);
   }
   return dispatch<float>(keys, x, labels, weights, num_real, w, v, slots, gw,
-                         gv, acc, B, K, D, h, f, s);
+                         gv, acc, B, K, D, h, f, scratch, s);
 }

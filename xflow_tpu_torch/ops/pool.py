@@ -57,9 +57,9 @@ from xflow_tpu_torch.utils.metrics import logloss_sum, sigmoid_ref
 
 # K8 stages a row's Kh + K slots in one block's shared memory
 # (csrc/pool.cu): POOL_BYTES_PER_SLOT a slot within POOL_STAGE_BYTES,
-# the 48 KiB a block gets without the opt-in less the static part.  That
-# caps a row at POOL_MAX_SLOTS slots, for K7 too (its warp's stage fits
-# any such row).
+# the 48 KiB a block gets without the opt-in less the static part: up
+# to POOL_MAX_SLOTS slots.  A wider row takes both kernels' device-memory
+# stage (csrc/stage.cuh), which the wrappers allocate.
 POOL_BYTES_PER_SLOT = 12
 POOL_STAGE_BYTES = 48 * 1024 - 64
 POOL_MAX_SLOTS = POOL_STAGE_BYTES // POOL_BYTES_PER_SLOT
@@ -78,7 +78,7 @@ def _lib() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, vp,  # keys, x, fields, hot, hot_x, hot_fields
             ci, ci, ci, ci, ci, ci,  # hot_u16, H, bf16, KH, f_i32, F
             vp, vp, vp, vp,  # w, emb, snap_w, snap_emb
-            ci, vp, vp, ci, ci, vp,  # E, pooled, wide, B, K, stream
+            ci, vp, vp, ci, ci, vp, vp,  # E, pooled, wide, B, K, stage, stream
         ]
         lib.xf_field_pool.restype = ci
         lib.xf_field_pool_grad.argtypes = [
@@ -86,9 +86,11 @@ def _lib() -> ctypes.CDLL:
             ci, ci, ci, ci, ci, ci,
             vp, vp, vp, vp, vp, ci,  # dP, r, logit, labels, weights, lw_u8
             vp, vp, vp, vp, vp,  # slots, gw, gemb, hgw, hgemb
-            ci, vp, ci, ci, vp,  # E, acc, B, K, stream
+            ci, vp, ci, ci, vp, vp,  # E, acc, B, K, stage, stream
         ]
         lib.xf_field_pool_grad.restype = ci
+        lib.xf_pool_stage_bytes.argtypes = [ci] * 4
+        lib.xf_pool_stage_bytes.restype = ctypes.c_longlong
         lib.xf_pool_max_slots.argtypes = []
         lib.xf_pool_max_slots.restype = ci
         if lib.xf_pool_max_slots() != POOL_MAX_SLOTS:
@@ -108,15 +110,14 @@ def _same_place(keys, named) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def check_pool_slots(slots: int) -> None:
-    """Refuse a row wider than K7's and K8's shared-memory stage."""
-    if slots > POOL_MAX_SLOTS:
-        raise ValueError(
-            f"pooled rows of {slots} slots (hot + cold) exceed K7's and K8's "
-            f"shared-memory stage: {POOL_BYTES_PER_SLOT} B a slot in at most "
-            f"{POOL_STAGE_BYTES} B a block, so at most {POOL_MAX_SLOTS} slots "
-            "(csrc/pool.cu)"
-        )
+def pool_stage(kernel: int, b: int, k: int, kh: int, device) -> torch.Tensor | None:
+    """The device-memory stage K7 (``kernel`` 0) or K8 (1) needs for
+    ``b`` rows of ``k + kh`` slots, or None where a row fits the
+    shared-memory stage (at most POOL_MAX_SLOTS slots)."""
+    if k + kh <= POOL_MAX_SLOTS:
+        return None
+    nbytes = _lib().xf_pool_stage_bytes(kernel, b, k, kh)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
 
 
 def check_planes(keys, x, fields, hot, hot_x, hot_fields, hot_size: int, table,
@@ -139,7 +140,6 @@ def check_planes(keys, x, fields, hot, hot_x, hot_fields, hot_size: int, table,
         check_hot(keys, hot, hot_x, hot_size, table)
         if hot_fields.dtype != fields.dtype or hot_fields.shape != hot.shape:
             raise ValueError(f"hot_fields must be {fields.dtype} {tuple(hot.shape)}")
-    check_pool_slots(keys.shape[1] + (hot.shape[1] if hot is not None else 0))
     _same_place(keys, [("x", x), ("fields", fields), ("hot_fields", hot_fields)])
 
 
@@ -201,6 +201,7 @@ def field_pool(keys, x, fields, emb, max_fields: int, w=None, hot=None, hot_x=No
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    stage = pool_stage(0, b, k, kh, keys.device)
     with torch.cuda.device(keys.device):
         rc = lib.xf_field_pool(
             keys.data_ptr(), ptr(x), fields.data_ptr(), ptr(hot), ptr(hot_x),
@@ -208,7 +209,7 @@ def field_pool(keys, x, fields, emb, max_fields: int, w=None, hot=None, hot_x=No
             hot_size if kh else 0, 1 if kh and hot_bf16 else 0, kh,
             1 if fields.dtype == torch.int32 else 0, max_fields, ptr(w),
             emb.data_ptr(), ptr(snap_w), ptr(snap_emb), e, pooled.data_ptr(),
-            ptr(wide), b, k,
+            ptr(wide), b, k, ptr(stage),
             torch.cuda.current_stream(keys.device).cuda_stream,
         )
     if rc != 0:
@@ -328,6 +329,7 @@ def field_pool_grad(keys, x, fields, dP, r, logit, labels, weights, max_fields: 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    stage = pool_stage(1, b, k, kh, keys.device)
     with torch.cuda.device(keys.device):
         rc = lib.xf_field_pool_grad(
             keys.data_ptr(), ptr(x), fields.data_ptr(), ptr(hot), ptr(hot_x),
@@ -337,7 +339,7 @@ def field_pool_grad(keys, x, fields, dP, r, logit, labels, weights, max_fields: 
             r.data_ptr(), logit.data_ptr(), labels.data_ptr(), weights.data_ptr(),
             1 if labels.dtype == torch.uint8 else 0, ptr(slots), ptr(g_w),
             g_emb.data_ptr(), ptr(hg_w), ptr(hg_emb), e, acc.data_ptr(), b, k,
-            torch.cuda.current_stream(keys.device).cuda_stream,
+            ptr(stage), torch.cuda.current_stream(keys.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"field_pool_grad kernel launch failed: CUDA error {rc}")

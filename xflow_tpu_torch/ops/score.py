@@ -52,7 +52,8 @@ _I32_MAX = 2**31 - 1
 # The MVM forms of K1 and K2 stage each example's Kh + K slots in one
 # warp's shared memory (csrc/mvm.cuh: MVM_BYTES_PER_SLOT a slot), and a
 # block holds at most MVM_SMEM_BYTES (the H100's and H200's opt-in per
-# block): that caps a row at MVM_MAX_SLOTS slots.
+# block): up to MVM_MAX_SLOTS slots.  A wider row takes the kernels'
+# device-memory stage (csrc/stage.cuh), which the wrapper allocates.
 MVM_BYTES_PER_SLOT = 148
 MVM_SMEM_BYTES = 232_448
 MVM_MAX_SLOTS = MVM_SMEM_BYTES // MVM_BYTES_PER_SLOT
@@ -61,7 +62,8 @@ MVM_MAX_SLOTS = MVM_SMEM_BYTES // MVM_BYTES_PER_SLOT
 # the field sums S [F, F, Dt] of a tile of Dt factors in one block's
 # shared memory.  Dt is the most factors whose stage fits the default
 # FFM_TILE_SMEM (at least 1); one factor's stage past MVM_SMEM_BYTES
-# (the opt-in per block) is refused (check_ffm_stage).
+# (the opt-in per block; F above about 240) takes the device-memory
+# stage (ffm_stage_global).
 FFM_BYTES_PER_SLOT = 16
 FFM_SCRATCH_BYTES = 32 * 4
 FFM_TILE_SMEM = 48 * 1024
@@ -80,9 +82,12 @@ def _lib() -> ctypes.CDLL:
         lib.xf_score.argtypes = [
             vp, vp, vp, vp, ci, ci, ci,  # keys, x, hot, hot_x, hot_u16, H, bf16
             ci, vp, vp, ci, ci,  # form, fields, hot_fields, f_i32, S
-            vp, vp, vp, vp, ci, ci, ci, ci, vp,  # w, v, pctr, logit, B, K, KH, D
+            vp, vp, vp, vp, ci, ci, ci, ci,  # w, v, pctr, logit, B, K, KH, D
+            vp, vp,  # the device-memory stage, stream
         ]
         lib.xf_score.restype = ci
+        lib.xf_score_stage_bytes.argtypes = [ci] * 6
+        lib.xf_score_stage_bytes.restype = ctypes.c_longlong
         check_stage_abi(lib)
         _bound = lib
     return _bound
@@ -94,8 +99,8 @@ FORM_CODES = {"lr": 0, "fm": 0, "mvm": 1, "ffm": 2}
 
 def check_stage_abi(lib: ctypes.CDLL) -> None:
     """The library's shared-memory stages must be the ones this module
-    refuses by: MVM_BYTES_PER_SLOT a slot, and FFM's stage and tile as
-    ``ffm_stage_bytes`` and ``ffm_tile`` compute them."""
+    picks the form by: MVM_BYTES_PER_SLOT a slot, and FFM's stage and
+    tile as ``ffm_stage_bytes`` and ``ffm_tile`` compute them."""
     ci = ctypes.c_int
     lib.xf_mvm_bytes_per_slot.argtypes = []
     lib.xf_mvm_bytes_per_slot.restype = ci
@@ -132,20 +137,36 @@ def ffm_tile(max_fields: int, d: int, slots: int) -> int:
     return dt
 
 
-def check_ffm_stage(max_fields: int, slots: int) -> None:
-    """Refuse an FFM geometry whose one-factor stage exceeds a block's
-    shared memory: S [F, F] of one factor (4 F^2 B) beside the row's
-    slots, at most MVM_SMEM_BYTES (232,448 B on an H100/H200), so F is
-    at most 240 for a narrow row."""
-    need = ffm_stage_bytes(max_fields, slots)
-    if need > MVM_SMEM_BYTES:
-        raise ValueError(
-            f"FFM at max_fields={max_fields} with {slots} slots (hot + cold) "
-            f"exceeds the FFM kernels' shared-memory stage: the field sums of "
-            f"one factor take 4 * {max_fields}^2 B, with {FFM_BYTES_PER_SLOT} B "
-            f"a slot and {FFM_SCRATCH_BYTES} B of scratch {need} B, and a block "
-            f"holds at most {MVM_SMEM_BYTES} B (csrc/ffm.cuh)"
-        )
+def ffm_stage_global(max_fields: int, slots: int) -> bool:
+    """Whether an FFM row takes the kernels' device-memory stage: the
+    field sums of one factor (4 F^2 B) beside the row's slots pass a
+    block's MVM_SMEM_BYTES of shared memory (csrc/ffm.cuh)."""
+    return ffm_stage_bytes(max_fields, slots) > MVM_SMEM_BYTES
+
+
+def mvm_stage_global(slots: int) -> bool:
+    """Whether an MVM row takes the kernels' device-memory stage: more
+    than MVM_MAX_SLOTS slots (csrc/mvm.cuh)."""
+    return slots > MVM_MAX_SLOTS
+
+
+def field_stage_global(form: str, max_fields: int, slots: int) -> bool:
+    """Whether a row of ``slots`` slots (hot + cold) in ``form`` takes
+    the device-memory stage (csrc/stage.cuh) rather than shared memory."""
+    if form == "mvm":
+        return mvm_stage_global(slots)
+    return form == "ffm" and ffm_stage_global(max_fields, slots)
+
+
+def field_stage(stage_bytes, form: str, max_fields: int, b: int, k: int, kh: int,
+                d: int, device) -> torch.Tensor | None:
+    """The device-memory stage a field form's launch needs (uint8, as
+    many bytes as the library's ``stage_bytes`` function gives for the
+    shapes), or None where the row stages in shared memory."""
+    if not field_stage_global(form, max_fields, k + kh):
+        return None
+    nbytes = stage_bytes(FORM_CODES[form], max_fields, b, k, kh, d)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
 
 
 def resolve_form(form: str | None, v, fields) -> str:
@@ -160,22 +181,11 @@ def resolve_form(form: str | None, v, fields) -> str:
     return form
 
 
-def check_mvm_slots(slots: int) -> None:
-    """Refuse an MVM row wider than the kernels' shared-memory stage."""
-    if slots > MVM_MAX_SLOTS:
-        raise ValueError(
-            f"MVM rows of {slots} slots (hot + cold) exceed the MVM kernels' "
-            f"shared-memory stage: {MVM_BYTES_PER_SLOT} B a slot in one warp, "
-            f"at most {MVM_SMEM_BYTES} B a block, so at most {MVM_MAX_SLOTS} "
-            "slots (csrc/mvm.cuh)"
-        )
-
-
 def check_fields(keys, fields, hot, hot_fields, max_fields: int, form: str) -> None:
     """The field forms' planes: ``fields`` beside ``keys`` (given in the
     MVM and FFM forms, and only then) and ``hot_fields`` beside ``hot``
     (and only with it), uint8 or int32, one dtype, a positive
-    ``max_fields``, and a row the form's shared-memory stage holds."""
+    ``max_fields``."""
     if (fields is not None) != (form in ("mvm", "ffm")):
         raise ValueError(f"field planes come with the mvm and ffm forms, and "
                          f"only then (form {form!r})")
@@ -198,11 +208,6 @@ def check_fields(keys, fields, hot, hot_fields, max_fields: int, form: str) -> N
         tensors.append(("hot_fields", hot_fields))
     if max_fields < 1:
         raise ValueError(f"max_fields must be positive, got {max_fields}")
-    slots = keys.shape[1] + (hot.shape[1] if hot is not None else 0)
-    if form == "mvm":
-        check_mvm_slots(slots)
-    else:
-        check_ffm_stage(max_fields, slots)
     for name, t in tensors:
         if t.device != keys.device:
             raise ValueError(f"{name} on {t.device}, keys on {keys.device}")
@@ -440,6 +445,9 @@ def score(
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    d = v.shape[1] if v is not None else 0
+    stage = field_stage(lib.xf_score_stage_bytes, form, max_fields, b, k, kh, d,
+                        keys.device)
     with torch.cuda.device(keys.device):
         rc = lib.xf_score(
             keys.data_ptr(),
@@ -461,7 +469,8 @@ def score(
             b,
             k,
             kh,
-            v.shape[1] if v is not None else 0,
+            d,
+            ptr(stage),
             torch.cuda.current_stream(keys.device).cuda_stream,
         )
     if rc != 0:

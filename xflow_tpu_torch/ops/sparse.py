@@ -30,17 +30,21 @@ The kernels, one wrapper each, with a plain version beside it:
   reaches the host), and each occurrence's slot into ``slots`` (-1 on
   padding), so that K2's index mode (ops/train.py) sums the gradients
   per unique key.  The kernel gives the slots in no particular order
-  (csrc/sparse.cu); the plain version is ``consolidate_plan``, so it
-  gives the reference's sorted order, and is free of host syncs.
+  (csrc/sparse.cu): one launch up to ``K4_SLICE_MAX`` keys (a
+  cooperative grid), three device operations past it; the plain version
+  is ``consolidate_plan``, so it gives the reference's sorted order, and
+  is free of host syncs.
 * K5 ``touched_update`` (B6 with B3's recurrence): FTRL or SGD in
-  place on the rows ``ukeys[:count]`` of a table with the summed
-  gradients ``gsum``.  It clears ``gsum[:count]`` and, given the slot
-  map, resets the map at those keys.  The plain version is
-  gather_rows → ``update_rows`` → scatter_rows.
+  place on the rows ``ukeys[:count]`` of one table or of every table of
+  an update in ONE launch, with the summed gradients ``gsum``.  It
+  clears ``gsum[:count]`` and, given the slot map, resets the map at
+  those keys.  The plain version is the reference's per-table loop,
+  gather_rows → ``update_rows`` → scatter_rows for each table.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise: there is no fallback.  ``consolidate_keys.launches`` and
-``touched_update.launches`` count wrapper calls that launched a kernel.
+``touched_update.launches`` count wrapper calls that launched a kernel
+(a K5 call is one launch, whatever its number of tables).
 """
 
 from __future__ import annotations
@@ -52,6 +56,11 @@ import torch
 from xflow_tpu_torch.optim import FTRL, SGD
 
 _bound: ctypes.CDLL | None = None
+# K4's slice form (csrc/sparse.cu kSliceMax): one launch up to this many
+# keys, the batch form's three device operations past it
+K4_SLICE_MAX = 32_768
+# the most tables one K5 launch steps (csrc/sparse.cu kMaxTables)
+K5_MAX_TABLES = 4
 
 
 def consolidate_plan(keys: torch.Tensor, table_size: int):
@@ -138,11 +147,15 @@ def _lib() -> ctypes.CDLL:
         lib = load_library("sparse")
         vp, ll, ci, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         lib.xf_consolidate.argtypes = [vp, ll, ci, vp, vp, vp, vp, vp]
-        lib.xf_touched_ftrl.argtypes = [vp, vp, vp, vp, vp, vp, ll, ci, f, f, f, f, vp,
-                                        vp, ci, vp]
-        lib.xf_touched_sgd.argtypes = [vp, vp, vp, vp, ll, ci, f, vp, vp, ci, vp]
-        for fn in (lib.xf_consolidate, lib.xf_touched_ftrl, lib.xf_touched_sgd):
+        lib.xf_touched.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, ll, f, f, f, f,
+                                   f, vp, ci, vp]
+        for fn in (lib.xf_consolidate, lib.xf_touched):
             fn.restype = ci
+        lib.xf_consolidate_slice_max.argtypes = []
+        lib.xf_consolidate_slice_max.restype = ll
+        if lib.xf_consolidate_slice_max() != K4_SLICE_MAX:
+            raise RuntimeError("csrc/sparse.cu's kSliceMax differs from ops/sparse.py's "
+                               "K4_SLICE_MAX")
         _bound = lib
     return _bound
 
@@ -195,8 +208,10 @@ def consolidate_keys_plain(keys, table_size, ukeys, count, slots) -> None:
 def consolidate_keys(keys, table_size, ukeys, count, slots, slot_map=None) -> None:
     """Fill ``ukeys`` [>= M], ``count`` [1] and ``slots`` (keys' shape)
     for the int32 ``keys`` of a table of ``table_size`` rows.  CPU
-    tensors take the plain version; CUDA tensors launch K4, which needs
-    ``slot_map`` int32 [T] holding -1 everywhere (K5 restores it)."""
+    tensors take the plain version; CUDA tensors launch K4 (one launch
+    up to ``K4_SLICE_MAX`` keys, three device operations past it), which
+    needs ``slot_map`` int32 [T] holding -1 everywhere (K5 restores
+    it)."""
     _check_plan(keys, table_size, ukeys, count, slots, slot_map)
     dev = keys.device
     if dev.type == "cpu":
@@ -268,13 +283,25 @@ def _check_touched(table, opt, ukeys, count, gsum, slot_map, head=None,
     return tensors
 
 
+def _as_list(x) -> list:
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
 def touched_plain(table, opt, ukeys, count, gsum, head=None, hot_size=0) -> None:
-    """K5's plain version (the reference's ``_apply_touched_rows``):
-    the slots past ``count`` made the sentinel, gather_rows →
-    ``update_rows`` → scatter_rows, in place; then
-    ``gsum[:count] = 0``.  With ``head``, the reference's hybrid fold
+    """K5's plain version (the reference's ``_apply_touched_rows``, once
+    per table, step.py:1143-1156): ``table``, ``gsum`` and ``head`` are
+    one table's or lists of them, one entry a table.  For each: the
+    slots past ``count`` made the sentinel, gather_rows →
+    ``update_rows`` → scatter_rows, in place; then ``gsum[:count] =
+    0``.  With ``head``, the reference's hybrid fold
     (step.py:1194-1238): the sums of keys < H are added into ``head``
     and those keys made the sentinel."""
+    heads = _as_list(head) if head is not None else None
+    for k, (tab, g) in enumerate(zip(_as_list(table), _as_list(gsum))):
+        _touched_one(tab, opt, ukeys, count, g, heads[k] if heads else None, hot_size)
+
+
+def _touched_one(table, opt, ukeys, count, gsum, head, hot_size) -> None:
     names = _names(opt)
     t = table[names[0]].shape[0]
     cap = gsum.shape[0]
@@ -296,34 +323,58 @@ def touched_plain(table, opt, ukeys, count, gsum, head=None, hot_size=0) -> None
 def touched_update(table, opt, ukeys, count, gsum, slot_map=None, head=None,
                    hot_size=0) -> None:
     """Apply ``opt`` (FTRL or SGD) in place to the rows ``ukeys[:count]``
-    of ``table`` (``{"param", <aux>...}``) with ``gsum`` [M, D]; clears
-    ``gsum[:count]`` and, given ``slot_map``, resets it at those keys.
-    With ``head`` [hot_size, D], keys < hot_size fold into it instead
-    of stepping (module docstring).  CPU tensors take the plain version
-    (no slot map there); CUDA tensors launch K5."""
-    tensors = _check_touched(table, opt, ukeys, count, gsum, slot_map, head, hot_size)
-    dev = tensors[0].device
+    of ``table`` (``{"param", <aux>...}``) with ``gsum`` [M, D], or of
+    every table of a list (at most ``K5_MAX_TABLES``) with the list
+    ``gsum`` beside it, in one launch; clears ``gsum[:count]`` and,
+    given ``slot_map``, resets it at those keys.  With ``head``
+    [hot_size, D] (a list beside a list of tables), keys < hot_size
+    fold into it instead of stepping (module docstring).  CPU tensors
+    take the plain version (no slot map there); CUDA tensors launch
+    K5."""
+    tabs, gsums = _as_list(table), _as_list(gsum)
+    heads = _as_list(head) if head is not None else [None] * len(tabs)
+    if not 0 < len(tabs) <= K5_MAX_TABLES or len(gsums) != len(tabs) \
+            or len(heads) != len(tabs):
+        raise ValueError(f"touched_update: 1 to {K5_MAX_TABLES} tables, each with its "
+                         f"gsum (and head), got {len(tabs)}, {len(gsums)}, {len(heads)}")
+    per = [_check_touched(t, opt, ukeys, count, g, slot_map, h, hot_size)
+           for t, g, h in zip(tabs, gsums, heads)]
+    dev = per[0][0].device
+    if any(ts[0].device != dev for ts in per):
+        raise ValueError("touched_update: the tables lie on different devices")
+    if len({g.shape[0] for g in gsums}) != 1:
+        raise ValueError("touched_update: every gsum must have the same rows")
+    if len({h is None for h in heads}) != 1:
+        raise ValueError("touched_update: a head buffer for every table, or none")
     if dev.type == "cpu":
         touched_plain(table, opt, ukeys, count, gsum, head, hot_size)
         return
     if dev.type != "cuda":
         raise ValueError(f"touched_update: unsupported device {dev}")
     lib = _lib()
-    cap, d = gsum.shape
-    tail = (ukeys.data_ptr(), count.data_ptr(), cap, d)
-    smap = slot_map.data_ptr() if slot_map is not None else None
-    fold = (head.data_ptr(), hot_size) if head is not None else (None, 0)
+    n = len(tabs)
+    ptrs = ctypes.c_void_p * n
+    ftrl = isinstance(opt, FTRL)
+
+    def arr(tensors):
+        return ptrs(*[t.data_ptr() for t in tensors])
+
+    w = arr([ts[0] for ts in per])
+    nn = arr([ts[1] for ts in per]) if ftrl else None
+    z = arr([ts[2] for ts in per]) if ftrl else None
+    heads_p = arr(heads) if heads[0] is not None else None
+    dims = (ctypes.c_int * n)(*[g.shape[1] for g in gsums])
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = [t.data_ptr() for t in tensors]
-        if isinstance(opt, FTRL):
-            rc = lib.xf_touched_ftrl(
-                *ptrs, gsum.data_ptr(), *tail, opt.alpha, opt.beta,
-                opt.lambda1, opt.lambda2, smap, *fold, stream,
-            )
-        else:
-            rc = lib.xf_touched_sgd(ptrs[0], gsum.data_ptr(), *tail, opt.lr,
-                                    smap, *fold, stream)
+        rc = lib.xf_touched(
+            0 if ftrl else 1, n, w, nn, z, arr(gsums), heads_p, dims,
+            ukeys.data_ptr(), count.data_ptr(), gsums[0].shape[0],
+            opt.alpha if ftrl else 1.0, opt.beta if ftrl else 0.0,
+            opt.lambda1 if ftrl else 0.0, opt.lambda2 if ftrl else 0.0,
+            0.0 if ftrl else opt.lr,
+            slot_map.data_ptr() if slot_map is not None else None,
+            hot_size if heads_p is not None else 0,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"touched-rows kernel launch failed: CUDA error {rc}")
     touched_update.launches += 1

@@ -66,6 +66,7 @@ from xflow_tpu_torch.ops.hot import hot_scatter
 from xflow_tpu_torch.ops.score import (
     FORM_CODES,
     check_fields,
+    field_stage,
     check_hot,
     check_stage_abi,
     check_tables,
@@ -91,9 +92,11 @@ def _lib() -> ctypes.CDLL:
             vp, vp, ci, ci, ci, ci,  # hot, hot_x, hot_u16, H, bf16, KH
             vp, vp, vp, vp,  # hg_w, hg_v, snap_w, snap_v
             ci, vp, vp, ci, ci,  # form, fields, hot_fields, f_i32, S
-            vp,
+            vp, vp,  # the device-memory stage, stream
         ]
         lib.xf_train_step.restype = ci
+        lib.xf_train_stage_bytes.argtypes = [ci] * 6
+        lib.xf_train_stage_bytes.restype = ctypes.c_longlong
         ip = ctypes.POINTER(ci)
         lib.xf_train_table_shape.argtypes = [ci, ci, ci, ci, ci, ip, ip, ip]
         lib.xf_train_table_shape.restype = ci
@@ -312,6 +315,9 @@ def train_step(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    d = v.shape[1] if v is not None else 0
+    stage = field_stage(lib.xf_train_stage_bytes, form, max_fields, b, k, kh, d,
+                        keys.device)
     with torch.cuda.device(keys.device):
         rc = lib.xf_train_step(
             keys.data_ptr(),
@@ -328,7 +334,7 @@ def train_step(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
             acc.data_ptr(),
             b,
             k,
-            v.shape[1] if v is not None else 0,
+            d,
             ptr(hot) if kh else None,
             ptr(hot_x) if kh else None,
             1 if kh and hot.dtype == torch.int16 else 0,
@@ -344,6 +350,7 @@ def train_step(keys, x, labels, weights, num_real, w, v, g_w, g_v, acc,
             ptr(hot_fields) if kh else None,
             1 if fields is not None and fields.dtype == torch.int32 else 0,
             max_fields,
+            ptr(stage),
             torch.cuda.current_stream(keys.device).cuda_stream,
         )
     if rc != 0:

@@ -18,8 +18,8 @@ short sequence of hand-written kernels:
 * sparse (step.py:1053-1066, ``_sparse_update`` 1158-1248,
   ``_apply_touched_rows`` 1143-1156): K4 (ops/sparse.py: the batch's
   unique keys and each occurrence's slot), K2 in index mode (gradients
-  summed per unique key into ``gsum`` [M, D]), and K5 per table (FTRL
-  or SGD on the touched rows only).  The state holds no [T, D]
+  summed per unique key into ``gsum`` [M, D]), and one K5 launch over
+  every table (FTRL or SGD on the touched rows only).  The state holds no [T, D]
   gradient buffer;
 * sequential (``_train_sequential``, step.py:1250-1325): the batch's
   interleaved slices (``_interleaved_slices``, step.py:264-277: example
@@ -148,8 +148,8 @@ from xflow_tpu_torch.io.compact import CompactBatch, _clamp_slots_u8
 from xflow_tpu_torch.models import make_model
 from xflow_tpu_torch.obs import Obs
 from xflow_tpu_torch.ops.optim import optim_update
-from xflow_tpu_torch.ops.pool import check_pool_slots, field_pool, field_pool_grad
-from xflow_tpu_torch.ops.score import check_ffm_stage, check_mvm_slots, score
+from xflow_tpu_torch.ops.pool import field_pool, field_pool_grad
+from xflow_tpu_torch.ops.score import score
 from xflow_tpu_torch.ops.sparse import consolidate_keys, touched_update
 from xflow_tpu_torch.ops.train import train_step
 from xflow_tpu_torch.ops.wire import dict_decode, to_device
@@ -430,14 +430,7 @@ def check_servable(cfg: Config) -> None:
         raise NotImplementedError(
             "store_mode='tiered' is not ported yet (ROADMAP A11)"
         )
-    model = make_model(cfg)  # refuses an invalid family geometry
-    slots = cfg.max_nnz + (cfg.hot_nnz if cfg.hot_size else 0)
-    if getattr(model, "dense_params", False):
-        check_pool_slots(slots)
-    if cfg.model == "mvm":
-        check_mvm_slots(slots)
-    if cfg.model == "ffm":
-        check_ffm_stage(cfg.max_fields, slots)
+    make_model(cfg)  # refuses an invalid family geometry
 
 
 def dict_wire_ok(cfg: Config, uses_slots: bool) -> bool:
@@ -699,7 +692,7 @@ class TrainStep:
                 acc: torch.Tensor, dense: dict | None = None) -> None:
         """One optimizer application over ``view`` (the batch, or one
         sequential slice), every gradient divided by ``num_real``: the
-        touched-rows form (K4, K2 in index mode, K5 per table, and with
+        touched-rows form (K4, K2 in index mode, one K5 over the tables, and with
         a hot plane the hybrid's head step), or the dense form (K2 into
         ``g``, hot gradients into its first H rows, then K3 per
         table); a pooled family runs K7 and K8 where K2 runs, and its
@@ -775,8 +768,8 @@ class TrainStep:
     def _touched_rows(self, tables: dict, view: dict, num_real: float,
                       acc: torch.Tensor, dense: dict | None = None) -> dict | None:
         """K4 over the view's cold keys, K2 in index mode into the
-        per-table ``gsum``, then K5 per table: the optimizer on the
-        touched rows.  The last table's K5 resets the slot map.  With a
+        per-table ``gsum``, then one K5 launch over every table: the
+        optimizer on the touched rows, and the slot map reset.  With a
         hot plane, the hybrid: K2 sums the hot gradients into the head
         buffers, K5 folds the cold sums of keys < H into them, and K3
         steps rows [0, H)."""
@@ -792,12 +785,10 @@ class TrainStep:
         grad_dense = self._k2(tables, view, num_real, acc, gsum, slots=slots, heads=heads,
                               dense=dense)
         names = list(tables)
-        for name in names:
-            touched_update(
-                tables[name], self.optimizer, ukeys, count, gsum[name],
-                scratch["slot_map"] if name == names[-1] else None,
-                head=heads[name] if heads else None, hot_size=self.hot_size,
-            )
+        touched_update([tables[n] for n in names], self.optimizer, ukeys, count,
+                       [gsum[n] for n in names], scratch["slot_map"],
+                       head=[heads[n] for n in names] if heads else None,
+                       hot_size=self.hot_size)
         if heads:
             for name in names:
                 self._head_step(tables[name], heads[name])
@@ -858,16 +849,17 @@ class TrainStep:
         self._dense_sgd(dense, grad_dense)
 
     def window_close(self, tables: dict, window: dict) -> None:
-        """Close the window: the cold gradients go in one pass, K5 over
-        the window's plan or K3 over the whole table."""
-        names = list(tables)
-        for name in names:
-            if "slots" in window:
-                touched_update(tables[name], self.optimizer, window["ukeys"], window["count"],
-                               window["cold"][name],
-                               self._scratch["slot_map"] if name == names[-1] else None)
-            else:
-                optim_update(tables[name], self.optimizer)
+        """Close the window: the cold gradients go in one pass, one K5
+        launch over every table on the window's plan, or K3 per table
+        over the whole table."""
+        if "slots" in window:
+            names = list(tables)
+            touched_update([tables[n] for n in names], self.optimizer, window["ukeys"],
+                           window["count"], [window["cold"][n] for n in names],
+                           self._scratch["slot_map"])
+            return
+        for table in tables.values():
+            optim_update(table, self.optimizer)
 
     def _head_step(self, table: dict, head_grad: torch.Tensor) -> None:
         """K3 over rows [0, H) of ``table`` with the head buffer as its

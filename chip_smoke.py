@@ -6596,14 +6596,172 @@ def flagship_field_times(dev, flush) -> list:
     return rows
 
 
+def path_like_batch(b: int, seed: int, hot: bool):
+    """A numpy Batch of the repo's traffic (39 fields, a padding slot
+    for fm_nohot's K = 40), its field ids in the slots: ``hot`` steers
+    ids of rank below H / 39 in their field to head rows (the fm / mvm
+    geometry: 12 cold + 32 hot slots, H = 2^14) with ``make_batch``,
+    in the remap's order (by frequency: rank * 39 + field, so every
+    field's hottest id sits in rows [0, 39), as io/freq.py's remap puts
+    them), the rest hashed over rows [H, T)."""
+    from xflow_tpu_torch.io.batch import make_batch
+
+    ranks = path_like_ranks(b, seed)
+    nf = ranks.shape[1]
+    t = 1 << T_LOG2
+    geom = HOT_GEOMETRY["mvm"]
+    h = 1 << geom["hot_size_log2"] if hot else 0
+    ktot = geom["max_nnz"] + geom["hot_nnz"] if hot else K
+    keys = np.zeros((b, ktot), np.int32)
+    slots = np.zeros((b, ktot), np.int32)
+    mask = np.zeros((b, ktot), np.float32)
+    cold = path_like_key(ranks, t)
+    if hot:
+        per = h // nf
+        cold = (h + cold % (t - h)).astype(np.int32)
+        cold = np.where(ranks < per, ranks * nf + np.arange(nf)[None, :], cold)
+    keys[:, :nf] = cold
+    slots[:, :nf] = np.arange(nf)[None, :]
+    mask[:, :nf] = 1.0
+    rng = np.random.default_rng(seed + 1)
+    labels = (rng.random(b) < 0.3).astype(np.float32)
+    weights = np.ones(b, np.float32)
+    return make_batch(keys, slots, mask.copy(), mask, labels, weights, h,
+                      geom["hot_nnz"] if hot else 0), h
+
+
+def kernel_ops_by_name(fn, calls: int = 5) -> dict:
+    """torch.profiler over ``calls`` calls of ``fn`` after a warm-up:
+    each device operation's name with its calls and device microseconds
+    a call, and the device operations a call in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        row = names.setdefault(e.name, {"per_call": 0.0, "us_per_call": 0.0})
+        row["per_call"] += 1 / calls
+        row["us_per_call"] += e.time_range.elapsed_us() / calls
+    return {"ops_per_call": sum(r["per_call"] for r in names.values()),
+            "by_name": names}
+
+
+K6_FORMS = (("cold tiers", False, False), ("hot tiers", True, False),
+            ("field streams", True, True))
+
+
+def k6_times(dev) -> list:
+    """K6 on path-like dictionary-wire planes of the repo's traffic: the
+    cold tiers (fm_nohot, 40 slots), the hot tiers (fm, 12 + 32 slots,
+    H = 2^14) and the field streams (mvm, the same geometry with
+    ``cw_cs`` / ``cw_hs``), each at a training batch of 65,536 rows and
+    the 16,384-row eval batch: exactly against the plain version, timed
+    beside it, with the byte bound and torch.profiler's split of the
+    call by kernel name."""
+    import torch
+
+    from xflow_tpu_torch.io.compact import compact_batch
+    from xflow_tpu_torch.ops.wire import dict_decode, dict_decode_plain, to_device
+
+    rows = []
+    geom = HOT_GEOMETRY["mvm"]
+    for form, hot, fields in K6_FORMS:
+        for b in (TRAIN_BATCHES[-1], TEST_LINES):
+            batch, h = path_like_batch(b, SEED + 20, hot)
+            cb = compact_batch(batch, 1 << T_LOG2, h)
+            wire = cb.wire(ship_slots=fields)
+            planes = to_device(wire, dev)
+            k, kh = (geom["max_nnz"], geom["hot_nnz"]) if hot else (K, 0)
+            got = dict_decode(planes, k, kh)
+            want = dict_decode_plain(planes, k, kh)
+            torch.cuda.synchronize()
+            if len(got) != len(want) or not all(
+                    g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"K6 {form} B={b}: differs from the plain version")
+            in_bytes = sum(int(a.nbytes) for n, a in wire.items() if n != "cw_cun")
+            out_bytes = sum(int(o.numel() * o.element_size()) for o in got)
+            args = [(planes, k, kh)] * TIMED_RUNS
+            ops = kernel_ops_by_name(lambda: dict_decode(planes, k, kh))
+            rows.append({"kernel": "dict_decode", "form": form, "B": b, "K": k, "Kh": kh,
+                         "ms": time_device_ms(dict_decode, args),
+                         "plain_ms": time_device_ms(dict_decode_plain, args, chunk_size=5),
+                         "bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+                         "bound_by": "bytes", "bytes": in_bytes + out_bytes,
+                         "device_ops_per_call": ops["ops_per_call"],
+                         "by_kernel_name": ops["by_name"], "exact": True})
+            log(json.dumps(dict(rows[-1], phase="kernel-times")))
+            del planes, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mvm_times(dev, flush) -> list:
+    """K2's MVM form on path-like planes of the repo's traffic (the
+    flagship ``mvm``: 12 + 32 slots, H = 2^14, 39 fields, D = 10,
+    T = 2^24): the 65,536-row dense batch, its cold plane alone in index
+    mode, a 512-row hybrid slice (index mode, head buffer) and a
+    512-row hot-inner slice (window-start mode), and ``mvm_nohot``'s
+    65,536-row batch (40 cold slots); each beside its plain version,
+    with mvm_bounds."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    t = 1 << T_LOG2
+    h = 1 << HOT_GEOMETRY["mvm"]["hot_size_log2"]
+    tables = {"v": {"param": torch.randn((t, D), generator=g, device=dev) * 0.1}}
+    rows = []
+    for label, b, hot, form in (("mvm path-like dense batch", TRAIN_BATCHES[-1], True, "dense"),
+                                ("mvm path-like batch, cold plane, index mode",
+                                 TRAIN_BATCHES[-1], True, "index"),
+                                ("mvm path-like hybrid 512-row slice", SLICE_ROWS, True,
+                                 "hybrid"),
+                                ("mvm path-like hot-inner 512-row slice", SLICE_ROWS, True,
+                                 "window"),
+                                ("mvm_nohot path-like dense batch", TRAIN_BATCHES[-1], False,
+                                 "dense")):
+        batch, _ = path_like_batch(b, SEED + 22, hot)
+        view = {"ckeys": torch.tensor(np.where(batch.mask > 0, batch.keys, -1).astype(np.int32),
+                                      device=dev),
+                "fields": torch.tensor(np.where(batch.mask > 0, batch.slots, 0).astype(np.uint8),
+                                       device=dev),
+                "labels_u8": torch.tensor(batch.labels, dtype=torch.uint8, device=dev),
+                "weights_u8": torch.tensor(batch.weights, dtype=torch.uint8, device=dev),
+                "num_real": float(b), "max_fields": MVM_FIELDS, "form": "mvm"}
+        if hot:
+            view["hot"] = torch.tensor(np.where(batch.hot_mask > 0, batch.hot_keys, 0xFFFF)
+                                       .astype(np.uint16).view(np.int16), device=dev)
+            view["hot_fields"] = torch.tensor(np.where(batch.hot_mask > 0, batch.hot_slots, 0)
+                                              .astype(np.uint8), device=dev)
+        if form == "index":  # phase 24's index row: no head destination
+            view = {k: a for k, a in view.items() if k not in ("hot", "hot_fields")}
+            rows.append(time_mvm_k2(label, "hybrid", view, tables, h, flush,
+                                    phase="kernel-times", name="train_step (mvm: index)"))
+            continue
+        rows.append(time_mvm_k2(label, form, view, tables, h if hot else 0, flush,
+                                phase="kernel-times"))
+    del tables
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_times(dev) -> list:
-    """K4 and K5 (k4_k5_times), the field forms' flagship shapes
-    (flagship_field_times), K2's FFM form and K7 with K8 timed on
-    path-like batches of the repo's traffic: the flagship ``ffm`` dense
-    batch (65,536 rows) and a 512-row index-mode slice, an ``ffm_hot``
-    512-row hybrid slice; ``wide_deep`` (12 + 32 slots, H = 2^14) and
-    ``dcn`` (40 slots) at 65,536 rows and 512.  Run from two checkouts
-    in one call to compare them on one card."""
+    """K6 (k6_times), K2's MVM form (mvm_times), K4 and K5
+    (k4_k5_times), the field forms' flagship shapes
+    (flagship_field_times), C5's device-memory stages (phase_c5), K2's
+    FFM form and K7 with K8 timed on path-like batches of the repo's
+    traffic: the flagship ``ffm`` dense batch (65,536 rows) and a
+    512-row index-mode slice, an ``ffm_hot`` 512-row hybrid slice;
+    ``wide_deep`` (12 + 32 slots, H = 2^14) and ``dcn`` (40 slots) at
+    65,536 rows and 512.  Run from two checkouts in one call to compare
+    them on one card."""
     import torch
 
     from xflow_tpu_torch.config import Config
@@ -6611,7 +6769,8 @@ def kernel_times(dev) -> list:
 
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
-    rows = k4_k5_times(dev, flush) + flagship_field_times(dev, flush)
+    rows = (k6_times(dev) + mvm_times(dev, flush) + k4_k5_times(dev, flush)
+            + flagship_field_times(dev, flush) + phase_c5(dev)["timings"])
     t = 1 << FFM_T_LOG2
     tables = {"w": {"param": torch.randn((t, 1), generator=g, device=dev) * 0.3},
               "v": {"param": torch.randn((t, FFM_FIELDS * FFM_DIM), generator=g,
@@ -7793,9 +7952,9 @@ def main() -> int:
         "and the CPU in lockstep with ReLU's kinks synchronised and not")
     parser.add_argument(
         "--kernel-times", action="store_true",
-        help="instead of the phases: K4, K5, the field forms' flagship shapes, K2's FFM "
-        "form and K7/K8 timed on path-like batches; run from two checkouts in one call "
-        "to compare them")
+        help="instead of the phases: K6, K2's MVM form, K4, K5, the field forms' flagship "
+        "shapes and C5's stages, K2's FFM form and K7/K8 timed on path-like batches; run "
+        "from two checkouts in one call to compare them")
     args = parser.parse_args()
     try:
         import torch

@@ -360,11 +360,14 @@ def _card_vs_cpu(dev, model, **mode):
                 atol=1e-5 * float(want.abs().max()) if want.numel() else 0.0)
 
 
-def _left_compacted(seed, b, k, t_log2, unique=False, padding=False):
+def _left_compacted(seed, b, k, t_log2, unique=False, padding=False, full=False):
     """A Batch of left-compacted rows (loader batches are), keys with a
-    duplicated head or all distinct, the last 3 examples padding."""
+    duplicated head or all distinct, the last 3 examples padding;
+    ``full`` rows hold all k entries."""
     rng = np.random.default_rng(seed)
     cnt = np.zeros(b, int) if padding else rng.integers(0, k + 1, b)
+    if full:
+        cnt[:] = k
     mask = (np.arange(k)[None, :] < cnt[:, None]).astype(np.float32)
     if unique:
         keys = rng.permutation(1 << t_log2)[: b * k].reshape(b, k)
@@ -384,6 +387,14 @@ K6_CASES = {
     "empty-dictionary": dict(b=200, k=8, t_log2=14, unique=True),
     "no-tail": dict(b=64, k=8, t_log2=14),
     "all-padding": dict(b=13, k=8, t_log2=14, padding=True),
+    # past K6's scan tiles (4,096 rows of counts, 1,024 flag words): one
+    # row past a tile; full rows, whose bitmap is not whole words and
+    # whose row 3,640 straddles a word tile; all tail over two row
+    # tiles; and one row past the path's 65,536
+    "row-tile-plus-one": dict(b=4097, k=40, t_log2=14),
+    "straddling-row": dict(b=4097, k=9, t_log2=14, full=True),
+    "all-tail-two-tiles": dict(b=4100, k=8, t_log2=16, unique=True),
+    "b65537": dict(b=65537, k=40, t_log2=24),
 }
 
 
@@ -392,9 +403,11 @@ def test_k6_matches_plain(dev, case):
     kw = K6_CASES[case]
     batch = _left_compacted(1, **kw)
     cb = compact_batch(batch, 1 << kw["t_log2"], 0,
-                       dict_cap=16 if case == "empty-dictionary" else DICT_CAP)
-    if case == "empty-dictionary":
+                       dict_cap=16 if kw.get("unique") else DICT_CAP)
+    if kw.get("unique"):
         assert cb.n_dict == 0 and cb.n_cold > 0
+    if case == "straddling-row":
+        assert cb.cf.shape[0] % 4 != 0 and cb.n_cold > 32768
     wire = cb.wire(ship_slots=False)
     want = dict_decode(to_device(wire, torch.device("cpu")), kw["k"])
     before = dict_decode.launches
@@ -672,7 +685,10 @@ HOT_K6_CASES = {
     "u8+u16": (16, 14, 32, 0.7),
     "empty-hot-plane": (14, 12, 32, 0.0),
     "all-overflow": (14, 12, 2, 1.0),
+    # 4,097 rows (HOT_K6_ROWS): the hot counts and bitmap past a tile
+    "u8+u12-two-tiles": (14, 12, 32, 0.9),
 }
+HOT_K6_ROWS = {"u8+u12-two-tiles": 4097}
 
 
 @pytest.mark.parametrize("case", list(HOT_K6_CASES))
@@ -680,7 +696,7 @@ def test_k6_hot_tiers_match_plain(dev, case):
     t_log2, h_log2, kh, share = HOT_K6_CASES[case]
     t_size, h = 1 << t_log2, 1 << h_log2
     rng = np.random.default_rng(9)
-    b, ktot = 1001, 40 + kh
+    b, ktot = HOT_K6_ROWS.get(case, 1001), 40 + kh
     keys = rng.integers(h, t_size, (b, ktot))
     hot_ids = np.where(rng.random((b, ktot)) < 0.5, rng.integers(0, 256, (b, ktot)),
                        rng.integers(256, h, (b, ktot)))
@@ -919,6 +935,86 @@ def test_k2_mvm_forms_match_plain(dev, form):
             max_fields=m["s"], form="mvm")
         kh = m["hot"].shape[1]
         assert all(float(occ["v"][r, kh + j, 0]) == 0.0 for r, j in zip(*guarded))
+
+
+def _mvm_view(dev, seed, b=256, kc=12, kh=32, h=1 << 14, s=39, d=10, t=1 << 16):
+    """A K2 view of seed-made MVM planes (u8 fields, u16 hot ids, 10 %
+    cold padding) and its v table, as chip_smoke.py's checks take them."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(h, t, (b, kc)).astype(np.int32)
+    keys[rng.random((b, kc)) < 0.1] = -1
+    view = {"ckeys": torch.tensor(keys, device=dev),
+            "fields": torch.tensor(rng.integers(0, s, (b, kc)).astype(np.uint8), device=dev),
+            "labels_u8": torch.tensor(rng.random(b) < 0.4, dtype=torch.uint8, device=dev),
+            "weights_u8": torch.ones(b, dtype=torch.uint8, device=dev),
+            "num_real": float(b), "max_fields": s}
+    if kh:
+        hot = rng.integers(0, h, (b, kh)).astype(np.uint16)
+        hot[rng.random((b, kh)) < 0.1] = 0xFFFF
+        view["hot"] = torch.tensor(hot.view(np.int16), device=dev)
+        view["hot_fields"] = torch.tensor(rng.integers(0, s, (b, kh)).astype(np.uint8),
+                                          device=dev)
+    v = torch.tensor((rng.standard_normal((t, d)) * 0.1).astype(np.float32), device=dev)
+    return view, {"v": {"param": v}}
+
+
+MVM_HARD = {
+    # _mvm_view keywords: three fields over 44 slots (every field repeats
+    # across the hot and cold planes), 33 factors (two tiles), a field
+    # repeated in two slots whose factor-0 sum is -1 (the guard fires on
+    # both), 1,600 slots (the device-memory stage), S = 300 (past the
+    # first-slot table: the bounded scan)
+    "repeats": dict(s=3), "d33": dict(s=3, d=33), "guard-repeated": dict(),
+    "c5-1600": dict(b=64, kc=1600, kh=0), "s300": dict(s=300),
+}
+
+
+@pytest.mark.parametrize("case", list(MVM_HARD))
+def test_mvm_kernels_within_mvm_tolerances(dev, case):
+    """K1's and K2's MVM forms against their plain versions within
+    chip_smoke.py's mvm_tolerances (K2 in its dense, hybrid and window
+    forms through check_mvm_k2) on rows the field links, the lane
+    groups' product, the tiles and the guard find hard."""
+    cs = _chip_smoke()
+    view, tables = _mvm_view(dev, 41, **MVM_HARD[case])
+    h = 1 << 14 if "hot" in view else 0
+    if case == "guard-repeated":
+        b = view["ckeys"].shape[0]
+        fields, keys = view["fields"], view["ckeys"]
+        fields[fields == 7] = 8
+        view["hot_fields"][view["hot_fields"] == 7] = 8
+        fields[:, :2] = 7
+        keys[:, 0] = torch.arange(b, device=dev) * 2 + h
+        keys[:, 1] = keys[:, 0] + 1
+        tables["v"]["param"][keys[:, 0].long(), 0] = -0.25
+        tables["v"]["param"][keys[:, 1].long(), 0] = -0.75
+        rest = keys[:, 2:]
+        rest[(rest >= 0) & (rest < h + 2 * b)] += 2 * b
+    fk = dict(hot=view.get("hot"), hot_size=h, fields=view["fields"],
+              hot_fields=view.get("hot_fields"), max_fields=view["max_fields"], form="mvm")
+    v = tables["v"]["param"]
+    before = score.launches
+    got = score(view["ckeys"], None, None, v, return_logit=True, **fk)
+    want = score_plain(view["ckeys"], None, None, v, True, **fk)
+    torch.cuda.synchronize()
+    assert score.launches - before == 1
+    keys = view["ckeys"].long()
+    if h:
+        from xflow_tpu_torch.ops.score import hot_plane_keys
+
+        keys = torch.cat([hot_plane_keys(view["hot"], h), keys], dim=1)
+    tol = cs.mvm_tolerances(keys, cs.view_fields(view), None, None, None, 1.0, v,
+                            view["max_fields"], logit_only=True)
+    assert bool(torch.isfinite(got[1]).all())
+    assert float(((got[1] - want[1]).abs() - 1.01 * tol["logit"] - 1e-7).max()) <= 0
+    worst = {"max_abs_err_g": 0.0, "max_err_over_tol": 0.0, "cases": 0,
+             "straddling_slots": 0}
+    before = train_step.launches
+    for form in ("dense", "hybrid") + (("window",) if h else ()):
+        cs.check_mvm_k2(f"{case} {form}", form, view, tables, h, worst)
+    assert train_step.launches - before == worst["cases"] == (3 if h else 2)
+    if case == "guard-repeated":  # both slots of field 7 in every row
+        assert worst["straddling_slots"] >= 2 * b
 
 
 def _field_batch(seed, b, k, kh, t_log2, h_log2, share, slot_lo=0, slot_hi=39):

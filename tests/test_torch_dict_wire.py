@@ -5,7 +5,10 @@
   ``TrainStep._expand_dict_wire`` called eagerly on the same numpy
   planes: keys under the mask, the mask, labels and weights exactly
   equal, for u24 and u32 keys, an empty dictionary, no tail, all
-  padding, and a B that is not a multiple of 8;
+  padding, and a B that is not a multiple of 8; and at the shapes K6's
+  scan tiles make hard (one row past a 4,096-row tile, a bitmap that
+  is not whole words with a row straddling a 1,024-word tile, all tail
+  over two tiles, a u12 hot tier whose bitmap spans two tiles);
 * one train step over the dictionary wire against the JAX TrainStep
   with ``wire_dedup="on"``, for LR and FM x FTRL and SGD x dense,
   sparse and sequential (sparse inner), at the bar of
@@ -50,12 +53,14 @@ RTOL, ATOL = 1e-5, 1e-6
 CPU = torch.device("cpu")
 
 
-def _raw(seed, b, k, t_log2, unique=False, padding=False):
+def _raw(seed, b, k, t_log2, unique=False, padding=False, full=False):
     """Seed-made left-compacted planes: keys with a duplicated head (or
     all distinct), binary features, 0/1 labels, the last 3 examples
-    padding."""
+    padding; ``full`` rows hold all k entries."""
     rng = np.random.default_rng(seed)
     cnt = np.zeros(b, int) if padding else rng.integers(0, k + 1, b)
+    if full:
+        cnt[:] = k
     mask = (np.arange(k)[None, :] < cnt[:, None]).astype(np.float32)
     if unique:
         keys = rng.permutation(1 << t_log2)[: b * k].reshape(b, k)
@@ -79,6 +84,14 @@ DECODE_CASES = {
     "empty-dictionary": dict(b=40, k=8, t_log2=14, unique=True, dict_cap=16),
     "no-tail": dict(b=16, k=8, t_log2=14),
     "all-padding": dict(b=13, k=8, t_log2=14, padding=True),
+    # K6 scans in tiles of 4,096 rows of counts and 1,024 flag words
+    # (32,768 entries): one row past a row tile, with two word tiles
+    "row-tile-plus-one": dict(b=4097, k=24, t_log2=14),
+    # full rows: the bitmap's 4,610 bytes are not whole words, and row
+    # 3,640 (entries 32,760-32,768) straddles the first word tile's end
+    "straddling-row": dict(b=4097, k=9, t_log2=14, full=True),
+    # all tail (no dictionary) over two row tiles
+    "all-tail-two-tiles": dict(b=4100, k=8, t_log2=16, unique=True, dict_cap=16),
 }
 
 
@@ -89,8 +102,10 @@ def test_plain_decode_equals_reference_expand(case):
     raw = _raw(3, **kw)
     cb = ref_compact.compact_batch(ref_make_batch(*raw), 1 << kw["t_log2"], 0,
                                    dict_cap=dict_cap)
-    if case == "empty-dictionary":
+    if case in ("empty-dictionary", "all-tail-two-tiles"):
         assert cb.n_dict == 0 and cb.n_cold > 0
+    if case == "straddling-row":
+        assert cb.cf.shape[0] % 4 != 0 and cb.n_cold > 32768 and 32768 % kw["k"] != 0
     if case == "no-tail":
         assert cb.n_dict_occ == cb.n_cold > 0
     if case == "u32":
@@ -111,6 +126,45 @@ def test_plain_decode_equals_reference_expand(case):
     before = dict_decode.launches
     again = dict_decode_plain(to_device(wire, CPU), kw["k"])
     assert dict_decode.launches == before and torch.equal(again[0], ckeys)
+
+
+# (table_size_log2, hot_size_log2, hot_nnz, hot share): a u12 hot tier
+# (H = 2^12) over 4,097 rows, whose hot bitmap spans two of K6's word
+# tiles
+HOT_DECODE_CASES = {"u12-hot-tier-two-tiles": (14, 12, 12, 0.9)}
+
+
+@pytest.mark.parametrize("case", list(HOT_DECODE_CASES))
+def test_plain_hot_decode_equals_reference_expand(case):
+    t_log2, h_log2, kh, share = HOT_DECODE_CASES[case]
+    t, h = 1 << t_log2, 1 << h_log2
+    rng = np.random.default_rng(8)
+    b, ktot = 4097, 24
+    keys = rng.integers(h, t, (b, ktot))
+    hot_keys = np.where(rng.random((b, ktot)) < 0.5, rng.integers(0, 256, (b, ktot)),
+                        rng.integers(256, h, (b, ktot)))
+    keys = np.where(rng.random((b, ktot)) < share, hot_keys, keys).astype(np.int32)
+    cnt = rng.integers(0, ktot + 1, b)
+    mask = (np.arange(ktot)[None, :] < cnt[:, None]).astype(np.float32)
+    keys = np.where(mask > 0, keys, 0).astype(np.int32)
+    weights = (np.arange(b) < b - 3).astype(np.float32)
+    labels = (rng.random(b) < 0.4).astype(np.float32) * weights
+    batch = ref_make_batch(keys, np.zeros_like(keys), mask.copy(), mask, labels, weights, h, kh)
+    cb = ref_compact.compact_batch(batch, t, h)
+    assert not cb.hx16 and cb.n_h8 > 0 and cb.n_hot > 32768
+    wire = cb.wire(ship_slots=False)
+    step = _ref_step(model="lr", batch_size=b, max_nnz=ktot - kh, hot_size_log2=h_log2,
+                     hot_nnz=kh, table_size_log2=t_log2)
+    want = step._expand_dict_wire({n: jnp.asarray(a) for n, a in wire.items()})
+    ckeys, labels_u8, weights_u8, hot = dict_decode(to_device(wire, CPU), ktot - kh, kh)
+    hmask = np.asarray(want["hot_mask"]) > 0
+    np.testing.assert_array_equal(hot.numpy(), np.where(hmask, np.asarray(want["hot_keys"]), -1))
+    np.testing.assert_array_equal(hot.numpy(), np.where(batch.hot_mask > 0, batch.hot_keys, -1))
+    mask = np.asarray(want["mask"]) > 0
+    np.testing.assert_array_equal(ckeys.numpy() >= 0, mask)
+    np.testing.assert_array_equal(ckeys.numpy()[mask], np.asarray(want["keys"])[mask])
+    np.testing.assert_array_equal(labels_u8.numpy(), np.asarray(want["labels"]))
+    np.testing.assert_array_equal(weights_u8.numpy(), np.asarray(want["weights"]))
 
 
 MODES = {

@@ -402,6 +402,80 @@ def test_mvm_hot_full_wire_matches_reference(mode):
     _check_step_parity(_step_kw("ftrl", "full", 8, **MODES[mode]))
 
 
+# -- rows the kernels' field links and guard find hard ------------------------
+
+HARD_ROWS = ("field-across-hot-and-cold", "guard-in-repeated-field", "d33")
+
+
+def _hard_raw(case, h, d):
+    """[64, KC + KH] rows where every live field repeats: field 2 on two
+    hot keys and on a cold one (keys >= h) in every row, the other slots
+    over fields {0, 2, 4}; with ``guard-in-repeated-field`` field 0 held
+    by exactly two keys in rows 0-31, whose v rows' factor 0 sum to
+    -1 (returns those keys too)."""
+    rng = np.random.default_rng(21)
+    b, ktot = 64, KC + KH
+    keys = rng.integers(h, 1 << T_LOG2, (b, ktot))
+    slots = rng.choice([0, 2, 4], size=(b, ktot))
+    keys[:, :2] = rng.integers(0, h, (b, 2))  # hot, field 2
+    slots[:, :3] = 2                          # ... and slot 2, cold, field 2
+    guard = None
+    if case == "guard-in-repeated-field":
+        slots[:32][slots[:32] == 0] = 4
+        slots[:32, 3:5] = 0
+        keys[:32, 3], keys[:32, 4] = h + 1, h + 2
+        guard = (h + 1, h + 2)
+    mask = np.ones((b, ktot), np.float32)
+    mask[-3:] = 0.0
+    keys = np.where(mask > 0, keys, 0).astype(np.int32)
+    labels = (rng.random(b) < 0.4).astype(np.float32)
+    weights = (np.arange(b) < b - 3).astype(np.float32)
+    return (keys, slots.astype(np.int32), mask.copy(), mask, labels, weights), guard
+
+
+@pytest.mark.parametrize("case", HARD_ROWS)
+def test_mvm_hard_rows_match_reference(case):
+    """The port's MVM predict and one dense FTRL step (K1's and K2's
+    plain versions) against the JAX TrainStep on rows whose fields
+    repeat across the hot and cold planes, where the guard fires inside
+    a repeated field (own = 1 + (-0.25 - 0.75) = 0 exactly), and at
+    D = 33 (two of the kernels' 32-factor tiles)."""
+    d = 33 if case == "d33" else D
+    kw = dict(_step_kw("ftrl", "compact", 6), v_dim=d)
+    h = 1 << 6
+    raw, guard = _hard_raw(case, h, d)
+    rcfg = RefConfig(**kw)
+    mdl, opt = ref_make_model(rcfg), ref_make_optimizer(rcfg)
+    rstep = RefTrainStep(mdl, opt, rcfg, make_mesh(1))
+    tables = _ref_tables(rcfg, scale=0.2)
+    if guard:
+        tables["v"]["param"][guard[0], 0] = -0.25
+        tables["v"]["param"][guard[1], 0] = -0.75
+    state = dict(ref_init_state(mdl, opt, rcfg, make_mesh(1)),
+                 tables={n: {k: jnp.asarray(a) for k, a in t.items()}
+                         for n, t in tables.items()})
+    batch = ref_batch.make_batch(*raw, h, KH)
+    assert ((batch.hot_slots == 2) & (batch.hot_mask > 0)).any(axis=1)[: 61].all()
+    assert ((batch.slots == 2) & (batch.mask > 0)).any(axis=1)[: 61].all()
+    want_p = np.asarray(rstep.predict(state, rstep.put_batch(batch, predict=True)))
+    state, m = rstep.train(state, rstep.put_batch(batch))
+    cfg = Config(**kw)
+    step = TrainStep(make_model(cfg), make_optimizer(cfg), cfg, CPU)
+    ours = state_from_numpy(cfg, tables, "cpu")
+    pbatch = port_batch.make_batch(*raw, h, KH)
+    got_p = step.predict(ours, step.put_batch(pbatch, predict=True)).numpy()
+    np.testing.assert_allclose(got_p, want_p, atol=PCTR_ATOL)
+    got = step.train(ours, step.put_batch(pbatch))
+    np.testing.assert_allclose(float(got["logloss"]), float(m["logloss"]), rtol=RTOL, atol=ATOL)
+    back = state_to_numpy(ours, aux=True)
+    for k, a in state["tables"]["v"].items():
+        np.testing.assert_allclose(back["v"][k], np.asarray(a), rtol=RTOL, atol=ATOL,
+                                   err_msg=f"v.{k}")
+    if guard:  # the guarded factor's gradient is 0: FTRL leaves its n
+        for key in guard:
+            np.testing.assert_array_equal(back["v"]["n"][key, 0], tables["v"]["n"][key, 0])
+
+
 def test_mvm_mxu_bf16_matches_reference():
     """A forced ``hot_impl="mxu"`` with bfloat16: the hot rows and the
     hot gradients rounded to bfloat16 (tests/test_torch_hot_train.py's

@@ -208,7 +208,9 @@ struct ScoreRows {
   }
 };
 
-// Row b of the MVM form on one warp's stage.
+// Row b of the MVM form on one warp's stage (kGlobalStage: in device
+// memory).
+template <bool kGlobalStage>
 __device__ __forceinline__ void score_mvm_row(
     const mvm::Stage& s, int b, int lane, const int* keys, const float* x,
     const void* hot, const float* hot_x, int hot_u16, int H, int hot_bf16,
@@ -230,13 +232,13 @@ __device__ __forceinline__ void score_mvm_row(
     s.x[j] = xv;
     s.fld[j] = f;
   }
-  mvm::find_reps(s, n, lane);
+  int nr = 0;
+  const bool repeats = mvm::link_fields(s, n, S, lane, nr);
   const ScoreRows rows{v, s.key, D, KH, hot_bf16};
   float logit = 0.0f;
   for (int d0 = 0; d0 < D; d0 += mvm::kTile) {
     const int dt = min(mvm::kTile, D - d0);
-    mvm::tile_sums(s, n, d0, dt, lane, rows);
-    const float p = mvm::tile_prod(s, n, dt, lane);
+    const float p = mvm::tile_forward<kGlobalStage>(s, n, nr, repeats, d0, dt, lane, rows);
     logit += warp_sum(lane < dt ? p - 1.0f : 0.0f);
   }
   if (lane == 0) write_score(logit, pctr, logit_out, b);
@@ -261,15 +263,18 @@ score_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
   const int first = blockIdx.x * warps + warp;
   if constexpr (kGlobalStage) {
     const mvm::Stage s = mvm::global_stage_at(gstage, first, KH + K);
+    mvm::clear_heads(s, S, lane);
     for (int b = first; b < B; b += gridDim.x * warps) {
       __syncwarp();  // the previous row's stage is read out
-      score_mvm_row(s, b, lane, keys, x, hot, hot_x, hot_u16, H, hot_bf16,
+      score_mvm_row<true>(s, b, lane, keys, x, hot, hot_x, hot_u16, H, hot_bf16,
                     fields, hot_fields, f_i32, S, v, pctr, logit_out, K, KH, D);
     }
   } else {
     extern __shared__ char smem[];
     if (first >= B) return;  // warp-uniform; the kernel has no block barrier
-    score_mvm_row(mvm::stage_at(smem, warp, KH + K), first, lane, keys, x, hot,
+    const mvm::Stage s = mvm::stage_at(smem, warp, KH + K);
+    mvm::clear_heads(s, S, lane);
+    score_mvm_row<false>(s, first, lane, keys, x, hot,
                   hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32, S, v,
                   pctr, logit_out, K, KH, D);
   }
@@ -361,6 +366,7 @@ void launch(const int* keys, const float* x, const HotPlane& h,
 }  // namespace
 
 extern "C" int xf_mvm_bytes_per_slot() { return mvm::kBytesPerSlot; }
+extern "C" int xf_mvm_warp_bytes() { return mvm::kWarpBytes; }
 extern "C" int xf_ffm_stage_bytes(int F, int n, int dt) {
   return static_cast<int>(ffm::stage_bytes(F, n, dt));
 }

@@ -2,7 +2,7 @@
 // mvm.cuh and ffm.cuh; K7 and K8, pool.cu) past their shared-memory
 // caps.  Below its cap each form stages a row in shared memory, as it
 // always did, and that instantiation is unchanged; a row whose stage
-// does not fit (an MVM row past 1,570 slots, FFM's F x F field sums
+// does not fit (an MVM row past 1,482 slots, FFM's F x F field sums
 // past about F = 240, a pooled row past 4,090 slots) takes the same
 // kernel instantiated with kGlobalStage, whose stage is a slice of a
 // device-memory scratch the wrapper allocates (torch.empty), one stage

@@ -161,8 +161,10 @@
 // Bound: the keys (and x), the fields, labels and weights once, and
 // per distinct row 4D B of v read and 4D B of g read and written: bytes
 // bound it (about 3D flops a slot and 2D per present field).  The
-// atomics land one per factor per slot, lanes over the factors, so a
-// slot's D adds hit one contiguous row.
+// gradients land as float reductions, lanes over (slot, factor) pairs
+// so that a warp's reductions into a row coalesce by sector (mvm.cuh,
+// step 6); the device-memory stage lands a slot's row from one lane
+// with red_row's vector reductions.
 //
 // The FFM form (B10, form 2; ffm.cuh has its regions, bound and
 // design): w and v [T, S * D], the field planes as the MVM form's; one
@@ -204,6 +206,7 @@ namespace {
 constexpr int kWarpsPerBlock = 8;  // the MVM form's
 constexpr int kThreads = 32 * kWarpsPerBlock;
 constexpr int kBlocksPerSm = 8;
+constexpr int kSeg = 16;  // the MVM form's gradient factors a lane lands
 constexpr float kLoglossEps = 1e-6f;
 constexpr float kLoglossHi = 0.999999f;  // f32(1 - 1e-6), as the reference
 
@@ -598,10 +601,22 @@ struct TrainRows {
   }
 };
 
+// Slot j's factor-d gradient of the loss, prod / own * x * r, zero
+// where |own| < kGuardEps (mvm.py:104-112), rounded to bf16 when
+// `to_bf16` (a hot slot under the flag); rj is j's representative.
+__device__ __forceinline__ float mvm_grad(const mvm::Stage& s, int rj, int j,
+                                         int d, int dt, float r, bool to_bf16) {
+  const float own = 1.0f + s.val[rj * dt + d];
+  const float g = (fabsf(own) < mvm::kGuardEps ? 0.0f : s.prod[d] / own) * s.x[j] * r;
+  return to_bf16 ? bf16_round(g) : g;
+}
+
 // kGlobalStage: the warps' stages in the device-memory scratch
 // `gstage` (stage.cuh); else in shared memory.
+// Three blocks an SM where the stage is in shared memory (85 registers:
+// a dense batch is bound by how many examples are in flight).
 template <typename LW, bool kGlobalStage>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kGlobalStage ? 1 : 3)
 train_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
                  const LW* __restrict__ labels, const LW* __restrict__ weights,
                  float num_real, const float* __restrict__ v,
@@ -626,6 +641,7 @@ train_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
   const int tiles = (D + mvm::kTile - 1) / mvm::kTile;
   float ll_acc = 0.0f;
   float w_acc = 0.0f;
+  mvm::clear_heads(s, S, lane);
 
   for (long long b = static_cast<long long>(blockIdx.x) * warps + warp; b < B;
        b += warps_total) {
@@ -648,14 +664,13 @@ train_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
       s.dst[j] = key < 0 ? -1 : static_cast<int>(grad_row(srow, j, h.KH, key,
                                                           is_hot));
     }
-    mvm::find_reps(s, n, lane);
+    int nr = 0;
+    const bool repeats = mvm::link_fields(s, n, S, lane, nr);
     float logit = 0.0f;
-    float prod = 1.0f;  // the last tile's, lane d
     for (int t = 0; t < tiles; ++t) {
       const int d0 = t * mvm::kTile;
       const int dt = min(mvm::kTile, D - d0);
-      mvm::tile_sums(s, n, d0, dt, lane, rows);
-      prod = mvm::tile_prod(s, n, dt, lane);
+      const float prod = mvm::tile_forward<kGlobalStage>(s, n, nr, repeats, d0, dt, lane, rows);
       logit += warp_sum(lane < dt ? prod - 1.0f : 0.0f);
     }
     const float r = residual(logit, labels, weights, b, num_real, lane,
@@ -663,18 +678,51 @@ train_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
     for (int t = tiles - 1; t >= 0; --t) {
       const int d0 = t * mvm::kTile;
       const int dt = min(mvm::kTile, D - d0);
-      if (t != tiles - 1) {
-        mvm::tile_sums(s, n, d0, dt, lane, rows);
-        prod = mvm::tile_prod(s, n, dt, lane);
-      }
-      if (lane >= dt) continue;
-      for (int j = 0; j < n; ++j) {
-        const int dst = s.dst[j];
-        if (s.fld[j] < 0 || dst < 0) continue;
-        const bool hot = j < h.KH;
-        const float g = mvm::slot_grad(s, j, prod, lane) * r;
-        float* grow = (hot ? h.gv : gv) + static_cast<long long>(dst) * D + d0;
-        atomicAdd(grow + lane, hot && h.bf16 ? bf16_round(g) : g);
+      if (t != tiles - 1) mvm::tile_forward<kGlobalStage>(s, n, nr, repeats, d0, dt, lane, rows);
+      if constexpr (kGlobalStage) {
+        // a lane a (slot, segment of kSeg factors), landed with vector
+        // reductions: the device-memory stage's reads of a slot's
+        // factors are independent of the reductions before them
+        const int segs = (dt + kSeg - 1) / kSeg;
+        for (int it = lane; it < n * segs; it += 32) {
+          const int j = segs == 1 ? it : it / segs;
+          const int rj = s.rep[j];
+          const int dst = s.dst[j];
+          if (rj < 0 || dst < 0) continue;
+          const int e0 = (it - j * segs) * kSeg;
+          const int len = min(kSeg, dt - e0);
+          const bool hot = j < h.KH;
+          float g[kSeg];
+#pragma unroll
+          for (int e = 0; e < kSeg; ++e) {
+            g[e] = e < len ? mvm_grad(s, rj, j, e0 + e, dt, r, hot && h.bf16) : 0.0f;
+          }
+          red_row<kSeg>((hot ? h.gv : gv) + static_cast<long long>(dst) * D + d0 + e0,
+                        g, len);
+        }
+      } else {
+        // a lane a (slot, factor) pair, consecutive lanes on consecutive
+        // factors of a row: a warp's reductions into one row coalesce
+        // into its sectors
+        const int step_j = 32 / dt;
+        const int step_d = 32 - step_j * dt;
+        int j = lane / dt;
+        int d = lane - j * dt;
+        for (int p = lane; p < n * dt; p += 32) {
+          const int rj = s.rep[j];
+          const int dst = s.dst[j];
+          if (rj >= 0 && dst >= 0) {
+            const bool hot = j < h.KH;
+            atomicAdd((hot ? h.gv : gv) + static_cast<long long>(dst) * D + d0 + d,
+                      mvm_grad(s, rj, j, d, dt, r, hot && h.bf16));
+          }
+          j += step_j;
+          d += step_d;
+          if (d >= dt) {
+            d -= dt;
+            ++j;
+          }
+        }
       }
     }
   }
@@ -1081,6 +1129,7 @@ extern "C" int xf_train_table_shape(int B, int K, int KH, int D, int lw_u8,
 }
 
 extern "C" int xf_mvm_bytes_per_slot() { return mvm::kBytesPerSlot; }
+extern "C" int xf_mvm_warp_bytes() { return mvm::kWarpBytes; }
 extern "C" int xf_ffm_stage_bytes(int F, int n, int dt) {
   return static_cast<int>(ffm::stage_bytes(F, n, dt));
 }

@@ -50,13 +50,15 @@ from xflow_tpu_torch.utils.metrics import sigmoid_ref
 
 _I32_MAX = 2**31 - 1
 # The MVM forms of K1 and K2 stage each example's Kh + K slots in one
-# warp's shared memory (csrc/mvm.cuh: MVM_BYTES_PER_SLOT a slot), and a
-# block holds at most MVM_SMEM_BYTES (the H100's and H200's opt-in per
-# block): up to MVM_MAX_SLOTS slots.  A wider row takes the kernels'
-# device-memory stage (csrc/stage.cuh), which the wrapper allocates.
-MVM_BYTES_PER_SLOT = 148
+# warp's shared memory (csrc/mvm.cuh: MVM_BYTES_PER_SLOT a slot and
+# MVM_WARP_BYTES a warp), and a block holds at most MVM_SMEM_BYTES (the
+# H100's and H200's opt-in per block): up to MVM_MAX_SLOTS slots.  A
+# wider row takes the kernels' device-memory stage (csrc/stage.cuh),
+# which the wrapper allocates.
+MVM_BYTES_PER_SLOT = 156
+MVM_WARP_BYTES = 1152
 MVM_SMEM_BYTES = 232_448
-MVM_MAX_SLOTS = MVM_SMEM_BYTES // MVM_BYTES_PER_SLOT
+MVM_MAX_SLOTS = (MVM_SMEM_BYTES - MVM_WARP_BYTES) // MVM_BYTES_PER_SLOT
 # The FFM forms (csrc/ffm.cuh) stage an example's slots (key, x, field,
 # gradient row: FFM_BYTES_PER_SLOT each), a block-reduction scratch and
 # the field sums S [F, F, Dt] of a tile of Dt factors in one block's
@@ -99,16 +101,17 @@ FORM_CODES = {"lr": 0, "fm": 0, "mvm": 1, "ffm": 2}
 
 def check_stage_abi(lib: ctypes.CDLL) -> None:
     """The library's shared-memory stages must be the ones this module
-    picks the form by: MVM_BYTES_PER_SLOT a slot, and FFM's stage and
-    tile as ``ffm_stage_bytes`` and ``ffm_tile`` compute them."""
+    picks the form by: MVM_BYTES_PER_SLOT a slot and MVM_WARP_BYTES a
+    warp, and FFM's stage and tile as ``ffm_stage_bytes`` and
+    ``ffm_tile`` compute them."""
     ci = ctypes.c_int
-    lib.xf_mvm_bytes_per_slot.argtypes = []
-    lib.xf_mvm_bytes_per_slot.restype = ci
-    if lib.xf_mvm_bytes_per_slot() != MVM_BYTES_PER_SLOT:
-        raise RuntimeError(
-            f"csrc/mvm.cuh kBytesPerSlot {lib.xf_mvm_bytes_per_slot()} != "
-            f"ops/score.py MVM_BYTES_PER_SLOT {MVM_BYTES_PER_SLOT}"
-        )
+    for fn, want in (("xf_mvm_bytes_per_slot", MVM_BYTES_PER_SLOT),
+                     ("xf_mvm_warp_bytes", MVM_WARP_BYTES)):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ci
+        if getattr(lib, fn)() != want:
+            raise RuntimeError(f"csrc/mvm.cuh's {fn}() {getattr(lib, fn)()} != "
+                               f"ops/score.py's {want}")
     lib.xf_ffm_stage_bytes.argtypes = [ci, ci, ci]
     lib.xf_ffm_stage_bytes.restype = ci
     lib.xf_ffm_tile.argtypes = [ci, ci, ci]

@@ -18,8 +18,8 @@ their bytes.
 CPU tensors take ``dict_decode_plain`` (a torch transcription of the
 reference's decode, free of host syncs); CUDA tensors launch K6 or
 raise: there is no fallback.  ``dict_decode.launches`` counts wrapper
-calls that launched the kernel (two launches each: the scans, then the
-decode).
+calls that launched the kernel (one cooperative launch each: the scans
+across the whole card, then the decode, csrc/wire.cu).
 """
 
 from __future__ import annotations
@@ -185,9 +185,11 @@ def _lib() -> ctypes.CDLL:
             vp, ci, vp, ci, ci, vp, ci,  # h8, cap8, hx, capx, hx_u16, hxh, caph
             vp, vp, vp,  # hot_row_start, hot_prefix, hot
             vp, ci, vp, vp, ci, vp,  # cs, cap_cs, fields, hs, cap_hs, hot_fields
-            vp,  # stream
+            vp, vp,  # the scan's tile sums, stream
         ]
         lib.xf_dict_decode.restype = ci
+        lib.xf_dict_decode_tiles.argtypes = [ci, ll, ci, ll]
+        lib.xf_dict_decode_tiles.restype = ll
         _bound = lib
     return _bound
 
@@ -302,6 +304,9 @@ def dict_decode(wire: dict[str, torch.Tensor], max_nnz: int, hot_nnz: int = 0):
                       hs.data_ptr() if kh else None, hs.shape[0] if kh else 0,
                       fields[1].data_ptr() if kh else None)
     lib = _lib()
+    n_tiles = lib.xf_dict_decode_tiles(b, cf.shape[0], kh,
+                                       wire["cw_hf"].shape[0] if kh else 0)
+    tiles = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.xf_dict_decode(
             cc.data_ptr(), b, max_nnz, cf.data_ptr(), cf.shape[0],
@@ -313,6 +318,7 @@ def dict_decode(wire: dict[str, torch.Tensor], max_nnz: int, hot_nnz: int = 0):
             ckeys.data_ptr(), labels.data_ptr(), weights.data_ptr(),
             *hot_args,
             *field_args,
+            tiles.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

@@ -321,9 +321,10 @@ Phases, in order; any failure raises and the exit code is 1:
    versions and (K7) ``F.embedding_bag`` over (row, field) bags;
 39. ROADMAP C5: each field form past its shared-memory cap stages a row in
    device memory (csrc/stage.cuh): K1 and K2's MVM form at 1,600 slots,
-   their FFM form at max_fields 256 with 40 slots, K7 and K8 at 4,200
-   slots, dense and index mode, against their plain versions at B = 64
-   (rtol 1e-5 with an atol of 1e-5 of the largest magnitude), timed.
+   their FFM form at max_fields 256 with 40 slots, K7 at 4,200 slots
+   (and K8 there, which stages 128 slots at a time), dense and index
+   mode, against their plain versions at B = 64 (rtol 1e-5 with an atol
+   of 1e-5 of the largest magnitude), timed.
 
 The card-against-CPU replays are cut for the time limit: every
 ``compare_states`` holds the two sides on the card (the CPU's arrays
@@ -342,7 +343,9 @@ plus the training paths' eval and engine batches (phases 8, 11, 12,
 MVM forms the MVM paths (phases 25-27), the FFM forms the FFM paths
 (phases 29-31), K7 and K8 the pooled paths, serving and top-k
 (phases 35-37); every count is set to 0 just before each path and
-read just after it.
+read just after it.  K1's entry splits its launches by the rows a
+launch covers (``launches_by_shape``: serving buckets, the artifact's
+buckets in phase 8, 16,384-row eval batches).
 """
 
 from __future__ import annotations
@@ -1565,6 +1568,7 @@ def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
     k2_worst = {"max_abs_err_g": 0.0, "max_err_over_tol": 0.0,
                 "max_abs_err_logloss_sum": 0.0}
     inits, finals, planes = {}, {}, {}
+    engine_launches = 0  # K1's at the artifact's serving buckets (<= 512 rows)
     for model in ("fm", "lr"):
         cfg = train_config(model, t_log2, data, os.path.join(workdir, f"{model}.jsonl"))
         zero_launches()
@@ -1601,6 +1605,7 @@ def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
         if got["score"] != want_score:
             raise AssertionError(f"{model}: K1 launched {got['score']} times, "
                                  f"expected {want_score} (1 eval batch + engine)")
+        engine_launches += want_score - 1
         for k in launches:
             launches[k] += got[k]
         pred = read_pred_lines(pred_path)
@@ -1662,7 +1667,7 @@ def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
         torch.cuda.empty_cache()
     return {"rows": rows, "launches": launches, "k2_check": k2_worst,
             "data": data, "bars": bars, "inits": inits, "finals": finals,
-            "planes": planes}
+            "planes": planes, "k1_engine_launches": engine_launches}
 
 
 def keep_shipped_batches(trainer) -> list:
@@ -5768,6 +5773,22 @@ def check_pool_kernels(case: str, model, view: dict, tables: dict, dense: dict, 
             worst["k7_max_err_over_tol"],
             float((diff / torch.where(bound > 0, bound, 1.0)).max()))
     dp, r, logit = head_grads(model, dense, pooled, wide, view)
+    check_k8(case, view, tables, h, dp, r, logit, worst, forms)
+    return pooled, dp
+
+
+def check_k8(case: str, view: dict, tables: dict, h: int, dp, r, logit, worst: dict,
+             forms=("dense", "index")) -> None:
+    """K8 against field_pool_grad_plain on ``view`` with the head's
+    (dP, r, logit), in each of ``forms`` (dense, index, hybrid): each
+    destination row within twice its occurrences times 2^-23 times the
+    sum of its terms' magnitudes, the log-loss within B 2^-23 of the
+    sum, the weight sum exactly.  Records the worst ratios in
+    ``worst``."""
+    import torch
+
+    from xflow_tpu_torch.ops.pool import field_pool_grad, field_pool_grad_plain
+
     for form in forms:
         index = form != "dense"
         outs = []
@@ -5806,7 +5827,6 @@ def check_pool_kernels(case: str, model, view: dict, tables: dict, dense: dict, 
         worst["cases"] += 1
         del outs, mag, cnt
     torch.cuda.empty_cache()
-    return pooled, dp
 
 
 def pool_bounds(view: dict, tables: dict, h: int, grad: bool) -> dict:
@@ -5863,11 +5883,12 @@ def embedding_bag_args(view: dict, tables: dict, h: int) -> tuple:
 
 
 def time_pool_kernels(label: str, view: dict, tables: dict, dense: dict, model, h: int,
-                      flush, phase=38) -> list:
+                      flush, phase=38, index: bool = False) -> list:
     """K7 and K8 timed on ``view`` (device ms behind ``_sleep``, an L2
     flush before each call), beside their plain versions, their bounds
     and K7's embedding_bag yardstick (its result checked against K7's
-    pooled tower first)."""
+    pooled tower first); with ``index`` K8 in index mode too (K4's plain
+    plan, the hot plane into head buffers)."""
     import torch
     import torch.nn.functional as F
 
@@ -5912,6 +5933,17 @@ def time_pool_kernels(label: str, view: dict, tables: dict, dense: dict, model, 
                                    [()] * 10, prelude=flush.zero_, chunk_size=2),
         "library_ms": None, "library_why_null": K8_LIBRARY_WHY_NULL,
         **pool_bounds(view, tables, h, grad=True)}]
+    if index:
+        i_args, i_kw, _ = k8_call(view, tables, h, dp, r, logit, True, False)
+        rows.append({
+            "kernel": "field_pool_grad (index)", **common,
+            "ms": time_device_ms(lambda: field_pool_grad(*i_args, **i_kw), [()] * TIMED_RUNS,
+                                 prelude=flush.zero_),
+            "plain_ms": time_device_ms(lambda: field_pool_grad_plain(*i_args, **i_kw),
+                                       [()] * 10, prelude=flush.zero_, chunk_size=2),
+            "library_ms": None, "library_why_null": K8_LIBRARY_WHY_NULL,
+            **pool_bounds(view, tables, h, grad=True)})
+        del i_args, i_kw
     for row in rows:
         log(json.dumps(dict(row, phase=phase)))
     del k8_args, k8_kw
@@ -6437,10 +6469,13 @@ def path_like_ffm(dev, b: int, hot: bool, seed: int) -> dict:
                                        FFM_HOT["max_nnz"], FFM_HOT["hot_nnz"]))
 
 
-def steered_planes(dev, ranks: np.ndarray, t: int, h: int, kc: int, kh: int) -> dict:
+def steered_planes(dev, ranks: np.ndarray, t: int, h: int, kc: int, kh: int,
+                   remap_order: bool = False) -> dict:
     """The cold and hot planes of ``ranks``: ids of rank below h / 39 in
-    their field take head row field * (h / 39) + rank (u16, 0xFFFF
-    padding; at most ``kh``, the first in field order), the others their
+    their field take head row field * (h / 39) + rank, or with
+    ``remap_order`` rank * 39 + field, the remap's order by frequency
+    (every field's hottest id in rows [0, 39): io/freq.py); u16, 0xFFFF
+    padding; at most ``kh``, the first in field order; the others their
     hashed key (at most ``kc``)."""
     import torch
 
@@ -6455,7 +6490,7 @@ def steered_planes(dev, ranks: np.ndarray, t: int, h: int, kc: int, kh: int) -> 
     for i in range(b):
         fh = np.flatnonzero(is_hot[i])[:kh]
         fc = np.flatnonzero(~is_hot[i])[:kc]
-        hot[i, :fh.size] = fh * per + ranks[i, fh]
+        hot[i, :fh.size] = ranks[i, fh] * nf + fh if remap_order else fh * per + ranks[i, fh]
         hot_f[i, :fh.size] = fh
         cold[i, :fc.size] = keys[i, fc]
         cold_f[i, :fc.size] = fc
@@ -6752,16 +6787,159 @@ def mvm_times(dev, flush) -> list:
     return rows
 
 
-def kernel_times(dev) -> list:
-    """K6 (k6_times), K2's MVM form (mvm_times), K4 and K5
-    (k4_k5_times), the field forms' flagship shapes
-    (flagship_field_times), C5's device-memory stages (phase_c5), K2's
-    FFM form and K7 with K8 timed on path-like batches of the repo's
-    traffic: the flagship ``ffm`` dense batch (65,536 rows) and a
-    512-row index-mode slice, an ``ffm_hot`` 512-row hybrid slice;
-    ``wide_deep`` (12 + 32 slots, H = 2^14) and ``dcn`` (40 slots) at
-    65,536 rows and 512.  Run from two checkouts in one call to compare
-    them on one card."""
+K1_FORMS = ("lr", "fm", "hot", "fm64", "mvm", "ffm")
+
+
+def k1_view(dev, form: str, b: int, seed: int) -> dict:
+    """K1's planes of the repo's traffic (path_like_ranks) for ``form``:
+    fm_nohot's 40 slots (39 fields and a padding slot) hashed over
+    T = 2^24 (``lr``, ``fm``) or 2^22 (``fm64``, the served v_dim = 64
+    FM); fm's 12 cold + 32 hot slots at H = 2^14 with the hot rows in
+    the remap's order (``hot``; ``mvm`` with its u8 field planes); the
+    flagship ``ffm``'s 40 slots over T = 2^21."""
+    import torch
+
+    if form == "ffm":
+        return path_like_ffm(dev, b, False, seed)
+    hot = form in ("hot", "mvm")
+    batch, h = path_like_batch(b, seed, hot)
+    keys = np.where(batch.mask > 0, batch.keys, -1).astype(np.int32)
+    if form == "fm64":
+        keys = np.where(keys >= 0, keys % (1 << FM64_T_LOG2), -1).astype(np.int32)
+    view = {"ckeys": torch.tensor(keys, device=dev)}
+    if hot:
+        view["hot"] = torch.tensor(np.where(batch.hot_mask > 0, batch.hot_keys, 0xFFFF)
+                                   .astype(np.uint16).view(np.int16), device=dev)
+        view["hot_size"] = h
+    if form == "mvm":
+        view["fields"] = torch.tensor(np.where(batch.mask > 0, batch.slots, 0)
+                                      .astype(np.uint8), device=dev)
+        view["hot_fields"] = torch.tensor(np.where(batch.hot_mask > 0, batch.hot_slots, 0)
+                                          .astype(np.uint8), device=dev)
+    return view
+
+
+def k1_tables(dev, form: str, g):
+    """(w, v) for k1_view's planes of ``form``, seed-made on the card:
+    T = 2^24 and D = 10 (``lr`` without v, ``mvm`` without w), 2^22 and
+    64 (``fm64``), the flagship ``ffm``'s 2^21 and 39 x 4."""
+    import torch
+
+    t = 1 << (FM64_T_LOG2 if form == "fm64" else FFM_T_LOG2 if form == "ffm" else T_LOG2)
+    d = 64 if form == "fm64" else FFM_FIELDS * FFM_DIM if form == "ffm" else D
+    w = torch.randn((t, 1), generator=g, device=dev) * 0.3 if form != "mvm" else None
+    v = (torch.randn((t, d), generator=g, device=dev) * (0.05 if form == "fm64" else 0.1)
+         if form != "lr" else None)
+    return w, v
+
+
+def k1_kw(form: str, view: dict) -> dict:
+    """score's keywords for k1_view's planes of ``form``."""
+    kw = {"hot": view.get("hot"), "hot_size": view.get("hot_size", 0),
+          "form": "fm" if form in ("hot", "fm64") else form}
+    if form in ("mvm", "ffm"):
+        kw.update(fields=view["fields"], hot_fields=view.get("hot_fields"),
+                  max_fields=MVM_FIELDS if form == "mvm" else FFM_FIELDS)
+    return kw
+
+
+def check_k1(case: str, form: str, view: dict, w, v, kw: dict) -> float:
+    """K1 against score_plain on ``view`` (k1_view's planes, ``kw`` the
+    score keywords): the logit within phase 2's tolerance plus phase
+    6's bound for the LR/FM forms, mvm_tolerances' and ffm_tolerances'
+    for the field forms; pctr within PCTR_ATOL plus that through the
+    sigmoid's slope.  Returns pctr's largest difference."""
+    import torch
+
+    from xflow_tpu_torch.ops.score import hot_plane_keys, score, score_plain
+
+    args = (view["ckeys"], None, w, v)
+    got_p, got_l = score(*args, return_logit=True, **kw)
+    want_p, want_l = score_plain(*args, return_logit=True, **kw)
+    keys = view["ckeys"].long()
+    h = kw.get("hot_size", 0)
+    if view.get("hot") is not None:
+        keys = torch.cat([hot_plane_keys(view["hot"], h), keys], dim=1)
+    if form == "mvm":
+        ltol = 1.01 * mvm_tolerances(keys, view_fields(view), None, None, None, 1.0, v,
+                                     kw["max_fields"], logit_only=True)["logit"] + 1e-7
+    elif form == "ffm":
+        ltol = 1.01 * ffm_tolerances(keys, view_fields(view), None, None, None, 1.0, w, v,
+                                     kw["max_fields"], logit_only=True)["logit"] + 1e-7
+    else:
+        ltol = LOGIT_ATOL + LOGIT_RTOL * want_l.abs()
+        if v is not None:
+            ltol = ltol + fm_logit_bound(keys, None, w, v)
+    ptol = PCTR_ATOL + want_p * (1 - want_p) * ltol
+    if (float(((got_l - want_l).abs() - ltol).max()) > 0
+            or float(((got_p - want_p).abs() - ptol).max()) > 0
+            or not bool(torch.isfinite(got_p).all())):
+        raise AssertionError(f"K1 {case} disagrees with score_plain")
+    return float((got_p - want_p).abs().max())
+
+
+def k1_times(dev, flush) -> list:
+    """K1's forms on path-like planes (k1_view) at a serving bucket of
+    512 rows and the 16,384-row eval batch: LR, FM (D = 10), the hot
+    plane, FM at D = 64 (T = 2^22), MVM and FFM; each held against
+    score_plain first (the logit within phase 2's tolerance plus phase
+    6's bound for the LR/FM forms, mvm_tolerances' and ffm_tolerances'
+    for the field forms; pctr within PCTR_ATOL plus that through the
+    sigmoid's slope), then timed behind an L2 flush beside its plain
+    version and its bound."""
+    import torch
+
+    from xflow_tpu_torch.ops.score import score, score_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    rows = []
+    for form in K1_FORMS:
+        ww, vv = k1_tables(dev, form, g)
+        for b in (SLICE_ROWS, TEST_LINES):
+            view = k1_view(dev, form, b, SEED + 24)
+            h = view.get("hot_size", 0)
+            kw = k1_kw(form, view)
+            args = (view["ckeys"], None, ww, vv)
+            err = check_k1(f"{form} B={b}", form, view, ww, vv, kw)
+            d = vv.shape[1] if vv is not None else 0
+            if form == "mvm":
+                bound = mvm_bounds(view, D, h, train=False)
+            elif form == "ffm":
+                bound = ffm_bounds(view, FFM_FIELDS, FFM_DIM, 0, train=False)
+            else:
+                bound = bounds(view["ckeys"], None, d, view.get("hot"), h)
+            rows.append({
+                "kernel": f"score ({form})", "B": b, "K": view["ckeys"].shape[1],
+                "Kh": view["hot"].shape[1] if h else 0, "D": d,
+                "max_abs_err": err,
+                "ms": time_device_ms(lambda: score(*args, **kw), [()] * TIMED_RUNS,
+                                     prelude=flush.zero_),
+                "plain_ms": time_device_ms(lambda: score_plain(*args, **kw), [()] * 10,
+                                           prelude=flush.zero_, chunk_size=2),
+                **bound})
+            log(json.dumps(dict(rows[-1], phase="kernel-times")))
+            del view
+        del ww, vv
+        torch.cuda.empty_cache()
+    return rows
+
+
+KERNEL_TIME_GROUPS = ("k1", "k8", "ffm", "k6", "mvm", "k4k5", "flagship", "c5")
+
+
+def kernel_times(dev, groups=KERNEL_TIME_GROUPS) -> list:
+    """The kernels timed alone on path-like batches of the repo's
+    traffic, by group: ``k1`` K1's forms at 512 and 16,384 rows
+    (k1_times); ``k8`` K7 and K8 on ``wide_deep`` (12 + 32 slots, H =
+    2^14, the hot rows in the remap's order), ``dcn`` and ``two_tower``
+    (40 slots) at 65,536 rows and their first 512, K8 in dense and index
+    mode; ``ffm`` K2's FFM form (the flagship ``ffm`` dense batch of
+    65,536 rows, a 512-row index-mode slice, an ``ffm_hot`` 512-row
+    hybrid slice); ``k6`` (k6_times); ``mvm`` K2's MVM form (mvm_times);
+    ``k4k5`` (k4_k5_times); ``flagship`` the field forms' flagship
+    shapes (flagship_field_times); ``c5`` C5's device-memory stages
+    (phase_c5).  Run from two checkouts in one call to compare them on
+    one card."""
     import torch
 
     from xflow_tpu_torch.config import Config
@@ -6769,27 +6947,41 @@ def kernel_times(dev) -> list:
 
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
-    rows = (k6_times(dev) + mvm_times(dev, flush) + k4_k5_times(dev, flush)
-            + flagship_field_times(dev, flush) + phase_c5(dev)["timings"])
-    t = 1 << FFM_T_LOG2
-    tables = {"w": {"param": torch.randn((t, 1), generator=g, device=dev) * 0.3},
-              "v": {"param": torch.randn((t, FFM_FIELDS * FFM_DIM), generator=g,
-                                         device=dev) * 0.1}}
-    h = 1 << FFM_HOT["hot_size_log2"]
-    full = path_like_ffm(dev, TRAIN_BATCHES[-1], False, SEED)
-    rows.append(time_ffm_k2("path-like dense batch", "dense", full, tables, 0, flush,
-                            "train_step (ffm: dense)", phase="kernel-times"))
-    rows.append(time_ffm_k2("path-like 512-row slice", "hybrid", ffm_view(full, SLICE_ROWS,
-                                                                          float(SLICE_ROWS)),
-                            tables, 0, flush, "train_step (ffm: index, slice)",
-                            phase="kernel-times"))
-    hot = path_like_ffm(dev, SLICE_ROWS, True, SEED + 2)
-    rows.append(time_ffm_k2("path-like ffm_hot 512-row slice", "hybrid", hot, tables, h,
-                            flush, "train_step (ffm: hybrid)", phase="kernel-times"))
-    del tables, full, hot
-    torch.cuda.empty_cache()
+    rows = []
+    if "k1" in groups:
+        rows += k1_times(dev, flush)
+    if "k6" in groups:
+        rows += k6_times(dev)
+    if "mvm" in groups:
+        rows += mvm_times(dev, flush)
+    if "k4k5" in groups:
+        rows += k4_k5_times(dev, flush)
+    if "flagship" in groups:
+        rows += flagship_field_times(dev, flush)
+    if "c5" in groups:
+        rows += phase_c5(dev)["timings"]
+    if "ffm" in groups:
+        t = 1 << FFM_T_LOG2
+        tables = {"w": {"param": torch.randn((t, 1), generator=g, device=dev) * 0.3},
+                  "v": {"param": torch.randn((t, FFM_FIELDS * FFM_DIM), generator=g,
+                                             device=dev) * 0.1}}
+        h = 1 << FFM_HOT["hot_size_log2"]
+        full = path_like_ffm(dev, TRAIN_BATCHES[-1], False, SEED)
+        rows.append(time_ffm_k2("path-like dense batch", "dense", full, tables, 0, flush,
+                                "train_step (ffm: dense)", phase="kernel-times"))
+        rows.append(time_ffm_k2("path-like 512-row slice", "hybrid",
+                                ffm_view(full, SLICE_ROWS, float(SLICE_ROWS)), tables, 0,
+                                flush, "train_step (ffm: index, slice)",
+                                phase="kernel-times"))
+        hot = path_like_ffm(dev, SLICE_ROWS, True, SEED + 2)
+        rows.append(time_ffm_k2("path-like ffm_hot 512-row slice", "hybrid", hot, tables, h,
+                                flush, "train_step (ffm: hybrid)", phase="kernel-times"))
+        del tables, full, hot
+        torch.cuda.empty_cache()
+    if "k8" not in groups:
+        return rows
     t = 1 << T_LOG2
-    for family in ("wide_deep", "dcn"):
+    for family in ("wide_deep", "dcn", "two_tower"):
         geom = POOLED[family]
         cfg = Config(model=family, table_size_log2=T_LOG2, max_fields=POOLED_FIELDS,
                      **{k: v for k, v in geom.items()
@@ -6802,7 +6994,8 @@ def kernel_times(dev) -> list:
         ranks = path_like_ranks(TRAIN_BATCHES[-1], SEED + 3)
         hh = 1 << geom["hot_size_log2"] if "hot_size_log2" in geom else 0
         if hh:
-            view = steered_planes(dev, ranks, t, hh, geom["max_nnz"], geom["hot_nnz"])
+            view = steered_planes(dev, ranks, t, hh, geom["max_nnz"], geom["hot_nnz"],
+                                  remap_order=True)
         else:
             keys = np.full((ranks.shape[0], K), -1, np.int32)
             keys[:, :ranks.shape[1]] = path_like_key(ranks, t)
@@ -6814,11 +7007,15 @@ def kernel_times(dev) -> list:
             ranks.shape[0]) < 0.3, dtype=torch.uint8, device=dev),
             weights_u8=torch.ones(ranks.shape[0], dtype=torch.uint8, device=dev),
             num_real=float(ranks.shape[0]))
+        worst = {"k7_max_abs_err": 0.0, "k7_max_err_over_tol": 0.0, "k8_max_abs_err": 0.0,
+                 "k8_max_err_over_tol": 0.0, "cases": 0}
         for label, v in ((f"{family} path-like batch", view),
                          (f"{family} path-like first 512 rows",
                           shipped_view(view, SLICE_ROWS, float(SLICE_ROWS)))):
+            check_pool_kernels(label, model, v, tables, dense, hh, worst)
             rows += time_pool_kernels(label, v, tables, dense, model, hh, flush,
-                                      phase="kernel-times")
+                                      phase="kernel-times", index=True)
+        log(json.dumps({"phase": "kernel-times", "family": family, "checked": worst}))
         del tables, view
         torch.cuda.empty_cache()
     return rows
@@ -6856,8 +7053,9 @@ def phase_c5(dev) -> dict:
     memory cap (C5) against its plain version at B = 64 on seed-made
     planes (T = 2^16, 20 % padding, u8 fields with some at the clamp's
     255): MVM at 1,600 slots, FFM at max_fields 256 with 40 slots, a
-    pooled row (w and emb, E = 8) of 4,200 slots; K1 and K2 (K7 and
-    K8), dense and index mode, each timed beside its plain version."""
+    pooled row (w and emb, E = 8) of 4,200 slots; K1 and K2 (K7, and K8
+    on its chunked stage), dense and index mode, each timed beside its
+    plain version."""
     import torch
 
     from xflow_tpu_torch.ops.pool import (
@@ -7951,10 +8149,11 @@ def main() -> int:
         help="instead of the phases: wide_deep's hot inner replayed on the card "
         "and the CPU in lockstep with ReLU's kinks synchronised and not")
     parser.add_argument(
-        "--kernel-times", action="store_true",
-        help="instead of the phases: K6, K2's MVM form, K4, K5, the field forms' flagship "
-        "shapes and C5's stages, K2's FFM form and K7/K8 timed on path-like batches; run "
-        "from two checkouts in one call to compare them")
+        "--kernel-times", nargs="?", const=",".join(KERNEL_TIME_GROUPS), default="",
+        metavar="GROUPS",
+        help="instead of the phases: the kernels timed alone on path-like batches, the "
+        f"comma-separated GROUPS of {', '.join(KERNEL_TIME_GROUPS)} (all by default; "
+        "kernel_times); run from two checkouts in one call to compare them")
     args = parser.parse_args()
     try:
         import torch
@@ -7987,7 +8186,11 @@ def main() -> int:
                     "float32_matmul_precision": torch.get_float32_matmul_precision()}))
     log(json.dumps(dict(build_all(), phase=1)))
     if args.kernel_times:
-        log(json.dumps({"kernel_times": kernel_times(dev), "card": card}))
+        groups = tuple(args.kernel_times.split(","))
+        unknown = set(groups) - set(KERNEL_TIME_GROUPS)
+        if unknown:
+            raise SystemExit(f"chip_smoke: unknown --kernel-times groups {sorted(unknown)}")
+        log(json.dumps({"kernel_times": kernel_times(dev, groups), "card": card}))
         log(f"chip_smoke: diagnostic done in {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.seq_witness or args.seq_lockstep or args.kink_witness:
@@ -8172,6 +8375,15 @@ def main() -> int:
         "launches": main_path["launches"] + train_launches["score"],
         "launches_by_path": {"serve": main_path["launches"],
                              "train": train_launches["score"]},
+        # every training path's K1 launches are its eval batches (the
+        # exact counts of phases 8, 11-13 and 16) but phase 8's artifact
+        # scoring, at the engine's buckets
+        "launches_by_shape": {
+            "serving, buckets of up to 512 rows (phases 3-4)": main_path["launches"],
+            "artifact scoring, buckets of up to 512 rows (phase 8)":
+                train_path["k1_engine_launches"],
+            f"eval, {min(TEST_LINES, TRAIN_BATCHES[-1])}-row batches":
+                train_launches["score"] - train_path["k1_engine_launches"]},
         "max_abs_err": check["max_abs_err"],
         "ms": head["ms"],
         "host_path_ms": head["host_path_ms"],

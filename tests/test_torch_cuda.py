@@ -497,6 +497,64 @@ def test_k1_hot_plane_matches_plain(dev, with_v, case):
     assert score.launches - before == 1
 
 
+K1_PATH_FORMS = ("lr", "fm", "hot", "fm64", "mvm", "ffm")
+
+
+@pytest.mark.parametrize("b", [512, 16384])
+@pytest.mark.parametrize("form", K1_PATH_FORMS)
+def test_k1_forms_on_path_like_planes_match_plain(dev, form, b):
+    """Every K1 form on planes of the repo's traffic (chip_smoke.py's
+    k1_view: zipf ids a field, the hot rows in the remap's order) at a
+    serving bucket and the eval batch, against score_plain within
+    chip_smoke.py's check_k1 bounds."""
+    cs = _chip_smoke()
+    w, v = cs.k1_tables(dev, form, torch.Generator(device=dev).manual_seed(71))
+    view = cs.k1_view(dev, form, b, 72)
+    before = score.launches
+    cs.check_k1(f"{form} B={b}", form, view, w, v, cs.k1_kw(form, view))
+    assert score.launches - before == 1
+
+
+K1_SHAPES = {
+    # (D, K, Kh, full): v widths whose factor groups cross an 8-byte
+    # copy or a 32-lane tile; rows of Kh + K slots past 32 and 64 (the
+    # lanes' items wrap), their hot planes with keys past H; LR; values
+    "d1": (1, 40, 0, False), "d9": (9, 40, 0, True), "d10": (10, 40, 0, False),
+    "d31": (31, 40, 0, False), "d33": (33, 40, 0, True), "d64": (64, 40, 0, False),
+    "44-slots-hot": (10, 12, 32, False), "72-slots-hot-x": (10, 40, 32, True),
+    "lr-72-slots-hot": (0, 40, 32, False),
+}
+
+
+@pytest.mark.parametrize("b", [512, 16384])
+@pytest.mark.parametrize("case", list(K1_SHAPES))
+def test_k1_lr_fm_shapes_match_plain(dev, case, b):
+    """K1's LR/FM form at the shapes its one-pass stage makes hard, with
+    an all-padding row, a key repeated across examples and hot keys past
+    H (read as padding), against score_plain."""
+    d, k, kh, full = K1_SHAPES[case]
+    h = 1 << 10
+    keys, x, w, v, _ = _inputs(seed=8, t=1 << 14, d=max(d, 1), b=b, k=k, full=full)
+    t = lambda a: None if a is None else torch.tensor(a, device=dev)  # noqa: E731
+    kw = {}
+    if kh:
+        hot = _hot_plane(9, b, kh, h, not full)
+        bits = hot.view(np.uint16) if hot.dtype == np.int16 else hot
+        pad = 0xFFFF if hot.dtype == np.int16 else -1
+        bits[1::5, 0] = np.where(bits[1::5, 0] != pad, h + 5, pad)  # past H
+        hot_x = (np.where(hot >= 0, np.random.default_rng(10).uniform(0.25, 2.0, hot.shape),
+                          0.0).astype(np.float32) if full else None)
+        kw = dict(hot=t(hot), hot_x=t(hot_x), hot_size=h)
+    vv = t(v) if d else None
+    before = score.launches
+    got = score(t(keys), t(x), t(w), vv, return_logit=True, **kw)
+    want = score_plain(t(keys), t(x), t(w), vv, True, **kw)
+    for g, p in zip(got, want):
+        _close(g, p)
+    assert score.launches - before == 1
+    assert float(got[0][3]) == 0.5 or kh  # the all-padding row: logit 0
+
+
 @pytest.mark.parametrize("form", ["dense", "index", "window-dense", "window-index", "bf16"])
 @pytest.mark.parametrize("with_v", [False, True], ids=["lr", "fm"])
 def test_k2_hot_forms_match_plain(dev, with_v, form):
@@ -1522,6 +1580,58 @@ def test_k8_field_pool_grad_matches_plain(dev, form):
     assert float(got_acc[1]) == float(want_acc[1])
 
 
+K8_SHAPES = {
+    # (E, B, edit): emb widths of scalar atomics (1, 3) and 16-byte
+    # vector reductions (8, 12), over batches that are no multiple of a
+    # block's examples; one hot row in every example (the table's
+    # hottest entry); a remap-skewed wide_deep batch (12 + 32 slots,
+    # H = 2^14, every field's hottest id in the head's first rows)
+    "e1": (1, 1001, None), "e3": (3, 1001, None), "e8": (8, 1001, None),
+    "e12": (12, 1001, None), "one-hot-row": (8, 4099, "one-hot-row"),
+    "remap-skewed": (8, 16384, "remap"),
+}
+
+
+@pytest.mark.parametrize("case", list(K8_SHAPES))
+def test_k8_shapes_within_pool_bound(dev, case):
+    """K8 against field_pool_grad_plain in dense mode, index mode (K4's
+    plain slots, -1 at padding) and the hybrid (index mode with head
+    buffers), each destination within chip_smoke.py's check_k8 bound
+    (twice its occurrences times 2^-23 times its terms' magnitudes), the
+    log-loss within B 2^-23 and the weight sum exact."""
+    from xflow_tpu_torch.ops.pool import field_pool_grad
+
+    cs = _chip_smoke()
+    e, b, edit = K8_SHAPES[case]
+    t = 1 << 16
+    if edit == "remap":
+        h = 1 << 14
+        view = cs.steered_planes(dev, cs.path_like_ranks(b, 73), t, h, 12, 32,
+                                 remap_order=True)
+    else:
+        h = 1 << 10
+        on, _ = _pool_planes(dev, 9, b=b, k=24, kh=16, h=h, t=t, e=e)
+        if edit == "one-hot-row":
+            on["hot"][:, 0] = 3
+            on["hot_fields"][:, 0] = 1
+        view = {"ckeys": on["keys"], "fields": on["fields"], "hot": on["hot"],
+                "hot_fields": on["hot_fields"]}
+    rng = np.random.default_rng(74)
+    view.update(labels_u8=torch.tensor(rng.random(b) < 0.4, dtype=torch.uint8, device=dev),
+                weights_u8=torch.ones(b, dtype=torch.uint8, device=dev), num_real=float(b))
+    tables = {"emb": {"param": torch.tensor(rng.normal(0, 0.3, (t, e)).astype(np.float32),
+                                            device=dev)},
+              "w": {"param": torch.tensor(rng.normal(0, 0.3, (t, 1)).astype(np.float32),
+                                          device=dev)}}
+    dp = torch.tensor(rng.normal(0, 1e-3, (b, 39, e)).astype(np.float32), device=dev)
+    r = torch.tensor(rng.normal(0, 1e-3, b).astype(np.float32), device=dev)
+    logit = torch.tensor(rng.normal(0, 4, b).astype(np.float32), device=dev)
+    worst = {"k8_max_abs_err": 0.0, "k8_max_err_over_tol": 0.0, "cases": 0}
+    before = field_pool_grad.launches
+    cs.check_k8(case, view, tables, h, dp, r, logit, worst, ("dense", "index", "hybrid"))
+    assert field_pool_grad.launches - before == worst["cases"] == 3
+
+
 @pytest.mark.parametrize("mode", [
     {},
     {"microbatch": 4, "hot_size_log2": 0},
@@ -1842,8 +1952,9 @@ C5_CASES = ("mvm-1600", "ffm-f256", "pooled-4200")
 def test_c5_device_memory_stage_matches_plain(dev, case):
     """Past each shared-memory cap (MVM at 1,600 slots, FFM at
     max_fields 256 with 40 slots, a pooled row of 4,200 slots) the
-    kernels stage a row in device memory: K1 and K2 (K7 and K8), dense
-    and index mode, against their plain versions at B = 64."""
+    kernels stage a row in device memory (K1, K2, K7; K8 stages a chunk
+    of the row's slots at a time), dense and index mode, against their
+    plain versions at B = 64."""
     from xflow_tpu_torch.ops.pool import (
         POOL_MAX_SLOTS,
         field_pool,

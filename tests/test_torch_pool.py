@@ -131,34 +131,34 @@ def test_cross_network_matches_reference(layers):
 # -- K7 and K8's plain versions ------------------------------------------------
 
 
-def _planes(seed, wire, hot, u16=True):
-    """Seed-made planes: sentinel-coded keys (20 % padding), fields
-    (u8 with 255 on the compact wire; int32 with negatives on the full
-    one), values on the full wire, a hot plane (keys past H count as
-    padding), and the tables."""
+def _planes(seed, wire, hot, u16=True, b=B, e=E):
+    """Seed-made planes of ``b`` rows: sentinel-coded keys (20 %
+    padding), fields (u8 with 255 on the compact wire; int32 with
+    negatives on the full one), values on the full wire, a hot plane
+    (keys past H count as padding), and the tables (emb ``e`` wide)."""
     rng = np.random.default_rng(seed)
-    keys = rng.integers(0, T, (B, K)).astype(np.int32)
-    keys[rng.random((B, K)) < 0.2] = -1
+    keys = rng.integers(0, T, (b, K)).astype(np.int32)
+    keys[rng.random((b, K)) < 0.2] = -1
     keys[-2:] = -1  # all-padding rows
     if wire == "full":
-        fields = rng.integers(-2, F + 2, (B, K)).astype(np.int32)
-        x = rng.uniform(0.5, 1.5, (B, K)).astype(np.float32)
+        fields = rng.integers(-2, F + 2, (b, K)).astype(np.int32)
+        x = rng.uniform(0.5, 1.5, (b, K)).astype(np.float32)
     else:
-        fields = rng.integers(0, F + 2, (B, K)).astype(np.uint8)
-        fields[rng.random((B, K)) < 0.1] = 255
+        fields = rng.integers(0, F + 2, (b, K)).astype(np.uint8)
+        fields[rng.random((b, K)) < 0.1] = 255
         x = None
     out = {"keys": keys, "fields": fields, "x": x,
-           "emb": rng.normal(0, 0.3, (T, E)).astype(np.float32),
+           "emb": rng.normal(0, 0.3, (T, e)).astype(np.float32),
            "w": rng.normal(0, 0.3, (T, 1)).astype(np.float32)}
     if hot:
-        hk = rng.integers(0, H + 8, (B, KH))
-        hk[rng.random((B, KH)) < 0.25] = -1
+        hk = rng.integers(0, H + 8, (b, KH))
+        hk[rng.random((b, KH)) < 0.25] = -1
         if u16:
             out["hot"] = np.where(hk >= 0, hk, 0xFFFF).astype(np.uint16).view(np.int16)
         else:
             out["hot"] = hk.astype(np.int32)
-        out["hot_fields"] = rng.integers(0, F, (B, KH)).astype(fields.dtype)
-        out["hot_x"] = (rng.uniform(0.5, 1.5, (B, KH)).astype(np.float32)
+        out["hot_fields"] = rng.integers(0, F, (b, KH)).astype(fields.dtype)
+        out["hot_x"] = (rng.uniform(0.5, 1.5, (b, KH)).astype(np.float32)
                         if wire == "full" else None)
     return out
 
@@ -191,8 +191,8 @@ def _ref_view(p, bf16, snap=None):
     he = ref_hot_gather(emb[:H], jnp.asarray(hk.reshape(-1)), dtype=dtype, impl=impl)
     hw = ref_hot_gather(w[:H], jnp.asarray(hk.reshape(-1)), dtype=dtype, impl=impl)
     hx = hmask if p["hot_x"] is None else p["hot_x"] * hmask
-    return (jnp.concatenate([he.reshape(B, KH, E), rows_e], 1),
-            jnp.concatenate([hw.reshape(B, KH, 1), rows_w], 1),
+    return (jnp.concatenate([he.reshape(*hk.shape, -1), rows_e], 1),
+            jnp.concatenate([hw.reshape(*hk.shape, 1), rows_w], 1),
             jnp.asarray(np.concatenate([hx, x], 1)),
             jnp.asarray(np.concatenate([p["hot_fields"].astype(np.int32), slots], 1)), hk)
 
@@ -255,7 +255,7 @@ def _ref_grads(p, dP, r, bf16):
                 + jnp.sum(ref_blocks.linear_term(rw, x) * r))
 
     ge, gw = jax.grad(f, argnums=(0, 1))(rows_e, rows_w)
-    kh = 0 if hk is None else KH
+    kh = 0 if hk is None else hk.shape[1]
     cold = np.where(p["keys"] >= 0, p["keys"], T)  # the sentinel, dropped
     out = {}
     for name, g in (("emb", ge), ("w", gw)):
@@ -402,6 +402,68 @@ def test_field_pool_grad_index_mode_sums_at_unique_keys():
                                    atol=ATOL)
 
 
+K8_CASES = {
+    # (emb width E, edit): 37 rows each, not a multiple of the examples a
+    # block of K8 takes; E = 1, 3 (scalar atomics), 8 and 12 (16-byte
+    # vector reductions); one hot row in every example; index mode with
+    # K4 slots of -1
+    "e1": (1, None), "e3": (3, None), "e8": (8, None), "e12": (12, None),
+    "one-hot-row-every-example": (8, "one-hot-row"), "index-minus-one": (8, "index"),
+}
+
+
+@pytest.mark.parametrize("case", list(K8_CASES))
+def test_field_pool_grad_plain_k8_shapes_match_jax_grad(case):
+    """K8's plain version against jax.grad of the reference's tower and
+    wide term, scattered as the reference scatters, at the shapes K8's
+    vector reductions and shared-memory table make hard (the same cases
+    run on the card in tests/test_torch_cuda.py)."""
+    e, edit = K8_CASES[case]
+    b = 37
+    p = _planes(31, "compact", True, b=b, e=e)
+    if edit == "one-hot-row":
+        hot = p["hot"].view(np.uint16)
+        hot[:, 0] = 3
+        p["hot_fields"][:, 0] = 1
+    t = _tensors(p)
+    rng = np.random.default_rng(32)
+    dP = rng.normal(0, 0.1, (b, F, e)).astype(np.float32)
+    r = rng.normal(0, 0.1, b).astype(np.float32)
+    common = dict(hot=t["hot"], hot_fields=t["hot_fields"], hot_size=H)
+    args = (torch.tensor(dP), torch.tensor(r), torch.zeros(b), torch.zeros(b),
+            torch.ones(b), F)
+    acc = torch.zeros(2, dtype=torch.float64)
+    if edit == "index":
+        m = b * K
+        ukeys, count = torch.empty(m, dtype=torch.int32), torch.zeros(1, dtype=torch.int32)
+        slots = torch.empty((b, K), dtype=torch.int32)
+        consolidate_keys(t["keys"], T, ukeys, count, slots)
+        assert bool((slots == -1).any())  # K4's slots of the padding occurrences
+        got = {"emb": torch.zeros(m, e), "w": torch.zeros(m, 1), "hemb": torch.zeros(H, e),
+               "hw": torch.zeros(H, 1)}
+        field_pool_grad(t["keys"], None, t["fields"], *args, got["emb"], acc, g_w=got["w"],
+                        slots=slots, hg_w=got["hw"], hg_emb=got["hemb"], **common)
+        u = int(count[0])
+        uk = ukeys[:u].long().numpy()
+        want = _ref_grads(p, jnp.asarray(dP), jnp.asarray(r), False)
+        for name in ("emb", "w"):
+            np.testing.assert_allclose(got[name][:u].numpy(), want[name][uk], rtol=RTOL,
+                                       atol=ATOL, err_msg=name)
+            assert float(got[name][u:].abs().max()) == 0.0
+        got = {"hemb": got["hemb"], "hw": got["hw"]}
+    else:
+        got = {"emb": torch.zeros(T, e), "w": torch.zeros(T, 1), "hemb": torch.zeros(H, e),
+               "hw": torch.zeros(H, 1)}
+        field_pool_grad(t["keys"], None, t["fields"], *args, got["emb"], acc, g_w=got["w"],
+                        hg_w=got["hw"], hg_emb=got["hemb"], **common)
+        want = _ref_grads(p, jnp.asarray(dP), jnp.asarray(r), False)
+    for name, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want[name], rtol=RTOL, atol=ATOL, err_msg=name)
+    if edit == "one-hot-row":  # every example's gradient lands on head row 3
+        assert float(got["hw"][3, 0]) != 0.0
+    assert float(acc[1]) == float(b)
+
+
 def test_pool_wrappers_refuse_bad_planes():
     t = _tensors(_planes(15, "compact", True))
     with pytest.raises(ValueError, match="fields must be uint8 or int32"):
@@ -427,8 +489,9 @@ def test_pool_wrappers_refuse_bad_planes():
 
 
 def test_pool_slot_limit_is_refused_by_name():
-    """C5: a pooled row past POOL_MAX_SLOTS (the most K8's shared-memory
-    stage holds; K7 and K8 stage a wider row in device memory) is
+    """C5: a pooled row past POOL_MAX_SLOTS (the most K7's shared-memory
+    stage holds; K7 stages a wider row in device memory, K8 a chunk of
+    its slots at a time) is
     servable and trains: dcn at POOL_MAX_SLOTS + 1 slots, predict and
     one dense and one sparse step against the JAX package, and K7's and
     K8's plain versions take such a row."""

@@ -227,3 +227,113 @@ def test_kernel_matches_plain_on_card(model, wire):
     assert bool(((got_l - want_l).abs() <= ltol).all())
     ptol = 1e-6 + want_p * (1 - want_p) * ltol
     assert bool(((got_p - want_p).abs() <= ptol).all())
+
+
+# -- K1's plain version at the shapes its kernel's design makes hard --------
+
+SHAPE_CASES = {
+    # Config overrides and edits: v widths whose factor groups cross an
+    # 8-byte copy or a 32-lane tile; rows of KH + K slots past 32 and 64
+    # (the lanes' items wrap); an all-padding row (every case has one)
+    # and hot keys >= H, without x and with it; FFM rows with every slot
+    # in one field, and with fields outside [0, F)
+    "fm-d1": (dict(v_dim=1), None), "fm-d9": (dict(v_dim=9), None),
+    "fm-d10": (dict(v_dim=10), None), "fm-d31": (dict(v_dim=31), None),
+    "fm-d33": (dict(v_dim=33), None), "fm-d64": (dict(v_dim=64), None),
+    "fm-44-slots": (dict(max_nnz=12, hot_size_log2=8, hot_nnz=32), None),
+    "fm-72-slots": (dict(max_nnz=40, hot_size_log2=8, hot_nnz=32), None),
+    "lr-72-slots": (dict(model="lr", max_nnz=40, hot_size_log2=8, hot_nnz=32), None),
+    "fm-hot-past-h": (dict(max_nnz=12, hot_size_log2=8, hot_nnz=32), "hot-past-h"),
+    "fm-hot-past-h-x": (dict(max_nnz=12, hot_size_log2=8, hot_nnz=32, wire_mode="full"),
+                        "hot-past-h"),
+    "ffm-one-field": (dict(model="ffm", ffm_v_dim=4, max_fields=6), "one-field"),
+    "ffm-fields-out-of-range": (dict(model="ffm", ffm_v_dim=4, max_fields=6), "out-of-range"),
+    "ffm-fields-out-of-range-x": (dict(model="ffm", ffm_v_dim=4, max_fields=6,
+                                       wire_mode="full"), "out-of-range"),
+}
+
+
+def _shape_raw(seed, b, ktot, t, full, fields):
+    """Seed-made padded [b, ktot] planes: keys mostly from a head of 64
+    rows (so a hot table steers many), ragged rows with holes, row 0
+    all padding, values on the full wire, field ids in [0, fields)."""
+    rng = np.random.default_rng(seed)
+    keys = np.where(rng.random((b, ktot)) < 0.6, rng.integers(0, 64, (b, ktot)),
+                    rng.integers(0, t, (b, ktot)))
+    cnt = rng.integers(1, ktot + 1, b)
+    mask = ((np.arange(ktot)[None, :] < cnt[:, None])
+            & (rng.random((b, ktot)) > 0.1)).astype(np.float32)
+    mask[0] = 0.0
+    keys = np.where(mask > 0, keys, 0).astype(np.int32)
+    slots = rng.integers(0, fields, (b, ktot)).astype(np.int32)
+    vals = (rng.uniform(0.25, 2.0, (b, ktot)) if full else np.ones((b, ktot)))
+    return [keys, slots, vals.astype(np.float32), mask,
+            (rng.random(b) < 0.4).astype(np.float32), np.ones(b, np.float32)]
+
+
+def _hot_past_h(hot, h, rows):
+    """The hot plane (numpy, u16 bits or int32) with a live entry of
+    each of ``rows`` moved past H: K1 and the reference read a zero row
+    there."""
+    hot = hot.copy()
+    bits = hot.view(np.uint16) if hot.dtype == np.int16 else hot
+    pad = 0xFFFF if hot.dtype in (np.int16, np.uint16) else -1
+    for r in rows:
+        live = np.flatnonzero(bits[r] != pad)
+        if live.size:
+            bits[r, live[0]] = h + 3
+    return hot
+
+
+@pytest.mark.parametrize("case", list(SHAPE_CASES))
+def test_k1_plain_shapes_match_reference_predict(case):
+    """K1's plain version (the port's predict step on the CPU) against
+    the reference's predict on the same planes and tables, pctr atol
+    1e-6 (tests/test_serve.py's bar)."""
+    from xflow_tpu.io import batch as ref_batch
+    from xflow_tpu.parallel.step import init_state as ref_init_state
+    from xflow_tpu_torch.convert import state_from_numpy
+    from xflow_tpu_torch.io import batch as port_batch
+    from xflow_tpu_torch.optim import make_optimizer as port_make_optimizer
+    from xflow_tpu_torch.parallel.step import TrainStep as PortTrainStep
+
+    over, edit = SHAPE_CASES[case]
+    kw = dict(model="fm", table_size_log2=T_LOG2, max_nnz=K, v_dim=D, batch_size=48,
+              num_devices=1, wire_dedup="off")
+    kw.update(over)
+    full = kw.get("wire_mode") == "full"
+    kw["hash_mode"] = not full
+    h = 1 << kw["hot_size_log2"] if kw.get("hot_size_log2") else 0
+    kh = kw.get("hot_nnz", 0) if h else 0
+    n_fields = kw.get("max_fields", 39) + (3 if edit == "out-of-range" else 0)
+    raw = _shape_raw(41, 48, kw["max_nnz"] + kh, 1 << T_LOG2, full, n_fields)
+    if edit == "one-field":
+        raw[1][:] = 2
+    elif edit == "out-of-range" and full:
+        raw[1][raw[1] % 7 == 1] = -2  # negative ids on the full wire's int32 plane
+    rcfg = RefConfig(**kw)
+    mdl, opt = ref_make_model(rcfg), make_optimizer(rcfg)
+    ref_step = TrainStep(mdl, opt, rcfg, make_mesh(1))
+    rng = np.random.default_rng(42)
+    tables = {}
+    for n, t in ref_init_state(mdl, opt, rcfg, make_mesh(1))["tables"].items():
+        scale = 0.3 if n == "w" else 0.05
+        tables[n] = {k: (np.asarray(a) + rng.normal(0, scale, np.asarray(a).shape))
+                     .astype(np.float32) for k, a in t.items()}
+    ref_state = {"tables": {n: {k: jnp.asarray(a) for k, a in t.items()}
+                            for n, t in tables.items()}, "dense": {}}
+    ref_arrays = ref_step.put_batch(ref_batch.make_batch(*raw, h, kh), predict=True)
+    cfg = Config(**kw)
+    step = PortTrainStep(make_model(cfg), port_make_optimizer(cfg), cfg, torch.device("cpu"))
+    arrays = step.put_batch(port_batch.make_batch(*raw, h, kh), predict=True)
+    if edit == "hot-past-h":
+        rows = range(1, 48, 3)
+        name = next(n for n, a in ref_arrays.items() if n.startswith("hot")
+                    and np.issubdtype(np.asarray(a).dtype, np.integer))
+        ref_arrays = dict(ref_arrays, **{name: jnp.asarray(
+            _hot_past_h(np.asarray(ref_arrays[name]), h, rows))})
+        arrays = dict(arrays, hot=torch.from_numpy(_hot_past_h(arrays["hot"].numpy(), h, rows)))
+    want = np.asarray(ref_step.predict(ref_state, ref_arrays))
+    got = step.predict(state_from_numpy(cfg, tables, "cpu"), arrays).numpy()
+    assert (raw[3][0] == 0).all()  # the all-padding row
+    np.testing.assert_allclose(got, want, atol=1e-6)

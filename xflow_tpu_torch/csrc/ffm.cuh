@@ -27,9 +27,11 @@
 // field lies outside [0, F), gradient row) and the sums S[f1, f2, d]
 // of a tile of Dt factors are built in shared memory, F * F * Dt
 // floats, with one thread per column (f2, d) of the tile: the thread
-// walks the slots in order (reading kAhead slots' v ahead) and adds
-// x_i * v[k_i, f2, d0 + d] into row f_i of its own column, so there
-// are no shared-memory atomics and the order of addition is fixed.  The v row's F * Dt reads of a slot
+// walks the slots in order (reading kAhead slots' v ahead, or, in K1
+// where one tile holds D, the rows K1 first copied into shared memory:
+// score.cu) and adds x_i * v[k_i, f2, d0 + d] into row f_i of its own
+// column, so there are no shared-memory atomics and the order of
+// addition is fixed.  The v row's F * Dt reads of a slot
 // are coalesced across the threads (contiguous when Dt = D).  The
 // diagonal is added in the same walk (the column whose f2 is the
 // slot's own field), the cross term is each column's sum over f1 of

@@ -56,24 +56,56 @@
 // snap_emb taken at the window's start, as K2's window-start mode does.
 //
 // K8 (xf_field_pool_grad).  Inputs dP f32 [B, F, E], r f32 [B], logit
-// f32 [B], labels and weights [B] (u8 or f32), the planes above.  One
-// block per example: the slots staged as in K7 with each one's
-// gradient row, then
-//   * w (if given): each live slot adds x * r at its row;
-//   * emb: each slot with a field in [0, F) adds x * dP[b, f, e] for
-//     e < E, work items (slot, e) over the block's threads: E
-//     consecutive threads add into one contiguous row;
-//   * thread 0 adds the clamped pctr's log-loss times the weight, and
-//     the weight, into the block's partials; one double atomic pair per
-//     block lands them in acc [2].
+// f32 [B], labels and weights [B] (u8 or f32), the planes above.  It
+// adds
+//   * w (if given): each live slot's x * r at its row;
+//   * emb: each slot with a field in [0, F) its x * dP[b, f, :] (E
+//     floats) at its row;
+//   * into acc [2]: the clamped pctr's log-loss times the weight, and
+//     the weight, summed.
 // Destinations, as K2's: a cold slot's row is its key in the [T, D]
 // buffers g_w / g_emb (dense mode) or, in index mode (slots not null),
 // K4's slot plane's entry (-1: dropped) in [M, D] sums; a hot slot's row
 // is its key in hg_w / hg_emb [H, D] (g's first H rows in dense mode,
 // the head buffers in the hybrid).  With hot_bf16 each hot gradient is
-// rounded to bfloat16 before its float32 add.  Atomics land in an order
-// that changes from run to run: sums agree with the plain version to
-// float32 rounding.
+// rounded to bfloat16 before its float32 add.
+//
+// K8's design.  Persistent blocks, one of 32 warps an SM (four warps
+// where the batch would leave SMs without a block), each walking a
+// contiguous run of examples, a warp an example, with no block barrier
+// between examples:
+//   * the warp stages the example's slots (destination, x, field) in
+//     one coalesced pass over the planes (keys, x, fields and K4's
+//     slots read together), kGradChunk slots at a time, so no row width
+//     needs a device-memory stage;
+//   * its lanes take the (slot, group of VW factors) items and issue
+//     every dP load of the example before the first add (VW = 4 where E
+//     % 4 == 0 and dP and the gradient buffers are 16-byte aligned: a
+//     float4 load and one 16-byte red.global.add.v4.f32, two a row at
+//     E = 8; else VW = 1, scalar atomics).  The scalar form at E = 8,
+//     lanes over (slot, factor) so that a row's atomics coalesce by
+//     sector, took 8-85 % longer at 65,536 rows on the path's planes
+//     (wide_deep in the remap's layout, dcn, two_tower) and about 20 %
+//     at 512 (H100 80GB HBM3, 700 W);
+//   * repeats of a destination meet in the block's direct-mapped table
+//     in shared memory (the LR/FM form of K2's recipe, train.cu), 1 + E
+//     float32 sums an entry keyed by destination (head row, cold row or
+//     K4's slot): at most kGradEntries and at most twice the slots the
+//     block walks, beside the stages in the block's shared memory.  A
+//     slot adds to its entry when the entry holds its destination or is
+//     free (claimed with atomicCAS), else straight to device memory, so
+//     no batch is refused; each claimed entry lands once when the
+//     block's run ends.  The remap puts every field's hottest ids in
+//     the head's first rows (80.7 % of wide_deep's occurrences on the
+//     head), so a block meets them first and keeps them: a hot row
+//     costs one add a block, not one an occurrence serialised in L2.
+//     Shared-memory float atomics are compare-and-swap loops on sm_90a,
+//     so a block whose run is short keeps no table;
+//   * each thread sums the log-loss of its share of the block's run in
+//     registers, the block reduces them once, and one double atomic
+//     pair lands them in acc.
+// Atomics land in an order that changes from run to run: sums agree
+// with the plain version to float32 rounding.
 //
 // Bound.  Both are memory-bound (a few flops per byte).  K7 reads the
 // planes once (4 B key, 4 B x if given, 1 or 4 B field per slot), and
@@ -88,30 +120,45 @@
 // multiply-adds an example at the flagship and idles behind one
 // field's E threads (21x its bound).  The lists cut each walk to the
 // field's own slots; a warp an example packs four into a block, and a
-// block an example at B = 512 keeps all 132 SMs fed.  K8 keeps one
-// block per example.
+// block an example at B = 512 keeps all 132 SMs fed.  Why K8's table:
+// a block of 256 threads an example, each slot's 1 + E scalar atomics
+// straight to device memory, took wide_deep's 65,536-row batch 0.517 ms
+// against dcn's 0.220 with no hot plane: its hot rows' atomics
+// serialised in L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "stage.cuh"
 
 namespace {
 
-constexpr int kGradThreads = 256;
-// K8's block stages 12 B a slot (key, x, field) in dynamic shared
-// memory, within the 48 KiB a block gets without the opt-in, less 64 B
-// kept for its static shared memory (two partial sums): the widest row
-// either kernel stages in shared memory (K7's warp stage below fits it
-// with the opt-in).  A wider row takes the device-memory stage in both
-// kernels (stage.cuh: one a group in K7, one a block in K8; K7's
-// counting-sort atomics then land in device memory).
-constexpr int kBytesPerSlot = 12;
-constexpr int kStageBytes = 48 * 1024 - 64;
-constexpr int kMaxSlots = kStageBytes / kBytesPerSlot;
-constexpr int kBlocksPerSm = 16;
+// K7 stages a row in shared memory up to kMaxSlots slots (4,090: 16 B
+// a slot and a chunk of field counts, a group's stage, with the opt-in
+// past 48 KiB); a wider row takes its device-memory stage (stage.cuh:
+// one a group, the counting sort's atomics then in device memory).
+constexpr int kMaxSlots = 4090;
+// K8: one block of 32 warps an SM, its table of at most kGradEntries
+// destinations within kGradSmem beside the warps' stages (a warp stages
+// kGradChunk slots at a time, 12 B each); four warps a block where the
+// batch would leave SMs without a block, and no table where a block
+// walks fewer than kGradTableRows examples (a 512-row slice: its init
+// and flush cost more than its few repeats save).  Why one large block
+// an SM (wide_deep's remap-ordered 65,536-row batch, H100 80GB HBM3 at
+// 700 W): 0.145 ms against 0.201 for two blocks of 16 warps with 1,536
+// entries each, 0.191 with 2,048 each and 0.301 for four blocks of 8
+// warps with 768; all its warps share one table, so a hot row lands
+// once an SM.  dcn and two_tower (40 cold slots) took 5-6 % longer that
+// way (0.136 / 0.109 against 0.130 / 0.102).
+constexpr int kGradWarps = 32;
+constexpr int kGradSmallWarps = 4;
+constexpr int kGradChunk = 128;
+constexpr int kGradEntries = 4096;
+constexpr int kGradTableRows = 32;
+constexpr size_t kGradSmem = 216 * 1024;
 // K7: four warps a block, pooling four examples (a warp each) or, where
 // a batch would leave the card's SMs under two blocks each (B = 512),
 // one (all four warps).  A group's stage: 16 B a slot (key, x, field,
@@ -350,86 +397,223 @@ pool_kernel(const Planes p, int bf16, const float* __restrict__ w,
   }
 }
 
-// kGlobalStage: the blocks' stages in the device-memory scratch
-// `gstage` (header); else in shared memory.
-template <typename LW, bool kGlobalStage>
-__global__ void __launch_bounds__(kGradThreads)
+// K8's table (header): `entries` keys (the destination: row * 2 + 1 for
+// the head, row * 2 for the cold one; kEmpty when free) and `entries`
+// x (1 + E) float sums (w's, then E of emb's).  Returns the entry of
+// `tag`: its one slot when that holds `tag` or is free (claimed with
+// atomicCAS), else -1 (the occurrence adds to device memory directly).
+constexpr unsigned kEmpty = 0xFFFFFFFFu;
+
+__device__ __forceinline__ int table_entry(unsigned* key, int entries,
+                                           unsigned tag) {
+  const unsigned e =
+      __umulhi(tag * 2654435761u, static_cast<unsigned>(entries));
+  const unsigned k = *reinterpret_cast<volatile unsigned*>(key + e);
+  if (k == tag) return static_cast<int>(e);
+  if (k == kEmpty) {
+    const unsigned old = atomicCAS(key + e, kEmpty, tag);
+    if (old == kEmpty || old == tag) return static_cast<int>(e);
+  }
+  return -1;
+}
+
+// VW consecutive gradient floats into device memory: one 16-byte vector
+// reduction (VW = 4, dst 16-byte aligned) or a scalar atomic.
+template <int VW>
+__device__ __forceinline__ void red_vec(float* dst, const float* g) {
+  if constexpr (VW == 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(g[0], g[1], g[2], g[3]));
+  } else {
+    atomicAdd(dst, g[0]);
+  }
+}
+
+// K8 (header): blocks of `warps` warps, each walking examples
+// [blockIdx.x * per_block, + per_block); `entries` 0: no table.  VW
+// floats an emb item (4: E % 4 == 0, dP and the emb buffers 16-byte
+// aligned).
+template <typename LW, int VW>
+__global__ void __launch_bounds__(32 * kGradWarps)
 pool_grad_kernel(const Planes p, int bf16, const float* __restrict__ dP,
                  const float* __restrict__ r, const float* __restrict__ logit,
                  const LW* __restrict__ labels, const LW* __restrict__ weights,
                  const int* __restrict__ slots, float* __restrict__ gw,
                  float* __restrict__ gemb, float* __restrict__ hgw,
                  float* __restrict__ hgemb, int E, double* __restrict__ acc,
-                 int B, int* __restrict__ gstage) {
-  extern __shared__ int grad_smem[];
+                 int B, int per_block, int entries) {
+  constexpr int kItems = VW == 4 ? 4 : 8;  // a lane's items in flight
+  extern __shared__ __align__(16) unsigned grad_smem[];
+  __shared__ float part_ll[32];
+  __shared__ float part_w[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int stride = 1 + E;
+  unsigned* tkey = grad_smem;
+  float* tval = reinterpret_cast<float*>(tkey + entries);
+  int* sdst = reinterpret_cast<int*>(tval + static_cast<size_t>(entries) * stride) +
+              warp * 3 * kGradChunk;
+  float* sx = reinterpret_cast<float*>(sdst + kGradChunk);
+  int* sfld = reinterpret_cast<int*>(sx + kGradChunk);
+  const long long b0 = static_cast<long long>(blockIdx.x) * per_block;
+  const long long b1 = b0 + per_block < B ? b0 + per_block : B;
+  // the log-loss inputs of this thread's first example, read now so
+  // that their round trip overlaps the walk (a block of a short run
+  // has one example a thread)
+  const long long lb = b0 + threadIdx.x;
+  float lg0 = 0.0f, y0 = 0.0f, wt0 = 0.0f;
+  if (lb < b1) {
+    lg0 = logit[lb];
+    y0 = static_cast<float>(labels[lb]);
+    wt0 = static_cast<float>(weights[lb]);
+  }
+  for (int i = threadIdx.x; i < entries; i += blockDim.x) tkey[i] = kEmpty;
+  for (int i = threadIdx.x; i < entries * stride; i += blockDim.x) tval[i] = 0.0f;
+  if (entries > 0) __syncthreads();  // entries is block-uniform
   const int n = p.KH + p.K;
-  int* sdst;
-  if constexpr (kGlobalStage) {
-    sdst = gstage + static_cast<long long>(blockIdx.x) *
-                        global_stride_words(kBytesPerSlot / 4 * n);
-  } else {
-    sdst = grad_smem;
-  }
-  float* sx = reinterpret_cast<float*>(sdst + n);
-  int* sfld = reinterpret_cast<int*>(sx + n);
-  __shared__ float part_ll, part_w;
-  if (threadIdx.x == 0) {
-    part_ll = 0.0f;
-    part_w = 0.0f;
-  }
   const int outs = p.F * E;
-  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
-    __syncthreads();  // the previous example's stage is read out
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      float xv;
-      int f;
-      const int key = slot_of(p, b, j, xv, f);
-      int dst = key;
-      if (key >= 0 && j >= p.KH && slots != nullptr) {
-        dst = slots[b * p.K + (j - p.KH)];  // -1: a key K4 took for padding
-      }
-      sdst[j] = dst;
-      sx[j] = xv;
-      sfld[j] = dst < 0 ? -1 : f;
+  const int groups = E / VW;
+  const int q32 = 32 / groups, r32 = 32 % groups;  // 32 items on
+  const int i0 = lane / groups, g0 = lane - i0 * groups;
+  // a slot's gradient: into its table entry, or into device memory
+  auto land = [&](int dst, bool hot, int at, const float* g, int width) {
+    const int e = entries > 0
+                      ? table_entry(tkey, entries,
+                                    static_cast<unsigned>(dst) * 2u + (hot ? 1u : 0u))
+                      : -1;
+    if (e >= 0) {
+      float* ev = tval + static_cast<size_t>(e) * stride + at;
+      for (int k = 0; k < width; ++k) atomicAdd(ev + k, g[k]);
+    } else if (at == 0) {
+      atomicAdd((hot ? hgw : gw) + dst, g[0]);
+    } else {
+      red_vec<VW>((hot ? hgemb : gemb) + static_cast<long long>(dst) * E + at - 1, g);
     }
-    __syncthreads();
+  };
+  for (long long b = b0 + warp; b < b1; b += warps) {
     const float rb = r[b];
-    if (gw != nullptr) {
-      for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        const int dst = sdst[j];
-        if (dst < 0) continue;
-        const bool hot = j < p.KH;
-        const float g = sx[j] * rb;
-        atomicAdd((hot ? hgw : gw) + dst, hot && bf16 ? bf16_round(g) : g);
-      }
-    }
     const float* drow = dP + b * outs;
-    for (int t = threadIdx.x; t < n * E; t += blockDim.x) {
-      const int j = t / E;
-      const int e = t - j * E;
-      const int f = sfld[j];
-      if (f < 0) continue;
-      const bool hot = j < p.KH;
-      const float g = sx[j] * drow[f * E + e];
-      float* grow = (hot ? hgemb : gemb) + static_cast<long long>(sdst[j]) * E;
-      atomicAdd(grow + e, hot && bf16 ? bf16_round(g) : g);
-    }
-    if (threadIdx.x == 0) {
-      const float lg = logit[b];
-      float pc = 1.0f / (1.0f + expf(-lg));
-      if (lg < -30.0f) pc = 1e-6f;
-      if (lg > 30.0f) pc = 1.0f;
-      pc = fminf(fmaxf(pc, kLoglossEps), kLoglossHi);
-      const float y = static_cast<float>(labels[b]);
-      const float wt = static_cast<float>(weights[b]);
-      part_ll += -(y * logf(pc) + (1.0f - y) * logf(1.0f - pc)) * wt;
-      part_w += wt;
+    for (int c0 = 0; c0 < n; c0 += kGradChunk) {
+      const int cn = n - c0 < kGradChunk ? n - c0 : kGradChunk;
+      __syncwarp();  // the previous chunk's stage is read out
+      for (int i = lane; i < cn; i += 32) {
+        const int j = c0 + i;
+        float xv;
+        int f;
+        const int key = slot_of(p, b, j, xv, f);
+        int dst = key;
+        if (j >= p.KH && slots != nullptr) {  // read beside the key, not after it
+          const int slot = slots[b * p.K + (j - p.KH)];  // -1: a key K4 took for padding
+          if (key >= 0) dst = slot;
+        }
+        sdst[i] = dst;
+        sx[i] = xv;
+        sfld[i] = dst < 0 ? -1 : f;
+      }
+      __syncwarp();
+      // emb: every dP load of the chunk issued, then the adds; the
+      // lane's items are (slot, group) i * groups + g = lane, lane + 32,
+      // ..., stepped without a division
+      const int items = cn * groups;
+      int ii = i0, gg = g0;
+      for (int base = 0; base < items; base += 32 * kItems) {
+        float val[kItems][VW];
+        int si[kItems], sg[kItems];  // the item's slot (-1: none) and group
+#pragma unroll
+        for (int u = 0; u < kItems; ++u) {
+          const int i = ii, g = gg;
+          ii += q32;
+          gg += r32;
+          if (gg >= groups) {
+            gg -= groups;
+            ++ii;
+          }
+          si[u] = -1;
+          sg[u] = g;
+          if (i < cn) {
+            const int f = sfld[i];
+            if (f >= 0) {
+              si[u] = i;
+              const float* src = drow + f * E + g * VW;
+              if constexpr (VW == 4) {
+                const float4 q = *reinterpret_cast<const float4*>(src);
+                val[u][0] = q.x;
+                val[u][1] = q.y;
+                val[u][2] = q.z;
+                val[u][3] = q.w;
+              } else {
+                val[u][0] = *src;
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kItems; ++u) {
+          if (si[u] < 0) continue;
+          const int i = si[u];
+          const int g = sg[u];
+          const bool hot = c0 + i < p.KH;
+          float gv[VW];
+#pragma unroll
+          for (int k = 0; k < VW; ++k) {
+            const float t = sx[i] * val[u][k];
+            gv[k] = hot && bf16 ? bf16_round(t) : t;
+          }
+          land(sdst[i], hot, 1 + g * VW, gv, VW);
+        }
+      }
+      // w: a lane a slot
+      if (gw != nullptr) {
+        for (int i = lane; i < cn; i += 32) {
+          const int dst = sdst[i];
+          if (dst < 0) continue;
+          const bool hot = c0 + i < p.KH;
+          const float t = sx[i] * rb;
+          const float g = hot && bf16 ? bf16_round(t) : t;
+          land(dst, hot, 0, &g, 1);
+        }
+      }
     }
   }
-  __syncthreads();
+  // the log-loss of the block's run, a thread an example
+  float ll = 0.0f, wsum = 0.0f;
+  for (long long b = lb; b < b1; b += blockDim.x) {
+    const float lg = b == lb ? lg0 : logit[b];
+    const float y = b == lb ? y0 : static_cast<float>(labels[b]);
+    const float wt = b == lb ? wt0 : static_cast<float>(weights[b]);
+    float pc = 1.0f / (1.0f + expf(-lg));
+    if (lg < -30.0f) pc = 1e-6f;
+    if (lg > 30.0f) pc = 1.0f;
+    pc = fminf(fmaxf(pc, kLoglossEps), kLoglossHi);
+    ll += -(y * logf(pc) + (1.0f - y) * logf(1.0f - pc)) * wt;
+    wsum += wt;
+  }
+  ll = warp_sum(ll);
+  wsum = warp_sum(wsum);
+  if (lane == 0) {
+    part_ll[warp] = ll;
+    part_w[warp] = wsum;
+  }
+  __syncthreads();  // every warp's adds into the table are done too
   if (threadIdx.x == 0) {
-    atomicAdd(acc, static_cast<double>(part_ll));
-    atomicAdd(acc + 1, static_cast<double>(part_w));
+    float tl = 0.0f, tw = 0.0f;
+    for (int i = 0; i < warps; ++i) {
+      tl += part_ll[i];
+      tw += part_w[i];
+    }
+    atomicAdd(acc, static_cast<double>(tl));
+    atomicAdd(acc + 1, static_cast<double>(tw));
+  }
+  // the flush: a thread an entry, w's sum and its emb row's
+  for (int e = threadIdx.x; e < entries; e += blockDim.x) {
+    const unsigned tag = tkey[e];
+    if (tag == kEmpty) continue;
+    const long long dst = tag >> 1;
+    const bool hot = (tag & 1u) != 0;
+    const float* ev = tval + static_cast<size_t>(e) * stride;
+    if (gw != nullptr) atomicAdd((hot ? hgw : gw) + dst, ev[0]);
+    float* row = (hot ? hgemb : gemb) + dst * E;
+    for (int g = 0; g < groups; ++g) red_vec<VW>(row + g * VW, ev + 1 + g * VW);
   }
 }
 
@@ -445,10 +629,52 @@ int sm_count() {
   return sms;
 }
 
-// K8's grid: a block per example, at most kBlocksPerSm an SM.
-int grid_for(int B) {
-  const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSm;
-  return static_cast<int>(B < cap ? B : cap);
+struct GradShape {
+  int grid, warps, per_block, entries;
+  size_t smem;
+};
+
+// K8's launch for B rows of n slots at width E (header): warps a block,
+// the blocks (at most one an SM, each a contiguous run of per_block
+// examples, none empty), the table's entries (at most kGradEntries and
+// twice the slots a block walks, within kGradSmem and the card's
+// opt-in beside the warps' stages; 0: off, where the block walks fewer
+// than kGradTableRows examples or fewer than 32 entries fit) and the
+// dynamic shared memory (launch_grad opts the kernel in past 48 KB).
+GradShape grad_shape(int B, int n, int E) {
+  const long long sms = sm_count();
+  GradShape t{};
+  t.warps = (B + kGradWarps - 1) / kGradWarps >= sms ? kGradWarps : kGradSmallWarps;
+  const long long want = (static_cast<long long>(B) + t.warps - 1) / t.warps;
+  const long long grid = want < sms ? want : sms;
+  t.per_block = static_cast<int>((B + grid - 1) / grid);
+  t.grid = (B + t.per_block - 1) / t.per_block;
+  const size_t stages = static_cast<size_t>(t.warps) * 3 * kGradChunk * 4;
+  const size_t entry = 4 * (2 + static_cast<size_t>(E));  // key, w, emb
+  const size_t budget = std::min(kGradSmem, stage::optin_bytes() - 1024);  // 1 KB: the static part
+  const long long fit = static_cast<long long>((budget - stages) / entry);
+  long long e = t.per_block >= kGradTableRows ? kGradEntries : 0;
+  if (e > 2LL * t.per_block * n) e = 2LL * t.per_block * n;
+  if (e > fit) e = fit;
+  t.entries = e >= 32 ? static_cast<int>(e) : 0;
+  t.smem = stages + t.entries * entry;
+  return t;
+}
+
+template <typename LW, int VW>
+void launch_grad(const GradShape& t, cudaStream_t s, const Planes& p, int bf16,
+                 const float* dP, const float* r, const float* logit,
+                 const void* const* lw, const int* slots, float* gw, float* gemb,
+                 float* hgw, float* hgemb, int E, double* acc, int B) {
+  if (t.smem > static_cast<size_t>(kSmallSmem)) {
+    cudaFuncSetAttribute(pool_grad_kernel<LW, VW>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(t.smem));
+  }
+  pool_grad_kernel<LW, VW><<<t.grid, 32 * t.warps, t.smem, s>>>(
+      p, bf16, dP, r, logit, static_cast<const LW*>(lw[0]),
+      static_cast<const LW*>(lw[1]), slots, gw, gemb, hgw, hgemb, E, acc, B,
+      t.per_block, t.entries);
 }
 
 struct PoolShape {
@@ -499,8 +725,8 @@ int pool_shape(int n, PoolShape* out) {
 
 }  // namespace
 
-// The widest row (hot + cold slots) K7 and K8 stage in shared memory;
-// wider rows take the device-memory stage.
+// The widest row (hot + cold slots) K7 stages in shared memory; wider
+// rows take its device-memory stage.
 extern "C" int xf_pool_max_slots() { return kMaxSlots; }
 
 namespace {
@@ -513,41 +739,34 @@ int pool_groups(int B, int fit_groups) {
              : 1;
 }
 
-// The device-memory form of K7 (kernel 0) or K8 (kernel 1) for B rows
-// of n slots: the grid and the scratch bytes (0: the row fits the
-// shared-memory stage).
-int pool_plan(int kernel, int B, int n, size_t* bytes) {
+// The device-memory form of K7 for B rows of n slots: the grid and the
+// scratch bytes (0: the row fits the shared-memory stage).
+int pool_plan(int B, int n, size_t* bytes) {
   *bytes = 0;
   if (n <= kMaxSlots) return 0;
-  if (kernel == 0) {
-    const int groups = pool_groups(B, kPoolWarps);
-    const size_t per = 4 * static_cast<size_t>(global_stride_words(pool_stage_words(n)));
-    const int grid = stage::blocks((static_cast<long long>(B) + groups - 1) / groups,
-                                   32 * kPoolWarps, groups * per);
-    *bytes = static_cast<size_t>(grid) * groups * per;
-    return grid;
-  }
-  const size_t per = 4 * static_cast<size_t>(global_stride_words(kBytesPerSlot / 4 * n));
-  const int grid = stage::blocks(B, kGradThreads, per);
-  *bytes = static_cast<size_t>(grid) * per;
+  const int groups = pool_groups(B, kPoolWarps);
+  const size_t per = 4 * static_cast<size_t>(global_stride_words(pool_stage_words(n)));
+  const int grid = stage::blocks((static_cast<long long>(B) + groups - 1) / groups,
+                                 32 * kPoolWarps, groups * per);
+  *bytes = static_cast<size_t>(grid) * groups * per;
   return grid;
 }
 
 }  // namespace
 
-// The device-memory scratch K7 (kernel 0) or K8 (kernel 1) needs for B
-// rows of K + KH slots (bytes; 0: none).
-extern "C" long long xf_pool_stage_bytes(int kernel, int B, int K, int KH) {
+// The device-memory scratch K7 needs for B rows of K + KH slots (bytes;
+// 0: none).  K8 needs none: a warp stages kGradChunk slots at a time.
+extern "C" long long xf_pool_stage_bytes(int B, int K, int KH) {
   size_t bytes = 0;
-  if (B > 0) pool_plan(kernel, B, K + (KH > 0 ? KH : 0), &bytes);
+  if (B > 0) pool_plan(B, K + (KH > 0 ? KH : 0), &bytes);
   return static_cast<long long>(bytes);
 }
 
 // Launches K7 on `stream`: pooled [B, F, E] and, with w, wide [B]
 // (header).  KH = 0: no hot plane (hot, hot_x, hot_fields unread);
 // snap_emb null: the live tables (else window-start mode, H rows).  A
-// row past kMaxSlots stages in `gstage`, xf_pool_stage_bytes(0, ...)
-// of device memory.  Returns cudaGetLastError() after the launch (0 =
+// row past kMaxSlots stages in `gstage`, xf_pool_stage_bytes(...) of
+// device memory.  Returns cudaGetLastError() after the launch (0 =
 // launched), cudaErrorInvalidValue for such a row without its scratch.
 extern "C" int xf_field_pool(const int* keys, const float* x,
                              const void* fields, const void* hot,
@@ -563,7 +782,7 @@ extern "C" int xf_field_pool(const int* keys, const float* x,
                  K, KH > 0 ? KH : 0, H, hot_u16, f_i32, F};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   size_t global_bytes = 0;
-  const int global_grid = pool_plan(0, B, K + p.KH, &global_bytes);
+  const int global_grid = pool_plan(B, K + p.KH, &global_bytes);
   if (global_bytes > 0) {
     if (gstage == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     pool_kernel<true><<<global_grid, 32 * kPoolWarps, 0, s>>>(
@@ -589,9 +808,7 @@ extern "C" int xf_field_pool(const int* keys, const float* x,
 // the keys' rows (dense) or at K4's slots (slots not null, index mode;
 // hot slots always at their key in hgw / hgemb), and acc [2] += the
 // log-loss and weight sums.  labels/weights are u8 when lw_u8 != 0,
-// else f32.  A row past kMaxSlots stages in `gstage`,
-// xf_pool_stage_bytes(1, ...) of device memory.  Returns
-// cudaGetLastError() after the launch.
+// else f32.  Returns cudaGetLastError() after the launch.
 extern "C" int xf_field_pool_grad(const int* keys, const float* x,
                                   const void* fields, const void* hot,
                                   const float* hot_x, const void* hot_fields,
@@ -602,38 +819,31 @@ extern "C" int xf_field_pool_grad(const int* keys, const float* x,
                                   int lw_u8, const int* slots, float* gw,
                                   float* gemb, float* hgw, float* hgemb,
                                   int E, double* acc, int B, int K,
-                                  void* gstage, void* stream) {
+                                  void* stream) {
   if (B <= 0) return 0;
   const Planes p{keys, x, fields, hot, hot_x, hot_fields,
                  K, KH > 0 ? KH : 0, H, hot_u16, f_i32, F};
-  size_t global_bytes = 0;
-  const int global_grid = pool_plan(1, B, K + p.KH, &global_bytes);
-  if (global_bytes > 0 && gstage == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int* scratch = static_cast<int*>(gstage);
-  const size_t smem = static_cast<size_t>(kBytesPerSlot) * (K + p.KH);
+  const GradShape t = grad_shape(B, K + p.KH, E);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* lab8 = static_cast<const std::uint8_t*>(labels);
-  const auto* wt8 = static_cast<const std::uint8_t*>(weights);
-  const auto* lab32 = static_cast<const float*>(labels);
-  const auto* wt32 = static_cast<const float*>(weights);
-  if (global_bytes > 0 && lw_u8 != 0) {
-    pool_grad_kernel<std::uint8_t, true><<<global_grid, kGradThreads, 0, s>>>(
-        p, hot_bf16, dP, r, logit, lab8, wt8, slots, gw, gemb, hgw, hgemb, E,
-        acc, B, scratch);
-  } else if (global_bytes > 0) {
-    pool_grad_kernel<float, true><<<global_grid, kGradThreads, 0, s>>>(
-        p, hot_bf16, dP, r, logit, lab32, wt32, slots, gw, gemb, hgw, hgemb, E,
-        acc, B, scratch);
+  // 16-byte items where E, dP and every emb buffer allow them
+  const auto aligned = [](const void* q) {
+    return (reinterpret_cast<std::uintptr_t>(q) & 15u) == 0;
+  };
+  const bool vec = E % 4 == 0 && aligned(dP) && aligned(gemb) &&
+                   (hgemb == nullptr || aligned(hgemb));
+  const void* lw[2] = {labels, weights};
+  if (lw_u8 != 0 && vec) {
+    launch_grad<std::uint8_t, 4>(t, s, p, hot_bf16, dP, r, logit, lw, slots, gw, gemb,
+                                 hgw, hgemb, E, acc, B);
   } else if (lw_u8 != 0) {
-    pool_grad_kernel<std::uint8_t, false><<<grid_for(B), kGradThreads, smem, s>>>(
-        p, hot_bf16, dP, r, logit, lab8, wt8, slots, gw, gemb, hgw, hgemb, E,
-        acc, B, nullptr);
+    launch_grad<std::uint8_t, 1>(t, s, p, hot_bf16, dP, r, logit, lw, slots, gw, gemb,
+                                 hgw, hgemb, E, acc, B);
+  } else if (vec) {
+    launch_grad<float, 4>(t, s, p, hot_bf16, dP, r, logit, lw, slots, gw, gemb, hgw,
+                          hgemb, E, acc, B);
   } else {
-    pool_grad_kernel<float, false><<<grid_for(B), kGradThreads, smem, s>>>(
-        p, hot_bf16, dP, r, logit, lab32, wt32, slots, gw, gemb, hgw, hgemb, E,
-        acc, B, nullptr);
+    launch_grad<float, 1>(t, s, p, hot_bf16, dP, r, logit, lw, slots, gw, gemb, hgw,
+                          hgemb, E, acc, B);
   }
   return static_cast<int>(cudaGetLastError());
 }

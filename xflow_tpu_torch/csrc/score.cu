@@ -47,18 +47,41 @@
 // launch latency, not by the card.  The arithmetic (4D + 2 flops per
 // live slot) is negligible.
 //
-// Design (first, simple and right): one warp per example.  Lanes
-// stride over the K slots, so the keys of one example are read
-// coalesced; each live slot reads its w entry and its D-float v row
-// and accumulates linear, s[d] and s2[d] in registers, CAP factors at
-// a time (CAP = 8, 16 or 32, unrolled and guarded by the runtime D):
-// a v wider than 32 runs in tiles of 32 factors, each re-reading the
-// slots' keys (from L1/L2), so any D the reference accepts runs with
-// the same registers.  Warp butterfly shuffles reduce the lanes; lane
-// 0 forms the logit and the clamped sigmoid.  Nothing goes back to
-// device memory between the gather and the score.  A padding slot is
-// skipped before any table read: the JAX path reads row 0 and masks it
-// out, this kernel never reads it.  Sums run in another order than the
+// Design: one warp per example, four examples a block, and every table
+// read of an example in flight at once: the chain is two device-memory
+// round trips (the keys, then the rows), whatever K, KH and D are.
+//   1. Lanes stride over the KH + K slots and read the keys, x and the
+//      hot plane's decode in one coalesced pass (entry_key: a hot key
+//      >= H is padding) into the warp's stage in shared memory.
+//   2. Lane (p, g) copies factor group g of slots p, p + P, ... (P =
+//      32 / groups; lanes stride over the (slot, group) items past 32
+//      groups) into the stage with cp.async, in groups of VW = 4, 2 or
+//      1 floats as D and v's alignment allow (a D = 10 row is five
+//      8-byte copies); no register waits on them.  A padding slot's
+//      row is zeros in the stage and its x 0, so step 4 has no branch.
+//   3. Lanes stride over the slots again for w, whose reads fly beside
+//      the copies, and sum the linear term.
+//   4. After cp.async.wait_all, lane (q, d) sums factor d's s and s2
+//      over every Q-th slot from the stage (Q = 32 / D lane groups for
+//      D <= 16, else one lane a factor, lanes looping over d past 32),
+//      the Q partial sums meet by shuffles in group order, and each
+//      factor's s^2 - s2 joins the linear term in one warp butterfly.
+// LR (no v) stages nothing and is its own instantiation (VW = 0): a
+// lane reads each of its slots' key and then its w, the first form's
+// loop, two slots a lane in flight at K = 40.  Run through the FM
+// form's stage, or inside the FM form's instantiation, LR took 13-15 %
+// longer at the 16,384-row eval batch (0.0177-0.0179 ms against 0.0156,
+// H100 80GB HBM3 at 700 W).
+// A row of more slots than the stage holds (kFmWarpBudget a warp: 254
+// slots at D = 10, 44 at D = 64) runs in chunks of slots, each one
+// such pair of round trips, the sums carried in the stage; so no row
+// width is refused, and D is limited only by one slot's stage fitting
+// a block (12 D + 8 bytes: about 19,000 factors).  Lane 0 forms the
+// logit and the clamped sigmoid.  Nothing goes back to device memory
+// between the gather and the score.  A padding slot is skipped before
+// any table read: the JAX path reads row 0 and masks it out, this
+// kernel never reads it.  With hot_bf16 a hot slot's w and v values are
+// rounded as they leave the stage.  Sums run in another order than the
 // plain version (and contract to FMA), so results agree to float
 // rounding, not bitwise.
 //
@@ -79,9 +102,19 @@
 // 1/2 (cross - diag) over the slots whose field lies in [0, S).  With
 // the hot plane, hot_bf16 rounds w's hot rows alone: FFM's v opts out
 // of the hot path (TableSpec.hot=False), so its hot rows are read as
-// they are.  Bound: the keys (and x), the fields, each distinct row's
-// 4 + 4 S D B and 4B out; bytes bound it, and at serving sizes the
-// launch does.
+// they are.  Where one tile holds D and the example's rows fit beside
+// the sums (the flagship: 40 rows of 39 x 4 floats, 24,960 B, beside
+// 25,104 B of sums and slots, with the opt-in past 48 KB), the block
+// first copies every live slot's v row into shared memory with
+// cp.async, all in flight together, and w's reads fly beside them; the
+// sums then walk shared memory (where the batch fits one wave of
+// blocks: rows_staged).  K2's walk (ffm.cuh) reads v kAhead = 4
+// slots ahead from device memory, ten dependent round trips at n = 40:
+// K2 runs many blocks an SM and its registers bound the read-ahead,
+// while K1 runs one block an example.  Other shapes (D in tiles, rows
+// past the opt-in) keep that walk.  Bound: the keys (and x), the
+// fields, each distinct row's 4 + 4 S D B and 4B out; bytes bound it,
+// and at serving sizes the launch does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,9 +127,12 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kWarpsPerBlock = 4;  // the LR/FM form's, at most
 constexpr int kThreads = 32 * kWarpsPerBlock;
 constexpr int kMvmWarps = 8;  // at most, as the stage fits (mvm.cuh)
+// The LR/FM form's stage a warp: the rows of a chunk of slots, each
+// factor's s and s2, and the chunk's keys and x (fm_warp_bytes).
+constexpr size_t kFmWarpBudget = 12 * 1024;
 
 using mvm::bf16_round;
 using mvm::warp_sum;
@@ -132,67 +168,171 @@ __device__ __forceinline__ void write_score(float logit, float* pctr,
   if (logit_out != nullptr) logit_out[b] = logit;
 }
 
-template <int CAP>
+__host__ __device__ inline size_t align16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// A warp's LR/FM stage for chunks of `chunk` slots at v width D: the
+// rows [chunk][D] (first: cp.async wants them 16-byte aligned), s [D],
+// s2 [D], key [chunk], x [chunk].
+__host__ __device__ inline size_t fm_warp_bytes(int chunk, int D) {
+  return align16(4 * static_cast<size_t>(chunk) * D + 8 * static_cast<size_t>(D) +
+                 8 * static_cast<size_t>(chunk));
+}
+
+// Slots a warp stages at once: as many of the row's n as kFmWarpBudget
+// holds, at least one.
+inline int fm_chunk(int n, int D) {
+  const size_t per_slot = 8 + 4 * static_cast<size_t>(D);
+  const size_t fixed = 8 * static_cast<size_t>(D);
+  const long long fit =
+      kFmWarpBudget > fixed ? static_cast<long long>((kFmWarpBudget - fixed) / per_slot) : 0;
+  const long long c = fit < n ? fit : n;
+  return static_cast<int>(c > 1 ? c : 1);
+}
+
+// An asynchronous copy of kBytes (4, 8 or 16, both addresses aligned to
+// it) from device memory into shared memory; cp_async_wait_all waits
+// for this thread's copies.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(to), "l"(src),
+               "n"(kBytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The LR/FM form (header): VW floats a v copy (D % VW == 0, v aligned to
+// 4 VW bytes); VW = 0 for LR (D = 0).
+template <int VW>
 __global__ void __launch_bounds__(kThreads)
 score_kernel(const int* __restrict__ keys, const float* __restrict__ x,
              const void* __restrict__ hot, const float* __restrict__ hot_x,
              int hot_u16, int H, int hot_bf16,
              const float* __restrict__ w, const float* __restrict__ v,
              float* __restrict__ pctr, float* __restrict__ logit_out,
-             int B, int K, int KH, int D) {
+             int B, int K, int KH, int D, int chunk) {
+  extern __shared__ __align__(16) char fm_smem[];
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= B) return;  // b is warp-uniform: whole warps leave together
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;  // warp-uniform; the kernel has no block barrier
   const long long row = static_cast<long long>(b) * K;
   const int* krow = keys + row;
   const float* xrow = x != nullptr ? x + row : nullptr;
-
+  const int n = KH + K;
   float lin = 0.0f;
-  float inter = 0.0f;
-  float s[CAP > 0 ? CAP : 1];
-  float s2[CAP > 0 ? CAP : 1];
-  const int tiles = CAP > 0 ? (D + CAP - 1) / CAP : 1;
-  for (int t = 0; t < tiles; ++t) {
-    const int d0 = t * CAP;
-#pragma unroll
-    for (int d = 0; d < CAP; ++d) {
+  if constexpr (VW == 0) {  // LR: a key's w read follows it, two slots a lane in flight
+    for (int j = lane; j < n; j += 32) {
+      float xv;
+      bool to_bf16;
+      const int key = entry_key(krow, xrow, hot, hot_x, hot_u16, H, hot_bf16, b, KH, j,
+                                xv, to_bf16);
+      if (key < 0) continue;  // padding: never read, never counted
+      const float wv = w[key];
+      lin += (to_bf16 ? bf16_round(wv) : wv) * xv;
+    }
+    lin = warp_sum(lin);
+    if (lane == 0) write_score(lin, pctr, logit_out, b);
+    return;
+  } else {
+    float* rows = reinterpret_cast<float*>(fm_smem + warp * fm_warp_bytes(chunk, D));
+    float* s = rows + static_cast<size_t>(chunk) * D;
+    float* s2 = s + D;
+    int* skey = reinterpret_cast<int*>(s2 + D);
+    float* sx = reinterpret_cast<float*>(skey + chunk);
+    const int groups = D / VW;  // v copies a slot
+    // lane (q, dd) sums factor dd over the slots q, q + Q, ... of a chunk
+    const bool split = D <= 16;
+    const int Q = split ? 32 / D : 1;
+    const int q = split ? lane / D : 0;
+    const int dd = split ? lane - q * D : lane;
+    for (int d = lane; d < D; d += 32) {
       s[d] = 0.0f;
       s2[d] = 0.0f;
     }
-    for (int j = lane; j < KH + K; j += 32) {
-      float xv;
-      bool to_bf16;
-      const int key = entry_key(krow, xrow, hot, hot_x, hot_u16, H, hot_bf16,
-                                b, KH, j, xv, to_bf16);
-      if (key < 0) continue;  // padding: never read, never counted
-      if (t == 0) {
-        const float wv = w[key];
-        lin += (to_bf16 ? bf16_round(wv) : wv) * xv;
+    for (int c0 = 0; c0 < n; c0 += chunk) {
+      const int cn = min(chunk, n - c0);
+      __syncwarp();  // the previous chunk's stage is read out
+      for (int i = lane; i < cn; i += 32) {
+        float xv;
+        bool to_bf16;
+        const int key = entry_key(krow, xrow, hot, hot_x, hot_u16, H, hot_bf16, b, KH,
+                                  c0 + i, xv, to_bf16);
+        skey[i] = key;
+        sx[i] = key >= 0 ? xv : 0.0f;  // padding adds exact zeros below
       }
-      if (CAP > 0) {
-        const float* vrow = v + static_cast<long long>(key) * D + d0;
+      __syncwarp();
+      // every v row of the chunk in flight; a padding slot's row is zeros
+      // (never read)
+      auto copy = [&](int i, int g) {
+        const int key = skey[i];
+        float* dst = rows + i * D + g * VW;
+        if (key >= 0) {
+          cp_async<4 * VW>(dst, v + static_cast<long long>(key) * D + g * VW);
+        } else {
 #pragma unroll
-        for (int d = 0; d < CAP; ++d) {
-          if (d0 + d < D) {
-            const float vd = to_bf16 ? bf16_round(vrow[d]) : vrow[d];
-            const float vx = vd * xv;
-            s[d] += vx;
-            s2[d] += vx * vx;
-          }
+          for (int k = 0; k < VW; ++k) dst[k] = 0.0f;
+        }
+      };
+      if (groups <= 32) {  // lane (p, g) copies group g of slots p, p + P, ...
+        const int P = 32 / groups;
+        const int p = lane / groups;
+        if (p < P) {
+          for (int i = p; i < cn; i += P) copy(i, lane - p * groups);
+        }
+      } else {
+        for (int it = lane; it < cn * groups; it += 32) copy(it / groups, it % groups);
+      }
+      // w's reads beside them
+      for (int i = lane; i < cn; i += 32) {
+        const int key = skey[i];
+        if (key < 0) continue;
+        const float wv = w[key];
+        lin += (c0 + i < KH && hot_bf16 ? bf16_round(wv) : wv) * sx[i];
+      }
+      cp_async_wait_all();
+      __syncwarp();  // every lane's copies have landed
+      auto add = [&](int i, int d, float& cs, float& cs2) {
+        const float r = rows[i * D + d];
+        const float vx = (c0 + i < KH && hot_bf16 ? bf16_round(r) : r) * sx[i];
+        cs += vx;
+        cs2 += vx * vx;
+      };
+      if (split) {
+        float cs = 0.0f, cs2 = 0.0f;
+        if (q < Q) {
+#pragma unroll 4
+          for (int i = q; i < cn; i += Q) add(i, dd, cs, cs2);
+        }
+        float ts = 0.0f, ts2 = 0.0f;  // the groups' sums, in group order
+        for (int g = 0; g < Q; ++g) {
+          ts += __shfl_sync(0xffffffffu, cs, g * D + dd);
+          ts2 += __shfl_sync(0xffffffffu, cs2, g * D + dd);
+        }
+        if (q == 0) {
+          s[dd] += ts;
+          s2[dd] += ts2;
+        }
+      } else {
+        for (int d = lane; d < D; d += 32) {
+          float cs = 0.0f, cs2 = 0.0f;
+#pragma unroll 4
+          for (int i = 0; i < cn; ++i) add(i, d, cs, cs2);
+          s[d] += cs;
+          s2[d] += cs2;
         }
       }
     }
-#pragma unroll
-    for (int d = 0; d < CAP; ++d) {
-      if (d0 + d < D) {
-        const float sd = warp_sum(s[d]);
-        const float s2d = warp_sum(s2[d]);
-        inter += sd * sd - s2d;
-      }
-    }
+    float inter = 0.0f;  // each lane's factors: those it summed into s, s2
+    for (int d = lane; d < D; d += 32) inter += s[d] * s[d] - s2[d];
+    const float logit = warp_sum(lin + inter);
+    if (lane == 0) write_score(logit, pctr, logit_out, b);
   }
-  lin = warp_sum(lin);
-  if (lane == 0) write_score(lin + inter, pctr, logit_out, b);
 }
 
 // The MVM form: slot j's v row (the head rows for hot slots, rounded
@@ -280,32 +420,21 @@ score_mvm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
   }
 }
 
-// Row b of the FFM form on the block's stage (ffm.cuh).
-__device__ __forceinline__ void score_ffm_row(
-    const ffm::Stage& s, long long b, const int* keys, const float* x,
-    const void* hot, const float* hot_x, int hot_u16, int H, int hot_bf16,
-    const void* fields, const void* hot_fields, int f_i32, int F,
-    const float* w, const float* v, float* pctr, float* logit_out, int K,
-    int KH, int D, int dt) {
-  const int n = KH + K;
-  const long long row = b * K;
-  float lin = 0.0f;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    float xv;
-    bool to_bf16;
-    const int key = entry_key(keys + row, x != nullptr ? x + row : nullptr, hot,
-                              hot_x, hot_u16, H, hot_bf16, b, KH, j, xv, to_bf16);
-    const int f = mvm::field_of(fields, hot_fields, f_i32, b, K, KH, j);
-    if (key >= 0) {
-      const float wv = w[key];
-      lin += (to_bf16 ? bf16_round(wv) : wv) * xv;
-    }
-    s.key[j] = key;
-    s.x[j] = xv;
-    s.fld[j] = key >= 0 && f >= 0 && f < F ? f : -1;
+// Slot j's v row in K1's own stage of the rows (the FFM form where one
+// tile holds D and the rows fit beside the sums: rows_staged).
+struct StagedRows {
+  const float* rows;
+  int E;
+  __device__ __forceinline__ const float* operator()(int j) const {
+    return rows + static_cast<long long>(j) * E;
   }
-  __syncthreads();
-  const ffm::Rows rows{v, s.key, F * D};
+};
+
+// The pair term 1/2 (cross - diag) of the staged slots, tile by tile
+// (ffm.cuh), each slot's v row from `rows`.
+template <typename Row>
+__device__ __forceinline__ float ffm_pair(const ffm::Stage& s, int n, int F,
+                                          int D, int dt, const Row& rows) {
   float pair = 0.0f;
   for (int d0 = 0; d0 < D; d0 += dt) {
     const int t = min(dt, D - d0);
@@ -314,14 +443,81 @@ __device__ __forceinline__ void score_ffm_row(
     pair += ffm::tile_cross(s, F, t) - diag;
     __syncthreads();  // before the next tile's sums overwrite S
   }
+  return pair;
+}
+
+// Row b of the FFM form on the block's stage (ffm.cuh).  srows not
+// null: every live slot's v row is first copied into it with cp.async
+// (16-byte copies where F D % 4 == 0 and v is aligned), so the row's
+// reads are in flight together and the sums read shared memory, where
+// ffm::tile_sums' walk reads v kAhead slots ahead from device memory.
+// Either way the sums add the same values in the same order.
+__device__ __forceinline__ void score_ffm_row(
+    const ffm::Stage& s, float* srows, long long b, const int* keys,
+    const float* x, const void* hot, const float* hot_x, int hot_u16, int H,
+    int hot_bf16, const void* fields, const void* hot_fields, int f_i32, int F,
+    const float* w, const float* v, float* pctr, float* logit_out, int K,
+    int KH, int D, int dt) {
+  const int n = KH + K;
+  const long long row = b * K;
+  const int E = F * D;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    float xv;
+    bool to_bf16;
+    const int key = entry_key(keys + row, x != nullptr ? x + row : nullptr, hot,
+                              hot_x, hot_u16, H, hot_bf16, b, KH, j, xv, to_bf16);
+    const int f = mvm::field_of(fields, hot_fields, f_i32, b, K, KH, j);
+    s.key[j] = key;
+    s.x[j] = xv;
+    s.fld[j] = key >= 0 && f >= 0 && f < F ? f : -1;
+  }
+  __syncthreads();
+  if (srows != nullptr) {
+    if ((E & 3) == 0 && (reinterpret_cast<std::uintptr_t>(v) & 15u) == 0) {
+      const int groups = E >> 2;
+      for (int it = threadIdx.x; it < n * groups; it += blockDim.x) {
+        const int j = it / groups;
+        const int g = it - j * groups;
+        if (s.fld[j] >= 0) {
+          cp_async<16>(srows + j * E + 4 * g,
+                       v + static_cast<long long>(s.key[j]) * E + 4 * g);
+        }
+      }
+    } else {
+      for (int it = threadIdx.x; it < n * E; it += blockDim.x) {
+        const int j = it / E;
+        const int c = it - j * E;
+        if (s.fld[j] >= 0) {
+          cp_async<4>(srows + it, v + static_cast<long long>(s.key[j]) * E + c);
+        }
+      }
+    }
+  }
+  // the linear term, w's reads beside the copies
+  float lin = 0.0f;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const int key = s.key[j];
+    if (key < 0) continue;
+    const float wv = w[key];
+    lin += (j < KH && hot_bf16 ? bf16_round(wv) : wv) * s.x[j];
+  }
+  float pair;
+  if (srows != nullptr) {
+    cp_async_wait_all();
+    __syncthreads();  // every thread's copies have landed
+    pair = ffm_pair(s, n, F, D, D, StagedRows{srows, E});
+  } else {
+    pair = ffm_pair(s, n, F, D, dt, ffm::Rows{v, s.key, E});
+  }
   const float logit = ffm::block_sum(lin + 0.5f * pair, s.red);
   if (threadIdx.x == 0) write_score(logit, pctr, logit_out, static_cast<int>(b));
 }
 
 // The FFM form: one block per row.  kGlobalStage: the blocks' stages
 // in the device-memory scratch `gstage` (stage.cuh), the grid looping
-// over the rows; else in shared memory.
-template <bool kGlobalStage>
+// over the rows; else in shared memory, with the rows' v staged there
+// too when kStagedRows (rows_staged).
+template <bool kGlobalStage, bool kStagedRows>
 __global__ void __launch_bounds__(ffm::kMaxThreads)
 score_ffm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
                  const void* __restrict__ hot, const float* __restrict__ hot_x,
@@ -336,15 +532,61 @@ score_ffm_kernel(const int* __restrict__ keys, const float* __restrict__ x,
     const ffm::Stage s = ffm::global_stage_at(gstage, blockIdx.x, F, dt, n);
     for (long long b = blockIdx.x; b < B; b += gridDim.x) {
       __syncthreads();  // the previous row's stage and sums are read out
-      score_ffm_row(s, b, keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields,
-                    hot_fields, f_i32, F, w, v, pctr, logit_out, K, KH, D, dt);
+      score_ffm_row(s, nullptr, b, keys, x, hot, hot_x, hot_u16, H, hot_bf16,
+                    fields, hot_fields, f_i32, F, w, v, pctr, logit_out, K, KH,
+                    D, dt);
     }
   } else {
-    extern __shared__ float ffm_smem[];
-    score_ffm_row(ffm::stage_at(ffm_smem, F, dt, n), blockIdx.x, keys, x, hot,
-                  hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32, F, w,
-                  v, pctr, logit_out, K, KH, D, dt);
+    extern __shared__ __align__(16) float ffm_smem[];
+    float* srows = kStagedRows
+                       ? ffm_smem + align16(ffm::stage_bytes(F, n, dt)) / 4
+                       : nullptr;
+    score_ffm_row(ffm::stage_at(ffm_smem, F, dt, n), srows, blockIdx.x, keys, x,
+                  hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32, F,
+                  w, v, pctr, logit_out, K, KH, D, dt);
   }
+}
+
+// K1's FFM stage with the rows beside it: the sums and slots as
+// ffm::stage_bytes, then n rows of F * D floats (one tile holds D).
+inline size_t rows_staged_bytes(int F, int n, int D) {
+  return align16(ffm::stage_bytes(F, n, D)) + 4 * static_cast<size_t>(n) * F * D;
+}
+
+// Whether K1's FFM form stages the rows for B examples: one tile holds
+// D, the rows fit beside the sums in a block's shared memory, and the
+// card holds every block at once.  Past one wave the stage's shared
+// memory (about 4 blocks an SM at the flagship, 9 without it) costs more
+// than the read latency it hides: at the 16,384-row eval batch the
+// staged form took 0.231 ms against the walk's 0.217 (H100 80GB HBM3,
+// 700 W), at 512 rows 0.0152 against 0.0204.  Opts the kernel in to the
+// stage's shared memory; the residency is kept for the last shape.
+inline bool rows_staged(int B, int F, int n, int D, int dt) {
+  if (dt != D) return false;
+  const size_t smem = rows_staged_bytes(F, n, D);
+  if (smem > stage::optin_bytes()) return false;
+  static size_t key_smem = 0;
+  static int key_threads = 0, key_dev = -1, wave = 0;
+  const int threads = ffm::threads_for(F, dt);
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return false;
+  if (dev != key_dev || smem != key_smem || threads != key_threads) {
+    if (smem > static_cast<size_t>(mvm::kSmallSmem) &&
+        cudaFuncSetAttribute(score_ffm_kernel<false, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess) {
+      return false;
+    }
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, score_ffm_kernel<false, true>,
+                                                  threads, smem);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    wave = per_sm * sms;
+    key_dev = dev;
+    key_smem = smem;
+    key_threads = threads;
+  }
+  return B <= wave;
 }
 
 struct HotPlane {
@@ -353,14 +595,31 @@ struct HotPlane {
   int u16, H, bf16, KH;
 };
 
-template <int CAP>
-void launch(const int* keys, const float* x, const HotPlane& h,
-            const float* w, const float* v, float* pctr, float* logit, int B,
-            int K, int D, cudaStream_t stream) {
-  const int grid = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  score_kernel<CAP><<<grid, kThreads, 0, stream>>>(
+// The LR/FM form's launch: as many warps a block (at most four) as keep
+// the stages within 48 KB, or one warp past it with the opt-in.
+// Returns 0 or a CUDA error (cudaErrorInvalidValue when one slot's
+// stage exceeds a block's shared memory).
+template <int VW>
+int launch_fm(const int* keys, const float* x, const HotPlane& h,
+              const float* w, const float* v, float* pctr, float* logit, int B,
+              int K, int D, cudaStream_t stream) {
+  const int chunk = fm_chunk(K + h.KH, D);
+  const size_t per_warp = D > 0 ? fm_warp_bytes(chunk, D) : 0;  // LR stages nothing
+  int warps = kWarpsPerBlock;
+  while (warps > 1 && warps * per_warp > static_cast<size_t>(mvm::kSmallSmem)) --warps;
+  const size_t smem = warps * per_warp;
+  if (smem > static_cast<size_t>(mvm::kSmallSmem)) {
+    if (smem > stage::optin_bytes()) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t e = cudaFuncSetAttribute(
+        score_kernel<VW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int grid = (B + warps - 1) / warps;
+  score_kernel<VW><<<grid, 32 * warps, smem, stream>>>(
       keys, x, h.keys, h.x, h.u16, h.H, h.bf16, w, v, pctr, logit, B, K, h.KH,
-      D);
+      D, chunk);
+  return 0;
 }
 
 }  // namespace
@@ -414,16 +673,21 @@ extern "C" int xf_score(const int* keys, const float* x, const void* hot,
     const int dv = D / S;
     const int dt = ffm::tile_factors(S, dv, K + h.KH);
     if (global_bytes > 0) {
-      score_ffm_kernel<true><<<global_grid, ffm::threads_for(S, dt), 0, s>>>(
+      score_ffm_kernel<true, false><<<global_grid, ffm::threads_for(S, dt), 0, s>>>(
           keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32,
           S, w, v, pctr, logit, B, K, h.KH, dv, dt, scratch);
+    } else if (rows_staged(B, S, K + h.KH, dv, dt)) {
+      const size_t smem = rows_staged_bytes(S, K + h.KH, dv);
+      score_ffm_kernel<false, true><<<B, ffm::threads_for(S, dt), smem, s>>>(
+          keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32,
+          S, w, v, pctr, logit, B, K, h.KH, dv, dt, nullptr);
     } else {
       int threads = 0;
       size_t smem = 0;
-      const int rc = ffm::launch_shape(score_ffm_kernel<false>, S, dt, K + h.KH,
-                                       &threads, &smem);
+      const int rc = ffm::launch_shape(score_ffm_kernel<false, false>, S, dt,
+                                       K + h.KH, &threads, &smem);
       if (rc != 0) return rc;
-      score_ffm_kernel<false><<<B, threads, smem, s>>>(
+      score_ffm_kernel<false, false><<<B, threads, smem, s>>>(
           keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32,
           S, w, v, pctr, logit, B, K, h.KH, dv, dt, nullptr);
     }
@@ -443,14 +707,20 @@ extern "C" int xf_score(const int* keys, const float* x, const void* hot,
           keys, x, hot, hot_x, hot_u16, H, hot_bf16, fields, hot_fields, f_i32,
           S, v, pctr, logit, B, K, h.KH, D, nullptr);
     }
-  } else if (v == nullptr || D == 0) {
-    launch<0>(keys, x, h, w, nullptr, pctr, logit, B, K, 0, s);
-  } else if (D <= 8) {
-    launch<8>(keys, x, h, w, v, pctr, logit, B, K, D, s);
-  } else if (D <= 16) {
-    launch<16>(keys, x, h, w, v, pctr, logit, B, K, D, s);
   } else {
-    launch<32>(keys, x, h, w, v, pctr, logit, B, K, D, s);
+    // v's copies: 16 or 8 bytes where D and v's alignment allow
+    const auto at = reinterpret_cast<std::uintptr_t>(v);
+    int rc;
+    if (v == nullptr || D == 0) {
+      rc = launch_fm<0>(keys, x, h, w, nullptr, pctr, logit, B, K, 0, s);
+    } else if (D % 4 == 0 && at % 16 == 0) {
+      rc = launch_fm<4>(keys, x, h, w, v, pctr, logit, B, K, D, s);
+    } else if (D % 2 == 0 && at % 8 == 0) {
+      rc = launch_fm<2>(keys, x, h, w, v, pctr, logit, B, K, D, s);
+    } else {
+      rc = launch_fm<1>(keys, x, h, w, v, pctr, logit, B, K, D, s);
+    }
+    if (rc != 0) return rc;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,14 +55,11 @@ from xflow_tpu_torch.ops.hot import hot_scatter
 from xflow_tpu_torch.ops.score import check_hot, hot_plane_keys, plain_view
 from xflow_tpu_torch.utils.metrics import logloss_sum, sigmoid_ref
 
-# K8 stages a row's Kh + K slots in one block's shared memory
-# (csrc/pool.cu): POOL_BYTES_PER_SLOT a slot within POOL_STAGE_BYTES,
-# the 48 KiB a block gets without the opt-in less the static part: up
-# to POOL_MAX_SLOTS slots.  A wider row takes both kernels' device-memory
-# stage (csrc/stage.cuh), which the wrappers allocate.
-POOL_BYTES_PER_SLOT = 12
-POOL_STAGE_BYTES = 48 * 1024 - 64
-POOL_MAX_SLOTS = POOL_STAGE_BYTES // POOL_BYTES_PER_SLOT
+# K7 stages a row's Kh + K slots in shared memory up to POOL_MAX_SLOTS
+# slots (csrc/pool.cu); a wider row takes its device-memory stage
+# (csrc/stage.cuh), which the wrapper allocates.  K8 needs none: a warp
+# stages a chunk of a row's slots at a time.
+POOL_MAX_SLOTS = 4090
 
 _bound: ctypes.CDLL | None = None
 
@@ -86,10 +83,10 @@ def _lib() -> ctypes.CDLL:
             ci, ci, ci, ci, ci, ci,
             vp, vp, vp, vp, vp, ci,  # dP, r, logit, labels, weights, lw_u8
             vp, vp, vp, vp, vp,  # slots, gw, gemb, hgw, hgemb
-            ci, vp, ci, ci, vp, vp,  # E, acc, B, K, stage, stream
+            ci, vp, ci, ci, vp,  # E, acc, B, K, stream
         ]
         lib.xf_field_pool_grad.restype = ci
-        lib.xf_pool_stage_bytes.argtypes = [ci] * 4
+        lib.xf_pool_stage_bytes.argtypes = [ci] * 3
         lib.xf_pool_stage_bytes.restype = ctypes.c_longlong
         lib.xf_pool_max_slots.argtypes = []
         lib.xf_pool_max_slots.restype = ci
@@ -110,13 +107,13 @@ def _same_place(keys, named) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def pool_stage(kernel: int, b: int, k: int, kh: int, device) -> torch.Tensor | None:
-    """The device-memory stage K7 (``kernel`` 0) or K8 (1) needs for
-    ``b`` rows of ``k + kh`` slots, or None where a row fits the
-    shared-memory stage (at most POOL_MAX_SLOTS slots)."""
+def pool_stage(b: int, k: int, kh: int, device) -> torch.Tensor | None:
+    """The device-memory stage K7 needs for ``b`` rows of ``k + kh``
+    slots, or None where a row fits the shared-memory stage (at most
+    POOL_MAX_SLOTS slots)."""
     if k + kh <= POOL_MAX_SLOTS:
         return None
-    nbytes = _lib().xf_pool_stage_bytes(kernel, b, k, kh)
+    nbytes = _lib().xf_pool_stage_bytes(b, k, kh)
     return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
 
 
@@ -201,7 +198,7 @@ def field_pool(keys, x, fields, emb, max_fields: int, w=None, hot=None, hot_x=No
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    stage = pool_stage(0, b, k, kh, keys.device)
+    stage = pool_stage(b, k, kh, keys.device)
     with torch.cuda.device(keys.device):
         rc = lib.xf_field_pool(
             keys.data_ptr(), ptr(x), fields.data_ptr(), ptr(hot), ptr(hot_x),
@@ -329,7 +326,6 @@ def field_pool_grad(keys, x, fields, dP, r, logit, labels, weights, max_fields: 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    stage = pool_stage(1, b, k, kh, keys.device)
     with torch.cuda.device(keys.device):
         rc = lib.xf_field_pool_grad(
             keys.data_ptr(), ptr(x), fields.data_ptr(), ptr(hot), ptr(hot_x),
@@ -339,7 +335,7 @@ def field_pool_grad(keys, x, fields, dP, r, logit, labels, weights, max_fields: 
             r.data_ptr(), logit.data_ptr(), labels.data_ptr(), weights.data_ptr(),
             1 if labels.dtype == torch.uint8 else 0, ptr(slots), ptr(g_w),
             g_emb.data_ptr(), ptr(hg_w), ptr(hg_emb), e, acc.data_ptr(), b, k,
-            ptr(stage), torch.cuda.current_stream(keys.device).cuda_stream,
+            torch.cuda.current_stream(keys.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"field_pool_grad kernel launch failed: CUDA error {rc}")

@@ -165,8 +165,9 @@ Phases, in order; any failure raises and the exit code is 1:
    each shipping exactly phase 8's planes and held to its tables (and
    step log-losses and eval) within TRAIN_BOUNDS: native text over the
    compact wire (FM and LR), Python text over the compact wire (FM),
-   and packed-v2 shards converted by ``python -m
-   xflow_tpu_torch.io.packed`` (FM).  Phase 12 runs its sequential path
+   packed-v2 shards converted by ``python -m
+   xflow_tpu_torch.io.packed`` (FM), and binary block-cache shards
+   converted by ``python -m xflow_tpu_torch.io.binary`` (FM).  Phase 12 runs its sequential path
    over the compact wire too (the planes exactly, the log-losses and
    eval within TRAIN_BOUNDS, the tables reported).  Each path's
    examples/s, ``input_stall``, ``put_batch`` ms per dispatch, wire
@@ -324,7 +325,30 @@ Phases, in order; any failure raises and the exit code is 1:
    their FFM form at max_fields 256 with 40 slots, K7 at 4,200 slots
    (and K8 there, which stages 128 slots at a time), dense and index
    mode, against their plain versions at B = 64 (rtol 1e-5 with an atol
-   of 1e-5 of the largest magnitude), timed.
+   of 1e-5 of the largest magnitude), timed;
+40. checkpoint, preempt, resume (utils/checkpoint.py) at the flagship
+   hot ``fm`` (T = 2^24, D = 10, 12 + 32 slots, H = 2^14, FTRL, the
+   default input path; a generation holds w and v with n and z, about
+   2.2 GB): (a) a run with ``checkpoint_every_steps=1`` whose batch
+   iterator sends SIGTERM to this process as it hands over the first
+   batch: the step finishes, the checkpoint lands with a cursor at the
+   end of shard 0, ``train()`` records ``preempted``, and
+   ``checkpoint_dir/remap.npy`` is the run's remap; (b) a fresh trainer
+   on the card restores every table array and the step bit-equal to
+   the saved files (``g`` zero, the remap read, not counted), trains to
+   the end with exact launches (3 dispatches, 1 eval batch), ships the
+   planes of a straight run's last 3 dispatches and passes
+   ``compare_states``' gate against that straight run from the same
+   initial state, its eval AUC inside the planted bars; (c) the hybrid
+   at microbatch 128: one dispatch, save, restore (bit-equal), one
+   dispatch with exact K4, K2-index, K5-with-fold and head-K3 counts;
+   (d) ``wide_deep`` hot dense the same way, its dense arrays restored
+   bit-equal under ``dense.<name>.npy``, K7 and K8 counted; (e) the
+   train shards packed by the CLI with ``--hot-size-log2 14 --hot-nnz
+   32 --remap`` (a's remap.npy) and trained hot dense from them: the
+   straight text run's planes exactly, its tables within the gate.
+   Every save and restore is timed (seconds, GB, GB/s) after a
+   synchronise, beside the card's name and power limit.
 
 The card-against-CPU replays are cut for the time limit: every
 ``compare_states`` holds the two sides on the card (the CPU's arrays
@@ -342,8 +366,11 @@ plus the training paths' eval and engine batches (phases 8, 11, 12,
 (phases 18-19), the D-tiled FM forms their phase-21 paths, and the
 MVM forms the MVM paths (phases 25-27), the FFM forms the FFM paths
 (phases 29-31), K7 and K8 the pooled paths, serving and top-k
-(phases 35-37); every count is set to 0 just before each path and
-read just after it.  K1's entry splits its launches by the rows a
+(phases 35-37); phase 40's resumed paths go into the entries of their
+kernels' ``launches_by_path`` (``fm resume``, ``fm hybrid resume``,
+``fm packed-v2 hot``; ``wide_deep resume`` in K7's and K8's), phase
+16's binary path as ``fm_nohot binary``; every count is set to 0 just
+before each path and read just after it.  K1's entry splits its launches by the rows a
 launch covers (``launches_by_shape``: serving buckets, the artifact's
 buckets in phase 8, 16,384-row eval batches).
 """
@@ -1528,9 +1555,11 @@ def wire_rows(metrics_out: str) -> list:
 
 def host_planes(shipped: list) -> list:
     """The compact-wire planes of shipped batches (K6's outputs on the
-    dictionary wire), copied to the host for exact comparisons."""
-    return [{k: a[k].cpu() for k in ("ckeys", "labels_u8", "weights_u8")}
-            for a in shipped]
+    dictionary wire: keys, labels, weights, and where the batch has them
+    the hot plane and the field planes), copied to the host for exact
+    comparisons."""
+    names = ("ckeys", "labels_u8", "weights_u8", "hot", "fields", "hot_fields")
+    return [{k: a[k].cpu() for k in names if a.get(k) is not None} for a in shipped]
 
 
 def planes_equal(what: str, got: list, want: list) -> None:
@@ -2430,14 +2459,19 @@ def check_k5(case: str, tables: list, opt, ukeys, count, n: int, gsums: list, sl
 
 def k4_device_ops(keys, t: int, slot_map) -> int:
     """Device operations (kernels and memsets) one K4 call on ``keys``
-    queues, counted by torch.profiler over one call after a warm-up."""
+    queues, counted by torch.profiler over one call after a warm-up call
+    under a discarded profiler session (a process's first session can
+    miss the activity of its first launches: it once counted 0 for the
+    slice form, which the next sessions count as 1)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from xflow_tpu_torch.ops.sparse import consolidate_keys
 
     plan = new_plan(keys, keys.device)
-    consolidate_keys(keys, t, *plan, slot_map)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        consolidate_keys(keys, t, *plan, slot_map)
+        torch.cuda.synchronize()
     slot_map.fill_(-1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2994,11 +3028,12 @@ def phase_k6(dev, data: dict, t_log2: int) -> dict:
     return {"checks": checks, "timings": timings}
 
 
-def card_run(dev, cfg, init: dict) -> dict:
+def card_run(dev, cfg, init: dict, save_rows: tuple | None = None) -> dict:
     """``cfg`` trained (``cfg.epochs``) and evaluated on the card through
     ``Trainer`` from ``init``: launch counts zeroed just before and read
     just after, held to ``expected_launches``; the first epoch's shipped
-    planes kept on the host."""
+    planes kept on the host.  ``save_rows`` = (rows, label) times the
+    run's checkpoint saves (``time_saves``)."""
     import torch
 
     from xflow_tpu_torch.trainer import Trainer
@@ -3007,6 +3042,8 @@ def card_run(dev, cfg, init: dict) -> dict:
     # the path starts here
     trainer = Trainer(cfg, device=dev, log=log)
     trainer.state = state_of(cfg, init, dev)
+    if save_rows is not None:
+        time_saves(trainer, save_rows[1], save_rows[0])
     shipped = keep_shipped_batches(trainer)
     t0 = time.perf_counter()
     history = trainer.train()
@@ -3071,9 +3108,10 @@ def phase_input_paths(dev, t_log2: int, workdir: str, dense: dict) -> dict:
     """Phase 16: phase 8's runs (the native parser and the dictionary
     wire) against the other input paths on the card, from the same
     initial state: native text over the compact wire (FM and LR),
-    Python text over the compact wire (FM), and packed-v2 shards from
+    Python text over the compact wire (FM), packed-v2 shards from
     ``python -m xflow_tpu_torch.io.packed`` over the dictionary wire
-    (FM).  Each ships exactly phase 8's planes and lands within
+    (FM), and binary block-cache shards from ``python -m
+    xflow_tpu_torch.io.binary`` (FM, the dictionary wire).  Each ships exactly phase 8's planes and lands within
     TRAIN_BOUNDS of its tables, step log-losses and eval."""
     import os
 
@@ -3083,27 +3121,32 @@ def phase_input_paths(dev, t_log2: int, workdir: str, dense: dict) -> dict:
 
     data = dense["data"]
     packed = os.path.join(workdir, "packed", "synth.train")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "xflow_tpu_torch.io.packed", "--train", data["train"],
-         "--out", packed, "--batch-size", "65536", "--max-nnz", str(K),
-         "--table-size-log2", str(t_log2)],
-        capture_output=True, text=True, timeout=600,
-    )
-    if proc.returncode != 0:
-        raise AssertionError(f"packed CLI failed: {proc.stdout}{proc.stderr}")
-    convert_s = time.perf_counter() - t0
-    log(json.dumps({"phase": 16, "packed_cli": proc.stdout.strip().splitlines(),
-                    "seconds": convert_s}))
+    binary = os.path.join(workdir, "binary", "synth.train")
+    convert_s = {}
+    for name, argv in (
+        ("packed", ["xflow_tpu_torch.io.packed", "--train", data["train"], "--out", packed,
+                    "--batch-size", "65536", "--max-nnz", str(K),
+                    "--table-size-log2", str(t_log2)]),
+        ("binary", ["xflow_tpu_torch.io.binary", "--train", data["train"], "--out", binary]),
+    ):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} CLI failed: {proc.stdout}{proc.stderr}")
+        convert_s[name] = time.perf_counter() - t0
+        log(json.dumps({"phase": 16, f"{name}_cli": proc.stdout.strip().splitlines(),
+                        "seconds": convert_s[name]}))
     main = {r["model"]: r for r in dense["rows"]}
     out = {"rows": [], "launches": dict.fromkeys(KERNEL_WRAPPERS, 0), "launches_by_path": {},
-           "packed_convert_seconds": convert_s}
+           "convert_seconds": convert_s}
     for model, label, over, parser in (
         ("fm", "native text + compact", {"wire_dedup": "off"}, "native"),
         ("lr", "native text + compact", {"wire_dedup": "off"}, "native"),
         ("fm", "python text + compact", {"wire_dedup": "off", "native_parser": False},
          "python"),
         ("fm", "packed-v2 + dict", {"train_path": packed}, "native"),
+        ("fm", "binary + dict", {"train_path": binary}, "native"),
     ):
         metrics = os.path.join(workdir, f"{model}-{label.replace(' ', '_')}.jsonl")
         cfg = dataclasses.replace(train_config(model, t_log2, data, metrics), **over)
@@ -3120,10 +3163,319 @@ def phase_input_paths(dev, t_log2: int, workdir: str, dense: dict) -> dict:
         out["rows"].append(row)
         for k, n in run["launches"].items():
             out["launches"][k] += n
-        out["launches_by_path"][f"{model} {label}"] = run["launches"]
+        key = "fm_nohot binary" if label == "binary + dict" else f"{model} {label}"
+        out["launches_by_path"][key] = run["launches"]
         log(json.dumps(dict(row, phase=16)))
         del run
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint, preempt, resume (phase 40)
+
+
+def generation_bytes(path: str) -> int:
+    """Bytes of a checkpoint generation's array files."""
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
+               if f.endswith(".npy"))
+
+
+def io_row(kind: str, label: str, path: str, seconds: float) -> dict:
+    gb = generation_bytes(path) / 1e9
+    return {"io": kind, "path": label, "generation": path.rsplit("/", 1)[-1],
+            "seconds": seconds, "gb": gb, "gb_per_s": gb / seconds}
+
+
+def time_saves(trainer, label: str, rows: list) -> None:
+    """Time each save of ``trainer`` (its own calls included) after a
+    synchronise, so the wait for the dispatched steps stays outside:
+    one ``io_row`` each into ``rows``."""
+    import torch
+
+    save = trainer.save
+
+    def timed(shard_idx=0, offset=0, extra=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(shard_idx, offset, extra)
+        rows.append(io_row("save", label, path, time.perf_counter() - t0))
+        return path
+
+    trainer.save = timed
+
+
+def timed_restore(trainer, label: str, rows: list) -> dict:
+    """``trainer.restore()`` timed to its last copy onto the card."""
+    import torch
+
+    from xflow_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cursor = trainer.restore()
+    torch.cuda.synchronize()
+    if cursor is None:
+        raise AssertionError(f"{label}: nothing restored")
+    rows.append(io_row("restore", label, latest_checkpoint(trainer.cfg.checkpoint_dir),
+                       time.perf_counter() - t0))
+    return cursor
+
+
+def equal_to_files(what: str, state: dict, path: str, dev) -> dict:
+    """Every table array and dense parameter of ``state`` against the
+    checkpoint's files at ``path``, bit for bit, each on ``dev``; the
+    step against the manifest's; every gradient buffer zero."""
+    import os
+
+    import torch
+
+    from xflow_tpu_torch.utils.checkpoint import MANIFEST, RangeReader
+
+    with open(os.path.join(path, MANIFEST)) as f:
+        manifest = json.load(f)
+    arrays = zero_g = 0
+    for name, table in state["tables"].items():
+        for key, got in table.items():
+            if key == "g":
+                if int(torch.count_nonzero(got)):
+                    raise AssertionError(f"{what}: {name}.g is not zero after the restore")
+                zero_g += 1
+                continue
+            meta = manifest["arrays"][f"{name}.{key}"]
+            want = RangeReader(path, f"{name}.{key}", meta["shape"],
+                               np.dtype(meta["dtype"])).read()
+            if got.device != dev or not torch.equal(got, torch.from_numpy(want).to(dev)):
+                raise AssertionError(f"{what}: {name}.{key} differs from {path}")
+            arrays += 1
+            del want
+    for name, got in state["dense"].items():
+        want = torch.from_numpy(np.load(os.path.join(path, f"dense.{name}.npy")))
+        if got.device != dev or not torch.equal(got, want.to(dev)):
+            raise AssertionError(f"{what}: dense {name} differs from dense.{name}.npy")
+    if manifest["dense"] != sorted(state["dense"]) or state["step"] != manifest["step"]:
+        raise AssertionError(f"{what}: dense names {manifest['dense']} / step "
+                             f"{manifest['step']} against {sorted(state['dense'])} / "
+                             f"{state['step']}")
+    return {"arrays": arrays, "dense": len(state["dense"]), "zero_g": zero_g,
+            "step": manifest["step"]}
+
+
+def preempt_on_first_batch(trainer) -> None:
+    """SIGTERM to this process as ``trainer``'s batch iterator hands over
+    the first batch of the run: the trainer finishes that step,
+    checkpoints and stops."""
+    import os
+    import signal
+
+    inner = trainer.iter_train_batches
+
+    def wrapped(start_shard=0, start_offset=0):
+        for i, item in enumerate(inner(start_shard, start_offset)):
+            if i == 0:
+                if signal.getsignal(signal.SIGTERM) in (signal.SIG_DFL, signal.SIG_IGN, None):
+                    raise AssertionError("the trainer installed no preemption handler")
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield item
+
+    trainer.iter_train_batches = wrapped
+
+
+def one_resumed_dispatch(dev, cfg, init, label: str, rows: list) -> dict:
+    """One dispatch of ``cfg`` (one train shard) from ``init`` (or the
+    trainer's own init), a save, a fresh trainer on the card restoring
+    it bit-equal, and one dispatch more with the launches zeroed just
+    before and read just after."""
+    import torch
+
+    from xflow_tpu_torch.trainer import Trainer
+
+    first = Trainer(cfg, device=dev, log=lambda _: None)
+    if init is not None:
+        first.state = state_of(cfg, init, dev)
+    first.train_epoch()
+    first.epoch = 1
+    time_saves(first, label, rows)
+    path = first.save()
+    saved = equal_to_files(f"{label}: the save", first.state, path, dev)
+    first.close()
+    del first
+    torch.cuda.empty_cache()
+    again = Trainer(cfg, device=dev, log=lambda _: None)
+    cursor = timed_restore(again, f"{label} resume", rows)
+    restored = equal_to_files(f"{label} resume", again.state, path, dev)
+    zero_launches()
+    # the resumed path starts here
+    stats = again.train_epoch(*again._resume_cursor)
+    torch.cuda.synchronize()
+    got = read_launches()
+    # ... and ends here
+    want = expected_launches(dataclasses.asdict(cfg), 1, len(again.state["tables"]), 0,
+                             pooled=again.step.pooled)
+    if stats["steps"] != 1 or cursor["epoch"] != 1 or got != want:
+        raise AssertionError(f"{label} resume: {stats['steps']} steps, launches {got}, "
+                             f"expected {want}")
+    again.close()
+    return {"saved": saved, "restored": restored, "launches": got}
+
+
+def phase_checkpoint(dev, t_log2: int, workdir: str, dense: dict) -> dict:
+    """Phase 40: checkpoint, preempt and resume on the card at the
+    flagship hot ``fm`` (HOT_GEOMETRY, phase 8's shards and initial
+    state, the default input path), the hybrid at microbatch 128,
+    ``wide_deep`` hot dense and hot training from packed-v2 shards
+    (the module docstring's (a)-(e))."""
+    import os
+
+    import torch
+
+    from xflow_tpu_torch.trainer import Trainer
+    from xflow_tpu_torch.utils.checkpoint import MANIFEST, latest_checkpoint
+
+    data, bars, init = dense["data"], dense["bars"], dense["inits"]["fm"]
+    geom = HOT_GEOMETRY["fm"]
+    io_rows, out = [], {"launches_by_path": {}, "checks": {}}
+    eval_batches = math.ceil(TEST_LINES / TRAIN_BATCHES[-1])
+
+    # (a) preempted as the first batch goes in, a checkpoint every step
+    ck = os.path.join(workdir, "ckpt40")
+    cfg = hot_config("fm", t_log2, data, os.path.join(workdir, "fm-preempt.jsonl"),
+                     checkpoint_dir=ck, checkpoint_every_steps=1)
+    pre = Trainer(cfg, device=dev, log=log)
+    pre.state = state_of(cfg, init, dev)
+    time_saves(pre, "fm preempted", io_rows)
+    preempt_on_first_batch(pre)
+    history = pre.train()
+    path = latest_checkpoint(ck)
+    with open(os.path.join(path, MANIFEST)) as f:
+        cursor = json.load(f)["cursor"]
+    offset = cursor["cursors"][0]["offset"]
+    shard0 = os.path.getsize(f"{data['train']}-00000")
+    if (len(history) != 1 or not history[0]["preempted"] or history[0]["steps"] != 1
+            or cursor["epoch"] != 0 or cursor["cursors"][0]["shard"] != 0
+            or offset != shard0 or len(io_rows) != 1):
+        raise AssertionError(f"preempted run: history {history}, cursor {cursor}, "
+                             f"{len(io_rows)} saves")
+    remap = pre.remap
+    if not np.array_equal(np.load(os.path.join(ck, "remap.npy")), remap):
+        raise AssertionError("checkpoint_dir/remap.npy is not the run's remap")
+    out["checks"]["preempted"] = dict(equal_to_files("preempted save", pre.state, path, dev),
+                                      cursor=cursor, checkpoint_seconds=history[0][
+                                          "checkpoint_seconds"])
+    del pre
+    torch.cuda.empty_cache()
+
+    # (b) a fresh trainer restores on the card and trains to the end
+    lines = []
+    cfg_b = dataclasses.replace(cfg, checkpoint_every_steps=0,
+                                metrics_out=os.path.join(workdir, "fm-resume.jsonl"))
+    res = Trainer(cfg_b, device=dev, log=lines.append)
+    if (res.hot_mass is not None or any(s.startswith("hot remap") for s in lines)
+            or not np.array_equal(res.remap, remap)):
+        raise AssertionError("the resumed trainer counted its remap again")
+    timed_restore(res, "fm resume", io_rows)
+    restored = equal_to_files("fm resume", res.state, path, dev)
+    if res._resume_cursor != (0, shard0) or res.epoch != 0:
+        raise AssertionError(f"resume cursor {res._resume_cursor}, epoch {res.epoch}")
+    time_saves(res, "fm resume, epoch ends", io_rows)
+    zero_launches()
+    # the resumed path starts here
+    shipped = keep_shipped_batches(res)
+    t0 = time.perf_counter()
+    history = res.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    result = res.evaluate()
+    torch.cuda.synchronize()
+    got = read_launches()
+    # ... and ends here
+    steps = sum(h["steps"] for h in history)
+    want = expected_launches(geom, steps, 2, eval_batches)
+    if steps != 3 or got != want:
+        raise AssertionError(f"fm resume: {steps} steps, launches {got}, expected {want}")
+    if not bars["floor"] < result["auc"] < bars["bayes_auc"]:
+        raise AssertionError(f"fm resume: eval AUC {result['auc']} outside {bars}")
+    out["launches_by_path"]["fm resume"] = got
+    # the straight run from the same initial state
+    cfg_s = dataclasses.replace(cfg, checkpoint_dir="", checkpoint_every_steps=0,
+                                metrics_out="")
+    straight = Trainer(cfg_s, device=dev, log=lambda _: None)
+    straight.state = state_of(cfg_s, init, dev)
+    straight_shipped = keep_shipped_batches(straight)
+    straight.train()
+    straight_result = straight.evaluate()
+    straight_planes = host_planes(straight_shipped[:len(straight_shipped) // TRAIN_EPOCHS])
+    run = {"planes": host_planes(shipped[:1]), "trainer": res, "result": result}
+    resumed_vs = hold_to("fm resume", run, straight_planes[1:], straight.step_logloss[1:],
+                         straight_result, straight.state)
+    planes_equal("fm resume, epoch 1", host_planes(shipped[1:]), straight_planes)
+    out["resume"] = {
+        "restored": restored, "steps": steps, "launches": got, "train_seconds": train_s,
+        "checkpoint_seconds": [h["checkpoint_seconds"] for h in history],
+        "examples_per_sec": [h["examples_per_sec"] for h in history],
+        "eval": {k: result[k] for k in ("auc", "logloss")},
+        "straight_eval": {k: straight_result[k] for k in ("auc", "logloss")},
+        "vs_straight": resumed_vs}
+    log(json.dumps({"phase": 40, "fm resume": out["resume"]}))
+    res.close()
+    del res, shipped, run
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) the hybrid at microbatch 128 and (d) wide_deep hot dense
+    one = single_shard(data, workdir)
+    hybrid = dict(HOT_MODES[1][1], epochs=2)
+    for label, cfg_c, start in (
+        ("fm hybrid", hot_config("fm", t_log2, one, "", checkpoint_dir=os.path.join(
+            workdir, "ckpt40-hybrid"), **hybrid), init),
+        ("wide_deep", pooled_config("wide_deep", one, "", epochs=2, checkpoint_dir=os.path.join(
+            workdir, "ckpt40-wide_deep")), None),
+    ):
+        got = one_resumed_dispatch(dev, cfg_c, start, label, io_rows)
+        out["launches_by_path"][f"{label} resume"] = got["launches"]
+        out["checks"][label] = got
+        log(json.dumps({"phase": 40, label: got}))
+        shutil.rmtree(cfg_c.checkpoint_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    # (e) the train shards packed for the hot model with (a)'s remap
+    pk = os.path.join(workdir, "packed-hot", "synth.train")
+    remap_file = os.path.join(workdir, "packed-hot", "remap.npy")
+    os.makedirs(os.path.dirname(remap_file), exist_ok=True)
+    np.save(remap_file, remap)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "xflow_tpu_torch.io.packed", "--train", data["train"],
+         "--out", pk, "--batch-size", str(TRAIN_BATCHES[-1]), "--max-nnz",
+         str(geom["max_nnz"]), "--table-size-log2", str(t_log2), "--hot-size-log2",
+         str(geom["hot_size_log2"]), "--hot-nnz", str(geom["hot_nnz"]), "--remap",
+         remap_file], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"packed CLI (hot) failed: {proc.stdout}{proc.stderr}")
+    convert_s = time.perf_counter() - t0
+    ck_e = os.path.join(workdir, "ckpt40-packed")
+    os.makedirs(ck_e)
+    shutil.copy(remap_file, ck_e)
+    cfg_e = hot_config("fm", t_log2, dict(data, train=pk),
+                       os.path.join(workdir, "fm-packed-hot.jsonl"), checkpoint_dir=ck_e)
+    run = card_run(dev, cfg_e, init, save_rows=(io_rows, "fm packed-v2 hot, epoch ends"))
+    if run["trainer"].hot_mass is not None or run["trainer"].step.wire_format != "dict":
+        raise AssertionError("packed-v2 hot: the remap was counted, or not the dictionary "
+                             "wire")
+    row = path_row("packed-v2 hot + dict", "fm", run)
+    row["vs_text"] = hold_to("fm packed-v2 hot", run, straight_planes,
+                             straight.step_logloss, straight_result, straight.state)
+    row["convert_seconds"] = convert_s
+    out["packed"] = row
+    out["launches_by_path"]["fm packed-v2 hot"] = run["launches"]
+    log(json.dumps(dict(row, phase=40)))
+    run["trainer"].close()
+    del run, straight
+    shutil.rmtree(ck_e, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["io"] = io_rows
     return out
 
 
@@ -8268,6 +8620,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         c5 = phase_c5(dev)
         log(json.dumps({"phase": 39, "c5_worst": c5["worst"]}))
+        torch.cuda.empty_cache()
+        ckpt = phase_checkpoint(dev, T_LOG2, workdir, train_path)
+        log(json.dumps({"phase": 40, "checkpoint_io": ckpt["io"], "card": card}))
+        log(f"phase 40 done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase": 17, "checks": hot["checks"]}))
@@ -8358,9 +8714,15 @@ def main() -> int:
               for k in ("max_abs_err_g", "max_err_over_tol")}
     # launches on every training path: phase 8's dense path and phases
     # 11-13's update modes, each counted from 0 just before its run
+    # phase 40's resumed fm paths beside them; its wide_deep path goes to
+    # K7's and K8's entries with the other pooled paths
+    resumed = {p: n for p, n in ckpt["launches_by_path"].items() if p != "wide_deep resume"}
+    pooled["launches_by_path"]["wide_deep resume"] = ckpt["launches_by_path"][
+        "wide_deep resume"]
     train_launches = {k: train_path["launches"][k] + modes["launches"][k]
-                      + paths["launches"][k] for k in KERNEL_WRAPPERS}
-    by_path = dict(modes["launches_by_path"], **paths["launches_by_path"],
+                      + paths["launches"][k] + sum(n[k] for n in resumed.values())
+                      for k in KERNEL_WRAPPERS}
+    by_path = dict(modes["launches_by_path"], **paths["launches_by_path"], **resumed,
                    dense=train_path["launches"])
     k4_head = next(r for r in modes["timings"] if r["kernel"] == "consolidate_keys"
                    and r["model"] == "fm" and r["path"] == "sparse main path")
@@ -8374,7 +8736,9 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": main_path["launches"] + train_launches["score"],
         "launches_by_path": {"serve": main_path["launches"],
-                             "train": train_launches["score"]},
+                             "train": train_launches["score"]
+                             - sum(n["score"] for n in resumed.values()),
+                             **{p: n["score"] for p, n in resumed.items()}},
         # every training path's K1 launches are its eval batches (the
         # exact counts of phases 8, 11-13 and 16) but phase 8's artifact
         # scoring, at the engine's buckets

@@ -2030,3 +2030,85 @@ def test_c5_device_memory_stage_matches_plain(dev, case):
         _close(gw, pw)
         np.testing.assert_allclose(float(ga[0]), float(pa[0]), rtol=1e-5)
     assert (field_pool.launches - before[2], field_pool_grad.launches - before[3]) == (1, 2)
+
+
+# -- checkpoints on the card (utils/checkpoint.py, Trainer.save/restore) ----
+
+
+def _ckpt_config(tmp_path, **kw):
+    """A hot fm on io/synth.py's traffic: 1,024 lines in one train shard,
+    one 1,024-row batch an epoch, checkpoints in tmp_path/ck."""
+    from xflow_tpu_torch.io.synth import generate_dataset
+
+    prefix = str(tmp_path / "synth")
+    generate_dataset(prefix, 1024, 256, train_shards=1, seed=7)
+    base = dict(model="fm", train_path=prefix + ".train", test_path=prefix + ".test",
+                epochs=1, batch_size=1024, table_size_log2=14, max_nnz=12,
+                hot_size_log2=8, hot_nnz=32, v_dim=10, max_fields=39,
+                checkpoint_dir=str(tmp_path / "ck"))
+    base.update(kw)
+    return Config(**base)
+
+
+def test_checkpoint_restores_on_the_card(dev, tmp_path):
+    """A card run's checkpoint restores into a fresh trainer on the card
+    bit-equal (every table array, on the card), ``g`` zero, the step and
+    the saved remap kept (not counted again); and onto the CPU too."""
+    from xflow_tpu_torch.trainer import Trainer
+
+    cfg = _ckpt_config(tmp_path)
+    with Trainer(cfg, device=dev, log=lambda _: None) as first:
+        first.train()
+        saved = {(n, k): a.cpu() for n, t in first.state["tables"].items()
+                 for k, a in t.items() if k != "g"}
+        step, remap = first.state["step"], first.remap
+    lines = []
+    with Trainer(cfg, device=dev, log=lines.append) as again:
+        assert again.restore()["epoch"] == 1
+        assert again.state["step"] == step == 1
+        np.testing.assert_array_equal(again.remap, remap)
+        assert again.hot_mass is None and not [s for s in lines if "hot remap" in s]
+        for (n, k), want in saved.items():
+            got = again.state["tables"][n][k]
+            assert got.device.type == "cuda" and torch.equal(got.cpu(), want), (n, k)
+        for t in again.state["tables"].values():
+            assert t["g"].device.type == "cuda" and int(t["g"].count_nonzero()) == 0
+    with Trainer(cfg, device="cpu", log=lambda _: None) as host:
+        host.restore()
+        for (n, k), want in saved.items():
+            assert torch.equal(host.state["tables"][n][k], want)
+
+
+def test_resumed_dispatch_launches_k2_k3(dev, tmp_path):
+    """After a restore, one dispatch launches K6 once, K2 once and K3
+    once per table (the dense form), nothing else; and the resumed
+    step's tables equal those of the same step taken by the trainer
+    that saved, within K2's atomics (rtol 1e-4 plus 1e-5 of the largest
+    magnitude, as _card_vs_cpu)."""
+    from xflow_tpu_torch.ops.pool import field_pool, field_pool_grad
+    from xflow_tpu_torch.trainer import Trainer
+
+    kernels = (score, train_step, optim_update, consolidate_keys, touched_update,
+               dict_decode, field_pool, field_pool_grad)
+    cfg = _ckpt_config(tmp_path, epochs=2)
+    straight = Trainer(cfg, device=dev, log=lambda _: None)
+    straight.train_epoch()
+    straight.epoch = 1
+    straight.save()
+    straight.train_epoch()
+    resumed = Trainer(cfg, device=dev, log=lambda _: None)
+    resumed.restore()
+    before = [k.launches for k in kernels]
+    stats = resumed.train_epoch(*resumed._resume_cursor)
+    torch.cuda.synchronize()
+    got = [k.launches - b for k, b in zip(kernels, before)]
+    assert stats["steps"] == 1
+    assert got == [0, 1, 2, 0, 0, 1, 0, 0]
+    for n, t in straight.state["tables"].items():
+        for k, want in t.items():
+            if k != "g":
+                np.testing.assert_allclose(
+                    resumed.state["tables"][n][k].cpu().numpy(), want.cpu().numpy(),
+                    rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+    straight.close()
+    resumed.close()

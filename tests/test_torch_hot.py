@@ -126,13 +126,26 @@ def test_freq_matches_reference(text_shards, tmp_path, sample_mib):
     assert freq.load_remap(str(tmp_path / "missing.npy")) is None
 
 
-def test_freq_refuses_binary_cache_and_packed(tmp_path):
+def test_freq_refuses_binary_cache_and_packed(toy_dataset, tmp_path):
+    """Binary block-cache shards are counted as their text (their
+    records hold the parsed keys); a binary magic over a header that
+    does not parse is refused as a malformed shard; packed shards hold
+    post-remap keys and are refused with the reference's message."""
+    from xflow_tpu_torch.io import binary as binary_io
     from xflow_tpu_torch.io import packed
+    from xflow_tpu_torch.io.loader import make_parse_fn
 
-    binary = tmp_path / "bin"
-    binary.write_bytes(freq.BINARY_MAGIC + b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        freq.count_keys([str(binary)], None, 16, 1 << 20)
+    text = toy_dataset.train_prefix + "-00000"
+    cache = str(tmp_path / "cache.bin")
+    binary_io.convert_shard(text, cache, block_mib=0.001)
+    parse = make_parse_fn(1 << 12, True, 0)
+    np.testing.assert_array_equal(
+        freq.count_keys([cache], parse, 1 << 12, 1 << 20),
+        freq.count_keys([text], parse, 1 << 12, 1 << 20))
+    garbage = tmp_path / "bin"
+    garbage.write_bytes(binary_io.MAGIC + b"\0" * 64)
+    with pytest.raises(ValueError):
+        freq.count_keys([str(garbage)], None, 16, 1 << 20)
     pk = tmp_path / "pk"
     pk.write_bytes(packed.MAGIC + b"\0" * 64)
     with pytest.raises(ValueError, match="packed-batch cache"):

@@ -26,6 +26,8 @@ under bfloat16 a per-occurrence rounding can land one bf16 step apart
 when the float32 products before it differ in their last bit, so that
 case is held at atol 1e-4 on the tables."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -304,18 +306,35 @@ def test_trainer_hot_equals_cold_model(zipfy_dataset, tmp_path):
 
 
 def test_trainer_hot_refusals(zipfy_dataset, tmp_path):
-    """What stays refused with the hot table names its item: the
-    remap's persistence in checkpoint_dir (A6), and hot training from
-    packed shards (A6)."""
-    kw = _trainer_kw(zipfy_dataset, model="lr", **HOT)
-    with pytest.raises(NotImplementedError, match="A6"):
-        Trainer(Config(**kw, checkpoint_dir=str(tmp_path / "ck")), device="cpu")
+    """What stays refused with the hot table, in the reference's words
+    (tests/test_hot_train.py:244): a hot toggle across one
+    checkpoint_dir either way; a hot model sampling key frequencies
+    from packed shards (their keys are post-remap: the remap comes from
+    checkpoint_dir/remap.npy); the packed CLI's --hot-size-log2 without
+    --remap.  A hot model with checkpoint_dir trains and saves its remap
+    there."""
+    kw = dict(_trainer_kw(zipfy_dataset, model="lr", **HOT), epochs=1)
+    ck_hot = str(tmp_path / "ck_hot")
+    with Trainer(Config(**kw, checkpoint_dir=ck_hot), device="cpu",
+                 log=lambda _: None) as trainer:
+        trainer.train()
+        np.testing.assert_array_equal(np.load(os.path.join(ck_hot, "remap.npy")),
+                                      trainer.remap)
+    with pytest.raises(ValueError, match="hot table"):
+        Trainer(Config(**{**kw, "hot_size_log2": 0}, checkpoint_dir=ck_hot), device="cpu")
+    ck_cold = str(tmp_path / "ck_cold")
+    cold = {k: v for k, v in kw.items() if k not in HOT}
+    with Trainer(Config(**cold, checkpoint_dir=ck_cold), device="cpu",
+                 log=lambda _: None) as trainer:
+        trainer.train()
+    with pytest.raises(ValueError, match="WITHOUT"):
+        Trainer(Config(**kw, checkpoint_dir=ck_cold), device="cpu", log=lambda _: None)
     from xflow_tpu_torch.io import packed
 
     pk = str(tmp_path / "train.pk")
     packed.convert_shard(zipfy_dataset.train_prefix + "-00000", pk, batch_size=64,
                          max_nnz=16, table_size=1 << 14, hash_mode=True, hash_seed=0)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="packed-batch cache"):
         Trainer(Config(**{**kw, "train_path": pk}), device="cpu", log=lambda _: None)
     with pytest.raises(SystemExit):
         packed.main(["--train", zipfy_dataset.train_prefix, "--out", str(tmp_path / "p"),

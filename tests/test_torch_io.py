@@ -192,16 +192,17 @@ def test_shard_loader_quarantines_unparseable_blocks(tmp_path):
 
 
 def test_shard_loader_refuses_binary_and_packed_shards(tmp_path):
-    """The binary block cache is refused, naming its ROADMAP item;
-    packed shards load (tests/test_torch_packed.py), so a packed magic
-    over a header that does not parse is refused as a malformed shard."""
-    from xflow_tpu_torch.io.loader import BINARY_MAGIC, PACKED_MAGIC, ShardLoader
+    """Binary block-cache and packed shards load (tests/test_torch_binary.py,
+    tests/test_torch_packed.py), so either magic over a header that
+    does not parse is refused as a malformed shard."""
+    from xflow_tpu_torch.io import binary, packed
+    from xflow_tpu_torch.io.loader import ShardLoader
 
     path = str(tmp_path / "cache")
-    open(path, "wb").write(BINARY_MAGIC + b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="A5b"):
+    open(path, "wb").write(binary.MAGIC + b"\0" * 64)
+    with pytest.raises(ValueError):
         list(ShardLoader(path, 8, 4, 1 << 10).iter_batches())
-    open(path, "wb").write(PACKED_MAGIC + b"\0" * 64)
+    open(path, "wb").write(packed.MAGIC + b"\0" * 64)
     with pytest.raises(ValueError):
         list(ShardLoader(path, 8, 4, 1 << 10).iter_batches())
 

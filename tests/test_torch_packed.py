@@ -165,3 +165,122 @@ def test_cli_converts_as_the_references(toy_dataset, tmp_path):
         assert (tmp_path / "ours" / n).read_bytes() == (tmp_path / "ref" / n).read_bytes()
     with pytest.raises(SystemExit):
         packed.main(["--out", ours, *args, "--hot-size-log2", "8"])
+
+
+# -- hot models' packed shards ---------------------------------------------
+
+HOT_GEOM = dict(hot_size_log2=6, hot_nnz=4)
+
+
+@pytest.fixture(scope="module")
+def hot_packed(toy_dataset, tmp_path_factory):
+    """A hot fm run on the toy text with a checkpoint_dir (which saves
+    its remap.npy), then the text packed by each package's CLI with
+    that remap."""
+    from xflow_tpu_torch.config import Config
+    from xflow_tpu_torch.trainer import Trainer
+
+    root = tmp_path_factory.mktemp("hotpk")
+    ck = str(root / "ck")
+    cfg = Config(model="fm", train_path=toy_dataset.train_prefix,
+                 test_path=toy_dataset.test_prefix, epochs=1, batch_size=64,
+                 table_size_log2=14, max_nnz=24, max_fields=12, num_devices=1,
+                 checkpoint_dir=ck, **HOT_GEOM)
+    with Trainer(cfg, device="cpu", log=lambda _: None) as trainer:
+        remap = trainer.remap
+    args = ["--train", toy_dataset.train_prefix, "--batch-size", "64", "--max-nnz", "24",
+            "--table-size-log2", "14", "--block-mib", "0.002", "--hot-size-log2", "6",
+            "--hot-nnz", "4", "--remap", os.path.join(ck, "remap.npy")]
+    ours, ref = str(root / "ours" / "pk"), str(root / "ref" / "pk")
+    assert packed.main(["--out", ours, *args]) == 0
+    assert ref_packed.main(["--out", ref, *args]) == 0
+    return {"ck": ck, "remap": remap, "ours": ours, "ref": ref, "cfg": cfg}
+
+
+def test_hot_cli_writes_the_references_bytes(hot_packed):
+    for i in range(3):
+        with open(f"{hot_packed['ours']}-{i:05d}", "rb") as f, \
+                open(f"{hot_packed['ref']}-{i:05d}", "rb") as g:
+            assert f.read() == g.read()
+    with open(f"{hot_packed['ours']}-00000", "rb") as f:
+        meta, _ = packed.read_header(f)
+    assert (meta["version"], meta["hot_size"], meta["hot_nnz"]) == (2, 64, 4)
+    assert meta["remap_sha256"] == packed.remap_digest(hot_packed["remap"])
+
+
+def test_hot_packed_reads_as_its_text(toy_dataset, hot_packed):
+    """Both loaders read the hot shards into the text loader's steered
+    batches, and each package's compact records are the other's."""
+    kw = dict(GEOM, remap=hot_packed["remap"], hot_size=64, hot_nnz=4)
+    path = f"{hot_packed['ours']}-00001"
+    text = list(ShardLoader(toy_dataset.train_prefix + "-00001", **kw).iter_batches())
+    ours = list(ShardLoader(path, **kw).iter_batches())
+    theirs = list(RefShardLoader(path, **kw).iter_batches())
+    assert len(text) == len(ours) == len(theirs) > 2
+    for (tb, _), (ob, oo), (rb, ro) in zip(text, ours, theirs):
+        assert tb.hot_keys.shape == (64, 4)
+        _batches_equal(tb, ob)
+        _batches_equal(ob, rb)
+        assert oo == ro
+    compact = list(ShardLoader(path, emit_compact=True, **kw).iter_batches())
+    ref_compact = list(RefShardLoader(path, emit_compact=True, **kw).iter_batches())
+    for (cb, _), (rcb, _) in zip(compact, ref_compact):
+        _planes_equal(cb, rcb)
+
+
+def test_hot_training_from_packed_equals_text(toy_dataset, hot_packed, tmp_path):
+    """A hot fm trained from the packed shards (its remap from
+    checkpoint_dir/remap.npy, never counted from them) equals the same
+    run from the text, table for table and bit for bit: the loader yields
+    the records as CompactBatch, whose planes are those the dictionary
+    wire builds from the text batches."""
+    import dataclasses
+    import shutil
+
+    from xflow_tpu_torch.convert import state_to_numpy
+    from xflow_tpu_torch.trainer import Trainer
+
+    out = {}
+    for name, train_path in (("text", toy_dataset.train_prefix),
+                             ("packed", hot_packed["ours"])):
+        ck = str(tmp_path / name)
+        os.makedirs(ck)
+        shutil.copy(os.path.join(hot_packed["ck"], "remap.npy"), ck)
+        cfg = dataclasses.replace(hot_packed["cfg"], train_path=train_path, epochs=2,
+                                  checkpoint_dir=ck)
+        lines = []
+        with Trainer(cfg, device="cpu", log=lines.append) as trainer:
+            assert trainer.step.wire_format == "dict" and trainer.hot_mass is None
+            history = trainer.train()
+            result = trainer.evaluate()
+            out[name] = (state_to_numpy(trainer.state, aux=True), history, result)
+        assert not [s for s in lines if s.startswith("hot remap")]
+    (tt, th, tr), (pt, ph, pr) = out["text"], out["packed"]
+    assert [h["train_logloss"] for h in th] == [h["train_logloss"] for h in ph]
+    assert (tr["auc"], tr["logloss"]) == (pr["auc"], pr["logloss"])
+    for name, table in tt.items():
+        for key, arr in table.items():
+            np.testing.assert_array_equal(pt[name][key], arr, err_msg=f"{name}.{key}")
+
+
+def test_remap_digest_mismatch_refused(toy_dataset, hot_packed, tmp_path):
+    """A loader, or a trainer whose checkpoint_dir holds another remap,
+    refuses the shards: their keys were remapped with a different one."""
+    import dataclasses
+
+    from xflow_tpu_torch.trainer import Trainer
+
+    other = np.roll(hot_packed["remap"], 1)
+    path = f"{hot_packed['ours']}-00000"
+    with pytest.raises(ValueError, match="remap_sha256"):
+        list(ShardLoader(path, **GEOM, remap=other, hot_size=64, hot_nnz=4).iter_batches())
+    with pytest.raises(ValueError, match="hot_nnz=4, loader expects 0"):
+        list(ShardLoader(path, **GEOM).iter_batches())
+    ck = tmp_path / "ck"
+    os.makedirs(ck)
+    np.save(ck / "remap.npy", other)
+    cfg = dataclasses.replace(hot_packed["cfg"], train_path=hot_packed["ours"],
+                              checkpoint_dir=str(ck))
+    with Trainer(cfg, device="cpu", log=lambda _: None) as trainer:
+        with pytest.raises(ValueError, match="remap_sha256"):
+            trainer.train()

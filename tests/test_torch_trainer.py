@@ -165,7 +165,6 @@ def test_evaluate_per_block_pred_files(toy_dataset, tmp_path):
 
 
 @pytest.mark.parametrize("kw, item", [
-    ({"checkpoint_dir": "ck"}, "A6"),
     ({"profile_dir": "prof"}, "A14"),
     ({"obs_trace_out": "t.json"}, "A14"),
     ({"obs_watchdog": True}, "A14"),
@@ -197,10 +196,14 @@ def test_cli_trains_on_cpu_and_refuses_without_card(toy_dataset, tmp_path, capsy
     final = [line for line in err if line.startswith("logloss: ")]
     assert len(final) == 1 and "\tauc = " in final[0]
     assert os.path.exists(os.path.join(art, "manifest.json"))
-    assert cli_main(argv + ["--resume"]) == 2
-    assert "A6" in capsys.readouterr().err
-    assert cli_main(argv + ["--device", "cpu", "--checkpoint-dir", str(tmp_path)]) == 2
-    assert "A6" in capsys.readouterr().err
+    # checkpoints: two epochs saved, then --resume goes on from them
+    ck = str(tmp_path / "ck")
+    assert cli_main(argv + ["--device", "cpu", "--checkpoint-dir", ck]) == 0
+    assert "\tauc = " in capsys.readouterr().err
+    assert cli_main(argv + ["--device", "cpu", "--checkpoint-dir", ck, "--resume",
+                            "--epochs", "3"]) == 0
+    err = capsys.readouterr().err
+    assert "resumed at {'epoch': 2" in err and "\tauc = " in err
     # the hot table trains now: the remap line, then the eval line
     assert cli_main(argv + ["--device", "cpu", "--hot-size-log2", "8",
                             "--hot-nnz", "8"]) == 0

@@ -1,6 +1,6 @@
 """Shared container framing for the on-disk cache formats (the
-reference's io/container.py; io/packed.py's batches here, and the CSR
-block cache with ROADMAP A5b): an 8-byte magic, a u32 JSON-header
+reference's io/container.py; io/packed.py's batches and io/binary.py's
+CSR blocks): an 8-byte magic, a u32 JSON-header
 length, the JSON header, then format-specific records.
 
 Writers stream records after a placeholder header (totals pinned to

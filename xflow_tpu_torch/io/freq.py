@@ -13,12 +13,12 @@ The remap is computed from a deterministic sample (the first
 host derives the identical permutation with no communication.  It is
 part of the model: rows are addressed through it, so it travels with
 an exported artifact (serve/artifact.py) and is applied before any
-prediction.  The reference also persists it beside its checkpoints;
-the port's checkpoints are ROADMAP A6.
+prediction, and it is persisted beside the checkpoints
+(``checkpoint_dir/remap.npy``, trainer.py::_init_remap).
 
-Binary block-cache shards are refused by name until they are ported
-(ROADMAP A5b); packed shards hold post-remap keys and are refused as
-the reference refuses them.
+Keys are counted from libffm text or binary block-cache shards; packed
+shards hold post-remap keys and are refused as the reference refuses
+them.
 """
 
 from __future__ import annotations
@@ -27,8 +27,8 @@ import os
 
 import numpy as np
 
+from xflow_tpu_torch.io import binary, packed
 from xflow_tpu_torch.io.libffm import BlockReader
-from xflow_tpu_torch.io.loader import BINARY_MAGIC, PACKED_MAGIC
 
 
 def count_keys(
@@ -46,13 +46,17 @@ def count_keys(
         if remaining <= 0:
             break
         with open(path, "rb") as f:
-            magic = f.read(len(BINARY_MAGIC))
-            if magic == BINARY_MAGIC:
-                raise NotImplementedError(
-                    f"{path}: binary block-cache shards are not ported yet "
-                    "(ROADMAP A5b); count key frequencies from libffm text"
-                )
-            if magic == PACKED_MAGIC:
+            magic = f.read(len(binary.MAGIC))
+            if magic == binary.MAGIC:
+                # binary block cache: records already hold keys
+                for block, off, noff in binary.iter_blocks(f, table_size):
+                    if len(block.keys):
+                        np.add.at(counts, block.keys, 1)
+                    remaining -= noff - off
+                    if remaining <= 0:
+                        break
+                continue
+            if magic == packed.MAGIC:
                 # packed caches hold POST-remap keys — counting them
                 # cannot build a remap; parsing them as text would
                 # silently produce garbage counts

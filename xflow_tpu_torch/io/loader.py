@@ -1,5 +1,5 @@
 """Shard-aware streaming minibatch loader (the reference's io/loader.py
-over libffm text and packed shards).
+over libffm text, binary block-cache shards and packed shards).
 
 Each data-parallel worker reads its own file shard named
 ``<prefix>-%05d`` by rank (lr_worker.cc:210); training streams the
@@ -22,14 +22,16 @@ native ``xf_pack_batch`` when the library is there.  With a hot table
 frequency remap (io/freq.py) and each row's first ``hot_nnz`` hot keys
 are steered into the hot section (io/batch.py::split_hot): the native
 pack folds both into its one pass; the Python path remaps at parse
-time and steers in ``pack_batch``.  Packed shards (io/packed.py,
-sniffed by their magic) skip parsing and assembly: their records are
+time and steers in ``pack_batch``.  Binary block-cache shards
+(io/binary.py, sniffed by their magic) skip parsing: their records are
+parsed CSR blocks, assembled into batches as text blocks are.  Packed
+shards (io/packed.py) skip parsing and assembly: their records are
 finished batches, and with ``emit_compact`` a v2 shard yields its
-CompactBatch records as they are, for a dictionary-wire train step.
-A hot model does not train from packed shards yet: the reference
-takes their remap from ``checkpoint_dir/remap.npy`` (ROADMAP A6).
-Binary block-cache shards are refused, naming ROADMAP A5b.  The chaos
-failpoints come with ROADMAP A14.
+CompactBatch records as they are, for a dictionary-wire train step.  A
+hot model's packed shards were steered with its remap at pack time,
+and the loader refuses a shard whose remap digest is not its own.  The
+(batch, resume_offset) contract is the same for all three formats.
+The chaos failpoints come with ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -44,16 +46,13 @@ from typing import Callable, Iterator
 import numpy as np
 
 from xflow_tpu_torch import native
-from xflow_tpu_torch.io import packed
+from xflow_tpu_torch.io import binary, packed
 from xflow_tpu_torch.io.batch import Batch, ParsedBlock, pack_batch
 from xflow_tpu_torch.io.libffm import BlockReader, parse_block
 from xflow_tpu_torch.obs import Obs, emit_health
 
 ParseFn = Callable[[bytes], ParsedBlock]
 
-# the reference's io/binary.py magic
-BINARY_MAGIC = b"XFBC0001"
-PACKED_MAGIC = packed.MAGIC
 BACKOFF_CAP_S = 2.0  # the reference's chaos/heal.py cap
 
 
@@ -252,18 +251,16 @@ class ShardLoader:
         samples not yet yielded; up to one block plus one carry may
         replay from it.  With parse_workers > 1, whole blocks parse
         concurrently on a thread pool, order-preserving (the native
-        parser releases the GIL).  A packed shard yields its records:
-        no parse, no assembly, and ``resume_offset`` is the next
-        record's offset."""
+        parser releases the GIL).  A binary block-cache shard skips the
+        parse (its resume offsets are record offsets); a packed shard
+        yields its records: no parse, no assembly, and
+        ``resume_offset`` is the next record's offset."""
         with open(self.path, "rb") as f:
-            magic = f.read(len(BINARY_MAGIC))
-            if magic == BINARY_MAGIC:
-                raise NotImplementedError(
-                    f"{self.path}: binary block-cache shards are not ported "
-                    "yet (ROADMAP A5b); train from libffm text or a packed "
-                    "shard"
-                )
-            if magic == PACKED_MAGIC:
+            magic = f.read(len(binary.MAGIC))
+            if magic == binary.MAGIC:
+                yield from self._iter_binary(f, start_offset)
+                return
+            if magic == packed.MAGIC:
                 yield from self._iter_packed(f, start_offset)
                 return
             f.seek(start_offset)
@@ -306,21 +303,32 @@ class ShardLoader:
 
             yield from self._batches_from_blocks(parsed_blocks(), start_offset)
 
+    def _iter_binary(self, f, start_offset: int) -> Iterator[tuple[Batch, int]]:
+        """Batch stream over a binary block-cache shard (io/binary.py):
+        records already hold parsed CSR; reduction to [0, table_size)
+        and the remap happen at load."""
+        blocks = (
+            (self._apply_remap(b), off, noff)
+            for b, off, noff in binary.iter_blocks(
+                f,
+                self.table_size,
+                start_offset,
+                expect_hash_mode=self.hash_mode,
+                expect_hash_seed=self.hash_seed,
+            )
+        )
+        yield from self._batches_from_blocks(blocks, start_offset)
+
     def _iter_packed(self, f, start_offset: int) -> Iterator[tuple[Batch, int]]:
         """Batch stream over a packed shard (io/packed.py), whose baked-in
-        geometry must match this loader's exactly."""
-        if self.hot_size:
-            raise NotImplementedError(
-                f"{self.path}: training a hot-table model from packed "
-                "shards is not ported yet: the reference takes their remap "
-                "from checkpoint_dir/remap.npy (ROADMAP A6)"
-            )
+        geometry and remap must match this loader's exactly."""
         f.seek(0)
         meta, _ = packed.read_header(f)
         packed.check_compat(
             meta, batch_size=self.batch_size, cold_nnz=self.max_nnz,
-            hot_nnz=0, hot_size=0, table_size=self.table_size,
-            hash_mode=self.hash_mode, hash_seed=self.hash_seed, remap=None,
+            hot_nnz=self.hot_nnz if self.hot_size else 0, hot_size=self.hot_size,
+            table_size=self.table_size, hash_mode=self.hash_mode,
+            hash_seed=self.hash_seed, remap=self.remap,
         )
         if self.emit_compact and meta.get("version", 1) == 2:
             records = packed.iter_compact_batches(f, start_offset)
@@ -365,6 +373,20 @@ class ShardLoader:
         return _PrefetchIter(
             self.iter_batches(start_offset, parse_workers), depth, obs=self.obs
         )
+
+    def count_examples(self) -> int:
+        """Examples in this shard: a cache's header total, else its
+        non-blank text lines."""
+        if binary.is_binary_shard(self.path):
+            return binary.shard_example_count(self.path)
+        if packed.is_packed_shard(self.path):
+            return packed.shard_example_count(self.path)
+        n = 0
+        with open(self.path, "rb") as f:
+            for line in f:
+                if line.strip():
+                    n += 1
+        return n
 
 
 _SENTINEL = object()

@@ -3,13 +3,13 @@ io/packed.py, in its on-disk format: the port reads the reference's
 shards and the reference reads the port's).
 
 Reading a packed shard is a header-driven buffer slice: no parse, no
-batch assembly.  A cache bakes in batch_size, max_nnz, table_size and
-the hash settings, and the loader refuses a cache built for another
-geometry.  The hot geometry and its remap (``hot_size``, ``hot_nnz``,
-``remap_sha256``) stay in the header for compatibility and are 0 /
-null in every shard the port writes: a hot model's packed shards need
-the remap that the reference keeps in ``checkpoint_dir/remap.npy``,
-and checkpoints are ROADMAP A6.
+batch assembly.  A cache bakes in batch_size, max_nnz, table_size, the
+hash settings, the hot geometry and the hot remap (keys are stored
+POST-remap, steered into hot/cold sections; the header carries the
+remap's sha256), and the loader refuses a cache built for another
+geometry or remap.  A hot model packs with the remap its trainer saved
+as ``checkpoint_dir/remap.npy``, and trains from the shards with that
+same directory.
 
 Format (little-endian):
 
@@ -32,10 +32,11 @@ wire trainer ships them as they are, with no per-batch host work.
 Tail safety: every writer streams into ``<dst>.tmp.<pid>``, fsyncs and
 ``os.replace``s on finalize, so no reader sees a half-written shard.
 
-Convert text shards from the command line:
+Convert text or binary block-cache shards from the command line:
 
     python -m xflow_tpu_torch.io.packed --train PREFIX --out PREFIX.pk \
-        --batch-size N --max-nnz K --table-size-log2 T [--no-hash] [...]
+        --batch-size N --max-nnz K --table-size-log2 T \
+        [--hot-size-log2 H --hot-nnz Kh --remap remap.npy] [--no-hash] [...]
 """
 
 from __future__ import annotations
@@ -578,40 +579,53 @@ def convert_shard(
     batch_size: int,
     max_nnz: int,
     table_size: int,
+    hot_size: int = 0,
+    hot_nnz: int = 0,
     hash_mode: bool = True,
     hash_seed: int = 0,
     block_mib: float = 8,
+    remap: np.ndarray | None = None,
     parse_fn=None,
     fmt: str = "auto",
 ) -> dict:
-    """Pack one text shard into device-ready batches.  ``fmt``: "v1" =
-    padded-array records, "v2" = compacted records (io/compact.py —
-    smaller, and pre-compacted for the dictionary wire), "auto" = v2
-    whenever the compaction invariants hold (hash mode, u8 per-row
-    counts)."""
+    """Pack one shard (text or CSR-binary — ShardLoader sniffs) into
+    device-ready batches, remapped and steered for a hot geometry.
+    ``fmt``: "v1" = padded-array records, "v2" = compacted records
+    (io/compact.py — smaller, and pre-compacted for the dictionary
+    wire), "auto" = v2 whenever the compaction invariants hold (hash
+    mode; u8 per-row counts; hot ids fit the tiered encoding)."""
     from xflow_tpu_torch.io.loader import ShardLoader
 
-    if fmt not in ("auto", "v1", "v2"):
-        raise ValueError(f"unknown packed format {fmt!r}")
-    v2_ok = bool(hash_mode) and max_nnz <= 255
-    if fmt == "v2" and not v2_ok:
-        raise ValueError("packed v2 requires hash_mode and max_nnz <= 255")
     loader = ShardLoader(
         src, batch_size=batch_size, max_nnz=max_nnz, table_size=table_size,
         block_mib=max(1, int(block_mib)), hash_mode=hash_mode,
-        hash_seed=hash_seed, parse_fn=parse_fn,
+        hash_seed=hash_seed, parse_fn=parse_fn, remap=remap,
+        hot_size=hot_size, hot_nnz=hot_nnz,
     )
     loader.block_bytes = max(1, int(block_mib * (1 << 20)))
     meta = {
         "batch_size": batch_size,
         "cold_nnz": max_nnz,
-        "hot_nnz": 0,
-        "hot_size": 0,
+        "hot_nnz": hot_nnz if hot_size else 0,
+        "hot_size": hot_size,
         "table_size": table_size,
         "hash_mode": bool(hash_mode),
         "hash_seed": int(hash_seed),
-        "remap_sha256": None,
+        "remap_sha256": remap_digest(remap),
     }
+    if fmt not in ("auto", "v1", "v2"):
+        raise ValueError(f"unknown packed format {fmt!r}")
+    v2_ok = (
+        bool(hash_mode)
+        and max_nnz <= 255
+        and (hot_nnz if hot_size else 0) <= 255
+        and (not hot_size or hot_size <= 1 << 16)
+    )
+    if fmt == "v2" and not v2_ok:
+        raise ValueError(
+            "packed v2 requires hash_mode, max_nnz/hot_nnz <= 255 "
+            "and hot_size <= 2^16"
+        )
     writer = write_shard_v2 if (fmt == "v2" or (fmt == "auto" and v2_ok)) \
         else write_shard
     return writer(dst, meta, (b for b, _ in loader.iter_batches()))
@@ -620,14 +634,15 @@ def convert_shard(
 def main(argv=None) -> int:
     import argparse
 
+    from xflow_tpu_torch.io import freq
     from xflow_tpu_torch.io.loader import make_parse_fn
     from xflow_tpu_torch.trainer import find_shards
 
     p = argparse.ArgumentParser(
         prog="xflow_tpu_torch.io.packed",
-        description="pack libffm text shards into device-ready batch caches",
+        description="pack shards into device-ready batch caches",
     )
-    p.add_argument("--train", required=True, help="text shard prefix (or file)")
+    p.add_argument("--train", required=True, help="text/CSR shard prefix")
     p.add_argument("--out", required=True, help="output shard prefix")
     p.add_argument("--batch-size", type=int, required=True)
     p.add_argument("--max-nnz", type=int, required=True)
@@ -644,18 +659,19 @@ def main(argv=None) -> int:
         "eligible)",
     )
     a = p.parse_args(argv)
-    if a.hot_size_log2 or a.hot_nnz or a.remap:
-        p.error("--hot-size-log2 / --hot-nnz / --remap: packing for a hot "
-                "model needs the remap kept in checkpoint_dir/remap.npy, "
-                "and checkpoints are not ported yet (ROADMAP A6)")
+    remap = freq.load_remap(a.remap) if a.remap else None
+    if a.hot_size_log2 and remap is None:
+        p.error("--hot-size-log2 requires --remap (trainer's remap.npy)")
     table_size = 1 << a.table_size_log2
     parse_fn = make_parse_fn(table_size, not a.no_hash, a.seed)
     for i, src in enumerate(find_shards(a.train)):
         dst = f"{a.out}-{i:05d}" if src != a.train else a.out
         meta = convert_shard(
             src, dst, batch_size=a.batch_size, max_nnz=a.max_nnz,
-            table_size=table_size, hash_mode=not a.no_hash, hash_seed=a.seed,
-            block_mib=a.block_mib, parse_fn=parse_fn, fmt=a.format,
+            table_size=table_size,
+            hot_size=(1 << a.hot_size_log2) if a.hot_size_log2 else 0,
+            hot_nnz=a.hot_nnz, hash_mode=not a.no_hash, hash_seed=a.seed,
+            block_mib=a.block_mib, remap=remap, parse_fn=parse_fn, fmt=a.format,
         )
         print(f"{src} -> {dst}: {meta['examples']} examples in "
               f"{meta['batches']} batches")

@@ -8,7 +8,11 @@ The flags are the reference's, plus ``--device`` (default ``cuda``: the
 run refuses to start without a card unless ``--device cpu`` is asked
 for).  A flag whose feature is not ported exits with code 2, naming the
 ROADMAP item that ports it.  The run ends with the reference's
-``logloss: ... auc = ...`` line.
+``logloss: ... auc = ...`` line.  With ``--checkpoint-dir`` it
+checkpoints every epoch (and every ``--checkpoint-every-steps``);
+``--resume`` (or ``--resume auto``) goes on from the newest checkpoint
+there, and SIGTERM/SIGINT checkpoints, prints ``preempted: checkpoint
+saved, resume with --resume`` and exits 0.
 """
 
 from __future__ import annotations
@@ -302,8 +306,6 @@ def config_from_args(args: argparse.Namespace) -> Config:
 
 def unported_flags(args: argparse.Namespace) -> str | None:
     """Why a flag of this run cannot be honoured yet, or None."""
-    if args.resume:
-        return "--resume: checkpoints are not ported yet (ROADMAP A6)"
     if args.platform or args.coordinator:
         return ("--platform / --coordinator: multi-host training is not "
                 "ported yet (ROADMAP A13)")
@@ -336,7 +338,15 @@ def main(argv: list[str] | None = None) -> int:
     # context manager: the metrics JSONL is flushed and closed on every
     # exit path, including exceptions
     with trainer:
-        trainer.train()
+        if args.resume:
+            cursor = trainer.restore(auto=(args.resume == "auto"))
+            if cursor:
+                print(f"resumed at {cursor}", file=sys.stderr)
+        history = trainer.train()
+        if history and history[-1].get("preempted"):
+            print("preempted: checkpoint saved, resume with --resume",
+                  file=sys.stderr)
+            return 0
         if cfg.test_path and not args.skip_eval:
             trainer.evaluate()
         if args.export_artifact:

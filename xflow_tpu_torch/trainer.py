@@ -16,21 +16,30 @@ are fetched once per epoch (``device_block``), as the reference does
 K1 and reports log-loss and midrank AUC, optionally writing the
 reference's ``label\\tpctr`` prediction lines.
 
-With a hot table (``hot_size_log2 > 0``) the trainer first measures
-key frequencies over the first ``freq_sample_mib`` of the training
-shards and builds the frequency remap (io/freq.py), as the reference's
-``_init_remap`` does (trainer.py:430-478), logging how much of the
-sampled occurrence mass the H head rows capture; the loaders then
-remap and steer every batch, ``prepare_batch`` does the same for an
-external batch, and an exported artifact carries the remap.  The
-reference reads and writes ``checkpoint_dir/remap.npy``; the port keeps
-the remap in memory, since checkpoints are ROADMAP A6.
+With a hot table (``hot_size_log2 > 0``) the trainer takes the
+frequency remap from ``checkpoint_dir/remap.npy`` when a previous run
+saved one, and otherwise measures key frequencies over the first
+``freq_sample_mib`` of the training shards and builds it (io/freq.py),
+as the reference's ``_init_remap`` does (trainer.py:425-478), logging
+how much of the sampled occurrence mass the H head rows capture, and
+saves it there; the loaders then remap and steer every batch,
+``prepare_batch`` does the same for an external batch, and an exported
+artifact carries the remap.  Packed shards hold post-remap keys: a hot
+model trains from them with the remap their packer was given, kept in
+``checkpoint_dir/remap.npy``.
 
-Not ported yet, and refused by name: checkpoints, resume and the
-preemption handler (ROADMAP A6); the profiler, span trace, flight
-recorder, watchdog, exporters and chaos failpoints (A14).  The staging
-ring (``transfer_ahead_depth``, A10) is not used: the transfer runs
-inline.
+With ``checkpoint_dir`` the trainer checkpoints (utils/checkpoint.py)
+at every epoch end and every ``checkpoint_every_steps`` steps, books
+each save as the ``checkpoint`` phase (``checkpoint_seconds`` in the
+epoch record), and ``restore`` resumes from the newest generation,
+mid-shard at the saved data cursor; SIGTERM or SIGINT during
+``train()`` finishes the step in flight, checkpoints and returns with
+the epoch record's ``preempted`` set.
+
+Not ported yet, and refused by name: the profiler, span trace, flight
+recorder, watchdog, exporters and chaos failpoints (ROADMAP A14).  The
+staging ring (``transfer_ahead_depth``, A10) is not used: the transfer
+runs inline.
 """
 
 from __future__ import annotations
@@ -48,16 +57,18 @@ from xflow_tpu_torch.config import Config
 from xflow_tpu_torch.device import resolve_device
 from xflow_tpu_torch.io import freq
 from xflow_tpu_torch.io.batch import Batch, remap_batch
-from xflow_tpu_torch.io.loader import (
-    PACKED_MAGIC,
-    ShardLoader,
-    make_parse_fn,
-    parser_name,
-)
+from xflow_tpu_torch.io.loader import ShardLoader, make_parse_fn, parser_name
 from xflow_tpu_torch.models import make_model
-from xflow_tpu_torch.obs import Obs
+from xflow_tpu_torch.obs import Obs, health_row
 from xflow_tpu_torch.optim import make_optimizer
 from xflow_tpu_torch.parallel.step import TrainStep, init_state
+from xflow_tpu_torch.utils.checkpoint import (
+    IncompatibleCheckpoint,
+    checkpoint_candidates,
+    latest_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
 from xflow_tpu_torch.utils.metrics import AucAccumulator
 
 
@@ -76,9 +87,6 @@ def check_trainer_config(cfg: Config) -> None:
     """Refuse the Trainer features this slice does not port, naming the
     ROADMAP item that brings each."""
     refusals = (
-        (cfg.checkpoint_dir, "checkpoint_dir: checkpoints, resume, the "
-         "preemption handler and a hot model's remap.npy are not ported "
-         "yet (ROADMAP A6)"),
         (cfg.profile_dir, "profile_dir: the profiler hook is not ported "
          "yet (ROADMAP A14)"),
         (cfg.obs_trace_out, "obs_trace_out: the span trace is not ported "
@@ -123,12 +131,25 @@ class Trainer:
         self._log = log if log is not None else lambda s: print(s, file=sys.stderr)
         self.host = 0
         self.num_hosts = 1
-        # the hot table's frequency remap (io/freq.py), measured from a
-        # deterministic sample of the training data
+        self._resume_cursor: tuple[int, int] = (0, 0)
+        self._preempted = False
+        # the hot table's frequency remap (io/freq.py): loaded from the
+        # checkpoint dir when present, else measured from a deterministic
+        # sample of the training data
         self.remap: np.ndarray | None = None
         self.hot_mass: float | None = None
         if cfg.hot_size_log2:
             self._init_remap()
+        else:
+            # the reverse of _init_remap's guard: a checkpoint trained
+            # WITH a hot table stores rows in the permuted space
+            path = self._remap_path()
+            if path is not None and os.path.exists(path):
+                raise ValueError(
+                    f"{path} exists: this checkpoint_dir was trained "
+                    "with a hot table; set hot_size_log2 to match "
+                    "(or use a fresh checkpoint_dir)"
+                )
         # every step's train log-loss so far, fetched at each epoch end
         self.step_logloss: list[float] = []
         # live loader prefetch iterators, closed by close() so abandoned
@@ -186,26 +207,43 @@ class Trainer:
         return make_parse_fn(cfg.table_size, cfg.hash_mode, cfg.seed,
                              prefer_native=cfg.native_parser)
 
+    def _remap_path(self) -> str | None:
+        if not self.cfg.checkpoint_dir:
+            return None
+        return os.path.join(self.cfg.checkpoint_dir, "remap.npy")
+
     def _init_remap(self) -> None:
-        """Count key frequencies over the first ``freq_sample_mib`` of
-        the GLOBAL shard list and build the remap (the reference's
-        ``_init_remap`` without its checkpoint_dir, ROADMAP A6)."""
+        """The saved remap of ``checkpoint_dir``, else one counted over
+        the first ``freq_sample_mib`` of the GLOBAL shard list and saved
+        there (the reference's ``_init_remap``)."""
         cfg = self.cfg
+        path = self._remap_path()
+        if path is not None:
+            existing = freq.load_remap(path)
+            if existing is not None:
+                if len(existing) != cfg.table_size:
+                    raise ValueError(
+                        f"saved remap at {path} has {len(existing)} rows "
+                        f"but table_size is {cfg.table_size} — "
+                        "table_size_log2 changed between runs?"
+                    )
+                self.remap = existing
+                return
+        if path is not None and latest_checkpoint(cfg.checkpoint_dir):
+            raise ValueError(
+                "hot table enabled but this checkpoint_dir holds a "
+                "checkpoint trained WITHOUT one (no remap.npy): the table "
+                "rows live in the unpermuted key space — set "
+                "hot_size_log2=0 to resume it, or use a fresh "
+                "checkpoint_dir"
+            )
         if not cfg.train_path:
             raise ValueError(
                 "hot table enabled but no train_path to sample key "
                 "frequencies from and no saved remap in checkpoint_dir"
             )
-        shards = find_shards(cfg.train_path)
-        with open(shards[0], "rb") as f:
-            if f.read(len(PACKED_MAGIC)) == PACKED_MAGIC:
-                raise NotImplementedError(
-                    f"{shards[0]}: training a hot-table model from packed "
-                    "shards is not ported yet: their remap is the one kept "
-                    "in checkpoint_dir/remap.npy (ROADMAP A6)"
-                )
         counts = freq.count_keys(
-            shards, self._parse_fn(), cfg.table_size,
+            find_shards(cfg.train_path), self._parse_fn(), cfg.table_size,
             cfg.freq_sample_mib << 20, cfg.block_mib << 20,
         )
         self.remap = freq.build_remap(counts, cfg.hot_size)
@@ -214,6 +252,9 @@ class Trainer:
             f"hot remap: {cfg.hot_size} rows capture {self.hot_mass:.1%} of "
             f"sampled feature occurrences"
         )
+        if path is not None and self.host == 0:
+            os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+            freq.save_remap(path, self.remap)
 
     def prepare_batch(self, batch: Batch) -> Batch:
         """Bring an externally built Batch (raw hash-space keys) into
@@ -261,15 +302,21 @@ class Trainer:
         shards = find_shards(prefix)
         return [s for i, s in enumerate(shards) if i % self.num_hosts == self.host]
 
-    def iter_train_batches(self) -> Iterator[tuple[Batch, int, int]]:
-        """Yields (batch, shard_index, resume_offset) over one epoch;
-        each finished shard logs a ``shard`` row with its observed
-        loader throughput when metrics are on."""
+    def iter_train_batches(
+        self, start_shard: int = 0, start_offset: int = 0
+    ) -> Iterator[tuple[Batch, int, int]]:
+        """Yields (batch, shard_index, resume_offset) over one epoch,
+        from shard ``start_shard`` at byte offset ``start_offset`` (a
+        restored cursor); each finished shard logs a ``shard`` row with
+        its observed loader throughput when metrics are on."""
         depth = self.cfg.prefetch_batches
         workers = self._parse_workers()
         for si, path in enumerate(self._my_shards(self.cfg.train_path)):
+            if si < start_shard:
+                continue
+            offset = start_offset if si == start_shard else 0
             loader = self._loader(path)
-            it = self._tracked_prefetch(loader, depth, 0, workers)
+            it = self._tracked_prefetch(loader, depth, offset, workers)
             t_shard = time.perf_counter()
             examples = 0
             try:
@@ -295,24 +342,67 @@ class Trainer:
 
     # -- training ----------------------------------------------------------
 
-    def train_epoch(self) -> dict:
+    def _timed_save(self, shard_idx: int, offset: int) -> float:
+        """save() booked as the ``checkpoint`` phase; returns its seconds,
+        which the epoch record reports as ``checkpoint_seconds`` apart
+        from examples/s.  A failed save leaves a ``health`` row before
+        re-raising: the previous complete generation stays restorable."""
+        t0 = time.perf_counter()
+        try:
+            with self.obs.phase("checkpoint"):
+                self.save(shard_idx, offset)
+        except BaseException as e:
+            if self.metrics_logger is not None:
+                self.metrics_logger.log("health", health_row(
+                    cause="checkpoint_save_failed",
+                    channel="train",
+                    silence_seconds=0.0,
+                    threshold_seconds=0.0,
+                    detail=f"{type(e).__name__}: {e} — previous "
+                    "complete generation remains restorable",
+                ))
+            raise
+        return time.perf_counter() - t0
+
+    def train_epoch(self, start_shard: int = 0, start_offset: int = 0) -> dict:
+        """One epoch from shard ``start_shard`` at ``start_offset``;
+        with ``checkpoint_dir`` a save every ``checkpoint_every_steps``
+        steps, and on preemption a save at the step in flight (once: a
+        periodic save of the same step already holds it) and a stop."""
+        cfg = self.cfg
         obs = self.obs
         obs.registry.reset()  # epoch-scoped phase accounting
         t0 = time.time()
         steps = 0
+        ckpt_seconds = 0.0
+        preempted = False
         device_metrics = []  # fetched once at epoch end: no sync per step
-        it = iter(self.iter_train_batches())
+        it = iter(self.iter_train_batches(start_shard, start_offset))
         while True:
             t_step = time.perf_counter()
             try:
                 with obs.phase("input_stall"):
-                    batch, _, _ = next(it)
+                    batch, shard_idx, resume = next(it)
             except StopIteration:
                 break
             arrays = self.step.put_batch(batch)
             device_metrics.append(self.step.dispatch_train(self.state, arrays))
             obs.observe("step_seconds", time.perf_counter() - t_step)
             steps += 1
+            saved = False
+            if cfg.checkpoint_dir and cfg.checkpoint_every_steps and (
+                steps % cfg.checkpoint_every_steps == 0
+            ):
+                ckpt_seconds += self._timed_save(shard_idx, resume)
+                saved = True
+            if self._preempted:
+                if not saved:
+                    ckpt_seconds += self._timed_save(shard_idx, resume)
+                preempted = True
+                break
+        if preempted:
+            # stop the loader's prefetch thread now, not at close()
+            it.close()
         with obs.phase("device_block"):
             if device_metrics:
                 host = torch.stack((
@@ -324,9 +414,11 @@ class Trainer:
         self.step_logloss.extend(float(ll) for ll in host[0])
         seen = float(sum(float(c) for c in host[1]))
         ll_sum = float(sum(float(ll) * float(c) for ll, c in zip(host[0], host[1])))
-        return self._epoch_stats(seen, ll_sum, steps, time.time() - t0)
+        return self._epoch_stats(seen, ll_sum, steps, time.time() - t0,
+                                 ckpt_seconds, preempted)
 
-    def _epoch_stats(self, seen: float, ll_sum: float, steps: int, dt: float) -> dict:
+    def _epoch_stats(self, seen: float, ll_sum: float, steps: int, dt: float,
+                     ckpt_seconds: float = 0.0, preempted: bool = False) -> dict:
         """Epoch record: throughput, per-phase wall seconds, stall
         fraction, step-time percentiles and the ``wire`` row.  `phases`
         holds main-thread-exclusive intervals; `overlapped` holds the
@@ -343,10 +435,10 @@ class Trainer:
             "examples": seen,
             "steps": steps,
             "train_logloss": ll_sum / max(seen, 1.0),
-            "examples_per_sec": seen / max(dt, 1e-9),
+            "examples_per_sec": seen / max(dt - ckpt_seconds, 1e-9),
             "seconds": dt,
-            "checkpoint_seconds": 0.0,
-            "preempted": False,
+            "checkpoint_seconds": round(ckpt_seconds, 6),
+            "preempted": preempted,
             "phases": phases,
             "overlapped": overlapped,
             "input_stall_frac": round(
@@ -381,11 +473,20 @@ class Trainer:
 
     def train(self) -> list[dict]:
         """Full training run (reference batch_training loop over epochs,
-        lr_worker.cc:179-205, with the epoch banner every 30 at :202)."""
+        lr_worker.cc:179-205, with the epoch banner every 30 at :202).
+
+        With ``checkpoint_dir``, every epoch end saves, and SIGTERM or
+        SIGINT finishes the step in flight, saves the weights, optimizer
+        state and data cursor, and returns (the last record's
+        ``preempted`` is set); a later run that calls ``restore`` goes
+        on mid-shard."""
         history = []
+        restore_handlers = self._install_preemption_handler()
         try:
             while self.epoch < self.cfg.epochs:
-                stats = self.train_epoch()
+                start_shard, start_offset = self._resume_cursor
+                self._resume_cursor = (0, 0)
+                stats = self.train_epoch(start_shard, start_offset)
                 wire_stats = stats.pop("_wire", None)
                 history.append(stats)
                 if self.metrics_logger is not None:
@@ -398,7 +499,14 @@ class Trainer:
                         f"epoch {self.epoch}: logloss={stats['train_logloss']:.6f} "
                         f"examples/s={stats['examples_per_sec']:.0f}"
                     )
+                if stats["preempted"]:
+                    # the process is about to exit for a restart: flush
+                    # the metrics now
+                    self.close()
+                    break
                 self.epoch += 1
+                if self.cfg.checkpoint_dir:
+                    self._timed_save(0, 0)
                 if (
                     self.cfg.eval_every_epochs
                     and self.cfg.test_path
@@ -409,7 +517,43 @@ class Trainer:
         except BaseException:
             self.close()  # never lose buffered metrics rows
             raise
+        finally:
+            restore_handlers()
         return history
+
+    def _install_preemption_handler(self) -> Callable[[], None]:
+        """Install SIGTERM/SIGINT -> checkpoint-and-stop handlers (only
+        with checkpointing on, only from the main thread); returns the
+        function that restores the previous handlers.  The handler fires
+        ONCE and then restores them, so a second signal acts as it would
+        have (a second Ctrl-C interrupts a wedged step)."""
+        self._preempted = False
+        if not self.cfg.checkpoint_dir:
+            return lambda: None
+        import signal
+
+        prev = {}
+
+        def restore():
+            for sig, h in prev.items():
+                signal.signal(sig, h)
+            prev.clear()
+
+        def on_signal(signum, frame):
+            self._log(
+                f"signal {signum}: finishing step, checkpointing, stopping "
+                "(send again to force)"
+            )
+            self._preempted = True
+            restore()
+
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev[sig] = signal.signal(sig, on_signal)
+        except ValueError:  # not the main thread: no handler possible
+            restore()
+            return lambda: None
+        return restore
 
     def _log_device_mem(self) -> None:
         """Per-epoch ``device_mem`` row: the card's allocator counters
@@ -518,3 +662,103 @@ class Trainer:
         if self.metrics_logger is not None:
             self.metrics_logger.log("eval", result)
         return result
+
+    # -- checkpointing -----------------------------------------------------
+
+    def save(self, shard_idx: int = 0, offset: int = 0,
+             extra: dict | None = None) -> str | None:
+        """Checkpoint the state with the data cursor ``(shard_idx,
+        offset)`` of this epoch (``extra`` merges more keys into the
+        manifest's cursor); returns the path, or None without
+        ``checkpoint_dir``."""
+        if not self.cfg.checkpoint_dir:
+            return None
+        # per-host cursors, as the reference records them: a host
+        # restores its own
+        cursors = [{"shard": int(shard_idx), "offset": int(offset)}]
+        cursor = {
+            "epoch": self.epoch,
+            "num_hosts": self.num_hosts,
+            "cursors": cursors,
+            # rank-0 view kept for human inspection of the manifest
+            "shard": cursors[0]["shard"],
+            "offset": cursors[0]["offset"],
+        }
+        if extra:
+            cursor.update(extra)
+        return save_checkpoint(
+            self.cfg.checkpoint_dir,
+            self.state,
+            cursor,
+            self.cfg.to_json(),
+            keep=self.cfg.checkpoint_keep,
+        )
+
+    def restore(self, auto: bool = False) -> dict | None:
+        """Resume from a checkpoint if one exists; returns the cursor or
+        None.  The state comes back on this trainer's device, the epoch
+        and the data cursor with it (a cursor saved by another number of
+        hosts restarts the epoch from its beginning).
+
+        ``auto`` (``--resume auto``): walk every generation newest-first
+        and restore the newest complete, loadable one; a generation with
+        no manifest or an unreadable one is skipped with a
+        ``checkpoint_fallback`` health row.  Plain mode follows LATEST
+        and treats an unusable checkpoint as "start fresh"."""
+        if not self.cfg.checkpoint_dir:
+            return None
+        if auto:
+            candidates = checkpoint_candidates(self.cfg.checkpoint_dir)
+        else:
+            path = latest_checkpoint(self.cfg.checkpoint_dir)
+            candidates = [path] if path is not None else []
+        cursor = None
+        for path in candidates:
+            try:
+                self.state, cursor = load_checkpoint(path, self.state)
+                break
+            except IncompatibleCheckpoint as e:
+                if not auto:
+                    self._log(f"ignoring unusable checkpoint: {e} — starting fresh")
+                    return None
+                self._fallback_health(path, e)
+            except (OSError, ValueError) as e:
+                if not auto:
+                    raise
+                self._fallback_health(path, e)
+        if cursor is None:
+            return None
+        self.epoch = int(cursor.get("epoch", 0))
+        cursors = cursor.get("cursors")
+        saved_hosts = int(cursor.get("num_hosts", 1))
+        if cursors is not None and saved_hosts == self.num_hosts:
+            mine = cursors[self.host]
+            self._resume_cursor = (int(mine["shard"]), int(mine["offset"]))
+        elif cursors is not None:
+            self._log(
+                f"checkpoint was saved with {saved_hosts} hosts, now "
+                f"{self.num_hosts}: shard assignment changed — restarting "
+                f"epoch {self.epoch} from the beginning"
+            )
+            self._resume_cursor = (0, 0)
+        else:
+            self._resume_cursor = (int(cursor.get("shard", 0)),
+                                   int(cursor.get("offset", 0)))
+        return cursor
+
+    def _fallback_health(self, path: str, err: BaseException) -> None:
+        """One skipped restore candidate (auto mode): a log line and a
+        ``health`` row, so the fallback is not a silent rewind."""
+        self._log(
+            f"resume auto: skipping unusable checkpoint {path} "
+            f"({type(err).__name__}: {err}) — falling back to the next "
+            "newest complete generation"
+        )
+        if self.metrics_logger is not None:
+            self.metrics_logger.log("health", health_row(
+                cause="checkpoint_fallback",
+                channel="train",
+                silence_seconds=0.0,
+                threshold_seconds=0.0,
+                detail=f"{os.path.basename(path)}: {type(err).__name__}: {err}",
+            ))

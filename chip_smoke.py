@@ -198,8 +198,10 @@ Phases, in order; any failure raises and the exit code is 1:
    (``hot_windowend`` auto, sparse at T = 2^24), 2 epochs each, and one
    dispatch of ``hot_windowend="dense"``; each with exact launches, the
    card against the CPU within TRAIN_BOUNDS (the sequential forms
-   through ``lockstep_tables``, the hot inner window by window), eval
-   AUC inside the planted bars, and the hot mass (the trainer's remap
+   through ``lockstep_tables`` over the first epoch, every batch once,
+   the hot inner window by window, and the card's eval at that depth
+   against the CPU's), eval AUC inside the planted bars, and the hot
+   mass (the trainer's remap
    line) and the share of features steering truncates;
 20. the hot modes' kernel times on the paths' own batches or first
    slices (K2 per form, K3 over the head rows, K5 with the fold, K6
@@ -237,8 +239,9 @@ Phases, in order; any failure raises and the exit code is 1:
    inner mode (microbatch 128, ``hot_windowend`` auto = sparse), 2
    epochs each from one seeded state: exact launches, the card against
    the CPU within TRAIN_BOUNDS (the sequential forms through
-   ``lockstep_tables``, which also tells MVM's guard splits from
-   faults), the sync guard on the sequential paths' first dispatch, the
+   ``lockstep_tables`` over the first epoch, which also tells MVM's
+   guard splits from faults), the sync guard on the sequential paths'
+   first dispatch, the
    eval AUC inside the planted bars;
 27. ``mvm_nohot`` (40 cold slots) dense on the default input path
    (native text, the dictionary wire with the field streams), the card
@@ -329,10 +332,11 @@ Phases, in order; any failure raises and the exit code is 1:
 40. checkpoint, preempt, resume (utils/checkpoint.py) at the flagship
    hot ``fm`` (T = 2^24, D = 10, 12 + 32 slots, H = 2^14, FTRL, the
    default input path; a generation holds w and v with n and z, about
-   2.2 GB): (a) a run with ``checkpoint_every_steps=1`` whose batch
-   iterator sends SIGTERM to this process as it hands over the first
-   batch: the step finishes, the checkpoint lands with a cursor at the
-   end of shard 0, ``train()`` records ``preempted``, and
+   2.2 GB): (a) a run with ``checkpoint_every_steps=1`` that sends
+   SIGTERM to this process as its step takes the first batch (the
+   staging ring has read ahead of it): the step finishes, the
+   checkpoint lands with a cursor at the end of shard 0, the batches
+   staged past it are dropped, ``train()`` records ``preempted``, and
    ``checkpoint_dir/remap.npy`` is the run's remap; (b) a fresh trainer
    on the card restores every table array and the step bit-equal to
    the saved files (``g`` zero, the remap read, not counted), trains to
@@ -349,6 +353,33 @@ Phases, in order; any failure raises and the exit code is 1:
    straight text run's planes exactly, its tables within the gate.
    Every save and restore is timed (seconds, GB, GB/s) after a
    synchronise, beside the card's name and power limit.
+41. the input fan-out and the staging ring (trainer.py
+   ``_transfer_ahead``, io/fanout.py): over 8 train shards of 65,536
+   lines (the first two phase 8's), one epoch a run from phase 8's
+   initial state, (a) ``fm_nohot`` over native text and the dictionary
+   wire at input_streams 1 and transfer_ahead_depth 1, (c) 4 streams
+   and depth 4 (the default depth 2 runs in every phase above), (d) the
+   flagship hot ``fm``'s
+   hybrid at microbatch 128 at (1, 1) and (4, 4), (e) packed-v2 shards
+   of the corpus at (1, 1) and (4, 4); each run held to its (1, 1)
+   partner: the shipped planes and host floats equal in step order,
+   the tables within ``compare_states``' gate (an FTRL element that
+   the n' == 0 rule split over a rounding-sized gradient is verified as
+   such by ``rounding_touches`` and counted), the step log-losses
+   within TRAIN_BOUNDS, the launches exact and equal.  ``--fanout-repeat
+   RUNS`` runs this phase alone RUNS times.  Each run's row:
+   examples/s, ``put_batch`` ms per dispatch split into compaction,
+   pinned copy and enqueue, ``overlapped`` (parse, pack, h2d),
+   ``input_stall_frac``, ``transfer_ahead_depth_mean``, the ``stream``
+   rows, the idle share from the kernels' device times and the card's
+   name and power limit.
+
+Every training path runs through the staging ring (on by default,
+depth 2): ``put_batch``'s host half (compaction, the copy into pinned
+memory, one copy a plane on the step's copy stream) on ring workers,
+its device half (the wait on the copies' event, K6) on the training
+thread, where every kernel launches.  The shipped batches are captured
+there, in step order (``keep_shipped_batches``).
 
 The card-against-CPU replays are cut for the time limit: every
 ``compare_states`` holds the two sides on the card (the CPU's arrays
@@ -369,7 +400,8 @@ MVM forms the MVM paths (phases 25-27), the FFM forms the FFM paths
 (phases 35-37); phase 40's resumed paths go into the entries of their
 kernels' ``launches_by_path`` (``fm resume``, ``fm hybrid resume``,
 ``fm packed-v2 hot``; ``wide_deep resume`` in K7's and K8's), phase
-16's binary path as ``fm_nohot binary``; every count is set to 0 just
+16's binary path as ``fm_nohot binary``, phase 41's runs as ``fanout
+<run>: ...`` in K2-K6's; every count is set to 0 just
 before each path and read just after it.  K1's entry splits its launches by the rows a
 launch covers (``launches_by_shape``: serving buckets, the artifact's
 buckets in phase 8, 16,384-row eval batches).
@@ -1461,11 +1493,45 @@ def train_config(model: str, t_log2: int, data: dict, metrics_out: str):
     )
 
 
+def rounding_touches(a: dict, b: dict, device):
+    """Elementwise over one FTRL table's ``param``: True where FTRL's
+    n' == 0 rule (csrc/ftrl.cuh: w keeps its init until its first
+    nonzero gradient) splits two runs over a gradient of rounding's
+    size.  One side never touched the element (n and z exactly 0, so w
+    is its init); the other touched it only with gradients no larger
+    than float32 rounding of the table's largest (sqrt(n) <= EPS32 *
+    sqrt(max n), n being the sum of the squared gradients), which leaves
+    |z| <= lambda1 and w exactly 0.  A saturated example does this:
+    where 1 + exp(-logit) rounds to 1, its p - y is 0 on one side and
+    2^-24 on the other, as a last-ulp difference of the logit decides,
+    and the card's summation order (atomics) makes such differences
+    between any two runs.  Returns the mask and the largest such
+    touched sqrt(n) over its bound."""
+    import torch
+
+    def one_way(untouched: dict, touched: dict):
+        n0, z0 = untouched["n"].to(device), untouched["z"].to(device)
+        n1, p1 = touched["n"].to(device), touched["param"].to(device)
+        bound = EPS32 * float(n1.max()) ** 0.5
+        g1 = n1.sqrt()
+        mask = (n0 == 0) & (z0 == 0) & (n1 > 0) & (g1 <= bound) & (p1 == 0)
+        worst = float(torch.where(mask, g1, 0.0).max()) / bound if bound > 0 else 0.0
+        return mask, worst
+
+    ab, worst_ab = one_way(a, b)
+    ba, worst_ba = one_way(b, a)
+    return ab | ba, max(worst_ab, worst_ba)
+
+
 def compare_states(gpu_state, cpu_state, occ=None, gate: bool = True) -> dict:
-    """Tables of the card's run against the CPU run's, and the dense
-    parameters of the pooled families, held to TRAIN_BOUNDS' table
-    terms.  Reports the worst ratio to them, the
-    elements whose |z| lies within rounding of lambda1, and the worst
+    """Tables of the card's run against the CPU run's (or another card
+    run's), and the dense parameters of the pooled families, held to
+    TRAIN_BOUNDS' table terms.  An FTRL ``param`` element that FTRL's
+    n' == 0 rule split over a rounding-sized gradient
+    (``rounding_touches``) is held to that instead, and counted.
+    Reports the worst ratio to them, the
+    elements whose |z| lies within rounding of lambda1, the rounding
+    touches, and the worst
     element: its table array, row and column, its values on both sides,
     its FTRL state on the CPU (|z| over lambda1, n) and, given ``occ``
     (occurrences per row over the run's batches), how often its row
@@ -1477,7 +1543,8 @@ def compare_states(gpu_state, cpu_state, occ=None, gate: bool = True) -> dict:
 
     from xflow_tpu_torch.optim import FTRL
 
-    worst = {"max_err_over_bound": 0.0, "near_lambda1": 0, "worst_element": None}
+    worst = {"max_err_over_bound": 0.0, "near_lambda1": 0, "rounding_touches": 0,
+             "rounding_touch_g_over_bound": 0.0, "worst_element": None}
     l1 = FTRL().lambda1
     failed = None
     arrays = [(name, key, want, gpu_state["tables"][name][key])
@@ -1495,6 +1562,13 @@ def compare_states(gpu_state, cpu_state, occ=None, gate: bool = True) -> dict:
         bound = (TRAIN_BOUNDS["table_rtol"] * want.abs()
                  + TRAIN_BOUNDS["table_atol_frac"] * want.abs().max())
         ratios = (got - want).abs() / torch.where(bound > 0, bound, 1.0)
+        if key == "param" and "n" in table and "z" in table:
+            split, g_over = rounding_touches(table, gpu_state["tables"][name], got.device)
+            ratios = torch.where(split, 0.0, ratios)
+            worst["rounding_touches"] += int(split.sum())
+            worst["rounding_touch_g_over_bound"] = max(
+                worst["rounding_touch_g_over_bound"], g_over)
+            del split
         i = int(torch.argmax(ratios))
         row, col = divmod(i, want.shape[1])
         ratio = float(ratios.view(-1)[i])
@@ -1700,19 +1774,28 @@ def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
 
 
 def keep_shipped_batches(trainer) -> list:
-    """Keep a reference to every batch the trainer ships to the card
-    (its ``put_batch`` results, in step order); adds no work."""
+    """Keep a reference to every training batch the trainer ships to the
+    card, in step order: the results of ``put_batch_device``, which runs
+    on the training thread (the staging ring's workers finish their host
+    halves in any order); adds no work."""
     shipped = []
-    put = trainer.step.put_batch
+    finish = trainer.step.put_batch_device
 
-    def put_and_keep(batch, predict=False):
-        arrays = put(batch, predict)
-        if not predict:
+    def finish_and_keep(staged):
+        arrays = finish(staged)
+        if not staged.predict:
             shipped.append(arrays)
         return arrays
 
-    trainer.step.put_batch = put_and_keep
+    trainer.step.put_batch_device = finish_and_keep
     return shipped
+
+
+def put_batch_seconds(record: dict) -> float:
+    """An epoch record's ``put_batch`` seconds: its host half, booked as
+    ``h2d`` on the staging ring's workers (under ``overlapped``), plus
+    any inline ``h2d``."""
+    return record["phases"].get("h2d", 0.0) + record["overlapped"].get("h2d", 0.0)
 
 
 def main_path_kernels(model: str, trainer, batches: list, worst: dict) -> dict:
@@ -2275,9 +2358,9 @@ def run_mode(dev, model: str, t_log2: int, data: dict, init: dict, mode: dict,
         "launches": got, "train_seconds": train_s, "cpu_train_seconds": cpu_s,
         "examples_per_sec": [h["examples_per_sec"] for h in history],
         "step_time_p50": [h["step_time_p50"] for h in history],
-        "phases": [{k: p.get(k, 0.0) for k in ("input_stall", "h2d", "dispatch",
-                                                "device_block")}
-                   for p in (h["phases"] for h in history)],
+        "phases": [dict({k: h["phases"].get(k, 0.0) for k in ("input_stall", "dispatch",
+                                                              "device_block")},
+                        h2d=put_batch_seconds(h)) for h in history],
         "train_logloss": [h["train_logloss"] for h in history],
         "cpu_train_logloss": ([h["train_logloss"] for h in cpu_history] if cpu_history
                               else None),
@@ -3095,7 +3178,7 @@ def path_row(label: str, model: str, run: dict) -> dict:
         "train_seconds": run["train_seconds"],
         "examples_per_sec": [x["examples_per_sec"] for x in h],
         "input_stall_s": [x["phases"].get("input_stall", 0.0) for x in h],
-        "put_batch_ms_per_dispatch": [x["phases"].get("h2d", 0.0) / max(x["steps"], 1) * 1e3
+        "put_batch_ms_per_dispatch": [put_batch_seconds(x) / max(x["steps"], 1) * 1e3
                                       for x in h],
         "wire_bytes_per_example": [w["wire_bytes_per_example"] for w in run["wire"]],
         "compaction_ratio": [w["compaction_ratio"] for w in run["wire"]],
@@ -3264,23 +3347,25 @@ def equal_to_files(what: str, state: dict, path: str, dev) -> dict:
 
 
 def preempt_on_first_batch(trainer) -> None:
-    """SIGTERM to this process as ``trainer``'s batch iterator hands over
-    the first batch of the run: the trainer finishes that step,
-    checkpoints and stops."""
+    """SIGTERM to this process as ``trainer``'s step takes the first
+    batch of the run (its ``put_batch_device``: the staging ring reads
+    batches ahead of the step): the trainer finishes that step,
+    checkpoints and stops, dropping what the ring staged past it."""
     import os
     import signal
 
-    inner = trainer.iter_train_batches
+    inner = trainer.step.put_batch_device
+    taken = []
 
-    def wrapped(start_shard=0, start_offset=0):
-        for i, item in enumerate(inner(start_shard, start_offset)):
-            if i == 0:
-                if signal.getsignal(signal.SIGTERM) in (signal.SIG_DFL, signal.SIG_IGN, None):
-                    raise AssertionError("the trainer installed no preemption handler")
-                os.kill(os.getpid(), signal.SIGTERM)
-            yield item
+    def wrapped(staged):
+        if not taken:
+            if signal.getsignal(signal.SIGTERM) in (signal.SIG_DFL, signal.SIG_IGN, None):
+                raise AssertionError("the trainer installed no preemption handler")
+            os.kill(os.getpid(), signal.SIGTERM)
+        taken.append(1)
+        return inner(staged)
 
-    trainer.iter_train_batches = wrapped
+    trainer.step.put_batch_device = wrapped
 
 
 def one_resumed_dispatch(dev, cfg, init, label: str, rows: list) -> dict:
@@ -3480,6 +3565,214 @@ def phase_checkpoint(dev, t_log2: int, workdir: str, dense: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The input fan-out and the staging ring (phase 41)
+
+FANOUT_SHARDS = 8  # train shards of TRAIN_LINES: 8 dispatches an epoch
+HYBRID = {"update_mode": "sequential", "microbatch": SEQ_MICROBATCH,
+          "sequential_inner": "sparse"}
+# (run, input path and model, update mode, input_streams,
+# transfer_ahead_depth, the run it is held to: its (1, 1) partner).  Run
+# (b), the default depth 2, is left out for the script's time limit:
+# every earlier phase's training paths run at depth 2.
+FANOUT_RUNS = (
+    ("a", "fm_nohot text", {}, 1, 1, None),
+    ("c", "fm_nohot text", {}, 4, 4, "a"),
+    ("d1", "fm hot text", HYBRID, 1, 1, None),
+    ("d4", "fm hot text", HYBRID, 4, 4, "d1"),
+    ("e1", "fm_nohot packed-v2", {}, 1, 1, None),
+    ("e4", "fm_nohot packed-v2", {}, 4, 4, "e1"),
+)
+
+
+def stream_rows(metrics_out: str) -> list:
+    with open(metrics_out) as f:
+        return [r for r in map(json.loads, f) if r["kind"] == "stream"]
+
+
+def fanout_run(dev, cfg, init: dict) -> dict:
+    """One epoch of ``cfg`` through ``Trainer`` on the card from
+    ``init``, launch counts zeroed just before and read just after and
+    held to ``expected_launches``; the shipped planes and host floats
+    kept in step order (captured on the training thread)."""
+    import torch
+
+    from xflow_tpu_torch.parallel.step import hot_windowend
+    from xflow_tpu_torch.trainer import Trainer
+
+    zero_launches()
+    # the path starts here
+    trainer = Trainer(cfg, device=dev, log=lambda _: None)
+    trainer.state = state_of(cfg, init, dev)
+    shipped = keep_shipped_batches(trainer)
+    t0 = time.perf_counter()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    got = read_launches()
+    # ... and ends here
+    trainer.close()
+    steps = sum(h["steps"] for h in history)
+    want = expected_launches(dataclasses.asdict(cfg), steps, len(trainer.state["tables"]),
+                             0, hot_windowend(cfg))
+    if got != want or steps != FANOUT_SHARDS * math.ceil(TRAIN_LINES / cfg.batch_size):
+        raise AssertionError(f"{cfg.train_path} streams {cfg.input_streams} depth "
+                             f"{cfg.transfer_ahead_depth}: {steps} dispatches, launches "
+                             f"{got}, expected {want}")
+    floats = [(a["num_real"], a.get("slice_num_real")) for a in shipped]
+    return {"trainer": trainer, "history": history, "launches": got,
+            "train_seconds": train_s, "planes": host_planes(shipped), "floats": floats,
+            "streams": stream_rows(cfg.metrics_out)}
+
+
+def fanout_row(run_id: str, path: str, mode: dict, run: dict, card: str) -> dict:
+    """Phase 41's row for one run; the idle share is added by ``main``
+    from the kernels' timed device ms."""
+    h = run["history"][0]
+    steps = h["steps"]
+    split = h.get("h2d_split", {})
+    return {
+        "run": run_id, "path": path, "mode": "hybrid mb128" if mode else "dense",
+        "input_streams": run["trainer"].cfg.input_streams,
+        "transfer_ahead_depth": run["trainer"].cfg.transfer_ahead_depth,
+        "steps": steps, "train_seconds": run["train_seconds"],
+        "examples_per_sec": h["examples_per_sec"],
+        "put_batch_ms_per_dispatch": put_batch_seconds(h) / steps * 1e3,
+        "put_batch_split_ms_per_dispatch": {k: v / steps * 1e3 for k, v in split.items()},
+        "overlapped": h["overlapped"], "phases": h["phases"],
+        "input_stall_frac": h["input_stall_frac"],
+        "transfer_ahead_depth_mean": h.get("transfer_ahead_depth_mean"),
+        "stream_rows": run["streams"], "launches": run["launches"], "card": card,
+    }
+
+
+def phase_fanout(dev, t_log2: int, workdir: str, dense: dict, card: str) -> dict:
+    """Phase 41: the input fan-out and the staging ring at full width
+    over 8 train shards of TRAIN_LINES lines (io/synth.py, SYNTH_SEED:
+    the first two are phase 8's, the test shard the same), one epoch a
+    run from phase 8's initial state: (a) ``fm_nohot`` over native text
+    and the dictionary wire at input_streams 1 and
+    transfer_ahead_depth 1, (c) at 4 streams and depth 4 (the default
+    depth 2 runs in every earlier phase); (d) the flagship hot ``fm``'s hybrid at
+    microbatch 128 at (1, 1) and (4, 4); (e) packed-v2 shards of the
+    same corpus (``python -m xflow_tpu_torch.io.packed``) at (1, 1) and
+    (4, 4).  Each run against its (1, 1) partner: every shipped plane
+    and host float equal in step order, the tables within
+    ``compare_states``' gate, the step log-losses within TRAIN_BOUNDS,
+    the launches exact and equal."""
+    import os
+
+    import torch
+
+    from xflow_tpu_torch.io.synth import generate_dataset
+
+    t0 = time.perf_counter()
+    prefix = os.path.join(workdir, "fanout", "synth")
+    generate_dataset(prefix, FANOUT_SHARDS * TRAIN_LINES, TEST_LINES,
+                     train_shards=FANOUT_SHARDS, seed=SYNTH_SEED)
+    data = {"train": prefix + ".train", "test": prefix + ".test"}
+    packed = prefix + ".pk"
+    proc = subprocess.run(
+        [sys.executable, "-m", "xflow_tpu_torch.io.packed", "--train", data["train"],
+         "--out", packed, "--batch-size", str(TRAIN_BATCHES[-1]), "--max-nnz", str(K),
+         "--table-size-log2", str(t_log2)], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"packed CLI failed: {proc.stdout}{proc.stderr}")
+    log(json.dumps({"phase": 41, "corpus_and_packing_seconds": time.perf_counter() - t0}))
+    init = dense["inits"]["fm"]
+    rows, runs, by_path = [], {}, {}
+    for i, (run_id, path, mode, streams, depth, partner) in enumerate(FANOUT_RUNS):
+        metrics = os.path.join(workdir, "fanout", f"{run_id}.jsonl")
+        if os.path.exists(metrics):  # a repeat's: its stream rows are this run's
+            os.remove(metrics)
+        over = dict(mode, epochs=1, input_streams=streams, transfer_ahead_depth=depth)
+        if path.startswith("fm hot"):
+            cfg = hot_config("fm", t_log2, data, metrics, **over)
+        else:
+            cfg = dataclasses.replace(train_config("fm", t_log2, data, metrics), **over)
+        if "packed" in path:
+            cfg = dataclasses.replace(cfg, train_path=packed)
+        run = fanout_run(dev, cfg, init)
+        row = fanout_row(run_id, path, mode, run, card)
+        if partner is not None:
+            ref = runs[partner]
+            what = f"phase 41 ({run_id}) against ({partner})"
+            planes_equal(what, run["planes"], ref["planes"])
+            if run["floats"] != ref["floats"] or run["launches"] != ref["launches"]:
+                raise AssertionError(f"{what}: host floats or launches differ "
+                                     f"({run['launches']} vs {ref['launches']})")
+            got, want = run["trainer"].step_logloss, ref["trainer"].step_logloss
+            if len(got) != len(want) or any(
+                    abs(a - b) > TRAIN_BOUNDS["logloss_rtol"] * max(abs(b), 1.0)
+                    for a, b in zip(got, want)):
+                raise AssertionError(f"{what}: step log-loss {got} vs {want}")
+            row["vs_partner"] = compare_states(run["trainer"].state, ref["trainer"].state)
+        if streams > 1 and sum(r["shards"] for r in run["streams"]) != FANOUT_SHARDS:
+            raise AssertionError(f"phase 41 ({run_id}): stream rows {run['streams']}")
+        by_path[f"fanout {run_id}: {path}, streams {streams}, depth {depth}"] = \
+            run["launches"]
+        rows.append(row)
+        log(json.dumps(dict(row, phase=41)))
+        # a partner's run (its state on the card) is kept until the last
+        # run held to it is done
+        runs[run_id] = run
+        needed = {p for *_, p in FANOUT_RUNS[i + 1:]}
+        for done in [r for r in runs if r not in needed]:
+            del runs[done]
+        del run
+        torch.cuda.empty_cache()
+    log(f"phase 41 done in {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "launches_by_path": by_path}
+
+
+def fanout_repeat(dev, t_log2: int, workdir: str, runs: int, card: str) -> None:
+    """Phase 41 alone, ``runs`` times from one fresh ``fm_nohot`` state:
+    each repeat logs its rows, whose ``vs_partner`` counts the FTRL
+    elements that the n' == 0 rule split over a rounding-sized gradient
+    (``rounding_touches``) between two card runs of the same batches."""
+    import os
+
+    import torch
+
+    prefix = os.path.join(workdir, "fanout", "synth")
+    cfg = train_config("fm", t_log2, {"train": prefix + ".train", "test": prefix + ".test"},
+                       "")
+    init = fresh_init(dev, cfg)
+    for i in range(runs):
+        t0 = time.perf_counter()
+        phase_fanout(dev, t_log2, workdir, {"inits": {"fm": init}}, card)
+        log(json.dumps({"fanout_repeat": i, "seconds": time.perf_counter() - t0}))
+        torch.cuda.empty_cache()
+
+
+def fanout_train_rows(fanout: dict, dense_step_ms: float, hot: dict, modes: dict) -> list:
+    """Phase 41's rows with the idle share by PERF.md's formula: 1 -
+    (kernel device ms x launches) / training seconds.  The fm_nohot
+    runs take phase 8's dense step (K2 + K3 on w and v) and K6 per
+    dispatch, the hybrid runs phase 20's hot kernel times and phase
+    12's K4 slice time, as ``hot_train_rows`` does."""
+    hot_ms = {r["kernel"]: r["ms"] for r in hot["timings"] if r.get("model") == "fm"}
+    k4_slice = next(r["ms"] for r in modes["timings"] if r["kernel"] == "consolidate_keys"
+                    and r["model"] == "fm" and r["path"] == "sequential main path, slice 0")
+    out = []
+    for row in fanout["rows"]:
+        n = row["launches"]
+        if row["mode"] == "dense":
+            busy_ms = row["steps"] * dense_step_ms
+        else:
+            busy_ms = (n["train_step"] * hot_ms["train_step (hot: hybrid)"]
+                       + n["dict_decode"] * hot_ms["dict_decode (hot tiers)"]
+                       + n["optim_update"] * hot_ms["optim_update (head rows)"]
+                       + n["touched_update"] * hot_ms["touched_update (fold)"]
+                       + n["consolidate_keys"] * k4_slice)
+        busy = busy_ms / 1e3
+        out.append(dict({k: v for k, v in row.items() if k != "launches"}, phase=41,
+                        device_busy_s_from_kernel_times=busy,
+                        device_idle_share_from_kernel_times=1.0 - busy
+                        / row["train_seconds"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The hot table at the flagship geometries (phases 17-20)
 
 # scripts/bench_models.py:66-76: the repo's flagship lr and fm
@@ -3498,6 +3791,10 @@ HOT_MODES = (
     ("hot_inner_mb128", {"update_mode": "sequential", "microbatch": SEQ_MICROBATCH,
                          "sequential_inner": "hot"}),
 )
+# the hybrid's and the hot inner's card-vs-CPU lockstep replay: the
+# first epoch (every batch once), cut from both epochs for the script's
+# time limit; the second epoch's tables are held by the eval bars
+HOT_REPLAY_DISPATCHES = 2
 HOT_WINDOW_DENSE = {"update_mode": "sequential", "microbatch": SEQ_MICROBATCH,
                     "sequential_inner": "hot", "hot_windowend": "dense"}
 B7_REPLACES = (
@@ -4174,7 +4471,8 @@ def phase_hot(dev, t_log2: int, workdir: str, dense: dict) -> dict:
         for label, mode in HOT_MODES:
             seq = mode.get("update_mode") == "sequential"
             run = run_mode(dev, model, t_log2, data, init, dict(geom, **mode), label, workdir,
-                           keep=True, bars=bars, lockstep=seq, sync_check=seq)
+                           keep=True, bars=bars, lockstep=seq, sync_check=seq,
+                           replay_dispatches=HOT_REPLAY_DISPATCHES if seq else None)
             trainer, arrays = run["trainer"], run["shipped"][0]
             cfg = trainer.cfg
             if label == "hot_dense":
@@ -4884,7 +5182,8 @@ def phase_mvm(dev, t_log2: int, workdir: str, dense: dict) -> dict:
     for label, mode in HOT_MODES:
         seq = mode.get("update_mode") == "sequential"
         run = run_mode(dev, "mvm", t_log2, data, init, dict(geom, **mode), label, workdir,
-                       keep=True, bars=bars, lockstep=seq, sync_check=seq)
+                       keep=True, bars=bars, lockstep=seq, sync_check=seq,
+                       replay_dispatches=HOT_REPLAY_DISPATCHES if seq else None)
         trainer, arrays = run["trainer"], run["shipped"][0]
         cfg = trainer.cfg
         tables = trainer.state["tables"]
@@ -8501,6 +8800,10 @@ def main() -> int:
         help="instead of the phases: wide_deep's hot inner replayed on the card "
         "and the CPU in lockstep with ReLU's kinks synchronised and not")
     parser.add_argument(
+        "--fanout-repeat", type=int, default=0, metavar="RUNS",
+        help="instead of the phases: phase 41 (the input fan-out and the staging "
+        "ring) RUNS times from one initial state")
+    parser.add_argument(
         "--kernel-times", nargs="?", const=",".join(KERNEL_TIME_GROUPS), default="",
         metavar="GROUPS",
         help="instead of the phases: the kernels timed alone on path-like batches, the "
@@ -8545,10 +8848,12 @@ def main() -> int:
         log(json.dumps({"kernel_times": kernel_times(dev, groups), "card": card}))
         log(f"chip_smoke: diagnostic done in {time.perf_counter() - t_start:.1f} s")
         return 0
-    if args.seq_witness or args.seq_lockstep or args.kink_witness:
+    if args.seq_witness or args.seq_lockstep or args.kink_witness or args.fanout_repeat:
         workdir = tempfile.mkdtemp(prefix="xflow-seq-witness-")
         try:
-            if args.seq_witness:
+            if args.fanout_repeat:
+                fanout_repeat(dev, T_LOG2, workdir, args.fanout_repeat, card)
+            elif args.seq_witness:
                 seq_witness(dev, T_LOG2, workdir, args.seq_witness)
             elif args.kink_witness:
                 kink_witness(dev, workdir)
@@ -8624,6 +8929,9 @@ def main() -> int:
         ckpt = phase_checkpoint(dev, T_LOG2, workdir, train_path)
         log(json.dumps({"phase": 40, "checkpoint_io": ckpt["io"], "card": card}))
         log(f"phase 40 done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        fanout = phase_fanout(dev, T_LOG2, workdir, train_path, card)
+        log(f"phase 41 done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase": 17, "checks": hot["checks"]}))
@@ -8647,16 +8955,18 @@ def main() -> int:
         busy = (TRAIN_EPOCHS * sum(k2_ms) + row["steps"] * (sum(k3_ms) + k6_ms)) / 1e3
         train_rows.append({
             "path": "native text + dict", "parser": row["parser"], "wire": row["wire"],
-            "put_batch_ms_per_dispatch": [p.get("h2d", 0.0) / (row["steps"] / TRAIN_EPOCHS)
-                                          * 1e3 for p in row["phases"]],
+            "put_batch_ms_per_dispatch": [(p.get("h2d", 0.0) + o.get("h2d", 0.0))
+                                          / (row["steps"] / TRAIN_EPOCHS) * 1e3
+                                          for p, o in zip(row["phases"], row["overlapped"])],
             "parse_mb_per_sec": row["parse_mb_per_sec"],
             "model": row["model"], "card": card,
             "examples_per_sec": row["examples_per_sec"],
             "step_time_p50": row["step_time_p50"],
             "step_time_p99": row["step_time_p99"],
-            "phases": [{k: p.get(k, 0.0) for k in
-                        ("input_stall", "h2d", "dispatch", "device_block")}
-                       for p in row["phases"]],
+            "phases": [dict({k: p.get(k, 0.0) for k in
+                             ("input_stall", "dispatch", "device_block")},
+                            h2d=p.get("h2d", 0.0) + o.get("h2d", 0.0))
+                       for p, o in zip(row["phases"], row["overlapped"])],
             "overlapped": row["overlapped"],
             "train_seconds": row["train_seconds"],
             "batches": row["batch_stats"],
@@ -8700,6 +9010,7 @@ def main() -> int:
     train_rows += mvm_train_rows(mvm, hot, modes, train_path, card)
     train_rows += ffm_train_rows(ffm, card)
     train_rows += pooled_train_rows(pooled, card)
+    train_rows += fanout_train_rows(fanout, step_ms["fm"] + k6_ms, hot, modes)
     log(json.dumps({"train": train_rows}))
 
     head = next(r for r in timings if r["mode"] == "fm" and r["B"] == BUCKETS[-1])
@@ -8719,11 +9030,13 @@ def main() -> int:
     resumed = {p: n for p, n in ckpt["launches_by_path"].items() if p != "wide_deep resume"}
     pooled["launches_by_path"]["wide_deep resume"] = ckpt["launches_by_path"][
         "wide_deep resume"]
+    # and phase 41's runs through the staging ring and the fan-out
     train_launches = {k: train_path["launches"][k] + modes["launches"][k]
                       + paths["launches"][k] + sum(n[k] for n in resumed.values())
+                      + sum(n[k] for n in fanout["launches_by_path"].values())
                       for k in KERNEL_WRAPPERS}
     by_path = dict(modes["launches_by_path"], **paths["launches_by_path"], **resumed,
-                   dense=train_path["launches"])
+                   **fanout["launches_by_path"], dense=train_path["launches"])
     k4_head = next(r for r in modes["timings"] if r["kernel"] == "consolidate_keys"
                    and r["model"] == "fm" and r["path"] == "sparse main path")
     k5_head = next(r for r in modes["timings"] if r["kernel"] == "touched_update"

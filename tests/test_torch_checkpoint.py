@@ -442,18 +442,21 @@ def test_hot_remap_persists_and_toggle_is_refused(toy_dataset, tmp_path):
 
 def _preempt_after(trainer, steps: int) -> None:
     """SIGTERM to this process as the trainer takes batch ``steps + 1``
-    of its first epoch: it finishes that step, checkpoints and stops."""
-    inner = trainer.iter_train_batches
+    of its first epoch (the device half of its ``put_batch``: the
+    staging ring reads batches ahead of the step): it finishes that
+    step, checkpoints and stops."""
+    inner = trainer.step.put_batch_device
+    taken = []
 
-    def wrapped(start_shard=0, start_offset=0):
-        for i, item in enumerate(inner(start_shard, start_offset)):
-            if i == steps:
-                # the trainer's handler, never the default (which kills)
-                assert signal.getsignal(signal.SIGTERM) not in (signal.SIG_DFL, None)
-                os.kill(os.getpid(), signal.SIGTERM)
-            yield item
+    def wrapped(staged):
+        if len(taken) == steps:
+            # the trainer's handler, never the default (which kills)
+            assert signal.getsignal(signal.SIGTERM) not in (signal.SIG_DFL, None)
+            os.kill(os.getpid(), signal.SIGTERM)
+        taken.append(1)
+        return inner(staged)
 
-    trainer.iter_train_batches = wrapped
+    trainer.step.put_batch_device = wrapped
 
 
 def test_sigterm_checkpoints_and_resume_finishes(toy_dataset, tmp_path):

@@ -140,8 +140,6 @@ def test_check_trainable_accepts_update_modes(model, kw):
     # the hot table trains now (tests/test_torch_hot_train.py), in every
     # mode; what stays refused with it names its own item
     ({"hot_size_log2": 8, "hot_nnz": 8, "num_devices": 2}, "A13"),
-    ({"hot_size_log2": 8, "update_mode": "sequential", "microbatch": 4,
-      "batch_size": 64, "sequential_inner": "hot", "input_streams": 2}, "A10"),
     ({"hot_size_log2": 8, "hot_nnz": 8, "update_mode": "sequential",
       "microbatch": 4, "batch_size": 64, "sequential_inner": "sparse",
       "num_devices": 2}, "A13"),
@@ -149,9 +147,41 @@ def test_check_trainable_accepts_update_modes(model, kw):
     # on two devices (A13)
     ({"wire_dedup": "on", "hot_size_log2": 8, "hot_nnz": 8, "num_devices": 2}, "A13"),
     ({"wire_dedup": "on", "update_mode": "sparse", "num_devices": 2}, "A13"),
-])
+], ids=[  # the cases' ids before the input fan-out's refusal left the list
+    "kw0-A13", "kw2-A13", "kw3-A13", "kw4-A13"])
 def test_check_trainable_refuses_hot_table_and_dict_wire(kw, item):
     from xflow_tpu_torch.parallel.step import check_trainable
 
     with pytest.raises(NotImplementedError, match=item):
         check_trainable(Config(model="fm", **kw))
+
+
+def test_check_trainable_accepts_input_streams():
+    """The input fan-out is ported: a hot-inner sequential config with
+    two input streams constructs a TrainStep and takes one step."""
+    import numpy as np
+    import torch
+
+    from xflow_tpu_torch.io.batch import Batch
+    from xflow_tpu_torch.models import make_model
+    from xflow_tpu_torch.optim import make_optimizer
+    from xflow_tpu_torch.parallel.step import TrainStep, check_trainable, init_state
+
+    cfg = Config(model="fm", hot_size_log2=8, hot_nnz=8, update_mode="sequential",
+                 microbatch=4, batch_size=64, sequential_inner="hot", input_streams=2,
+                 table_size_log2=12, max_nnz=16, num_devices=1)
+    check_trainable(cfg)
+    cpu = torch.device("cpu")
+    step = TrainStep(make_model(cfg), make_optimizer(cfg), cfg, cpu)
+    state = init_state(step.model, step.optimizer, cfg, cpu)
+    rng = np.random.default_rng(0)
+    b, k, kh = cfg.batch_size, cfg.max_nnz, cfg.hot_nnz
+    ones = lambda *s: np.ones(s, np.float32)  # noqa: E731
+    batch = Batch(
+        keys=rng.integers(cfg.hot_size, cfg.table_size, (b, k)).astype(np.int32),
+        slots=np.zeros((b, k), np.int32), vals=ones(b, k), mask=ones(b, k),
+        labels=rng.integers(0, 2, b).astype(np.float32), weights=ones(b),
+        hot_keys=rng.integers(0, cfg.hot_size, (b, kh)).astype(np.int32),
+        hot_slots=np.zeros((b, kh), np.int32), hot_vals=ones(b, kh), hot_mask=ones(b, kh))
+    metrics = step.train(state, step.put_batch(step.precompact(batch)))
+    assert state["step"] == 1 and float(metrics["count"]) == b

@@ -2112,3 +2112,153 @@ def test_resumed_dispatch_launches_k2_k3(dev, tmp_path):
                     rtol=1e-4, atol=1e-5 * float(want.abs().max()))
     straight.close()
     resumed.close()
+
+
+# -- the staging ring (trainer.py _transfer_ahead; TrainStep.put_batch_host
+# and put_batch_device) ----------------------------------------------------
+
+
+def _ring_batch(i: int, b: int = 64, k: int = 24, t: int = 1 << 16) -> Batch:
+    """A seed-made compact-wire batch: repeated keys, padding, and a few
+    rows of padding alone."""
+    rng = np.random.default_rng(1000 + i)
+    keys = rng.integers(0, t, (b, k)).astype(np.int32)
+    keys[:, : k // 4] = rng.integers(0, 64, (b, k // 4))  # repeats
+    mask = (rng.random((b, k)) < 0.7).astype(np.float32)
+    mask[rng.integers(0, b, 3)] = 0.0
+    weights = (rng.random(b) < 0.9).astype(np.float32)
+    return Batch(keys=keys, slots=np.zeros((b, k), np.int32), vals=np.ones((b, k), np.float32),
+                 mask=mask, labels=(rng.random(b) < 0.3).astype(np.float32), weights=weights)
+
+
+def _ring_trainer(dev, **kw):
+    from xflow_tpu_torch.trainer import Trainer
+
+    cfg = Config(**{**dict(model="fm", batch_size=64, max_nnz=24, table_size_log2=16,
+                           num_devices=1), **kw})
+    return Trainer(cfg, device=dev, log=lambda _: None)
+
+
+def test_ring_staged_planes_equal_pageable_copies(dev):
+    """Depth 8, batch 64, 200 batches: each staged plane, read on the
+    step's stream after the device half's wait (while a sleep holds that
+    stream and the ring keeps copying into recycled blocks), equals the
+    pageable ``.to`` copy of the same numpy plane byte for byte, and K6's
+    planes equal the decode of those copies: the allocator handed no
+    staged block to a later batch while the step's stream still read it
+    (``record_stream``)."""
+    trainer = _ring_trainer(dev, transfer_ahead_depth=8)
+    step = trainer.step
+    assert step.dict_wire
+    batches = [_ring_batch(i) for i in range(200)]
+    staged_copies, decoded = [], []
+    items = ((b, 0, i) for i, b in enumerate(batches))
+    for staged, _, _ in trainer._transfer_ahead(items, depth=8):
+        torch.cuda._sleep(2_000_000)  # the step's stream lags the copies
+        arrays = step.put_batch_device(staged)
+        staged_copies.append({k: t.clone() for k, t in staged.planes.items()})
+        decoded.append({k: arrays[k].clone() for k in ("ckeys", "labels_u8", "weights_u8")})
+        del staged, arrays
+    torch.cuda.synchronize()
+    assert len(decoded) == len(batches)
+    for batch, got_planes, got in zip(batches, staged_copies, decoded):
+        wire, _ = step.host_wire_np(batch)
+        pageable = to_device(wire, dev)
+        assert got_planes.keys() == pageable.keys()
+        for name, want in pageable.items():
+            assert got_planes[name].dtype == want.dtype and torch.equal(got_planes[name], want)
+        want = dict_decode(pageable, 24)
+        for name, plane in zip(("ckeys", "labels_u8", "weights_u8"), want):
+            assert torch.equal(got[name], plane), name
+    trainer.close()
+
+
+@pytest.mark.parametrize("mode", [{}, {"update_mode": "sequential", "microbatch": 4,
+                                       "sequential_inner": "sparse"}],
+                         ids=["dense", "sequential-sparse"])
+def test_device_half_and_dispatch_take_no_host_sync(dev, mode):
+    """The device half (wait_event, record_stream, K6) and a dispatch
+    run under ``torch.cuda.set_sync_debug_mode("error")``, after one
+    warm-up step has loaded the kernels' modules."""
+    trainer = _ring_trainer(dev, **mode)
+    step = trainer.step
+    for i in range(2):
+        staged = step.put_batch_host(_ring_batch(i))
+        if i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = step.dispatch_train(trainer.state, step.put_batch_device(staged))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert np.isfinite(float(metrics["logloss"]))
+    trainer.close()
+
+
+def test_ring_copies_from_pinned_memory_on_the_copy_stream(dev):
+    """The host half copies each plane into pinned memory and enqueues
+    its copies on the step's copy stream, not the current one: behind a
+    sleep on the copy stream the staged event is pending while the
+    current stream is idle, and the device half's wait orders the
+    step's stream after it."""
+    from xflow_tpu_torch.ops.wire import pin_planes
+
+    trainer = _ring_trainer(dev)
+    step = trainer.step
+    wire, _ = step.host_wire_np(_ring_batch(0))
+    pinned = [t for t in pin_planes(wire).values() if t.numel()]  # empty: no storage
+    assert pinned and all(t.is_pinned() for t in pinned)
+    current = torch.cuda.current_stream(dev)
+    assert step.copy_stream is not None and step.copy_stream != current
+    torch.cuda.synchronize()
+    with torch.cuda.stream(step.copy_stream):
+        torch.cuda._sleep(50_000_000)  # ~25 ms
+    staged = step.put_batch_host(_ring_batch(0))
+    assert not staged.event.query() and current.query()
+    arrays = step.put_batch_device(staged)
+    assert not current.query()  # the step's stream waits on the copies
+    torch.cuda.synchronize()
+    assert staged.event.query()
+    pageable = dict_decode(to_device(wire, dev), 24)
+    assert torch.equal(arrays["ckeys"], pageable[0])
+    trainer.close()
+
+
+@pytest.mark.parametrize("preempt", [False, True], ids=["epoch", "preempted"])
+def test_ring_launches_exact(dev, tmp_path, preempt):
+    """Under four streams and a ring of depth 4, an epoch launches K6
+    once a dispatch and K2 and K3 (per table) once a dispatch, nothing
+    else; a run preempted at its second dispatch launches for two
+    dispatches although the ring had staged batches past them."""
+    import os
+    import signal
+
+    from xflow_tpu_torch.io.synth import generate_dataset
+    from xflow_tpu_torch.ops.pool import field_pool, field_pool_grad
+
+    prefix = str(tmp_path / "synth")
+    generate_dataset(prefix, 6 * 512, 0, train_shards=6, seed=7)
+    trainer = _ring_trainer(dev, train_path=prefix + ".train", batch_size=256, epochs=1,
+                            max_nnz=40, max_fields=39, input_streams=4,
+                            transfer_ahead_depth=4,
+                            checkpoint_dir=str(tmp_path / "ck") if preempt else "")
+    if preempt:
+        inner = trainer.step.put_batch_device
+        taken = []
+
+        def wrapped(staged):
+            if len(taken) == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            taken.append(1)
+            return inner(staged)
+
+        trainer.step.put_batch_device = wrapped
+    kernels = (score, train_step, optim_update, consolidate_keys, touched_update,
+               dict_decode, field_pool, field_pool_grad)
+    before = [k.launches for k in kernels]
+    history = trainer.train()
+    torch.cuda.synchronize()
+    got = [k.launches - b for k, b in zip(kernels, before)]
+    steps = sum(h["steps"] for h in history)
+    assert steps == (2 if preempt else 12) and history[-1]["preempted"] == preempt
+    assert got == [0, steps, 2 * steps, 0, 0, steps, 0, 0]
+    trainer.close()

@@ -334,3 +334,40 @@ def test_k3_bounds_count_touched_sectors(opt_name, case):
         got["bound_bytes"] / cs.HBM_BYTES_PER_S * 1e3,
         got["bound_ops"] / cs.FP32_FLOPS_PER_S * 1e3))
     assert got["bound_ms"] <= got["bound_full_ms"]
+
+
+@pytest.mark.parametrize("second_g", [0.0, 2.0 ** -24 / 65536 * 0.008, 1e-6])
+def test_compare_states_verifies_the_n0_split(second_g):
+    """chip_smoke.py's compare_states on two FTRL runs of one step from
+    the same init, the first element's gradient 0 on one side and
+    ``second_g`` on the other (the rest of the table identical): equal
+    runs pass with no split; a saturated example's gradient (2^-24 /
+    num_real x |S - v|) keeps w's init on one side and zeroes it on the
+    other, which passes as one rounding touch; a real gradient there is
+    a breach, and raises."""
+    from xflow_tpu_torch.ops.optim import optim_plain
+    from xflow_tpu_torch.optim import FTRL
+
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(3)
+    init = torch.randn((64, 10), generator=gen) * 0.01
+    g = torch.randn((64, 10), generator=gen) * 1e-4
+    g[0, 0] = 0.0
+    states = []
+    for first in (0.0, second_g):
+        table = {"param": init.clone(), "n": torch.zeros_like(init),
+                 "z": torch.zeros_like(init), "g": g.clone()}
+        table["g"][0, 0] = first
+        optim_plain(table, FTRL())
+        states.append({"tables": {"v": table}})
+    if second_g >= 1e-6:
+        with pytest.raises(AssertionError, match="v.param"):
+            cs.compare_states(*states)
+        return
+    got = cs.compare_states(*states)
+    assert got["rounding_touches"] == (1 if second_g else 0)
+    assert got["max_err_over_bound"] < 1.0
+    if second_g:
+        assert states[0]["tables"]["v"]["param"][0, 0] == init[0, 0]
+        assert states[1]["tables"]["v"]["param"][0, 0] == 0.0
+        assert 0.0 < got["rounding_touch_g_over_bound"] < 1.0

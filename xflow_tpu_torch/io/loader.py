@@ -409,6 +409,12 @@ class _PrefetchIter:
         self._close_lock = threading.Lock()
         self._obs = obs if obs is not None else Obs()
         self._thread: threading.Thread | None = None
+        # producer backpressure: wall seconds the producer spent blocked
+        # on a full queue (the consumer was not ready); the fan-out
+        # (io/fanout.py) reads it per stream to tell a slow reader from
+        # a saturated consumer
+        self._stats_lock = threading.Lock()
+        self._stall_seconds = 0.0
         if depth <= 0:
             return
         self._q: queue.Queue = queue.Queue(maxsize=depth)
@@ -417,13 +423,35 @@ class _PrefetchIter:
         self._thread.start()
 
     def _put_or_abort(self, item) -> bool:
-        while not self._stop.is_set():
-            try:
-                self._q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
+        t0 = time.perf_counter()
+        try:
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    # the reference beats the flight recorder's
+                    # 'backpressure' heartbeat here; that recorder comes
+                    # with ROADMAP A14
+                    continue
+            return False
+        finally:
+            # past the free-slot fast path (microseconds) the producer
+            # waited on the consumer; the 1 ms floor keeps per-batch
+            # noise out of the stall ledger
+            dt = time.perf_counter() - t0
+            if dt > 1e-3:
+                self._note_stall(dt)
+
+    def _note_stall(self, dt: float) -> None:
+        with self._stats_lock:
+            self._stall_seconds += dt
+
+    def stall_seconds(self) -> float:
+        """Cumulative producer backpressure (blocked on a full queue)
+        wall seconds so far.  Safe from any thread."""
+        with self._stats_lock:
+            return self._stall_seconds
 
     def _produce(self) -> None:
         try:

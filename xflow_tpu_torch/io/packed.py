@@ -498,7 +498,7 @@ def split_shard_v2(
 ) -> list[str]:
     """Split one packed-v2 shard into up to ``num_shards`` contiguous
     sub-shards ``<dst_prefix>-%05d`` — the corpus shape the input
-    fan-out (ROADMAP A10) distributes across reader streams.
+    fan-out (io/fanout.py) distributes across reader streams.
 
     Records are self-contained (each carries its counts header and its
     planes), so the split is a raw byte copy over the validated record

@@ -41,6 +41,16 @@ HOT_PLANES = ("cw_hc", "cw_hf", "cw_h8", "cw_hx", "cw_hxh")
 FIELD_PLANES = ("cw_cs", "cw_hs")
 
 
+def _signed_view(a: np.ndarray) -> np.ndarray:
+    """u16 → int16 and u32 → int32 bit views (the same bytes): torch has
+    no unsigned 16- or 32-bit tensors here."""
+    if a.dtype == np.uint16:
+        return a.view(np.int16)
+    if a.dtype == np.uint32:
+        return a.view(np.int32)
+    return a
+
+
 def to_device(wire: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
     """The numpy wire planes as tensors on ``device`` (u16 → int16 and
     u32 → int32 bit views: the same bytes)."""
@@ -48,13 +58,42 @@ def to_device(wire: dict[str, np.ndarray], device: torch.device) -> dict[str, to
     for name, a in wire.items():
         # a packed shard's planes are read-only views of its mmap, which
         # torch does not wrap: those are copied
-        a = np.require(a, requirements=("C", "W"))
-        if a.dtype == np.uint16:
-            a = a.view(np.int16)
-        elif a.dtype == np.uint32:
-            a = a.view(np.int32)
+        a = _signed_view(np.require(a, requirements=("C", "W")))
         out[name] = torch.from_numpy(a).to(device)
     return out
+
+
+_TORCH_DTYPES = {np.dtype(k): v for k, v in (
+    (np.uint8, torch.uint8), (np.int8, torch.int8), (np.int16, torch.int16),
+    (np.int32, torch.int32), (np.int64, torch.int64), (np.float32, torch.float32),
+    (np.float64, torch.float64), (np.bool_, torch.bool))}
+
+
+def pin_planes(wire: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Each numpy plane copied into page-locked host memory from
+    PyTorch's caching host allocator (the same bit views as
+    ``to_device``).  Raises where the host cannot pin."""
+    out = {}
+    for name, a in wire.items():
+        a = _signed_view(np.ascontiguousarray(a))
+        pinned = torch.empty(a.shape, dtype=_TORCH_DTYPES[a.dtype], pin_memory=True)
+        np.copyto(pinned.numpy(), a)
+        out[name] = pinned
+    return out
+
+
+def enqueue_planes(pinned: dict[str, torch.Tensor], device: torch.device,
+                   stream: torch.cuda.Stream) -> tuple[dict[str, torch.Tensor], torch.cuda.Event]:
+    """One ``non_blocking`` host-to-device copy per pinned plane, all on
+    ``stream``, and an event recorded after them: a consumer on another
+    stream waits on the event (``wait_event``, no host sync) and calls
+    ``record_stream`` on each tensor before it reads them.  The host
+    allocator keeps each pinned block until its copy has run."""
+    with torch.cuda.stream(stream):
+        out = {name: t.to(device, non_blocking=True) for name, t in pinned.items()}
+        event = torch.cuda.Event()
+        event.record(stream)
+    return out, event
 
 
 def _bits(plane: torch.Tensor, n: int) -> torch.Tensor:

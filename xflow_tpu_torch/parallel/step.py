@@ -126,9 +126,15 @@ decodes to uint8.  The dictionary wire (``wire_dedup="auto"`` or
 ``"on"``, hash mode on one device: :func:`dict_wire_ok`) compacts each
 batch on the host (io/compact.py::CompactBatch) and ships its tiered
 planes, the hot tiers included; K6 (ops/wire.py) decodes them on the
-card, inside ``put_batch``, into the compact wire's planes (the hot
-plane as int32), so every update mode and ``predict`` run on the
-compact wire's planes unchanged.  ``evaluate``'s batches take the
+card, in ``put_batch``'s device half, into the compact wire's planes
+(the hot plane as int32), so every update mode and ``predict`` run on
+the compact wire's planes unchanged.  ``put_batch`` is two halves: the
+host half (``put_batch_host``: compaction, the reorder, the copy into
+pinned memory and one copy a plane on the step's copy stream), which
+the trainer's staging ring runs on worker threads, and the device half
+(``put_batch_device``: the step's stream waits on the copies, then
+K6), which runs where the step dispatches, so every kernel launches
+from one thread on one stream.  ``evaluate``'s batches take the
 same wire as training's, as in the reference.  The reference's
 dictionary decode also ships a consolidation plan for dense
 ``cold_consolidate``; the port runs that mode as the plain dense step
@@ -137,6 +143,8 @@ dictionary decode also ships a consolidation plan for dense
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Any
 
 import numpy as np
@@ -152,7 +160,7 @@ from xflow_tpu_torch.ops.pool import field_pool, field_pool_grad
 from xflow_tpu_torch.ops.score import score
 from xflow_tpu_torch.ops.sparse import consolidate_keys, touched_update
 from xflow_tpu_torch.ops.train import train_step
-from xflow_tpu_torch.ops.wire import dict_decode, to_device
+from xflow_tpu_torch.ops.wire import dict_decode, enqueue_planes, pin_planes, to_device
 from xflow_tpu_torch.utils.metrics import sigmoid_ref
 
 # {"tables": {name: {"param": [T, D], <aux>, "g"}}, "dense": {name: tensor}, "step": int}
@@ -456,17 +464,11 @@ def check_trainable(cfg: Config) -> None:
     reference refuses it.  A trained model is evaluated through K1, so
     it must be servable first."""
     check_servable(cfg)
-    refusals = (
-        (cfg.num_devices > 1,
-         f"num_devices={cfg.num_devices}: multi-GPU training is not ported "
-         "yet (ROADMAP A13)"),
-        (cfg.input_streams > 1,
-         f"input_streams={cfg.input_streams}: the input fan-out is not "
-         "ported yet (ROADMAP A10)"),
-    )
-    for refused, why in refusals:
-        if refused:
-            raise NotImplementedError(why)
+    if cfg.num_devices > 1:
+        raise NotImplementedError(
+            f"num_devices={cfg.num_devices}: multi-GPU training is not ported "
+            "yet (ROADMAP A13)"
+        )
     if cfg.wire_dedup == "on" and not dict_wire_ok(cfg, make_model(cfg).uses_slots):
         raise ValueError(
             "wire_dedup='on' requires the compact-wire invariants "
@@ -474,6 +476,34 @@ def check_trainable(cfg: Config) -> None:
             "single-process single-device mesh, max_nnz/hot_nnz "
             "<= 255, and hot_size_log2 <= 16"
         )
+
+
+class SliceOrdered:
+    """A CompactBatch whose rows ``TrainStep.precompact`` already put in
+    ``slice_order``: ``put_batch`` ships it without reordering it."""
+
+    __slots__ = ("cb",)
+
+    def __init__(self, cb: CompactBatch):
+        self.cb = cb
+
+    def num_real(self) -> int:
+        return self.cb.num_real()
+
+
+@dataclasses.dataclass
+class Staged:
+    """What ``TrainStep.put_batch_host`` hands to ``put_batch_device``:
+    the wire's planes as tensors (on the card, copies in flight on the
+    copy stream until ``event``), whether K6 decodes them, and the
+    training batch's host floats."""
+
+    decode: bool
+    predict: bool
+    planes: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    event: Any = None
+    num_real: float = 1.0
+    slice_num_real: list[float] | None = None
 
 
 class TrainStep:
@@ -528,6 +558,9 @@ class TrainStep:
                            and getattr(model, "autodiff", False) and not self.pooled
                            else 1)
         self._scratch: dict[str, Any] = {}
+        # the staging ring's copies run on a stream of their own; every
+        # kernel stays on the dispatching thread's stream
+        self.copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     @property
     def wire_format(self) -> str:
@@ -542,15 +575,25 @@ class TrainStep:
         """Host dictionary compaction ahead of ``put_batch`` (off the
         consumer thread, for an input fan-out): the CompactBatch
         ``put_batch`` would build, or the batch unchanged where the
-        dictionary wire does not apply.  The planes are exactly the
+        dictionary wire does not apply.  With sequential slices the rows
+        go in ``slice_order`` first, as ``put_batch`` puts them, and the
+        result is marked :class:`SliceOrdered` so that it is not
+        reordered (and compacted) again.  The planes are exactly the
         inline path's."""
-        if (isinstance(batch, CompactBatch) or not self.dict_wire
+        if (isinstance(batch, SliceOrdered) or not self.dict_wire
                 or not self._dict_geometry_ok(batch)):
+            return batch
+        t0 = time.perf_counter()
+        if self.slices > 1:
+            batch = self._sliced(batch)
+        elif isinstance(batch, CompactBatch):
             return batch
         cb = CompactBatch.from_batch(batch, self.cfg.table_size, self.hot_size,
                                      check=not self._compact_validated)
         self._compact_validated = True
-        return cb
+        # booked with put_batch_host's compaction (its counter below)
+        self.obs.counter("h2d.compact_s", time.perf_counter() - t0)
+        return SliceOrdered(cb) if self.slices > 1 else cb
 
     def host_wire_np(self, batch, predict: bool = False):
         """The numpy planes that cross the link for ``batch`` (a Batch,
@@ -614,20 +657,38 @@ class TrainStep:
             self.obs.counter("wire.cold_touched", cb.cold_touched)
 
     def put_batch(self, batch, predict: bool = False) -> dict[str, Any]:
-        """Host->device transfer of ``batch`` (a Batch or a CompactBatch),
-        booked as the 'h2d' phase and in the wire counters, for training
-        or (``predict``) for K1.  On the dictionary wire K6 decodes the
-        shipped planes here, so the result holds the compact wire's
-        planes whatever the wire.  A training batch also carries
-        ``num_real`` = max(sum(weights), 1) as a host float, so the
-        device never syncs for it.  With sequential slices its rows are
-        reordered (the Batch before the dictionary wire compacts it, the
-        planes of the other wires), and ``slice_num_real`` holds each
-        slice's max(sum(weights), 1)."""
+        """Host->device transfer of ``batch`` (a Batch, a CompactBatch or
+        a :class:`SliceOrdered`) for training or (``predict``) for K1,
+        inline: the host half then the device half, both booked as the
+        'h2d' phase.  The result holds the compact wire's planes whatever
+        the wire (K6 decodes the dictionary wire), and for training
+        ``num_real`` = max(sum(weights), 1) as a host float, so the device
+        never syncs for it; with sequential slices the rows are in
+        ``slice_order`` and ``slice_num_real`` holds each slice's
+        max(sum(weights), 1)."""
+        staged = self.put_batch_host(batch, predict)
         with self.obs.phase("h2d"):
+            return self.put_batch_device(staged)
+
+    def put_batch_host(self, batch, predict: bool = False) -> Staged:
+        """The host half of ``put_batch``, safe on a staging-ring worker:
+        no device work beyond copies.  It compacts the dictionary wire
+        (unless the batch is compacted already), reorders the rows for
+        sequential slices, books the wire counters and the 'h2d' phase,
+        and takes ``num_real`` and ``slice_num_real``.  On the card it
+        copies every plane into pinned host memory and enqueues one
+        ``non_blocking`` copy a plane on the step's copy stream, then
+        records an event; on the CPU the planes are tensors over the
+        numpy arrays.  The split is booked in the ``h2d.compact_s``,
+        ``h2d.pin_s`` and ``h2d.enqueue_s`` counters."""
+        with self.obs.phase("h2d"):
+            t0 = time.perf_counter()
             sliced = self.slices > 1 and not predict
+            presliced = isinstance(batch, SliceOrdered)
+            if presliced:
+                batch = batch.cb
             dict_batch = self.dict_wire and self._dict_geometry_ok(batch)
-            if sliced and dict_batch:
+            if sliced and dict_batch and not presliced:
                 batch = self._sliced(batch)
             wire, cb = self.host_wire_np(batch, predict)
             self._book_wire(wire, batch.num_real(), cb)
@@ -636,23 +697,53 @@ class TrainStep:
                 order = self.slice_order(len(weights))
                 wire = {k: a[order] for k, a in wire.items()}
                 weights = weights[order]
-            if cb is not None:
-                planes = dict_decode(to_device(wire, self.device), self.cfg.max_nnz,
-                                     self.hot_nnz)
-                # K6's outputs, in order (ops/wire.py dict_decode)
-                names = ("ckeys", "labels_u8", "weights_u8") + ("hot",) * bool(self.hot_nnz)
-                if "cw_cs" in wire:
-                    names += ("fields", "hot_fields")[:1 + bool(self.hot_nnz)]
-                arrays: dict[str, Any] = dict(zip(names, planes))
+            staged = Staged(decode=cb is not None, predict=predict)
+            if not predict:
+                staged.num_real = max(float(np.sum(weights)), 1.0)
+                if self.slices > 1:
+                    per = weights.reshape(self.slices, -1).sum(axis=1, dtype=np.float64)
+                    staged.slice_num_real = [max(float(w), 1.0) for w in per]
+            t1 = time.perf_counter()
+            self.obs.counter("h2d.compact_s", t1 - t0)
+            if self.device.type == "cuda":
+                pinned = pin_planes(wire)
+                t2 = time.perf_counter()
+                staged.planes, staged.event = enqueue_planes(pinned, self.device,
+                                                             self.copy_stream)
+                self.obs.counter("h2d.pin_s", t2 - t1)
+                self.obs.counter("h2d.enqueue_s", time.perf_counter() - t2)
             else:
-                arrays = to_device_planes(wire, self.device)
-            if predict:
-                return {k: arrays[k] for k in PREDICT_PLANES if k in arrays}
-            arrays["num_real"] = max(float(np.sum(weights)), 1.0)
-            if self.slices > 1:
-                per = weights.reshape(self.slices, -1).sum(axis=1, dtype=np.float64)
-                arrays["slice_num_real"] = [max(float(w), 1.0) for w in per]
-            return arrays
+                staged.planes = to_device(wire, self.device)
+                self.obs.counter("h2d.enqueue_s", time.perf_counter() - t1)
+        return staged
+
+    def put_batch_device(self, staged: Staged) -> dict[str, Any]:
+        """The device half of ``put_batch``, on the thread that
+        dispatches: the current stream waits on the staged copies' event
+        (no host sync) and holds each staged tensor for the allocator
+        (``record_stream``); on the dictionary wire K6 decodes the
+        planes here, on that stream.  Returns ``put_batch``'s dict."""
+        planes = staged.planes
+        if staged.event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(staged.event)
+            for t in planes.values():
+                t.record_stream(stream)
+        if staged.decode:
+            decoded = dict_decode(planes, self.cfg.max_nnz, self.hot_nnz)
+            # K6's outputs, in order (ops/wire.py dict_decode)
+            names = ("ckeys", "labels_u8", "weights_u8") + ("hot",) * bool(self.hot_nnz)
+            if "cw_cs" in planes:
+                names += ("fields", "hot_fields")[:1 + bool(self.hot_nnz)]
+            arrays: dict[str, Any] = dict(zip(names, decoded))
+        else:
+            arrays = {_DEVICE_NAMES.get(k, k): t for k, t in planes.items()}
+        if staged.predict:
+            return {k: arrays[k] for k in PREDICT_PLANES if k in arrays}
+        arrays["num_real"] = staged.num_real
+        if staged.slice_num_real is not None:
+            arrays["slice_num_real"] = staged.slice_num_real
+        return arrays
 
     def train(self, state: State, arrays: dict[str, Any]) -> dict[str, torch.Tensor]:
         """One step, in place on ``state``, in the configured update mode

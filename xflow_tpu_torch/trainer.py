@@ -1,15 +1,23 @@
-"""Training/eval loop (the reference's trainer.py for one host and
-one input stream): the worker loop of the reference (LRWorker::train /
-batch_training / predict, lr_worker.cc:73-217) as a host loop feeding
-the train step on the card.
+"""Training/eval loop (the reference's trainer.py for one host): the
+worker loop of the reference (LRWorker::train / batch_training /
+predict, lr_worker.cc:73-217) as a host loop feeding the train step on
+the card.
 
-Each epoch streams every ``prefix-%05d`` train shard (libffm text, or
-packed shards from ``python -m xflow_tpu_torch.io.packed``) through the
-loader (the native parser when ``native_parser`` and it builds, and
-the packer, on a prefetch thread), ships each batch inline over the
-step's wire (the dictionary wire by default, decoded on the card by
-K6; booked as ``h2d``), and queues the update's kernels
-(``dispatch``).  Nothing in the
+Each epoch streams every ``prefix-%05d`` train shard (libffm text,
+binary block-cache shards, or packed shards from ``python -m
+xflow_tpu_torch.io.packed``) through the loader (the native parser
+when ``native_parser`` and it builds, and the packer, on a prefetch
+thread), or with ``input_streams > 1`` through N concurrent shard
+streams (io/fanout.py), each with its own parse workers and the
+dictionary wire's host compaction (``TrainStep.precompact``), merged
+back into serial shard order.  The staging ring (``_transfer_ahead``)
+runs the host half of ``put_batch`` ``transfer_ahead_depth`` batches
+ahead on worker threads: compaction, the copy into pinned memory and
+the copies on the step's copy stream (booked as ``h2d``, reported
+under ``overlapped``).  The training thread runs the device half (the
+stream waits on the copies' event; K6 decodes the dictionary wire) and
+queues the update's kernels (``dispatch``).  Batch order, and so
+training, is the same at any depth and stream count.  Nothing in the
 loop waits for the card: the per-step metrics stay on the device and
 are fetched once per epoch (``device_block``), as the reference does
 (trainer.py:930-932).  ``evaluate`` streams the test shard(s) through
@@ -33,21 +41,26 @@ at every epoch end and every ``checkpoint_every_steps`` steps, books
 each save as the ``checkpoint`` phase (``checkpoint_seconds`` in the
 epoch record), and ``restore`` resumes from the newest generation,
 mid-shard at the saved data cursor; SIGTERM or SIGINT during
-``train()`` finishes the step in flight, checkpoints and returns with
-the epoch record's ``preempted`` set.
+``train()`` finishes the step in flight, checkpoints the cursor of the
+last batch dispatched (batches the ring staged past it are dropped and
+read again on resume) and returns with the epoch record's
+``preempted`` set.
 
 Not ported yet, and refused by name: the profiler, span trace, flight
-recorder, watchdog, exporters and chaos failpoints (ROADMAP A14).  The
-staging ring (``transfer_ahead_depth``, A10) is not used: the transfer
-runs inline.
+recorder, watchdog, exporters and chaos failpoints (ROADMAP A14).
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import queue
 import sys
+import threading
 import time
+import warnings
+from collections import deque
+from concurrent.futures import Future
 from typing import Any, Callable, Iterator
 
 import numpy as np
@@ -59,7 +72,7 @@ from xflow_tpu_torch.io import freq
 from xflow_tpu_torch.io.batch import Batch, remap_batch
 from xflow_tpu_torch.io.loader import ShardLoader, make_parse_fn, parser_name
 from xflow_tpu_torch.models import make_model
-from xflow_tpu_torch.obs import Obs, health_row
+from xflow_tpu_torch.obs import Obs, emit_health, health_row
 from xflow_tpu_torch.optim import make_optimizer
 from xflow_tpu_torch.parallel.step import TrainStep, init_state
 from xflow_tpu_torch.utils.checkpoint import (
@@ -70,6 +83,64 @@ from xflow_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from xflow_tpu_torch.utils.metrics import AucAccumulator
+
+
+def _ring_workers(depth: int) -> int:
+    """The staging ring's worker count at ``depth`` (the reference's):
+    one a slot up to a cap set by the host's cores, and at least 2 once
+    the ring double-buffers, so that one worker can compact while
+    another copies."""
+    if depth <= 1:
+        return 1
+    return min(depth, max(2, min(4, (os.cpu_count() or 2) - 1)))
+
+
+class _StagingRing:
+    """The staging ring's workers: ``workers`` daemon threads named
+    ``xf-ring-<i>`` taking jobs in submission order, each job resolving
+    a Future.  ``close`` is bounded: it cancels the jobs not started and
+    joins the workers, whose jobs in flight are bounded host work and
+    copies."""
+
+    def __init__(self, workers: int):
+        self._jobs: queue.SimpleQueue = queue.SimpleQueue()
+        self._threads = [
+            threading.Thread(target=self._work, name=f"xf-ring-{i}", daemon=True)
+            for i in range(workers)
+        ]
+        for t in self._threads:
+            t.start()
+
+    def submit(self, fn: Callable, *args: Any) -> Future:
+        fut: Future = Future()
+        self._jobs.put((fut, fn, args))
+        return fut
+
+    def _work(self) -> None:
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            fut, fn, args = job
+            if not fut.set_running_or_notify_cancel():
+                continue  # cancelled before it started
+            try:
+                fut.set_result(fn(*args))
+            except BaseException as e:  # reaches the consumer's result()
+                fut.set_exception(e)
+
+    def close(self, pending: list[Future], join_timeout: float) -> int:
+        """Cancel ``pending`` jobs not yet started, stop every worker and
+        join them within ``join_timeout`` seconds in all; returns how
+        many outlived the join."""
+        for fut in pending:
+            fut.cancel()
+        for _ in self._threads:
+            self._jobs.put(None)
+        deadline = time.monotonic() + join_timeout
+        for t in self._threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        return sum(t.is_alive() for t in self._threads)
 
 
 def find_shards(prefix: str) -> list[str]:
@@ -108,8 +179,8 @@ def check_trainer_config(cfg: Config) -> None:
 
 
 class Trainer:
-    """One host, one input stream, one device (the card unless
-    ``device="cpu"`` is asked for)."""
+    """One host, one device (the card unless ``device="cpu"`` is asked
+    for), ``input_streams`` shard streams and the staging ring."""
 
     def __init__(
         self,
@@ -155,6 +226,9 @@ class Trainer:
         # live loader prefetch iterators, closed by close() so abandoned
         # producer threads never outlive the Trainer
         self._live_prefetch: set = set()
+        # live staging rings (train_epoch's _transfer_ahead generators),
+        # closed by close() when an exception or a preemption abandons one
+        self._live_transfer: set = set()
         self.metrics_logger = None
         if cfg.metrics_out:
             from xflow_tpu_torch.utils.logging import MetricsLogger
@@ -185,9 +259,14 @@ class Trainer:
         }
 
     def close(self) -> None:
-        """Stop every live prefetch thread and close the metrics file.
-        Idempotent; use the Trainer as a context manager to cover every
-        exit."""
+        """Stop every live staging ring and prefetch thread (each with a
+        bounded join) and close the metrics file.  Idempotent; use the
+        Trainer as a context manager to cover every exit."""
+        for gen in list(self._live_transfer):
+            # GeneratorExit at its suspended yield: _transfer_ahead
+            # cancels its queued work and joins its workers
+            gen.close()
+        self._live_transfer.clear()
         for it in list(self._live_prefetch):
             it.close()
         self._live_prefetch.clear()
@@ -308,10 +387,16 @@ class Trainer:
         """Yields (batch, shard_index, resume_offset) over one epoch,
         from shard ``start_shard`` at byte offset ``start_offset`` (a
         restored cursor); each finished shard logs a ``shard`` row with
-        its observed loader throughput when metrics are on."""
+        its observed loader throughput when metrics are on.  With
+        ``input_streams > 1`` the shard list fans out over N concurrent
+        streams (io/fanout.py): the same batches in the same order."""
+        shards = self._my_shards(self.cfg.train_path)
+        if self.cfg.input_streams > 1:
+            yield from self._iter_fanout(shards, start_shard, start_offset)
+            return
         depth = self.cfg.prefetch_batches
         workers = self._parse_workers()
-        for si, path in enumerate(self._my_shards(self.cfg.train_path)):
+        for si, path in enumerate(shards):
             if si < start_shard:
                 continue
             offset = start_offset if si == start_shard else 0
@@ -327,6 +412,118 @@ class Trainer:
                 it.close()
                 self._live_prefetch.discard(it)
             self._log_shard_row(si, path, examples, time.perf_counter() - t_shard)
+
+    def _iter_fanout(
+        self, shards: list[str], start_shard: int, start_offset: int
+    ) -> Iterator[tuple[Batch, int, int]]:
+        """``iter_train_batches`` through the N-stream fan-out: stream s
+        reads shards i % N == s, each with its share of the parse
+        workers and the host compaction (``TrainStep.precompact``), and
+        the merge restores serial shard order.  ``shard`` rows keep the
+        serial path's consumer-side timing; ``stream`` rows land when
+        the epoch's pool winds down (a preemption's break included)."""
+        from xflow_tpu_torch.io.fanout import ShardStreamPool
+
+        cfg = self.cfg
+        workers = self._parse_workers()
+        n_eff = max(1, min(cfg.input_streams, len(shards) - start_shard))
+        pool = ShardStreamPool(
+            shards,
+            self._loader,
+            num_streams=cfg.input_streams,
+            depth=max(1, cfg.prefetch_batches),
+            start_shard=start_shard,
+            start_offset=start_offset,
+            # the serial path's parse workers divide across the streams,
+            # so N streams do not multiply the thread budget
+            parse_workers=max(1, workers // n_eff) if workers > 1 else workers,
+            transform=self.step.precompact,
+            obs=self.obs,
+        )
+        self._live_prefetch.add(pool)
+        cur: int | None = None
+        examples = 0
+        t_shard = time.perf_counter()
+        try:
+            for batch, si, resume in pool:
+                if cur is None:
+                    cur = si
+                elif si != cur:
+                    self._log_shard_row(cur, shards[cur], examples,
+                                        time.perf_counter() - t_shard)
+                    cur = si
+                    examples = 0
+                    t_shard = time.perf_counter()
+                examples += batch.num_real()
+                yield batch, si, resume
+            if cur is not None:
+                self._log_shard_row(cur, shards[cur], examples,
+                                    time.perf_counter() - t_shard)
+        finally:
+            pool.close()
+            self._live_prefetch.discard(pool)
+            self._log_stream_rows(pool)
+
+    def _log_stream_rows(self, pool) -> None:
+        """One ``stream`` row per reader stream per epoch: its finished
+        shards' totals and backpressure stall (the reference's keys,
+        obs/schema.py)."""
+        if self.metrics_logger is None:
+            return
+        for row in pool.stream_stats():
+            self.metrics_logger.log("stream", {"epoch": self.epoch, **row})
+
+    def _transfer_ahead(
+        self, it: Iterator[tuple[Batch, int, int]], depth: int | None = None
+    ) -> Iterator[tuple[Any, int, int]]:
+        """The staging ring: ``put_batch_host`` (compaction, the pinned
+        copy, the copies on the step's copy stream) runs up to ``depth``
+        (``transfer_ahead_depth``) items ahead of the consumer on worker
+        threads, and yields ``(staged, shard_idx, resume)`` for
+        ``put_batch_device``.  The pending deque keeps submission order,
+        so batch order, and training, is the same at any depth.  On any
+        exit (the stream's end, a worker's exception, ``close()`` at a
+        preemption) it cancels the work not started, joins its workers
+        within 30 s in all, and closes ``it``; a worker that outlives
+        the join is counted (``ring.leaked_threads``) and reported."""
+        if depth is None:
+            depth = self.cfg.transfer_ahead_depth
+        ring = _StagingRing(_ring_workers(depth))
+        pending: deque = deque()
+        try:
+            for batch, si, resume in it:
+                pending.append((ring.submit(self.step.put_batch_host, batch), si, resume))
+                # occupancy: steadily depth + 1 means the device (or the
+                # dispatch) is the bottleneck, 0-1 that the input is
+                self.obs.observe("transfer_ahead_depth", len(pending))
+                if len(pending) > depth:
+                    fut, psi, presume = pending.popleft()
+                    yield fut.result(), psi, presume
+            while pending:
+                fut, psi, presume = pending.popleft()
+                yield fut.result(), psi, presume
+        finally:
+            self._reap_ring(ring, [fut for fut, _, _ in pending])
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    def _reap_ring(self, ring: _StagingRing, pending: list,
+                   join_timeout: float = 30.0) -> None:
+        leaked = ring.close(pending, join_timeout)
+        if leaked:
+            warnings.warn(
+                f"{leaked} staging-ring worker(s) outlived their close() join "
+                f"({join_timeout:.1f}s): wedged in put_batch_host",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            self.obs.counter("ring.leaked_threads", leaked)
+            emit_health(
+                self.obs, cause="ring_thread_leak", channel="transfer",
+                detail=f"{leaked} staging-ring worker(s) outlived close() join",
+                silence_seconds=join_timeout, threshold_seconds=join_timeout,
+            )
 
     def _log_shard_row(self, si: int, path: str, examples: int, dt: float) -> None:
         if self.metrics_logger is None:
@@ -377,15 +574,25 @@ class Trainer:
         ckpt_seconds = 0.0
         preempted = False
         device_metrics = []  # fetched once at epoch end: no sync per step
-        it = iter(self.iter_train_batches(start_shard, start_offset))
+        # the staging ring runs put_batch's host half ahead; reaped below
+        # on the normal path, by close() when an exception abandons it
+        stream = self._transfer_ahead(self.iter_train_batches(start_shard, start_offset))
+        self._live_transfer.add(stream)
+        it = iter(stream)
         while True:
             t_step = time.perf_counter()
             try:
+                # the input stall: parse, pack and the host half of
+                # put_batch hide behind this wait, and what they do not
+                # overlap surfaces here
                 with obs.phase("input_stall"):
-                    batch, shard_idx, resume = next(it)
+                    staged, shard_idx, resume = next(it)
             except StopIteration:
                 break
-            arrays = self.step.put_batch(batch)
+            # the device half where the reference decodes the wire: in
+            # the step (its jitted _expand_dict_wire)
+            with obs.phase("dispatch"):
+                arrays = self.step.put_batch_device(staged)
             device_metrics.append(self.step.dispatch_train(self.state, arrays))
             obs.observe("step_seconds", time.perf_counter() - t_step)
             steps += 1
@@ -400,9 +607,10 @@ class Trainer:
                     ckpt_seconds += self._timed_save(shard_idx, resume)
                 preempted = True
                 break
-        if preempted:
-            # stop the loader's prefetch thread now, not at close()
-            it.close()
+        # no-op when the stream ran dry; on a preemption's break it stops
+        # the ring and the loader now (their staged batches are dropped)
+        self._live_transfer.discard(stream)
+        stream.close()
         with obs.phase("device_block"):
             if device_metrics:
                 host = torch.stack((
@@ -420,13 +628,16 @@ class Trainer:
     def _epoch_stats(self, seen: float, ll_sum: float, steps: int, dt: float,
                      ckpt_seconds: float = 0.0, preempted: bool = False) -> dict:
         """Epoch record: throughput, per-phase wall seconds, stall
-        fraction, step-time percentiles and the ``wire`` row.  `phases`
-        holds main-thread-exclusive intervals; `overlapped` holds the
-        prefetch thread's parse/pack, which hide behind input_stall."""
+        fraction, step-time percentiles, the staging ring's mean
+        occupancy and the ``wire`` row.  `phases` holds
+        main-thread-exclusive intervals; `overlapped` holds the worker
+        threads' parse, pack and h2d, which hide behind input_stall."""
         snap = self.obs.registry.snapshot(reset=True)
         phases = snap.phase_seconds()
+        # the worker threads' phases: parse and pack, and under the
+        # staging ring put_batch's host half (h2d)
         overlapped = {
-            k: round(phases.pop(k), 6) for k in ("parse", "pack") if k in phases
+            k: round(phases.pop(k), 6) for k in ("parse", "pack", "h2d") if k in phases
         }
         phases = {k: round(v, 6) for k, v in phases.items()}
         step_hist = snap.hists.get("step_seconds", {})
@@ -448,6 +659,15 @@ class Trainer:
             "step_time_p90": round(step_hist.get("p90", 0.0), 6),
             "step_time_p99": round(step_hist.get("p99", 0.0), 6),
         }
+        occ = snap.hists.get("transfer_ahead_depth")
+        if occ:
+            stats["transfer_ahead_depth_mean"] = round(occ["mean"], 3)
+        # put_batch's host half split: compaction (with the reorder and
+        # the wire counters), the copy into pinned memory, the enqueue
+        split = {k: round(snap.counters[f"h2d.{k}_s"], 6)
+                 for k in ("compact", "pin", "enqueue") if f"h2d.{k}_s" in snap.counters}
+        if split:
+            stats["h2d_split"] = split
         if "wire.bytes" in snap.counters:
             # compaction_ratio: cold occurrences per table row the
             # dictionary wire left to touch (1.0 on the other wires)

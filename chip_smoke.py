@@ -373,6 +373,44 @@ Phases, in order; any failure raises and the exit code is 1:
    ``input_stall_frac``, ``transfer_ahead_depth_mean``, the ``stream``
    rows, the idle share from the kernels' device times and the card's
    name and power limit.
+42. the serving tier (ROADMAP A7) on phase 18's hot ``fm`` artifact
+   (T = 2^24, 12 cold + 32 hot slots, H = 2^14), written again with a
+   second one of the same config at train step 2: (a) every bucket's
+   CUDA graph replay against the eager K1 call (``graphs=False``) on the
+   same prepared planes, bit for bit, and within 1e-6 of the plain
+   version, each timed as the batcher's device leg (median host ms of
+   50 calls: h2d, replay or launch, fetch); (b) a 2-replica
+   ``ReplicaFleet`` with the score cache, closed loop, 1,024 requests
+   (512 distinct rows, each twice) from 16 clients, with graphs and
+   eager in turn, twice each: requests/s, p50/p99, ``compile_count`` and ``captures`` flat,
+   K1's launches a replay times the replays equal to the batches, 0
+   errors; (c) the HTTP (``ServeTier``) and XFB1 (``BinaryTier``) tiers
+   over one fleet answering the engine's pctr (JSON, packed and XFB1),
+   then ``run_loadgen`` open loop, 0.5 s of arrivals a leg at 50 % and 150 % of
+   (b)'s requests/s with a QoS mix: achieved QPS, shed fraction by cause
+   and class, p50/p99, the binary-to-HTTP ratio; 0 errors at 50 %, at
+   most 1 % at 150 % (past capacity a connection may drop), none left
+   outstanding; (d) a rollout to the
+   step-2 artifact under traffic (its engine loads and captures while
+   the replicas replay), canary, gate, commit: 0 errors, every answer
+   one artifact's, and no cached score of the old servable after the
+   commit;
+43. the cascade: each pooled family's served artifact (phases 35-37)
+   graph against eager as 42 (a), and two_tower's top-k leg; then
+   two_tower's artifact and item index (phase 37) as a 2-replica top-k
+   retrieval fleet and dcn's (phase 36) as the ranking fleet behind a
+   ``CascadeEngine`` and ``/v1/recommend``: 256 users from 8 clients,
+   each answer's candidates the float64 numpy scan's top 8 up to
+   near-ties with retrieval scores within its tolerance, the ranking
+   pctr the ranking engine's; one ranking-stage rollout over HTTP under
+   traffic while retrieval serves untouched; ``compile_count`` flat on
+   both stages, 0 errors.
+
+The serving engines replay one CUDA graph per bucket (serve/engine.py):
+a replay does not pass through the kernels' wrappers, so a serving
+path's K1 and K7 launches are its replays times what each capture
+launched, and the wrappers' own counts there hold exactly the captures'
+(``served``, ``check_captures``).
 
 Every training path runs through the staging ring (on by default,
 depth 2): ``put_batch``'s host half (compaction, the copy into pinned
@@ -397,7 +435,9 @@ plus the training paths' eval and engine batches (phases 8, 11, 12,
 (phases 18-19), the D-tiled FM forms their phase-21 paths, and the
 MVM forms the MVM paths (phases 25-27), the FFM forms the FFM paths
 (phases 29-31), K7 and K8 the pooled paths, serving and top-k
-(phases 35-37); phase 40's resumed paths go into the entries of their
+(phases 35-37), K1's and K7's serving paths by their graph replays
+(``graph_replays``; phases 42 and 43 in K1's and K7's entries); phase
+40's resumed paths go into the entries of their
 kernels' ``launches_by_path`` (``fm resume``, ``fm hybrid resume``,
 ``fm packed-v2 hot``; ``wide_deep resume`` in K7's and K8's), phase
 16's binary path as ``fm_nohot binary``, phase 41's runs as ``fanout
@@ -753,9 +793,11 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
     pctr = engine.score_text(lines)
     score_s = time.perf_counter() - t0
     calls = len(engine.buckets) + math.ceil(n_lines / engine.buckets[-1])
-    if score.launches != calls:
+    check_captures(f"phase {phase[0]}", engine, "score", score.launches)
+    if served(engine, "score") != calls or engine.captures != len(engine.buckets):
         raise AssertionError(
-            f"engine made {calls} device calls but K1 launched {score.launches} times"
+            f"engine made {calls} device calls but replayed K1 {served(engine, 'score')} "
+            f"times over {engine.captures} graphs"
         )
     if pctr.shape != (n_lines,) or not np.all(np.isfinite(pctr)):
         raise AssertionError(f"bad pctr: shape {pctr.shape}")
@@ -806,23 +848,26 @@ def phase_main_path(dev, t_log2: int, workdir: str, n_lines: int = 2048,
         raise AssertionError(f"engine vs float64 reference: max err {ref_err}")
     log(json.dumps({
         "phase": phase[0], "load_s": load_s, "score_text_s": score_s,
-        "lines": n_lines, "device_calls": calls, "k1_launches": score.launches,
+        "lines": n_lines, "device_calls": calls, "k1_launches": served(engine, "score"),
+        "captures": engine.captures, "graph_replays": engine.graph_replays,
         "max_abs_err_vs_plain": err, "max_abs_err_vs_float64": ref_err,
         "pctr_mean": float(pctr.mean()),
     }))
 
-    before = score.launches
+    before = served(engine, "score")
     summary = run_bench(engine, requests, concurrency, K, SEED)
-    if engine.compile_count != len(engine.buckets):
+    if engine.compile_count != len(engine.buckets) or engine.captures != len(engine.buckets):
         raise AssertionError(
-            f"compile_count {engine.compile_count} != {len(engine.buckets)} buckets"
+            f"compile_count {engine.compile_count}, captures {engine.captures} != "
+            f"{len(engine.buckets)} buckets"
         )
-    if score.launches - before != summary["batches"]:
+    if served(engine, "score") - before != summary["batches"]:
         raise AssertionError(
-            f"{summary['batches']} batches but {score.launches - before} launches"
+            f"{summary['batches']} batches but {served(engine, 'score') - before} replays"
         )
+    check_captures(f"phase {phase[1]}", engine, "score", score.launches)
     log(json.dumps(dict(summary, phase=phase[1])))
-    launches = score.launches  # the main path ends here
+    launches = served(engine, "score")  # the main path ends here
     out = {"launches": launches, "bench": summary, "compile_count": engine.compile_count,
            "max_abs_err_vs_plain": err, "max_abs_err_vs_float64": ref_err}
     if hot:
@@ -986,6 +1031,29 @@ def cpu_k3_on_touched_rows() -> None:
             table[k][rows] = t
 
     step_mod.optim_update = k3
+
+
+def served(engine, kernel: str) -> int:
+    """``kernel``'s launches on an engine's serving path: the engine
+    replays one CUDA graph per key, and each replay launches what its
+    capture launched (``graph_launches``).  A replay does not pass
+    through the wrappers, so their counts hold only the captures'
+    (``check_captures``)."""
+    return sum(n * engine.graph_launches.get(leg, {}).get(kernel, 0)
+               for leg, n in engine.graph_replays.items())
+
+
+def check_captures(what: str, engine, kernel: str, wrapper_launches: int) -> None:
+    """A serving path's wrapper count is exactly its captures' launches
+    (each capture's eager warm-up and its captured call), and each
+    captured leg that runs ``kernel`` launches it once a replay."""
+    if wrapper_launches != engine.capture_launches[kernel]:
+        raise AssertionError(f"{what}: {kernel} launched {wrapper_launches} times "
+                             f"through its wrapper, the captures "
+                             f"{engine.capture_launches[kernel]}")
+    per = {leg: n[kernel] for leg, n in engine.graph_launches.items() if n[kernel]}
+    if not per or set(per.values()) != {1}:
+        raise AssertionError(f"{what}: {kernel} launches a replay {per}, want 1 a leg")
 
 
 def zero_launches() -> None:
@@ -1705,6 +1773,11 @@ def phase_train_main_path(dev, t_log2: int, workdir: str) -> dict:
         if header["parser"] != "native" or trainer.step.wire_format != "dict":
             raise AssertionError(f"{model}: parser {header['parser']!r}, wire "
                                  f"{trainer.step.wire_format!r}; want native and dict")
+        # the engine's K1 launches are its graphs' replays; the wrapper
+        # counted the eval batch and the captures
+        check_captures(f"{model} engine", engine, "score",
+                       got["score"] - math.ceil(TEST_LINES / cfg.batch_size))
+        got["score"] += served(engine, "score") - engine.capture_launches["score"]
         if got["score"] != want_score:
             raise AssertionError(f"{model}: K1 launched {got['score']} times, "
                                  f"expected {want_score} (1 eval batch + engine)")
@@ -6780,9 +6853,10 @@ def serve_pooled(dev, trainer, family: str, workdir: str, test_lines: list,
     engine = PredictEngine.load(art, device=dev)
     pctr = engine.score_text(lines)
     calls = len(engine.buckets) + math.ceil(len(lines) / engine.buckets[-1])
-    if field_pool.launches != calls:
-        raise AssertionError(f"{family}: {calls} device calls, K7 launched "
-                             f"{field_pool.launches} times")
+    check_captures(family, engine, "field_pool", field_pool.launches)
+    if served(engine, "field_pool") != calls:
+        raise AssertionError(f"{family}: {calls} device calls, K7 replayed "
+                             f"{served(engine, 'field_pool')} times")
     if not np.all((pctr > 0) & (pctr <= 1)):
         raise AssertionError(f"{family}: pctr outside (0, 1]")
     cfg = engine.cfg
@@ -6813,15 +6887,17 @@ def serve_pooled(dev, trainer, family: str, workdir: str, test_lines: list,
         ref_err = max(ref_err, abs(p - float(pctr[i])))
     if ref_err > 1e-5:
         raise AssertionError(f"{family}: engine vs float64 reference: max err {ref_err}")
-    before = field_pool.launches
+    before = served(engine, "field_pool")
     summary = run_bench(engine, requests, concurrency, K, SEED)
-    if engine.compile_count != len(engine.buckets):
-        raise AssertionError(f"{family}: compile_count {engine.compile_count} != "
-                             f"{len(engine.buckets)} buckets")
-    if field_pool.launches - before != summary["batches"]:
+    if engine.compile_count != len(engine.buckets) or engine.captures != len(engine.buckets):
+        raise AssertionError(f"{family}: compile_count {engine.compile_count}, captures "
+                             f"{engine.captures} != {len(engine.buckets)} buckets")
+    if served(engine, "field_pool") - before != summary["batches"]:
         raise AssertionError(f"{family}: {summary['batches']} batches but "
-                             f"{field_pool.launches - before} K7 launches")
-    out = {"family": family, "launches": field_pool.launches,  # the path ends here
+                             f"{served(engine, 'field_pool') - before} K7 replays")
+    check_captures(family, engine, "field_pool", field_pool.launches)
+    out = {"family": family, "launches": served(engine, "field_pool"),  # the path ends here
+           "captures": engine.captures, "graph_replays": engine.graph_replays,
            "lines": len(lines), "max_abs_err_vs_plain": err,
            "max_abs_err_vs_float64": ref_err, "bench": summary,
            "compile_count": engine.compile_count, "artifact": art}
@@ -6856,9 +6932,10 @@ def phase_topk(dev, art: str, test_prefix: str, requests: int = 1024) -> dict:
     field_pool.launches = 0  # the index build starts here
     meta = export_item_index(engine, art, items)
     build = {"items": meta["count"], "dim": meta["dim"],
-             "seconds": time.perf_counter() - t0, "k7_launches": field_pool.launches}
-    if field_pool.launches != math.ceil(len(items) / engine.buckets[-1]):
-        raise AssertionError(f"index build: K7 launched {field_pool.launches} times")
+             "seconds": time.perf_counter() - t0, "k7_launches": served(engine, "field_pool")}
+    check_captures("index build", engine, "field_pool", field_pool.launches)
+    if build["k7_launches"] != math.ceil(len(items) / engine.buckets[-1]):
+        raise AssertionError(f"index build: K7 replayed {build['k7_launches']} times")
     field_pool.launches = 0  # the top-k path starts here
     engine = PredictEngine.load(art, device=dev, topk_k=16)
     legs = engine.compile_count
@@ -6895,9 +6972,9 @@ def phase_topk(dev, art: str, test_prefix: str, requests: int = 1024) -> dict:
         got_ids, got_scores = engine.topk(engine.featurize_raw(users[:n]), k=k)
         if got_ids.shape != (n, k) or not np.all(np.diff(got_scores, axis=1) <= 0):
             raise AssertionError(f"top-k of {n} rows at k={k}: {got_ids.shape}")
-    if engine.compile_count != legs:
-        raise AssertionError(f"compile_count moved under mixed top-k traffic: "
-                             f"{engine.compile_count} != {legs}")
+    if engine.compile_count != legs or engine.captures != legs:
+        raise AssertionError(f"compile_count or captures moved under mixed top-k "
+                             f"traffic: {engine.compile_count}, {engine.captures} != {legs}")
     lat = []
     t0 = time.perf_counter()
     for i in range(requests):
@@ -6911,7 +6988,9 @@ def phase_topk(dev, art: str, test_prefix: str, requests: int = 1024) -> dict:
            "compile_count": engine.compile_count, "legs": legs,
            "requests": requests, "requests_per_sec": requests / seconds,
            "e2e_p50": float(np.percentile(lat, 50)), "e2e_p99": float(np.percentile(lat, 99)),
-           "k7_launches": field_pool.launches}  # the top-k path ends here
+           "captures": engine.captures, "graph_replays": engine.graph_replays,
+           "k7_launches": served(engine, "field_pool")}  # the top-k path ends here
+    check_captures("top-k", engine, "field_pool", field_pool.launches)
     log(json.dumps(out))
     return out
 
@@ -8783,6 +8862,631 @@ def kink_witness(dev, workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 42-43: the serving tier (ROADMAP A7)
+
+SERVE_REPLICAS = 2
+SERVE_REQUESTS = 1024
+SERVE_CLIENTS = 16
+SERVE_CACHE = 4096  # score-cache entries: every distinct request row fits
+LOADGEN_S = 0.5  # of arrivals: the HTTP legs then take 3-8 s at 300-500 requests/s
+LOADGEN_CLIENTS = 32
+LOADGEN_LOADS = (0.5, 1.5)  # offered, as a share of the closed loop's requests/s
+QOS_MIX = {"bidding": 0.2, "normal": 0.5, "best_effort": 0.3}
+CALL_RUNS = 50  # timed calls per bucket, each mode
+
+
+def hot_fm_artifact(workdir: str, t_log2: int, step: int = 1, scale: float = 1.0,
+                    n_lines: int = 2048):
+    """Phase 18's hot ``fm`` artifact (the same seed-made tables, lines
+    and remap: T = 2^t_log2, 12 cold + 32 hot slots, H = 2^14), written
+    at train ``step`` with w and v scaled by ``scale`` (a later servable
+    of the same config); returns (path, the request rows of its lines)."""
+    from xflow_tpu_torch.io import freq
+    from xflow_tpu_torch.io.libffm import parse_block
+    from xflow_tpu_torch.serve.artifact import write_artifact
+
+    cfg = dataclasses.replace(fm_nohot_config(t_log2), **HOT_GEOMETRY["fm"])
+    rng = np.random.default_rng(SEED)
+    w = rng.standard_normal((cfg.table_size, 1), dtype=np.float32)
+    w *= 0.3 * scale
+    v = rng.standard_normal((cfg.table_size, D), dtype=np.float32)
+    v *= 0.05 * scale
+    lines = libffm_lines(n_lines, rng)
+    block = parse_block("\n".join(lines).encode() + b"\n", cfg.table_size, cfg.hash_mode,
+                        cfg.seed)
+    remap = freq.build_remap(np.bincount(block.keys, minlength=cfg.table_size), cfg.hot_size)
+    art = write_artifact(f"{workdir}/fm_hot_step{step}", cfg, {"w": w, "v": v}, step=step,
+                         remap=remap)
+    return art, block_rows(block)
+
+
+def block_rows(block, limit: int | None = None, below_field: int | None = None) -> list:
+    """Single-row requests (keys, slots, None) from a parsed block's
+    lines, with only the fields below ``below_field`` when given."""
+    rows = []
+    for i in range(block.num_samples if limit is None else min(limit, block.num_samples)):
+        lo, hi = int(block.row_ptr[i]), int(block.row_ptr[i + 1])
+        keys = block.keys[lo:hi].astype(np.int64)
+        slots = block.slots[lo:hi].astype(np.int32)
+        if below_field is not None:
+            keep = slots < below_field
+            keys, slots = keys[keep], slots[keep]
+        rows.append((keys, slots, None))
+    return rows
+
+
+def median_call_ms(fn, batch, runs: int = CALL_RUNS) -> float:
+    """Median host wall ms of ``fn(batch)``, a prepared call that
+    returns its outputs on the host (h2d, the device work and the
+    fetch: the batcher's device leg)."""
+    for _ in range(3):
+        fn(batch)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn(batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def graph_vs_eager(family: str, engine, eager, rows: list, card: str, leg: str = "predict",
+                   plain=None) -> list:
+    """Each bucket's graph replay against the eager call on the same
+    prepared planes: bit for bit, or the largest difference (then within
+    1e-6 of the plain version, ``plain(batch)``), and both timed."""
+    out = []
+    for b in engine.buckets:
+        batch = engine.featurize(rows[:b])
+        if leg == "predict":
+            call_g, call_e = engine.predict_prepared, eager.predict_prepared
+        else:
+            call_g, call_e = engine.topk_prepared, eager.topk_prepared
+        got, want = call_g(batch), call_e(batch)
+        got = got if leg == "predict" else got[1]
+        want = want if leg == "predict" else want[1]
+        row = {"family": family, "leg": leg, "B": b, "card": card,
+               "bit_equal": bool(np.array_equal(got, want)),
+               "max_abs_diff_vs_eager": float(np.abs(got - want).max())}
+        if not row["bit_equal"]:
+            if plain is not None:  # K1 alone: one kernel, one launch shape, either way
+                raise AssertionError(f"{family} B={b}: K1's replay is not its eager call {row}")
+            row["why_not_bit_equal"] = (
+                "K7 and the head's cuBLAS calls on the same planes; under capture "
+                "cuBLAS may pick another GEMM kernel than eagerly")
+            if row["max_abs_diff_vs_eager"] > PCTR_ATOL:
+                raise AssertionError(f"{family} {leg} B={b}: replay vs eager {row}")
+        if plain is not None:
+            row["max_abs_err_vs_plain"] = float(np.abs(got - plain(batch)).max())
+            if row["max_abs_err_vs_plain"] > PCTR_ATOL:
+                raise AssertionError(f"{family} B={b}: replay vs plain {row}")
+        row["graph_ms"] = median_call_ms(call_g, batch)
+        row["eager_ms"] = median_call_ms(call_e, batch)
+        out.append(row)
+    return out
+
+
+def closed_loop(fleet, rows: list, clients: int) -> dict:
+    """``clients`` threads each submit their share of ``rows`` one at a
+    time through the fleet; requests/s and e2e p50/p99 of the answered
+    ones, sheds (admission control's typed refusals: a host stall past
+    the queue-age budget sheds, as designed) and errors."""
+    import threading
+
+    from xflow_tpu_torch.serve.fleet import ShedError
+
+    e2e, errors, shed, lock = [], [], [], threading.Lock()
+
+    def client(mine) -> None:
+        for row in mine:
+            t0 = time.perf_counter()
+            try:
+                fleet.submit(*row).result(timeout=120.0)
+            except ShedError as e:
+                with lock:
+                    shed.append(e.cause)
+                continue
+            except Exception as e:  # noqa: BLE001 - counted, asserted
+                with lock:
+                    errors.append(repr(e))
+                continue
+            with lock:
+                e2e.append(time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client, args=(rows[i::clients],))
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600.0)
+    seconds = time.perf_counter() - t0
+    return {"requests": len(rows), "clients": clients, "seconds": seconds,
+            "requests_per_sec": len(rows) / seconds, "errors": len(errors),
+            "error_sample": errors[:3], "shed": len(shed),
+            "shed_by_cause": {c: shed.count(c) for c in sorted(set(shed))},
+            "e2e_p50_ms": float(np.percentile(e2e, 50)) * 1e3 if e2e else None,
+            "e2e_p99_ms": float(np.percentile(e2e, 99)) * 1e3 if e2e else None}
+
+
+def fleet_run(engine, rows: list, mode: str, card: str) -> dict:
+    """Phase 42 (b): a 2-replica fleet with the score cache over
+    ``engine`` (graphs, or ``graphs=False``), closed loop; the keys and
+    graphs flat, every batch one replay per replica's graph (graphs)."""
+    from xflow_tpu_torch.serve.fleet import ReplicaFleet
+    from xflow_tpu_torch.serve.scache import ScoreCache
+
+    before = engine.captures
+    fleet = ReplicaFleet(engine, SERVE_REPLICAS, cache=ScoreCache(SERVE_CACHE),
+                         max_wait_ms=2.0, revive=False)
+    keys, captures = engine.compile_count, engine.captures
+    replays = engine.graph_replays.get("predict", 0)
+    run = closed_loop(fleet, rows, SERVE_CLIENTS)
+    final = fleet.close()
+    batches = final["stats"]["batches"]
+    replayed = engine.graph_replays.get("predict", 0) - replays
+    per = engine.graph_launches.get("predict", {}).get("score", 0)
+    row = dict(run, mode=mode, card=card, batches=batches, replays=replayed,
+               k1_launches_per_replay=per, compile_count=engine.compile_count,
+               captures=engine.captures, cache_hits=final["stats"]["cache_hits"],
+               batch_fill_mean=final["stats"]["batch_fill_mean"],
+               device_p50_ms=final["stats"]["device_p50"] * 1e3,
+               device_p99_ms=final["stats"]["device_p99"] * 1e3)
+    if run["errors"]:
+        raise AssertionError(f"phase 42 {mode}: errors {run['error_sample']}")
+    if engine.compile_count != keys or engine.captures != captures:
+        raise AssertionError(f"phase 42 {mode}: keys or captures moved under traffic: {row}")
+    if mode == "graphs":  # the clone captured its own set
+        if captures - before != (SERVE_REPLICAS - 1) * keys or per * replayed != batches:
+            raise AssertionError(f"phase 42 graphs: captures {before} -> {captures} for "
+                                 f"{keys} keys, {per} x {replayed} replays for {batches} "
+                                 "batches")
+    elif captures or replayed:
+        raise AssertionError(f"phase 42 eager: {captures} captures, {replayed} replays")
+    return row
+
+
+def tier_loadgen(tier, btier, qps: float, card: str, table_size: int) -> list:
+    """Phase 42 (c): the HTTP and XFB1 tiers over one fleet, each driven
+    open loop at ``LOADGEN_LOADS`` of ``qps`` for ``LOADGEN_S``."""
+    from xflow_tpu_torch.serve.loadgen import BinaryTarget, HttpTarget, run_loadgen
+
+    host, _, port = btier.address.rpartition(":")
+    rows = []
+    for share in LOADGEN_LOADS:
+        for transport in ("http", "binary"):
+            target = (HttpTarget(tier.address, timeout_s=60.0) if transport == "http"
+                      else BinaryTarget(host, int(port), timeout_s=60.0))
+            try:
+                s = run_loadgen(target, offered_qps=share * qps, duration_s=LOADGEN_S,
+                                concurrency=LOADGEN_CLIENTS, nnz=K,
+                                table_size=table_size, seed=SEED, qos_mix=QOS_MIX,
+                                drain_timeout_s=60.0)
+            finally:
+                if hasattr(target, "close"):
+                    target.close()
+            # past capacity a request may fail (a dropped connection, a
+            # scoring timeout): reported, and a fault past 1 % of them
+            if s["outstanding"] or s["errors"] > (0 if share < 1 else 0.01 * s["requests"]):
+                raise AssertionError(f"phase 42 {transport} at {share}: {s}")
+            rows.append({"transport": transport, "offered_share": share, "card": card,
+                         **{k: s.get(k) for k in (
+                             "offered_qps", "offered_qps_actual", "achieved_qps",
+                             "requests", "shed_frac", "shed_by_cause", "qos_offered",
+                             "qos_shed", "e2e_p50", "e2e_p99", "errors",
+                             "outstanding", "retried")}})
+    for share in LOADGEN_LOADS:
+        http, binary = (next(r for r in rows if r["transport"] == t
+                             and r["offered_share"] == share) for t in ("http", "binary"))
+        binary["achieved_qps_binary_over_http"] = (binary["achieved_qps"]
+                                                   / max(http["achieved_qps"], 1e-9))
+    return rows
+
+
+def tier_responses_match(tier, btier, engine, rows: list) -> float:
+    """The HTTP (JSON and packed) and XFB1 tiers answer the engine's
+    own pctr for ``rows``; returns the largest difference."""
+    import http.client
+
+    from xflow_tpu_torch.serve.loadgen import BinaryTarget
+    from xflow_tpu_torch.serve.server import decode_packed_response, encode_packed_request
+
+    want = engine.predict(engine.featurize_raw(rows))
+    conn = http.client.HTTPConnection("127.0.0.1", tier.port, timeout=60)
+    conn.request("POST", "/v1/score", body=json.dumps({"rows": [
+        {"keys": [int(k) for k in r[0]], "slots": [int(s) for s in r[1]]}
+        for r in rows]}))
+    doc = json.loads(conn.getresponse().read())
+    conn.request("POST", "/v1/score_packed", body=encode_packed_request(rows),
+                 headers={"Content-Type": "application/octet-stream"})
+    packed = decode_packed_response(conn.getresponse().read())
+    conn.close()
+    host, _, port = btier.address.rpartition(":")
+    target = BinaryTarget(host, int(port), timeout_s=60.0)
+    try:
+        xfb1 = np.asarray([f.result(timeout=60) for f in
+                           [target.submit(*r) for r in rows]])
+    finally:
+        target.close()
+    err = max(float(np.abs(np.asarray(doc["pctr"]) - want).max()),
+              float(np.abs(packed - want).max()), float(np.abs(xfb1 - want).max()))
+    # the JSON answer carries 6 decimals
+    if err > PCTR_ATOL + 5e-7:
+        raise AssertionError(f"phase 42: the tiers' pctr differ from the engine's by {err}")
+    return err
+
+
+def rollout_mid_traffic(fleet, art_b: str, rows: list) -> dict:
+    """Phase 42 (d): a canary rollout to ``art_b`` under closed-loop
+    traffic, the gate, the commit: every answer one artifact's (never a
+    mixed batch), 0 errors, no cached score of the old servable after
+    the commit.  The candidate loads and captures its graphs while the
+    fleet's replicas replay theirs."""
+    import threading
+
+    from xflow_tpu_torch.serve.fleet import ShedError
+
+    old = fleet.engines[0]
+    probe = [r for r in rows if len(r[0]) >= 8][:8]
+    pa = old.predict(old.featurize_raw(probe))
+    results, errors, shed, stop = [], [], [], threading.Event()
+
+    def client(i: int) -> None:
+        while not stop.is_set():
+            try:
+                results.append((i, fleet.submit(*probe[i]).result(timeout=120.0)))
+            except ShedError as e:  # typed backpressure, not a failure
+                shed.append(e.cause)
+            except Exception as e:  # noqa: BLE001 - counted, asserted
+                errors.append(repr(e))
+                return
+
+    threads = [threading.Thread(target=client, args=(i % len(probe),)) for i in range(8)]
+    for t in threads:
+        t.start()
+    old_servable = fleet.servable
+    t0 = time.perf_counter()
+    try:
+        fleet.begin_rollout(art_b, canary_frac=0.5, min_canary_requests=64)
+        load_s = time.perf_counter() - t0
+        deadline = time.perf_counter() + 120.0
+        while not fleet.rollout_state()["healthy"]:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 42: canary never healthy {fleet.rollout_state()}")
+            time.sleep(0.01)
+        health = fleet.commit_rollout()
+        n = len(results)
+        while len(results) < n + 64 and not errors:
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120.0)
+    new = fleet.engines[0]
+    pb = new.predict(new.featurize_raw(probe))
+    mixed = [(i, p) for i, p in results
+             if abs(p - pa[i]) > PCTR_ATOL and abs(p - pb[i]) > PCTR_ATOL]
+    last = {i: p for i, p in results}
+    if errors or mixed or any(abs(last[i] - pb[i]) > PCTR_ATOL for i in last):
+        raise AssertionError(f"phase 42 rollout: errors {errors[:3]}, mixed {mixed[:3]}")
+    stale = [r for r in probe if fleet.cache.lookup(old_servable, *r) is not None]
+    hits = [fleet.cache.lookup(fleet.servable, *r) for r in probe]
+    if stale or any(h is not None and abs(h - pb[i]) > PCTR_ATOL for i, h in enumerate(hits)):
+        raise AssertionError("phase 42 rollout: the cache returned the old servable's score")
+    if min(np.abs(pa - pb)) <= PCTR_ATOL:
+        raise AssertionError("phase 42 rollout: the two artifacts score a probe alike")
+    return {"requests": len(results), "errors": len(errors), "mixed": len(mixed),
+            "shed": len(shed),
+            "candidate_load_and_capture_s": load_s, "canary": health,
+            "servable_before": old_servable, "servable_after": fleet.servable,
+            "captures": new.captures, "compile_count": new.compile_count}
+
+
+def phase_serving_tier(dev, t_log2: int, workdir: str, card: str) -> dict:
+    """Phase 42: the serving tier at full width on phase 18's hot ``fm``
+    artifact (module docstring)."""
+    import gc
+    import os
+
+    import torch
+
+    from xflow_tpu_torch.ops.score import score_plain
+    from xflow_tpu_torch.parallel.step import to_device_planes
+    from xflow_tpu_torch.serve.binary import BinaryTier
+    from xflow_tpu_torch.serve.engine import PredictEngine
+    from xflow_tpu_torch.serve.fleet import ReplicaFleet
+    from xflow_tpu_torch.serve.scache import ScoreCache
+    from xflow_tpu_torch.serve.server import ServeTier
+
+    gc.collect()  # the earlier phases' garbage, before the timed loops
+    t0 = time.perf_counter()
+    art_b, rows = hot_fm_artifact(workdir, t_log2, step=2, scale=1.1)
+    art_a = f"{workdir}/fm_hot_d{D}"  # phase 18's, in the same workdir
+    if not os.path.isdir(art_a):  # phase 42 run without phase 18
+        art_a, _ = hot_fm_artifact(workdir, t_log2, step=1)
+    log(f"phase 42: wrote the step-2 hot fm artifact (T=2^{t_log2}) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    zero_launches()  # the serving tier's path starts here
+    engine = PredictEngine.load(art_a, device=dev)
+    eager = PredictEngine(engine.cfg, engine.state, device=dev, buckets=engine.buckets,
+                          digest=engine.digest, remap=engine.remap, graphs=False, warm=True)
+    cfg = engine.cfg
+
+    def plain(batch):
+        planes = to_device_planes(engine.step.host_wire_np(batch), dev)
+        tables = engine.state["tables"]
+        return score_plain(planes["ckeys"], planes.get("x"), tables["w"]["param"],
+                           tables["v"]["param"], hot=planes.get("hot"),
+                           hot_size=cfg.hot_size, form="fm").cpu().numpy()
+
+    out = {"graph_vs_eager": graph_vs_eager("fm (hot)", engine, eager, rows, card,
+                                            plain=plain)}
+    # requests: each distinct row twice, so the cache answers half
+    rng = np.random.default_rng(SEED)
+    distinct = [rows[int(i)] for i in rng.permutation(len(rows))[:SERVE_REQUESTS // 2]]
+    requests = [distinct[int(i)] for i in rng.permutation(np.arange(SERVE_REQUESTS) % len(distinct))]
+    # graphs and eager in turn, twice: one closed loop takes a quarter
+    # second, so a single pair is noise-bound
+    if engine.captures != len(engine.buckets):
+        raise AssertionError(f"phase 42: {engine.captures} captures after warm")
+    out["fleet"] = [fleet_run(e, requests, mode, card)
+                    for _ in range(2) for e, mode in ((engine, "graphs"), (eager, "eager"))]
+    qps = out["fleet"][0]["requests_per_sec"]
+    fleet = ReplicaFleet(engine, SERVE_REPLICAS, cache=ScoreCache(SERVE_CACHE),
+                         max_wait_ms=2.0, revive=False)
+    tier = ServeTier(fleet, port=0, poll_s=0.05).start()
+    btier = BinaryTier(fleet, port=0).start()
+    try:
+        out["tier_max_abs_err_vs_engine"] = tier_responses_match(tier, btier, engine,
+                                                                 rows[:64])
+        out["loadgen"] = tier_loadgen(tier, btier, qps, card, cfg.table_size)
+        out["rollout"] = rollout_mid_traffic(fleet, art_b, rows)
+    finally:
+        btier.close()
+        final = tier.close()  # drains and closes the fleet
+    torch.cuda.synchronize()
+    got = read_launches()  # the serving tier's path ends here
+    cand = fleet.engines[0]  # the rollout's candidate, committed
+    # K1 through its wrapper: the eager engine's calls (its warm call, a
+    # compared call, 3 warm-up and CALL_RUNS timed calls per bucket, its
+    # fleet's batches) and the two graph engines' captures
+    eager_calls = (len(eager.buckets) * (2 + 3 + CALL_RUNS)
+                   + sum(r["batches"] for r in out["fleet"] if r["mode"] == "eager"))
+    check_captures("phase 42", engine, "score",
+                   got["score"] - eager_calls - cand.capture_launches["score"])
+    check_captures("phase 42 candidate", cand, "score", cand.capture_launches["score"])
+    out["k1_graph_replays"] = served(engine, "score") + served(cand, "score")
+    out["k1_eager_launches"] = eager_calls
+    out["launches"] = out["k1_graph_replays"] + eager_calls
+    out["captures"] = {"incumbent": engine.captures, "candidate": cand.captures}
+    out["compile_count"] = engine.compile_count
+    out["final_stats"] = final["stats"]
+    del engine, eager, fleet, cand
+    torch.cuda.empty_cache()
+    return out
+
+
+def numpy_topk_check(engine, users: list, k: int) -> dict:
+    """Phase 37's check on the retrieval engine: top-k of ``users``
+    against a float64 numpy full scan of the same user embeddings; the
+    scan's scores, ids and order for the cascade's responses."""
+    ids, scores, u = engine.topk_prepared(engine.featurize(users))
+    index = engine.item_index["item_index"].astype(np.float64)
+    full = u[: len(users)].astype(np.float64) @ index.T
+    order = np.argsort(-full, axis=1, kind="stable")[:, :engine.topk_k]
+    want = np.take_along_axis(full, order, 1)
+    tol = 1e-5 * np.abs(want).max() + 1e-6
+    worst = float(np.abs(scores[: len(users)] - want).max())
+    if worst > tol:
+        raise AssertionError(f"phase 43: top-k vs the numpy scan {worst} > {tol}")
+    return {"full": full, "tol": tol, "max_abs_err": worst}
+
+
+def check_recommend(res: dict, full_row, ids_all, k: int, tol: float) -> None:
+    """One /v1/recommend answer against the numpy scan of its user: its
+    candidates the scan's top k up to near-ties, each retrieval score
+    within the tolerance (plus the answer's 6-decimal rounding), ranked
+    by pctr."""
+    pos = {int(i): j for j, i in enumerate(ids_all)}
+    top = np.argsort(-full_row, kind="stable")[:k]
+    last = float(full_row[top[-1]])
+    for item, rs in zip(res["items"], res["retrieval_scores"]):
+        j = pos[item]
+        if abs(rs - full_row[j]) > tol + 5e-7:
+            raise AssertionError(f"phase 43: item {item} scored {rs}, scan {full_row[j]}")
+        if j not in set(top.tolist()) and abs(full_row[j] - last) > tol:
+            raise AssertionError(f"phase 43: item {item} is not in the scan's top {k}")
+    if len(res["items"]) != k or res["pctr"] != sorted(res["pctr"], reverse=True):
+        raise AssertionError(f"phase 43: bad answer {res}")
+
+
+def phase_cascade(dev, pooled: dict, test_prefix: str, card: str) -> dict:
+    """Phase 43: graph against eager for the pooled families and the
+    top-k leg, then the retrieval→ranking cascade over /v1/recommend
+    (module docstring)."""
+    import http.client
+    import threading
+
+    import torch
+
+    from xflow_tpu_torch.io.loader import make_parse_fn
+    from xflow_tpu_torch.ops.pool import field_pool
+    from xflow_tpu_torch.serve.cascade import CascadeEngine
+    from xflow_tpu_torch.serve.engine import PredictEngine
+    from xflow_tpu_torch.serve.fleet import ReplicaFleet
+    from xflow_tpu_torch.serve.server import ServeTier
+
+    tower_art = pooled["serve"]["two_tower"]["artifact"]
+    rank_art = pooled["serve"]["dcn"]["artifact"]
+    out = {"graph_vs_eager": []}
+    block = None
+    for family in ("wide_deep", "dcn", "two_tower"):
+        engine = PredictEngine.load(pooled["serve"][family]["artifact"], device=dev)
+        cfg = engine.cfg
+        if block is None:
+            with open(f"{test_prefix}-00000", "rb") as f:
+                block = make_parse_fn(cfg.table_size, cfg.hash_mode, cfg.seed)(f.read())
+        eager = PredictEngine(cfg, engine.state, device=dev, buckets=engine.buckets,
+                              digest=engine.digest, remap=engine.remap, graphs=False)
+        rows = block_rows(block, engine.buckets[-1])
+        out["graph_vs_eager"] += graph_vs_eager(family, engine, eager, rows, card)
+        if engine.item_index is not None:
+            eager.attach_item_index(engine.item_index, topk_k=engine.topk_k)
+            users = block_rows(block, engine.buckets[-1], below_field=cfg.tower_split_field)
+            out["graph_vs_eager"] += graph_vs_eager(family, engine, eager, users, card,
+                                                    leg="topk")
+        del engine, eager
+        torch.cuda.empty_cache()
+
+    field_pool.launches = 0  # the cascade's path starts here
+    retrieval = ReplicaFleet.load(tower_art, replicas=SERVE_REPLICAS, device=dev, topk=True,
+                                  topk_k=16, revive=False)
+    ranking = ReplicaFleet.load(rank_art, replicas=SERVE_REPLICAS, device=dev,
+                                cache_capacity=0, revive=False)
+    casc = CascadeEngine(retrieval, ranking, k=8)
+    r_engine, r_engines = retrieval.engines[0], list(retrieval.engines)
+    k_before = list(ranking.engines)
+    keys = (r_engine.compile_count, ranking.engines[0].compile_count)
+    captures = (r_engine.captures, ranking.engines[0].captures)
+    cfg = r_engine.cfg
+    users = block_rows(block, 256, below_field=cfg.tower_split_field)
+    scan = numpy_topk_check(r_engine, users, casc.k)  # before any traffic
+    tier = ServeTier(ranking, port=0, poll_s=0.05, cascade=casc).start()
+    answers, errors, shed, lock = {}, [], [], threading.Lock()
+    stop = threading.Event()
+
+    def ask(i: int):
+        conn = http.client.HTTPConnection("127.0.0.1", tier.port, timeout=60)
+        try:
+            user = users[i]
+            conn.request("POST", "/v1/recommend", body=json.dumps(
+                {"keys": [int(x) for x in user[0]], "slots": [int(x) for x in user[1]]}))
+            resp = conn.getresponse()
+            doc = json.loads(resp.read())
+        finally:
+            conn.close()
+        if resp.status == 429:  # typed backpressure, not a failure
+            return None
+        if resp.status != 200:
+            raise RuntimeError(f"/v1/recommend {resp.status}: {doc}")
+        return doc
+
+    def client(mine) -> None:
+        for i in mine:
+            try:
+                doc = ask(i)
+            except Exception as e:  # noqa: BLE001 - counted, asserted
+                with lock:
+                    errors.append(repr(e))
+                continue
+            if doc is None:
+                with lock:
+                    shed.append(i)
+                continue
+            with lock:
+                answers[i] = doc
+
+    def background() -> None:
+        i = 0
+        while not stop.is_set():
+            client([i % len(users)])
+            i += 1
+
+    try:
+        threads = [threading.Thread(target=client, args=(range(c, len(users), 8),))
+                   for c in range(8)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600.0)
+        seconds = time.perf_counter() - t0
+        for i, doc in answers.items():
+            check_recommend(doc, scan["full"][i], r_engine.item_index["item_ids"], casc.k,
+                            scan["tol"])
+        # one ranking-stage rollout under traffic; retrieval untouched
+        bg = threading.Thread(target=background)
+        bg.start()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", tier.port, timeout=300)
+            conn.request("POST", "/v1/rollout", body=json.dumps({
+                "artifact": rank_art, "stage": "ranking", "canary_frac": 0.5,
+                "min_canary_requests": 32}))
+            begun = conn.getresponse()
+            begun_doc = json.loads(begun.read())
+            if begun.status != 200:
+                raise AssertionError(f"phase 43: rollout refused {begun_doc}")
+            deadline = time.perf_counter() + 120.0
+            while not ranking.rollout_state()["healthy"]:
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"phase 43: canary {ranking.rollout_state()}")
+                time.sleep(0.01)
+            conn.request("POST", "/v1/rollout/commit", body=json.dumps({"stage": "ranking"}))
+            committed = conn.getresponse()
+            commit_doc = json.loads(committed.read())
+            conn.close()
+            if committed.status != 200:
+                raise AssertionError(f"phase 43: commit refused {commit_doc}")
+        finally:
+            stop.set()
+            bg.join(timeout=300.0)
+        final = casc.emit_stats()  # the window of every request above
+    finally:
+        tier.close()
+    if not answers:
+        raise AssertionError(f"phase 43: no /v1/recommend answered ({len(shed)} shed)")
+    first = min(answers)
+    user, doc = users[first], answers[first]
+    index = r_engine.item_index
+    by_id = {int(i): j for j, i in enumerate(index["item_ids"])}
+    ranked_rows = []
+    for item in doc["items"]:
+        j = by_id[item]
+        m = int(index["item_nnz"][j])
+        ranked_rows.append((np.concatenate([user[0], index["item_keys"][j, :m]]),
+                            np.concatenate([user[1], index["item_slots"][j, :m]]),
+                            np.concatenate([np.ones(len(user[0]), np.float32),
+                                            index["item_vals"][j, :m]])))
+    rank_engine = ranking.engines[0]
+    want = rank_engine.predict(rank_engine.featurize_raw(ranked_rows))
+    pctr_err = float(np.abs(np.asarray(doc["pctr"]) - want).max())
+    torch.cuda.synchronize()
+    wrapper = field_pool.launches  # the cascade's path ends here
+    graph_engines = {id(e): e for e in r_engines + k_before + list(ranking.engines)}
+    if errors or final["errors"] or pctr_err > PCTR_ATOL + 5e-7:
+        raise AssertionError(f"phase 43: errors {errors[:3]}, {final}, pctr {pctr_err}")
+    if (retrieval.engines != r_engines or retrieval.rollout_state() is not None
+            or r_engine.compile_count != keys[0] or r_engine.captures != captures[0]
+            or rank_engine.compile_count != keys[1]):
+        raise AssertionError("phase 43: the retrieval stage moved or keys grew")
+    families = {}
+    for e in graph_engines.values():
+        families.setdefault(id(e._stats), e)
+    k7 = sum(served(e, "field_pool") for e in families.values())
+    if wrapper != sum(e.capture_launches["field_pool"] for e in families.values()):
+        raise AssertionError(f"phase 43: K7 launched {wrapper} times through its wrapper")
+    out.update({
+        "recommend": {"requests": len(users), "clients": 8, "seconds": seconds,
+                      "requests_per_sec": len(users) / seconds, "errors": len(errors),
+                      "shed": len(shed),
+                      "k": casc.k, "topk_max_abs_err_vs_numpy": scan["max_abs_err"],
+                      "pctr_max_abs_err_vs_engine": pctr_err, "card": card},
+        "cascade_stats": final,
+        "compile_count": {"retrieval": r_engine.compile_count,
+                          "ranking": rank_engine.compile_count},
+        "captures": {"retrieval": r_engine.captures, "ranking": rank_engine.captures},
+        "rollout": commit_doc["committed"], "k7_graph_replays": k7,
+        "k7_wrapper_launches": wrapper,
+    })
+    casc.close()
+    retrieval.close()
+    ranking.close()
+    del retrieval, ranking, casc, r_engines, k_before, graph_engines, families, r_engine
+    del rank_engine
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -8932,6 +9636,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         fanout = phase_fanout(dev, T_LOG2, workdir, train_path, card)
         log(f"phase 41 done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        serving = phase_serving_tier(dev, T_LOG2, workdir, card)
+        log(json.dumps({"phase": 42, **serving}))
+        cascade = phase_cascade(dev, pooled, train_path["data"]["test"], card)
+        log(json.dumps({"phase": 43, **{k: v for k, v in cascade.items()}}))
+        log(f"phases 42-43 done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase": 17, "checks": hot["checks"]}))
@@ -9047,8 +9757,14 @@ def main() -> int:
         "route": "cuda",
         "source": "xflow_tpu_torch/csrc/score.cu",
         "replaces": REPLACES,
-        "launches": main_path["launches"] + train_launches["score"],
+        "launches": main_path["launches"] + train_launches["score"] + serving["launches"],
+        # the serving paths' K1 launches are CUDA graph replays
+        # (serve/engine.py), counted from the engines' replays
+        "graph_replays": {"serving, phases 3-4": main_path["launches"],
+                          "artifact scoring, phase 8": train_path["k1_engine_launches"],
+                          "serving tier, phase 42": serving["k1_graph_replays"]},
         "launches_by_path": {"serve": main_path["launches"],
+                             "serving tier (phase 42)": serving["launches"],
                              "train": train_launches["score"]
                              - sum(n["score"] for n in resumed.values()),
                              **{p: n["score"] for p, n in resumed.items()}},
@@ -9057,6 +9773,7 @@ def main() -> int:
         # scoring, at the engine's buckets
         "launches_by_shape": {
             "serving, buckets of up to 512 rows (phases 3-4)": main_path["launches"],
+            "serving tier, buckets of up to 512 rows (phase 42)": serving["launches"],
             "artifact scoring, buckets of up to 512 rows (phase 8)":
                 train_path["k1_engine_launches"],
             f"eval, {min(TEST_LINES, TRAIN_BATCHES[-1])}-row batches":
@@ -9186,6 +9903,12 @@ def main() -> int:
     kernels += mvm_kernel_entries(wide, mvm)
     kernels += ffm_kernel_entries(ffm)
     kernels += pooled_kernel_entries(pooled)
+    k7 = next(e for e in kernels if e["name"] == "field_pool")
+    k7["launches"] += cascade["k7_graph_replays"]
+    k7["launches_by_path"]["cascade (phase 43)"] = cascade["k7_graph_replays"]
+    k7["graph_replays"] = {"serving, phases 35-37": k7["launches_serving"]
+                           + k7["launches_topk_and_index"],
+                           "cascade, phase 43": cascade["k7_graph_replays"]}
     # C5: each field form's device-memory stage past its cap (phase 39),
     # beside the entry of its form
     for entry in kernels:

@@ -87,6 +87,11 @@ def test_import_leaves_out_jax_and_reference_package():
         "import xflow_tpu_torch.io.compact, xflow_tpu_torch.io.container\n"
         "import xflow_tpu_torch.io.packed, xflow_tpu_torch.ops.wire\n"
         "import xflow_tpu_torch.chaos, xflow_tpu_torch.models.mvm\n"
+        "import xflow_tpu_torch.api, xflow_tpu_torch.serve.fleet\n"
+        "import xflow_tpu_torch.serve.server, xflow_tpu_torch.serve.binary\n"
+        "import xflow_tpu_torch.serve.loadgen, xflow_tpu_torch.serve.cascade\n"
+        "import xflow_tpu_torch.serve.scache, xflow_tpu_torch.obs.schema\n"
+        "import xflow_tpu_torch.obs.reqtrace, xflow_tpu_torch.obs.export\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'xflow_tpu')]\n"
         "assert not bad, bad\n"

@@ -2262,3 +2262,229 @@ def test_ring_launches_exact(dev, tmp_path, preempt):
     assert steps == (2 if preempt else 12) and history[-1]["preempted"] == preempt
     assert got == [0, steps, 2 * steps, 0, 0, steps, 0, 0]
     trainer.close()
+
+
+# -- the serving engine's CUDA graphs (serve/engine.py) ----------------------
+
+GRAPH_FAMILIES = {
+    "fm_hot": dict(model="fm", max_nnz=12, hot_size_log2=6, hot_nnz=8),
+    "dcn": dict(model="dcn", max_nnz=24, emb_dim=4, hidden_dim=8, cross_layers=2),
+    "two_tower": dict(model="two_tower", max_nnz=24, emb_dim=4, hidden_dim=8,
+                      tower_dim=5, tower_split_field=6),
+}
+GRAPH_BUCKETS = (1, 8, 64)
+
+
+def _graph_engine(dev, family: str, graphs: bool = True, seed: int = 0):
+    """A serving engine over seed-made tables (and, for two_tower, an
+    item index of 40 items) at T = 2^12."""
+    from xflow_tpu_torch.convert import state_from_numpy
+    from xflow_tpu_torch.io.freq import build_remap
+    from xflow_tpu_torch.parallel.step import table_generator
+    from xflow_tpu_torch.serve.engine import PredictEngine
+
+    cfg = Config(table_size_log2=12, max_fields=12, **GRAPH_FAMILIES[family])
+    rng = np.random.default_rng(seed)
+    model = make_model(cfg)
+    tables = {spec.name: (rng.standard_normal((cfg.table_size, spec.dim)) * 0.3
+                          ).astype(np.float32) for spec in model.tables()}
+    dense = {}
+    if hasattr(model, "dense_init"):
+        dense = {k: t.numpy() for k, t in
+                 model.dense_init(table_generator(seed, 1000, torch.device("cpu"))).items()}
+    remap = (build_remap(rng.random(cfg.table_size), cfg.hot_size)
+             if cfg.hot_size_log2 else None)
+    state = state_from_numpy(cfg, tables, dev, dense=dense)
+    engine = PredictEngine(cfg, state, device=dev, buckets=GRAPH_BUCKETS, remap=remap,
+                           graphs=graphs)
+    if family == "two_tower":  # the index from an eager twin: no item-tower key here
+        items = [(rng.integers(0, cfg.table_size, 4), np.arange(6, 10, dtype=np.int32),
+                  None) for _ in range(40)]
+        engine.attach_item_index({"item_index": _eager_twin(engine).item_embeddings(items),
+                                  "item_ids": np.arange(100, 140)}, topk_k=8)
+    engine.warm()
+    return engine
+
+
+def _eager_twin(engine):
+    from xflow_tpu_torch.serve.engine import PredictEngine
+
+    twin = PredictEngine(engine.cfg, engine.state, device=engine.device,
+                         buckets=engine.buckets, remap=engine.remap, graphs=False)
+    if engine.item_index is not None:
+        twin.attach_item_index(engine.item_index, topk_k=engine.topk_k)
+    return twin
+
+
+def _rows(cfg, n, seed=1):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        m = int(rng.integers(1, 20))
+        out.append((rng.integers(0, cfg.table_size, size=m),
+                    rng.integers(0, cfg.max_fields, size=m).astype(np.int32), None))
+    return out
+
+
+@pytest.mark.parametrize("family", list(GRAPH_FAMILIES))
+def test_graph_replay_equals_eager_per_bucket_and_leg(dev, family):
+    """Each bucket's replay against the eager call on the same prepared
+    planes: K1 bit for bit (one kernel, one launch shape either way);
+    K7 + the head within the parity bar (cuBLAS may pick another GEMM
+    kernel under capture); the top-k leg's ids equal."""
+    engine = _graph_engine(dev, family)
+    eager = _eager_twin(engine)
+    legs = 2 if family == "two_tower" else 1
+    assert engine.captures == engine.compile_count == legs * len(GRAPH_BUCKETS)
+    assert eager.captures == 0
+    rows = _rows(engine.cfg, 64)
+    for b in GRAPH_BUCKETS:
+        batch = engine.featurize(rows[:b])
+        got, want = engine.predict_prepared(batch), eager.predict_prepared(batch)
+        if family == "fm_hot":
+            assert np.array_equal(got, want), b
+        else:
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-6)
+        if family == "two_tower":
+            gi, gs, gu = engine.topk_prepared(batch)
+            wi, ws, wu = eager.topk_prepared(batch)
+            np.testing.assert_allclose(gs, ws, rtol=RTOL, atol=1e-6)
+            np.testing.assert_allclose(gu, wu, rtol=RTOL, atol=1e-6)
+            assert np.array_equal(gi, wi)
+    per = engine.graph_launches
+    if family == "fm_hot":
+        assert per["predict"] == {"score": 1, "field_pool": 0}
+    else:
+        assert per["predict"] == {"score": 0, "field_pool": 1}
+    if family == "two_tower":
+        assert per["topk"] == {"score": 0, "field_pool": 1}
+
+
+def test_captures_flat_under_traffic_and_in_place_update(dev):
+    engine = _graph_engine(dev, "fm_hot")
+    keys, captures = engine.compile_count, engine.captures
+    rows = _rows(engine.cfg, 200)
+    for n in (1, 3, 8, 9, 64, 65, 200):
+        engine.predict(engine.featurize_raw(rows[:n]))
+    assert engine.compile_count == keys and engine.captures == captures
+    assert engine.graph_replays["predict"] > len(GRAPH_BUCKETS)
+    # training writes the tables in place: the graphs stay and see it
+    for t in engine.state["tables"].values():
+        t["param"].mul_(1.5)
+    engine.update_state({"tables": engine.state["tables"], "dense": {}, "step": 3})
+    assert engine.captures == captures and engine.servable_step == 3
+    batch = engine.featurize(rows[:8])
+    np.testing.assert_array_equal(engine.predict_prepared(batch),
+                                  _eager_twin(engine).predict_prepared(batch))
+
+
+def test_replaced_tensors_recapture(dev):
+    engine = _graph_engine(dev, "dcn")
+    keys, captures = engine.compile_count, engine.captures
+    state = {"tables": {n: {"param": t["param"] * 0.5}
+                        for n, t in engine.state["tables"].items()},
+             "dense": {k: t.clone() for k, t in engine.state["dense"].items()},
+             "step": 1}
+    engine.update_state(state)
+    assert engine.captures == 2 * captures and engine.compile_count == keys
+    batch = engine.featurize(_rows(engine.cfg, 8))
+    np.testing.assert_allclose(engine.predict_prepared(batch),
+                               _eager_twin(engine).predict_prepared(batch),
+                               rtol=RTOL, atol=1e-6)
+
+
+def test_two_replicas_replay_concurrently(dev):
+    import threading
+
+    engine = _graph_engine(dev, "two_tower")
+    replica = engine.clone()
+    assert replica.captures == 2 * engine.compile_count  # a graph set each
+    eager = _eager_twin(engine)
+    rows = _rows(engine.cfg, 64, seed=5)
+    batches = [engine.featurize(rows[i:i + 8]) for i in range(0, 64, 8)]
+    want = [eager.predict_prepared(b) for b in batches]
+    want_ids = [eager.topk_prepared(b)[0] for b in batches]
+    errors = []
+
+    def drive(e):
+        try:
+            for _ in range(20):
+                for b, w, wi in zip(batches, want, want_ids):
+                    np.testing.assert_allclose(e.predict_prepared(b), w, rtol=RTOL,
+                                               atol=1e-6)
+                    assert np.array_equal(e.topk_prepared(b)[0], wi)
+        except BaseException as exc:  # noqa: BLE001 - asserted below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=drive, args=(e,)) for e in (engine, replica)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    assert engine.captures == 2 * engine.compile_count
+
+
+def test_failed_capture_raises_without_eager_fallback(dev):
+    engine = _graph_engine(dev, "fm_hot")
+    batch = engine.featurize(_rows(engine.cfg, 2))
+    good = engine._leg
+
+    def syncing(leg):
+        fn = good(leg)
+        return lambda arrays: (fn(arrays)[0] + arrays["ckeys"].sum().item(),)
+
+    engine._leg = syncing
+    engine._graphs.clear()  # the next call captures: its host sync breaks the capture
+    with pytest.raises(RuntimeError, match="CUDA graph capture"):
+        engine.predict_prepared(batch)
+    assert not engine._graphs
+
+
+def test_rollout_candidate_captures_while_replicas_replay(dev, tmp_path):
+    import threading
+    import time
+
+    from xflow_tpu_torch.serve.artifact import write_artifact
+    from xflow_tpu_torch.serve.fleet import ReplicaFleet
+
+    cfg = Config(table_size_log2=12, model="fm", max_nnz=24)
+    rng = np.random.default_rng(3)
+    arts = []
+    for step, scale in ((1, 0.3), (2, 0.6)):
+        tables = {"w": (rng.standard_normal((cfg.table_size, 1)) * scale).astype(np.float32),
+                  "v": (rng.standard_normal((cfg.table_size, cfg.v_dim)) * 0.1
+                        ).astype(np.float32)}
+        arts.append(write_artifact(str(tmp_path / f"a{step}"), cfg, tables, step=step))
+    fleet = ReplicaFleet.load(arts[0], replicas=2, device=dev, buckets=GRAPH_BUCKETS,
+                              cache_capacity=0)
+    rows = _rows(cfg, 16)
+    results, errors, stop = [], [], threading.Event()
+
+    def traffic():
+        while not stop.is_set():
+            try:
+                results.append(fleet.score(*rows[len(results) % 16], timeout=60))
+            except BaseException as e:  # noqa: BLE001 - asserted below
+                errors.append(e)
+                return
+
+    threads = [threading.Thread(target=traffic) for _ in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        fleet.begin_rollout(arts[1], canary_frac=0.5, min_canary_requests=16)
+        candidate = fleet.engines[0]
+        deadline = time.perf_counter() + 120
+        while not fleet.rollout_state()["healthy"] and not errors:
+            assert time.perf_counter() < deadline, fleet.rollout_state()
+            time.sleep(0.01)
+        fleet.commit_rollout()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        fleet.close()
+    assert not errors, errors
+    assert candidate.captures == 2 * len(GRAPH_BUCKETS)  # its own and its clone's
+    assert candidate.graph_replays["predict"] > len(GRAPH_BUCKETS)

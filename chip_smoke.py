@@ -404,7 +404,28 @@ Phases, in order; any failure raises and the exit code is 1:
    near-ties with retrieval scores within its tolerance, the ranking
    pctr the ranking engine's; one ranking-stage rollout over HTTP under
    traffic while retrieval serves untouched; ``compile_count`` flat on
-   both stages, 0 errors.
+   both stages, 0 errors;
+44. the tiered parameter store (store/): (a) ``fm_nohot`` (T = 2^24)
+   under ``store_mode="tiered"`` at hot capacity 2^18 (below the synth
+   working set), the promotion plan applied after every step, batch
+   8,192 over phase 8's data: two epochs in the dense update mode and
+   one in the sparse, each evaluated, exported (the fold of both tiers)
+   and served through ``PredictEngine`` (graphs on), launches exact;
+   each held against a dense-store run of the same batches on the card
+   whose tables start as the store's logical table (``row_init_values``
+   over every row): the tiered run's logical tables within
+   ``compare_states``' gate (rounding touches counted), its export equal
+   to that fold bit for bit, the two exports' served pctr within
+   TIERED_PCTR_ATOL, the evals within TRAIN_BOUNDS; per epoch the
+   ``store`` row (hit rate, promotions, demotions, cold-fetch seconds),
+   the write-back's wait and upsert seconds, miss rows per dispatch, the
+   idle share from one dispatch's device time x dispatches and the peak
+   card memory; B12's row moves (``index_copy_`` / ``index_select`` of
+   1,024 rows) and a dispatch's miss copies timed; (b) FM at T = 2^28,
+   hot capacity 2^20, batch 65,536, one dense epoch: peak card memory
+   under 2 GiB, its checkpoint restored into a fresh Trainer with
+   ``logical_rows`` of touched and untouched keys bit for bit.
+   ``python3 chip_smoke.py --tiered`` runs this phase alone.
 
 The serving engines replay one CUDA graph per bucket (serve/engine.py):
 a replay does not pass through the kernels' wrappers, so a serving
@@ -426,8 +447,11 @@ whose summed gradient is nonzero (``cpu_k3_on_touched_rows``: where g
 == 0 FTRL and SGD leave a row exactly as it was); K3 is still held
 against its plain version over whole tables (phases 7, 32).
 
-Output: the card line, per-phase lines, a ``{"kernels": [...]}`` JSON
-line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
+Output: the card line, per-phase lines, a ``{"kernels": [...], "b12":
+{...}}`` JSON line (``b12``: the tiered store's row moves and miss
+copies, PyTorch's ``index_copy_``, ``index_select`` and copies rather
+than a hand kernel, beside the kernels), and last ``{"ok": true,
+"device": {...}}``.  Each kernel's
 ``launches`` is its main paths': K1's serving path (phases 3 and 4)
 plus the training paths' eval and engine batches (phases 8, 11, 12,
 16), K2-K6's training paths (phases 8, 11-13 and 16, by path in
@@ -441,7 +465,9 @@ MVM forms the MVM paths (phases 25-27), the FFM forms the FFM paths
 kernels' ``launches_by_path`` (``fm resume``, ``fm hybrid resume``,
 ``fm packed-v2 hot``; ``wide_deep resume`` in K7's and K8's), phase
 16's binary path as ``fm_nohot binary``, phase 41's runs as ``fanout
-<run>: ...`` in K2-K6's; every count is set to 0 just
+<run>: ...`` in K2-K6's, phase 44's as ``tiered dense``, ``tiered
+sparse`` and ``tiered 2^28`` in K1-K5's (K1's counting the eval batches
+and the exports' replays); every count is set to 0 just
 before each path and read just after it.  K1's entry splits its launches by the rows a
 launch covers (``launches_by_shape``: serving buckets, the artifact's
 buckets in phase 8, 16,384-row eval batches).
@@ -9487,6 +9513,541 @@ def phase_cascade(dev, pooled: dict, test_prefix: str, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The tiered parameter store (phase 44)
+
+TIERED_BATCH = 8192  # 16 dispatches an epoch over the 2 x 65,536 train lines
+# the default hot capacity: 262,144 slots, below the synth working set, so
+# the promotion worker demotes as well as promotes
+TIERED_HOT_LOG2 = 18
+TIERED_RUNS = (("dense", 2), ("sparse", 1))
+NORTH_STAR_T_LOG2 = 28
+NORTH_STAR_HOT_LOG2 = 20
+NORTH_STAR_BATCH = 65536
+# (b)'s bound on the card's peak memory.  The tiered step's device state
+# is the combined buffer of each table plane: Hc + B*K = 2^20 + 65,536 x
+# 40 = 3,670,016 rows of w (1 float) and v (10), four planes (param, n,
+# z and the dense update's g): 3,670,016 x 11 x 4 x 4 B = 646 MB, plus
+# a batch's planes (ckeys int32 [65,536, 40] = 10.5 MB, u8 labels and
+# weights) and a few small accumulators.  A dense [2^28, 10] float32
+# plane alone would be 10 GiB.
+NORTH_STAR_PEAK_BYTES = 2 << 30
+# The tiered export's served pctr against the dense-store twin's (two
+# card runs of the same batches): the tables agree within TRAIN_BOUNDS
+# (1e-4 relative), which moves a logit of this data's magnitude (the
+# sum of its terms' absolute values stays below 4, `logit_abs_sum_max`
+# in the phase's line) by at most 4e-4, and pctr by at most a quarter
+# of that (the sigmoid's slope): 1e-4.  An element FTRL's n' == 0 rule
+# splits (a rounding touch, counted by compare_states) is 0 on one
+# side and its init (|v| ~ 1e-2) on the other; the gate leaves no room
+# for many of those on one test example, and the phase reports them.
+TIERED_PCTR_ATOL = 1e-4
+
+
+def tiered_config(t_log2: int, data: dict, metrics_out: str, **kw):
+    """``fm_nohot`` under the tiered store (the geometry of
+    scripts/bench_models.py; batch TIERED_BATCH, hot capacity
+    TIERED_HOT_LOG2, the promotion plan applied after every step)."""
+    return dataclasses.replace(
+        fm_nohot_config(t_log2), store_mode="tiered", hot_capacity_log2=TIERED_HOT_LOG2,
+        store_promote_every=1, batch_size=TIERED_BATCH, train_path=data["train"],
+        test_path=data["test"], metrics_out=metrics_out, **kw)
+
+
+def lazy_init_tables(cfg) -> dict:
+    """The tiered store's logical table before any step, as numpy: each
+    table's param from ``row_init_values`` over all T rows in CHUNK_ROWS
+    chunks (four host threads: numpy's ufuncs release the GIL), n and z
+    zeros."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from xflow_tpu_torch.models import make_model
+    from xflow_tpu_torch.store.cold import row_init_values
+    from xflow_tpu_torch.store.tiered import CHUNK_ROWS
+
+    t = cfg.table_size
+    out = {}
+    for spec in make_model(cfg).tables():
+        param = np.empty((t, spec.dim), np.float32)
+
+        def fill(start, spec=spec, param=param):
+            stop = min(start + CHUNK_ROWS, t)
+            param[start:stop] = row_init_values(
+                cfg.seed, spec.name, "param", np.arange(start, stop, dtype=np.int64),
+                spec.dim, spec.init_kind, spec.init_scale)
+
+        with ThreadPoolExecutor(4) as pool:
+            list(pool.map(fill, range(0, t, CHUNK_ROWS)))
+        out[spec.name] = {"param": param, "n": np.zeros_like(param),
+                          "z": np.zeros_like(param)}
+    return out
+
+
+def tiered_logical_state(store, state: dict, init: dict, dev) -> dict:
+    """A tiered run's logical tables on the card, every plane: the lazy
+    init overlaid with the cold store's rows and the hot tier's (the
+    fold the store's checkpoint and export make), as a state for
+    ``compare_states``."""
+    import torch
+
+    occupied = np.flatnonzero(store.hot.key_of >= 0)
+    hkeys = torch.as_tensor(store.hot.key_of[occupied]).to(dev)
+    hslots = torch.as_tensor(occupied).to(dev)
+    tables = {}
+    for name, planes in init.items():
+        tables[name] = {}
+        for plane, arr in planes.items():
+            full = torch.tensor(arr, device=dev)  # a copy: init stays the twin's start
+            ckeys, crows = store.cold.export_array(name, plane)
+            full[torch.as_tensor(ckeys).to(dev)] = torch.from_numpy(
+                np.ascontiguousarray(crows)).to(dev)
+            full[hkeys] = state["tables"][name][plane][hslots]
+            tables[name][plane] = full
+    return {"tables": tables, "dense": {}}
+
+
+def instrument_store(trainer) -> dict:
+    """Per-epoch host accounting of a tiered Trainer, adding no work: the
+    miss rows of each training plan, the seconds ``complete_pending``
+    waits on the write-back's event and spends on the upsert, the
+    seconds and calls of ``maintain``, and the row moves (``fill`` /
+    ``read`` index operations)."""
+    store = trainer.step.store
+    hot = store.hot
+    acc = {"miss_rows": [], "writeback_wait_s": 0.0, "writeback_s": 0.0,
+           "maintain_s": 0.0, "maintains": 0}
+    plan, complete, maintain = store.plan_batch, store.complete_pending, store.maintain
+
+    def planned(batch, obs=None, param_only=False):
+        refs, p = plan(batch, obs=obs, param_only=param_only)
+        if not param_only:
+            acc["miss_rows"].append(len(p.miss_keys))
+        return refs, p
+
+    def completed(obs=None):
+        pending = store._pending
+        t0 = time.perf_counter()
+        if pending is not None and pending[2] is not None:
+            pending[2].synchronize()
+        t1 = time.perf_counter()
+        complete(obs)
+        acc["writeback_wait_s"] += t1 - t0
+        acc["writeback_s"] += time.perf_counter() - t1
+
+    def maintained(state, obs=None):
+        t0 = time.perf_counter()
+        out = maintain(state, obs)
+        acc["maintain_s"] += time.perf_counter() - t0
+        acc["maintains"] += 1
+        return out
+
+    store.plan_batch, store.complete_pending, store.maintain = planned, completed, maintained
+    epochs = []
+    train_epoch = trainer.train_epoch
+
+    def per_epoch(*args, **kw):
+        before = dict(acc, miss_rows=len(acc["miss_rows"]), fills=hot.fill_calls,
+                      reads=hot.read_calls)
+        record = train_epoch(*args, **kw)
+        epochs.append({
+            "miss_rows_per_dispatch": acc["miss_rows"][before["miss_rows"]:],
+            **{k: acc[k] - before[k] for k in ("writeback_wait_s", "writeback_s",
+                                               "maintain_s", "maintains")},
+            "fill_index_ops": hot.fill_calls - before["fills"],
+            "read_index_ops": hot.read_calls - before["reads"],
+        })
+        return record
+
+    trainer.train_epoch = per_epoch
+    return {"epochs": epochs}
+
+
+def keep_last_train_arrays(trainer) -> dict:
+    """The last training batch ``put_batch`` staged (its planes and its
+    pinned miss rows) and its real miss count."""
+    kept = {}
+    put = trainer.step.put_batch
+
+    def put_and_keep(batch, predict=False):
+        arrays = put(batch, predict)
+        if not predict:
+            kept["arrays"] = arrays
+            kept["n_miss"] = len(trainer.step.store._staged[-1][1].miss_keys)
+        return arrays
+
+    trainer.step.put_batch = put_and_keep
+    return kept
+
+
+def tiered_device_times(trainer, kept: dict) -> dict:
+    """Device ms of one tiered dispatch on its own batch, after the run
+    (medians of TIMED_RUNS calls behind ``_sleep``): the miss rows'
+    copy into the combined buffers plus the update's kernels over the
+    view; the miss copy alone; the write-back's copy to pinned host
+    memory.  A run's busy share is its dispatches times their sum."""
+    import torch
+
+    step, state = trainer.step, trainer.state
+    hot = step.store.hot
+    arrays, n = kept["arrays"], kept["n_miss"]
+
+    def dispatch():
+        rows = hot._load_misses(state, arrays["miss"])
+        acc = torch.zeros(2, dtype=torch.float64, device=hot.device)
+        step._update(hot._views(rows, hot._buffers), arrays, arrays["num_real"], acc,
+                     state["dense"])
+
+    h = hot.capacity
+    srcs = [bufs[p][h:h + n] for bufs in hot.bufs.values() for p in hot.planes]
+    dsts = [torch.empty(t.shape, pin_memory=True) for t in srcs]
+
+    def writeback():
+        for d, t in zip(dsts, srcs):
+            d.copy_(t, non_blocking=True)
+
+    mc = arrays["miss"]["v"]["param"].shape[0]
+    return {
+        "dispatch_ms": time_device_ms(lambda: dispatch(), [()] * TIMED_RUNS),
+        "miss_h2d_ms": time_device_ms(lambda: hot._load_misses(state, arrays["miss"]),
+                                      [()] * TIMED_RUNS),
+        "writeback_d2h_ms": time_device_ms(lambda: writeback(), [()] * TIMED_RUNS),
+        "miss_rows": n, "miss_rows_padded": mc,
+        "miss_h2d_bytes": sum(int(b.numel()) * 4 for arrs in arrays["miss"].values()
+                              for b in arrs.values()),
+        "writeback_d2h_bytes": sum(int(t.numel()) * 4 for t in srcs),
+    }
+
+
+def b12_row_move_times(trainer) -> list:
+    """B12's row moves on the hot tier of a trained run: ``index_copy_``
+    (fill, a promotion) and ``index_select`` (read, a demotion) of
+    PROMOTE_CAP rows of one plane at random slots, device ms (medians of
+    TIMED_RUNS calls behind ``_sleep``) beside the bytes bound (the rows
+    read once and written once at HBM_BYTES_PER_S)."""
+    import torch
+
+    from xflow_tpu_torch.store.hot import PROMOTE_CAP
+
+    hot = trainer.step.store.hot
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    idx = torch.randperm(hot.capacity, generator=g)[:PROMOTE_CAP].to(hot.device)
+    rows = []
+    for name, bufs in hot.bufs.items():
+        tier = bufs["param"][:hot.capacity]
+        src = torch.randn((PROMOTE_CAP, tier.shape[1]), generator=g).to(hot.device)
+        nbytes = 2 * PROMOTE_CAP * tier.shape[1] * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"op": "fill (index_copy_)", "table": name, "rows": PROMOTE_CAP,
+                     "D": tier.shape[1],
+                     "ms": time_device_ms(lambda: tier.index_copy_(0, idx, src),
+                                          [()] * TIMED_RUNS),
+                     "bound_ms": bound, "bound_by": "bytes"})
+        rows.append({"op": "read (index_select)", "table": name, "rows": PROMOTE_CAP,
+                     "D": tier.shape[1],
+                     "ms": time_device_ms(lambda: tier.index_select(0, idx),
+                                          [()] * TIMED_RUNS),
+                     "bound_ms": bound, "bound_by": "bytes"})
+    return rows
+
+
+def served_pctr(dev, art: str, test_lines: list) -> tuple:
+    """``PredictEngine.load`` (graphs on) and ``score_text`` of the test
+    lines; returns (pctr, the engine)."""
+    import torch
+
+    from xflow_tpu_torch.serve.engine import PredictEngine
+
+    engine = PredictEngine.load(art, device=dev)
+    pctr = engine.score_text(test_lines)
+    torch.cuda.synchronize()
+    return pctr, engine
+
+
+def tiered_run(dev, cfg, workdir: str, test_lines: list, label: str) -> dict:
+    """One tiered ``fm_nohot`` run on the card through ``Trainer``:
+    train, evaluate, export (the fold), serve the export through
+    ``PredictEngine`` (graphs on); launch counts zeroed just before and
+    read just after, held exactly (K2 per dispatch, K3 per table per
+    dense dispatch or K4 + K5 per sparse one, K1 per eval batch and
+    per engine replay); the store's per-epoch host accounting."""
+    import os
+
+    import torch
+
+    from xflow_tpu_torch.serve.artifact import export_artifact
+    from xflow_tpu_torch.trainer import Trainer
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    # the path starts here
+    trainer = Trainer(cfg, device=dev, log=lambda _: None)
+    host = instrument_store(trainer)
+    kept = keep_last_train_arrays(trainer)
+    t0 = time.perf_counter()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    result = trainer.evaluate()
+    t1 = time.perf_counter()
+    art = export_artifact(trainer, os.path.join(workdir, f"tiered_{label}"))
+    export_s = time.perf_counter() - t1
+    pctr, engine = served_pctr(dev, art, test_lines)
+    got = read_launches()
+    # ... and ends here
+    steps = sum(h["steps"] for h in history)
+    eval_batches = math.ceil(TEST_LINES / cfg.batch_size)
+    want = expected_launches(dict(dataclasses.asdict(cfg), wire_dedup="off"), steps,
+                             len(trainer.state["tables"]), eval_batches)
+    check_captures(f"tiered {label} engine", engine, "score", got["score"] - eval_batches)
+    got["score"] += served(engine, "score") - engine.capture_launches["score"]
+    want["score"] += len(engine.buckets) + math.ceil(TEST_LINES / engine.buckets[-1])
+    if got != want or trainer.step.wire_format != "tiered":
+        raise AssertionError(f"tiered {label}: launches {got}, expected {want} "
+                             f"(wire {trainer.step.wire_format})")
+    with open(cfg.metrics_out) as f:
+        rows = [json.loads(line) for line in f]
+    store_rows = [r for r in rows if r["kind"] == "store"]
+    from xflow_tpu_torch.obs.schema import validate_rows
+
+    if len(store_rows) != cfg.epochs or validate_rows(rows):
+        raise AssertionError(f"tiered {label}: store rows {store_rows}, "
+                             f"{validate_rows(rows)[:3]}")
+    if store_rows[0]["promotions"] <= 0:
+        raise AssertionError(f"tiered {label}: no promotion in epoch 0 {store_rows}")
+    if pctr.shape != (TEST_LINES,) or not np.isfinite(pctr).all():
+        raise AssertionError(f"tiered {label}: served pctr {pctr.shape}")
+    return {"trainer": trainer, "history": history, "result": result, "launches": got,
+            "train_seconds": train_s, "export_seconds": export_s, "peak_bytes": peak,
+            "store_rows": store_rows, "host": host["epochs"], "pctr": pctr,
+            "engine": engine, "kept": kept, "steps": steps}
+
+
+def twin_run(dev, cfg, init: dict, workdir: str, test_lines: list, label: str) -> dict:
+    """The same batches under the dense store on the card, its tables
+    seeded with the tiered store's logical table (``init``), trained,
+    evaluated, exported and served as ``tiered_run``'s run."""
+    import os
+
+    import torch
+
+    from xflow_tpu_torch.convert import state_from_numpy
+    from xflow_tpu_torch.serve.artifact import export_artifact
+    from xflow_tpu_torch.trainer import Trainer
+
+    dcfg = dataclasses.replace(cfg, store_mode="dense", metrics_out="")
+    twin = Trainer(dcfg, device=dev, log=lambda _: None)
+    twin.state = state_from_numpy(dcfg, init, dev)
+    twin.train()
+    torch.cuda.synchronize()
+    result = twin.evaluate()
+    art = export_artifact(twin, os.path.join(workdir, f"twin_{label}"))
+    pctr, engine = served_pctr(dev, art, test_lines)
+    twin.close()
+    del engine
+    return {"trainer": twin, "result": result, "pctr": pctr}
+
+
+def fm_logit_abs_sum(engine, test_lines: list) -> float:
+    """The largest sum of the absolute values of an FM logit's terms
+    over the test lines (sum |w x| + the pairwise |<v_i, v_j>| bound
+    ((sum |v|)^2 - sum v^2) / 2 per dimension), from the served tables:
+    the magnitude TIERED_PCTR_ATOL carries TRAIN_BOUNDS through."""
+    import torch
+
+    from xflow_tpu_torch.io.batch import pack_batch
+    from xflow_tpu_torch.io.loader import make_parse_fn
+
+    cfg = engine.cfg
+    parse = make_parse_fn(cfg.table_size, cfg.hash_mode, cfg.seed)
+    block = parse("".join(line + "\n" for line in test_lines).encode())
+    b = pack_batch(block, 0, len(test_lines), len(test_lines), cfg.max_nnz)
+    keys = torch.as_tensor(np.where(b.mask > 0, b.keys, 0)).long().to(engine.device)
+    mask = torch.as_tensor(b.mask).to(engine.device)
+    w = engine.state["tables"]["w"]["param"][keys][..., 0].abs() * mask
+    v = engine.state["tables"]["v"]["param"][keys].abs() * mask[..., None]
+    pair = ((v.sum(1) ** 2 - (v ** 2).sum(1)) / 2).sum(1)
+    return float((w.sum(1) + pair).max())
+
+
+def phase_tiered(dev, t_log2: int, workdir: str, dense: dict, card: str) -> dict:
+    """Phase 44: the tiered parameter store on the card.  (a) ``fm_nohot``
+    (T = 2^24) tiered at hot capacity 2^18, the promotion plan applied
+    after every step, batch 8,192 over phase 8's synth data: two epochs
+    in the dense update mode and one in the sparse, each evaluated,
+    exported (the fold) and served through ``PredictEngine``; each held
+    against a dense-store run of the same batches on the card whose
+    tables start as the store's logical table (``row_init_values`` over
+    all 2^24 rows): the tiered run's logical tables (init + cold rows +
+    hot rows) within ``compare_states``' gate (rounding touches
+    counted), its export equal to that fold, the two exports' served
+    pctr within TIERED_PCTR_ATOL, the evals within TRAIN_BOUNDS; per
+    epoch examples/s, the ``store`` row, the write-back and maintenance
+    seconds, miss rows per dispatch, the idle share from one dispatch's
+    device time x dispatches, peak memory; B12's row moves timed.
+    (b) the north-star geometry: FM at T = 2^28, hot capacity 2^20,
+    batch 65,536, one dense epoch: the card's peak memory under
+    NORTH_STAR_PEAK_BYTES, then a tiered checkpoint restored into a
+    fresh Trainer, ``logical_rows`` of touched and untouched keys bit
+    for bit."""
+    import os
+
+    import torch
+
+    t0 = time.perf_counter()
+    data = dense["data"]
+    with open(f"{data['test']}-00000") as f:
+        test_lines = f.read().splitlines()
+    cfg0 = tiered_config(t_log2, data, "")
+    init = lazy_init_tables(cfg0)
+    log(json.dumps({"phase": 44, "lazy_init_seconds": time.perf_counter() - t0}))
+    rows, by_path, b12 = [], {}, None
+    for mode, epochs in TIERED_RUNS:
+        label = f"{mode}"
+        metrics = os.path.join(workdir, f"tiered_{label}.jsonl")
+        cfg = tiered_config(t_log2, data, metrics, update_mode=mode, epochs=epochs)
+        run = tiered_run(dev, cfg, workdir, test_lines, label)
+        trainer = run["trainer"]
+        logical = tiered_logical_state(trainer.step.store, trainer.state, init, dev)
+        for name, planes in logical["tables"].items():
+            if not torch.equal(run["engine"].state["tables"][name]["param"], planes["param"]):
+                raise AssertionError(f"tiered {label}: the export of {name} is not the fold")
+        abs_sum = fm_logit_abs_sum(run["engine"], test_lines)
+        del run["engine"]
+        # the timings below train on (and write into) the run's tier: after
+        # its fold was taken
+        times = tiered_device_times(trainer, run["kept"])
+        if b12 is None:
+            b12 = b12_row_move_times(trainer)
+        trainer.close()
+        twin = twin_run(dev, cfg, init, workdir, test_lines, label)
+        vs = compare_states(logical, twin["trainer"].state)
+        res, tres = run["result"], twin["result"]
+        pctr_err = float(np.abs(run["pctr"] - twin["pctr"]).max())
+        if (pctr_err > TIERED_PCTR_ATOL or abs(res["auc"] - tres["auc"]) > TRAIN_BOUNDS["auc_atol"]
+                or abs(res["logloss"] - tres["logloss"])
+                > TRAIN_BOUNDS["logloss_rtol"] * abs(tres["logloss"])):
+            raise AssertionError(f"tiered {label}: served pctr {pctr_err} from the dense "
+                                 f"twin's (bound {TIERED_PCTR_ATOL}), eval {res} vs {tres}")
+        if not dense["bars"]["floor"] < res["auc"] < dense["bars"]["bayes_auc"]:
+            raise AssertionError(f"tiered {label}: eval AUC {res['auc']} outside the "
+                                 f"planted signal's bars {dense['bars']}")
+        busy = run["steps"] * (times["dispatch_ms"] + times["writeback_d2h_ms"]) / 1e3
+        row = {
+            "run": f"tiered {label}", "model": "fm", "T": 1 << t_log2,
+            "hot_capacity": cfg.hot_capacity, "batch": cfg.batch_size, "epochs": epochs,
+            "steps": run["steps"], "train_seconds": run["train_seconds"],
+            "examples_per_sec": [h["examples_per_sec"] for h in run["history"]],
+            "phases": [h["phases"] for h in run["history"]],
+            "overlapped": [h["overlapped"] for h in run["history"]],
+            "store": run["store_rows"], "host": run["host"],
+            "miss_rows_per_dispatch_mean": [statistics.mean(e["miss_rows_per_dispatch"])
+                                            for e in run["host"]],
+            "device_times": times,
+            "device_busy_s_from_dispatch_times": busy,
+            "device_idle_share_from_dispatch_times": 1.0 - busy / run["train_seconds"],
+            "max_memory_allocated": run["peak_bytes"],
+            "export_seconds": run["export_seconds"],
+            "eval_auc": res["auc"], "eval_logloss": res["logloss"],
+            "twin_eval_auc": tres["auc"], "twin_eval_logloss": tres["logloss"],
+            "served_pctr_max_abs_vs_twin": pctr_err, "pctr_bound": TIERED_PCTR_ATOL,
+            "logit_abs_sum_max": abs_sum, "vs_dense_twin": vs,
+            "launches": run["launches"], "card": card,
+        }
+        rows.append(row)
+        by_path[f"tiered {label}"] = run["launches"]
+        log(json.dumps(dict(row, phase=44)))
+        del run, trainer, twin, logical
+        torch.cuda.empty_cache()
+    north = phase_tiered_north_star(dev, data, workdir, card)
+    by_path["tiered 2^28"] = north["launches"]
+    log(json.dumps(dict(north, phase=44)))
+    log(f"phase 44 done in {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "north_star": north, "launches_by_path": by_path, "b12": b12}
+
+
+def phase_tiered_north_star(dev, data: dict, workdir: str, card: str) -> dict:
+    """Phase 44 (b): FM at T = 2^28 under the tiered store, one dense
+    epoch of the synth data at batch 65,536: launches exact, the card's
+    peak memory over the run under NORTH_STAR_PEAK_BYTES, the epoch's
+    checkpoint (a tiered fold) restored into a fresh Trainer with
+    ``logical_rows`` bit-equal on touched and untouched keys."""
+    import os
+
+    import torch
+
+    from xflow_tpu_torch.trainer import Trainer
+
+    cfg = dataclasses.replace(
+        fm_nohot_config(NORTH_STAR_T_LOG2), store_mode="tiered",
+        hot_capacity_log2=NORTH_STAR_HOT_LOG2, store_promote_every=1,
+        batch_size=NORTH_STAR_BATCH, epochs=1, train_path=data["train"],
+        test_path=data["test"], checkpoint_dir=os.path.join(workdir, "north_star_ck"),
+        metrics_out=os.path.join(workdir, "north_star.jsonl"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    # the path starts here
+    trainer = Trainer(cfg, device=dev, log=lambda _: None)
+    t0 = time.perf_counter()
+    history = trainer.train()  # checkpoints at the epoch's end
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    got = read_launches()
+    # ... and ends here
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = sum(h["steps"] for h in history)
+    want = expected_launches(dict(dataclasses.asdict(cfg), wire_dedup="off"), steps, 2, 0)
+    if got != want:
+        raise AssertionError(f"tiered 2^28: launches {got}, expected {want}")
+    if peak >= NORTH_STAR_PEAK_BYTES:
+        raise AssertionError(f"tiered 2^28: peak card memory {peak} B >= "
+                             f"{NORTH_STAR_PEAK_BYTES}")
+    store = trainer.step.store
+    touched = np.concatenate([store.hot.key_of[store.hot.key_of >= 0],
+                              store.cold.keys_view()])
+    rng = np.random.default_rng(SEED)
+    probe = np.unique(np.concatenate([
+        rng.choice(touched, 4096, replace=False),
+        rng.integers(0, 1 << NORTH_STAR_T_LOG2, 4096)])).astype(np.int64)
+    untouched = int((~np.isin(probe, touched)).sum())
+    before = {t: store.logical_rows(trainer.state, t, probe) for t in ("w", "v")}
+    rows_touched = len(touched)
+    occupancy = store.hot.occupancy
+    with open(cfg.metrics_out) as f:
+        store_rows = [r for r in map(json.loads, f) if r["kind"] == "store"]
+    trainer.close()
+    del trainer, store
+    torch.cuda.empty_cache()
+    fresh = Trainer(cfg, device=dev, log=lambda _: None)
+    t1 = time.perf_counter()
+    if fresh.restore() is None:
+        raise AssertionError("tiered 2^28: the checkpoint did not restore")
+    restore_s = time.perf_counter() - t1
+    for t, planes in before.items():
+        after = fresh.step.store.logical_rows(fresh.state, t, probe)
+        for plane, arr in planes.items():
+            if arr.tobytes() != after[plane].tobytes():
+                raise AssertionError(f"tiered 2^28: {t}.{plane} not bit-equal after restore")
+    peak_all = torch.cuda.max_memory_allocated() - base
+    fresh.close()
+    del fresh
+    torch.cuda.empty_cache()
+    return {"run": "tiered 2^28", "T": 1 << NORTH_STAR_T_LOG2,
+            "hot_capacity": cfg.hot_capacity, "batch": cfg.batch_size, "steps": steps,
+            "train_seconds": train_s,
+            "examples_per_sec": [h["examples_per_sec"] for h in history],
+            "store": store_rows, "rows_touched": rows_touched, "hot_occupancy": occupancy,
+            "max_memory_allocated": peak, "max_memory_allocated_with_restore": peak_all,
+            "peak_bound": NORTH_STAR_PEAK_BYTES, "probe_keys": len(probe),
+            "probe_untouched": untouched, "restore_seconds": restore_s,
+            "launches": got, "card": card}
+
+
 def main() -> int:
     import argparse
 
@@ -9507,6 +10068,10 @@ def main() -> int:
         "--fanout-repeat", type=int, default=0, metavar="RUNS",
         help="instead of the phases: phase 41 (the input fan-out and the staging "
         "ring) RUNS times from one initial state")
+    parser.add_argument(
+        "--tiered", action="store_true",
+        help="instead of the phases: phase 44 (the tiered parameter store) alone, on "
+        "phase 8's synth data")
     parser.add_argument(
         "--kernel-times", nargs="?", const=",".join(KERNEL_TIME_GROUPS), default="",
         metavar="GROUPS",
@@ -9550,6 +10115,18 @@ def main() -> int:
         if unknown:
             raise SystemExit(f"chip_smoke: unknown --kernel-times groups {sorted(unknown)}")
         log(json.dumps({"kernel_times": kernel_times(dev, groups), "card": card}))
+        log(f"chip_smoke: diagnostic done in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.tiered:
+        workdir = tempfile.mkdtemp(prefix="xflow-tiered-")
+        try:
+            data = write_train_shards(workdir)
+            tiered = phase_tiered(dev, T_LOG2, workdir,
+                                  {"data": data, "bars": auc_bars(f"{data['test']}-00000")},
+                                  card)
+            log(json.dumps({"b12": tiered["b12"], "card": card}))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
         log(f"chip_smoke: diagnostic done in {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.seq_witness or args.seq_lockstep or args.kink_witness or args.fanout_repeat:
@@ -9642,6 +10219,9 @@ def main() -> int:
         cascade = phase_cascade(dev, pooled, train_path["data"]["test"], card)
         log(json.dumps({"phase": 43, **{k: v for k, v in cascade.items()}}))
         log(f"phases 42-43 done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        tiered = phase_tiered(dev, T_LOG2, workdir, train_path, card)
+        log(f"phase 44 done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase": 17, "checks": hot["checks"]}))
@@ -9740,13 +10320,18 @@ def main() -> int:
     resumed = {p: n for p, n in ckpt["launches_by_path"].items() if p != "wide_deep resume"}
     pooled["launches_by_path"]["wide_deep resume"] = ckpt["launches_by_path"][
         "wide_deep resume"]
-    # and phase 41's runs through the staging ring and the fan-out
+    # and phase 41's runs through the staging ring and the fan-out, and
+    # phase 44's tiered runs (K1's eval batches and engine replays there
+    # go to K1's entry below)
+    tiered_paths = tiered["launches_by_path"]
     train_launches = {k: train_path["launches"][k] + modes["launches"][k]
                       + paths["launches"][k] + sum(n[k] for n in resumed.values())
                       + sum(n[k] for n in fanout["launches_by_path"].values())
+                      + sum(n[k] for n in tiered_paths.values() if k != "score")
                       for k in KERNEL_WRAPPERS}
     by_path = dict(modes["launches_by_path"], **paths["launches_by_path"], **resumed,
-                   **fanout["launches_by_path"], dense=train_path["launches"])
+                   **fanout["launches_by_path"], **tiered_paths,
+                   dense=train_path["launches"])
     k4_head = next(r for r in modes["timings"] if r["kernel"] == "consolidate_keys"
                    and r["model"] == "fm" and r["path"] == "sparse main path")
     k5_head = next(r for r in modes["timings"] if r["kernel"] == "touched_update"
@@ -9757,7 +10342,8 @@ def main() -> int:
         "route": "cuda",
         "source": "xflow_tpu_torch/csrc/score.cu",
         "replaces": REPLACES,
-        "launches": main_path["launches"] + train_launches["score"] + serving["launches"],
+        "launches": main_path["launches"] + train_launches["score"] + serving["launches"]
+        + sum(n["score"] for n in tiered_paths.values()),
         # the serving paths' K1 launches are CUDA graph replays
         # (serve/engine.py), counted from the engines' replays
         "graph_replays": {"serving, phases 3-4": main_path["launches"],
@@ -9767,7 +10353,8 @@ def main() -> int:
                              "serving tier (phase 42)": serving["launches"],
                              "train": train_launches["score"]
                              - sum(n["score"] for n in resumed.values()),
-                             **{p: n["score"] for p, n in resumed.items()}},
+                             **{p: n["score"] for p, n in resumed.items()},
+                             **{p: n["score"] for p, n in tiered_paths.items()}},
         # every training path's K1 launches are its eval batches (the
         # exact counts of phases 8, 11-13 and 16) but phase 8's artifact
         # scoring, at the engine's buckets
@@ -9777,7 +10364,10 @@ def main() -> int:
             "artifact scoring, buckets of up to 512 rows (phase 8)":
                 train_path["k1_engine_launches"],
             f"eval, {min(TEST_LINES, TRAIN_BATCHES[-1])}-row batches":
-                train_launches["score"] - train_path["k1_engine_launches"]},
+                train_launches["score"] - train_path["k1_engine_launches"],
+            f"tiered (phase 44): eval, {TIERED_BATCH}-row batches over the combined rows, "
+            "and its exports' serving buckets of up to 512 rows":
+                sum(n["score"] for n in tiered_paths.values())},
         "max_abs_err": check["max_abs_err"],
         "ms": head["ms"],
         "host_path_ms": head["host_path_ms"],
@@ -9932,7 +10522,17 @@ def main() -> int:
             or torch.get_float32_matmul_precision() != "highest"):
         raise AssertionError("a float32 matmul flag changed during the run: the dense "
                              "blocks must run in full float32")
-    log(json.dumps({"kernels": kernels}))
+    # B12 (store/hot.py): the tiered store's row moves and miss copies
+    # are PyTorch's index_copy_ / index_select and copies, not a hand
+    # kernel: beside the kernels, not among them
+    b12 = {"replaces": "xflow_tpu/store/hot.py:197 (_combined), :317 (_fill_impl), "
+           ":333 (_read_impl); no pl.pallas_call in the reference",
+           "source": "xflow_tpu_torch/store/hot.py", "row_moves": tiered["b12"],
+           "per_dispatch": {r["run"]: r["device_times"] for r in tiered["rows"]},
+           "per_maintain": {r["run"]: [{k: e[k] for k in ("maintains", "fill_index_ops",
+                                                          "read_index_ops")}
+                                       for e in r["host"]] for r in tiered["rows"]}}
+    log(json.dumps({"kernels": kernels, "b12": b12}))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

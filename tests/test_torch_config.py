@@ -92,6 +92,7 @@ def test_import_leaves_out_jax_and_reference_package():
         "import xflow_tpu_torch.serve.loadgen, xflow_tpu_torch.serve.cascade\n"
         "import xflow_tpu_torch.serve.scache, xflow_tpu_torch.obs.schema\n"
         "import xflow_tpu_torch.obs.reqtrace, xflow_tpu_torch.obs.export\n"
+        "import xflow_tpu_torch.store, xflow_tpu_torch.store.tiered\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'xflow_tpu')]\n"
         "assert not bad, bad\n"

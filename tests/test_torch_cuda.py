@@ -2488,3 +2488,144 @@ def test_rollout_candidate_captures_while_replicas_replay(dev, tmp_path):
     assert not errors, errors
     assert candidate.captures == 2 * len(GRAPH_BUCKETS)  # its own and its clone's
     assert candidate.graph_replays["predict"] > len(GRAPH_BUCKETS)
+
+
+# -- the tiered store (store/; B12): K1-K5, K7 and K8 on the combined rows ----
+
+
+def _tiered_step(device, **kw):
+    cfg = Config(**{**dict(model="fm", batch_size=64, max_nnz=24, table_size_log2=16,
+                           num_devices=1, store_mode="tiered", hot_capacity_log2=8), **kw})
+    step = TrainStep(make_model(cfg), make_optimizer(cfg), cfg, torch.device(device))
+    return step, step.store.init_device_state()
+
+
+def _tiered_pair(dev, **kw):
+    """The same tiered step on the card and on the CPU, after batch 0
+    (every key a miss) and the same hand-made placement of half its keys."""
+    pair = [_tiered_step(d, **kw) for d in (dev, "cpu")]
+    b0 = _ring_batch(0)
+    promote = [int(k) for k in np.unique(b0.keys[b0.mask > 0])[::2]][:200]
+    out = []
+    for step, state in pair:
+        step.train(state, step.put_batch(b0))
+        step.store.complete_pending()
+        state = step.store._promote(state, promote)
+        out.append((step, state))
+    assert pair[0][0].store.hot.slot_of == pair[1][0].store.hot.slot_of
+    return out
+
+
+def _logical_close(card, cpu, keys):
+    (cs, cstate), (ps, pstate) = card, cpu
+    for table in cs.store.cold.tables:
+        got = cs.store.logical_rows(cstate, table, keys)
+        want = ps.store.logical_rows(pstate, table, keys)
+        for plane in want:
+            scale = float(np.abs(want[plane]).max())
+            np.testing.assert_allclose(got[plane], want[plane], rtol=RTOL,
+                                       atol=max(1e-6, RTOL * scale), err_msg=f"{table}.{plane}")
+
+
+TIERED_CASES = [("fm", "dense"), ("fm", "sparse"), ("wide_deep", "dense"), ("wide_deep", "sparse")]
+
+
+@pytest.mark.parametrize("model, mode", TIERED_CASES, ids=[f"{m}-{u}" for m, u in TIERED_CASES])
+def test_tiered_step_on_the_card_matches_cpu(dev, model, mode):
+    """A tiered step over a tier holding some of its keys launches K2
+    (K7 and K8) and K3, or K4 and K5, on the combined rows, and leaves
+    the logical table the CPU's plain versions leave."""
+    kw = {"model": model, "update_mode": mode, **({"max_fields": 8} if model == "wide_deep"
+                                                   else {})}
+    card, cpu = _tiered_pair(dev, **kw)
+    # batch 1 from the same dense parameters
+    cpu[1]["dense"].update({k: v.cpu().clone() for k, v in card[1]["dense"].items()})
+    b1 = _ring_batch(1)
+    kernels = (train_step, optim_update, consolidate_keys, touched_update)
+    from xflow_tpu_torch.ops.pool import field_pool, field_pool_grad
+
+    before = [f.launches for f in kernels + (field_pool, field_pool_grad)]
+    losses = [float(s.train(st, s.put_batch(b1))["logloss"]) for s, st in (card, cpu)]
+    after = [f.launches for f in kernels + (field_pool, field_pool_grad)]
+    n = dict(zip(("k2", "k3", "k4", "k5", "k7", "k8"), np.subtract(after, before)))
+    pooled = model == "wide_deep"
+    assert n == {"k2": 0 if pooled else 1, "k3": 2 if mode == "dense" else 0,
+                 "k4": int(mode == "sparse"), "k5": int(mode == "sparse"),
+                 "k7": int(pooled), "k8": int(pooled)}
+    np.testing.assert_allclose(losses[0], losses[1], rtol=RTOL)
+    keys = np.unique(np.concatenate([_ring_batch(i).keys[_ring_batch(i).mask > 0]
+                                     for i in (0, 1)])).astype(np.int64)
+    _logical_close(card, cpu, keys)
+    for name, p in cpu[1]["dense"].items():
+        _close(card[1]["dense"][name], p)
+
+
+@pytest.mark.parametrize("mode", ["dense", "sparse"])
+def test_tiered_rows_outside_the_batch_untouched(dev, mode):
+    """The kernels on the view [:Hc+mc] leave every row no ref names
+    bit for bit as it was (K2 drops the -1 padding, K3 leaves g = 0
+    rows, K5 drops K4's sentinel Hc+mc past the count), and the rows
+    past the view are never read or written."""
+    (step, state), _ = _tiered_pair(dev, update_mode=mode)
+    hot = step.store.hot
+    bufs = {t: {p: b.clone() for p, b in planes.items()} for t, planes in hot.bufs.items()}
+    b1 = _ring_batch(1)
+    arrays = step.put_batch(b1)
+    refs = arrays["ckeys"].cpu().numpy()
+    mc = arrays["miss"]["v"]["param"].shape[0]
+    rows = hot._rows(mc)
+    step.train(state, arrays)
+    torch.cuda.synchronize(dev)
+    named = np.zeros(rows, bool)
+    named[refs[refs >= 0]] = True
+    named[hot.capacity:hot.capacity + mc] = True  # the miss block, copied in
+    for t, planes in hot.bufs.items():
+        for p, buf in planes.items():
+            if p == "g":
+                assert not buf.any(), "K3 leaves the gradient buffer zeroed"
+                continue
+            old, new = bufs[t][p].cpu().numpy(), buf.cpu().numpy()
+            assert np.array_equal(old[:rows][~named], new[:rows][~named]), (t, p)
+            assert np.array_equal(old[rows:], new[rows:]), (t, p)
+
+
+def test_tiered_fill_read_round_trip_on_the_card(dev):
+    step, state = _tiered_step(dev)
+    hot = step.store.hot
+    rng = np.random.default_rng(3)
+    slots = rng.permutation(hot.capacity)[:100]
+    rows = {t: {p: rng.standard_normal((100, a.shape[1])).astype(np.float32)
+                for p, a in tab.items()} for t, tab in state["tables"].items()}
+    hot.fill(state, slots, rows)
+    back = hot.read(state, slots)
+    for t in rows:
+        for p in rows[t]:
+            assert back[t][p].tobytes() == rows[t][p].tobytes()
+
+
+def test_tiered_writeback_lands_before_the_next_plan(dev):
+    """A dispatch leaves its miss rows' copy to the host pending behind
+    an event; the next put_batch waits on it and upserts them into the
+    cold store before it plans, so the next plan reads them (the rows
+    equal the CPU run's)."""
+    card, cpu = _tiered_pair(dev)
+    b1, b2 = _ring_batch(1), _ring_batch(2)
+    for step, state in (card, cpu):
+        step.train(state, step.put_batch(b1))
+    pending = card[0].store._pending
+    assert pending is not None and isinstance(pending[2], torch.cuda.Event)
+    n = len(pending[0].miss_keys)
+    assert n and all(r.is_pinned() for arrs in pending[1].values() for r in arrs.values())
+    arrays = card[0].put_batch(b2)
+    assert card[0].store._pending is None
+    cpu[0].store.complete_pending()
+    miss = pending[0].miss_keys
+    for table in card[0].store.cold.tables:
+        got = card[0].store.cold.fetch(miss)[table]
+        want = cpu[0].store.cold.fetch(miss)[table]
+        for plane in want:
+            scale = float(np.abs(want[plane]).max())
+            np.testing.assert_allclose(got[plane], want[plane], rtol=RTOL,
+                                       atol=max(1e-6, RTOL * scale))
+    card[0].train(card[1], arrays)
+    torch.cuda.synchronize(dev)

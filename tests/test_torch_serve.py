@@ -192,19 +192,14 @@ def test_load_refusals(tmp_path):
     _rewrite_config(art, cfg.replace(hot_size_log2=6, hot_nnz=8))
     with pytest.raises(ValueError, match="no remap was provided"):
         PredictEngine.load(art, device="cpu")
-    for changes, item in (
-        ({"store_mode": "tiered", "hot_capacity_log2": 6}, "A11"),
-        # MVM and FFM serve now (tests/test_torch_mvm.py,
-        # tests/test_torch_ffm.py); the tiered store stays refused
-        ({"model": "ffm", "store_mode": "tiered", "hot_capacity_log2": 6}, "A11"),
-        # two_tower serves now (tests/test_torch_topk.py); the tiered
-        # store stays refused
-        ({"model": "two_tower", "max_fields": 8, "tower_split_field": 4,
-          "store_mode": "tiered", "hot_capacity_log2": 6}, "A11"),
-    ):
-        _rewrite_config(art, cfg.replace(**changes))
-        with pytest.raises(NotImplementedError, match=item):
-            PredictEngine.load(art, device="cpu")
+    # a tiered model serves its folded export (tests/test_torch_tiered.py):
+    # the artifact is a dense table, whatever its config's store mode
+    _rewrite_config(art, cfg.replace(store_mode="tiered", hot_capacity_log2=6))
+    engine = PredictEngine.load(art, device="cpu", warm=False)
+    assert engine.cfg.store_mode == "tiered" and engine.step.cfg.store_mode == "dense"
+    # a mesh of more than one device stays refused
+    with pytest.raises(NotImplementedError, match="A13"):
+        PredictEngine.load(art, device="cpu", num_devices=2)
 
 
 def test_default_device_is_the_card(tmp_path):

@@ -242,7 +242,9 @@ def test_put_batch_wires_and_num_real(toy_dataset):
     # the hot table too, but not on two devices
     ({"wire_dedup": "on", "hot_size_log2": 8, "num_devices": 2}, "A13"),
     ({"wire_dedup": "on", "num_devices": 2}, "A13"),
-    ({"store_mode": "tiered", "hot_capacity_log2": 10}, "A11"),
+    # the tiered store trains now (tests/test_torch_tiered.py), on one
+    # device
+    ({"store_mode": "tiered", "hot_capacity_log2": 10, "num_devices": 2}, "A13"),
     ({"num_devices": 2}, "A13"),
     # MVM trains now (tests/test_torch_mvm.py), on one device
     ({"model": "mvm", "num_devices": 2}, "A13"),
@@ -251,8 +253,10 @@ def test_put_batch_wires_and_num_real(toy_dataset):
     # wide_deep, two_tower and dcn train now (tests/test_torch_dense_*.py),
     # on one device, without the tiered store
     ({"model": "wide_deep", "num_devices": 2}, "A13"),
-    ({"model": "two_tower", "store_mode": "tiered", "hot_capacity_log2": 10}, "A11"),
-], ids=[  # the cases' ids before the input fan-out's refusals left the list
+    ({"model": "two_tower", "store_mode": "tiered", "hot_capacity_log2": 10,
+      "num_devices": 2}, "A13"),
+], ids=[  # the cases' ids before the input fan-out's and the tiered store's
+    # refusals left the list
     "kw0-A13", "kw2-A13", "kw4-A13", "kw5-A13", "kw6-A13", "kw7-A11", "kw8-A13",
     "kw10-A13", "kw11-A13", "kw12-A13", "kw13-A11"])
 def test_train_step_refuses_unported(kw, item):

@@ -73,6 +73,18 @@ model with the reference's message (step.py:306-320).
 ``_predict_impl`` (step.py:1516) is :class:`PredictStep`'s one K1
 launch (ops/score.py), shared by all.
 
+The tiered store (``store_mode="tiered"``, store/; the reference's
+step.py:379-408, 523-563, 609-619): the state's tables are the store's
+hot tier, the host resolves each batch's keys through the tier's
+key→slot map into refs of a combined row space (hot rows, then the
+batch's misses fetched from the host cold store), and ``put_batch``
+ships the refs on the compact (or full) wire beside the miss rows; the
+update modes above run unchanged over the combined rows
+(store/hot.py), ``predict`` the same way, and the miss rows go back to
+the host after each dispatch.  The dictionary wire and the staging
+ring's split (``put_batch_host`` / ``put_batch_device``) are off there:
+they carry raw table keys.
+
 The pooled families (``wide_deep``, ``dcn``, ``two_tower``: models with
 ``dense_params``, B11) run another kernel pair in every place where
 the others run K1 or K2.  Predict: K7 (ops/pool.py ``field_pool``:
@@ -432,13 +444,10 @@ def init_state(model, optimizer, cfg: Config, device: torch.device) -> State:
 
 
 def check_servable(cfg: Config) -> None:
-    """Refuse a configuration this port cannot serve yet, naming the
-    ROADMAP item that brings it."""
-    if cfg.store_mode == "tiered":
-        raise NotImplementedError(
-            "store_mode='tiered' is not ported yet (ROADMAP A11)"
-        )
-    make_model(cfg)  # refuses an invalid family geometry
+    """Refuse a configuration this port cannot serve: an invalid family
+    geometry.  A tiered model serves through its folded export
+    (serve/artifact.py), which is a dense table."""
+    make_model(cfg)
 
 
 def dict_wire_ok(cfg: Config, uses_slots: bool) -> bool:
@@ -561,9 +570,20 @@ class TrainStep:
         # the staging ring's copies run on a stream of their own; every
         # kernel stays on the dispatching thread's stream
         self.copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        # the tiered store (module docstring): the wire carries refs into
+        # the combined rows, which the dictionary wire cannot encode
+        self.store = None
+        if cfg.store_mode == "tiered":
+            from xflow_tpu_torch.store.tiered import TieredStore
+
+            self.store = TieredStore(model, optimizer, cfg, device)
+            self.store.obs = self.obs
+            self.dict_wire = False
 
     @property
     def wire_format(self) -> str:
+        if self.store is not None:
+            return "tiered"
         return "dict" if self.dict_wire else "compact" if self.compact_wire else "full"
 
     def _dict_geometry_ok(self, batch) -> bool:
@@ -665,12 +685,50 @@ class TrainStep:
         ``num_real`` = max(sum(weights), 1) as a host float, so the device
         never syncs for it; with sequential slices the rows are in
         ``slice_order`` and ``slice_num_real`` holds each slice's
-        max(sum(weights), 1)."""
-        staged = self.put_batch_host(batch, predict)
+        max(sum(weights), 1).  Under the tiered store the keys ship as
+        refs, and ``miss`` holds the batch's miss rows on the host
+        (:meth:`_put_batch_tiered`)."""
+        if self.store is not None:
+            return self._put_batch_tiered(batch, predict)
+        staged = self._put_host(batch, predict)
         with self.obs.phase("h2d"):
             return self.put_batch_device(staged)
 
+    def _put_batch_tiered(self, batch, predict: bool) -> dict[str, Any]:
+        """Tiered staging (the reference's ``_put_batch_tiered``): flush
+        the previous step's miss write-back (read-your-writes — this
+        plan's cold fetch must see it), resolve the keys through the hot
+        map, fetch the miss rows from the cold store into host blocks
+        (pinned on the card), ship the refs planes, and arm the plan
+        until ``train`` pairs it with the step's miss rows."""
+        if isinstance(batch, SliceOrdered):
+            batch = batch.cb
+        if isinstance(batch, CompactBatch):
+            batch = batch.expand()
+        store = self.store
+        with self.obs.phase("h2d"):
+            store.complete_pending()
+            refs, plan = store.plan_batch(batch, obs=self.obs, param_only=predict)
+            self.obs.counter("wire.bytes", plan.miss_nbytes)
+        staged = self._put_host(refs, predict)
+        with self.obs.phase("h2d"):
+            arrays = self.put_batch_device(staged)
+        arrays["miss"] = plan.miss_rows
+        store.stage(arrays, plan)
+        return arrays
+
     def put_batch_host(self, batch, predict: bool = False) -> Staged:
+        """The host half of ``put_batch`` for the staging ring (module
+        docstring; refused under the tiered store, whose plans must
+        follow the previous step's write-back)."""
+        if self.store is not None:
+            raise RuntimeError(
+                "put_batch_host: the tiered store stages a batch with "
+                "put_batch, after the previous step's write-back"
+            )
+        return self._put_host(batch, predict)
+
+    def _put_host(self, batch, predict: bool = False) -> Staged:
         """The host half of ``put_batch``, safe on a staging-ring worker:
         no device work beyond copies.  It compacts the dictionary wire
         (unless the batch is compacted already), reorders the rows for
@@ -749,7 +807,15 @@ class TrainStep:
         """One step, in place on ``state``, in the configured update mode
         (module docstring).  Returns ``{"logloss", "count"}`` as device
         tensors (no sync): the log-loss and weight sums over every slice,
-        ``logloss = sum / max(count, 1)``."""
+        ``logloss = sum / max(count, 1)``.  Under the tiered store the
+        update runs over the combined rows (store/hot.py) and the
+        step's miss rows are queued for the host."""
+        if self.store is not None:
+            plan = self.store.take_staged(arrays)
+            metrics, writeback = self.store.hot.train(state, arrays, len(plan.miss_keys),
+                                                      self._update)
+            self.store.defer_complete(plan, writeback)
+            return metrics
         tables = state["tables"]
         # float64: every K2 launch of the step adds its block partials here
         acc = torch.zeros(2, dtype=torch.float64, device=self.device)
@@ -869,15 +935,16 @@ class TrainStep:
         m = keys.numel()
         slots = scratch["slots"][:m].view(keys.shape)
         ukeys, count = scratch["ukeys"][:m], scratch["count"]
-        consolidate_keys(keys, self.cfg.table_size, ukeys, count, slots,
-                         scratch["slot_map"])
+        rows = table_rows(tables)
+        slot_map = self._slot_map(rows)
+        consolidate_keys(keys, rows, ukeys, count, slots, slot_map)
         gsum = {n: g[:m] for n, g in scratch["gsum"].items()}
         heads = self._heads(tables) if "hot" in view else None
         grad_dense = self._k2(tables, view, num_real, acc, gsum, slots=slots, heads=heads,
                               dense=dense)
         names = list(tables)
         touched_update([tables[n] for n in names], self.optimizer, ukeys, count,
-                       [gsum[n] for n in names], scratch["slot_map"],
+                       [gsum[n] for n in names], slot_map,
                        head=[heads[n] for n in names] if heads else None,
                        hot_size=self.hot_size)
         if heads:
@@ -918,7 +985,7 @@ class TrainStep:
             window["slots"] = scratch["slots"][:m].view(keys.shape)
             window["ukeys"], window["count"] = scratch["ukeys"][:m], scratch["count"]
             consolidate_keys(keys, self.cfg.table_size, window["ukeys"], window["count"],
-                             window["slots"], scratch["slot_map"])
+                             window["slots"], self._slot_map(self.cfg.table_size))
             window["cold"] = {n: g[:m] for n, g in scratch["gsum"].items()}
         else:
             window["cold"] = {n: t["g"] for n, t in tables.items()}
@@ -947,7 +1014,7 @@ class TrainStep:
             names = list(tables)
             touched_update([tables[n] for n in names], self.optimizer, window["ukeys"],
                            window["count"], [window["cold"][n] for n in names],
-                           self._scratch["slot_map"])
+                           self._slot_map(self.cfg.table_size))
             return
         for table in tables.values():
             optim_update(table, self.optimizer)
@@ -983,23 +1050,30 @@ class TrainStep:
         """The consolidation buffers for up to ``m`` occurrences, grown
         (never shrunk) on demand: the zeroed ``gsum`` [M, D] per table,
         K4's unique keys, count and slots, and (on the card) the slot map
-        [T] at -1.  K5 leaves ``gsum`` zeroed and the map at -1."""
+        at -1 over the tables' rows (T, or the tiered store's combined
+        rows).  K5 leaves ``gsum`` zeroed and the map at -1."""
         sc = self._scratch
+        dev = self.device
         if sc.get("cap", 0) < m:
-            dev = self.device
             sc["cap"] = m
             sc["gsum"] = {n: torch.zeros((m, t["param"].shape[1]), device=dev)
                           for n, t in tables.items()}
             sc["ukeys"] = torch.empty(m, dtype=torch.int32, device=dev)
             sc["slots"] = torch.empty(m, dtype=torch.int32, device=dev)
             sc["count"] = torch.zeros(1, dtype=torch.int32, device=dev)
-            if "slot_map" not in sc:
-                sc["slot_map"] = (
-                    torch.full((self.cfg.table_size,), -1, dtype=torch.int32,
-                               device=dev)
-                    if dev.type == "cuda" else None
-                )
+        rows = table_rows(tables)
+        if dev.type != "cuda":
+            sc["slot_map"] = None  # the plain versions need no map
+        elif sc.get("slot_map") is None or sc["slot_map"].numel() < rows:
+            sc["slot_map"] = torch.full((rows,), -1, dtype=torch.int32, device=dev)
         return sc
+
+    def _slot_map(self, rows: int) -> torch.Tensor | None:
+        """K4's and K5's slot map over the first ``rows`` table rows
+        (every entry -1 between launches, so any prefix is a valid map),
+        or None on the CPU."""
+        sm = self._scratch.get("slot_map")
+        return sm[:rows] if sm is not None else None
 
     def dispatch_train(self, state: State, arrays: dict[str, Any]) -> dict[str, torch.Tensor]:
         """``train`` under the 'dispatch' phase: the launches return as
@@ -1009,4 +1083,11 @@ class TrainStep:
             return self.train(state, arrays)
 
     def predict(self, state: State, arrays: dict[str, torch.Tensor]) -> torch.Tensor:
+        if self.store is not None:
+            return self.store.hot.predict(state, arrays, self.predict_step)
         return self.predict_step.predict(state, arrays)
+
+
+def table_rows(tables: dict) -> int:
+    """Rows of a step's tables: T, or the tiered store's combined view."""
+    return next(iter(tables.values()))["param"].shape[0]

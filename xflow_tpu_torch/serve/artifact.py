@@ -22,7 +22,11 @@ embeddings, ``item_ids.npy``, the catalog's padded feature planes
 
 Either package loads what the other writes.  :func:`export_artifact`
 freezes a trainer's model; :func:`write_artifact` writes the same files
-from numpy tables.
+from numpy tables.  A model trained under ``store_mode="tiered"``
+exports its folded logical table (store/tiered.py
+``iter_logical_param_shards``) in ``CHUNK_ROWS`` row ranges, as the
+reference does (serve/artifact.py:110-135): the artifact is then
+indistinguishable from a dense export.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import json
 import os
 import shutil
 import time
+from collections.abc import Iterator
 
 import numpy as np
 
@@ -58,10 +63,12 @@ def write_artifact(
     remap: np.ndarray | None = None, dense: dict[str, np.ndarray] | None = None,
 ) -> str:
     """Write ``tables`` ({name: [T, dim] float32}, one per table of
-    ``cfg``'s model), the ``dense`` parameters ({name: float32 array},
-    exactly the model's) and a hot model's ``remap`` as an artifact at
-    ``directory``, replaced atomically if it exists; returns the path.
-    One row-range shard per table, the reference's manifest."""
+    ``cfg``'s model, or an iterator of (start, stop, rows) blocks
+    covering [0, T) in order), the ``dense`` parameters ({name: float32
+    array}, exactly the model's) and a hot model's ``remap`` as an
+    artifact at ``directory``, replaced atomically if it exists; returns
+    the path.  One row-range shard per table or block, the reference's
+    manifest."""
     from xflow_tpu_torch.models import dense_shapes, make_model
 
     if bool(cfg.hot_size_log2) != (remap is not None):
@@ -90,16 +97,24 @@ def write_artifact(
     try:
         arrays_meta = {}
         for spec in sorted(specs, key=lambda s: s.name):
-            arr = np.asarray(tables[spec.name])
-            shape = (cfg.table_size, spec.dim)
-            if arr.shape != shape or arr.dtype != np.float32:
-                raise ValueError(
-                    f"table {spec.name!r} must be float32 {shape}, got "
-                    f"{arr.dtype} {arr.shape}"
-                )
+            table = tables[spec.name]
+            blocks = table if isinstance(table, Iterator) else [(0, cfg.table_size, table)]
             key = f"{spec.name}.param"
-            arrays_meta[key] = {"shape": list(arr.shape), "dtype": str(arr.dtype)}
-            np.save(range_file(tmp, key, 0, arr.shape[0]), arr)
+            covered = 0
+            for start, stop, arr in blocks:
+                arr = np.asarray(arr)
+                shape = (stop - start, spec.dim)
+                if start != covered or arr.shape != shape or arr.dtype != np.float32:
+                    raise ValueError(
+                        f"table {spec.name!r} rows [{start}, {stop}) must be float32 "
+                        f"{shape} from row {covered}, got {arr.dtype} {arr.shape}"
+                    )
+                np.save(range_file(tmp, key, start, stop), arr)
+                covered = stop
+            if covered != cfg.table_size:
+                raise ValueError(f"table {spec.name!r} covers {covered} of "
+                                 f"{cfg.table_size} rows")
+            arrays_meta[key] = {"shape": [cfg.table_size, spec.dim], "dtype": "float32"}
         for dname in sorted(dense):
             np.save(os.path.join(tmp, f"dense.{dname}.npy"),
                     np.asarray(dense[dname], np.float32))
@@ -138,11 +153,18 @@ def write_artifact(
 def export_artifact(trainer, directory: str) -> str:
     """Freeze ``trainer``'s model into a serving artifact at
     ``directory`` (replaced atomically if it exists); returns the path.
-    One host: the tables are fetched from the device once each."""
+    One host: the tables are fetched from the device once each, or under
+    the tiered store folded from both tiers a chunk at a time."""
     from xflow_tpu_torch.convert import dense_to_numpy, state_to_numpy
 
+    store = trainer.step.store
+    if store is not None:
+        tables = {name: store.iter_logical_param_shards(trainer.state, name)
+                  for name in trainer.state["tables"]}
+    else:
+        tables = state_to_numpy(trainer.state)
     return write_artifact(
-        directory, trainer.cfg, state_to_numpy(trainer.state),
+        directory, trainer.cfg, tables,
         step=trainer.state["step"], remap=trainer.remap,
         dense=dense_to_numpy(trainer.state),
     )

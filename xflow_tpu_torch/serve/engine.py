@@ -51,9 +51,13 @@ the graphs; a state whose tensors were replaced (``Trainer.restore``)
 re-captures them.  One thread drives a replica (its MicroBatcher's
 worker); a capture runs on a side stream in thread-local capture mode,
 so a rollout's candidate captures while the other replicas replay, and
-no serving work runs on the legacy default stream.  The tiered store
-(ROADMAP A11), ``apply_delta`` (A12) and a mesh of more than one device
-(A13) are refused by name; the failpoints and flight recorder come with
+no serving work runs on the legacy default stream.  A model trained
+under the tiered store serves from its export, the folded logical
+table (serve/artifact.py): the predict step's config copy pins
+``store_mode="dense"`` as the reference's does (serve/engine.py:
+123-134), while the digest check keeps the artifact's own config.
+``apply_delta`` (ROADMAP A12) and a mesh of more than one device (A13)
+are refused by name; the failpoints and flight recorder come with
 ROADMAP A14.
 """
 
@@ -194,7 +198,9 @@ class PredictEngine:
         self.device = resolve_device(device)
         self.obs = obs if obs is not None else Obs()
         self.model = make_model(cfg)
-        self.step = PredictStep(self.model, cfg, self.device)
+        # a tiered artifact holds the folded dense table: the step's
+        # config copy serves it as one (self.cfg keeps the digest)
+        self.step = PredictStep(self.model, cfg.replace(store_mode="dense"), self.device)
         raw = tuple(buckets) if buckets else DEFAULT_BUCKETS
         if any(b < 1 for b in raw):
             raise ValueError(f"bucket sizes must be >= 1, got {raw}")

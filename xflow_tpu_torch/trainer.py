@@ -46,6 +46,13 @@ last batch dispatched (batches the ring staged past it are dropped and
 read again on resume) and returns with the epoch record's
 ``preempted`` set.
 
+Under ``store_mode="tiered"`` (store/) the state is the store's hot
+tier, the staging ring is off (a ring worker planning batch N+1 would
+cold-fetch keys whose batch-N write-back is still in flight), the
+store's maintenance applies the promotion worker's plan every
+``store_promote_every`` steps and at each epoch end, each epoch logs a
+``store`` row, and checkpoints are the store's tier-erased fold.
+
 Not ported yet, and refused by name: the profiler, span trace, flight
 recorder, watchdog, exporters and chaos failpoints (ROADMAP A14).
 """
@@ -197,7 +204,12 @@ class Trainer:
         self.step = TrainStep(
             self.model, self.optimizer, cfg, self.device, obs=self.obs
         )
-        self.state = init_state(self.model, self.optimizer, cfg, self.device)
+        # tiered: the device state is the bounded hot tier, not a [T, D]
+        # table (at 2^28 that is the very buffer the store avoids)
+        if self.step.store is not None:
+            self.state = self.step.store.init_device_state()
+        else:
+            self.state = init_state(self.model, self.optimizer, cfg, self.device)
         self.epoch = 0
         self._log = log if log is not None else lambda s: print(s, file=sys.stderr)
         self.host = 0
@@ -270,6 +282,11 @@ class Trainer:
         for it in list(self._live_prefetch):
             it.close()
         self._live_prefetch.clear()
+        if self.step.store is not None:
+            # flush the pending miss write-back and reap the promotion
+            # worker (bounded join; a leak lands as a health row before
+            # the metrics logger closes below)
+            self.step.store.close()
         if self.metrics_logger is not None:
             self.metrics_logger.close()
 
@@ -574,9 +591,13 @@ class Trainer:
         ckpt_seconds = 0.0
         preempted = False
         device_metrics = []  # fetched once at epoch end: no sync per step
+        store = self.step.store
         # the staging ring runs put_batch's host half ahead; reaped below
-        # on the normal path, by close() when an exception abandons it
-        stream = self._transfer_ahead(self.iter_train_batches(start_shard, start_offset))
+        # on the normal path, by close() when an exception abandons it.
+        # The tiered store runs without it: its plans must follow the
+        # previous step's write-back (read-your-writes)
+        batches = self.iter_train_batches(start_shard, start_offset)
+        stream = batches if store is not None else self._transfer_ahead(batches)
         self._live_transfer.add(stream)
         it = iter(stream)
         while True:
@@ -586,16 +607,24 @@ class Trainer:
                 # put_batch hide behind this wait, and what they do not
                 # overlap surfaces here
                 with obs.phase("input_stall"):
-                    staged, shard_idx, resume = next(it)
+                    item, shard_idx, resume = next(it)
             except StopIteration:
                 break
-            # the device half where the reference decodes the wire: in
-            # the step (its jitted _expand_dict_wire)
-            with obs.phase("dispatch"):
-                arrays = self.step.put_batch_device(staged)
+            if store is not None:
+                arrays = self.step.put_batch(item)
+            else:
+                # the device half where the reference decodes the wire:
+                # in the step (its jitted _expand_dict_wire)
+                with obs.phase("dispatch"):
+                    arrays = self.step.put_batch_device(item)
             device_metrics.append(self.step.dispatch_train(self.state, arrays))
             obs.observe("step_seconds", time.perf_counter() - t_step)
             steps += 1
+            if store is not None and steps % cfg.store_promote_every == 0:
+                # between-steps tier maintenance: flush the miss
+                # write-back, apply the promotion worker's plan
+                # (in-flight batches never see a moving key->slot map)
+                self.state = store.maintain(self.state, obs=obs)
             saved = False
             if cfg.checkpoint_dir and cfg.checkpoint_every_steps and (
                 steps % cfg.checkpoint_every_steps == 0
@@ -611,6 +640,10 @@ class Trainer:
         # the ring and the loader now (their staged batches are dropped)
         self._live_transfer.discard(stream)
         stream.close()
+        if store is not None:
+            # epoch-end flush: the LAST step's miss write-back must land
+            # before eval/save/export reads the cold store
+            self.state = store.maintain(self.state, obs=obs)
         with obs.phase("device_block"):
             if device_metrics:
                 host = torch.stack((
@@ -635,10 +668,10 @@ class Trainer:
         snap = self.obs.registry.snapshot(reset=True)
         phases = snap.phase_seconds()
         # the worker threads' phases: parse and pack, and under the
-        # staging ring put_batch's host half (h2d)
-        overlapped = {
-            k: round(phases.pop(k), 6) for k in ("parse", "pack", "h2d") if k in phases
-        }
+        # staging ring put_batch's host half (h2d); the tiered store runs
+        # put_batch inline on the training thread, an exclusive phase
+        workers = ("parse", "pack") + (("h2d",) if self.step.store is None else ())
+        overlapped = {k: round(phases.pop(k), 6) for k in workers if k in phases}
         phases = {k: round(v, 6) for k, v in phases.items()}
         step_hist = snap.hists.get("step_seconds", {})
         stats = {
@@ -683,6 +716,22 @@ class Trainer:
                 ),
                 "compaction_ratio": round(occ / touched if touched else 1.0, 3),
             }
+        if self.step.store is not None:
+            # tiered-store accounting (store/tiered.py::plan_batch +
+            # maintain) -> the epoch's `store` row; the hit rate is
+            # occurrence-weighted (the share of feature occurrences the
+            # hot tier served without a cold fetch)
+            hits = snap.counters.get("store.hit_occ", 0)
+            misses = snap.counters.get("store.miss_occ", 0)
+            stats["_store"] = {
+                "epoch": self.epoch,
+                "hot_hit_rate": round(hits / max(hits + misses, 1), 6),
+                "promotions": int(snap.counters.get("store.promotions", 0)),
+                "demotions": int(snap.counters.get("store.demotions", 0)),
+                "cold_fetch_seconds": round(
+                    snap.counters.get("store.cold_fetch_seconds", 0.0), 6),
+                "hot_occupancy": round(self.step.store.occupancy_frac(), 6),
+            }
         if "loader.parse_bytes" in snap.counters:
             stats["parse_mb_per_sec"] = round(
                 snap.counters["loader.parse_bytes"] / 2**20
@@ -708,11 +757,14 @@ class Trainer:
                 self._resume_cursor = (0, 0)
                 stats = self.train_epoch(start_shard, start_offset)
                 wire_stats = stats.pop("_wire", None)
+                store_stats = stats.pop("_store", None)
                 history.append(stats)
                 if self.metrics_logger is not None:
                     self.metrics_logger.log("train_epoch", stats)
                     if wire_stats is not None:
                         self.metrics_logger.log("wire", wire_stats)
+                    if store_stats is not None:
+                        self.metrics_logger.log("store", store_stats)
                 self._log_device_mem()
                 if self.epoch % 30 == 0 or self.epoch == self.cfg.epochs - 1:
                     self._log(
@@ -906,7 +958,11 @@ class Trainer:
         }
         if extra:
             cursor.update(extra)
-        return save_checkpoint(
+        # tiered: the tier-erased fold (store/tiered.py), touched rows of
+        # BOTH tiers, key-sorted, in the row-range shard format
+        save = self.step.store.save_checkpoint if self.step.store is not None \
+            else save_checkpoint
+        return save(
             self.cfg.checkpoint_dir,
             self.state,
             cursor,
@@ -933,9 +989,11 @@ class Trainer:
             path = latest_checkpoint(self.cfg.checkpoint_dir)
             candidates = [path] if path is not None else []
         cursor = None
+        load = self.step.store.load_checkpoint if self.step.store is not None \
+            else load_checkpoint
         for path in candidates:
             try:
-                self.state, cursor = load_checkpoint(path, self.state)
+                self.state, cursor = load(path, self.state)
                 break
             except IncompatibleCheckpoint as e:
                 if not auto:
